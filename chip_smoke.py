@@ -1,0 +1,452 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Builds the port's three CUDA kernels from the sources in this checkout,
+holds each against its plain PyTorch version at the shapes the serving path
+gives it (and times kernel, plain version and, where one exists, a single
+PyTorch library call as a yardstick), then serves 8 greedy requests on a
+full-width, 32-layer Llama-3-8B with random bf16 weights through
+``Engine.add_request`` / ``Engine.step``, checks that every kernel was
+launched on that path, and checks prefill against decode logits. Exits
+non-zero if any phase fails or no card is present; its last line is
+``{"ok": true, "device": {...}}``. Imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import json
+import re
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+SEED = 0
+N_REQUESTS = 8
+MAX_NEW = 32
+PAGE_SIZE = 64
+TOTAL_PAGES = 512
+MAX_BATCH = 8
+MAX_SEQ = 4096
+# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
+PEAK_BF16_FLOPS = 989e12
+PEAK_BYTES = 3.35e12
+# bf16 O gates: the repo's own (tests/test_flash_fwd.py:117, 8x the fp16
+# gates for 3 fewer mantissa bits); the kernel rounds P to bf16 before P.V,
+# as the TPU kernel did. LSE is fp32: tests/test_flash_fwd.py:21's gates.
+O_TOLS = {"atol": 4e-2, "mean_atol": 2e-3, "mean_rtol": 5e-2}
+LSE_TOLS = {"atol": 1e-2, "mean_atol": 1e-3, "mean_rtol": 1e-2}
+# Prefill-vs-decode logits: both paths round activations to bf16 (8
+# significant bits) at every projection of 32 layers, in different orders
+# (one batched GEMM against a GEMV, flash against paged attention), so they
+# agree to a few percent, not to fp32 precision.
+CONSISTENCY_REL_L2 = 5e-2
+
+
+def _card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def _time_ms(torch, fn, iters: int, warmup: int = 2) -> float:
+    """Mean ms per call from CUDA events around ``iters`` calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _time_graph_ms(torch, fn, iters: int) -> float:
+    """Mean device ms per call, with ``iters`` calls captured in one CUDA
+    graph: for a kernel shorter than its host-side launch, timing eager
+    calls would measure the Python wrapper, not the card."""
+    fn()  # warm-up outside the capture (builds, first allocations)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    return _time_ms(torch, graph.replay, 5) / iters
+
+
+def _bound(flops: float, nbytes: float) -> tuple[float, str]:
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops > t_bytes else "bytes")
+
+
+def _prompts():
+    rng = np.random.default_rng(SEED)
+    lens = rng.integers(128, 2049, size=N_REQUESTS)
+    return [list(map(int, rng.integers(0, 128256, size=n))) for n in lens]
+
+
+def check_flash(torch, dev, bucket, cfg, card):
+    from flash_attention_tpu_torch.ops import flash_fwd as fm
+    from flash_attention_tpu_torch.ops.reference import reference_attention
+    from flash_attention_tpu_torch.utils.metrics import assert_metrics
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    b, h, hk, d = MAX_BATCH, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev,
+                           dtype=torch.float32).to(torch.bfloat16)
+
+    q, k, v = rnd(b, bucket, h, d), rnd(b, bucket, hk, d), rnd(b, bucket, hk, d)
+    scale = d**-0.5
+    entry = None
+    for causal in (True, False):
+        o, lse = fm.flash_fwd(q, k, v, causal=causal, sm_scale=scale)
+        o_ref, lse_ref = reference_attention(q, k, v, causal=causal)
+        m = assert_metrics(f"flash_fwd causal={causal}", o, o_ref, O_TOLS)
+        assert_metrics(f"flash_fwd lse causal={causal}", lse, lse_ref, LSE_TOLS)
+        ms = _time_ms(torch, lambda: fm.flash_fwd(q, k, v, causal=causal,
+                                                  sm_scale=scale), 20)
+        plain = _time_ms(torch, lambda: reference_attention(
+            q, k, v, causal=causal), 3, warmup=1)
+        lib = _time_ms(torch, lambda: torch.nn.functional.
+                       scaled_dot_product_attention(
+                           q.transpose(1, 2), k.transpose(1, 2),
+                           v.transpose(1, 2), is_causal=causal,
+                           enable_gqa=True), 20)
+        pairs = bucket * (bucket + 1) // 2 if causal else bucket * bucket
+        flops = 4.0 * d * pairs * b * h
+        nbytes = 2 * (q.numel() + k.numel() + v.numel() + o.numel()) \
+            + 4 * lse.numel()
+        bound_ms, bound_by = _bound(flops, nbytes)
+        print(f"flash_fwd b={b} s={bucket} h={h}/{hk} d={d} causal={causal}: "
+              f"{m}; kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
+              f"plain {plain:.3f} ms, sdpa {lib:.4f} ms, bound {bound_ms:.4f} "
+              f"ms ({bound_by}) [{card}]")
+        if causal:  # the prefill path runs causal
+            entry = {"name": "flash_fwd", "route": "cuda",
+                     "source": "flash_attention_tpu_torch/csrc/flash_fwd.cu",
+                     "replaces": "flash_attention_tpu/ops/flash_fwd.py:74",
+                     "max_abs_err": m.max_abs, "ms": ms, "plain_ms": plain,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": lib}
+    # causal with sq > sk: the first sq - sk rows see no key
+    qs, ks_, vs_ = rnd(2, 1024, h, d), rnd(2, 512, hk, d), rnd(2, 512, hk, d)
+    o, lse = fm.flash_fwd(qs, ks_, vs_, causal=True, sm_scale=scale)
+    o_ref, lse_ref = reference_attention(qs, ks_, vs_, causal=True)
+    m = assert_metrics("flash_fwd sq>sk", o, o_ref, O_TOLS)
+    assert_metrics("flash_fwd sq>sk lse", lse, lse_ref, LSE_TOLS)
+    assert torch.all(o[:, :512] == 0) and torch.all(lse[:, :, :512] == 0)
+    print(f"flash_fwd sq=1024 sk=512 causal (512 empty rows -> O=0, LSE=0): {m}")
+    return entry
+
+
+def check_kv_write(torch, dev, cfg, card):
+    from flash_attention_tpu_torch.ops import kv_update as kv
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    L, hk, d, b = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim, MAX_BATCH
+    shape = (L, hk, TOTAL_PAGES, PAGE_SIZE, d)
+    kp = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+    vp = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+    kval = torch.randn((b, hk, d), generator=g, device=dev).to(torch.bfloat16)
+    vval = torch.randn((b, hk, d), generator=g, device=dev).to(torch.bfloat16)
+    trash = TOTAL_PAGES - 1
+    pages = torch.randperm(TOTAL_PAGES - 1, generator=g, device=dev)[:b]
+    pages[-2:] = trash  # two padding rows share the trash page
+    wpage = pages.to(torch.int32)
+    woff = torch.randint(0, PAGE_SIZE, (b,), generator=g, device=dev,
+                         dtype=torch.int32)
+    layer = L // 2
+    kref, vref = kp.clone(), vp.clone()
+    kv.write_token_kv_reference(kref, vref, kval, vval, wpage, woff, layer)
+    kv.write_token_kv(kp, vp, None, None, kval, vval, None, None, wpage, woff,
+                      layer=layer)
+    err = 0.0
+    for got, want in ((kp, kref), (vp, vref)):
+        want[:, :, trash] = got[:, :, trash]  # the racing rows' target
+        bad = got != want
+        if bad.any():
+            err = max(err, float((got[bad].float() - want[bad].float())
+                                 .abs().max()))
+    assert err == 0.0, f"kv write differs from its plain version: {err}"
+    del kref, vref
+    ms = _time_graph_ms(torch, lambda: kv.write_token_kv(
+        kp, vp, None, None, kval, vval, None, None, wpage, woff, layer=layer),
+        100)
+    plain = _time_graph_ms(torch, lambda: kv.write_token_kv_reference(
+        kp, vp, kval, vval, wpage, woff, layer), 100)
+    idx = (wpage.long(), woff.long())
+
+    def library():  # one index_put_ per pool, as a user would write it
+        kp[layer].permute(1, 2, 0, 3).index_put_(idx, kval)
+        vp[layer].permute(1, 2, 0, 3).index_put_(idx, vval)
+    lib = _time_graph_ms(torch, library, 100)
+    nbytes = 2 * 2 * kval.numel() * 2 + 8 * b  # read + write K and V rows
+    bound_ms, bound_by = _bound(0.0, nbytes)
+    print(f"kv_write L={L} b={b} hk={hk} d={d} (trash page shared by 2 rows): "
+          f"max_abs_err {err}; device time in a CUDA graph: kernel {ms:.5f} "
+          f"ms, plain {plain:.5f} ms, index_put_ (K and V) {lib:.5f} ms, "
+          f"bound {bound_ms:.6f} ms ({bound_by}) [{card}]")
+    return {"name": "kv_write", "route": "cuda",
+            "source": "flash_attention_tpu_torch/csrc/kv_update.cu",
+            "replaces": "flash_attention_tpu/ops/kv_update.py:36",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib}
+
+
+def check_paged(torch, dev, cfg, card):
+    from flash_attention_tpu_torch.ops import paged_attention as pa
+    from flash_attention_tpu_torch.utils.metrics import assert_metrics
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    L, h, hk, d, b = (cfg.n_layers, cfg.n_heads, cfg.n_kv_heads,
+                      cfg.head_dim, MAX_BATCH)
+    pps = MAX_SEQ // PAGE_SIZE
+    shape = (L, hk, TOTAL_PAGES, PAGE_SIZE, d)
+    kp = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+    vp = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+    q = torch.randn((b, h, d), generator=g, device=dev).to(torch.bfloat16)
+    tables = torch.randperm(TOTAL_PAGES, generator=g, device=dev)[:b * pps]
+    tables = tables.reshape(b, pps).to(torch.int32)
+    lens = np.linspace(1, MAX_SEQ, b).astype(np.int32)
+    lengths = torch.from_numpy(lens).to(dev)
+    layer = L - 1
+    o = pa.paged_attention(q, kp, vp, lengths, tables, layer=layer)
+    o_ref = pa.paged_attention_reference(q, kp, vp, lengths, tables,
+                                         layer=layer)
+    m = assert_metrics("paged_attention", o, o_ref, O_TOLS)
+    ms = _time_ms(torch, lambda: pa.paged_attention(
+        q, kp, vp, lengths, tables, layer=layer), 100)
+    plain = _time_ms(torch, lambda: pa.paged_attention_reference(
+        q, kp, vp, lengths, tables, layer=layer), 5, warmup=1)
+    tokens = int(lens.sum())
+    pages_read = int(sum(-(-int(n) // PAGE_SIZE) for n in lens))
+    nbytes = tokens * hk * d * 2 * 2 + 2 * 2 * q.numel() + 4 * (b + pages_read)
+    flops = 4.0 * tokens * h * d
+    bound_ms, bound_by = _bound(flops, nbytes)
+    print(f"paged_attention L={L} b={b} h={h}/{hk} d={d} ps={PAGE_SIZE} "
+          f"lengths={lens.tolist()}: {m}; kernel {ms:.4f} ms "
+          f"({nbytes / ms / 1e6:.1f} GB/s), plain {plain:.3f} ms, "
+          f"bound {bound_ms:.4f} ms ({bound_by}) [{card}]")
+    return {"name": "paged_attention", "route": "cuda",
+            "source": "flash_attention_tpu_torch/csrc/paged_attention.cu",
+            "replaces": "flash_attention_tpu/ops/paged_attention.py:74",
+            "max_abs_err": m.max_abs, "ms": ms, "plain_ms": plain,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
+def serve(torch, params, cfg, prompts, card, kernels):
+    from flash_attention_tpu_torch import Engine
+    eng = Engine(cfg, params, total_pages=TOTAL_PAGES, page_size=PAGE_SIZE,
+                 max_batch=MAX_BATCH, max_seq_len=MAX_SEQ,
+                 native_allocator=True)
+    print(f"runtime: {'native C++' if eng.rt.is_native else 'Python'} "
+          f"page allocator")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    reqs = [eng.add_request(p, MAX_NEW) for p in prompts]
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in kernels}
+    peak = torch.cuda.max_memory_allocated()
+    for r in reqs:
+        assert r.error is None, f"request {r.uid} failed: {r.error}"
+        assert len(r.output) == MAX_NEW, (r.uid, len(r.output))
+    st = eng.throughput()
+    L = cfg.n_layers
+    assert launches["flash_fwd"] == L * st["prefill_dispatches"] > 0, launches
+    assert launches["kv_update"] == L * st["decode_steps"] > 0, launches
+    assert launches["paged_attention"] == L * st["decode_steps"], launches
+    print(f"served {len(reqs)} requests x {MAX_NEW} tokens in {wall:.3f} s "
+          f"[{card}]")
+    print(f"prefill tokens/s: {st['prefill_tokens_per_s']:.1f} "
+          f"({st['prefill_tokens']} tokens, {st['prefill_dispatches']} "
+          f"dispatches) [{card}]")
+    print(f"decode tokens/s: {st['decode_tokens_per_s']:.1f} "
+          f"({st['decode_tokens']} tokens) [{card}]")
+    print(f"engine steps: prefill dispatches {st['prefill_dispatches']}, "
+          f"decode steps {st['decode_steps']} [{card}]")
+    print(f"peak device memory: {peak / 2**30:.2f} GiB [{card}]")
+    print(f"kernel launches on the serving path: {launches}")
+    profile_serving(torch, eng, prompts, card)
+    del eng
+    return launches
+
+
+_KERNEL_GROUPS = (("flash_fwd", "flash_fwd_kernel"),
+                  ("kv_write", "kv_write_kernel"),
+                  ("paged_attention", "paged_attn_kernel"),
+                  ("matmul", "gemm|gemv|cutlass|xmma|nvjet|cublas"))
+
+
+def profile_serving(torch, eng, prompts, card):
+    """Where the device time goes, after the timed run: the same 8 prompts
+    again (4 new tokens each) under torch.profiler. Window 1 is the first
+    engine step (the batched prefill and one decode step), window 2 the
+    remaining decode steps. Prints device time by kernel group, the largest
+    kernels of the "other" group, and the device's busy share of each
+    window's wall time (the union of the device events' intervals, so
+    nothing is counted twice)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for p in prompts:
+        eng.add_request(p, 4)
+    windows = (("prefill+decode step", eng.step),
+               ("decode steps", eng.run))
+    for label, fn in windows:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        # device activity only: kernels, copies and sets, not host ops and
+        # not user annotations (those span other device events)
+        events = [e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)]
+        groups = dict.fromkeys([g for g, _ in _KERNEL_GROUPS] + ["other"], 0.0)
+        other: dict[str, float] = {}
+        for e in events:
+            t = e.time_range.elapsed_us() / 1e3  # us -> ms
+            name = next((g for g, pat in _KERNEL_GROUPS
+                         if re.search(pat, e.name, re.I)), "other")
+            groups[name] += t
+            if name == "other":
+                other[e.name] = other.get(e.name, 0.0) + t
+        busy, end = 0.0, float("-inf")
+        for s, f in sorted((e.time_range.start, e.time_range.end)
+                           for e in events):
+            busy += max(0.0, f - max(s, end))
+            end = max(end, f)
+        busy /= 1e3
+        if busy == 0:
+            print(f"profile {label}: device time not measured (the profiler "
+                  f"saw no device activity)")
+            continue
+        total = sum(groups.values())
+        parts = ", ".join(f"{g} {t:.3f} ms ({t / total:.1%})"
+                          for g, t in groups.items())
+        print(f"profile {label}: wall {wall:.3f} ms, device busy {busy:.3f} ms"
+              f" ({busy / wall:.1%} of wall, idle {1 - busy / wall:.1%}); "
+              f"{parts} [{card}]")
+        top = sorted(other.items(), key=lambda kv: -kv[1])[:6]
+        print(f"profile {label}: largest 'other' kernels: " + "; ".join(
+            f"{n[:60]} {t:.3f} ms" for n, t in top))
+
+
+def consistency(torch, params, cfg, prompts):
+    """Prefill logits at p[-1] (flash kernel) against prefill of p[:-1],
+    pages, and one decode step on p[-1] (kv-write and paged kernels)."""
+    from flash_attention_tpu_torch.models import llama
+    dev = params["embed"].device
+    L, hk, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+    with torch.inference_mode():
+        for p in prompts[:2]:
+            n = len(p)
+            toks = torch.tensor([p], device=dev)
+            a, _, _ = llama.prefill(params, toks, cfg, return_kv=False,
+                                    logit_rows=torch.tensor([n - 1], device=dev))
+            _, ks, vs = llama.prefill(params, toks[:, :-1], cfg)
+            npg = -(-n // PAGE_SIZE)
+            kp = torch.zeros((L, hk, npg, PAGE_SIZE, hd), dtype=torch.bfloat16,
+                             device=dev)
+            vp = torch.zeros_like(kp)
+            ids = torch.arange(-(-(n - 1) // PAGE_SIZE), device=dev)
+            llama.write_prefill_to_pages(kp, vp, (ks, vs), ids,
+                                         torch.zeros_like(ids), ids, PAGE_SIZE)
+            i32 = dict(dtype=torch.int32, device=dev)
+            b, *_ = llama.decode_step(
+                params, kp, vp, None, None, toks[:, -1],
+                torch.tensor([n], **i32), torch.arange(npg, **i32)[None],
+                torch.tensor([(n - 1) // PAGE_SIZE], **i32),
+                torch.tensor([(n - 1) % PAGE_SIZE], **i32), cfg)
+            a, b = a[0], b[0]
+            assert torch.isfinite(a).all() and torch.isfinite(b).all()
+            rel = float((a - b).norm() / a.norm())
+            top2 = torch.topk(a, 2).values
+            print(f"prefill vs decode logits, prompt {n} tokens: rel L2 "
+                  f"{rel:.3e}, max abs {float((a - b).abs().max()):.3e}, "
+                  f"greedy {int(a.argmax())} vs {int(b.argmax())}, top-2 gap "
+                  f"{float(top2[0] - top2[1]):.3e}")
+            assert rel <= CONSISTENCY_REL_L2, rel
+            assert int(a.argmax()) == int(b.argmax())
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs only on an "
+              "NVIDIA card", file=sys.stderr)
+        return 2
+    from flash_attention_tpu_torch.models import llama
+    from flash_attention_tpu_torch.ops import _build
+    from flash_attention_tpu_torch.ops import flash_fwd, kv_update
+    from flash_attention_tpu_torch.ops import paged_attention
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    card = _card_line()
+    print(f"card: {card}")
+    kernels = [flash_fwd.KERNEL, kv_update.KERNEL, paged_attention.KERNEL]
+
+    # 1. build every kernel from source, with the ptxas summary
+    t0 = time.perf_counter()
+    logs = _build.build(kernels, ptxas_verbose=True)
+    print(f"built {len(kernels)} kernels in {time.perf_counter() - t0:.1f} s")
+    for name, log in logs.items():
+        for fn, use in re.findall(r"entry function '(\w+)'.*?(Used [^\n]*)",
+                                  log, re.S):
+            tmpl = re.search(r"kernel(I.*)EEv", fn)
+            print(f"  {name} {tmpl.group(1) if tmpl else fn}: {use.strip()}")
+        for line in log.splitlines():
+            if "spill" in line and not line.strip().startswith("0 bytes"):
+                print(f"  {name}: {line.strip()}")
+
+    cfg = llama.LlamaConfig.llama3_8b()
+    prompts = _prompts()
+    bucket = max(32, 1 << (max(map(len, prompts)) - 1).bit_length())
+    print(f"prompt lengths {[len(p) for p in prompts]} -> prefill bucket "
+          f"{bucket}, batch {MAX_BATCH}")
+
+    # 2. each kernel against its plain version at the path's shapes
+    with torch.inference_mode():
+        entries = [check_flash(torch, dev, bucket, cfg, card),
+                   check_kv_write(torch, dev, cfg, card),
+                   check_paged(torch, dev, cfg, card)]
+    torch.cuda.empty_cache()
+
+    # 3. the serving path on full-width, full-depth Llama-3-8B
+    t0 = time.perf_counter()
+    params = llama.init_params(cfg, seed=SEED, device=dev, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    print(f"init_params Llama-3-8B bf16 on device: "
+          f"{time.perf_counter() - t0:.3f} s")
+    launches = serve(torch, params, cfg, prompts, card, kernels)
+
+    # 4. prefill (flash) against paged decode (kv write + paged attention)
+    consistency(torch, params, cfg, prompts)
+
+    for e, k in zip(entries, kernels):
+        e["launches"] = launches[k.name]
+    print(card)  # name and power limit, as nvidia-smi gives them
+    print(json.dumps({"kernels": entries}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,396 @@
+"""Llama-family transformer on the port's kernels.
+
+The PyTorch counterpart of ``flash_attention_tpu/models/llama.py`` for the
+serving path: RMSNorm + RoPE (with the Llama-3.1 frequency remap) + GQA
+attention + SwiGLU, optional QKV biases (Qwen-2).
+
+* ``prefill`` runs the dense flash-attention forward (``ops.attention``) and
+  returns logits plus every layer's K/V for the cache.
+* ``decode_step`` writes each layer's new K/V into the layer-stacked paged
+  cache in place (``ops.kv_update``) and attends with ``ops.paged_attention``.
+
+Parameters are a plain dict of tensors with layer weights stacked on axis 0,
+``(L, in, out)``, the JAX package's layout, so ``params_from_jax`` is a cast
+and a move. ``lax.scan`` over layers becomes a Python loop; the cache stays
+one (L, hk, P, page_size, d) tensor that the kernels index by layer. The
+large projections and the lm_head are ``torch.matmul``, as the JAX package
+left them to XLA.
+
+Outside this slice (they raise): MoE, sliding windows, softcaps, the Gemma-2
+extras, LoRA, quantized weights and tensor parallelism.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from flash_attention_tpu_torch.ops.attention import flash_attention
+from flash_attention_tpu_torch.ops.kv_update import write_token_kv
+from flash_attention_tpu_torch.ops.paged_attention import paged_attention
+
+
+@dataclasses.dataclass(frozen=True)
+class LlamaConfig:
+    vocab_size: int = 32000
+    dim: int = 4096
+    n_layers: int = 32
+    n_heads: int = 32
+    n_kv_heads: int = 32
+    head_dim: int = 128
+    hidden_dim: int = 11008
+    rope_theta: float = 10000.0
+    # Llama-3.1 RoPE remap: (factor, low_freq_factor, high_freq_factor,
+    # original_max_position), HF rope_type "llama3"; None = plain RoPE.
+    rope_scaling: tuple[float, float, float, int] | None = None
+    norm_eps: float = 1e-5
+    sliding_window: int | None = None
+    window_pattern: int = 1
+    attn_softcap: float | None = None
+    final_softcap: float | None = None
+    act: str = "silu"
+    post_norms: bool = False
+    query_scale: float | None = None
+    embed_scale: bool = False
+    attn_bias: bool = False
+    n_experts: int = 0
+    n_experts_per_tok: int = 2
+
+    @property
+    def sm_scale(self) -> float | None:
+        return None if self.query_scale is None else self.query_scale**-0.5
+
+    @classmethod
+    def llama2_7b(cls):
+        return cls()
+
+    @classmethod
+    def mistral_7b(cls):
+        """Mistral-7B-v0.1 geometry: GQA (8 kv heads) + 4096 sliding window."""
+        return cls(vocab_size=32000, dim=4096, n_layers=32, n_heads=32,
+                   n_kv_heads=8, head_dim=128, hidden_dim=14336,
+                   rope_theta=10000.0, sliding_window=4096)
+
+    @classmethod
+    def llama3_8b(cls):
+        """Llama-3-8B geometry: GQA (8 kv heads), 128k vocab, theta 5e5."""
+        return cls(vocab_size=128256, dim=4096, n_layers=32, n_heads=32,
+                   n_kv_heads=8, head_dim=128, hidden_dim=14336,
+                   rope_theta=500000.0)
+
+    @classmethod
+    def llama31_8b(cls):
+        """Llama-3.1-8B: the 3.0 geometry plus the long-context RoPE remap."""
+        return dataclasses.replace(cls.llama3_8b(),
+                                   rope_scaling=(8.0, 1.0, 4.0, 8192))
+
+    @classmethod
+    def qwen2_7b(cls):
+        """Qwen2-7B geometry: GQA (4 kv heads), QKV biases, theta 1e6."""
+        return cls(vocab_size=152064, dim=3584, n_layers=28, n_heads=28,
+                   n_kv_heads=4, head_dim=128, hidden_dim=18944,
+                   rope_theta=1e6, norm_eps=1e-6, attn_bias=True)
+
+    @classmethod
+    def gemma2_9b(cls):
+        """Gemma-2-9B geometry (not servable by this slice: windows and
+        softcaps run only in the plain version)."""
+        return cls(vocab_size=256000, dim=3584, n_layers=42, n_heads=16,
+                   n_kv_heads=8, head_dim=256, hidden_dim=14336,
+                   rope_theta=10000.0, sliding_window=4096, window_pattern=2,
+                   attn_softcap=50.0, final_softcap=30.0, act="gelu",
+                   post_norms=True, query_scale=256.0, embed_scale=True)
+
+    @classmethod
+    def mixtral_8x7b(cls):
+        """Mixtral-8x7B geometry (MoE: outside this slice)."""
+        return cls(vocab_size=32000, dim=4096, n_layers=32, n_heads=32,
+                   n_kv_heads=8, head_dim=128, hidden_dim=14336,
+                   rope_theta=1e6, n_experts=8, n_experts_per_tok=2)
+
+    @classmethod
+    def tiny_moe(cls, **kw):
+        d = dict(vocab_size=256, dim=256, n_layers=2, n_heads=4,
+                 n_kv_heads=2, head_dim=128, hidden_dim=512, n_experts=4,
+                 n_experts_per_tok=2)
+        d.update(kw)
+        return cls(**d)
+
+    @classmethod
+    def tiny(cls, **kw):
+        """Small config for tests."""
+        d = dict(vocab_size=256, dim=256, n_layers=2, n_heads=4,
+                 n_kv_heads=2, head_dim=128, hidden_dim=512)
+        d.update(kw)
+        return cls(**d)
+
+    @classmethod
+    def tiny_qwen2(cls, **kw):
+        d = dict(vocab_size=256, dim=256, n_layers=2, n_heads=4,
+                 n_kv_heads=2, head_dim=128, hidden_dim=512, attn_bias=True)
+        d.update(kw)
+        return cls(**d)
+
+    @classmethod
+    def tiny_gemma2(cls, **kw):
+        d = dict(vocab_size=256, dim=256, n_layers=2, n_heads=4,
+                 n_kv_heads=2, head_dim=128, hidden_dim=512,
+                 sliding_window=64, window_pattern=2, attn_softcap=50.0,
+                 final_softcap=30.0, act="gelu", post_norms=True,
+                 query_scale=128.0, embed_scale=True)
+        d.update(kw)
+        return cls(**d)
+
+
+_LAYER_NAMES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
+                "norm_attn", "norm_mlp")
+_BIAS_NAMES = ("bq", "bk", "bv")
+
+
+def check_supported(cfg: LlamaConfig, params=None, tp_axis=None) -> None:
+    """Raise for what this slice of the port does not run."""
+    unsupported = {
+        "n_experts > 0 (MoE)": cfg.n_experts > 0,
+        "a sliding window": cfg.sliding_window is not None,
+        "softcaps": (cfg.attn_softcap is not None
+                     or cfg.final_softcap is not None),
+        "the Gemma-2 extras (gelu, post norms, embed scale)": (
+            cfg.act != "silu" or cfg.post_norms or cfg.embed_scale),
+        "tensor parallelism (tp_axis)": tp_axis is not None,
+    }
+    if params is not None:
+        unsupported["LoRA adapters"] = "lora" in params
+        unsupported["quantized weights"] = any(
+            not isinstance(params[n], torch.Tensor) for n in _LAYER_NAMES)
+    bad = [k for k, v in unsupported.items() if v]
+    if bad:
+        raise NotImplementedError(
+            f"outside this slice of the PyTorch port: {', '.join(bad)}")
+
+
+def _randn_into(out: torch.Tensor, scale: float, gen: torch.Generator,
+                rows: int = 8192) -> None:
+    """Fill a 2D slice with N(0, scale^2) drawn in fp32 on its device, a few
+    thousand rows at a time, so no full-size fp32 transient exists."""
+    for r0 in range(0, out.shape[0], rows):
+        blk = out[r0:r0 + rows]
+        blk.copy_(torch.randn(blk.shape, generator=gen, device=out.device,
+                              dtype=torch.float32) * scale)
+
+
+def init_params(cfg: LlamaConfig, *, seed: int = 0, device="cuda",
+                dtype=torch.bfloat16) -> dict:
+    """Random parameters drawn on ``device`` from ``seed``, layer by layer.
+
+    Same layout and scales as the JAX package's ``init_params`` (a weight
+    (in, out) is N(0, 1/in)); the numbers differ (another generator). Layer
+    weights are stacked on axis 0."""
+    check_supported(cfg)
+    device = torch.device(device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    L, D, H, HK, hd, F = (cfg.n_layers, cfg.dim, cfg.n_heads, cfg.n_kv_heads,
+                          cfg.head_dim, cfg.hidden_dim)
+    shapes = {"wq": (D, H * hd), "wk": (D, HK * hd), "wv": (D, HK * hd),
+              "wo": (H * hd, D), "w_gate": (D, F), "w_up": (D, F),
+              "w_down": (F, D)}
+    params = {}
+    for name, (din, dout) in shapes.items():
+        w = torch.empty((L, din, dout), dtype=dtype, device=device)
+        for i in range(L):
+            _randn_into(w[i], din**-0.5, gen)
+        params[name] = w
+    params["embed"] = torch.empty((cfg.vocab_size, D), dtype=dtype,
+                                  device=device)
+    _randn_into(params["embed"], 0.02, gen)
+    params["lm_head"] = torch.empty((D, cfg.vocab_size), dtype=dtype,
+                                    device=device)
+    _randn_into(params["lm_head"], D**-0.5, gen, rows=512)
+    for name in ("norm_attn", "norm_mlp"):
+        params[name] = torch.ones((L, D), dtype=dtype, device=device)
+    params["norm_out"] = torch.ones((D,), dtype=dtype, device=device)
+    if cfg.attn_bias:
+        for name, n in zip(_BIAS_NAMES, (H * hd, HK * hd, HK * hd)):
+            params[name] = torch.empty((L, n), dtype=dtype, device=device)
+            _randn_into(params[name], 0.02, gen)
+    return params
+
+
+def params_from_jax(np_params: dict, device, dtype) -> dict:
+    """Carry the JAX package's parameters across: the same names and stacked
+    (L, in, out) layout, so each array is only cast and moved."""
+    out = {}
+    for name, a in np_params.items():
+        a = np.asarray(a)
+        if a.dtype.name == "bfloat16":  # ml_dtypes bf16: reinterpret bits
+            t = torch.from_numpy(a.view(np.uint16).astype(np.int16)).view(
+                torch.bfloat16)
+        else:
+            t = torch.from_numpy(np.array(a))  # a writable copy
+        out[name] = t.to(device=device, dtype=dtype)
+    return out
+
+
+def _mm(x, w):
+    """x @ w in the activation dtype (the product accumulates in fp32)."""
+    return torch.matmul(x, w).to(x.dtype)
+
+
+def _rmsnorm(x, g, eps):
+    x32 = x.float()
+    n = x32 * torch.rsqrt(x32.pow(2).mean(dim=-1, keepdim=True) + eps)
+    return (n * g.float()).to(x.dtype)
+
+
+def _rope(x, positions, theta, scaling=None):
+    """x: (..., seq, heads, head_dim); positions: (..., seq) integer."""
+    hd = x.shape[-1]
+    half = hd // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                    device=x.device) / half)
+    if scaling is not None:
+        factor, low_f, high_f, orig_max = scaling
+        wavelen = 2.0 * torch.pi / freqs
+        smooth = (orig_max / wavelen - low_f) / (high_f - low_f)
+        mid = (1.0 - smooth) * freqs / factor + smooth * freqs
+        freqs = torch.where(wavelen < orig_max / high_f, freqs,
+                            torch.where(wavelen > orig_max / low_f,
+                                        freqs / factor, mid))
+    angles = positions[..., :, None, None].float() * freqs
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(x.dtype)
+
+
+def _proj(h, params, name, i):
+    out = _mm(h, params[name][i])
+    bias = "b" + name[1]  # wq -> bq
+    return out + params[bias][i] if bias in params else out
+
+
+def _ffn(h, params, i):
+    gate = torch.nn.functional.silu(_mm(h, params["w_gate"][i]).float())
+    return _mm(gate.to(h.dtype) * _mm(h, params["w_up"][i]),
+               params["w_down"][i])
+
+
+def _dense_layer(x, params, i, cfg: LlamaConfig, positions):
+    """One transformer layer on a dense (b, s, D) activation. Returns
+    (x, (k, v)) with k/v (b, s, hk, hd) after RoPE."""
+    b, s = x.shape[:2]
+    h = _rmsnorm(x, params["norm_attn"][i], cfg.norm_eps)
+    q = _proj(h, params, "wq", i).view(b, s, cfg.n_heads, cfg.head_dim)
+    k = _proj(h, params, "wk", i).view(b, s, cfg.n_kv_heads, cfg.head_dim)
+    v = _proj(h, params, "wv", i).view(b, s, cfg.n_kv_heads, cfg.head_dim)
+    q = _rope(q, positions, cfg.rope_theta, cfg.rope_scaling)
+    k = _rope(k, positions, cfg.rope_theta, cfg.rope_scaling)
+    o = flash_attention(q, k, v, causal=True, sm_scale=cfg.sm_scale)
+    x = x + _mm(o.reshape(b, s, -1), params["wo"][i])
+    h = _rmsnorm(x, params["norm_mlp"][i], cfg.norm_eps)
+    return x + _ffn(h, params, i), (k, v)
+
+
+def prefill(params, tokens, cfg: LlamaConfig, *, tp_axis=None,
+            return_kv: bool = True, logit_rows=None):
+    """Full-prompt forward. tokens: (b, s) int.
+
+    Returns (logits (b, s, vocab) fp32, k_cache (L, b, s, hk, hd), v_cache).
+    With ``logit_rows`` ((b,) int) the lm_head runs only at each row's given
+    position and logits come back (b, vocab): the full fp32 logits are the
+    largest array a serving prefill would touch, and the engine reads one
+    row per sequence."""
+    check_supported(cfg, params, tp_axis)
+    b, s = tokens.shape
+    x = params["embed"][tokens]
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    ks = vs = None
+    if return_kv:
+        ks = torch.empty((cfg.n_layers, b, s, cfg.n_kv_heads, cfg.head_dim),
+                         dtype=x.dtype, device=x.device)
+        vs = torch.empty_like(ks)
+    for i in range(cfg.n_layers):
+        x, (k, v) = _dense_layer(x, params, i, cfg, positions)
+        if return_kv:
+            ks[i], vs[i] = k, v
+    if logit_rows is not None:
+        x = x[torch.arange(b, device=x.device), logit_rows.long()]
+    x = _rmsnorm(x, params["norm_out"], cfg.norm_eps)
+    return _mm(x, params["lm_head"]).float(), ks, vs
+
+
+def decode_step(params, k_pages, v_pages, k_scales, v_scales, tokens, lengths,
+                page_tables, write_page, write_off, cfg: LlamaConfig, *,
+                tp_axis=None):
+    """One decode token for a batch of sequences against the paged cache.
+
+    k_pages/v_pages (L, hk, P, ps, hd) are updated IN PLACE (each layer's
+    new K/V lands in its slot before that layer's attention). tokens (b,),
+    lengths (b,) int32 including this token, page_tables (b, pages_per_seq)
+    int32, write_page/write_off (b,) int32. k_scales/v_scales (a quantized
+    cache) are outside this slice and must be None.
+
+    Returns (logits (b, vocab) fp32, k_pages, v_pages, k_scales, v_scales).
+    """
+    check_supported(cfg, params, tp_axis)
+    if k_scales is not None or v_scales is not None:
+        raise NotImplementedError("a quantized KV cache is outside this "
+                                  "slice of the PyTorch port")
+    b = tokens.shape[0]
+    x = params["embed"][tokens]
+    pos = (lengths - 1).long()[:, None]
+    H, HK, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    for i in range(cfg.n_layers):
+        h = _rmsnorm(x, params["norm_attn"][i], cfg.norm_eps)
+        q = _proj(h, params, "wq", i).view(b, 1, H, hd)
+        k = _proj(h, params, "wk", i).view(b, 1, HK, hd)
+        v = _proj(h, params, "wv", i).view(b, HK, hd)
+        q = _rope(q, pos, cfg.rope_theta, cfg.rope_scaling)[:, 0]
+        k = _rope(k, pos, cfg.rope_theta, cfg.rope_scaling)[:, 0]
+        write_token_kv(k_pages, v_pages, None, None,
+                       k.to(k_pages.dtype).contiguous(),
+                       v.to(v_pages.dtype).contiguous(), None, None,
+                       write_page, write_off, layer=i)
+        o = paged_attention(q.contiguous(), k_pages, v_pages, lengths,
+                            page_tables, sm_scale=cfg.sm_scale, layer=i)
+        x = x + _mm(o.reshape(b, -1), params["wo"][i])
+        h = _rmsnorm(x, params["norm_mlp"][i], cfg.norm_eps)
+        x = x + _ffn(h, params, i)
+    x = _rmsnorm(x, params["norm_out"], cfg.norm_eps)
+    logits = _mm(x, params["lm_head"]).float()
+    return logits, k_pages, v_pages, k_scales, v_scales
+
+
+def write_prefill_to_pages(k_pages, v_pages, layer_kv, page_ids, batch_idx,
+                           page_in_seq, page_size: int, k_scales=None,
+                           v_scales=None):
+    """Scatter a whole prefill batch's K/V into pages, in place.
+
+    layer_kv: (ks, vs) each (L, bsz, bucket, hk, hd) from ``prefill``.
+    page_ids (N,): destination pages (padding entries may aim at the trash
+    page; duplicate destinations there are allowed and left as garbage).
+    batch_idx (N,): source batch row per page; page_in_seq (N,): source page
+    index within the row (tokens [p * page_size, (p+1) * page_size)). Slots
+    past a sequence's length hold pad-position values that are never read.
+    Returns (k_pages, v_pages, k_scales, v_scales)."""
+    if k_scales is not None or v_scales is not None:
+        raise NotImplementedError("a quantized KV cache is outside this "
+                                  "slice of the PyTorch port")
+    ks, vs = layer_kv
+    L, bsz, bucket, hk, hd = ks.shape
+    bucket_pad = -(-bucket // page_size) * page_size
+    dev = k_pages.device
+    bidx, pidx = batch_idx.to(dev).long(), page_in_seq.to(dev).long()
+    dest = page_ids.to(dev).long()
+
+    def prep(x):  # (L, bsz, bucket, hk, hd) -> (L, hk, N, page_size, hd)
+        if bucket_pad != bucket:
+            x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, bucket_pad - bucket))
+        x = x.reshape(L, bsz, bucket_pad // page_size, page_size, hk, hd)
+        return x[:, bidx, pidx].permute(0, 3, 1, 2, 4)
+
+    k_pages[:, :, dest] = prep(ks).to(k_pages.dtype)
+    v_pages[:, :, dest] = prep(vs).to(v_pages.dtype)
+    return k_pages, v_pages, k_scales, v_scales

@@ -1,0 +1,140 @@
+"""Paged-attention decode: one new query token per sequence against a paged
+KV cache.
+
+On a CUDA tensor the call launches the hand-written kernel
+``csrc/paged_attention.cu`` (which replaces the JAX package's Pallas
+``_paged_attn_kernel``); on a CPU tensor it runs the plain version
+``paged_attention_reference``. The kernel walks each row's own pages, so the
+JAX package's pages-per-block grouping and its padding of the page-table
+width are not needed (a table padded that way is still accepted).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from flash_attention_tpu_torch.ops import _build
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+KERNEL = _build.Kernel("paged_attention", "paged_attention.cu", {
+    "fat_paged_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                            _I, _I, _F, _I, _P],
+})
+HEAD_DIMS = (64, 128)
+MAX_GROUP = 8
+
+
+def paged_attention_reference(q, k_pages, v_pages, lengths, page_indices, *,
+                              k_scales=None, v_scales=None, sm_scale=None,
+                              window=None, softcap=None, layer=None):
+    """Plain version: gather each row's pages densely, run masked attention
+    in fp32. ``k_pages`` is (hk, P, ps, d), or (L, hk, P, ps, d) with
+    ``layer``. Rows with length <= 0 return zeros."""
+    if layer is not None:
+        k_pages, v_pages = k_pages[int(layer)], v_pages[int(layer)]
+        if k_scales is not None:
+            k_scales, v_scales = k_scales[int(layer)], v_scales[int(layer)]
+    b, h, d = q.shape
+    hk, _, page_size, _ = k_pages.shape
+    group = h // hk
+    if sm_scale is None:
+        sm_scale = 1.0 / d**0.5
+    kp, vp = k_pages.float(), v_pages.float()
+    if k_scales is not None:  # per-token scale = lane t of the page's tile
+        kp = kp * k_scales[:, :, 0, :page_size, None].float()
+        vp = vp * v_scales[:, :, 0, :page_size, None].float()
+    idx = page_indices.long()
+    k = kp[:, idx].permute(1, 0, 2, 3, 4).reshape(b, hk, -1, d)
+    v = vp[:, idx].permute(1, 0, 2, 3, 4).reshape(b, hk, -1, d)
+    qg = q.float().reshape(b, hk, group, d)
+    s = torch.einsum("bhgd,bhtd->bhgt", qg, k) * sm_scale
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    pos = torch.arange(s.shape[-1], device=q.device)[None, :]
+    lens = lengths.to(q.device).long()[:, None]
+    mask = pos < lens
+    if window is not None:
+        mask &= pos >= (lens - window).clamp(min=0)
+    s = s.masked_fill(~mask[:, None, None, :], float("-inf"))
+    alive = (lengths.to(q.device) > 0)[:, None, None, None]
+    p = torch.softmax(torch.where(alive, s, torch.zeros_like(s)), dim=-1)
+    o = torch.einsum("bhgt,bhtd->bhgd", p, v)
+    o = torch.where(alive, o, torch.zeros_like(o))
+    return o.reshape(b, h, d).to(q.dtype)
+
+
+def paged_attention(q, k_pages, v_pages, lengths, page_indices, *,
+                    k_scales=None, v_scales=None, sm_scale=None, window=None,
+                    softcap=None, layer=None):
+    """Single-token decode attention against a paged KV cache.
+
+    q (b, h, d); k_pages/v_pages (hk, P, ps, d) or the layer-stacked
+    (L, hk, P, ps, d) with ``layer`` an int; lengths (b,) int32 (each row's
+    length including this token); page_indices (b, pages_per_seq) int32.
+    Returns o (b, h, d) in q.dtype; rows with length <= 0 are zeros.
+    ``k_scales``/``v_scales`` (int8/fp8 cache), ``window`` and ``softcap``
+    run only in the plain version so far."""
+    b, h, d = q.shape
+    layered = k_pages.dim() == 5
+    if layered and layer is None:
+        raise ValueError("a layer-stacked (5D) cache needs the layer index")
+    if not layered and layer is not None:
+        raise ValueError("layer given but the cache is not layer-stacked")
+    hk = k_pages.shape[-4]
+    if h % hk:
+        raise ValueError(f"q heads {h} not divisible by kv heads {hk}")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1; got {window}")
+    if sm_scale is None:
+        sm_scale = 1.0 / d**0.5
+    if q.device.type == "cpu":
+        return paged_attention_reference(
+            q, k_pages, v_pages, lengths, page_indices, k_scales=k_scales,
+            v_scales=v_scales, sm_scale=sm_scale, window=window,
+            softcap=softcap, layer=layer)
+    if k_scales is not None or window is not None or softcap is not None:
+        raise NotImplementedError("quantized KV, window and softcap run only "
+                                  "in the plain version (CPU) so far")
+    pk = k_pages if layered else k_pages[None]
+    pv = v_pages if layered else v_pages[None]
+    L, _, total_pages, page_size, _ = pk.shape
+    layer = 0 if layer is None else int(layer)
+    for x, name in ((q, "q"), (pk, "k_pages"), (pv, "v_pages"),
+                    (lengths, "lengths"), (page_indices, "page_indices")):
+        if not x.is_cuda or not x.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous CUDA tensor")
+    if q.dtype not in (torch.bfloat16, torch.float16) or \
+            pk.dtype != q.dtype or pv.dtype != q.dtype:
+        raise ValueError("q and the pages must share one dtype, bf16 or fp16")
+    if pv.shape != pk.shape or pk.shape[-1] != d:
+        raise ValueError("k_pages/v_pages shape mismatch")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head_dim {d} not supported (supported: {HEAD_DIMS})")
+    if h // hk > MAX_GROUP:
+        raise ValueError(f"GQA group {h // hk} above {MAX_GROUP}")
+    if lengths.dtype != torch.int32 or lengths.shape != (b,):
+        raise ValueError("lengths must be (b,) int32")
+    if page_indices.dtype != torch.int32 or page_indices.dim() != 2 or \
+            page_indices.shape[0] != b:
+        raise ValueError("page_indices must be (b, pages_per_seq) int32")
+    if not 0 <= layer < L:
+        raise ValueError(f"layer {layer} out of range [0, {L})")
+    out = torch.empty_like(q)
+    if b == 0:
+        return out
+    lib = KERNEL.lib()
+    rc = lib.fat_paged_attention(
+        q.data_ptr(), pk.data_ptr(), pv.data_ptr(), lengths.data_ptr(),
+        page_indices.data_ptr(), out.data_ptr(), b, h, hk, d, layer,
+        total_pages, page_size, page_indices.shape[1],
+        sm_scale * math.log2(math.e), int(q.dtype == torch.float16),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    KERNEL.launches += 1
+    KERNEL.check(rc)
+    return out

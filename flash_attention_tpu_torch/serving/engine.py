@@ -1,0 +1,300 @@
+"""Single-host serving engine: continuous batching over the paged KV cache.
+
+The PyTorch counterpart of ``flash_attention_tpu/serving/engine.py`` on its
+basic path. Per ``step()``:
+
+ 1. admit waiting requests and prefill them in ONE padded batch (dense flash
+    attention), then scatter their K/V into freshly allocated pages;
+ 2. grow every running sequence by one cache slot (preempting on pressure);
+ 3. one ``decode_step`` for the whole running batch (in-place KV write and
+    paged attention per layer), padded to the next power of two with dummy
+    length-1 rows aimed at a trash page;
+ 4. sample (greedy by default; temperature/top-k/top-p keyed by
+    (seed, position)) and retire finished sequences.
+
+The power-of-two batch and bucket padding and the trash page are kept so the
+port emits the same tokens as the JAX engine; on the GPU they are not needed
+for compilation and may go with CUDA graphs later. Tensor parallelism,
+speculative decoding, prefix caching, chunked prefill, multi-step decode,
+LoRA and a quantized KV cache are outside this slice and raise.
+"""
+
+from __future__ import annotations
+
+import time
+import traceback
+
+import numpy as np
+import torch
+
+from flash_attention_tpu_torch.models import llama
+from flash_attention_tpu_torch.serving import sampling
+from flash_attention_tpu_torch.serving.native import PagedRuntime
+from flash_attention_tpu_torch.serving.scheduler import Request, Scheduler
+
+
+def _pow2(n: int) -> int:
+    return max(1, 1 << (n - 1).bit_length())
+
+
+class Engine:
+    def __init__(
+        self,
+        cfg: llama.LlamaConfig,
+        params: dict,
+        *,
+        total_pages: int = 512,
+        page_size: int = 64,
+        max_batch: int = 8,
+        max_seq_len: int = 2048,
+        native_allocator: bool = False,
+        kv_quant: bool = False,
+        mesh=None,
+        chunk_size: int | None = None,
+        draft_cfg=None,
+        draft_params=None,
+        prefix_cache: bool = False,
+        decode_block: int = 1,
+        lora_rank: int | None = None,
+    ):
+        unsupported = {"mesh (tensor parallelism)": mesh is not None,
+                       "chunk_size (chunked prefill)": chunk_size is not None,
+                       "draft model (speculative decoding)":
+                           draft_cfg is not None or draft_params is not None,
+                       "prefix_cache": prefix_cache,
+                       "decode_block > 1 (multi-step decode)": decode_block != 1,
+                       "lora_rank (multi-LoRA)": lora_rank is not None,
+                       "kv_quant (quantized KV cache)": kv_quant}
+        bad = [k for k, v in unsupported.items() if v]
+        if bad:
+            raise NotImplementedError(
+                f"outside this slice of the PyTorch port: {', '.join(bad)}")
+        llama.check_supported(cfg, params)
+        self.cfg = cfg
+        self.params = params
+        self.device = params["embed"].device
+        self.page_size = page_size
+        self.max_seq_len = max_seq_len
+        # +1 slot/page budget for the trash page dummy rows write into
+        self.rt = PagedRuntime(total_pages, page_size, max_seqs=max_batch + 1,
+                               native=native_allocator)
+        trash_slot = self.rt.seq_alloc(1)
+        assert trash_slot >= 0
+        self.trash_page = self.rt.seq_page_table(trash_slot, 1)[0]
+        self.sched = Scheduler(self.rt, max_batch=max_batch,
+                               reserve_pages=max_batch)
+        # page-table width: one batch row must span max_seq_len
+        self.pages_per_seq = -(-max_seq_len // page_size)
+        L, hk, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+        # the cache holds K/V in the weights' dtype
+        self.k_pages = torch.zeros((L, hk, total_pages, page_size, hd),
+                                   dtype=params["embed"].dtype,
+                                   device=self.device)
+        self.v_pages = torch.zeros_like(self.k_pages)
+        self._uid = 0
+        self._last_lps = None  # logprobs of the last _sample_batch's tokens
+        self.stats = {"decode_steps": 0, "decode_tokens": 0,
+                      "prefill_tokens": 0, "prefill_dispatches": 0,
+                      "decode_time": 0.0, "prefill_time": 0.0}
+
+    # ------------------------------------------------------------- requests
+    def add_request(self, prompt: list[int], max_new_tokens: int,
+                    eos_id: int | None = None, *, temperature: float = 0.0,
+                    top_k: int = 0, top_p: float = 1.0, seed: int = 0,
+                    stop_ids=(), logprobs: bool = False) -> Request:
+        total = len(prompt) + max_new_tokens
+        if total > self.max_seq_len:
+            raise ValueError(
+                f"prompt+max_new_tokens = {total} exceeds max_seq_len "
+                f"{self.max_seq_len}")
+        need = -(-total // self.page_size)
+        budget = self.rt.total_pages - 1 - self.sched.reserve_pages  # -trash
+        if need > budget:
+            raise ValueError(
+                f"request needs {need} pages but the pool can ever free at "
+                f"most {budget}; it would wait forever")
+        self._uid += 1
+        req = Request(self._uid, list(prompt), max_new_tokens, eos_id=eos_id,
+                      temperature=temperature, top_k=top_k, top_p=top_p,
+                      seed=seed, stop_ids=tuple(stop_ids), logprobs=logprobs)
+        self.sched.add(req)
+        return req
+
+    # -------------------------------------------------------------- sampling
+    def _sample_batch(self, reqs: list[Request], logits) -> list[int]:
+        """Next token per request; row i of ``logits`` belongs to reqs[i]
+        (extra rows are ignored). Random bits depend only on
+        (req.seed, position), see serving.sampling."""
+        n = len(reqs)
+        toks = sampling.sample_tokens(
+            logits[:n], [r.temperature for r in reqs], [r.top_k for r in reqs],
+            [r.top_p for r in reqs], [r.seed for r in reqs],
+            [len(r.output) for r in reqs])
+        self._last_lps = (sampling.token_logprobs(logits[:n], toks).tolist()
+                          if any(r.logprobs for r in reqs) else None)
+        return toks.tolist()
+
+    def _append_token(self, req: Request, i: int, tok: int) -> None:
+        req.output.append(tok)
+        if req.logprobs and self._last_lps is not None:
+            req.token_logprobs.append(float(self._last_lps[i]))
+
+    # -------------------------------------------------------------- prefill
+    def _prefill_batch(self, reqs: list[Request]) -> None:
+        """ONE padded-batch prefill for every request admitted this step.
+
+        Each row is the request's full context (prompt plus tokens generated
+        before a preemption). Lengths pad to a pow2 bucket (min 32) and the
+        batch to pow2; pad tokens sit after each context, where causal
+        masking keeps them from every real position."""
+        t0 = time.perf_counter()
+        seqs = [r.prompt + r.output for r in reqs]
+        n_max = max(len(s) for s in seqs)
+        bucket = max(32, _pow2(n_max))
+        bsz = _pow2(len(reqs))
+        toks = np.zeros((bsz, bucket), np.int64)
+        last = np.zeros((bsz,), np.int64)
+        for i, s in enumerate(seqs):
+            toks[i, : len(s)] = s
+            last[i] = len(s) - 1
+        logits, ks, vs = llama.prefill(
+            self.params, torch.from_numpy(toks).to(self.device), self.cfg,
+            logit_rows=torch.from_numpy(last).to(self.device))
+        # ONE page-granular scatter for every (request, page) pair; N pads
+        # to pow2 with trash-page entries
+        dest, src_row, src_page = [], [], []
+        for i, req in enumerate(reqs):
+            n_pages = self.rt.seq_num_pages(req.slot)
+            for j, pid in enumerate(self.rt.seq_page_table(req.slot, n_pages)):
+                dest.append(pid)
+                src_row.append(i)
+                src_page.append(j)
+            self.stats["prefill_tokens"] += len(seqs[i])
+        n_pad = _pow2(len(dest))
+        dest += [self.trash_page] * (n_pad - len(dest))
+        src_row += [0] * (n_pad - len(src_row))
+        src_page += [0] * (n_pad - len(src_page))
+        llama.write_prefill_to_pages(
+            self.k_pages, self.v_pages, (ks, vs), torch.tensor(dest),
+            torch.tensor(src_row), torch.tensor(src_page), self.page_size)
+        for i, (req, tok) in enumerate(zip(reqs, self._sample_batch(reqs, logits))):
+            self._append_token(req, i, tok)
+        self.stats["prefill_dispatches"] += 1
+        self.stats["prefill_time"] += time.perf_counter() - t0
+
+    # --------------------------------------------------------------- decode
+    def _decode_batch(self, reqs: list[Request], tokens: list[int]):
+        """One decode step for ``reqs``; returns the next token per request."""
+        t0 = time.perf_counter()
+        n = len(reqs)
+        bsz = _pow2(n)
+        tok = np.zeros((bsz,), np.int64)
+        lengths = np.ones((bsz,), np.int32)
+        tables = np.full((bsz, self.pages_per_seq), self.trash_page, np.int32)
+        wpage = np.full((bsz,), self.trash_page, np.int32)
+        woff = np.zeros((bsz,), np.int32)
+        for i, (r, t) in enumerate(zip(reqs, tokens)):
+            ln = self.rt.seq_length(r.slot)  # already grown for this token
+            if ln > self.pages_per_seq * self.page_size:
+                raise RuntimeError(
+                    f"request {r.uid}: length {ln} exceeds the page-table "
+                    f"width {self.pages_per_seq} x page_size {self.page_size}")
+            tok[i] = t
+            lengths[i] = ln
+            tables[i] = self.rt.seq_page_table(r.slot, self.pages_per_seq,
+                                               pad=self.trash_page)
+            wpage[i] = tables[i][(ln - 1) // self.page_size]
+            woff[i] = (ln - 1) % self.page_size
+        dev = self.device
+        logits, *_ = llama.decode_step(
+            self.params, self.k_pages, self.v_pages, None, None,
+            torch.from_numpy(tok).to(dev), torch.from_numpy(lengths).to(dev),
+            torch.from_numpy(tables).to(dev), torch.from_numpy(wpage).to(dev),
+            torch.from_numpy(woff).to(dev), self.cfg)
+        out = self._sample_batch(reqs, logits)
+        self.stats["decode_steps"] += 1
+        self.stats["decode_tokens"] += n
+        self.stats["decode_time"] += time.perf_counter() - t0
+        return out
+
+    # ----------------------------------------------------------------- step
+    @torch.inference_mode()
+    def step(self) -> list[Request]:
+        """One engine iteration. Returns requests finished this step.
+
+        An exception from a prefill or decode dispatch fails the requests of
+        that dispatch (``req.error`` holds the exception and its traceback,
+        pages freed) instead of stopping the engine; later steps keep serving
+        the others."""
+        finished = []
+        admitted = self.sched.admit()
+        if admitted:
+            try:
+                self._prefill_batch(admitted)
+            except Exception as e:  # noqa: BLE001 — surfaced on the requests
+                tb = traceback.format_exc()
+                for req in admitted:
+                    self.sched.fail(req, f"prefill failed: {e!r}\n{tb}")
+                finished.extend(admitted)
+
+        # retire before decoding (a request may finish on its prefill token)
+        for req in list(self.sched.running):
+            if req.done:
+                self.sched.finish(req)
+                finished.append(req)
+
+        batch, feed = [], []
+        for req in list(self.sched.running):
+            if req.slot < 0:
+                continue  # preempted by an earlier grow() in this snapshot
+            if self.sched.grow(req):       # reserve the slot for this token
+                batch.append(req)
+                feed.append(req.output[-1])
+        # a later grow() may have preempted an earlier batch member
+        live = [(r, t) for r, t in zip(batch, feed) if r.slot >= 0]
+        batch, feed = [r for r, _ in live], [t for _, t in live]
+        if batch:
+            try:
+                next_tokens = self._decode_batch(batch, feed)
+            except Exception as e:  # noqa: BLE001 — surfaced on the requests
+                tb = traceback.format_exc()
+                for req in batch:
+                    self.sched.fail(req, f"decode failed: {e!r}\n{tb}")
+                finished.extend(batch)
+                return finished
+            for i, (req, nxt) in enumerate(zip(batch, next_tokens)):
+                self._append_token(req, i, nxt)
+                if req.done:
+                    self.sched.finish(req)
+                    finished.append(req)
+        return finished
+
+    def stream(self, max_steps: int = 10_000):
+        """Yield ``(request, new_tokens, finished)`` after every step that
+        emitted tokens for a request; a finished request is yielded exactly
+        once with finished=True."""
+        seen: dict[int, int] = {}
+        while self.sched.has_work and max_steps > 0:
+            max_steps -= 1
+            done = self.step()
+            for req in list(self.sched.running) + done:
+                n = seen.get(req.uid, 0)
+                if len(req.output) > n or req in done:
+                    yield req, req.output[n:], req in done
+                    seen[req.uid] = len(req.output)
+
+    def run(self, max_steps: int = 10_000) -> list[Request]:
+        done = []
+        for _ in range(max_steps):
+            if not self.sched.has_work:
+                break
+            done.extend(self.step())
+        return done
+
+    def throughput(self) -> dict:
+        s = self.stats
+        return {
+            "decode_tokens_per_s": s["decode_tokens"] / max(s["decode_time"], 1e-9),
+            "prefill_tokens_per_s": s["prefill_tokens"] / max(s["prefill_time"], 1e-9),
+            **s,
+        }

@@ -51,3 +51,8 @@ def _periodic_jax_cache_clear():
     _TESTS_RUN["n"] += 1
     if _TESTS_RUN["n"] % 100 == 0:
         jax.clear_caches()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs an NVIDIA card; the test skips without one")

@@ -1,0 +1,118 @@
+"""The port's ``fwd`` against the JAX package's ``fwd`` on the CPU.
+
+Inputs come from numpy seeds and go to both packages; the JAX side runs its
+Pallas kernel in interpret mode, the port its plain fp32 version (the CUDA
+kernel is held against that same plain version on the card, in
+``test_torch_kernels.py``). Tolerances: fp32 on both sides, so the repo's
+forward gates (atol 5e-3, mean_atol 2e-4, mean_rtol 1e-2) for O and the LSE
+gates of ``tests/test_flash_fwd.py:21``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+pytest.importorskip("jax")  # the JAX reference; skip where it is not installed
+
+import jax.numpy as jnp
+
+import flash_attention_tpu as fat
+from flash_attention_tpu.ops.reference import reference_attention as jax_ref
+from flash_attention_tpu.utils.metrics import assert_metrics
+from flash_attention_tpu_torch import flash_attention, fwd
+from flash_attention_tpu_torch.ops import flash_fwd as fwd_mod
+from flash_attention_tpu_torch.ops.reference import reference_attention
+
+torch.set_num_threads(2)
+
+FWD_TOLS = {"atol": 5e-3, "mean_atol": 2e-4, "mean_rtol": 1e-2}
+LSE_TOLS = {"atol": 1e-2, "mean_atol": 1e-3, "mean_rtol": 1e-2}
+
+
+def _qkv(seed, b, sq, sk, h, hk, d):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, sq, h, d), dtype=np.float32),
+            rng.standard_normal((b, sk, hk, d), dtype=np.float32),
+            rng.standard_normal((b, sk, hk, d), dtype=np.float32))
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("h,hk", [(4, 4), (4, 2), (4, 1)])
+@pytest.mark.parametrize("sq,sk", [(64, 64), (97, 130), (130, 97)])
+def test_fwd_matches_jax(sq, sk, h, hk, d, causal):
+    q, k, v = _qkv(sq * 1000 + sk + h * 10 + hk, 2, sq, sk, h, hk, d)
+    o, lse = fwd(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                 causal)
+    oj, lsej = fat.fwd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                       is_causal=causal)
+    tag = f"{sq},{sk},{h}/{hk},d={d},causal={causal}"
+    assert o.shape == (2, sq, h, d) and lse.shape == (2, h, sq)
+    assert lse.dtype == torch.float32
+    assert_metrics(f"o[{tag}]", o.numpy(), np.asarray(oj), FWD_TOLS)
+    assert_metrics(f"lse[{tag}]", lse.numpy(), np.asarray(lsej), LSE_TOLS)
+
+
+def test_fully_masked_rows_are_zero():
+    """Causal with sq > sk: the first sq - sk rows see no key; O = 0 and
+    LSE = 0 in both packages."""
+    q, k, v = _qkv(4, 1, 200, 64, 2, 2, 64)
+    o, lse = fwd(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                 True)
+    oj, lsej = fat.fwd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                       is_causal=True)
+    assert torch.all(o[:, :136] == 0) and torch.all(lse[:, :, :136] == 0)
+    assert_metrics("o[masked]", o.numpy(), np.asarray(oj), FWD_TOLS)
+    assert_metrics("lse[masked]", lse.numpy(), np.asarray(lsej), LSE_TOLS)
+
+
+@pytest.mark.parametrize("window,softcap", [((16, 0), None), ((8, 4), None),
+                                            (None, 5.0), ((32, 0), 20.0)])
+def test_plain_window_softcap_match_jax_oracle(window, softcap):
+    """Sliding window and softcap run in the plain version on the CPU."""
+    q, k, v = _qkv(9, 2, 70, 90, 4, 2, 64)
+    o, lse = fwd(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                 True, window_size=window, softcap=softcap)
+    oj, lsej = jax_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                       causal=True, window=window, softcap=softcap)
+    assert_metrics("o[band]", o.numpy(), np.asarray(oj), FWD_TOLS)
+    assert_metrics("lse[band]", lse.numpy(), np.asarray(lsej), LSE_TOLS)
+
+
+def test_sm_scale_and_gqa_check():
+    q, k, v = _qkv(3, 1, 33, 33, 4, 2, 64)
+    qt, kt, vt = map(torch.from_numpy, (q, k, v))
+    o, _ = fwd(qt, kt, vt, sm_scale=0.05)
+    oj, _ = fat.fwd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                    sm_scale=0.05)
+    assert_metrics("o[scale]", o.numpy(), np.asarray(oj), FWD_TOLS)
+    with pytest.raises(ValueError):
+        fwd(qt, kt[:, :, :1].expand(1, 33, 3, 64), vt[:, :, :1].expand(1, 33, 3, 64))
+
+
+def test_flash_attention_forward_only():
+    q, k, v = map(torch.from_numpy, _qkv(5, 1, 16, 16, 2, 2, 64))
+    o, lse = flash_attention(q, k, v, causal=True, return_lse=True)
+    o_ref, lse_ref = reference_attention(q, k, v, causal=True)
+    assert torch.equal(o, o_ref) and torch.equal(lse, lse_ref)
+    with pytest.raises(NotImplementedError):
+        flash_attention(q.requires_grad_(), k, v)
+
+
+def test_kernel_wrapper_never_falls_back():
+    """The CUDA wrapper takes no CPU tensor: the plain path is chosen by
+    ``fwd`` from the device, and the kernel wrapper raises instead."""
+    q, k, v = map(torch.from_numpy, _qkv(6, 1, 16, 16, 2, 2, 64))
+    with pytest.raises(ValueError, match="CUDA"):
+        fwd_mod.flash_fwd(q.bfloat16(), k.bfloat16(), v.bfloat16(),
+                          causal=True, sm_scale=0.125)
+
+
+@pytest.mark.parametrize("causal,window,want", [
+    (False, None, None), (True, None, (None, 0)), (True, (4, 2), (4, 0)),
+    (False, (-1, 3), (None, 3)), (False, (-1, -1), None),
+])
+def test_normalize_band_matches_jax(causal, window, want):
+    from flash_attention_tpu.ops.flash_fwd import normalize_band as jax_nb
+    assert fwd_mod.normalize_band(causal, window) == want
+    assert jax_nb(causal, window) == want

@@ -1,0 +1,178 @@
+"""Card-only checks of the port's CUDA kernels against their plain versions.
+
+Every test here needs an NVIDIA card (marker ``gpu``) and skips elsewhere;
+the decision is made inside the ``cuda`` fixture. The file imports no JAX,
+so it also runs on a machine without it:
+``python -m pytest --noconftest -m gpu tests/test_torch_kernels.py``.
+
+Tolerances: O is held to the repo's forward gates (atol 5e-3, mean_atol
+2e-4, mean_rtol 1e-2) and LSE to ``tests/test_flash_fwd.py``'s LSE gates,
+comparing the kernel with the fp32 plain version on the same bf16/fp16
+inputs, both cast to the input dtype. bf16 O takes the repo's bf16 gates
+(``tests/test_flash_fwd.py:117``: 3 fewer mantissa bits than fp16); the
+kernel rounds P to bf16 before P.V, as the TPU kernel did. The kv write must
+match exactly.
+"""
+
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from flash_attention_tpu_torch.ops import flash_fwd as fwd_mod
+from flash_attention_tpu_torch.ops import kv_update, paged_attention as pa_mod
+from flash_attention_tpu_torch.ops.attention import fwd
+from flash_attention_tpu_torch.ops.reference import reference_attention
+from flash_attention_tpu_torch.utils.metrics import assert_metrics
+
+FWD_TOLS = {"atol": 5e-3, "mean_atol": 2e-4, "mean_rtol": 1e-2}
+BF16_TOLS = {"atol": 4e-2, "mean_atol": 2e-3, "mean_rtol": 5e-2}
+LSE_TOLS = {"atol": 1e-2, "mean_atol": 1e-3, "mean_rtol": 1e-2}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _randn(rng, shape, dtype, device):
+    return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(
+        device=device, dtype=dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("b,sq,sk,h,hk", [
+    (1, 1, 1, 4, 4), (2, 64, 64, 4, 2), (2, 97, 130, 4, 1),
+    (2, 130, 97, 4, 4), (1, 257, 513, 8, 2), (2, 1000, 1000, 8, 8),
+])
+def test_flash_fwd_matches_plain(cuda, dtype, d, causal, b, sq, sk, h, hk):
+    rng = np.random.default_rng(sq * 7 + sk)
+    q = _randn(rng, (b, sq, h, d), dtype, cuda)
+    k = _randn(rng, (b, sk, hk, d), dtype, cuda)
+    v = _randn(rng, (b, sk, hk, d), dtype, cuda)
+    o, lse = fwd(q, k, v, causal)
+    o_ref, lse_ref = reference_attention(q, k, v, causal=causal)
+    tag = f"fwd[{dtype},{d},{causal},{b},{sq},{sk},{h},{hk}]"
+    assert_metrics(tag, o, o_ref,
+                   BF16_TOLS if dtype == torch.bfloat16 else FWD_TOLS)
+    assert_metrics(tag + "lse", lse, lse_ref, LSE_TOLS)
+
+
+@pytest.mark.gpu
+def test_flash_fwd_strided_and_empty_rows(cuda):
+    """q/k/v as views of one packed (b, s, 3, h, d) buffer, and causal with
+    sq > sk: rows with no live key give O = 0 and LSE = empty_lse."""
+    rng = np.random.default_rng(5)
+    qkv = _randn(rng, (2, 150, 3, 4, 128), torch.bfloat16, cuda)
+    q, k, v = qkv.unbind(2)
+    o, lse = fwd(q, k[:, :100], v[:, :100], True, empty_lse=-3.0)
+    o_ref, lse_ref = reference_attention(q, k[:, :100], v[:, :100],
+                                         causal=True, empty_lse=-3.0)
+    assert_metrics("fwd[strided]", o, o_ref, BF16_TOLS)
+    assert_metrics("fwd[strided]lse", lse, lse_ref, LSE_TOLS)
+    assert torch.all(o[:, :50] == 0) and torch.all(lse[:, :, :50] == -3.0)
+
+
+@pytest.mark.gpu
+def test_flash_fwd_counts_and_rejects(cuda):
+    q = torch.zeros((1, 16, 2, 128), dtype=torch.bfloat16, device=cuda)
+    before = fwd_mod.KERNEL.launches
+    fwd(q, q, q, True)
+    assert fwd_mod.KERNEL.launches == before + 1
+    with pytest.raises(ValueError):
+        fwd(q.float(), q.float(), q.float())
+    with pytest.raises(NotImplementedError):
+        fwd(q, q, q, softcap=30.0)
+
+
+def _paged_setup(rng, b, h, hk, d, ps, pps, total, L, dtype, device):
+    q = _randn(rng, (b, h, d), dtype, device)
+    kp = _randn(rng, (L, hk, total, ps, d), dtype, device)
+    vp = _randn(rng, (L, hk, total, ps, d), dtype, device)
+    tab = torch.from_numpy(rng.permutation(total)[:b * pps].reshape(b, pps)
+                           .astype(np.int32)).to(device)
+    return q, kp, vp, tab
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("group", [1, 2, 4, 7, 8])
+@pytest.mark.parametrize("ps", [16, 64])
+def test_paged_attention_matches_plain(cuda, dtype, d, group, ps):
+    rng = np.random.default_rng(group * 100 + ps)
+    hk, pps, L = 2, 8, 3
+    b = 5
+    q, kp, vp, tab = _paged_setup(rng, b, hk * group, hk, d, ps, pps,
+                                  b * pps + 3, L, dtype, cuda)
+    lens = torch.tensor([1, ps * pps, ps + 1, 0, 37], dtype=torch.int32,
+                        device=cuda)
+    o = pa_mod.paged_attention(q, kp, vp, lens, tab, layer=2)
+    o_ref = pa_mod.paged_attention_reference(q, kp, vp, lens, tab, layer=2)
+    assert_metrics(f"paged[{dtype},{d},{group},{ps}]", o, o_ref,
+                   BF16_TOLS if dtype == torch.bfloat16 else FWD_TOLS)
+    assert torch.all(o[3] == 0)
+
+
+@pytest.mark.gpu
+def test_paged_attention_long_rows(cuda):
+    """Rows up to 4096 tokens in 64-token pages, table padded past need."""
+    rng = np.random.default_rng(11)
+    b, hk, group, d, ps, pps = 8, 8, 4, 128, 64, 72
+    q, kp, vp, tab = _paged_setup(rng, b, hk * group, hk, d, ps, pps, b * pps,
+                                  2, torch.bfloat16, cuda)
+    lens = torch.tensor([1, 63, 64, 65, 1000, 2048, 4095, 4096],
+                        dtype=torch.int32, device=cuda)
+    o = pa_mod.paged_attention(q, kp, vp, lens, tab, layer=1)
+    o_ref = pa_mod.paged_attention_reference(q, kp, vp, lens, tab, layer=1)
+    assert_metrics("paged[long]", o, o_ref, BF16_TOLS)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_kv_write_matches_plain(cuda, dtype):
+    """Exact match everywhere but the trash page (rows 3 and 4 share it)."""
+    rng = np.random.default_rng(3)
+    L, hk, total, ps, d, b = 4, 2, 16, 16, 128, 5
+    kp = _randn(rng, (L, hk, total, ps, d), dtype, cuda)
+    vp = _randn(rng, (L, hk, total, ps, d), dtype, cuda)
+    kval = _randn(rng, (b, hk, d), dtype, cuda)
+    vval = _randn(rng, (b, hk, d), dtype, cuda)
+    trash = 15
+    wpage = torch.tensor([2, 7, 2, trash, trash], dtype=torch.int32, device=cuda)
+    woff = torch.tensor([0, 15, 9, 0, 0], dtype=torch.int32, device=cuda)
+    kref, vref = kp.clone(), vp.clone()
+    kv_update.write_token_kv_reference(kref, vref, kval, vval, wpage, woff,
+                                       layer=3)
+    before = kv_update.KERNEL.launches
+    out = kv_update.write_token_kv(kp, vp, None, None, kval, vval, None, None,
+                                   wpage, woff, layer=3)
+    assert out[0] is kp and out[1] is vp
+    assert kv_update.KERNEL.launches == before + 1
+    keep = torch.ones(total, dtype=torch.bool, device=cuda)
+    keep[trash] = False
+    assert torch.equal(kp[:, :, keep], kref[:, :, keep])
+    assert torch.equal(vp[:, :, keep], vref[:, :, keep])
+    assert torch.equal(kp[3, :, 2, 9], kval[2])
+
+
+@pytest.mark.gpu
+def test_paged_scale_matches_kernel_contract(cuda):
+    """The wrapper passes scale * log2(e); a custom sm_scale must agree."""
+    rng = np.random.default_rng(2)
+    q, kp, vp, tab = _paged_setup(rng, 2, 8, 2, 128, 16, 4, 8, 1,
+                                  torch.bfloat16, cuda)
+    lens = torch.tensor([40, 64], dtype=torch.int32, device=cuda)
+    scale = 0.3 / math.sqrt(128)
+    o = pa_mod.paged_attention(q, kp, vp, lens, tab, layer=0, sm_scale=scale)
+    o_ref = pa_mod.paged_attention_reference(q, kp, vp, lens, tab, layer=0,
+                                             sm_scale=scale)
+    assert_metrics("paged[scale]", o, o_ref, BF16_TOLS)
