@@ -3,20 +3,31 @@
 
     python3 chip_smoke.py
 
-Builds the port's three CUDA kernels from the sources in this checkout,
-holds each against its plain PyTorch version at the shapes the serving path
-gives it (and times kernel, plain version and, where one exists, a single
-PyTorch library call as a yardstick), then serves 8 greedy requests on a
-full-width, 32-layer Llama-3-8B with random bf16 weights through
-``Engine.add_request`` / ``Engine.step``, checks that every kernel was
-launched on that path, and checks prefill against decode logits. Exits
-non-zero if any phase fails or no card is present; its last line is
-``{"ok": true, "device": {...}}``. Imports nothing of JAX.
+Builds the port's six CUDA kernels from the sources in this checkout and
+holds each against its plain PyTorch version at the shapes its path gives it
+(timing kernel, plain version and, where one exists, a single PyTorch
+library call as a yardstick). Then it drives the two paths on a full-width,
+32-layer Llama-3-8B with random bf16 weights:
+
+* serving: 8 greedy requests through ``Engine.add_request`` /
+  ``Engine.step`` (flash forward, kv write, paged attention), and prefill
+  against decode logits;
+* training: ``train_loss`` with remat, ``.backward()`` and plain SGD for a
+  few steps on a fixed 2 x 2048 batch (flash forward and the three backward
+  kernels), after a 2-layer full-width check of the card's bf16 loss and
+  gradients against the CPU's fp32 plain versions.
+
+Each path checks that every one of its kernels was launched on it, with the
+counts set to 0 just before it. Exits non-zero if any phase fails or no card
+is present; its last line is ``{"ok": true, "device": {...}}``. Imports
+nothing of JAX.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import os
 import re
 import subprocess
 import sys
@@ -44,6 +55,27 @@ LSE_TOLS = {"atol": 1e-2, "mean_atol": 1e-3, "mean_rtol": 1e-2}
 # (one batched GEMM against a GEMV, flash against paged attention), so they
 # agree to a few percent, not to fp32 precision.
 CONSISTENCY_REL_L2 = 5e-2
+# Backward kernels at the training shapes: the repo's bf16 backward gates
+# (tests/test_flash_bwd.py:127). D is an fp32 sum of exact products, held to
+# the fp32 statistics gates (tests/test_flash_fwd.py:21).
+BWD_TOLS = {"atol": 4e-2, "mean_atol": 2e-3, "mean_rtol": 2e-1}
+DI_TOLS = LSE_TOLS
+TRAIN_BATCH, TRAIN_SEQ = 2, 2048
+TRAIN_STEPS = 3  # timed steps; one more runs under the profiler
+# Plain SGD, p -= LR * g, in bf16. A weight near 2^-6 (the scale of a
+# 4096-wide projection) moves only in steps of 2^-13 = 1.2e-4, so a smaller
+# update is rounded away. An lm_head entry's gradient is about
+# x_d / (2 * 2048) = 2.4e-4 for a target seen once in the batch, so LR = 1
+# moves it by about two steps, and raises each target's logit by about
+# |x|^2 / 4096 = 1 per step.
+LR = 1.0
+# Train forward = inference forward: the same kernels in the same order.
+TRAIN_FWD_REL = 1e-5
+# 2-layer full-width card (bf16) vs CPU (fp32) training check: bf16 rounds
+# activations, logits and every gradient to 8 significant bits, so the loss
+# agrees to about 1e-3 and each gradient to a few percent in relative L2.
+TRAIN_LOSS_REL = 1e-2
+TRAIN_GRAD_REL_L2 = 5e-2
 
 
 def _card_line() -> str:
@@ -241,6 +273,143 @@ def check_paged(torch, dev, cfg, card):
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
 
+def _sdpa_backend(torch, fn) -> str:
+    """The backend one SDPA call took, from the names of the device kernels
+    it launched (profiled once)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    times: dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            times[e.name] = times.get(e.name, 0.0) + e.time_range.elapsed_us()
+    text = " ".join(times).lower()
+    backend = ("cuDNN" if "cudnn" in text else "flash" if "flash" in text
+               else "efficient" if "fmha" in text or "efficient" in text
+               else "math")
+    top = sorted(times, key=times.get, reverse=True)[:3]
+    return f"{backend} (longest kernels: {'; '.join(n[:70] for n in top)})"
+
+
+def check_bwd(torch, dev, cfg, card):
+    """The three backward kernels at the training path's shapes, each
+    against its plain version; two runs bit-identical; sk = 1 exactly 0."""
+    from flash_attention_tpu_torch.ops import flash_bwd as fb
+    from flash_attention_tpu_torch.ops import flash_fwd as fm
+    from flash_attention_tpu_torch.utils.metrics import assert_metrics
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    b, s = TRAIN_BATCH, TRAIN_SEQ
+    h, hk, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev,
+                           dtype=torch.float32).to(torch.bfloat16)
+
+    q, k, v, do = rnd(b, s, h, d), rnd(b, s, hk, d), rnd(b, s, hk, d), \
+        rnd(b, s, h, d)
+    scale = d**-0.5
+    kw = dict(causal=True, sm_scale=scale)
+    o, lse = fm.flash_fwd(q, k, v, **kw)
+    di = fb.flash_bwd_di(o, do)
+    di_r = fb.di_reference(o, do)
+    m_di = assert_metrics("flash_bwd_di", di, di_r, DI_TOLS)
+    dq = fb.flash_bwd_dq(q, k, v, do, lse, di, **kw)
+    m_dq = assert_metrics("flash_bwd_dq", dq, fb.dq_reference(
+        q, k, v, do, lse, di_r, **kw), BWD_TOLS)
+    dk, dv = fb.flash_bwd_dkv(q, k, v, do, lse, di, **kw)
+    dk_r, dv_r = fb.dkv_reference(q, k, v, do, lse, di_r, **kw)
+    m_dk = assert_metrics("flash_bwd_dkv dk", dk, dk_r, BWD_TOLS)
+    m_dv = assert_metrics("flash_bwd_dkv dv", dv, dv_r, BWD_TOLS)
+    del dk_r, dv_r
+    again = fb.flash_bwd(q, k, v, o, lse, do, **kw)
+    assert all(torch.equal(a, b_) for a, b_ in zip(again, (dq, dk, dv))), \
+        "two backward runs differ"
+    print(f"flash_bwd b={b} s={s} h={h}/{hk} d={d} causal: di {m_di}; "
+          f"dq {m_dq}; dk {m_dk}; dv {m_dv}; two runs bit-identical")
+    # one key: O equals its V row, so dP - D must cancel exactly
+    o1, lse1 = fm.flash_fwd(q, k[:, :1], v[:, :1], causal=False,
+                            sm_scale=scale)
+    dq1, dk1, _ = fb.flash_bwd(q, k[:, :1], v[:, :1], o1, lse1, do,
+                               causal=False, sm_scale=scale)
+    assert torch.all(dq1 == 0) and torch.all(dk1 == 0), \
+        "sk = 1: dq and dk are not exactly 0"
+    print("flash_bwd sk=1: dq and dk exactly 0")
+    del o1, lse1, dq1, dk1, again
+
+    pairs = s * (s + 1) // 2  # live (row, col) pairs of one causal head
+    n_in = 2 * (q.numel() + k.numel() + v.numel() + do.numel()) \
+        + 4 * (lse.numel() + di.numel())  # bf16 tensors, fp32 LSE and D
+    runs = {
+        "flash_bwd_di": (
+            lambda: fb.flash_bwd_di(o, do),
+            lambda: fb.di_reference(o, do),
+            lambda: torch.linalg.vecdot(o, do, dim=-1),
+            2.0 * o.numel(), 2 * 2 * o.numel() + 4 * di.numel(), m_di,
+            "flash_bwd_di.cu", "flash_attention_tpu/ops/flash_bwd.py:129"),
+        "flash_bwd_dq": (
+            lambda: fb.flash_bwd_dq(q, k, v, do, lse, di, **kw),
+            lambda: fb.dq_reference(q, k, v, do, lse, di, **kw),
+            None, 6.0 * d * pairs * b * h, n_in + 2 * dq.numel(), m_dq,
+            "flash_bwd_dq.cu", "flash_attention_tpu/ops/flash_bwd.py:159"),
+        "flash_bwd_dkv": (
+            lambda: fb.flash_bwd_dkv(q, k, v, do, lse, di, **kw),
+            lambda: fb.dkv_reference(q, k, v, do, lse, di, **kw),
+            None, 8.0 * d * pairs * b * h, n_in + 2 * 2 * dk.numel(),
+            m_dk if m_dk.max_abs >= m_dv.max_abs else m_dv,
+            "flash_bwd_dkv.cu", "flash_attention_tpu/ops/flash_bwd.py:352"),
+    }
+
+    # library yardstick for dq + dk + dv: the backward of one SDPA call,
+    # (forward + backward) - forward, on the same inputs
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    dot = do.transpose(1, 2)
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+
+    def sdpa_fwd_bwd():
+        torch.autograd.grad(sdpa(), (qt, kt, vt), dot)
+
+    with torch.enable_grad():
+        sdpa_bwd = _time_ms(torch, sdpa_fwd_bwd, 40) - _time_ms(torch, sdpa,
+                                                                40)
+        backend = _sdpa_backend(torch, sdpa_fwd_bwd)
+    entries = []
+    for name, (kern, plain, lib, flops, nbytes, m, src, rep) in runs.items():
+        if name == "flash_bwd_di":  # tens of us: device time in a graph
+            ms = _time_graph_ms(torch, kern, 50)
+            plain_ms = _time_graph_ms(torch, plain, 5)
+            lib_ms = _time_graph_ms(torch, lib, 50)
+        else:
+            ms = _time_ms(torch, kern, 20)
+            plain_ms = _time_ms(torch, plain, 2, warmup=1)
+            lib_ms = sdpa_bwd
+        bound_ms, bound_by = _bound(flops, nbytes)
+        print(f"{name} b={b} s={s} h={h}/{hk} d={d} causal: kernel {ms:.4f} "
+              f"ms ({flops / ms / 1e9:.1f} TFLOP/s, {nbytes / ms / 1e6:.1f} "
+              f"GB/s), plain {plain_ms:.3f} ms, library {lib_ms:.4f} ms, "
+              f"bound {bound_ms:.4f} ms ({bound_by}) [{card}]")
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": f"flash_attention_tpu_torch/csrc/{src}",
+            "replaces": rep, "max_abs_err": m.max_abs, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": lib_ms})
+    print(f"flash_bwd_di times are device times in a CUDA graph of 50 "
+          f"calls (5 for the plain version); library for flash_bwd_di: "
+          f"torch.linalg.vecdot(o, do) (bf16 out, (b, s, h) layout); for "
+          f"flash_bwd_dq and flash_bwd_dkv: the "
+          f"backward of one scaled_dot_product_attention(is_causal=True, "
+          f"enable_gqa=True) call, {sdpa_bwd:.4f} ms for dq + dk + dv "
+          f"together, backend {backend} [{card}]")
+    return entries
+
+
 def serve(torch, params, cfg, prompts, card, kernels):
     from flash_attention_tpu_torch import Engine
     eng = Engine(cfg, params, total_pages=TOTAL_PAGES, page_size=PAGE_SIZE,
@@ -284,66 +453,72 @@ def serve(torch, params, cfg, prompts, card, kernels):
 
 
 _KERNEL_GROUPS = (("flash_fwd", "flash_fwd_kernel"),
+                  ("flash_bwd_di", "flash_bwd_di_kernel"),
+                  ("flash_bwd_dq", "flash_bwd_dq_kernel"),
+                  ("flash_bwd_dkv", "flash_bwd_dkv_kernel"),
                   ("kv_write", "kv_write_kernel"),
                   ("paged_attention", "paged_attn_kernel"),
                   ("matmul", "gemm|gemv|cutlass|xmma|nvjet|cublas"))
+
+
+def profile_window(torch, label, fn, card):
+    """Run ``fn`` once under torch.profiler and print its wall time, the
+    device's busy share (the union of the device events' intervals, so
+    nothing is counted twice), device time by kernel group, and the largest
+    kernels of the "other" group."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    # device activity only: kernels, copies and sets, not host ops and
+    # not user annotations (those span other device events)
+    events = [e for e in prof.events()
+              if e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
+    groups = dict.fromkeys([g for g, _ in _KERNEL_GROUPS] + ["other"], 0.0)
+    other: dict[str, float] = {}
+    for e in events:
+        t = e.time_range.elapsed_us() / 1e3  # us -> ms
+        name = next((g for g, pat in _KERNEL_GROUPS
+                     if re.search(pat, e.name, re.I)), "other")
+        groups[name] += t
+        if name == "other":
+            other[e.name] = other.get(e.name, 0.0) + t
+    busy, end = 0.0, float("-inf")
+    for s, f in sorted((e.time_range.start, e.time_range.end)
+                       for e in events):
+        busy += max(0.0, f - max(s, end))
+        end = max(end, f)
+    busy /= 1e3
+    if busy == 0:
+        print(f"profile {label}: device time not measured (the profiler "
+              f"saw no device activity)")
+        return
+    total = sum(groups.values())
+    parts = ", ".join(f"{g} {t:.3f} ms ({t / total:.1%})"
+                      for g, t in groups.items() if t > 0)
+    print(f"profile {label}: wall {wall:.3f} ms, device busy {busy:.3f} ms"
+          f" ({busy / wall:.1%} of wall, idle {1 - busy / wall:.1%}); "
+          f"{parts} [{card}]")
+    top = sorted(other.items(), key=lambda kv: -kv[1])[:6]
+    print(f"profile {label}: largest 'other' kernels: " + "; ".join(
+        f"{n[:60]} {t:.3f} ms" for n, t in top))
 
 
 def profile_serving(torch, eng, prompts, card):
     """Where the device time goes, after the timed run: the same 8 prompts
     again (4 new tokens each) under torch.profiler. Window 1 is the first
     engine step (the batched prefill and one decode step), window 2 the
-    remaining decode steps. Prints device time by kernel group, the largest
-    kernels of the "other" group, and the device's busy share of each
-    window's wall time (the union of the device events' intervals, so
-    nothing is counted twice)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    remaining decode steps."""
     for p in prompts:
         eng.add_request(p, 4)
-    windows = (("prefill+decode step", eng.step),
-               ("decode steps", eng.run))
-    for label, fn in windows:
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-        # device activity only: kernels, copies and sets, not host ops and
-        # not user annotations (those span other device events)
-        events = [e for e in prof.events()
-                  if e.device_type == DeviceType.CUDA
-                  and not getattr(e, "is_user_annotation", False)]
-        groups = dict.fromkeys([g for g, _ in _KERNEL_GROUPS] + ["other"], 0.0)
-        other: dict[str, float] = {}
-        for e in events:
-            t = e.time_range.elapsed_us() / 1e3  # us -> ms
-            name = next((g for g, pat in _KERNEL_GROUPS
-                         if re.search(pat, e.name, re.I)), "other")
-            groups[name] += t
-            if name == "other":
-                other[e.name] = other.get(e.name, 0.0) + t
-        busy, end = 0.0, float("-inf")
-        for s, f in sorted((e.time_range.start, e.time_range.end)
-                           for e in events):
-            busy += max(0.0, f - max(s, end))
-            end = max(end, f)
-        busy /= 1e3
-        if busy == 0:
-            print(f"profile {label}: device time not measured (the profiler "
-                  f"saw no device activity)")
-            continue
-        total = sum(groups.values())
-        parts = ", ".join(f"{g} {t:.3f} ms ({t / total:.1%})"
-                          for g, t in groups.items())
-        print(f"profile {label}: wall {wall:.3f} ms, device busy {busy:.3f} ms"
-              f" ({busy / wall:.1%} of wall, idle {1 - busy / wall:.1%}); "
-              f"{parts} [{card}]")
-        top = sorted(other.items(), key=lambda kv: -kv[1])[:6]
-        print(f"profile {label}: largest 'other' kernels: " + "; ".join(
-            f"{n[:60]} {t:.3f} ms" for n, t in top))
+    profile_window(torch, "prefill+decode step", eng.step, card)
+    profile_window(torch, "decode steps", eng.run, card)
 
 
 def consistency(torch, params, cfg, prompts):
@@ -384,6 +559,122 @@ def consistency(torch, params, cfg, prompts):
             assert int(a.argmax()) == int(b.argmax())
 
 
+def _batch(torch, dev, vocab, b, s, seed):
+    """Tokens from a numpy seed; targets are the tokens rolled by one, with
+    the last position ignored (-100)."""
+    toks = np.random.default_rng(seed).integers(0, vocab, (b, s))
+    tgt = np.roll(toks, -1, axis=-1)
+    tgt[:, -1] = -100
+    return torch.from_numpy(toks).to(dev), torch.from_numpy(tgt).to(dev)
+
+
+def train_consistency(torch, dev, cfg, card):
+    """Full width, 2 layers, b 1, s 256: the same weights through the
+    kernels (bf16, card) and through the plain versions (fp32, CPU); the
+    loss and every parameter's gradient must agree."""
+    from flash_attention_tpu_torch.models import llama
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    params = llama.init_params(cfg2, seed=SEED + 4, device=dev)
+    toks, tgt = _batch(torch, dev, cfg.vocab_size, 1, 256, SEED + 4)
+    torch.set_num_threads(os.cpu_count() or 1)
+    out = []
+    for device, dtype in ((dev, torch.bfloat16), ("cpu", torch.float32)):
+        p = {n: w.detach().to(device, dtype).requires_grad_()
+             for n, w in params.items()}
+        t0 = time.perf_counter()
+        loss = llama.train_loss(p, toks.to(device), tgt.to(device), cfg2)
+        loss.backward()
+        out.append((float(loss.detach()), {n: w.grad for n, w in p.items()},
+                    time.perf_counter() - t0))
+    (l_card, g_card, t_card), (l_cpu, g_cpu, t_cpu) = out
+    rel = {n: float((g_card[n].float().cpu() - g_cpu[n]).norm()
+                    / g_cpu[n].norm()) for n in g_cpu}
+    worst = max(rel, key=rel.get)
+    loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
+    print(f"train consistency (L2, b1 s256, full width): loss card bf16 "
+          f"{l_card:.6f} vs CPU fp32 {l_cpu:.6f} (rel {loss_rel:.3e}); "
+          f"gradient rel L2 per parameter: "
+          + ", ".join(f"{n} {r:.3e}" for n, r in sorted(rel.items()))
+          + f"; worst {worst} (card {t_card:.2f} s, CPU {t_cpu:.2f} s)")
+    assert all(torch.isfinite(g).all() for g in g_card.values())
+    assert loss_rel <= TRAIN_LOSS_REL, loss_rel
+    assert rel[worst] <= TRAIN_GRAD_REL_L2, (worst, rel[worst])
+
+
+def train(torch, params, cfg, card, kernels):
+    """The training path on full-depth Llama-3-8B: train_loss with remat,
+    .backward() and plain SGD on a fixed batch, with exact launch counts
+    per step. The last step runs under the profiler."""
+    import torch.nn.functional as F
+    from flash_attention_tpu_torch.models import llama
+    dev = params["embed"].device
+    toks, tgt = _batch(torch, dev, cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ,
+                       SEED)
+    with torch.no_grad():  # the inference forward's cross-entropy
+        logits, _, _ = llama.prefill(params, toks, cfg, return_kv=False)
+        ref = float(F.cross_entropy(logits.flatten(0, 1), tgt.flatten(),
+                                    ignore_index=-100))
+        del logits
+    for w in params.values():
+        w.requires_grad_(True)
+    L = cfg.n_layers
+    want = {"flash_fwd": 2 * L, "flash_bwd_di": L, "flash_bwd_dq": L,
+            "flash_bwd_dkv": L}
+    totals = dict.fromkeys(want, 0)
+    losses, step_ms = [], []
+
+    def step():
+        loss = llama.train_loss(params, toks, tgt, cfg, remat=True)
+        loss.backward()
+        with torch.no_grad():
+            for w in params.values():
+                w.sub_(w.grad, alpha=LR)
+        losses.append(float(loss.detach()))
+
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(TRAIN_STEPS + 1):
+        for k in kernels:
+            k.launches = 0
+        if i < TRAIN_STEPS:
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        else:
+            profile_window(torch, "training step", step, card)
+        launches = {k.name: k.launches for k in kernels if k.name in want}
+        assert launches == want, (i, launches)
+        for n in want:
+            totals[n] += launches[n]
+        bad = [n for n, w in params.items() if not bool(
+            torch.isfinite(w.grad).all() and w.grad.any())]
+        assert not bad, f"step {i}: gradients non-finite or all zero: {bad}"
+        for w in params.values():
+            w.grad = None
+    peak = torch.cuda.max_memory_allocated()
+    with torch.no_grad():
+        final = float(llama.train_loss(params, toks, tgt, cfg))
+    assert all(np.isfinite(losses)) and np.isfinite(final), losses
+    assert 0.0 < losses[0] < 20.0, losses
+    assert abs(losses[0] - ref) <= TRAIN_FWD_REL * abs(ref), (losses[0], ref)
+    assert final < losses[0], (losses, final)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    steady = float(np.mean(step_ms[1:]))
+    print(f"train Llama-3-8B L{L} b{TRAIN_BATCH} s{TRAIN_SEQ} remat, SGD lr "
+          f"{LR}: losses {[round(x, 6) for x in losses]}, after the last "
+          f"step {final:.6f}; first loss vs inference-forward cross-entropy "
+          f"{ref:.6f} (rel {abs(losses[0] - ref) / abs(ref):.2e})")
+    print(f"train step ms {[round(x, 3) for x in step_ms]} (step 1 "
+          f"included first-use costs); steady {steady:.3f} ms, "
+          f"{tokens / steady * 1e3:.1f} training tokens/s [{card}]")
+    print(f"train peak device memory: {peak / 2**30:.2f} GiB [{card}]")
+    print(f"kernel launches per training step: {want}; on the training "
+          f"path ({TRAIN_STEPS + 1} steps): {totals}")
+    return totals
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -392,14 +683,15 @@ def main() -> int:
         return 2
     from flash_attention_tpu_torch.models import llama
     from flash_attention_tpu_torch.ops import _build
-    from flash_attention_tpu_torch.ops import flash_fwd, kv_update
+    from flash_attention_tpu_torch.ops import flash_bwd, flash_fwd, kv_update
     from flash_attention_tpu_torch.ops import paged_attention
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     card = _card_line()
     print(f"card: {card}")
-    kernels = [flash_fwd.KERNEL, kv_update.KERNEL, paged_attention.KERNEL]
+    kernels = [flash_fwd.KERNEL, kv_update.KERNEL, paged_attention.KERNEL,
+               *flash_bwd.KERNELS]
 
     # 1. build every kernel from source, with the ptxas summary
     t0 = time.perf_counter()
@@ -420,11 +712,13 @@ def main() -> int:
     print(f"prompt lengths {[len(p) for p in prompts]} -> prefill bucket "
           f"{bucket}, batch {MAX_BATCH}")
 
-    # 2. each kernel against its plain version at the path's shapes
+    # 2. each kernel against its plain version at its path's shapes
     with torch.inference_mode():
         entries = [check_flash(torch, dev, bucket, cfg, card),
                    check_kv_write(torch, dev, cfg, card),
                    check_paged(torch, dev, cfg, card)]
+    torch.cuda.empty_cache()
+    entries += check_bwd(torch, dev, cfg, card)
     torch.cuda.empty_cache()
 
     # 3. the serving path on full-width, full-depth Llama-3-8B
@@ -438,8 +732,20 @@ def main() -> int:
     # 4. prefill (flash) against paged decode (kv write + paged attention)
     consistency(torch, params, cfg, prompts)
 
-    for e, k in zip(entries, kernels):
-        e["launches"] = launches[k.name]
+    # 5. training: 2-layer card-vs-CPU gradients, then the full-depth path
+    train_consistency(torch, dev, cfg, card)
+    torch.cuda.empty_cache()
+    trained = train(torch, params, cfg, card, kernels)
+
+    by_name = {e["name"]: e for e in entries}
+    by_name["kv_write"]["launches"] = launches["kv_update"]
+    by_name["paged_attention"]["launches"] = launches["paged_attention"]
+    by_name["flash_fwd"]["launches"] = (launches["flash_fwd"]
+                                        + trained["flash_fwd"])
+    by_name["flash_fwd"]["launches_by_path"] = {
+        "serve": launches["flash_fwd"], "train": trained["flash_fwd"]}
+    for name in ("flash_bwd_di", "flash_bwd_dq", "flash_bwd_dkv"):
+        by_name[name]["launches"] = trained[name]
     print(card)  # name and power limit, as nvidia-smi gives them
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

@@ -1,15 +1,17 @@
 """PyTorch port of flash_attention_tpu for NVIDIA Hopper (H100).
 
-The serving path, forward only: dense flash attention for prefill, the
-in-place paged KV write and paged attention for decode, each a hand-written
-CUDA kernel on the card and a plain PyTorch version on the CPU, under the
-Llama model and the continuous-batching engine. Imports no JAX.
+The serving path (dense flash attention for prefill, the in-place paged KV
+write and paged attention for decode) and the training path (the
+differentiable ``flash_attention`` with its three backward kernels, under
+``models.llama.train_loss``). Each kernel is hand-written CUDA on the card
+and a plain PyTorch version on the CPU, under the Llama model and the
+continuous-batching engine. Imports no JAX.
 """
 
-from flash_attention_tpu_torch.ops.attention import flash_attention, fwd
+from flash_attention_tpu_torch.ops.attention import bwd, flash_attention, fwd
 from flash_attention_tpu_torch.ops.kv_update import write_token_kv
 from flash_attention_tpu_torch.ops.paged_attention import paged_attention
 from flash_attention_tpu_torch.serving.engine import Engine
 
-__all__ = ["Engine", "flash_attention", "fwd", "paged_attention",
+__all__ = ["Engine", "bwd", "flash_attention", "fwd", "paged_attention",
            "write_token_kv"]

@@ -29,53 +29,16 @@
 // rows here: causal masking keeps them from influencing earlier rows, and no
 // key-length mask beyond sk is applied.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
-#include <math_constants.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
+
+using fat::Mma;
 
 constexpr int BLOCK_M = 64;  // query rows per CTA
 constexpr int BLOCK_N = 64;  // kv rows per tile
 constexpr int NWARPS = 4;
 constexpr int NTHREADS = NWARPS * 32;
-
-template <typename T>
-struct Mma;
-
-template <>
-struct Mma<__nv_bfloat16> {
-  static __device__ __forceinline__ void run(float (&c)[4], const uint32_t (&a)[4],
-                                             uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-  }
-};
-
-template <>
-struct Mma<__half> {
-  static __device__ __forceinline__ void run(float (&c)[4], const uint32_t (&a)[4],
-                                             uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-    __half2 v = __floats2half2_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-  }
-};
 
 template <typename T, int D>
 __global__ void __launch_bounds__(NTHREADS)
@@ -90,7 +53,6 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   constexpr int DTILES = D / 8;        // n-tiles of O
   constexpr int NTILES = BLOCK_N / 8;  // n-tiles of S
   constexpr int STRIDE = D + 8;        // padded smem row (elements)
-  constexpr int CHUNKS = D / 8;        // 16-byte chunks per row
 
   __shared__ __align__(16) T k_s[BLOCK_N * STRIDE];
   __shared__ __align__(16) T v_s[BLOCK_N * STRIDE];
@@ -116,15 +78,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // Q as A fragments, zero past sq
   uint32_t qf[KSTEPS][4];
 #pragma unroll
-  for (int kk = 0; kk < KSTEPS; ++kk) {
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int row = rows[r & 1];
-      const int col = kk * 16 + t * 2 + (r >> 1) * 8;
-      qf[kk][r] = row < sq
-          ? *reinterpret_cast<const uint32_t*>(qb + row * q_ss + col) : 0u;
-    }
-  }
+  for (int kk = 0; kk < KSTEPS; ++kk)
+    fat::load_a(qf[kk], qb + m0 * q_ss, q_ss, g, t, kk * 16, rows[0] < sq,
+                rows[1] < sq);
 
   float acc[DTILES][4];
 #pragma unroll
@@ -141,22 +97,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     n_end = min(sk, last_row + off + 1);
   }
   const int n_tiles = n_end > 0 ? (n_end + BLOCK_N - 1) / BLOCK_N : 0;
-  const uint16_t* v16 = reinterpret_cast<const uint16_t*>(v_s);
 
   for (int nt = 0; nt < n_tiles; ++nt) {
     const int n0 = nt * BLOCK_N;
     __syncthreads();  // every warp is done with the previous tile
-    for (int i = tid; i < BLOCK_N * CHUNKS; i += NTHREADS) {
-      const int r = i / CHUNKS;
-      const int c = (i % CHUNKS) * 8;
-      uint4 kx = make_uint4(0, 0, 0, 0), vx = make_uint4(0, 0, 0, 0);
-      if (n0 + r < sk) {
-        kx = *reinterpret_cast<const uint4*>(kb + (n0 + r) * k_ss + c);
-        vx = *reinterpret_cast<const uint4*>(vb + (n0 + r) * v_ss + c);
-      }
-      *reinterpret_cast<uint4*>(k_s + r * STRIDE + c) = kx;
-      *reinterpret_cast<uint4*>(v_s + r * STRIDE + c) = vx;
-    }
+    fat::load_tile<T, BLOCK_N, D, NTHREADS>(k_s, kb, k_ss, n0, sk, tid);
+    fat::load_tile<T, BLOCK_N, D, NTHREADS>(v_s, vb, v_ss, n0, sk, tid);
     __syncthreads();
 
     // S = Q K^T for this warp's 16 rows
@@ -167,9 +113,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int e = 0; e < 4; ++e) s[nn][e] = 0.f;
 #pragma unroll
       for (int kk = 0; kk < KSTEPS; ++kk) {
-        const T* kr = k_s + (nn * 8 + g) * STRIDE + kk * 16 + t * 2;
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(kr);
-        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(kr + 8);
+        uint32_t b0, b1;
+        fat::load_b_rows(b0, b1, k_s + nn * 8 * STRIDE, STRIDE, g, t, kk * 16);
         Mma<T>::run(s[nn], qf[kk], b0, b1);
       }
     }
@@ -225,17 +170,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     // O += P V: two S n-tiles form one A fragment (the C and A layouts agree)
 #pragma unroll
     for (int kk = 0; kk < BLOCK_N / 16; ++kk) {
-      const uint32_t pa[4] = {
-          Mma<T>::pack(s[2 * kk][0], s[2 * kk][1]),
-          Mma<T>::pack(s[2 * kk][2], s[2 * kk][3]),
-          Mma<T>::pack(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-          Mma<T>::pack(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+      uint32_t pa[4];
+      fat::pack_a<T>(pa, s[2 * kk], s[2 * kk + 1]);
 #pragma unroll
       for (int dt = 0; dt < DTILES; ++dt) {
-        const uint16_t* vr = v16 + (kk * 16 + t * 2) * STRIDE + dt * 8 + g;
-        const uint32_t b0 = uint32_t(vr[0]) | (uint32_t(vr[STRIDE]) << 16);
-        const uint32_t b1 =
-            uint32_t(vr[8 * STRIDE]) | (uint32_t(vr[9 * STRIDE]) << 16);
+        uint32_t b0, b1;
+        fat::load_b_cols(b0, b1, v_s + kk * 16 * STRIDE + dt * 8, STRIDE, g, t);
         Mma<T>::run(acc[dt], pa, b0, b1);
       }
     }
@@ -300,10 +240,6 @@ int fat_flash_fwd(const void* q, const void* k, const void* v, void* o,
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
-}
-
-const char* fat_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
 }  // extern "C"

@@ -1,11 +1,16 @@
 """Llama-family transformer on the port's kernels.
 
 The PyTorch counterpart of ``flash_attention_tpu/models/llama.py`` for the
-serving path: RMSNorm + RoPE (with the Llama-3.1 frequency remap) + GQA
-attention + SwiGLU, optional QKV biases (Qwen-2).
+serving and training paths: RMSNorm + RoPE (with the Llama-3.1 frequency
+remap) + GQA attention + SwiGLU, optional QKV biases (Qwen-2).
 
-* ``prefill`` runs the dense flash-attention forward (``ops.attention``) and
-  returns logits plus every layer's K/V for the cache.
+* ``prefill`` runs the dense flash attention (``ops.attention``) and returns
+  logits plus every layer's K/V for the cache; with ``return_kv=False`` and
+  ``remat=True`` it is the training forward, each layer under
+  ``torch.utils.checkpoint`` (the counterpart of ``jax.checkpoint`` around
+  the layer-scan body).
+* ``train_loss`` is the mean next-token cross-entropy over that forward;
+  ``.backward()`` reaches the flash-attention backward kernels.
 * ``decode_step`` writes each layer's new K/V into the layer-stacked paged
   cache in place (``ops.kv_update``) and attends with ``ops.paged_attention``.
 
@@ -26,6 +31,8 @@ import dataclasses
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from flash_attention_tpu_torch.ops.attention import flash_attention
 from flash_attention_tpu_torch.ops.kv_update import write_token_kv
@@ -265,43 +272,67 @@ def _rope(x, positions, theta, scaling=None):
                      dim=-1).to(x.dtype)
 
 
-def _proj(h, params, name, i):
-    out = _mm(h, params[name][i])
+def _layer_weights(params) -> list[dict]:
+    """Per-layer views of the stacked (L, ...) weights, one dict per layer.
+
+    One ``unbind`` per weight, so the backward stacks each weight's L
+    gradients once; indexing ``params[name][i]`` inside the layer loop would
+    make every layer's backward allocate and add a zero-filled gradient of
+    the whole stack."""
+    per = {n: params[n].unbind(0) for n in _LAYER_NAMES + _BIAS_NAMES
+           if n in params}
+    n_layers = params["wq"].shape[0]
+    return [{n: w[i] for n, w in per.items()} for i in range(n_layers)]
+
+
+def _proj(h, w, name):
+    out = _mm(h, w[name])
     bias = "b" + name[1]  # wq -> bq
-    return out + params[bias][i] if bias in params else out
+    return out + w[bias] if bias in w else out
 
 
-def _ffn(h, params, i):
-    gate = torch.nn.functional.silu(_mm(h, params["w_gate"][i]).float())
-    return _mm(gate.to(h.dtype) * _mm(h, params["w_up"][i]),
-               params["w_down"][i])
+def _ffn(h, w):
+    gate = F.silu(_mm(h, w["w_gate"]).float())
+    return _mm(gate.to(h.dtype) * _mm(h, w["w_up"]), w["w_down"])
 
 
-def _dense_layer(x, params, i, cfg: LlamaConfig, positions):
-    """One transformer layer on a dense (b, s, D) activation. Returns
-    (x, (k, v)) with k/v (b, s, hk, hd) after RoPE."""
+def _dense_layer(x, w, cfg: LlamaConfig, positions):
+    """One transformer layer (weights ``w``, one dict of ``_layer_weights``)
+    on a dense (b, s, D) activation. Returns (x, (k, v)) with k/v
+    (b, s, hk, hd) after RoPE."""
     b, s = x.shape[:2]
-    h = _rmsnorm(x, params["norm_attn"][i], cfg.norm_eps)
-    q = _proj(h, params, "wq", i).view(b, s, cfg.n_heads, cfg.head_dim)
-    k = _proj(h, params, "wk", i).view(b, s, cfg.n_kv_heads, cfg.head_dim)
-    v = _proj(h, params, "wv", i).view(b, s, cfg.n_kv_heads, cfg.head_dim)
+    h = _rmsnorm(x, w["norm_attn"], cfg.norm_eps)
+    q = _proj(h, w, "wq").view(b, s, cfg.n_heads, cfg.head_dim)
+    k = _proj(h, w, "wk").view(b, s, cfg.n_kv_heads, cfg.head_dim)
+    v = _proj(h, w, "wv").view(b, s, cfg.n_kv_heads, cfg.head_dim)
     q = _rope(q, positions, cfg.rope_theta, cfg.rope_scaling)
     k = _rope(k, positions, cfg.rope_theta, cfg.rope_scaling)
     o = flash_attention(q, k, v, causal=True, sm_scale=cfg.sm_scale)
-    x = x + _mm(o.reshape(b, s, -1), params["wo"][i])
-    h = _rmsnorm(x, params["norm_mlp"][i], cfg.norm_eps)
-    return x + _ffn(h, params, i), (k, v)
+    x = x + _mm(o.reshape(b, s, -1), w["wo"])
+    h = _rmsnorm(x, w["norm_mlp"], cfg.norm_eps)
+    return x + _ffn(h, w), (k, v)
+
+
+def _layer_out(x, w, cfg: LlamaConfig, positions):
+    return _dense_layer(x, w, cfg, positions)[0]
 
 
 def prefill(params, tokens, cfg: LlamaConfig, *, tp_axis=None,
-            return_kv: bool = True, logit_rows=None):
+            return_kv: bool = True, remat: bool = False, logit_rows=None):
     """Full-prompt forward. tokens: (b, s) int.
 
     Returns (logits (b, s, vocab) fp32, k_cache (L, b, s, hk, hd), v_cache).
     With ``logit_rows`` ((b,) int) the lm_head runs only at each row's given
     position and logits come back (b, vocab): the full fp32 logits are the
     largest array a serving prefill would touch, and the engine reads one
-    row per sequence."""
+    row per sequence.
+
+    ``return_kv=False`` is the training forward: no cache is returned, and
+    with ``remat`` each layer runs under ``torch.utils.checkpoint``, so the
+    backward keeps only each layer's input and recomputes the rest (the
+    flash-attention forward included) layer by layer: activation memory
+    O(1) in depth for one extra forward of work. As in the JAX package,
+    ``remat`` applies only without the cache."""
     check_supported(cfg, params, tp_axis)
     b, s = tokens.shape
     x = params["embed"][tokens]
@@ -311,14 +342,40 @@ def prefill(params, tokens, cfg: LlamaConfig, *, tp_axis=None,
         ks = torch.empty((cfg.n_layers, b, s, cfg.n_kv_heads, cfg.head_dim),
                          dtype=x.dtype, device=x.device)
         vs = torch.empty_like(ks)
-    for i in range(cfg.n_layers):
-        x, (k, v) = _dense_layer(x, params, i, cfg, positions)
+    remat = remat and not return_kv and torch.is_grad_enabled()
+    for i, w in enumerate(_layer_weights(params)):
+        if remat:
+            x = checkpoint(_layer_out, x, w, cfg, positions,
+                           use_reentrant=False, preserve_rng_state=False)
+            continue
+        x, (k, v) = _dense_layer(x, w, cfg, positions)
         if return_kv:
             ks[i], vs[i] = k, v
     if logit_rows is not None:
         x = x[torch.arange(b, device=x.device), logit_rows.long()]
     x = _rmsnorm(x, params["norm_out"], cfg.norm_eps)
     return _mm(x, params["lm_head"]).float(), ks, vs
+
+
+def train_loss(params, tokens, targets, cfg: LlamaConfig, *,
+               remat: bool = True, tp_axis=None, lora_ids=None):
+    """Mean next-token cross-entropy, the training entry point.
+
+    ``targets`` (b, s) int; every target < 0 is ignored (the JAX package's
+    rule, so -100 and any other negative marker). Differentiable end to end
+    through the flash-attention backward; ``remat`` (the default)
+    recomputes each layer in the backward (see :func:`prefill`). Call
+    ``.backward()`` on the result, or ``torch.autograd.grad``."""
+    if lora_ids is not None:
+        raise NotImplementedError("LoRA adapters are outside this slice of "
+                                  "the PyTorch port")
+    logits, _, _ = prefill(params, tokens, cfg, tp_axis=tp_axis,
+                           return_kv=False, remat=remat)
+    valid = targets >= 0
+    nll = F.cross_entropy(logits.flatten(0, 1),
+                          torch.where(valid, targets, 0).flatten().long(),
+                          reduction="none").view(valid.shape)
+    return (nll * valid).sum() / valid.sum().clamp(min=1)
 
 
 def decode_step(params, k_pages, v_pages, k_scales, v_scales, tokens, lengths,
@@ -342,11 +399,11 @@ def decode_step(params, k_pages, v_pages, k_scales, v_scales, tokens, lengths,
     x = params["embed"][tokens]
     pos = (lengths - 1).long()[:, None]
     H, HK, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    for i in range(cfg.n_layers):
-        h = _rmsnorm(x, params["norm_attn"][i], cfg.norm_eps)
-        q = _proj(h, params, "wq", i).view(b, 1, H, hd)
-        k = _proj(h, params, "wk", i).view(b, 1, HK, hd)
-        v = _proj(h, params, "wv", i).view(b, HK, hd)
+    for i, w in enumerate(_layer_weights(params)):
+        h = _rmsnorm(x, w["norm_attn"], cfg.norm_eps)
+        q = _proj(h, w, "wq").view(b, 1, H, hd)
+        k = _proj(h, w, "wk").view(b, 1, HK, hd)
+        v = _proj(h, w, "wv").view(b, HK, hd)
         q = _rope(q, pos, cfg.rope_theta, cfg.rope_scaling)[:, 0]
         k = _rope(k, pos, cfg.rope_theta, cfg.rope_scaling)[:, 0]
         write_token_kv(k_pages, v_pages, None, None,
@@ -355,9 +412,9 @@ def decode_step(params, k_pages, v_pages, k_scales, v_scales, tokens, lengths,
                        write_page, write_off, layer=i)
         o = paged_attention(q.contiguous(), k_pages, v_pages, lengths,
                             page_tables, sm_scale=cfg.sm_scale, layer=i)
-        x = x + _mm(o.reshape(b, -1), params["wo"][i])
-        h = _rmsnorm(x, params["norm_mlp"][i], cfg.norm_eps)
-        x = x + _ffn(h, params, i)
+        x = x + _mm(o.reshape(b, -1), w["wo"])
+        h = _rmsnorm(x, w["norm_mlp"], cfg.norm_eps)
+        x = x + _ffn(h, w)
     x = _rmsnorm(x, params["norm_out"], cfg.norm_eps)
     logits = _mm(x, params["lm_head"]).float()
     return logits, k_pages, v_pages, k_scales, v_scales

@@ -5,8 +5,8 @@ Each ``.cu`` file under ``flash_attention_tpu_torch/csrc/`` is compiled by
 and loaded with ``ctypes``. No PyTorch header is included, so a build takes
 seconds rather than the minutes a ``torch.utils.cpp_extension`` build costs.
 Libraries land in ``build/torch_port/`` (ignored by git), named by a hash of
-the source and flags, so an edited source is rebuilt and an unchanged one is
-loaded as it is. Every C entry point returns ``cudaGetLastError()`` after its
+the source, the shared headers and the flags, so an edited source or header
+is rebuilt and an unchanged one is loaded as it is. Every C entry point returns ``cudaGetLastError()`` after its
 launch; :meth:`Kernel.check` turns a non-zero code into an exception.
 """
 
@@ -50,7 +50,11 @@ class Kernel:
         self._lib = None
 
     def lib_path(self) -> pathlib.Path:
+        # every header under csrc/ too: an edited shared header must not
+        # load a library built from the old one
         h = hashlib.sha1(self.source.read_bytes())
+        for header in sorted(CSRC.glob("*.cuh")):
+            h.update(header.read_bytes())
         h.update(" ".join(NVCC_FLAGS).encode())
         return BUILD_DIR / f"{self.name}-{h.hexdigest()[:12]}.so"
 

@@ -1,0 +1,248 @@
+"""Flash-attention backward: three CUDA kernels, their wrappers and their
+plain PyTorch versions.
+
+The counterpart of the JAX package's ``ops/flash_bwd.py``, in three steps:
+
+1. ``flash_bwd_di`` (``csrc/flash_bwd_di.cu``, replaces ``_di_kernel``):
+   D = rowsum(dO * O), taken as the diagonal of dO O^T with the same mma
+   fragments and order as dP, so dP - D cancels exactly.
+2. ``flash_bwd_dq`` (``csrc/flash_bwd_dq.cu``, replaces ``_dq_kernel``):
+   dQ = scale * (P * (dP - D)) K with P and dP recomputed.
+3. ``flash_bwd_dkv`` (``csrc/flash_bwd_dkv.cu``, replaces ``_dkv_kernel``):
+   dV = sum_g P^T dO and dK = scale * sum_g dS^T Q, the GQA group summed in
+   the kernel (no atomics).
+
+Layouts are the port's unpadded ones: q, o, do (b, sq, h, d); k, v
+(b, sk, hk, d); lse and D (b, h, sq) fp32. The kernels read their inputs
+through strides (the head dim contiguous, the other strides multiples of 8)
+and write contiguous outputs in the input dtype. Each wrapper launches its
+kernel for CUDA tensors only; the plain versions beside them (``*_reference``)
+run on any device, cover the sliding window and softcap the kernels do not
+take, and are what ``ops.attention.bwd`` runs for CPU tensors.
+
+The plain versions compute in float64 and keep their own D in float64. Where
+a row attends to one key, dP - D is exactly 0 in the kernels (D is summed as
+dP is); an fp32 plain version would leave about 1e-7 there instead, which is
+above the fp16 gates' resolution on such rows. In float64 the residue is far
+below any output dtype's.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from flash_attention_tpu_torch.ops import _build
+from flash_attention_tpu_torch.ops.flash_fwd import HEAD_DIMS, _check
+from flash_attention_tpu_torch.ops.reference import _build_mask
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+DI_KERNEL = _build.Kernel("flash_bwd_di", "flash_bwd_di.cu", {
+    "fat_flash_bwd_di": [_P, _P, _P, _I, _I, _I, _I, _P, _I, _P],
+})
+DQ_KERNEL = _build.Kernel("flash_bwd_dq", "flash_bwd_dq.cu", {
+    "fat_flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                         _P, _F, _I, _I, _P],
+})
+DKV_KERNEL = _build.Kernel("flash_bwd_dkv", "flash_bwd_dkv.cu", {
+    "fat_flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                          _I, _P, _F, _I, _I, _P],
+})
+KERNELS = (DI_KERNEL, DQ_KERNEL, DKV_KERNEL)
+PARTS = ("di", "dq", "all")
+
+
+def _strides(*xs):
+    st = [s for x in xs for s in x.stride()[:3]]
+    return ctypes.cast((ctypes.c_longlong * len(st))(*st), ctypes.c_void_p)
+
+
+def _stream(x):
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _check_inputs(q, k, v, do, lse, di):
+    for x, name in ((q, "q"), (k, "k"), (v, "v"), (do, "do")):
+        _check(x, name)
+    b, sq, h, d = q.shape
+    if any(x.dtype != q.dtype for x in (k, v, do)):
+        raise ValueError("q, k, v and do must share one dtype")
+    if v.shape != k.shape or k.shape[0] != b or k.shape[3] != d \
+            or do.shape != q.shape:
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}, do "
+                         f"{tuple(do.shape)}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head_dim {d} not supported by the kernel "
+                         f"(supported: {HEAD_DIMS})")
+    if h % k.shape[2]:
+        raise ValueError(f"num_heads {h} must be divisible by num_heads_k "
+                         f"{k.shape[2]}")
+    for x, name in ((lse, "lse"), (di, "di")):
+        if x.dtype != torch.float32 or tuple(x.shape) != (b, h, sq) \
+                or not x.is_contiguous() or x.device != q.device:
+            raise ValueError(f"{name} must be a contiguous fp32 (b, h, sq) "
+                             f"tensor on q's device")
+
+
+def flash_bwd_di(o, do):
+    """Launch the D kernel: D = rowsum(dO * O), (b, h, sq) fp32."""
+    for x, name in ((o, "o"), (do, "do")):
+        _check(x, name)
+    if do.shape != o.shape or do.dtype != o.dtype:
+        raise ValueError("o and do must share one shape and dtype")
+    b, sq, h, d = o.shape
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head_dim {d} not supported by the kernel "
+                         f"(supported: {HEAD_DIMS})")
+    di = torch.empty((b, h, sq), dtype=torch.float32, device=o.device)
+    if di.numel() == 0:
+        return di
+    lib = DI_KERNEL.lib()
+    rc = lib.fat_flash_bwd_di(o.data_ptr(), do.data_ptr(), di.data_ptr(), b,
+                              sq, h, d, _strides(o, do),
+                              int(o.dtype == torch.float16), _stream(o))
+    DI_KERNEL.launches += 1
+    DI_KERNEL.check(rc)
+    return di
+
+
+def flash_bwd_dq(q, k, v, do, lse, di, *, causal: bool, sm_scale: float):
+    """Launch the dQ kernel. Returns dq (b, sq, h, d) in q's dtype."""
+    _check_inputs(q, k, v, do, lse, di)
+    b, sq, h, d = q.shape
+    sk, hk = k.shape[1], k.shape[2]
+    dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    if dq.numel() == 0:
+        return dq
+    lib = DQ_KERNEL.lib()
+    rc = lib.fat_flash_bwd_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), di.data_ptr(), dq.data_ptr(), b, sq, sk, h, hk, d,
+        _strides(q, k, v, do), sm_scale, int(causal),
+        int(q.dtype == torch.float16), _stream(q))
+    DQ_KERNEL.launches += 1
+    DQ_KERNEL.check(rc)
+    return dq
+
+
+def flash_bwd_dkv(q, k, v, do, lse, di, *, causal: bool, sm_scale: float):
+    """Launch the dK/dV kernel. Returns (dk, dv), each (b, sk, hk, d) in the
+    input dtype, summed over each kv head's GQA group."""
+    _check_inputs(q, k, v, do, lse, di)
+    b, sq, h, d = q.shape
+    sk, hk = k.shape[1], k.shape[2]
+    dk = torch.empty((b, sk, hk, d), dtype=k.dtype, device=k.device)
+    dv = torch.empty_like(dk)
+    if dk.numel() == 0:
+        return dk, dv
+    lib = DKV_KERNEL.lib()
+    rc = lib.fat_flash_bwd_dkv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), di.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, sq,
+        sk, h, hk, d, _strides(q, k, v, do), sm_scale, int(causal),
+        int(q.dtype == torch.float16), _stream(q))
+    DKV_KERNEL.launches += 1
+    DKV_KERNEL.check(rc)
+    return dk, dv
+
+
+def flash_bwd(q, k, v, o, lse, do, *, causal: bool, sm_scale: float,
+              parts: str = "all"):
+    """The CUDA backward: D, then dQ, then dK/dV. Returns (dq, dk, dv);
+    ``parts="di"`` stops after D and returns it, ``parts="dq"`` stops after
+    dQ and returns dq."""
+    if parts not in PARTS:
+        raise ValueError(f"parts must be one of {PARTS}, got {parts!r}")
+    di = flash_bwd_di(o, do)
+    if parts == "di":
+        return di
+    lse = lse.float().contiguous()
+    dq = flash_bwd_dq(q, k, v, do, lse, di, causal=causal, sm_scale=sm_scale)
+    if parts == "dq":
+        return dq
+    dk, dv = flash_bwd_dkv(q, k, v, do, lse, di, causal=causal,
+                           sm_scale=sm_scale)
+    return dq, dk, dv
+
+
+# ---------------------------------------------------------------------------
+# Plain versions: the same functions in fp32 PyTorch, on any device.
+# ---------------------------------------------------------------------------
+
+
+def di_reference(o, do):
+    """D = rowsum(dO * O), (b, h, sq) in float64."""
+    return (o.double() * do.double()).sum(-1).transpose(1, 2).contiguous()
+
+
+def _probs_and_dscores(q, k, v, do, lse, di, causal, sm_scale, window,
+                       softcap):
+    """P and dS, (b, h, sq, sk) float64, with the GQA heads expanded.
+
+    P = exp(S - LSE) is 0 on masked entries (so rows with no live key give
+    0 whatever their LSE); dS = P * (dP - D), times the softcap's
+    1 - tanh^2 chain-rule factor when softcap is on."""
+    group = q.shape[2] // k.shape[2]
+    qf = q.double().transpose(1, 2)                                  # b h q d
+    kf = k.double().repeat_interleave(group, dim=2).transpose(1, 2)  # b h k d
+    vf = v.double().repeat_interleave(group, dim=2).transpose(1, 2)
+    dof = do.double().transpose(1, 2)
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * sm_scale
+    t = None
+    if softcap is not None:
+        t = torch.tanh(s / softcap)
+        s = softcap * t
+    p = torch.exp(s - lse.double()[..., None])
+    mask = _build_mask(q.shape[1], k.shape[1], causal, window,
+                       device=q.device)
+    if mask is not None:
+        p = p.masked_fill(~mask, 0.0)
+    ds = p * (torch.matmul(dof, vf.transpose(-1, -2)) - di.double()[..., None])
+    if softcap is not None:
+        ds = ds * (1.0 - t * t)
+    return p, ds, qf, kf, dof
+
+
+def dq_reference(q, k, v, do, lse, di, *, causal: bool, sm_scale: float,
+                 window=None, softcap: float | None = None):
+    """dQ = scale * dS K, (b, sq, h, d) in q's dtype."""
+    _, ds, _, kf, _ = _probs_and_dscores(q, k, v, do, lse, di, causal,
+                                         sm_scale, window, softcap)
+    return (torch.matmul(ds, kf) * sm_scale).transpose(1, 2).to(q.dtype)
+
+
+def dkv_reference(q, k, v, do, lse, di, *, causal: bool, sm_scale: float,
+                  window=None, softcap: float | None = None):
+    """dK = scale * sum_g dS^T Q and dV = sum_g P^T dO, (b, sk, hk, d)."""
+    b, sk, hk, d = k.shape
+    p, ds, qf, _, dof = _probs_and_dscores(q, k, v, do, lse, di, causal,
+                                           sm_scale, window, softcap)
+
+    def group_sum(x):  # (b, h, sk, d) -> (b, sk, hk, d)
+        return x.view(b, hk, -1, sk, d).sum(2).transpose(1, 2)
+
+    dk = group_sum(torch.matmul(ds.transpose(-1, -2), qf)) * sm_scale
+    dv = group_sum(torch.matmul(p.transpose(-1, -2), dof))
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_bwd_reference(q, k, v, o, lse, do, *, causal: bool,
+                        sm_scale: float, window=None,
+                        softcap: float | None = None, parts: str = "all"):
+    """The plain backward, step for step as :func:`flash_bwd`."""
+    if parts not in PARTS:
+        raise ValueError(f"parts must be one of {PARTS}, got {parts!r}")
+    di = di_reference(o, do)
+    if parts == "di":
+        return di.float()
+    kw = dict(causal=causal, sm_scale=sm_scale, window=window,
+              softcap=softcap)
+    dq = dq_reference(q, k, v, do, lse, di, **kw)
+    if parts == "dq":
+        return dq
+    return (dq, *dkv_reference(q, k, v, do, lse, di, **kw))

@@ -1,4 +1,4 @@
-"""Plain PyTorch attention: the fp32 oracle, forward only.
+"""Plain PyTorch attention: the fp32 oracle and its autograd backward.
 
 The same semantics as the JAX package's ``ops/reference.py``:
 
@@ -12,7 +12,8 @@ The same semantics as the JAX package's ``ops/reference.py``:
 
 All math runs in float32 whatever the input dtype; O is cast back. This is
 the plain version behind ``ops.attention.fwd`` on the CPU, and what the CUDA
-kernel is held against on the card.
+kernel is held against on the card. ``reference_attention_bwd`` is autograd
+through it: the oracle gradients the backward is held against.
 """
 
 from __future__ import annotations
@@ -68,3 +69,16 @@ def reference_attention(q, k, v, causal: bool = False,
     lse = torch.where(alive, m + torch.log(denom),
                       torch.full_like(m, empty_lse))[..., 0]
     return o.transpose(1, 2).to(q.dtype), lse
+
+
+def reference_attention_bwd(q, k, v, do, causal: bool = False,
+                            sm_scale: float | None = None, window=None,
+                            softcap: float | None = None):
+    """Oracle gradients (dq, dk, dv), fp32, by autograd through the fp32
+    ``reference_attention`` (causal, window and softcap included)."""
+    qf, kf, vf = (x.detach().float().requires_grad_() for x in (q, k, v))
+    with torch.enable_grad():
+        o, _ = reference_attention(qf, kf, vf, causal=causal,
+                                   sm_scale=sm_scale, window=window,
+                                   softcap=softcap)
+        return torch.autograd.grad(o, (qf, kf, vf), do.float())

@@ -21,12 +21,14 @@ from flash_attention_tpu.ops.reference import reference_attention as jax_ref
 from flash_attention_tpu.utils.metrics import assert_metrics
 from flash_attention_tpu_torch import flash_attention, fwd
 from flash_attention_tpu_torch.ops import flash_fwd as fwd_mod
-from flash_attention_tpu_torch.ops.reference import reference_attention
+from flash_attention_tpu_torch.ops.reference import (
+    reference_attention, reference_attention_bwd)
 
 torch.set_num_threads(2)
 
 FWD_TOLS = {"atol": 5e-3, "mean_atol": 2e-4, "mean_rtol": 1e-2}
 LSE_TOLS = {"atol": 1e-2, "mean_atol": 1e-3, "mean_rtol": 1e-2}
+BWD_TOLS = FWD_TOLS
 
 
 def _qkv(seed, b, sq, sk, h, hk, d):
@@ -91,12 +93,21 @@ def test_sm_scale_and_gqa_check():
 
 
 def test_flash_attention_forward_only():
+    """Without autograd ``flash_attention`` is ``fwd``; with it, gradients
+    reach q, k and v (the port's autograd oracle, backward gates of
+    tests/test_flash_bwd.py:19) and LSE carries none."""
     q, k, v = map(torch.from_numpy, _qkv(5, 1, 16, 16, 2, 2, 64))
     o, lse = flash_attention(q, k, v, causal=True, return_lse=True)
     o_ref, lse_ref = reference_attention(q, k, v, causal=True)
     assert torch.equal(o, o_ref) and torch.equal(lse, lse_ref)
-    with pytest.raises(NotImplementedError):
-        flash_attention(q.requires_grad_(), k, v)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    o, lse = flash_attention(*leaves, causal=True, return_lse=True)
+    assert o.requires_grad and not lse.requires_grad
+    do = torch.from_numpy(_qkv(6, 1, 16, 16, 2, 2, 64)[0])
+    o.backward(do)
+    want = reference_attention_bwd(q, k, v, do, causal=True)
+    for x, ref in zip(leaves, want):
+        assert_metrics("grad", x.grad.numpy(), ref.numpy(), BWD_TOLS)
 
 
 def test_kernel_wrapper_never_falls_back():

@@ -9,10 +9,10 @@ import numpy as np
 import pytest
 import torch
 
-from flash_attention_tpu_torch import (Engine, fwd, paged_attention,
+from flash_attention_tpu_torch import (Engine, bwd, fwd, paged_attention,
                                        write_token_kv)
 from flash_attention_tpu_torch.models import llama
-from flash_attention_tpu_torch.ops import flash_fwd, kv_update
+from flash_attention_tpu_torch.ops import flash_bwd, flash_fwd, kv_update
 from flash_attention_tpu_torch.ops import paged_attention as pa_mod
 
 torch.set_num_threads(2)
@@ -45,12 +45,14 @@ def test_sources_found():
 
 
 def test_cpu_calls_launch_no_kernel():
-    kernels = (flash_fwd.KERNEL, kv_update.KERNEL, pa_mod.KERNEL)
+    kernels = (flash_fwd.KERNEL, kv_update.KERNEL, pa_mod.KERNEL,
+               *flash_bwd.KERNELS)
     for k in kernels:
         k.launches = 0
     rng = np.random.default_rng(0)
     q = torch.from_numpy(rng.standard_normal((1, 8, 2, 64), dtype=np.float32))
-    fwd(q, q, q, True)
+    o, lse = fwd(q, q, q, True)
+    bwd(q, q, q, o, lse, q, True)
     kp = torch.zeros((2, 1, 4, 16, 64))
     lens = torch.tensor([3], dtype=torch.int32)
     write_token_kv(kp, kp.clone(), None, None, q[:, 0, :1], q[:, 0, :1], None,
@@ -66,4 +68,10 @@ def test_cpu_calls_launch_no_kernel():
     req = eng.add_request([1, 2, 3], max_new_tokens=3)
     eng.run()
     assert req.error is None and len(req.output) == 3
-    assert [k.launches for k in kernels] == [0, 0, 0]
+    params = llama.init_params(cfg, device="cpu", dtype=torch.float32)
+    for p in params.values():
+        p.requires_grad_()
+    toks = torch.tensor([[1, 2, 3, 4]])
+    llama.train_loss(params, toks, toks.roll(-1, 1), cfg).backward()
+    assert all(p.grad is not None for p in params.values())
+    assert [k.launches for k in kernels] == [0] * 6

@@ -11,7 +11,11 @@ comparing the kernel with the fp32 plain version on the same bf16/fp16
 inputs, both cast to the input dtype. bf16 O takes the repo's bf16 gates
 (``tests/test_flash_fwd.py:117``: 3 fewer mantissa bits than fp16); the
 kernel rounds P to bf16 before P.V, as the TPU kernel did. The kv write must
-match exactly.
+match exactly. The backward kernels take the repo's backward gates: fp16
+those of ``tests/test_flash_bwd.py:19`` (atol 5e-3, mean_atol 2e-4,
+mean_rtol 1e-2), bf16 those of ``tests/test_flash_bwd.py:127`` (atol 4e-2,
+mean_atol 2e-3, mean_rtol 2e-1); where a row attends to one key, dq and dk
+must be exactly 0.
 """
 
 import math
@@ -20,15 +24,22 @@ import numpy as np
 import pytest
 import torch
 
+from flash_attention_tpu_torch.ops import flash_bwd as bwd_mod
 from flash_attention_tpu_torch.ops import flash_fwd as fwd_mod
 from flash_attention_tpu_torch.ops import kv_update, paged_attention as pa_mod
-from flash_attention_tpu_torch.ops.attention import fwd
+from flash_attention_tpu_torch.ops.attention import bwd, flash_attention, fwd
 from flash_attention_tpu_torch.ops.reference import reference_attention
 from flash_attention_tpu_torch.utils.metrics import assert_metrics
 
 FWD_TOLS = {"atol": 5e-3, "mean_atol": 2e-4, "mean_rtol": 1e-2}
 BF16_TOLS = {"atol": 4e-2, "mean_atol": 2e-3, "mean_rtol": 5e-2}
 LSE_TOLS = {"atol": 1e-2, "mean_atol": 1e-3, "mean_rtol": 1e-2}
+BWD_TOLS = FWD_TOLS
+BWD_BF16_TOLS = {"atol": 4e-2, "mean_atol": 2e-3, "mean_rtol": 2e-1}
+FWD_SHAPES = [
+    (1, 1, 1, 4, 4), (2, 64, 64, 4, 2), (2, 97, 130, 4, 1),
+    (2, 130, 97, 4, 4), (1, 257, 513, 8, 2), (2, 1000, 1000, 8, 8),
+]
 
 
 @pytest.fixture
@@ -49,10 +60,7 @@ def _randn(rng, shape, dtype, device):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("b,sq,sk,h,hk", [
-    (1, 1, 1, 4, 4), (2, 64, 64, 4, 2), (2, 97, 130, 4, 1),
-    (2, 130, 97, 4, 4), (1, 257, 513, 8, 2), (2, 1000, 1000, 8, 8),
-])
+@pytest.mark.parametrize("b,sq,sk,h,hk", FWD_SHAPES)
 def test_flash_fwd_matches_plain(cuda, dtype, d, causal, b, sq, sk, h, hk):
     rng = np.random.default_rng(sq * 7 + sk)
     q = _randn(rng, (b, sq, h, d), dtype, cuda)
@@ -176,3 +184,131 @@ def test_paged_scale_matches_kernel_contract(cuda):
     o_ref = pa_mod.paged_attention_reference(q, kp, vp, lens, tab, layer=0,
                                              sm_scale=scale)
     assert_metrics("paged[scale]", o, o_ref, BF16_TOLS)
+
+
+def _bwd_inputs(seed, b, sq, sk, h, hk, d, dtype, device, causal):
+    """q, k, v, do from a numpy seed; o and lse from the forward kernel."""
+    rng = np.random.default_rng(seed)
+    q = _randn(rng, (b, sq, h, d), dtype, device)
+    k = _randn(rng, (b, sk, hk, d), dtype, device)
+    v = _randn(rng, (b, sk, hk, d), dtype, device)
+    do = _randn(rng, (b, sq, h, d), dtype, device)
+    o, lse = fwd(q, k, v, causal)
+    return q, k, v, o, lse, do
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("b,sq,sk,h,hk", FWD_SHAPES)
+def test_flash_bwd_matches_plain(cuda, dtype, d, causal, b, sq, sk, h, hk):
+    """Each backward kernel against its plain version on the same inputs:
+    D, then dq and dk/dv, each from its own chain's D (the kernels' fp32 D
+    summed as dP is, the plain versions' float64 D)."""
+    q, k, v, o, lse, do = _bwd_inputs(sq * 7 + sk + 1, b, sq, sk, h, hk, d,
+                                      dtype, cuda, causal)
+    scale = d**-0.5
+    tols = BWD_BF16_TOLS if dtype == torch.bfloat16 else BWD_TOLS
+    tag = f"[{dtype},{d},{causal},{b},{sq},{sk},{h},{hk}]"
+    di = bwd_mod.flash_bwd_di(o, do)
+    di_r = bwd_mod.di_reference(o, do)
+    assert_metrics("di" + tag, di, di_r, LSE_TOLS)
+    kw = dict(causal=causal, sm_scale=scale)
+    dq = bwd_mod.flash_bwd_dq(q, k, v, do, lse, di, **kw)
+    dk, dv = bwd_mod.flash_bwd_dkv(q, k, v, do, lse, di, **kw)
+    dq_r = bwd_mod.dq_reference(q, k, v, do, lse, di_r, **kw)
+    dk_r, dv_r = bwd_mod.dkv_reference(q, k, v, do, lse, di_r, **kw)
+    assert_metrics("dq" + tag, dq, dq_r, tols)
+    assert_metrics("dk" + tag, dk, dk_r, tols)
+    assert_metrics("dv" + tag, dv, dv_r, tols)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("sq", [1, 64, 130])
+def test_flash_bwd_single_key_is_exactly_zero(cuda, dtype, causal, sq):
+    """sk = 1: every live row attends to its one key, so O equals that V row
+    and dP - D must cancel bit for bit; dq and dk are exactly 0 (dead rows
+    of causal sq > sk too), and dv is the plain version's."""
+    q, k, v, o, lse, do = _bwd_inputs(sq, 2, sq, 1, 8, 2, 128, dtype, cuda,
+                                      causal)
+    dq, dk, dv = bwd(q, k, v, o, lse, do, causal)
+    assert torch.all(dq == 0) and torch.all(dk == 0)
+    _, _, dv_r = bwd_mod.flash_bwd_reference(q, k, v, o, lse, do,
+                                             causal=causal,
+                                             sm_scale=128**-0.5)
+    assert_metrics("dv[sk=1]", dv, dv_r,
+                   BWD_BF16_TOLS if dtype == torch.bfloat16 else BWD_TOLS)
+
+
+@pytest.mark.gpu
+def test_flash_bwd_deterministic_and_dead_rows(cuda):
+    """Two runs are bit-identical (no atomics), and causal sq > sk rows with
+    no live key get dq = 0."""
+    q, k, v, o, lse, do = _bwd_inputs(4, 1, 200, 64, 4, 2, 64,
+                                      torch.bfloat16, cuda, True)
+    first = bwd(q, k, v, o, lse, do, True)
+    second = bwd(q, k, v, o, lse, do, True)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    assert torch.all(first[0][:, :136] == 0)
+    want = bwd_mod.flash_bwd_reference(q, k, v, o, lse, do, causal=True,
+                                       sm_scale=64**-0.5)
+    for name, got, ref in zip(("dq", "dk", "dv"), first, want):
+        assert_metrics(f"{name}[dead rows]", got, ref, BWD_BF16_TOLS)
+
+
+@pytest.mark.gpu
+def test_flash_bwd_strided_inputs(cuda):
+    """q/k/v as views of one packed (b, s, 3, h, d) buffer and a strided
+    do: the kernels read through the strides."""
+    rng = np.random.default_rng(8)
+    qkv = _randn(rng, (2, 150, 3, 4, 128), torch.bfloat16, cuda)
+    q, k, v = qkv.unbind(2)
+    do = _randn(rng, (2, 4, 150, 128), torch.bfloat16, cuda).transpose(1, 2)
+    o, lse = fwd(q, k, v, True)
+    got = bwd(q, k, v, o, lse, do, True)
+    want = bwd_mod.flash_bwd_reference(q, k, v, o, lse, do, causal=True,
+                                       sm_scale=128**-0.5)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert_metrics(f"{name}[strided]", a, b, BWD_BF16_TOLS)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_attention_grads_cuda_match_cpu(cuda, causal):
+    """Autograd through flash_attention: the kernels (bf16, card) against
+    the plain versions (fp32, CPU) on the same bf16-rounded inputs."""
+    rng = np.random.default_rng(21)
+    q, k, v, do = (_randn(rng, shape, torch.bfloat16, cuda) for shape in (
+        (2, 300, 8, 128), (2, 300, 2, 128), (2, 300, 2, 128),
+        (2, 300, 8, 128)))
+    grads = []
+    for dev, dtype in ((cuda, torch.bfloat16), ("cpu", torch.float32)):
+        leaves = [x.detach().to(dev, dtype).requires_grad_()
+                  for x in (q, k, v)]
+        o = flash_attention(*leaves, causal=causal)
+        o.backward(do.to(dev, dtype))
+        grads.append([x.grad for x in leaves])
+    for name, a, b in zip(("dq", "dk", "dv"), *grads):
+        assert a.dtype == torch.bfloat16 and a.is_cuda
+        assert_metrics(f"{name}[autograd]", a, b, BWD_BF16_TOLS)
+
+
+@pytest.mark.gpu
+def test_flash_bwd_counts_and_rejects(cuda):
+    q = torch.zeros((1, 16, 2, 128), dtype=torch.bfloat16, device=cuda)
+    o, lse = fwd(q, q, q, True)
+    before = [kern.launches for kern in bwd_mod.KERNELS]
+    bwd(q, q, q, o, lse, q, True)
+    assert [kern.launches for kern in bwd_mod.KERNELS] == [
+        n + 1 for n in before]
+    assert bwd(q, q, q, o, lse, q, True, parts="di").shape == (1, 2, 16)
+    assert bwd(q, q, q, o, lse, q, True, parts="dq").shape == q.shape
+    with pytest.raises(NotImplementedError):
+        bwd(q, q, q, o, lse, q, True, softcap=30.0)
+    with pytest.raises(NotImplementedError):
+        bwd(q, q, q, o, lse, q, True, window_size=(8, 0))
+    with pytest.raises(ValueError):
+        bwd_mod.flash_bwd_di(o.cpu(), q.cpu())
