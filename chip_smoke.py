@@ -3,19 +3,24 @@
 
     python3 chip_smoke.py
 
-Builds the port's six CUDA kernels from the sources in this checkout and
+Builds the port's eight CUDA kernels from the sources in this checkout and
 holds each against its plain PyTorch version at the shapes its path gives it
 (timing kernel, plain version and, where one exists, a single PyTorch
-library call as a yardstick). Then it drives the two paths on a full-width,
-32-layer Llama-3-8B with random bf16 weights:
+library call as a yardstick), and the MoE feed-forward through the grouped
+matmul kernels against the same call through their plain versions. Then it
+drives the two paths on two models with random bf16 weights, full width:
 
-* serving: 8 greedy requests through ``Engine.add_request`` /
-  ``Engine.step`` (flash forward, kv write, paged attention), and prefill
-  against decode logits;
-* training: ``train_loss`` with remat, ``.backward()`` and plain SGD for a
-  few steps on a fixed 2 x 2048 batch (flash forward and the three backward
-  kernels), after a 2-layer full-width check of the card's bf16 loss and
-  gradients against the CPU's fp32 plain versions.
+* Llama-3-8B, 32 layers: serving (8 greedy requests through
+  ``Engine.add_request`` / ``Engine.step``: flash forward, kv write, paged
+  attention), prefill against decode logits, then training (``train_loss``
+  with remat, ``.backward()`` and plain SGD for a few steps on a fixed
+  2 x 2048 batch: flash forward and the three backward kernels), after a
+  2-layer check of the card's bf16 loss and gradients against the CPU's
+  fp32 plain versions;
+* Mixtral-8x7B (8 experts, top-2), depth cut to fit the card: the same
+  serving at 16 layers and training at 8, adding the grouped matmul (gmm)
+  on both paths and its weight gradient (gmm_dw) in training, with the
+  routing recorded where bf16 rounding may swap a token's experts.
 
 Each path checks that every one of its kernels was launched on it, with the
 counts set to 0 just before it. Exits non-zero if any phase fails or no card
@@ -69,6 +74,10 @@ TRAIN_STEPS = 3  # timed steps; one more runs under the profiler
 # moves it by about two steps, and raises each target's logit by about
 # |x|^2 / 4096 = 1 per step.
 LR = 1.0
+# Mixtral at 8 layers overshoots at LR = 1 (the loss after the 4th step,
+# 11.71, lies above the first, 10.87: the router's update moves whole
+# tokens between experts); at a quarter of it the loss falls every step.
+MIX_LR = 0.25
 # Train forward = inference forward: the same kernels in the same order.
 TRAIN_FWD_REL = 1e-5
 # 2-layer full-width card (bf16) vs CPU (fp32) training check: bf16 rounds
@@ -76,6 +85,21 @@ TRAIN_FWD_REL = 1e-5
 # agrees to about 1e-3 and each gradient to a few percent in relative L2.
 TRAIN_LOSS_REL = 1e-2
 TRAIN_GRAD_REL_L2 = 5e-2
+# Mixtral-8x7B at full width, depth cut to fit the 80 GB card: 32 layers of
+# bf16 weights take 93 GB (2.90 GB a layer, 2.82 GB of it experts), so
+# serving keeps 16 layers (47 GB of weights) and training 8 (24 GB of
+# weights and 24 GB of gradients).
+MIX_SERVE_LAYERS = 16
+MIX_TRAIN_LAYERS = 8
+# Grouped matmuls: kernel and plain version round one fp32 sum to bf16, so
+# they differ by the summation order (1 ulp at most): the bf16 backward
+# gates, with inputs scaled to outputs of about unit size.
+GMM_TOLS = BWD_TOLS
+# Card bf16 against CPU fp32 routing: a token whose top-2 set differs is
+# masked out of the 1-layer loss check; more than this share fails.
+MAX_FLIP_SHARE = 0.10
+# prompts of the Mixtral prefill-vs-decode check
+MIX_CONSISTENCY_PROMPTS = 4
 
 
 def _card_line() -> str:
@@ -119,10 +143,11 @@ def _bound(flops: float, nbytes: float) -> tuple[float, str]:
             "operations" if t_ops > t_bytes else "bytes")
 
 
-def _prompts():
+def _prompts(vocab: int):
+    """The 8 prompts: the same lengths for every model, ids below its vocab."""
     rng = np.random.default_rng(SEED)
     lens = rng.integers(128, 2049, size=N_REQUESTS)
-    return [list(map(int, rng.integers(0, 128256, size=n))) for n in lens]
+    return [list(map(int, rng.integers(0, vocab, size=n))) for n in lens]
 
 
 def check_flash(torch, dev, bucket, cfg, card):
@@ -410,7 +435,257 @@ def check_bwd(torch, dev, cfg, card):
     return entries
 
 
-def serve(torch, params, cfg, prompts, card, kernels):
+def _moe_layout(torch, moe, dev, g, t, cfg, skip_expert=None):
+    """A random top-k routing of t tokens (distinct experts per token) and
+    the path's own dispatch of it. Returns (block_expert, n_pad)."""
+    scores = torch.rand((t, cfg.n_experts), generator=g, device=dev)
+    if skip_expert is not None:
+        scores[:, skip_expert] = -1.0  # never among the winners
+    ids = scores.topk(cfg.n_experts_per_tok, dim=-1).indices
+    _, _, be, n_pad = moe.dispatch(ids, cfg.n_experts)
+    return be, n_pad
+
+
+def _group_offsets(torch, be, n_experts):
+    """int32 end row of each expert's (padded) group: the offs of
+    torch._grouped_mm over the dispatch buffer."""
+    sizes = torch.stack([(be == e).sum() for e in range(n_experts)]) * 128
+    return torch.cumsum(sizes, 0).to(torch.int32)
+
+
+def _library(torch, fn):
+    """One library call, or (None, why) when this torch does not take it."""
+    if not hasattr(torch, "_grouped_mm"):
+        return None, "torch._grouped_mm is absent"
+    try:
+        fn()
+        torch.cuda.synchronize()
+        return fn, ""
+    except Exception as e:  # a yardstick only: report why it is missing
+        return None, f"torch._grouped_mm refused: {str(e).splitlines()[0][:120]}"
+
+
+GRAPH_NOTE = " [kernel: device time in a CUDA graph; library: eager]"
+
+
+def check_gmm(torch, dev, cfg, card):
+    """gmm against its plain version at the path's shapes: Mixtral prefill
+    (8 x 2048 tokens), decode (8 tokens) and training (2 x 2048 tokens),
+    forward and dx through the strided w^T. Dead blocks must be exactly 0."""
+    from flash_attention_tpu_torch.ops import moe
+    from flash_attention_tpu_torch.utils.metrics import assert_metrics
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    D, F_, E, k = cfg.dim, cfg.hidden_dim, cfg.n_experts, cfg.n_experts_per_tok
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(
+            torch.bfloat16)
+
+    # weights scaled for outputs of about half a unit (see GMM_TOLS)
+    w_up = rnd(E, D, F_, scale=0.5 * D**-0.5)
+    w_down = rnd(E, F_, D, scale=0.5 * F_**-0.5)
+    cases = []  # (label, tokens, k_in, w, graph)
+    for label, t in (("prefill", MAX_BATCH * 2048), ("decode", MAX_BATCH),
+                     ("train", TRAIN_BATCH * TRAIN_SEQ)):
+        cases += [(f"{label} gate/up", t, D, w_up),
+                  (f"{label} down", t, F_, w_down)]
+    # dx = dy . w^T, w^T the strided view of the forward's weight
+    cases += [("train dx gate/up", TRAIN_BATCH * TRAIN_SEQ, F_,
+               w_up.transpose(1, 2)),
+              ("train dx down", TRAIN_BATCH * TRAIN_SEQ, D,
+               w_down.transpose(1, 2))]
+    entry, shapes = None, {}
+    for label, t, k_in, w in cases:
+        be, n_pad = _moe_layout(torch, moe, dev, g, t, cfg)
+        x = rnd(n_pad, k_in)
+        y = moe.gmm(x, w, be)
+        want = moe.gmm_reference(x, w, be)
+        m = assert_metrics(f"gmm {label}", y, want, GMM_TOLS)
+        dead = (be < 0).repeat_interleave(128)
+        assert torch.all(y[dead] == 0), f"gmm {label}: dead rows not 0"
+        n_dead = int((be < 0).sum())
+        del want
+        offs = _group_offsets(torch, be, E)
+        lib_fn, why = _library(torch, lambda: torch._grouped_mm(x, w,
+                                                                offs=offs))
+        decode = label.startswith("decode")
+        if decode:  # a few us of work: device time in a CUDA graph
+            ms = _time_graph_ms(torch, lambda: moe.gmm(x, w, be), 50)
+            # eager: the library call may not be capturable
+            lib = _time_ms(torch, lib_fn, 50) if lib_fn else None
+        else:
+            ms = _time_ms(torch, lambda: moe.gmm(x, w, be), 20)
+            lib = _time_ms(torch, lib_fn, 20) if lib_fn else None
+        plain = _time_ms(torch, lambda: moe.gmm_reference(x, w, be), 2,
+                         warmup=1)
+        live_rows = t * k
+        live_experts = int((torch.bincount(be[be >= 0].long(),
+                                           minlength=E) > 0).sum())
+        n_out = w.shape[2]
+        flops = 2.0 * live_rows * k_in * n_out
+        nbytes = 2 * (live_rows * (k_in + n_out)
+                      + live_experts * k_in * n_out) + 4 * be.numel()
+        bound_ms, bound_by = _bound(flops, nbytes)
+        strided = "" if w.stride(2) == 1 else " (w^T by strides)"
+        print(f"gmm {label}{strided}: x ({n_pad}, {k_in}) x w {tuple(w.shape)}"
+              f", {be.numel()} blocks ({n_dead} dead), {live_rows} live rows:"
+              f" {m}; kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s),"
+              f" plain {plain:.3f} ms, library "
+              f"{'null' if lib is None else f'{lib:.4f} ms'}, bound "
+              f"{bound_ms:.4f} ms ({bound_by})"
+              f"{GRAPH_NOTE if decode else ''}"
+              f"{' [' + why + ']' if why else ''} [{card}]")
+        shapes[label] = {"ms": ms, "plain_ms": plain, "bound_ms": bound_ms,
+                         "bound_by": bound_by, "library_ms": lib,
+                         "max_abs_err": m.max_abs}
+        if label == "prefill gate/up":  # the largest call on the path
+            entry = {"name": "gmm", "route": "cuda",
+                     "source": "flash_attention_tpu_torch/csrc/gmm.cu",
+                     "replaces": "flash_attention_tpu/ops/moe.py:61",
+                     "max_abs_err": m.max_abs, "ms": ms, "plain_ms": plain,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": lib}
+        del x, y
+    entry["max_abs_err"] = max(v["max_abs_err"] for v in shapes.values())
+    entry["shapes"] = shapes
+    return entry
+
+
+def check_gmm_dw(torch, dev, cfg, card):
+    """gmm_dw against its plain version at the training shapes; an expert
+    with no rows must get exact zeros, and two runs must be bit-identical."""
+    from flash_attention_tpu_torch.ops import moe
+    from flash_attention_tpu_torch.utils.metrics import assert_metrics
+    g = torch.Generator(device=dev).manual_seed(SEED + 6)
+    D, F_, E = cfg.dim, cfg.hidden_dim, cfg.n_experts
+    t = TRAIN_BATCH * TRAIN_SEQ
+    rows = t * cfg.n_experts_per_tok // E  # rows an expert sums over
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(
+            torch.bfloat16)
+
+    entry, shapes = None, {}
+    for label, k_in, n_out, skip in (("gate/up", D, F_, None),
+                                     ("down", F_, D, None),
+                                     ("gate/up, expert 0 empty", D, F_, 0)):
+        be, n_pad = _moe_layout(torch, moe, dev, g, t, cfg, skip_expert=skip)
+        x = rnd(n_pad, k_in)
+        dy = rnd(n_pad, n_out, scale=0.5 * rows**-0.5)
+        dw = moe.gmm_dw(x, dy, be, E)
+        want = moe.gmm_dw_reference(x, dy, be, E)
+        m = assert_metrics(f"gmm_dw {label}", dw, want, GMM_TOLS)
+        del want
+        assert torch.equal(dw, moe.gmm_dw(x, dy, be, E)), \
+            f"gmm_dw {label}: two runs differ"
+        if skip is not None:
+            assert torch.all(dw[skip] == 0), "empty expert: dW is not 0"
+            print(f"gmm_dw {label}: dW[{skip}] exactly 0, {m}")
+            continue
+        offs = _group_offsets(torch, be, E)
+        lib_fn, why = _library(torch, lambda: torch._grouped_mm(
+            x.t(), dy, offs=offs))
+        ms = _time_ms(torch, lambda: moe.gmm_dw(x, dy, be, E), 20)
+        lib = _time_ms(torch, lib_fn, 20) if lib_fn else None
+        plain = _time_ms(torch, lambda: moe.gmm_dw_reference(x, dy, be, E),
+                         2, warmup=1)
+        live_rows = t * cfg.n_experts_per_tok
+        flops = 2.0 * live_rows * k_in * n_out
+        nbytes = 2 * (live_rows * (k_in + n_out) + E * k_in * n_out) \
+            + 4 * be.numel()
+        bound_ms, bound_by = _bound(flops, nbytes)
+        print(f"gmm_dw train {label}: x ({n_pad}, {k_in}), dy ({n_pad}, "
+              f"{n_out}) -> dW ({E}, {k_in}, {n_out}), {live_rows} live rows: "
+              f"{m}; two runs bit-identical; kernel {ms:.4f} ms "
+              f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain:.3f} ms, "
+              f"library {'null' if lib is None else f'{lib:.4f} ms'}, bound "
+              f"{bound_ms:.4f} ms ({bound_by}){' [' + why + ']' if why else ''}"
+              f" [{card}]")
+        shapes[label] = {"ms": ms, "plain_ms": plain, "bound_ms": bound_ms,
+                         "bound_by": bound_by, "library_ms": lib,
+                         "max_abs_err": m.max_abs}
+        if entry is None:
+            entry = {"name": "gmm_dw", "route": "cuda",
+                     "source": "flash_attention_tpu_torch/csrc/gmm_dw.cu",
+                     "replaces": "flash_attention_tpu/ops/moe.py:121",
+                     "max_abs_err": m.max_abs, "ms": ms, "plain_ms": plain,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": lib}
+        del x, dy, dw
+    entry["max_abs_err"] = max(v["max_abs_err"] for v in shapes.values())
+    entry["shapes"] = shapes
+    return entry
+
+
+class _RouteLog:
+    """Records the ids of every ``ops.moe.route`` call while active (each
+    token's top-k set, sorted, on the device: no host sync); the results
+    pass through unchanged."""
+
+    def __init__(self):
+        from flash_attention_tpu_torch.ops import moe
+        self.moe, self.ids = moe, []
+
+    def __enter__(self):
+        real = self.real = self.moe.route
+
+        def route(x, router_w, n_top):
+            out = real(x, router_w, n_top)
+            self.ids.append(out[1].detach().sort(-1).values)
+            return out
+        self.moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.real
+
+
+def check_moe_ffn(torch, dev, cfg, card):
+    """moe_ffn forward and backward through the kernels against the same
+    call through the plain versions, on the card with the same bf16 inputs
+    at the training shapes (2 x 2048 tokens, one full-width layer), so both
+    route alike."""
+    import torch.nn.functional as F
+    from flash_attention_tpu_torch.ops import moe
+    from flash_attention_tpu_torch.utils.metrics import assert_metrics
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+    D, F_, E = cfg.dim, cfg.hidden_dim, cfg.n_experts
+    t = TRAIN_BATCH * TRAIN_SEQ
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(
+            torch.bfloat16)
+
+    inputs = (rnd(t, D), rnd(D, E, scale=0.02), rnd(E, D, F_, scale=D**-0.5),
+              rnd(E, D, F_, scale=D**-0.5), rnd(E, F_, D, scale=F_**-0.5))
+    # a small cotangent keeps every gradient within a few units (bf16 gates)
+    cot = rnd(t, D, scale=1e-3)
+    names = ("x", "w_router", "w_gate", "w_up", "w_down")
+    runs = []
+    for matmul in (moe.grouped_matmul, moe.grouped_matmul_reference):
+        leaves = [a.clone().requires_grad_() for a in inputs]
+        real, moe.grouped_matmul = moe.grouped_matmul, matmul
+        try:
+            with _RouteLog() as log:
+                out, _ = moe.moe_ffn(*leaves, n_top=cfg.n_experts_per_tok,
+                                     act=lambda a: F.silu(a.float()))
+                grads = torch.autograd.grad(out, leaves, cot)
+        finally:
+            moe.grouped_matmul = real
+        runs.append((out.detach(), grads, log.ids[0]))
+    (out, grads, ids), (out_r, grads_r, ids_r) = runs
+    assert torch.equal(ids, ids_r), "kernel and plain runs routed apart"
+    parts = [f"out {assert_metrics('moe_ffn out', out, out_r, BWD_TOLS)}"]
+    for name, a, b in zip(names, grads, grads_r):
+        m = assert_metrics(f"moe_ffn d{name}", a, b, BWD_TOLS)
+        parts.append(f"d{name} max_abs {m.max_abs:.3e} mean_rel "
+                     f"{m.mean_rel:.3e} (ref max {float(b.abs().max()):.3e})")
+    print(f"moe_ffn t={t} d={D} f={F_} e={E} k={cfg.n_experts_per_tok}, "
+          f"kernels vs plain versions on the card, same routing: "
+          + "; ".join(parts))
+
+
+def serve(torch, params, cfg, prompts, card, kernels, model):
     from flash_attention_tpu_torch import Engine
     eng = Engine(cfg, params, total_pages=TOTAL_PAGES, page_size=PAGE_SIZE,
                  max_batch=MAX_BATCH, max_seq_len=MAX_SEQ,
@@ -436,23 +711,30 @@ def serve(torch, params, cfg, prompts, card, kernels):
     assert launches["flash_fwd"] == L * st["prefill_dispatches"] > 0, launches
     assert launches["kv_update"] == L * st["decode_steps"] > 0, launches
     assert launches["paged_attention"] == L * st["decode_steps"], launches
-    print(f"served {len(reqs)} requests x {MAX_NEW} tokens in {wall:.3f} s "
-          f"[{card}]")
-    print(f"prefill tokens/s: {st['prefill_tokens_per_s']:.1f} "
+    # three grouped matmuls a layer, in every prefill dispatch and decode step
+    moe_calls = 3 * L * (st["prefill_dispatches"] + st["decode_steps"])
+    assert launches["gmm"] == (moe_calls if cfg.n_experts else 0), launches
+    assert launches["gmm_dw"] == 0, launches
+    print(f"{model} L{L}: served {len(reqs)} requests x {MAX_NEW} tokens in "
+          f"{wall:.3f} s [{card}]")
+    print(f"{model} prefill tokens/s: {st['prefill_tokens_per_s']:.1f} "
           f"({st['prefill_tokens']} tokens, {st['prefill_dispatches']} "
           f"dispatches) [{card}]")
-    print(f"decode tokens/s: {st['decode_tokens_per_s']:.1f} "
+    print(f"{model} decode tokens/s: {st['decode_tokens_per_s']:.1f} "
           f"({st['decode_tokens']} tokens) [{card}]")
-    print(f"engine steps: prefill dispatches {st['prefill_dispatches']}, "
+    print(f"{model} engine steps: prefill dispatches {st['prefill_dispatches']}, "
           f"decode steps {st['decode_steps']} [{card}]")
-    print(f"peak device memory: {peak / 2**30:.2f} GiB [{card}]")
-    print(f"kernel launches on the serving path: {launches}")
-    profile_serving(torch, eng, prompts, card)
+    print(f"{model} serving peak device memory: {peak / 2**30:.2f} GiB "
+          f"[{card}]")
+    print(f"{model} kernel launches on the serving path: {launches}")
+    profile_serving(torch, eng, prompts, card, model)
     del eng
     return launches
 
 
 _KERNEL_GROUPS = (("flash_fwd", "flash_fwd_kernel"),
+                  ("gmm", "gmm_kernel"),
+                  ("gmm_dw", "gmm_dw_kernel"),
                   ("flash_bwd_di", "flash_bwd_di_kernel"),
                   ("flash_bwd_dq", "flash_bwd_dq_kernel"),
                   ("flash_bwd_dkv", "flash_bwd_dkv_kernel"),
@@ -510,30 +792,41 @@ def profile_window(torch, label, fn, card):
         f"{n[:60]} {t:.3f} ms" for n, t in top))
 
 
-def profile_serving(torch, eng, prompts, card):
+def profile_serving(torch, eng, prompts, card, model):
     """Where the device time goes, after the timed run: the same 8 prompts
     again (4 new tokens each) under torch.profiler. Window 1 is the first
     engine step (the batched prefill and one decode step), window 2 the
     remaining decode steps."""
     for p in prompts:
         eng.add_request(p, 4)
-    profile_window(torch, "prefill+decode step", eng.step, card)
-    profile_window(torch, "decode steps", eng.run, card)
+    profile_window(torch, f"{model} prefill+decode step", eng.step, card)
+    profile_window(torch, f"{model} decode steps", eng.run, card)
 
 
-def consistency(torch, params, cfg, prompts):
+def consistency(torch, params, cfg, prompts, model, n_prompts=2):
     """Prefill logits at p[-1] (flash kernel) against prefill of p[:-1],
-    pages, and one decode step on p[-1] (kv-write and paged kernels)."""
+    pages, and one decode step on p[-1] (kv-write and paged kernels).
+
+    For an MoE model the routing is recorded: the checked token's top-2
+    set in every layer, prefill against decode, and how many earlier tokens
+    the two prefills route apart. A prompt whose checked token routes alike
+    in every layer is held to the gates; one that flips is printed only
+    (one swapped expert moves a token's output by tens of percent, a fact of
+    top-k routing, not of a kernel). At least one prompt must route alike."""
     from flash_attention_tpu_torch.models import llama
     dev = params["embed"].device
     L, hk, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+    held = 0
     with torch.inference_mode():
-        for p in prompts[:2]:
+        for p in prompts[:n_prompts]:
             n = len(p)
             toks = torch.tensor([p], device=dev)
-            a, _, _ = llama.prefill(params, toks, cfg, return_kv=False,
-                                    logit_rows=torch.tensor([n - 1], device=dev))
-            _, ks, vs = llama.prefill(params, toks[:, :-1], cfg)
+            with _RouteLog() as full:
+                a, _, _ = llama.prefill(params, toks, cfg, return_kv=False,
+                                        logit_rows=torch.tensor([n - 1],
+                                                                device=dev))
+            with _RouteLog() as short:
+                _, ks, vs = llama.prefill(params, toks[:, :-1], cfg)
             npg = -(-n // PAGE_SIZE)
             kp = torch.zeros((L, hk, npg, PAGE_SIZE, hd), dtype=torch.bfloat16,
                              device=dev)
@@ -542,21 +835,40 @@ def consistency(torch, params, cfg, prompts):
             llama.write_prefill_to_pages(kp, vp, (ks, vs), ids,
                                          torch.zeros_like(ids), ids, PAGE_SIZE)
             i32 = dict(dtype=torch.int32, device=dev)
-            b, *_ = llama.decode_step(
-                params, kp, vp, None, None, toks[:, -1],
-                torch.tensor([n], **i32), torch.arange(npg, **i32)[None],
-                torch.tensor([(n - 1) // PAGE_SIZE], **i32),
-                torch.tensor([(n - 1) % PAGE_SIZE], **i32), cfg)
+            with _RouteLog() as dec:
+                b, *_ = llama.decode_step(
+                    params, kp, vp, None, None, toks[:, -1],
+                    torch.tensor([n], **i32), torch.arange(npg, **i32)[None],
+                    torch.tensor([(n - 1) // PAGE_SIZE], **i32),
+                    torch.tensor([(n - 1) % PAGE_SIZE], **i32), cfg)
             a, b = a[0], b[0]
             assert torch.isfinite(a).all() and torch.isfinite(b).all()
             rel = float((a - b).norm() / a.norm())
             top2 = torch.topk(a, 2).values
-            print(f"prefill vs decode logits, prompt {n} tokens: rel L2 "
-                  f"{rel:.3e}, max abs {float((a - b).abs().max()):.3e}, "
+            routing, agree = "", True
+            if cfg.n_experts:
+                same = [bool(torch.equal(f[n - 1], d[0]))
+                        for f, d in zip(full.ids, dec.ids)]
+                earlier = sum(int((f[:n - 1] != sh).any(-1).sum())
+                              for f, sh in zip(full.ids, short.ids))
+                agree = all(same)
+                routing = (f"; checked token routed alike in {sum(same)}/{L}"
+                           f" layers ({''.join('=' if x else 'x' for x in same)}"
+                           f"), earlier tokens routed apart by the two "
+                           f"prefills: {earlier} of {(n - 1) * L} "
+                           f"(token, layer) pairs")
+            print(f"{model} prefill vs decode logits, prompt {n} tokens: rel "
+                  f"L2 {rel:.3e}, max abs {float((a - b).abs().max()):.3e}, "
                   f"greedy {int(a.argmax())} vs {int(b.argmax())}, top-2 gap "
-                  f"{float(top2[0] - top2[1]):.3e}")
-            assert rel <= CONSISTENCY_REL_L2, rel
-            assert int(a.argmax()) == int(b.argmax())
+                  f"{float(top2[0] - top2[1]):.3e}{routing}"
+                  f"{'' if agree else ' (not held: routing flipped)'}")
+            if agree:
+                assert rel <= CONSISTENCY_REL_L2, rel
+                assert int(a.argmax()) == int(b.argmax())
+                held += 1
+    print(f"{model} prefill vs decode: {held} of {min(n_prompts, len(prompts))}"
+          f" prompts held to the gates")
+    assert held >= 1, "no prompt routed alike in prefill and decode"
 
 
 def _batch(torch, dev, vocab, b, s, seed):
@@ -568,43 +880,71 @@ def _batch(torch, dev, vocab, b, s, seed):
     return torch.from_numpy(toks).to(dev), torch.from_numpy(tgt).to(dev)
 
 
-def train_consistency(torch, dev, cfg, card):
-    """Full width, 2 layers, b 1, s 256: the same weights through the
-    kernels (bf16, card) and through the plain versions (fp32, CPU); the
-    loss and every parameter's gradient must agree."""
+def train_consistency(torch, dev, cfg, card, model, n_layers=2):
+    """Full width, ``n_layers`` layers, b 1, s 256: the same weights through
+    the kernels (bf16, card) and through the plain versions (fp32, CPU); the
+    loss and every parameter's gradient must agree.
+
+    For an MoE model the two sides may route a token to different experts
+    (bf16 against fp32 activations). With one layer a token's expert output
+    reaches only its own loss, so the tokens whose top-2 set differs get
+    target -100 and both sides run again: that removes the flips exactly."""
     from flash_attention_tpu_torch.models import llama
-    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    cfg2 = dataclasses.replace(cfg, n_layers=n_layers)
     params = llama.init_params(cfg2, seed=SEED + 4, device=dev)
     toks, tgt = _batch(torch, dev, cfg.vocab_size, 1, 256, SEED + 4)
     torch.set_num_threads(os.cpu_count() or 1)
-    out = []
-    for device, dtype in ((dev, torch.bfloat16), ("cpu", torch.float32)):
-        p = {n: w.detach().to(device, dtype).requires_grad_()
-             for n, w in params.items()}
-        t0 = time.perf_counter()
-        loss = llama.train_loss(p, toks.to(device), tgt.to(device), cfg2)
-        loss.backward()
-        out.append((float(loss.detach()), {n: w.grad for n, w in p.items()},
-                    time.perf_counter() - t0))
-    (l_card, g_card, t_card), (l_cpu, g_cpu, t_cpu) = out
+
+    def run(tgt):
+        out = []
+        for device, dtype in ((dev, torch.bfloat16), ("cpu", torch.float32)):
+            p = {n: w.detach().to(device, dtype).requires_grad_()
+                 for n, w in params.items()}
+            t0 = time.perf_counter()
+            with _RouteLog() as log:
+                loss = llama.train_loss(p, toks.to(device), tgt.to(device),
+                                        cfg2)
+                loss.backward()
+            out.append((float(loss.detach()),
+                        {n: w.grad for n, w in p.items()},
+                        time.perf_counter() - t0, log.ids[:n_layers]))
+            del p
+        return out
+
+    out = run(tgt)
+    flips = ""
+    if cfg.n_experts:
+        assert n_layers == 1, "the flip mask is exact for one layer only"
+        ids_card, ids_cpu = out[0][3][0].cpu(), out[1][3][0]
+        flipped = (ids_card != ids_cpu).any(-1)
+        n_flip = int(flipped.sum())
+        flips = (f"; tokens routed apart (card vs CPU): {n_flip} of "
+                 f"{flipped.numel()}, masked out of the loss")
+        assert n_flip <= MAX_FLIP_SHARE * flipped.numel(), n_flip
+        if n_flip:
+            tgt = tgt.clone()
+            tgt[0, flipped.to(tgt.device)] = -100
+            out = run(tgt)
+    (l_card, g_card, t_card, _), (l_cpu, g_cpu, t_cpu, _) = out
     rel = {n: float((g_card[n].float().cpu() - g_cpu[n]).norm()
                     / g_cpu[n].norm()) for n in g_cpu}
     worst = max(rel, key=rel.get)
     loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
-    print(f"train consistency (L2, b1 s256, full width): loss card bf16 "
-          f"{l_card:.6f} vs CPU fp32 {l_cpu:.6f} (rel {loss_rel:.3e}); "
-          f"gradient rel L2 per parameter: "
+    print(f"{model} train consistency (L{n_layers}, b1 s256, full width): "
+          f"loss card bf16 {l_card:.6f} vs CPU fp32 {l_cpu:.6f} (rel "
+          f"{loss_rel:.3e}); gradient rel L2 per parameter: "
           + ", ".join(f"{n} {r:.3e}" for n, r in sorted(rel.items()))
-          + f"; worst {worst} (card {t_card:.2f} s, CPU {t_cpu:.2f} s)")
+          + f"; worst {worst} (card {t_card:.2f} s, CPU {t_cpu:.2f} s)"
+          + flips)
     assert all(torch.isfinite(g).all() for g in g_card.values())
     assert loss_rel <= TRAIN_LOSS_REL, loss_rel
     assert rel[worst] <= TRAIN_GRAD_REL_L2, (worst, rel[worst])
 
 
-def train(torch, params, cfg, card, kernels):
-    """The training path on full-depth Llama-3-8B: train_loss with remat,
-    .backward() and plain SGD on a fixed batch, with exact launch counts
-    per step. The last step runs under the profiler."""
+def train(torch, params, cfg, card, kernels, model, lr=LR):
+    """The training path: train_loss with remat, .backward() and plain SGD
+    on a fixed batch, with exact launch counts per step. The last step runs
+    under the profiler."""
     import torch.nn.functional as F
     from flash_attention_tpu_torch.models import llama
     dev = params["embed"].device
@@ -618,8 +958,10 @@ def train(torch, params, cfg, card, kernels):
     for w in params.values():
         w.requires_grad_(True)
     L = cfg.n_layers
+    moe = 1 if cfg.n_experts else 0
+    # forward, remat recompute and dx: three grouped matmuls each per layer
     want = {"flash_fwd": 2 * L, "flash_bwd_di": L, "flash_bwd_dq": L,
-            "flash_bwd_dkv": L}
+            "flash_bwd_dkv": L, "gmm": 9 * L * moe, "gmm_dw": 3 * L * moe}
     totals = dict.fromkeys(want, 0)
     losses, step_ms = [], []
 
@@ -628,28 +970,48 @@ def train(torch, params, cfg, card, kernels):
         loss.backward()
         with torch.no_grad():
             for w in params.values():
-                w.sub_(w.grad, alpha=LR)
+                w.sub_(w.grad, alpha=lr)
         losses.append(float(loss.detach()))
+
+    def routed(log):  # (L, E) bool: which experts got rows in each layer
+        used = torch.zeros((L, cfg.n_experts), dtype=torch.bool, device=dev)
+        for i, ids in enumerate(log.ids[:L]):  # the forward's calls
+            used[i, ids.flatten().long()] = True
+        return used
+
+    def dead(n, g, used):
+        """Non-finite, or all zero; for an expert stack, each (layer,
+        expert) slice must be non-zero exactly where the expert got rows
+        (an expert the router left empty gets exact zeros)."""
+        if not bool(torch.isfinite(g).all()):
+            return True
+        if moe and n in ("w_gate", "w_up", "w_down"):
+            live = g.flatten(2).abs().amax(-1).gt(0)
+            return not torch.equal(live, used)
+        return not bool(g.any())
 
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    empty = []  # (layer, expert) pairs without rows, per step
     for i in range(TRAIN_STEPS + 1):
         for k in kernels:
             k.launches = 0
-        if i < TRAIN_STEPS:
-            t0 = time.perf_counter()
-            step()
-            torch.cuda.synchronize()
-            step_ms.append((time.perf_counter() - t0) * 1e3)
-        else:
-            profile_window(torch, "training step", step, card)
+        with _RouteLog() as log:
+            if i < TRAIN_STEPS:
+                t0 = time.perf_counter()
+                step()
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+            else:
+                profile_window(torch, f"{model} training step", step, card)
         launches = {k.name: k.launches for k in kernels if k.name in want}
         assert launches == want, (i, launches)
         for n in want:
             totals[n] += launches[n]
-        bad = [n for n, w in params.items() if not bool(
-            torch.isfinite(w.grad).all() and w.grad.any())]
+        used = routed(log) if moe else None
+        empty.append(int((~used).sum()) if moe else 0)
+        bad = [n for n, w in params.items() if dead(n, w.grad, used)]
         assert not bad, f"step {i}: gradients non-finite or all zero: {bad}"
         for w in params.values():
             w.grad = None
@@ -662,20 +1024,27 @@ def train(torch, params, cfg, card, kernels):
     assert final < losses[0], (losses, final)
     tokens = TRAIN_BATCH * TRAIN_SEQ
     steady = float(np.mean(step_ms[1:]))
-    print(f"train Llama-3-8B L{L} b{TRAIN_BATCH} s{TRAIN_SEQ} remat, SGD lr "
-          f"{LR}: losses {[round(x, 6) for x in losses]}, after the last "
+    print(f"train {model} L{L} b{TRAIN_BATCH} s{TRAIN_SEQ} remat, SGD lr "
+          f"{lr}: losses {[round(x, 6) for x in losses]}, after the last "
           f"step {final:.6f}; first loss vs inference-forward cross-entropy "
           f"{ref:.6f} (rel {abs(losses[0] - ref) / abs(ref):.2e})")
-    print(f"train step ms {[round(x, 3) for x in step_ms]} (step 1 "
+    print(f"train {model} step ms {[round(x, 3) for x in step_ms]} (step 1 "
           f"included first-use costs); steady {steady:.3f} ms, "
           f"{tokens / steady * 1e3:.1f} training tokens/s [{card}]")
-    print(f"train peak device memory: {peak / 2**30:.2f} GiB [{card}]")
-    print(f"kernel launches per training step: {want}; on the training "
-          f"path ({TRAIN_STEPS + 1} steps): {totals}")
+    print(f"train {model} peak device memory: {peak / 2**30:.2f} GiB "
+          f"[{card}]")
+    print(f"{model} kernel launches per training step: {want}; on the "
+          f"training path ({TRAIN_STEPS + 1} steps): {totals}")
+    if moe:
+        print(f"train {model}: (layer, expert) pairs the router left without "
+              f"rows, per step: {empty} of {L * cfg.n_experts}; their "
+              f"gradient slices were exactly 0, every other slice non-zero")
     return totals
 
 
 def main() -> int:
+    import gc
+
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on an "
@@ -684,14 +1053,15 @@ def main() -> int:
     from flash_attention_tpu_torch.models import llama
     from flash_attention_tpu_torch.ops import _build
     from flash_attention_tpu_torch.ops import flash_bwd, flash_fwd, kv_update
-    from flash_attention_tpu_torch.ops import paged_attention
+    from flash_attention_tpu_torch.ops import moe, paged_attention
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     card = _card_line()
     print(f"card: {card}")
     kernels = [flash_fwd.KERNEL, kv_update.KERNEL, paged_attention.KERNEL,
-               *flash_bwd.KERNELS]
+               *flash_bwd.KERNELS, *moe.KERNELS]
 
     # 1. build every kernel from source, with the ptxas summary
     t0 = time.perf_counter()
@@ -707,7 +1077,8 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}")
 
     cfg = llama.LlamaConfig.llama3_8b()
-    prompts = _prompts()
+    mix = llama.LlamaConfig.mixtral_8x7b()
+    prompts = _prompts(cfg.vocab_size)
     bucket = max(32, 1 << (max(map(len, prompts)) - 1).bit_length())
     print(f"prompt lengths {[len(p) for p in prompts]} -> prefill bucket "
           f"{bucket}, batch {MAX_BATCH}")
@@ -716,36 +1087,72 @@ def main() -> int:
     with torch.inference_mode():
         entries = [check_flash(torch, dev, bucket, cfg, card),
                    check_kv_write(torch, dev, cfg, card),
-                   check_paged(torch, dev, cfg, card)]
+                   check_paged(torch, dev, cfg, card),
+                   check_gmm(torch, dev, mix, card),
+                   check_gmm_dw(torch, dev, mix, card)]
     torch.cuda.empty_cache()
     entries += check_bwd(torch, dev, cfg, card)
     torch.cuda.empty_cache()
+    check_moe_ffn(torch, dev, mix, card)
+    torch.cuda.empty_cache()
+    paths = {}  # path -> {kernel: launches}
 
-    # 3. the serving path on full-width, full-depth Llama-3-8B
+    # 3. Llama-3-8B, full width and depth: serving, prefill vs decode, then
+    #    training (a 2-layer card-vs-CPU check first)
     t0 = time.perf_counter()
     params = llama.init_params(cfg, seed=SEED, device=dev, dtype=torch.bfloat16)
     torch.cuda.synchronize()
     print(f"init_params Llama-3-8B bf16 on device: "
           f"{time.perf_counter() - t0:.3f} s")
-    launches = serve(torch, params, cfg, prompts, card, kernels)
-
-    # 4. prefill (flash) against paged decode (kv write + paged attention)
-    consistency(torch, params, cfg, prompts)
-
-    # 5. training: 2-layer card-vs-CPU gradients, then the full-depth path
-    train_consistency(torch, dev, cfg, card)
+    paths["serve"] = serve(torch, params, cfg, prompts, card, kernels,
+                           "Llama-3-8B")
+    consistency(torch, params, cfg, prompts, "Llama-3-8B")
+    train_consistency(torch, dev, cfg, card, "Llama-3-8B")
     torch.cuda.empty_cache()
-    trained = train(torch, params, cfg, card, kernels)
+    paths["train"] = train(torch, params, cfg, card, kernels, "Llama-3-8B")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    by_name = {e["name"]: e for e in entries}
-    by_name["kv_write"]["launches"] = launches["kv_update"]
-    by_name["paged_attention"]["launches"] = launches["paged_attention"]
-    by_name["flash_fwd"]["launches"] = (launches["flash_fwd"]
-                                        + trained["flash_fwd"])
-    by_name["flash_fwd"]["launches_by_path"] = {
-        "serve": launches["flash_fwd"], "train": trained["flash_fwd"]}
-    for name in ("flash_bwd_di", "flash_bwd_dq", "flash_bwd_dkv"):
-        by_name[name]["launches"] = trained[name]
+    # 4. Mixtral-8x7B, full width, 16 layers: serving, prefill vs decode
+    mix_serve = dataclasses.replace(mix, n_layers=MIX_SERVE_LAYERS)
+    mix_prompts = _prompts(mix.vocab_size)
+    t0 = time.perf_counter()
+    params = llama.init_params(mix_serve, seed=SEED, device=dev,
+                               dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    print(f"init_params Mixtral-8x7B L{MIX_SERVE_LAYERS} bf16 on device: "
+          f"{time.perf_counter() - t0:.3f} s")
+    paths["serve_mixtral"] = serve(torch, params, mix_serve, mix_prompts, card,
+                                   kernels, "Mixtral-8x7B")
+    consistency(torch, params, mix_serve, mix_prompts, "Mixtral-8x7B",
+                n_prompts=MIX_CONSISTENCY_PROMPTS)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 5. Mixtral training: a 1-layer card-vs-CPU check, then 8 layers
+    train_consistency(torch, dev, mix, card, "Mixtral-8x7B", n_layers=1)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mix_train = dataclasses.replace(mix, n_layers=MIX_TRAIN_LAYERS)
+    params = llama.init_params(mix_train, seed=SEED, device=dev,
+                               dtype=torch.bfloat16)
+    paths["train_mixtral"] = train(torch, params, mix_train, card, kernels,
+                                   "Mixtral-8x7B", lr=MIX_LR)
+    del params
+
+    kernel_of = {"kv_write": "kv_update"}  # entry name -> counter name
+    for e in entries:
+        by_path = {p: n[kernel_of.get(e["name"], e["name"])]
+                   for p, n in paths.items()
+                   if n.get(kernel_of.get(e["name"], e["name"]), 0)}
+        e["launches"] = sum(by_path.values())
+        if len(by_path) > 1:
+            e["launches_by_path"] = by_path
+        assert e["launches"] > 0, f"{e['name']} never launched on a path"
+    print(f"chip_smoke wall time: {time.perf_counter() - t_start:.1f} s "
+          f"[{card}]")
     print(card)  # name and power limit, as nvidia-smi gives them
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

@@ -3,7 +3,9 @@
 The serving path (dense flash attention for prefill, the in-place paged KV
 write and paged attention for decode) and the training path (the
 differentiable ``flash_attention`` with its three backward kernels, under
-``models.llama.train_loss``). Each kernel is hand-written CUDA on the card
+``models.llama.train_loss``), and the Mixtral MoE feed-forward on both
+(``ops.moe``: routing, dispatch and the grouped-matmul kernels with their
+backward). Each kernel is hand-written CUDA on the card
 and a plain PyTorch version on the CPU, under the Llama model and the
 continuous-batching engine. Imports no JAX.
 """

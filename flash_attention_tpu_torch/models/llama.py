@@ -2,7 +2,9 @@
 
 The PyTorch counterpart of ``flash_attention_tpu/models/llama.py`` for the
 serving and training paths: RMSNorm + RoPE (with the Llama-3.1 frequency
-remap) + GQA attention + SwiGLU, optional QKV biases (Qwen-2).
+remap) + GQA attention + SwiGLU, optional QKV biases (Qwen-2), and the
+Mixtral sparse MoE feed-forward (``ops.moe``: top-k routing, the sorted
+block dispatch and the grouped-matmul kernels) when ``n_experts > 0``.
 
 * ``prefill`` runs the dense flash attention (``ops.attention``) and returns
   logits plus every layer's K/V for the cache; with ``return_kv=False`` and
@@ -21,8 +23,9 @@ one (L, hk, P, page_size, d) tensor that the kernels index by layer. The
 large projections and the lm_head are ``torch.matmul``, as the JAX package
 left them to XLA.
 
-Outside this slice (they raise): MoE, sliding windows, softcaps, the Gemma-2
-extras, LoRA, quantized weights and tensor parallelism.
+Outside this slice (they raise): sliding windows, softcaps, the Gemma-2
+extras, LoRA, quantized weights and tensor parallelism (and with it expert
+parallelism).
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ from torch.utils.checkpoint import checkpoint
 
 from flash_attention_tpu_torch.ops.attention import flash_attention
 from flash_attention_tpu_torch.ops.kv_update import write_token_kv
+from flash_attention_tpu_torch.ops.moe import moe_ffn
 from flash_attention_tpu_torch.ops.paged_attention import paged_attention
 
 
@@ -112,7 +116,8 @@ class LlamaConfig:
 
     @classmethod
     def mixtral_8x7b(cls):
-        """Mixtral-8x7B geometry (MoE: outside this slice)."""
+        """Mixtral-8x7B geometry: 8 experts, top-2, GQA (8 kv heads),
+        theta 1e6, no sliding window (v0.1)."""
         return cls(vocab_size=32000, dim=4096, n_layers=32, n_heads=32,
                    n_kv_heads=8, head_dim=128, hidden_dim=14336,
                    rope_theta=1e6, n_experts=8, n_experts_per_tok=2)
@@ -154,12 +159,12 @@ class LlamaConfig:
 _LAYER_NAMES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
                 "norm_attn", "norm_mlp")
 _BIAS_NAMES = ("bq", "bk", "bv")
+_OPTIONAL_NAMES = _BIAS_NAMES + ("w_router",)
 
 
 def check_supported(cfg: LlamaConfig, params=None, tp_axis=None) -> None:
     """Raise for what this slice of the port does not run."""
     unsupported = {
-        "n_experts > 0 (MoE)": cfg.n_experts > 0,
         "a sliding window": cfg.sliding_window is not None,
         "softcaps": (cfg.attn_softcap is not None
                      or cfg.final_softcap is not None),
@@ -193,22 +198,32 @@ def init_params(cfg: LlamaConfig, *, seed: int = 0, device="cuda",
 
     Same layout and scales as the JAX package's ``init_params`` (a weight
     (in, out) is N(0, 1/in)); the numbers differ (another generator). Layer
-    weights are stacked on axis 0."""
+    weights are stacked on axis 0. With ``n_experts`` E > 0 the FFN weights
+    are expert stacks, w_gate/w_up (L, E, D, F) and w_down (L, E, F, D), and
+    the router w_router (L, D, E) is N(0, 0.02^2)."""
     check_supported(cfg)
     device = torch.device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     L, D, H, HK, hd, F = (cfg.n_layers, cfg.dim, cfg.n_heads, cfg.n_kv_heads,
                           cfg.head_dim, cfg.hidden_dim)
+    E = cfg.n_experts
     shapes = {"wq": (D, H * hd), "wk": (D, HK * hd), "wv": (D, HK * hd),
               "wo": (H * hd, D), "w_gate": (D, F), "w_up": (D, F),
               "w_down": (F, D)}
+    experts = (E,) if E else ()
     params = {}
     for name, (din, dout) in shapes.items():
-        w = torch.empty((L, din, dout), dtype=dtype, device=device)
-        for i in range(L):
-            _randn_into(w[i], din**-0.5, gen)
+        stack = experts if name in ("w_gate", "w_up", "w_down") else ()
+        w = torch.empty((L, *stack, din, dout), dtype=dtype, device=device)
+        for mat in w.view(-1, din, dout):  # each (layer, expert) slice
+            _randn_into(mat, din**-0.5, gen)
         params[name] = w
+    if E:
+        params["w_router"] = torch.empty((L, D, E), dtype=dtype,
+                                         device=device)
+        for i in range(L):
+            _randn_into(params["w_router"][i], 0.02, gen)
     params["embed"] = torch.empty((cfg.vocab_size, D), dtype=dtype,
                                   device=device)
     _randn_into(params["embed"], 0.02, gen)
@@ -279,7 +294,7 @@ def _layer_weights(params) -> list[dict]:
     gradients once; indexing ``params[name][i]`` inside the layer loop would
     make every layer's backward allocate and add a zero-filled gradient of
     the whole stack."""
-    per = {n: params[n].unbind(0) for n in _LAYER_NAMES + _BIAS_NAMES
+    per = {n: params[n].unbind(0) for n in _LAYER_NAMES + _OPTIONAL_NAMES
            if n in params}
     n_layers = params["wq"].shape[0]
     return [{n: w[i] for n, w in per.items()} for i in range(n_layers)]
@@ -291,9 +306,22 @@ def _proj(h, w, name):
     return out + w[bias] if bias in w else out
 
 
-def _ffn(h, w):
-    gate = F.silu(_mm(h, w["w_gate"]).float())
-    return _mm(gate.to(h.dtype) * _mm(h, w["w_up"]), w["w_down"])
+def _act(x):
+    """The SwiGLU gate activation, in fp32."""
+    return F.silu(x.float())
+
+
+def _ffn(h, w, cfg: LlamaConfig):
+    """The FFN half of a layer, shared by prefill, decode and training:
+    SwiGLU, or with a router the sparse MoE layer over every token of h
+    (pad rows and pad batch entries included, as in the JAX package)."""
+    if "w_router" not in w:
+        gate = _act(_mm(h, w["w_gate"]))
+        return _mm(gate.to(h.dtype) * _mm(h, w["w_up"]), w["w_down"])
+    out, _ = moe_ffn(h.reshape(-1, h.shape[-1]), w["w_router"], w["w_gate"],
+                     w["w_up"], w["w_down"], n_top=cfg.n_experts_per_tok,
+                     act=_act)
+    return out.view(h.shape)
 
 
 def _dense_layer(x, w, cfg: LlamaConfig, positions):
@@ -310,7 +338,7 @@ def _dense_layer(x, w, cfg: LlamaConfig, positions):
     o = flash_attention(q, k, v, causal=True, sm_scale=cfg.sm_scale)
     x = x + _mm(o.reshape(b, s, -1), w["wo"])
     h = _rmsnorm(x, w["norm_mlp"], cfg.norm_eps)
-    return x + _ffn(h, w), (k, v)
+    return x + _ffn(h, w, cfg), (k, v)
 
 
 def _layer_out(x, w, cfg: LlamaConfig, positions):
@@ -414,7 +442,7 @@ def decode_step(params, k_pages, v_pages, k_scales, v_scales, tokens, lengths,
                             page_tables, sm_scale=cfg.sm_scale, layer=i)
         x = x + _mm(o.reshape(b, -1), w["wo"])
         h = _rmsnorm(x, w["norm_mlp"], cfg.norm_eps)
-        x = x + _ffn(h, w)
+        x = x + _ffn(h, w, cfg)
     x = _rmsnorm(x, params["norm_out"], cfg.norm_eps)
     logits = _mm(x, params["lm_head"]).float()
     return logits, k_pages, v_pages, k_scales, v_scales

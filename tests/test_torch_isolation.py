@@ -12,7 +12,7 @@ import torch
 from flash_attention_tpu_torch import (Engine, bwd, fwd, paged_attention,
                                        write_token_kv)
 from flash_attention_tpu_torch.models import llama
-from flash_attention_tpu_torch.ops import flash_bwd, flash_fwd, kv_update
+from flash_attention_tpu_torch.ops import flash_bwd, flash_fwd, kv_update, moe
 from flash_attention_tpu_torch.ops import paged_attention as pa_mod
 
 torch.set_num_threads(2)
@@ -46,7 +46,7 @@ def test_sources_found():
 
 def test_cpu_calls_launch_no_kernel():
     kernels = (flash_fwd.KERNEL, kv_update.KERNEL, pa_mod.KERNEL,
-               *flash_bwd.KERNELS)
+               *flash_bwd.KERNELS, *moe.KERNELS)
     for k in kernels:
         k.launches = 0
     rng = np.random.default_rng(0)
@@ -74,4 +74,11 @@ def test_cpu_calls_launch_no_kernel():
     toks = torch.tensor([[1, 2, 3, 4]])
     llama.train_loss(params, toks, toks.roll(-1, 1), cfg).backward()
     assert all(p.grad is not None for p in params.values())
-    assert [k.launches for k in kernels] == [0] * 6
+    moe_cfg = llama.LlamaConfig.tiny_moe(n_layers=1, vocab_size=64, dim=128,
+                                         hidden_dim=256)
+    params = llama.init_params(moe_cfg, device="cpu", dtype=torch.float32)
+    for p in params.values():
+        p.requires_grad_()
+    llama.train_loss(params, toks, toks.roll(-1, 1), moe_cfg).backward()
+    assert all(p.grad is not None for p in params.values())
+    assert [k.launches for k in kernels] == [0] * 8

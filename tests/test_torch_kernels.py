@@ -15,7 +15,10 @@ match exactly. The backward kernels take the repo's backward gates: fp16
 those of ``tests/test_flash_bwd.py:19`` (atol 5e-3, mean_atol 2e-4,
 mean_rtol 1e-2), bf16 those of ``tests/test_flash_bwd.py:127`` (atol 4e-2,
 mean_atol 2e-3, mean_rtol 2e-1); where a row attends to one key, dq and dk
-must be exactly 0.
+must be exactly 0. The grouped-matmul kernels (gmm, gmm_dw) round one fp32
+sum to the output dtype, as their plain versions do: fp16 takes the forward
+gates and bf16 the bf16 backward gates, with outputs of unit scale; dead
+blocks and experts with no rows must be exactly 0.
 """
 
 import math
@@ -26,7 +29,8 @@ import torch
 
 from flash_attention_tpu_torch.ops import flash_bwd as bwd_mod
 from flash_attention_tpu_torch.ops import flash_fwd as fwd_mod
-from flash_attention_tpu_torch.ops import kv_update, paged_attention as pa_mod
+from flash_attention_tpu_torch.ops import kv_update, moe as moe_mod
+from flash_attention_tpu_torch.ops import paged_attention as pa_mod
 from flash_attention_tpu_torch.ops.attention import bwd, flash_attention, fwd
 from flash_attention_tpu_torch.ops.reference import reference_attention
 from flash_attention_tpu_torch.utils.metrics import assert_metrics
@@ -312,3 +316,109 @@ def test_flash_bwd_counts_and_rejects(cuda):
         bwd(q, q, q, o, lse, q, True, window_size=(8, 0))
     with pytest.raises(ValueError):
         bwd_mod.flash_bwd_di(o.cpu(), q.cpu())
+
+
+# --------------------------------------------------------------- grouped mm
+# gmm and gmm_dw round an fp32 sum once, as their plain versions do, so the
+# two differ by the summation order only: the forward gates (fp16) and the
+# bf16 gates hold with outputs of unit scale.
+
+GMM_CASES = {
+    # (block_expert, n_experts, K, N)
+    "ragged": ([2, 0, 0, 3, -1, 1, 1, -1], 4, 256, 384),
+    "all_dead": ([-1, -1, -1], 2, 128, 128),
+    "one_expert": ([0, 0, 0, 0], 1, 512, 256),
+    "ragged_edges": ([1, -1, 0, 1], 3, 200, 136),
+}
+
+
+def _gmm_inputs(case, dtype, device, seed=0):
+    be, e, k, n = GMM_CASES[case]
+    rng = np.random.default_rng(seed)
+    be = torch.tensor(be, dtype=torch.int32, device=device)
+    x = _randn(rng, (len(be) * 128, k), dtype, device)
+    w = (_randn(rng, (e, k, n), torch.float32, device) * k**-0.5).to(dtype)
+    return x, w, be
+
+
+def _gmm_tols(dtype):
+    return BWD_BF16_TOLS if dtype == torch.bfloat16 else FWD_TOLS
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("transposed", [False, True])
+@pytest.mark.parametrize("case", sorted(GMM_CASES))
+def test_gmm_matches_plain(cuda, dtype, transposed, case):
+    """y = x . w[expert of the block], and with w given as the strided view
+    w.transpose(1, 2) of an (E, N, K) stack; dead blocks exactly 0."""
+    x, w, be = _gmm_inputs(case, dtype, cuda)
+    if transposed:
+        w = w.transpose(1, 2).contiguous().transpose(1, 2)
+        assert w.stride(1) == 1
+    y = moe_mod.gmm(x, w, be)
+    want = moe_mod.gmm_reference(x, w, be)
+    assert_metrics(f"gmm[{case},{dtype},{transposed}]", y, want,
+                   _gmm_tols(dtype))
+    dead = (be < 0).repeat_interleave(128)
+    assert torch.all(y[dead] == 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("case", sorted(GMM_CASES))
+def test_gmm_dw_matches_plain(cuda, dtype, case):
+    """dW[e] = x[rows of e]^T dy[rows of e]; experts with no rows exactly 0;
+    two runs bit-identical."""
+    x, w, be = _gmm_inputs(case, dtype, cuda, seed=1)
+    e, k, n = w.shape
+    rng = np.random.default_rng(2)
+    rows = max(1, int((be >= 0).sum()) * 128 // e)
+    dy = (_randn(rng, (x.shape[0], n), torch.float32, cuda)
+          * rows**-0.5).to(dtype)
+    dw = moe_mod.gmm_dw(x, dy, be, e)
+    want = moe_mod.gmm_dw_reference(x, dy, be, e)
+    assert dw.shape == (e, k, n)
+    assert_metrics(f"gmm_dw[{case},{dtype}]", dw, want, _gmm_tols(dtype))
+    for i in range(e):
+        if not bool((be == i).any()):
+            assert torch.all(dw[i] == 0)
+    assert torch.equal(dw, moe_mod.gmm_dw(x, dy, be, e))
+
+
+@pytest.mark.gpu
+def test_grouped_matmul_autograd_cuda_matches_cpu(cuda):
+    """dx through gmm on the strided w^T and dW through gmm_dw (bf16, card)
+    against the plain versions (fp32, CPU) on the same inputs."""
+    x, w, be = _gmm_inputs("ragged", torch.bfloat16, cuda, seed=3)
+    rng = np.random.default_rng(4)
+    dy = (_randn(rng, (x.shape[0], w.shape[2]), torch.float32, cuda)
+          * 0.05).to(torch.bfloat16)
+    grads = []
+    for dev, dtype in ((cuda, torch.bfloat16), ("cpu", torch.float32)):
+        leaves = [t.detach().to(dev, dtype).requires_grad_() for t in (x, w)]
+        moe_mod.grouped_matmul(*leaves, be.to(dev)).backward(dy.to(dev, dtype))
+        grads.append([t.grad for t in leaves])
+    for name, a, b in zip(("dx", "dw"), *grads):
+        assert a.dtype == torch.bfloat16 and a.is_cuda
+        assert_metrics(f"grouped_matmul {name}", a, b, BWD_BF16_TOLS)
+
+
+@pytest.mark.gpu
+def test_gmm_counts_and_rejects(cuda):
+    x, w, be = _gmm_inputs("ragged", torch.bfloat16, cuda)
+    before = [kern.launches for kern in moe_mod.KERNELS]
+    moe_mod.gmm(x, w, be)
+    moe_mod.gmm_dw(x, x[:, :128], be, 4)
+    assert [kern.launches for kern in moe_mod.KERNELS] == [
+        n + 1 for n in before]
+    with pytest.raises(ValueError):  # fp32 on the card
+        moe_mod.gmm(x.float(), w.float(), be)
+    with pytest.raises(ValueError):  # 64-row blocks
+        moe_mod.gmm(x, w, torch.zeros(16, dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError):  # int64 block ids
+        moe_mod.gmm(x, w, be.long())
+    with pytest.raises(ValueError):  # no unit stride in w
+        moe_mod.gmm(x, w[:, :, ::2], be)
+    with pytest.raises(ValueError):  # a CUDA x with CPU block ids
+        moe_mod.gmm_dw(x, x, be.cpu(), 4)

@@ -165,7 +165,7 @@ def test_init_params_layout_matches_jax():
 
 
 @pytest.mark.parametrize("cfg", [
-    tl.LlamaConfig.tiny_moe(), tl.LlamaConfig.tiny_gemma2(),
+    tl.LlamaConfig.tiny(attn_softcap=50.0), tl.LlamaConfig.tiny_gemma2(),
     tl.LlamaConfig.mistral_7b(),
 ])
 def test_configs_outside_the_slice_raise(cfg):
