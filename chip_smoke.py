@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Builds the port's eight CUDA kernels from the sources in this checkout and
+Builds the port's nine CUDA kernels from the sources in this checkout and
 holds each against its plain PyTorch version at the shapes its path gives it
 (timing kernel, plain version and, where one exists, a single PyTorch
 library call as a yardstick), and the MoE feed-forward through the grouped
@@ -17,6 +17,12 @@ drives the two paths on two models with random bf16 weights, full width:
   2 x 2048 batch: flash forward and the three backward kernels), after a
   2-layer check of the card's bf16 loss and gradients against the CPU's
   fp32 plain versions;
+* the same Llama-3-8B weights quantized by ``llama.quantize_params`` to
+  int8 and then int4 (weight-only, per channel): the same serving, where
+  every projection and the lm_head runs the quantized matmul (qmm), prefill
+  against decode logits, the quality against the bf16 model on the served
+  sequences (printed, not gated), and a 2-layer check of the card's logits
+  against the CPU's plain versions on the same quantized weights;
 * Mixtral-8x7B (8 experts, top-2), depth cut to fit the card: the same
   serving at 16 layers and training at 8, adding the grouped matmul (gmm)
   on both paths and its weight gradient (gmm_dw) in training, with the
@@ -100,6 +106,14 @@ GMM_TOLS = BWD_TOLS
 MAX_FLIP_SHARE = 0.10
 # prompts of the Mixtral prefill-vs-decode check
 MIX_CONSISTENCY_PROMPTS = 4
+# Weight-only quantized serving, in this order
+QUANT_BITS = (8, 4)
+# 2-layer quantized Llama, card (bf16 activations through qmm) against CPU
+# (fp32 activations through the plain version) on the same QuantizedTensors:
+# the weights are identical, so the two differ by the bf16 rounding of the
+# activations at every projection, as prefill and decode do (see
+# CONSISTENCY_REL_L2): a few percent at most.
+QUANT_CARD_CPU_REL_L2 = CONSISTENCY_REL_L2
 
 
 def _card_line() -> str:
@@ -617,6 +631,113 @@ def check_gmm_dw(torch, dev, cfg, card):
     return entry
 
 
+class _NoSplit:
+    """While active, ``quantized_matmul`` runs its kernel without a k split
+    (one pass over the whole of k): the yardstick of the split's worth."""
+
+    def __init__(self):
+        from flash_attention_tpu_torch.ops import quant
+        self.quant = quant
+
+    def __enter__(self):
+        real = self.real = self.quant.plan
+
+        def plan(m, k, n, n_sms):
+            bm, _, _ = real(m, k, n, n_sms)
+            return bm, 1, max(1, -(-k // self.quant.BK))
+        self.quant.plan = plan
+        return self
+
+    def __exit__(self, *exc):
+        self.quant.plan = self.real
+
+
+def check_qmm(torch, dev, cfg, card):
+    """qmm against its plain version at the quantized serving path's shapes,
+    int8 and int4: every projection at prefill (8 x 2048 rows) and decode
+    (8 rows), and the lm_head (8 rows on both: the prefill runs it only at
+    ``logit_rows``). Two launches must be bit-identical. Times: the kernel
+    (in a CUDA graph at decode, and there also without its k split), the
+    plain version, the bound and a yardstick, the bf16 ``torch.matmul`` of
+    the same (m, k, n) with the dequantised weight: what the unquantized
+    model runs. No single PyTorch call computes this function
+    (``torch._int_mm`` quantises the activations too)."""
+    from flash_attention_tpu_torch.ops import quant
+    from flash_attention_tpu_torch.utils.metrics import assert_metrics
+    g = torch.Generator(device=dev).manual_seed(SEED + 8)
+    D, F_ = cfg.dim, cfg.hidden_dim
+    proj = {"wq/wo": (D, cfg.n_heads * cfg.head_dim),
+            "wk/wv": (D, cfg.n_kv_heads * cfg.head_dim),
+            "gate/up": (D, F_), "down": (F_, D)}
+    cases = [(f"{phase} {name}", m, k, n)
+             for phase, m in (("prefill", MAX_BATCH * 2048),
+                              ("decode", MAX_BATCH))
+             for name, (k, n) in proj.items()]
+    cases.append(("lm_head", MAX_BATCH, D, cfg.vocab_size))
+    entry, shapes = None, {}
+    for bits in QUANT_BITS:
+        quantize = quant.quantize_int8 if bits == 8 else quant.quantize_int4
+        for label, m, k, n in cases:
+            # weights scaled for outputs of about unit size (see GMM_TOLS)
+            w = quantize(torch.randn((k, n), generator=g, device=dev)
+                         * k**-0.5)
+            x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+            y = quant.quantized_matmul(x, w)
+            want = quant.quantized_matmul_reference(x, w)
+            tag = f"int{bits} {label}"
+            mt = assert_metrics(f"qmm {tag}", y, want, GMM_TOLS)
+            assert torch.equal(y, quant.quantized_matmul(x, w)), \
+                f"qmm {tag}: two runs differ"
+            del y, want
+            wb = quant.dequantize(w).to(torch.bfloat16)
+            decode = m <= quant.SMALL_M
+            if decode:  # a few us of work: device time in a CUDA graph
+                ms = _time_graph_ms(torch, lambda: quant.quantized_matmul(
+                    x, w), 50)
+                with _NoSplit():
+                    no_split = _time_graph_ms(
+                        torch, lambda: quant.quantized_matmul(x, w), 50)
+                lib = _time_graph_ms(torch, lambda: torch.matmul(x, wb), 50)
+            else:
+                ms = _time_ms(torch, lambda: quant.quantized_matmul(x, w), 10)
+                lib = _time_ms(torch, lambda: torch.matmul(x, wb), 10)
+            plain = _time_ms(torch, lambda: quant.quantized_matmul_reference(
+                x, w), 2, warmup=1)
+            flops = 2.0 * m * k * n
+            nbytes = 2 * m * k + k * n * bits / 8 + 4 * n + 2 * m * n
+            bound_ms, bound_by = _bound(flops, nbytes)
+            bm, splits, _ = quant.plan(
+                m, k, n, torch.cuda.get_device_properties(dev)
+                .multi_processor_count)
+            split = (f" (k split {splits} ways; without the split "
+                     f"{no_split:.4f} ms)" if decode else "")
+            print(f"qmm {tag}: x ({m}, {k}) bf16 @ int{bits} ({k}, {n}), "
+                  f"{bm}-row tiles: {mt}; two runs bit-identical; kernel "
+                  f"{ms:.4f} ms{split} ({flops / ms / 1e9:.1f} TFLOP/s, "
+                  f"{nbytes / ms / 1e6:.1f} GB/s), plain {plain:.3f} ms, "
+                  f"bf16 torch.matmul {lib:.4f} ms, bound {bound_ms:.4f} ms "
+                  f"({bound_by}){' [device times in a CUDA graph]' if decode else ''}"
+                  f" [{card}]")
+            shapes[tag] = {"ms": ms, "plain_ms": plain, "bound_ms": bound_ms,
+                           "bound_by": bound_by, "library_ms": lib,
+                           "max_abs_err": mt.max_abs}
+            if decode:
+                shapes[tag]["ms_no_split"] = no_split
+            if tag == "int8 prefill gate/up":  # the largest projection
+                entry = {"name": "qmm", "route": "cuda",
+                         "source": "flash_attention_tpu_torch/csrc/qmm.cu",
+                         "replaces": "flash_attention_tpu/ops/quant.py:97",
+                         "max_abs_err": mt.max_abs, "ms": ms,
+                         "plain_ms": plain, "bound_ms": bound_ms,
+                         "bound_by": bound_by, "library_ms": lib,
+                         "library": "bf16 torch.matmul with the dequantised "
+                                    "weight (timed only)"}
+            del x, w, wb
+    entry["max_abs_err"] = max(v["max_abs_err"] for v in shapes.values())
+    entry["shapes"] = shapes
+    return entry
+
+
 class _RouteLog:
     """Records the ids of every ``ops.moe.route`` call while active (each
     token's top-k set, sorted, on the device: no host sync); the results
@@ -685,8 +806,27 @@ def check_moe_ffn(torch, dev, cfg, card):
           + "; ".join(parts))
 
 
+def _weight_bytes(params) -> str:
+    """The weights' bytes on the card, quantized ones apart."""
+    from flash_attention_tpu_torch.ops.quant import QuantizedTensor
+    quant = plain = 0
+    for w in params.values():
+        if isinstance(w, QuantizedTensor):
+            quant += sum(t.numel() * t.element_size()
+                         for t in (w.values, w.scales))
+        else:
+            plain += w.numel() * w.element_size()
+    return (f"weights {(quant + plain) / 1e9:.3f} GB"
+            + (f" ({quant / 1e9:.3f} GB quantized values and scales, "
+               f"{plain / 1e9:.3f} GB bf16 embedding and norms)"
+               if quant else ""))
+
+
 def serve(torch, params, cfg, prompts, card, kernels, model):
+    """Serve the 8 prompts through the engine with exact launch counts.
+    Returns (the serving path's launches, each request's tokens)."""
     from flash_attention_tpu_torch import Engine
+    from flash_attention_tpu_torch.models import llama
     eng = Engine(cfg, params, total_pages=TOTAL_PAGES, page_size=PAGE_SIZE,
                  max_batch=MAX_BATCH, max_seq_len=MAX_SEQ,
                  native_allocator=True)
@@ -715,6 +855,10 @@ def serve(torch, params, cfg, prompts, card, kernels, model):
     moe_calls = 3 * L * (st["prefill_dispatches"] + st["decode_steps"])
     assert launches["gmm"] == (moe_calls if cfg.n_experts else 0), launches
     assert launches["gmm_dw"] == 0, launches
+    # seven projections a layer and the lm_head, in every dispatch and step
+    qmm_calls = (7 * L + 1) * (st["prefill_dispatches"] + st["decode_steps"])
+    assert launches["qmm"] == (qmm_calls if llama.is_quantized(params)
+                               else 0), launches
     print(f"{model} L{L}: served {len(reqs)} requests x {MAX_NEW} tokens in "
           f"{wall:.3f} s [{card}]")
     print(f"{model} prefill tokens/s: {st['prefill_tokens_per_s']:.1f} "
@@ -724,16 +868,17 @@ def serve(torch, params, cfg, prompts, card, kernels, model):
           f"({st['decode_tokens']} tokens) [{card}]")
     print(f"{model} engine steps: prefill dispatches {st['prefill_dispatches']}, "
           f"decode steps {st['decode_steps']} [{card}]")
-    print(f"{model} serving peak device memory: {peak / 2**30:.2f} GiB "
-          f"[{card}]")
+    print(f"{model} serving peak device memory: {peak / 2**30:.2f} GiB; "
+          f"{_weight_bytes(params)} [{card}]")
     print(f"{model} kernel launches on the serving path: {launches}")
     profile_serving(torch, eng, prompts, card, model)
     del eng
-    return launches
+    return launches, [r.output for r in reqs]
 
 
 _KERNEL_GROUPS = (("flash_fwd", "flash_fwd_kernel"),
                   ("gmm", "gmm_kernel"),
+                  ("qmm", "qmm_kernel|qmm_reduce_kernel"),
                   ("gmm_dw", "gmm_dw_kernel"),
                   ("flash_bwd_di", "flash_bwd_di_kernel"),
                   ("flash_bwd_dq", "flash_bwd_dq_kernel"),
@@ -871,6 +1016,100 @@ def consistency(torch, params, cfg, prompts, model, n_prompts=2):
     assert held >= 1, "no prompt routed alike in prefill and decode"
 
 
+def _quant_error(torch, params, qparams) -> str:
+    """||dequantize(q) - w|| / ||w|| for layer 0's projections and the
+    lm_head: the error each quantized product starts from."""
+    from flash_attention_tpu_torch.ops.quant import QuantizedTensor, dequantize
+    errs = {}
+    for name, qt in qparams.items():
+        if not isinstance(qt, QuantizedTensor):
+            continue
+        w = params[name]
+        if qt.values.dim() == 3:  # a layer stack: layer 0
+            w, qt = w[0], QuantizedTensor(qt.values[0], qt.scales[0], qt.bits)
+        w = w.float()
+        errs[name] = float((dequantize(qt) - w).norm() / w.norm())
+        del w
+    return ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+
+
+def generated_logits(torch, params, cfg, prompts, outputs):
+    """Teacher-forced logits at the generated positions: each served
+    sequence (its prompt and its tokens but the last) through one prefill,
+    and the rows that predict its generated tokens. Returns
+    (n_requests, MAX_NEW, vocab) fp32 on the card."""
+    from flash_attention_tpu_torch.models import llama
+    dev = params["embed"].device
+    rows = []
+    with torch.inference_mode():
+        for p, o in zip(prompts, outputs):
+            seq = torch.tensor([p + o[:-1]], device=dev)
+            logits, _, _ = llama.prefill(params, seq, cfg, return_kv=False)
+            rows.append(logits[0, len(p) - 1:])
+            del logits
+    return torch.stack(rows)
+
+
+def quant_quality(torch, ref, rows, outputs, q_outputs, model):
+    """The method of tools/eval_quant.py on the served sequences: the
+    teacher-forced cross-entropy of the generated tokens, quantized against
+    bf16 (dCE); the rel L2 of the last position's logits; the share of
+    positions whose greedy token agrees. Printed, not gated: only finite."""
+    import torch.nn.functional as F
+    tgt = torch.tensor(outputs, device=ref.device).flatten()
+
+    def ce(r):
+        return float(F.cross_entropy(r.flatten(0, 1), tgt))
+    ce_ref, ce_q = ce(ref), ce(rows)
+    last = float((rows[:, -1] - ref[:, -1]).norm() / ref[:, -1].norm())
+    agree = float((rows.argmax(-1) == ref.argmax(-1)).float().mean())
+    same = sum(a == b for a, b in zip(q_outputs, outputs))
+    print(f"{model} quality on the {len(outputs)} served sequences "
+          f"({tgt.numel()} generated positions, teacher-forced): CE "
+          f"{ce_q:.6f} vs bf16 {ce_ref:.6f} (dCE {ce_q - ce_ref:+.6f} nats); "
+          f"last-position logits rel L2 {last:.4e}; greedy tokens agree at "
+          f"{agree:.2%} of positions; served completions identical to bf16's:"
+          f" {same} of {len(outputs)}")
+    assert all(np.isfinite([ce_ref, ce_q, last, agree])), (ce_q, last)
+
+
+def quant_card_vs_cpu(torch, dev, cfg, card, n_layers=2):
+    """Full width, ``n_layers`` layers, b 1, s 256, int8 and int4: prefill
+    logits through the qmm kernel (bf16 activations, card) against the
+    plain version (fp32 activations, CPU) on the same QuantizedTensors."""
+    from flash_attention_tpu_torch.models import llama
+    from flash_attention_tpu_torch.ops.quant import QuantizedTensor
+    cfg2 = dataclasses.replace(cfg, n_layers=n_layers)
+    params = llama.init_params(cfg2, seed=SEED + 9, device=dev)
+    toks, _ = _batch(torch, dev, cfg.vocab_size, 1, 256, SEED + 9)
+    torch.set_num_threads(os.cpu_count() or 1)
+
+    def to_cpu(w):
+        if isinstance(w, QuantizedTensor):
+            return QuantizedTensor(w.values.cpu(), w.scales.cpu(), w.bits)
+        return w.to("cpu", torch.float32)
+    with torch.inference_mode():
+        for bits in QUANT_BITS:
+            qp = llama.quantize_params(params, bits=bits)
+            card_logits, _, _ = llama.prefill(qp, toks, cfg2, return_kv=False)
+            t0 = time.perf_counter()
+            cpu_logits, _, _ = llama.prefill(
+                {n: to_cpu(w) for n, w in qp.items()}, toks.cpu(), cfg2,
+                return_kv=False)
+            t_cpu = time.perf_counter() - t0
+            a, b = card_logits.float().cpu(), cpu_logits
+            assert torch.isfinite(a).all() and torch.isfinite(b).all()
+            rel = float((a - b).norm() / b.norm())
+            agree = float((a.argmax(-1) == b.argmax(-1)).float().mean())
+            print(f"Llama-3-8B int{bits} card vs CPU (L{n_layers}, b1 s256, "
+                  f"full width, the same QuantizedTensors): prefill logits "
+                  f"rel L2 {rel:.3e}, max abs "
+                  f"{float((a - b).abs().max()):.3e}, greedy tokens agree at "
+                  f"{agree:.2%} of positions (CPU {t_cpu:.2f} s) [{card}]")
+            assert rel <= QUANT_CARD_CPU_REL_L2, (bits, rel)
+            del qp, card_logits, cpu_logits
+
+
 def _batch(torch, dev, vocab, b, s, seed):
     """Tokens from a numpy seed; targets are the tokens rolled by one, with
     the last position ignored (-100)."""
@@ -961,7 +1200,8 @@ def train(torch, params, cfg, card, kernels, model, lr=LR):
     moe = 1 if cfg.n_experts else 0
     # forward, remat recompute and dx: three grouped matmuls each per layer
     want = {"flash_fwd": 2 * L, "flash_bwd_di": L, "flash_bwd_dq": L,
-            "flash_bwd_dkv": L, "gmm": 9 * L * moe, "gmm_dw": 3 * L * moe}
+            "flash_bwd_dkv": L, "gmm": 9 * L * moe, "gmm_dw": 3 * L * moe,
+            "qmm": 0}
     totals = dict.fromkeys(want, 0)
     losses, step_ms = [], []
 
@@ -1053,7 +1293,7 @@ def main() -> int:
     from flash_attention_tpu_torch.models import llama
     from flash_attention_tpu_torch.ops import _build
     from flash_attention_tpu_torch.ops import flash_bwd, flash_fwd, kv_update
-    from flash_attention_tpu_torch.ops import moe, paged_attention
+    from flash_attention_tpu_torch.ops import moe, paged_attention, quant
     t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1061,7 +1301,7 @@ def main() -> int:
     card = _card_line()
     print(f"card: {card}")
     kernels = [flash_fwd.KERNEL, kv_update.KERNEL, paged_attention.KERNEL,
-               *flash_bwd.KERNELS, *moe.KERNELS]
+               *flash_bwd.KERNELS, *moe.KERNELS, quant.KERNEL]
 
     # 1. build every kernel from source, with the ptxas summary
     t0 = time.perf_counter()
@@ -1089,7 +1329,8 @@ def main() -> int:
                    check_kv_write(torch, dev, cfg, card),
                    check_paged(torch, dev, cfg, card),
                    check_gmm(torch, dev, mix, card),
-                   check_gmm_dw(torch, dev, mix, card)]
+                   check_gmm_dw(torch, dev, mix, card),
+                   check_qmm(torch, dev, cfg, card)]
     torch.cuda.empty_cache()
     entries += check_bwd(torch, dev, cfg, card)
     torch.cuda.empty_cache()
@@ -1104,9 +1345,10 @@ def main() -> int:
     torch.cuda.synchronize()
     print(f"init_params Llama-3-8B bf16 on device: "
           f"{time.perf_counter() - t0:.3f} s")
-    paths["serve"] = serve(torch, params, cfg, prompts, card, kernels,
-                           "Llama-3-8B")
+    paths["serve"], outputs = serve(torch, params, cfg, prompts, card,
+                                    kernels, "Llama-3-8B")
     consistency(torch, params, cfg, prompts, "Llama-3-8B")
+    ref_rows = generated_logits(torch, params, cfg, prompts, outputs)
     train_consistency(torch, dev, cfg, card, "Llama-3-8B")
     torch.cuda.empty_cache()
     paths["train"] = train(torch, params, cfg, card, kernels, "Llama-3-8B")
@@ -1114,7 +1356,38 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # 4. Mixtral-8x7B, full width, 16 layers: serving, prefill vs decode
+    # 4. the same Llama-3-8B weights (the same seed) quantized, int8 then
+    #    int4: only the quantized copy and the bf16 embedding and norms stay
+    #    on the card while it serves
+    for bits in QUANT_BITS:
+        model = f"Llama-3-8B int{bits}"
+        params = llama.init_params(cfg, seed=SEED, device=dev,
+                                   dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        qparams = llama.quantize_params(params, bits=bits)
+        torch.cuda.synchronize()
+        print(f"quantize_params {model} on device: "
+              f"{time.perf_counter() - t0:.3f} s; weight rel L2 error "
+              f"{_quant_error(torch, params, qparams)}")
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        paths[f"serve_int{bits}"], q_outputs = serve(
+            torch, qparams, cfg, prompts, card, kernels, model)
+        consistency(torch, qparams, cfg, prompts, model)
+        quant_quality(torch, ref_rows,
+                      generated_logits(torch, qparams, cfg, prompts, outputs),
+                      outputs, q_outputs, model)
+        del qparams
+        gc.collect()
+        torch.cuda.empty_cache()
+    del ref_rows
+    quant_card_vs_cpu(torch, dev, cfg, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 5. Mixtral-8x7B, full width, 16 layers: serving, prefill vs decode
     mix_serve = dataclasses.replace(mix, n_layers=MIX_SERVE_LAYERS)
     mix_prompts = _prompts(mix.vocab_size)
     t0 = time.perf_counter()
@@ -1123,15 +1396,15 @@ def main() -> int:
     torch.cuda.synchronize()
     print(f"init_params Mixtral-8x7B L{MIX_SERVE_LAYERS} bf16 on device: "
           f"{time.perf_counter() - t0:.3f} s")
-    paths["serve_mixtral"] = serve(torch, params, mix_serve, mix_prompts, card,
-                                   kernels, "Mixtral-8x7B")
+    paths["serve_mixtral"], _ = serve(torch, params, mix_serve, mix_prompts,
+                                      card, kernels, "Mixtral-8x7B")
     consistency(torch, params, mix_serve, mix_prompts, "Mixtral-8x7B",
                 n_prompts=MIX_CONSISTENCY_PROMPTS)
     del params
     gc.collect()
     torch.cuda.empty_cache()
 
-    # 5. Mixtral training: a 1-layer card-vs-CPU check, then 8 layers
+    # 6. Mixtral training: a 1-layer card-vs-CPU check, then 8 layers
     train_consistency(torch, dev, mix, card, "Mixtral-8x7B", n_layers=1)
     gc.collect()
     torch.cuda.empty_cache()

@@ -3,17 +3,23 @@
 The serving path (dense flash attention for prefill, the in-place paged KV
 write and paged attention for decode) and the training path (the
 differentiable ``flash_attention`` with its three backward kernels, under
-``models.llama.train_loss``), and the Mixtral MoE feed-forward on both
+``models.llama.train_loss``), the Mixtral MoE feed-forward on both
 (``ops.moe``: routing, dispatch and the grouped-matmul kernels with their
-backward). Each kernel is hand-written CUDA on the card
-and a plain PyTorch version on the CPU, under the Llama model and the
-continuous-batching engine. Imports no JAX.
+backward), and weight-only int8/int4 quantized serving (``ops.quant``: the
+quantizers and the quantized matmul, under ``llama.quantize_params``). Each
+kernel is hand-written CUDA on the card and a plain PyTorch version on the
+CPU, under the Llama model and the continuous-batching engine. Imports no
+JAX.
 """
 
 from flash_attention_tpu_torch.ops.attention import bwd, flash_attention, fwd
 from flash_attention_tpu_torch.ops.kv_update import write_token_kv
 from flash_attention_tpu_torch.ops.paged_attention import paged_attention
+from flash_attention_tpu_torch.ops.quant import (QuantizedTensor, dequantize,
+                                                 quantize_int4, quantize_int8,
+                                                 quantized_matmul)
 from flash_attention_tpu_torch.serving.engine import Engine
 
-__all__ = ["Engine", "bwd", "flash_attention", "fwd", "paged_attention",
-           "write_token_kv"]
+__all__ = ["Engine", "QuantizedTensor", "bwd", "dequantize", "flash_attention",
+           "fwd", "paged_attention", "quantize_int4", "quantize_int8",
+           "quantized_matmul", "write_token_kv"]

@@ -23,24 +23,34 @@ one (L, hk, P, page_size, d) tensor that the kernels index by layer. The
 large projections and the lm_head are ``torch.matmul``, as the JAX package
 left them to XLA.
 
+``quantize_params`` makes a weight-only int8 or int4 model: the seven
+projections of every layer become stacked ``QuantizedTensor``s (values
+(L, k or k / 2, n), scales (L, n)) and the lm_head a single one. Every
+product with such a weight then runs ``ops.quant.quantized_matmul`` (the
+qmm kernel on the card). A quantized model serves; ``train_loss`` on it
+raises, as the JAX package has no gradient for the quantized matmul.
+
 Outside this slice (they raise): sliding windows, softcaps, the Gemma-2
-extras, LoRA, quantized weights and tensor parallelism (and with it expert
-parallelism).
+extras, LoRA, quantized MoE experts and tensor parallelism (and with it
+expert parallelism).
 """
 
 from __future__ import annotations
 
 import dataclasses
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from flash_attention_tpu_torch.models.checkpoint import to_tensor
 from flash_attention_tpu_torch.ops.attention import flash_attention
 from flash_attention_tpu_torch.ops.kv_update import write_token_kv
 from flash_attention_tpu_torch.ops.moe import moe_ffn
 from flash_attention_tpu_torch.ops.paged_attention import paged_attention
+from flash_attention_tpu_torch.ops.quant import (QuantizedTensor,
+                                                 quantize_int4, quantize_int8,
+                                                 quantized_matmul)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -160,6 +170,7 @@ _LAYER_NAMES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
                 "norm_attn", "norm_mlp")
 _BIAS_NAMES = ("bq", "bk", "bv")
 _OPTIONAL_NAMES = _BIAS_NAMES + ("w_router",)
+_MATMUL_NAMES = _LAYER_NAMES[:7]  # the weights quantize_params quantizes
 
 
 def check_supported(cfg: LlamaConfig, params=None, tp_axis=None) -> None:
@@ -174,12 +185,22 @@ def check_supported(cfg: LlamaConfig, params=None, tp_axis=None) -> None:
     }
     if params is not None:
         unsupported["LoRA adapters"] = "lora" in params
-        unsupported["quantized weights"] = any(
-            not isinstance(params[n], torch.Tensor) for n in _LAYER_NAMES)
+        unsupported["quantized MoE experts"] = (
+            "w_router" in params and is_quantized(params))
+        unsupported["weights other than tensors and QuantizedTensors"] = any(
+            not isinstance(params[n], torch.Tensor)
+            and not (n in _MATMUL_NAMES and isinstance(params[n],
+                                                       QuantizedTensor))
+            for n in _LAYER_NAMES)
     bad = [k for k, v in unsupported.items() if v]
     if bad:
         raise NotImplementedError(
             f"outside this slice of the PyTorch port: {', '.join(bad)}")
+
+
+def is_quantized(params) -> bool:
+    """Whether any weight of ``params`` is a ``QuantizedTensor``."""
+    return any(isinstance(w, QuantizedTensor) for w in params.values())
 
 
 def _randn_into(out: torch.Tensor, scale: float, gen: torch.Generator,
@@ -240,23 +261,62 @@ def init_params(cfg: LlamaConfig, *, seed: int = 0, device="cuda",
     return params
 
 
+@torch.no_grad()  # trained weights that require grad record no graph
+def quantize_params(params, bits: int = 8) -> dict:
+    """Weight-only quantization of every per-layer matmul weight and the
+    lm_head, int8 (``bits=8``) or int4 (``bits=4``), per output channel.
+
+    Each (k, n) slice is quantized on its own, on the params' device, into
+    preallocated stacks, so no fp32 or int32 copy of a whole stack exists
+    (the largest transients are those of the lm_head). Other entries are
+    shared with ``params``. MoE params raise, as in the JAX package."""
+    if "w_router" in params:
+        raise NotImplementedError(
+            "weight-only quantization of MoE expert stacks is not supported "
+            "(the grouped matmul kernel takes float expert weights)")
+    quant = {8: quantize_int8, 4: quantize_int4}.get(bits)
+    if quant is None:
+        raise ValueError(f"bits must be 8 or 4, got {bits}")
+    out = dict(params)
+    for name in _MATMUL_NAMES:
+        w = params[name]
+        n_layers, k, n = w.shape
+        values = torch.empty((n_layers, k * bits // 8, n), dtype=torch.int8,
+                             device=w.device)
+        scales = torch.empty((n_layers, n), dtype=torch.float32,
+                             device=w.device)
+        for i in range(n_layers):
+            values[i], scales[i], _ = quant(w[i])
+        out[name] = QuantizedTensor(values, scales, bits)
+    out["lm_head"] = quant(params["lm_head"])
+    return out
+
+
 def params_from_jax(np_params: dict, device, dtype) -> dict:
     """Carry the JAX package's parameters across: the same names and stacked
-    (L, in, out) layout, so each array is only cast and moved."""
+    (L, in, out) layout, so each array is only cast and moved.
+
+    A quantized leaf is any value with ``values``, ``scales`` and ``bits``
+    (the JAX ``QuantizedTensor`` after ``jax.tree.map(np.asarray, ...)``):
+    it becomes a ``QuantizedTensor`` with int8 values and fp32 scales, moved
+    but never cast to ``dtype``."""
     out = {}
     for name, a in np_params.items():
-        a = np.asarray(a)
-        if a.dtype.name == "bfloat16":  # ml_dtypes bf16: reinterpret bits
-            t = torch.from_numpy(a.view(np.uint16).astype(np.int16)).view(
-                torch.bfloat16)
+        if all(hasattr(a, f) for f in ("values", "scales", "bits")):
+            out[name] = QuantizedTensor(to_tensor(a.values).to(device),
+                                        to_tensor(a.scales).to(device),
+                                        int(a.bits))
         else:
-            t = torch.from_numpy(np.array(a))  # a writable copy
-        out[name] = t.to(device=device, dtype=dtype)
+            out[name] = to_tensor(a).to(device=device, dtype=dtype)
     return out
 
 
 def _mm(x, w):
-    """x @ w in the activation dtype (the product accumulates in fp32)."""
+    """x @ w in the activation dtype (the product accumulates in fp32); a
+    ``QuantizedTensor`` w runs the quantized matmul on x as (-1, k)."""
+    if isinstance(w, QuantizedTensor):
+        y = quantized_matmul(x.reshape(-1, x.shape[-1]), w)
+        return y.view(*x.shape[:-1], y.shape[-1])
     return torch.matmul(x, w).to(x.dtype)
 
 
@@ -293,10 +353,17 @@ def _layer_weights(params) -> list[dict]:
     One ``unbind`` per weight, so the backward stacks each weight's L
     gradients once; indexing ``params[name][i]`` inside the layer loop would
     make every layer's backward allocate and add a zero-filled gradient of
-    the whole stack."""
-    per = {n: params[n].unbind(0) for n in _LAYER_NAMES + _OPTIONAL_NAMES
+    the whole stack. A stacked ``QuantizedTensor`` unbinds its values and
+    scales into one ``QuantizedTensor`` per layer."""
+    def unbind(w):
+        if isinstance(w, QuantizedTensor):
+            return [QuantizedTensor(v, s, w.bits)
+                    for v, s in zip(w.values.unbind(0), w.scales.unbind(0))]
+        return w.unbind(0)
+
+    per = {n: unbind(params[n]) for n in _LAYER_NAMES + _OPTIONAL_NAMES
            if n in params}
-    n_layers = params["wq"].shape[0]
+    n_layers = params["norm_attn"].shape[0]
     return [{n: w[i] for n, w in per.items()} for i in range(n_layers)]
 
 
@@ -397,6 +464,10 @@ def train_loss(params, tokens, targets, cfg: LlamaConfig, *,
     if lora_ids is not None:
         raise NotImplementedError("LoRA adapters are outside this slice of "
                                   "the PyTorch port")
+    if is_quantized(params):
+        raise NotImplementedError("train_loss on quantized weights: the "
+                                  "quantized matmul has no gradient (a "
+                                  "quantized model serves)")
     logits, _, _ = prefill(params, tokens, cfg, tp_axis=tp_axis,
                            return_kv=False, remat=remat)
     valid = targets >= 0

@@ -16,7 +16,9 @@ The power-of-two batch and bucket padding and the trash page are kept so the
 port emits the same tokens as the JAX engine; on the GPU they are not needed
 for compilation and may go with CUDA graphs later. A Mixtral (MoE) model
 routes every row it is given, pad rows and pad batch entries included, as
-the JAX engine does. Tensor parallelism (and expert parallelism with it),
+the JAX engine does. Weight-only quantized params (``llama.quantize_params``)
+serve as they are; the device and the cache dtype come from the bf16
+embedding. Tensor parallelism (and expert parallelism with it),
 speculative decoding, prefix caching, chunked prefill, multi-step decode,
 LoRA and a quantized KV cache are outside this slice and raise.
 """

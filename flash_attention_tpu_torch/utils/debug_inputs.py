@@ -16,7 +16,7 @@ import torch
 
 
 def identity_sequence(seqlen: int, heads: int, head_dim: int, dtype,
-                      device="cpu"):
+                      device="cuda"):
     """(seqlen, heads, head_dim): row i is one-hot at column i % head_dim,
     identical across heads."""
     rows = torch.eye(head_dim, dtype=dtype, device=device)[
@@ -25,14 +25,14 @@ def identity_sequence(seqlen: int, heads: int, head_dim: int, dtype,
 
 
 def identity_batch(batch: int, seqlen: int, heads: int, head_dim: int, dtype,
-                   device="cpu"):
+                   device="cuda"):
     """(batch, seqlen, heads, head_dim), the same pattern in every batch row
     (a contiguous tensor)."""
     seq = identity_sequence(seqlen, heads, head_dim, dtype, device)
     return seq[None].expand(batch, *seq.shape).contiguous()
 
 
-def identity_packed(lens, heads: int, head_dim: int, dtype, device="cpu"):
+def identity_packed(lens, heads: int, head_dim: int, dtype, device="cuda"):
     """Packed (sum(lens), heads, head_dim); the one-hot pattern restarts at
     column 0 for each sequence, so a cross-sequence leak shows up as a
     phase-shifted stripe."""

@@ -142,10 +142,12 @@ def test_identity_inputs_match_jax():
     """The identity-pattern inputs are the JAX package's, and the backward
     on them (one-hot rows: exact 0/1 score blocks) matches JAX's."""
     b, s, h, d = 2, 96, 2, 64
-    x = debug_inputs.identity_batch(b, s, h, d, torch.float32)
+    x = debug_inputs.identity_batch(b, s, h, d, torch.float32,
+                                   device="cpu")
     x_j = np.asarray(jax_debug.identity_batch(b, s, h, d, jnp.float32))
     assert x.shape == x_j.shape and np.array_equal(x.numpy(), x_j)
-    packed = debug_inputs.identity_packed([5, 0, 70], h, d, torch.float32)
+    packed = debug_inputs.identity_packed([5, 0, 70], h, d, torch.float32,
+                                           device="cpu")
     assert np.array_equal(packed.numpy(), np.asarray(
         jax_debug.identity_packed([5, 0, 70], h, d, jnp.float32)))
     (dq, dk, dv), want = _both(x.numpy(), x.numpy(), x.numpy(),

@@ -10,9 +10,11 @@ import pytest
 import torch
 
 from flash_attention_tpu_torch import (Engine, bwd, fwd, paged_attention,
+                                       quantize_int4, quantized_matmul,
                                        write_token_kv)
-from flash_attention_tpu_torch.models import llama
+from flash_attention_tpu_torch.models import checkpoint, llama
 from flash_attention_tpu_torch.ops import flash_bwd, flash_fwd, kv_update, moe
+from flash_attention_tpu_torch.ops import quant
 from flash_attention_tpu_torch.ops import paged_attention as pa_mod
 
 torch.set_num_threads(2)
@@ -41,12 +43,13 @@ def test_no_jax_import(path):
 
 def test_sources_found():
     names = {p.name for p in SOURCES}
-    assert {"engine.py", "llama.py", "attention.py", "chip_smoke.py"} <= names
+    assert {"engine.py", "llama.py", "attention.py", "chip_smoke.py",
+            "quant.py", "checkpoint.py"} <= names
 
 
-def test_cpu_calls_launch_no_kernel():
+def test_cpu_calls_launch_no_kernel(tmp_path):
     kernels = (flash_fwd.KERNEL, kv_update.KERNEL, pa_mod.KERNEL,
-               *flash_bwd.KERNELS, *moe.KERNELS)
+               *flash_bwd.KERNELS, *moe.KERNELS, quant.KERNEL)
     for k in kernels:
         k.launches = 0
     rng = np.random.default_rng(0)
@@ -81,4 +84,16 @@ def test_cpu_calls_launch_no_kernel():
         p.requires_grad_()
     llama.train_loss(params, toks, toks.roll(-1, 1), moe_cfg).backward()
     assert all(p.grad is not None for p in params.values())
-    assert [k.launches for k in kernels] == [0] * 8
+    # weight-only quantized serving, and its checkpoint
+    quantized_matmul(q[0, :, 0], quantize_int4(torch.ones((64, 16))))
+    qparams = llama.quantize_params(llama.init_params(cfg, device="cpu"),
+                                    bits=8)
+    checkpoint.save_checkpoint(str(tmp_path / "q.npz"), qparams)
+    qparams = checkpoint.load_checkpoint(str(tmp_path / "q.npz"),
+                                         device="cpu")
+    eng = Engine(cfg, qparams, total_pages=16, page_size=16, max_batch=2,
+                 max_seq_len=64)
+    req = eng.add_request([1, 2, 3], max_new_tokens=3)
+    eng.run()
+    assert req.error is None and len(req.output) == 3
+    assert [k.launches for k in kernels] == [0] * 9

@@ -18,7 +18,9 @@ mean_atol 2e-3, mean_rtol 2e-1); where a row attends to one key, dq and dk
 must be exactly 0. The grouped-matmul kernels (gmm, gmm_dw) round one fp32
 sum to the output dtype, as their plain versions do: fp16 takes the forward
 gates and bf16 the bf16 backward gates, with outputs of unit scale; dead
-blocks and experts with no rows must be exactly 0.
+blocks and experts with no rows must be exactly 0. The quantized matmul
+(qmm) also rounds one fp32 sum, scaled per channel, once: the same gates,
+with outputs of unit scale; repeats must be bit-identical.
 """
 
 import math
@@ -31,6 +33,7 @@ from flash_attention_tpu_torch.ops import flash_bwd as bwd_mod
 from flash_attention_tpu_torch.ops import flash_fwd as fwd_mod
 from flash_attention_tpu_torch.ops import kv_update, moe as moe_mod
 from flash_attention_tpu_torch.ops import paged_attention as pa_mod
+from flash_attention_tpu_torch.ops import quant
 from flash_attention_tpu_torch.ops.attention import bwd, flash_attention, fwd
 from flash_attention_tpu_torch.ops.reference import reference_attention
 from flash_attention_tpu_torch.utils.metrics import assert_metrics
@@ -422,3 +425,126 @@ def test_gmm_counts_and_rejects(cuda):
         moe_mod.gmm(x, w[:, :, ::2], be)
     with pytest.raises(ValueError):  # a CUDA x with CPU block ids
         moe_mod.gmm_dw(x, x, be.cpu(), 4)
+
+
+# --------------------------------------------------------- quantized matmul
+# (m, k, n): one row; decode (16-row tile, k split 16 ways); ragged k (not a
+# multiple of 8: x padded) with n not a multiple of 16 (weight padded);
+# ragged m, k and n tiles; the 128-row tile split over k.
+QMM_SHAPES = [(1, 64, 128), (8, 4096, 1024), (7, 202, 200), (100, 512, 512),
+              (129, 264, 1040), (300, 1000, 384)]
+
+
+def _qmm_inputs(seed, m, k, n, bits, dtype, device):
+    rng = np.random.default_rng(seed)
+    x = _randn(rng, (m, k), dtype, device)
+    w = torch.from_numpy(rng.standard_normal((k, n), dtype=np.float32)
+                         * k**-0.5)
+    qt = (quant.quantize_int8 if bits == 8 else quant.quantize_int4)(w)
+    return x, quant.QuantizedTensor(qt.values.to(device),
+                                    qt.scales.to(device), bits)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("m,k,n", QMM_SHAPES)
+def test_qmm_matches_plain(cuda, dtype, bits, m, k, n):
+    x, w = _qmm_inputs(m + k + n, m, k, n, bits, dtype, cuda)
+    y = quant.quantized_matmul(x, w)
+    want = quant.quantized_matmul_reference(x, w)
+    assert y.shape == (m, n) and y.dtype == dtype
+    assert_metrics(f"qmm[{dtype},{bits},{m},{k},{n}]", y, want,
+                   _gmm_tols(dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [8, 300])
+def test_qmm_int4_nibble_order(cuda, m):
+    """Every packed byte holds two different nibbles, so reading the high
+    nibble as row 2i (or sign-extending wrongly) fails the gates."""
+    rng = np.random.default_rng(m)
+    k, n = 512, 256
+    lo = rng.integers(-8, 8, (k // 2, n))
+    hi = (lo + rng.integers(1, 16, (k // 2, n)) + 8) % 16 - 8
+    assert np.all(lo != hi)
+    values = torch.from_numpy(((lo & 0xF) | ((hi & 0xF) << 4)).astype(
+        np.uint8).view(np.int8)).to(cuda)
+    scales = torch.from_numpy(rng.uniform(0.5, 1.5, n).astype(np.float32)
+                              * (k * 30.0) ** -0.5).to(cuda)
+    w = quant.QuantizedTensor(values, scales, 4)
+    x = _randn(rng, (m, k), torch.bfloat16, cuda)
+    assert_metrics(f"qmm[nibbles,{m}]", quant.quantized_matmul(x, w),
+                   quant.quantized_matmul_reference(x, w), BWD_BF16_TOLS)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", [(8, 4096, 1024), (300, 1000, 384),
+                                   (256, 1024, 2048)])
+def test_qmm_repeats_bit_identical_and_fp32_out(cuda, m, k, n):
+    """No atomics: two launches give the same bits, with or without a k
+    split; fp32 output is the same fp32 sum, scaled, left unrounded."""
+    for bits in (8, 4):
+        x, w = _qmm_inputs(5, m, k, n, bits, torch.bfloat16, cuda)
+        first = quant.quantized_matmul(x, w)
+        assert torch.equal(first, quant.quantized_matmul(x, w))
+        y32 = quant.quantized_matmul(x, w, out_dtype=torch.float32)
+        assert y32.dtype == torch.float32
+        assert_metrics(f"qmm[fp32 out,{bits}]", y32,
+                       quant.quantized_matmul_reference(
+                           x, w, out_dtype=torch.float32), FWD_TOLS)
+
+
+@pytest.mark.gpu
+def test_qmm_strided_x(cuda):
+    """x as a column slice of a wider buffer: read through its row stride."""
+    x, w = _qmm_inputs(9, 40, 256, 384, 8, torch.bfloat16, cuda)
+    wide = torch.zeros((40, 256 + 64), dtype=torch.bfloat16, device=cuda)
+    wide[:, 8:264] = x
+    got = quant.quantized_matmul(wide[:, 8:264], w)
+    assert torch.equal(got, quant.quantized_matmul(x, w))
+
+
+@pytest.mark.gpu
+def test_qmm_counts_and_rejects(cuda):
+    x, w = _qmm_inputs(1, 8, 256, 128, 8, torch.bfloat16, cuda)
+    before = quant.KERNEL.launches
+    quant.quantized_matmul(x, w)
+    assert quant.KERNEL.launches == before + 1
+    with pytest.raises(NotImplementedError):  # fp32 activations on the card
+        quant.quantized_matmul(x.float(), w)
+    with pytest.raises(NotImplementedError):  # fp16 out of bf16 x
+        quant.quantized_matmul(x, w, out_dtype=torch.float16)
+    with pytest.raises(ValueError):  # k disagrees with the weight
+        quant.quantized_matmul(x[:, :128], w)
+    with pytest.raises(ValueError):  # scales on the CPU
+        quant.quantized_matmul(x, w._replace(scales=w.scales.cpu()))
+    with pytest.raises(ValueError):  # a strided weight
+        quant.quantized_matmul(x, w._replace(values=w.values[:, ::2],
+                                             scales=w.scales[::2]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quantized_prefill_cuda_matches_cpu(cuda, bits):
+    """A tiny quantized Llama: prefill logits through the kernel (bf16,
+    card) against the plain version (fp32, CPU) on the same
+    QuantizedTensors; bf16 activations hold them to a few percent."""
+    from flash_attention_tpu_torch.models import llama
+    cfg = llama.LlamaConfig.tiny()
+    params = llama.init_params(cfg, seed=3, device="cpu", dtype=torch.float32)
+    qp = llama.quantize_params(params, bits=bits)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(0, 256, (2, 50)))
+    want, _, _ = llama.prefill(qp, toks, cfg, return_kv=False)
+
+    def to_card(v):
+        if isinstance(v, quant.QuantizedTensor):
+            return quant.QuantizedTensor(v.values.to(cuda), v.scales.to(cuda),
+                                         v.bits)
+        return v.to(cuda, torch.bfloat16)
+    before = quant.KERNEL.launches
+    got, _, _ = llama.prefill({k: to_card(v) for k, v in qp.items()},
+                              toks.to(cuda), cfg, return_kv=False)
+    assert quant.KERNEL.launches == before + 7 * cfg.n_layers + 1
+    rel = float((got.cpu() - want).norm() / want.norm())
+    assert rel < 5e-2, rel
