@@ -165,49 +165,63 @@ def _prompts(vocab: int):
 
 
 def check_flash(torch, dev, bucket, cfg, card):
+    """The forward kernel at the prefill shape (b 8, causal and not) and the
+    training shape (b 2 x 2048, causal) against its plain version, with two
+    runs bit-identical, and SDPA (its backend named) as the yardstick."""
     from flash_attention_tpu_torch.ops import flash_fwd as fm
     from flash_attention_tpu_torch.ops.reference import reference_attention
     from flash_attention_tpu_torch.utils.metrics import assert_metrics
     g = torch.Generator(device=dev).manual_seed(SEED)
-    b, h, hk, d = MAX_BATCH, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    h, hk, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    scale = d**-0.5
 
     def rnd(*shape):
         return torch.randn(shape, generator=g, device=dev,
                            dtype=torch.float32).to(torch.bfloat16)
 
-    q, k, v = rnd(b, bucket, h, d), rnd(b, bucket, hk, d), rnd(b, bucket, hk, d)
-    scale = d**-0.5
-    entry = None
-    for causal in (True, False):
+    shapes, backend = {}, None
+    for label, b, s, causal in (("prefill b8 causal", MAX_BATCH, bucket, True),
+                                ("prefill b8 non-causal", MAX_BATCH, bucket,
+                                 False),
+                                ("train b2 causal", TRAIN_BATCH, TRAIN_SEQ,
+                                 True)):
+        q, k, v = rnd(b, s, h, d), rnd(b, s, hk, d), rnd(b, s, hk, d)
         o, lse = fm.flash_fwd(q, k, v, causal=causal, sm_scale=scale)
         o_ref, lse_ref = reference_attention(q, k, v, causal=causal)
-        m = assert_metrics(f"flash_fwd causal={causal}", o, o_ref, O_TOLS)
-        assert_metrics(f"flash_fwd lse causal={causal}", lse, lse_ref, LSE_TOLS)
+        m = assert_metrics(f"flash_fwd {label}", o, o_ref, O_TOLS)
+        assert_metrics(f"flash_fwd {label} lse", lse, lse_ref, LSE_TOLS)
+        del o_ref, lse_ref
+        o2, lse2 = fm.flash_fwd(q, k, v, causal=causal, sm_scale=scale)
+        assert torch.equal(o, o2) and torch.equal(lse, lse2), \
+            f"flash_fwd {label}: two runs differ"
         ms = _time_ms(torch, lambda: fm.flash_fwd(q, k, v, causal=causal,
                                                   sm_scale=scale), 20)
         plain = _time_ms(torch, lambda: reference_attention(
             q, k, v, causal=causal), 3, warmup=1)
-        lib = _time_ms(torch, lambda: torch.nn.functional.
-                       scaled_dot_product_attention(
-                           q.transpose(1, 2), k.transpose(1, 2),
-                           v.transpose(1, 2), is_causal=causal,
-                           enable_gqa=True), 20)
-        pairs = bucket * (bucket + 1) // 2 if causal else bucket * bucket
+
+        def sdpa():
+            return torch.nn.functional.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                is_causal=causal, enable_gqa=True)
+        lib = _time_ms(torch, sdpa, 20)
+        if backend is None:
+            backend = _sdpa_backend(torch, sdpa)
+        pairs = s * (s + 1) // 2 if causal else s * s
         flops = 4.0 * d * pairs * b * h
         nbytes = 2 * (q.numel() + k.numel() + v.numel() + o.numel()) \
             + 4 * lse.numel()
         bound_ms, bound_by = _bound(flops, nbytes)
-        print(f"flash_fwd b={b} s={bucket} h={h}/{hk} d={d} causal={causal}: "
-              f"{m}; kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
-              f"plain {plain:.3f} ms, sdpa {lib:.4f} ms, bound {bound_ms:.4f} "
-              f"ms ({bound_by}) [{card}]")
-        if causal:  # the prefill path runs causal
-            entry = {"name": "flash_fwd", "route": "cuda",
-                     "source": "flash_attention_tpu_torch/csrc/flash_fwd.cu",
-                     "replaces": "flash_attention_tpu/ops/flash_fwd.py:74",
-                     "max_abs_err": m.max_abs, "ms": ms, "plain_ms": plain,
-                     "bound_ms": bound_ms, "bound_by": bound_by,
-                     "library_ms": lib}
+        print(f"flash_fwd {label} b={b} s={s} h={h}/{hk} d={d}: {m}; two runs "
+              f"bit-identical; kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} "
+              f"TFLOP/s, {bound_ms / ms:.1%} of the bound), plain "
+              f"{plain:.3f} ms, sdpa {lib:.4f} ms ({ms / lib:.2f}x), bound "
+              f"{bound_ms:.4f} ms ({bound_by}) [{card}]")
+        shapes[label] = {"ms": ms, "plain_ms": plain, "bound_ms": bound_ms,
+                         "bound_by": bound_by, "library_ms": lib,
+                         "max_abs_err": m.max_abs}
+        del q, k, v, o, lse, o2, lse2
+    print(f"flash_fwd yardstick: scaled_dot_product_attention(enable_gqa=True)"
+          f", backend {backend} [{card}]")
     # causal with sq > sk: the first sq - sk rows see no key
     qs, ks_, vs_ = rnd(2, 1024, h, d), rnd(2, 512, hk, d), rnd(2, 512, hk, d)
     o, lse = fm.flash_fwd(qs, ks_, vs_, causal=True, sm_scale=scale)
@@ -216,7 +230,13 @@ def check_flash(torch, dev, bucket, cfg, card):
     assert_metrics("flash_fwd sq>sk lse", lse, lse_ref, LSE_TOLS)
     assert torch.all(o[:, :512] == 0) and torch.all(lse[:, :, :512] == 0)
     print(f"flash_fwd sq=1024 sk=512 causal (512 empty rows -> O=0, LSE=0): {m}")
-    return entry
+    main = shapes["prefill b8 causal"]  # the prefill path runs causal
+    return {"name": "flash_fwd", "route": "cuda",
+            "source": "flash_attention_tpu_torch/csrc/flash_fwd.cu",
+            "replaces": "flash_attention_tpu/ops/flash_fwd.py:74", **main,
+            "library": f"scaled_dot_product_attention(enable_gqa=True), "
+                       f"backend {backend.split(' ')[0]}",
+            "shapes": shapes}
 
 
 def check_kv_write(torch, dev, cfg, card):
@@ -313,18 +333,23 @@ def check_paged(torch, dev, cfg, card):
 
 
 def _sdpa_backend(torch, fn) -> str:
-    """The backend one SDPA call took, from the names of the device kernels
-    it launched (profiled once)."""
+    """The backend an SDPA call took, from the names of the device kernels
+    it launched (profiled over 10 calls: a later profiler session in one
+    process missed the device events of a single short call)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            fn()
         torch.cuda.synchronize()
     times: dict[str, float] = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             times[e.name] = times.get(e.name, 0.0) + e.time_range.elapsed_us()
+    if not times:
+        return "not measured (the profiler saw no device kernels)"
     text = " ".join(times).lower()
     backend = ("cuDNN" if "cudnn" in text else "flash" if "flash" in text
                else "efficient" if "fmha" in text or "efficient" in text

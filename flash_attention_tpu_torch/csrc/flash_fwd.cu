@@ -6,211 +6,416 @@
 // Computes, per (batch, head): S = scale * Q K^T, an online softmax in fp32,
 // O = P V, and LSE = m + log(l) (natural log), with lower-right-aligned causal
 // masking and GQA (kv head = head / group). Q is (b, sq, h, d) and K/V are
-// (b, sk, hk, d), bf16 or fp16, read through their strides (the head dim must
-// be contiguous), so no transpose copy is made. Fully-masked rows (causal with
-// sq > sk) write O = 0 and LSE = empty_lse.
+// (b, sk, hk, d), bf16 or fp16, d 64 or 128, read by TMA through their
+// strides (the head dim must be contiguous), so no copy is made. Fully-masked
+// rows (causal with sq > sk) write O = 0 and LSE = empty_lse.
 //
 // What bounds it on the H100: at prefill shapes (sq = sk = 2048, d = 128) the
-// two products make it compute-bound (about 4 * d FLOP per score against a
-// few bytes per score), so the tensor cores set the floor.
+// two products make it compute-bound (4 d FLOP per score against a few bytes
+// per score), so the tensor cores set the floor. Next come the softmax's
+// instructions (about six per score: scale, max, subtract, exp2, sum, pack),
+// which must hide behind the products; the loads do not limit it.
 //
-// What the design does about it: both products run on the tensor cores with
-// mma.sync m16n8k16 (fp32 accumulate). A CTA of 4 warps owns 64 query rows
-// (16 per warp, Q held in registers as A fragments for the whole kernel);
-// 64-row K and V tiles stream through padded shared memory (row stride d + 8,
-// conflict-free fragment reads). The score accumulator is reused in registers
-// as the A operand of P V, so P never leaves the register file. KV tiles wholly
-// above the causal diagonal are never loaded, and only tiles that straddle the
-// diagonal or the ragged kv edge pay for masking. CTAs with the longest causal
-// rows start first. Left for later work: wgmma, TMA and warp specialisation,
-// and a cp.async double buffer to overlap the tile loads with the products.
+// What the design does about it: a warp-specialised CTA of three warpgroups
+// owns 128 query rows.
+// * Warpgroup 0, the producer, gives most of its registers away
+//   (setmaxnreg); one of its threads loads Q once and streams 128-row K and
+//   V tiles by TMA into a ring of STAGES stages. K and V each have a full
+//   mbarrier per stage (so Q K^T starts before V lands) and an empty one
+//   that the 8 consumer warps release (K as soon as Q K^T is done).
+// * Warpgroups 1 and 2, the consumers, own 64 query rows each. S = Q K^T is
+//   one wgmma chain with both operands in shared memory (K-major, in the
+//   128-byte swizzle TMA wrote). The online softmax runs on the fp32
+//   accumulator in registers (each thread holds rows g and g + 8 of its
+//   warp's 16). P, rounded to the input type, stays in registers as the A
+//   operand of O += P V, whose B operand is V read MN-major (wgmma's
+//   transpose mode), so no transposed copy is made.
+// * Overlap: the two consumers take turns (named barriers) to issue their
+//   products, so one's softmax runs while the other's hold the tensor
+//   cores; and each issues S(j + 1) together with P(j) V(j), so the softmax
+//   of tile j + 1 runs while P(j) V(j) finishes.
+// * KV tiles wholly above the causal diagonal are never loaded; only tiles
+//   on the diagonal or on the ragged kv edge pay for masking, one warp's 16
+//   rows at a time. TMA zero-fills K/V rows past sk and Q rows past sq.
+//   CTAs with the longest causal rows start first.
+// * The epilogue writes O into the consumer's own 64 rows of the Q tile in
+//   shared memory, in the swizzled layout, and stores it with one TMA store
+//   per 64-column box, which clips rows past sq.
+//
+// Exactness the backward relies on: scores are scaled into the log2 domain
+// and rounded first, then the row max is subtracted, so the largest score of
+// a row gives exp2(0) = 1 exactly; a row with one live key gets O equal to
+// that V row bit for bit.
 //
 // Rows past a sequence's own length in a padded prefill bucket are ordinary
 // rows here: causal masking keeps them from influencing earlier rows, and no
 // key-length mask beyond sk is applied.
 
 #include "flash_common.cuh"
+#include "hopper_common.cuh"
 
 namespace {
 
-using fat::Mma;
+constexpr int BLOCK_M = 128;   // query rows per CTA, 64 per consumer
+constexpr int BLOCK_N = 128;   // kv rows per tile
+constexpr int STAGES = 2;      // depth of the K/V ring
+constexpr int NTHREADS = 384;  // producer + 2 consumer warpgroups
+constexpr int BOX = 64;        // head-dim elements per TMA box (128 bytes)
+constexpr int ROW = BOX * 2;   // bytes per box row
+constexpr int PRODUCER_REGS = 40;
+constexpr int CONSUMER_REGS = 232;  // 128 * 40 + 256 * 232 <= 65536
 
-constexpr int BLOCK_M = 64;  // query rows per CTA
-constexpr int BLOCK_N = 64;  // kv rows per tile
-constexpr int NWARPS = 4;
-constexpr int NTHREADS = NWARPS * 32;
+template <int D>
+struct Smem {
+  static constexpr int Q_BYTES = BLOCK_M * D * 2;
+  static constexpr int KV_BYTES = BLOCK_N * D * 2;
+  static constexpr int K_OFF = Q_BYTES;
+  static constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
+  static constexpr int BAR_OFF = V_OFF + STAGES * KV_BYTES;
+  static constexpr int N_BARS = 1 + 4 * STAGES;  // q; k, v full; k, v empty
+  // slack to align the tiles to 1024 bytes, the swizzle's period
+  static constexpr int BYTES = BAR_OFF + N_BARS * 8 + 1024;
+};
+
+// What the softmax needs to know of this thread's rows.
+struct Rows {
+  int row[2];  // the thread's two rows, g and g + 8 of its warp's 16
+  int w0;      // the warp's first row
+  int t;       // thread in its row group of 4
+  int sk, off, causal;
+  float scale_log2;
+};
+
+// S(j) = Q K(j)^T for one consumer's 64 rows, both K-major in shared memory:
+// one wgmma chain, committed and not waited for.
+template <typename T, int D>
+__device__ __forceinline__ void issue_qk(float (&sc)[BLOCK_N / 2], uint32_t q_s,
+                                         uint32_t ks) {
+  hop::fence_regs(sc);
+  hop::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t kb = (kk / 4) * ROW, ko = (kk % 4) * 32;
+    hop::Wgmma<T, BLOCK_N>::ss(
+        sc, hop::desc_sw128(q_s + kb * BLOCK_M + ko, 16, 1024),
+        hop::desc_sw128(ks + kb * BLOCK_N + ko, 16, 1024), kk > 0);
+  }
+  hop::wgmma_commit();
+}
+
+// The online softmax of the tile at kv column n0 on the thread's two rows (4
+// threads share a row): S is scaled into the log2 domain and rounded, masked
+// only where the tile is on an edge for this warp, and turned into P in
+// place. m and l move on; alpha is the factor that rescales O. O itself is
+// not touched (P(j - 1) V(j - 1) may still be running on it).
+__device__ __forceinline__ void softmax_tile(float (&sc)[BLOCK_N / 2],
+                                             float (&m_r)[2], float (&l_r)[2],
+                                             float (&alpha)[2], int n0,
+                                             const Rows& rw) {
+  const bool edge = (n0 + BLOCK_N > rw.sk) ||
+                    (rw.causal && n0 + BLOCK_N - 1 > rw.w0 + rw.off);
+  if (edge) {
+    // live columns of each row, counted from this thread's first column
+    int lim[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      lim[r] = (rw.causal ? min(rw.sk, rw.row[r] + rw.off + 1) : rw.sk) - n0 -
+               rw.t * 2;
+#pragma unroll
+    for (int i = 0; i < BLOCK_N / 2; ++i) {
+      const float x = sc[i] * rw.scale_log2;
+      sc[i] = (i / 4) * 8 + (i & 1) < lim[(i >> 1) & 1] ? x : -CUDART_INF_F;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < BLOCK_N / 2; ++i) sc[i] *= rw.scale_log2;
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float mx = -CUDART_INF_F;
+#pragma unroll
+    for (int nn = 0; nn < BLOCK_N / 8; ++nn)
+      mx = fmaxf(mx, fmaxf(sc[4 * nn + 2 * r], sc[4 * nn + 2 * r + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffff, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffff, mx, 2));
+    const float m_new = fmaxf(m_r[r], mx);
+    // a row with nothing live yet keeps p = 0 instead of exp2(-inf + inf)
+    const float m_use = m_new == -CUDART_INF_F ? 0.f : m_new;
+    alpha[r] = hop::exp2_approx(m_r[r] - m_use);
+    float sum = 0.f;
+#pragma unroll
+    for (int nn = 0; nn < BLOCK_N / 8; ++nn) {
+      const int i = 4 * nn + 2 * r;
+      sc[i] = hop::exp2_approx(sc[i] - m_use);
+      sc[i + 1] = hop::exp2_approx(sc[i + 1] - m_use);
+      sum += sc[i] + sc[i + 1];
+    }
+    l_r[r] = l_r[r] * alpha[r] + sum;
+    m_r[r] = m_new;
+  }
+}
+
+// O = alpha O + P V, P in registers, V MN-major in shared memory: one wgmma
+// chain, committed and not waited for.
+template <typename T, int D>
+__device__ __forceinline__ void issue_pv(float (&acc)[D / 2],
+                                         uint32_t (&pa)[BLOCK_N / 16][4],
+                                         const float (&alpha)[2], uint32_t vs) {
+  // O moves only where a row's max moved (alpha < 1): after the first
+  // tiles, mostly nowhere in the warp
+  if (__any_sync(0xffffffff, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+  }
+  hop::fence_regs(acc);  // the rescale and P stay before the fence
+  hop::fence_regs(pa);
+  hop::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < BLOCK_N / 16; ++kk)
+    hop::Wgmma<T, D>::rs_tb(
+        acc, pa[kk], hop::desc_sw128(vs + kk * 16 * ROW, BLOCK_N * ROW, 1024));
+  hop::wgmma_commit();
+}
+
+// P, rounded to the input type, as A fragments: 8-column blocks 2 kk and
+// 2 kk + 1 form k-step kk.
+template <typename T>
+__device__ __forceinline__ void to_p(uint32_t (&pa)[BLOCK_N / 16][4],
+                                     const float (&sc)[BLOCK_N / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < BLOCK_N / 16; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      pa[kk][e] = fat::Mma<T>::pack(sc[8 * kk + 2 * e], sc[8 * kk + 2 * e + 1]);
+}
 
 template <typename T, int D>
-__global__ void __launch_bounds__(NTHREADS)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
+__global__ void __launch_bounds__(NTHREADS, 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
+                 const __grid_constant__ CUtensorMap k_map,
+                 const __grid_constant__ CUtensorMap v_map,
+                 const __grid_constant__ CUtensorMap o_map,
                  float* __restrict__ lse, int sq, int sk, int h, int group,
-                 long long q_sb, long long q_ss, long long q_sh,
-                 long long k_sb, long long k_ss, long long k_sh,
-                 long long v_sb, long long v_ss, long long v_sh,
                  float scale_log2, int causal, float empty_lse) {
-  constexpr int KSTEPS = D / 16;       // k-steps of Q K^T
-  constexpr int DTILES = D / 8;        // n-tiles of O
-  constexpr int NTILES = BLOCK_N / 8;  // n-tiles of S
-  constexpr int STRIDE = D + 8;        // padded smem row (elements)
-
-  __shared__ __align__(16) T k_s[BLOCK_N * STRIDE];
-  __shared__ __align__(16) T v_s[BLOCK_N * STRIDE];
+  using L = Smem<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (hop::smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* v_full = k_full + STAGES;
+  uint64_t* k_empty = v_full + STAGES;
+  uint64_t* v_empty = k_empty + STAGES;
 
   // longest causal rows first: the last query block has the most kv tiles
   const int m_block = gridDim.x - 1 - blockIdx.x;
   const int head = blockIdx.y;
   const int batch = blockIdx.z;
-  const int kvh = head / group;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int g = lane >> 2;  // fragment row group
-  const int t = lane & 3;   // thread in group
+  const int m_lo = m_block * BLOCK_M;
   const int off = sk - sq;  // lower-right causal offset
-  const int m0 = m_block * BLOCK_M + warp * 16;
-  const int rows[2] = {m0 + g, m0 + g + 8};
-
-  const T* qb = q + batch * q_sb + head * q_sh;
-  const T* kb = k + batch * k_sb + kvh * k_sh;
-  const T* vb = v + batch * v_sb + kvh * v_sh;
-
-  // Q as A fragments, zero past sq
-  uint32_t qf[KSTEPS][4];
-#pragma unroll
-  for (int kk = 0; kk < KSTEPS; ++kk)
-    fat::load_a(qf[kk], qb + m0 * q_ss, q_ss, g, t, kk * 16, rows[0] < sq,
-                rows[1] < sq);
-
-  float acc[DTILES][4];
-#pragma unroll
-  for (int dt = 0; dt < DTILES; ++dt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[dt][e] = 0.f;
-  float m_r[2] = {-CUDART_INF_F, -CUDART_INF_F};
-  float l_r[2] = {0.f, 0.f};
-
   // kv columns this CTA can see: causal stops at its last row's diagonal
   int n_end = sk;
-  if (causal) {
-    const int last_row = min((m_block + 1) * BLOCK_M, sq) - 1;
-    n_end = min(sk, last_row + off + 1);
-  }
+  if (causal) n_end = min(sk, min(m_lo + BLOCK_M, sq) + off);
   const int n_tiles = n_end > 0 ? (n_end + BLOCK_N - 1) / BLOCK_N : 0;
 
-  for (int nt = 0; nt < n_tiles; ++nt) {
-    const int n0 = nt * BLOCK_N;
-    __syncthreads();  // every warp is done with the previous tile
-    fat::load_tile<T, BLOCK_N, D, NTHREADS>(k_s, kb, k_ss, n0, sk, tid);
-    fat::load_tile<T, BLOCK_N, D, NTHREADS>(v_s, vb, v_ss, n0, sk, tid);
-    __syncthreads();
+  // warpgroup index, warp-uniform to the compiler (the shuffle): each role
+  // is one branch that runs to the end, with its own setmaxnreg limit
+  const int role = __shfl_sync(0xffffffff, threadIdx.x / 128, 0);
+  if (threadIdx.x == 0) {
+    hop::mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      hop::mbar_init(&k_full[s], 1);
+      hop::mbar_init(&v_full[s], 1);
+      hop::mbar_init(&k_empty[s], 8);  // one arrival per consumer warp
+      hop::mbar_init(&v_empty[s], 8);
+    }
+    hop::mbar_fence_init();
+  }
+  __syncthreads();
 
-    // S = Q K^T for this warp's 16 rows
-    float s[NTILES][4];
+  if (role == 0) {
+    // ---- producer ----
+    hop::setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      hop::prefetch_map(&q_map);
+      hop::prefetch_map(&k_map);
+      hop::prefetch_map(&v_map);
+      const int kvh = head / group;
+      hop::mbar_expect_tx(q_full, L::Q_BYTES);
 #pragma unroll
-    for (int nn = 0; nn < NTILES; ++nn) {
+      for (int c = 0; c < D / BOX; ++c)
+        hop::tma_load_4d(smem + c * BLOCK_M * ROW, &q_map, q_full, c * BOX,
+                         head, m_lo, batch);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % STAGES;
+        const uint32_t prev = (j / STAGES - 1) & 1;  // tile j - STAGES
+        uint8_t* ks = smem + L::K_OFF + s * L::KV_BYTES;
+        uint8_t* vs = smem + L::V_OFF + s * L::KV_BYTES;
+        // K and V slots are released apart: K(j - STAGES) as soon as its
+        // S is done, a product earlier than its V
+        if (j >= STAGES) hop::mbar_wait(&k_empty[s], prev);
+        hop::mbar_expect_tx(&k_full[s], L::KV_BYTES);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[nn][e] = 0.f;
+        for (int c = 0; c < D / BOX; ++c)
+          hop::tma_load_4d(ks + c * BLOCK_N * ROW, &k_map, &k_full[s], c * BOX,
+                           kvh, j * BLOCK_N, batch);
+        if (j >= STAGES) hop::mbar_wait(&v_empty[s], prev);
+        hop::mbar_expect_tx(&v_full[s], L::KV_BYTES);
 #pragma unroll
-      for (int kk = 0; kk < KSTEPS; ++kk) {
-        uint32_t b0, b1;
-        fat::load_b_rows(b0, b1, k_s + nn * 8 * STRIDE, STRIDE, g, t, kk * 16);
-        Mma<T>::run(s[nn], qf[kk], b0, b1);
+        for (int c = 0; c < D / BOX; ++c)
+          hop::tma_load_4d(vs + c * BLOCK_N * ROW, &v_map, &v_full[s], c * BOX,
+                           kvh, j * BLOCK_N, batch);
       }
     }
+  } else {
+    // ---- consumers ----
+    hop::setmaxnreg_inc<CONSUMER_REGS>();
+    const int wg = role - 1;
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32;
+    const int lane = tid % 32;
+    const int g = lane >> 2;  // fragment row group
+    const int t = lane & 3;   // thread in group
+    const int w0 = m_lo + wg * 64 + warp * 16;  // this warp's first row
+    const int rows[2] = {w0 + g, w0 + g + 8};
+    // this consumer's 64 rows of the Q tile (in each 64-column box)
+    uint8_t* q_rows = smem + wg * 64 * ROW;
+    const uint32_t q_s = hop::smem_u32(q_rows);
+    const uint32_t k_s = hop::smem_u32(smem + L::K_OFF);
+    const uint32_t v_s = hop::smem_u32(smem + L::V_OFF);
 
-    // scale into the log2 domain; mask only tiles on an edge
-    const bool masked = (n0 + BLOCK_N > sk) ||
-                        (causal && n0 + BLOCK_N - 1 > m0 + off);
+    float acc[D / 2];  // O, unnormalised
+    float sc[BLOCK_N / 2];  // S, then P in fp32
+    uint32_t pa[BLOCK_N / 16][4];  // P as the A operand of P V
 #pragma unroll
-    for (int nn = 0; nn < NTILES; ++nn) {
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[nn][e] * scale_log2;
-        if (masked) {
-          const int col = n0 + nn * 8 + t * 2 + (e & 1);
-          const int row = rows[e >> 1];
-          if (col >= sk || (causal && col > row + off)) x = -CUDART_INF_F;
-        }
-        s[nn][e] = x;
-      }
+    for (int i = 0; i < BLOCK_N / 2; ++i) sc[i] = 0.f;
+    float m_r[2] = {-CUDART_INF_F, -CUDART_INF_F};
+    float l_r[2] = {0.f, 0.f};  // this thread's share of the row sums
+    float alpha[2];
+    const Rows rw{{rows[0], rows[1]}, w0, t, sk, off, causal, scale_log2};
+
+    // The consumers take turns to issue their products (named barriers 3
+    // and 4, consumer 0 first), so one's softmax runs while the other's
+    // products hold the tensor cores. Within a consumer, S(j + 1) is issued
+    // with P(j) V(j), and its softmax runs while P(j) V(j) finishes. The
+    // last tile has no S(j + 1) and is peeled off, so no wgmma is issued
+    // under a condition inside the loop.
+    const int my_turn = 3 + wg, next_turn = 4 - wg;
+    hop::mbar_wait(q_full, 0);
+    if (n_tiles > 0) {
+      if (wg == 1) hop::named_arrive(3, 256);
+      hop::named_sync(my_turn, 256);
+      hop::mbar_wait(&k_full[0], 0);
+      issue_qk<T, D>(sc, q_s, k_s);
+      hop::named_arrive(next_turn, 256);
+      hop::wgmma_wait<0>();
+      hop::fence_regs(sc);
+      if (lane == 0) hop::mbar_arrive(&k_empty[0]);
+      softmax_tile(sc, m_r, l_r, alpha, 0, rw);
+      to_p<T>(pa, sc);
+    }
+    for (int j = 0; j + 1 < n_tiles; ++j) {
+      const int s = j % STAGES, s1 = (j + 1) % STAGES;
+      hop::named_sync(my_turn, 256);
+      hop::mbar_wait(&k_full[s1], ((j + 1) / STAGES) & 1);
+      issue_qk<T, D>(sc, q_s, k_s + s1 * L::KV_BYTES);
+      hop::mbar_wait(&v_full[s], (j / STAGES) & 1);
+      issue_pv<T, D>(acc, pa, alpha, v_s + s * L::KV_BYTES);
+      hop::named_arrive(next_turn, 256);
+      hop::wgmma_wait<1>();  // S(j + 1) is done; P(j) V(j) may still run
+      hop::fence_regs(sc);
+      if (lane == 0) hop::mbar_arrive(&k_empty[s1]);
+      softmax_tile(sc, m_r, l_r, alpha, (j + 1) * BLOCK_N, rw);
+      hop::wgmma_wait<0>();
+      hop::fence_regs(acc);
+      hop::fence_regs(pa);
+      if (lane == 0) hop::mbar_arrive(&v_empty[s]);
+      to_p<T>(pa, sc);
+    }
+    if (n_tiles > 0) {
+      const int j = n_tiles - 1, s = j % STAGES;
+      hop::named_sync(my_turn, 256);
+      hop::mbar_wait(&v_full[s], (j / STAGES) & 1);
+      issue_pv<T, D>(acc, pa, alpha, v_s + s * L::KV_BYTES);
+      hop::named_arrive(next_turn, 256);
+      hop::wgmma_wait<0>();
+      hop::fence_regs(acc);
+      hop::fence_regs(pa);
+      // (the last V slot is never reused: no release)
+      // consumer 1's last turn signal has no turn after it: take it
+      if (wg == 0) hop::named_sync(my_turn, 256);
     }
 
-    // online softmax on the thread's two rows (4 threads share a row)
+    // epilogue: O = acc / l (0 for dead rows), LSE = (m + log2 l) * ln 2
+    float inv[2];
+    bool alive[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      float mx = -CUDART_INF_F;
+      l_r[r] += __shfl_xor_sync(0xffffffff, l_r[r], 1);
+      l_r[r] += __shfl_xor_sync(0xffffffff, l_r[r], 2);
+      alive[r] = l_r[r] > 0.f;
+      // not an IEEE division: its slow path is a subroutine call, and the
+      // consumers' code holds no calls or traps (see hop::mbar_wait);
+      // l = 1 still gives exactly 1
+      inv[r] = alive[r] ? __fdividef(1.f, l_r[r]) : 0.f;
+    }
+    // O into this consumer's rows of the Q tile (its last read of them is
+    // done), in the swizzled layout the O map stores from
 #pragma unroll
-      for (int nn = 0; nn < NTILES; ++nn)
-        mx = fmaxf(mx, fmaxf(s[nn][2 * r], s[nn][2 * r + 1]));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffff, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffff, mx, 2));
-      const float m_new = fmaxf(m_r[r], mx);
-      // a row with nothing live yet keeps p = 0 instead of exp2(-inf + inf)
-      const float m_use = m_new == -CUDART_INF_F ? 0.f : m_new;
-      const float alpha = exp2f(m_r[r] - m_use);
-      float sum = 0.f;
+    for (int nt = 0; nt < D / 8; ++nt) {
 #pragma unroll
-      for (int nn = 0; nn < NTILES; ++nn) {
-        s[nn][2 * r] = exp2f(s[nn][2 * r] - m_use);
-        s[nn][2 * r + 1] = exp2f(s[nn][2 * r + 1] - m_use);
-        sum += s[nn][2 * r] + s[nn][2 * r + 1];
-      }
-      sum += __shfl_xor_sync(0xffffffff, sum, 1);
-      sum += __shfl_xor_sync(0xffffffff, sum, 2);
-      l_r[r] = l_r[r] * alpha + sum;
-      m_r[r] = m_new;
-#pragma unroll
-      for (int dt = 0; dt < DTILES; ++dt) {
-        acc[dt][2 * r] *= alpha;
-        acc[dt][2 * r + 1] *= alpha;
+      for (int r = 0; r < 2; ++r) {
+        const int row = warp * 16 + g + 8 * r;
+        const int chunk = (nt % 8) ^ (row & 7);
+        *reinterpret_cast<uint32_t*>(q_rows + (nt / 8) * BLOCK_M * ROW +
+                                     row * ROW + chunk * 16 + t * 4) =
+            fat::Mma<T>::pack(acc[4 * nt + 2 * r] * inv[r],
+                              acc[4 * nt + 2 * r + 1] * inv[r]);
       }
     }
-
-    // O += P V: two S n-tiles form one A fragment (the C and A layouts agree)
+    hop::fence_async_smem();
+    hop::named_sync(1 + wg, 128);
+    if (tid == 0) {
 #pragma unroll
-    for (int kk = 0; kk < BLOCK_N / 16; ++kk) {
-      uint32_t pa[4];
-      fat::pack_a<T>(pa, s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-      for (int dt = 0; dt < DTILES; ++dt) {
-        uint32_t b0, b1;
-        fat::load_b_cols(b0, b1, v_s + kk * 16 * STRIDE + dt * 8, STRIDE, g, t);
-        Mma<T>::run(acc[dt], pa, b0, b1);
-      }
-    }
-  }
-
-  // epilogue: O = acc / l (0 for dead rows), LSE = (m + log2 l) * ln 2
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = rows[r];
-    if (row >= sq) continue;
-    const bool alive = l_r[r] > 0.f;
-    const float inv = alive ? 1.f / l_r[r] : 0.f;
-    T* orow = o + (((long long)batch * sq + row) * h + head) * D;
-#pragma unroll
-    for (int dt = 0; dt < DTILES; ++dt) {
-      *reinterpret_cast<uint32_t*>(orow + dt * 8 + t * 2) =
-          Mma<T>::pack(acc[dt][2 * r] * inv, acc[dt][2 * r + 1] * inv);
+      for (int c = 0; c < D / BOX; ++c)
+        hop::tma_store_4d(&o_map, q_rows + c * BLOCK_M * ROW, c * BOX, head,
+                          m_lo + wg * 64, batch);
+      hop::tma_store_wait();
     }
     if (t == 0) {
-      lse[((long long)batch * h + head) * sq + row] =
-          alive ? (m_r[r] + log2f(l_r[r])) * 0.69314718055994531f : empty_lse;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        if (rows[r] < sq)
+          lse[((long long)batch * h + head) * sq + rows[r]] =
+              alive[r] ? (m_r[r] + log2f(l_r[r])) * 0.69314718055994531f
+                       : empty_lse;
+      }
     }
   }
 }
 
 template <typename T, int D>
-void launch(const void* q, const void* k, const void* v, void* o, float* lse,
-            int b, int sq, int sk, int h, int hk, const long long* st,
-            float scale_log2, int causal, float empty_lse, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int b, int sq, int sk, int h, int hk, const long long* st,
+           float scale_log2, int causal, float empty_lse, cudaStream_t stream) {
+  constexpr bool fp16 = std::is_same_v<T, __half>;
+  const long long o_st[3] = {(long long)sq * h * D, (long long)h * D, D};
+  CUtensorMap qm, km, vm, om;
+  int rc;
+  if ((rc = hop::make_map_bshd(&qm, q, fp16, b, sq, h, D, st, BLOCK_M)) ||
+      (rc = hop::make_map_bshd(&km, k, fp16, b, sk, hk, D, st + 3, BLOCK_N)) ||
+      (rc = hop::make_map_bshd(&vm, v, fp16, b, sk, hk, D, st + 6, BLOCK_N)) ||
+      (rc = hop::make_map_bshd(&om, o, fp16, b, sq, h, D, o_st, 64)))
+    return rc;
+  auto kernel = flash_fwd_kernel<T, D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Smem<D>::BYTES);
+  if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((sq + BLOCK_M - 1) / BLOCK_M, h, b);
-  flash_fwd_kernel<T, D><<<grid, NTHREADS, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, sq, sk, h, h / hk,
-      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
-      scale_log2, causal, empty_lse);
+  kernel<<<grid, NTHREADS, Smem<D>::BYTES, stream>>>(
+      qm, km, vm, om, lse, sq, sk, h, h / hk, scale_log2, causal, empty_lse);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -226,20 +431,18 @@ int fat_flash_fwd(const void* q, const void* k, const void* v, void* o,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   if (d == 128 && !is_fp16)
-    launch<__nv_bfloat16, 128>(q, k, v, o, l, b, sq, sk, h, hk, strides,
+    return launch<__nv_bfloat16, 128>(q, k, v, o, l, b, sq, sk, h, hk, strides,
+                                      scale_log2, causal, empty_lse, s);
+  if (d == 128)
+    return launch<__half, 128>(q, k, v, o, l, b, sq, sk, h, hk, strides,
                                scale_log2, causal, empty_lse, s);
-  else if (d == 128)
-    launch<__half, 128>(q, k, v, o, l, b, sq, sk, h, hk, strides, scale_log2,
-                        causal, empty_lse, s);
-  else if (d == 64 && !is_fp16)
-    launch<__nv_bfloat16, 64>(q, k, v, o, l, b, sq, sk, h, hk, strides,
+  if (d == 64 && !is_fp16)
+    return launch<__nv_bfloat16, 64>(q, k, v, o, l, b, sq, sk, h, hk, strides,
+                                     scale_log2, causal, empty_lse, s);
+  if (d == 64)
+    return launch<__half, 64>(q, k, v, o, l, b, sq, sk, h, hk, strides,
                               scale_log2, causal, empty_lse, s);
-  else if (d == 64)
-    launch<__half, 64>(q, k, v, o, l, b, sq, sk, h, hk, strides, scale_log2,
-                       causal, empty_lse, s);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // extern "C"

@@ -1,0 +1,320 @@
+// Hopper (sm_90a) building blocks for the port's warp-specialised kernels:
+// mbarriers, TMA tensor loads and stores, warpgroup matrix multiplies
+// (wgmma) with their shared-memory descriptors, fences, commit and wait,
+// register reallocation (setmaxnreg), named barriers, and the host-side
+// encoding of a TMA tensor map over a (b, s, heads, d) tensor.
+//
+// Shared-memory tiles are what a TMA load with a 128-byte swizzle writes: a
+// box of 64 16-bit elements (128 bytes, the swizzle span) by `rows` rows,
+// row r at r * 128 bytes with its 16-byte chunks permuted by r % 8, and the
+// box 1024-byte aligned. A tile wider than 64 elements is several such
+// boxes one after another. wgmma reads the same tile through a descriptor:
+//   K-major (the reduction dim contiguous, as Q and K for Q K^T):
+//     8-row groups 1024 bytes apart (SBO); a k16 step inside a box adds 32
+//     bytes to the start address, the next box adds rows * 128.
+//   MN-major (the output dim contiguous, as V for P V, "transposed" B):
+//     8-row (k) groups 1024 bytes apart (SBO), 64-element column boxes
+//     rows * 128 bytes apart (LBO); a k16 step adds 16 * 128 bytes.
+//
+// Accumulator layout of wgmma m64nNk16 (fp32), thread T of the warpgroup,
+// warp w = T / 32, g = (T % 32) / 4, t = T % 4: d[4 j + e] holds row
+// 16 w + g + 8 (e / 2), column 8 j + 2 t + e % 2 -- the mma.sync m16n8k16 C
+// layout of flash_common.cuh per 16-row warp slice. An A operand from
+// registers takes that warp slice's m16n8k16 A fragment, so two adjacent
+// 8-column accumulator blocks form one k16 step of A (fat::pack_a's order).
+
+#pragma once
+
+#include <cuda.h>  // CUtensorMap and its enums (types only: no libcuda link)
+#include <cuda_runtime.h>
+#include <dlfcn.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+namespace hop {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ---- mbarriers --------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// Make the initialised barriers visible to the async proxy (TMA) and to the
+// other threads (follow with __syncthreads()).
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// Arrive once and expect `bytes` more from TMA copies in this phase.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed. A phase that never
+// completes (a parity or count error) hangs the kernel: run new pipeline code
+// under a time limit. (A watchdog that traps would be no cure: a trap in a
+// warp-specialised kernel holds every role to the launch's register limit,
+// so setmaxnreg's larger budget is lost.)
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_u32(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// ---- TMA --------------------------------------------------------------------
+
+// Load the box at coordinates (c0 innermost .. c3) of `map` into `dst`,
+// completing `bytes` of the barrier's expected transaction count.
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Store `src` to the box at (c0 .. c3); elements past the tensor's extents
+// are not written. Generic-proxy writes to `src` need fence_async_smem()
+// and a barrier first.
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, "
+      "%5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// Commit the issued stores and wait until they have read shared memory.
+__device__ __forceinline__ void tma_store_wait() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map))
+               : "memory");
+}
+
+// ---- registers and barriers -------------------------------------------------
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// Barrier `id` (1..15; 0 is __syncthreads) over `n` threads: wait, or only
+// arrive (the waiters and the arrivers together make up the n).
+__device__ __forceinline__ void named_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void named_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// Keep the compiler from moving reads or writes of registers that an
+// asynchronous wgmma owns across its wait (or its issue).
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// ---- wgmma ------------------------------------------------------------------
+
+// Descriptor of a 128-byte-swizzled shared-memory operand at `addr`, with
+// leading and stride byte offsets as set out at the top of this file.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return uint64_t((addr & 0x3FFFF) >> 4) | (uint64_t((lbo >> 4) & 0x3FFF) << 16) |
+         (uint64_t((sbo >> 4) & 0x3FFF) << 32) | (uint64_t(1) << 62);
+}
+
+// Order earlier register and shared-memory writes before the next wgmma.
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Wait until at most N committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+#define HOP_D8(d, i)                                                          \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), \
+      "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define HOP_D32(d) HOP_D8(d, 0), HOP_D8(d, 8), HOP_D8(d, 16), HOP_D8(d, 24)
+#define HOP_D64(d) HOP_D32(d), HOP_D8(d, 32), HOP_D8(d, 40), HOP_D8(d, 48), HOP_D8(d, 56)
+#define HOP_L32                                                                \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "   \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "    \
+  "%30, %31}"
+#define HOP_L64                                                                \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "   \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "    \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "     \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "     \
+  "%58, %59, %60, %61, %62, %63}"
+
+// D (+)= A B, A and B K-major in shared memory; scale_d 0 ignores D's input.
+// a, b, scale_d are operands NA, NA + 1, NA + 2.
+#define HOP_SS(TY, N, LIST, OUTS, NA, NB, NS)                                  \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" NS ", 0;\n"              \
+               "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32." TY "." TY   \
+               " " LIST ", %" NA ", %" NB ", p, 1, 1, 0, 0;\n}\n"             \
+               : OUTS                                                          \
+               : "l"(a), "l"(b), "r"(scale_d))
+
+// D += A B, A from registers (4 x 32 bits), B MN-major in shared memory.
+#define HOP_RS_TB(TY, N, LIST, OUTS, A0, A1, A2, A3, NB, NS)                   \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" NS ", 0;\n"              \
+               "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32." TY "." TY   \
+               " " LIST ", {%" A0 ", %" A1 ", %" A2 ", %" A3 "}, %" NB        \
+               ", p, 1, 1, 1;\n}\n"                                           \
+               : OUTS                                                          \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1))
+
+// wgmma m64nNk16 with fp32 accumulators in bf16 or fp16: ss at N 128 (Q K^T),
+// rs_tb at N 64 and 128 (P V at d 64 and 128).
+template <typename T, int N>
+struct Wgmma;
+
+template <typename T>
+struct Wgmma<T, 64> {
+  static __device__ __forceinline__ void rs_tb(float (&d)[32],
+                                               const uint32_t (&a)[4],
+                                               uint64_t b) {
+    if constexpr (std::is_same_v<T, __half>)
+      HOP_RS_TB("f16", 64, HOP_L32, HOP_D32(d), "32", "33", "34", "35", "36", "37");
+    else
+      HOP_RS_TB("bf16", 64, HOP_L32, HOP_D32(d), "32", "33", "34", "35", "36", "37");
+  }
+};
+
+template <typename T>
+struct Wgmma<T, 128> {
+  static __device__ __forceinline__ void ss(float (&d)[64], uint64_t a,
+                                            uint64_t b, int scale_d) {
+    if constexpr (std::is_same_v<T, __half>)
+      HOP_SS("f16", 128, HOP_L64, HOP_D64(d), "64", "65", "66");
+    else
+      HOP_SS("bf16", 128, HOP_L64, HOP_D64(d), "64", "65", "66");
+  }
+  static __device__ __forceinline__ void rs_tb(float (&d)[64],
+                                               const uint32_t (&a)[4],
+                                               uint64_t b) {
+    if constexpr (std::is_same_v<T, __half>)
+      HOP_RS_TB("f16", 128, HOP_L64, HOP_D64(d), "64", "65", "66", "67", "68", "69");
+    else
+      HOP_RS_TB("bf16", 128, HOP_L64, HOP_D64(d), "64", "65", "66", "67", "68", "69");
+  }
+};
+
+#undef HOP_SS
+#undef HOP_RS_TB
+#undef HOP_L64
+#undef HOP_L32
+#undef HOP_D64
+#undef HOP_D32
+#undef HOP_D8
+
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// ---- host: TMA tensor maps --------------------------------------------------
+
+// cuTensorMapEncodeTiled is a driver call. The libraries link only the CUDA
+// runtime, so it is looked up in the driver library the runtime has loaded.
+inline decltype(&cuTensorMapEncodeTiled) tensor_map_encoder() {
+  static auto fn = [] {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
+    return reinterpret_cast<decltype(&cuTensorMapEncodeTiled)>(
+        lib ? dlsym(lib, "cuTensorMapEncodeTiled") : nullptr);
+  }();
+  return fn;
+}
+
+// A 4-D map (d, heads, s, b) over a (b, s, heads, d) tensor of 16-bit
+// elements with element strides st = (batch, seq, head) and a contiguous d,
+// loading boxes of 64 x 1 x rows x 1 with the 128-byte swizzle. Rows past s
+// read as zeros and are not written. Returns a cudaError_t value.
+inline int make_map_bshd(CUtensorMap* map, const void* ptr, bool fp16, int b,
+                         int s, int heads, int d, const long long* st,
+                         int rows) {
+  auto encode = tensor_map_encoder();
+  if (encode == nullptr) return static_cast<int>(cudaErrorSharedObjectSymbolNotFound);
+  const int s1 = s > 0 ? s : 1;  // an empty sequence is never read
+  cuuint64_t dims[4] = {cuuint64_t(d), cuuint64_t(heads), cuuint64_t(s1),
+                        cuuint64_t(b)};
+  cuuint64_t strides[3] = {cuuint64_t(st[2]) * 2, cuuint64_t(st[1]) * 2,
+                           cuuint64_t(st[0]) * 2};
+  // a dim of extent 1 is never stepped: give it a packed stride, whatever
+  // stride the caller's view has there
+  if (heads == 1) strides[0] = cuuint64_t(d) * 2;
+  if (s1 == 1) strides[1] = strides[0] * heads;
+  if (b == 1) strides[2] = strides[1] * s1;
+  cuuint32_t box[4] = {64, 1, cuuint32_t(rows), 1};
+  cuuint32_t elem[4] = {1, 1, 1, 1};
+  CUresult r = encode(
+      map, fp16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      4, const_cast<void*>(ptr), dims, strides, box, elem,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace hop

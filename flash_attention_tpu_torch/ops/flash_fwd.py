@@ -4,6 +4,9 @@ The kernel (``csrc/flash_fwd.cu``) replaces the JAX package's Pallas
 ``_fwd_kernel``. It reads q (b, sq, h, d) and k/v (b, sk, hk, d) in bf16 or
 fp16 through their strides and writes O (b, sq, h, d) and LSE (b, h, sq)
 fp32. The kernel masks its own ragged edges, so nothing is padded here.
+It loads by TMA through tensor maps built from the strides, so the data
+must be 16-byte aligned and the strides multiples of 16 bytes, as
+``_check`` demands.
 """
 
 from __future__ import annotations

@@ -43,9 +43,18 @@ BF16_TOLS = {"atol": 4e-2, "mean_atol": 2e-3, "mean_rtol": 5e-2}
 LSE_TOLS = {"atol": 1e-2, "mean_atol": 1e-3, "mean_rtol": 1e-2}
 BWD_TOLS = FWD_TOLS
 BWD_BF16_TOLS = {"atol": 4e-2, "mean_atol": 2e-3, "mean_rtol": 2e-1}
+# (b, sq, sk, h, hk). The forward kernel works in 128-row q and kv tiles:
+# sq and sk on both sides of 128 and 256, lower-right offsets sk - sq that
+# are not multiples of 128 (171, 2, -2), sq > sk with whole q tiles of dead
+# rows (400 / 100), sq = 1 against several kv tiles (b 4, h 16: enough
+# outputs that one element near 0 does not decide the mean-relative gate),
+# GQA groups 1, 2, 4, 8.
 FWD_SHAPES = [
     (1, 1, 1, 4, 4), (2, 64, 64, 4, 2), (2, 97, 130, 4, 1),
     (2, 130, 97, 4, 4), (1, 257, 513, 8, 2), (2, 1000, 1000, 8, 8),
+    (1, 127, 127, 8, 1), (2, 128, 128, 4, 1), (1, 129, 129, 2, 1),
+    (1, 255, 257, 4, 2), (2, 257, 255, 4, 4), (1, 129, 300, 8, 4),
+    (1, 400, 100, 4, 2), (4, 1, 300, 16, 2), (2, 4096, 4096, 4, 2),
 ]
 
 
@@ -94,6 +103,58 @@ def test_flash_fwd_strided_and_empty_rows(cuda):
     assert_metrics("fwd[strided]", o, o_ref, BF16_TOLS)
     assert_metrics("fwd[strided]lse", lse, lse_ref, LSE_TOLS)
     assert torch.all(o[:, :50] == 0) and torch.all(lse[:, :, :50] == -3.0)
+
+
+@pytest.mark.gpu
+def test_flash_fwd_head_major_views(cuda):
+    """q/k/v as (b, s, h, d) views of (b, h, s, d) buffers: the head
+    stride exceeds the sequence stride, and the kernel still reads through
+    the strides."""
+    rng = np.random.default_rng(6)
+    q = _randn(rng, (2, 8, 300, 64), torch.float16, cuda).transpose(1, 2)
+    k = _randn(rng, (2, 2, 300, 64), torch.float16, cuda).transpose(1, 2)
+    v = _randn(rng, (2, 2, 300, 64), torch.float16, cuda).transpose(1, 2)
+    o, lse = fwd(q, k, v, True)
+    o_ref, lse_ref = reference_attention(q, k, v, causal=True)
+    assert_metrics("fwd[head-major]", o, o_ref, FWD_TOLS)
+    assert_metrics("fwd[head-major]lse", lse, lse_ref, LSE_TOLS)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_fwd_repeats_bit_identical(cuda, dtype, d):
+    """Two runs give the same bits: each row's sums run in a fixed order."""
+    rng = np.random.default_rng(d)
+    q = _randn(rng, (2, 700, 8, d), dtype, cuda)
+    k = _randn(rng, (2, 900, 2, d), dtype, cuda)
+    v = _randn(rng, (2, 900, 2, d), dtype, cuda)
+    for causal in (False, True):
+        first = fwd(q, k, v, causal)
+        second = fwd(q, k, v, causal)
+        assert torch.equal(first[0], second[0])
+        assert torch.equal(first[1], second[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("sq,sk", [(300, 300), (300, 170), (1, 1), (200, 1)])
+def test_flash_fwd_one_key_rows_equal_v(cuda, dtype, d, sq, sk):
+    """A row that sees one key gets exactly that V row (p = exp2(0) = 1,
+    l = 1), which the backward's dP - D = 0 relies on: causal row
+    sq - sk sees only key 0; with sk = 1, every row non-causal."""
+    rng = np.random.default_rng(sq + sk + d)
+    h, hk = 8, 2
+    q = _randn(rng, (2, sq, h, d), dtype, cuda)
+    k = _randn(rng, (2, sk, hk, d), dtype, cuda)
+    v = _randn(rng, (2, sk, hk, d), dtype, cuda)
+    v0 = v[:, 0].repeat_interleave(h // hk, dim=1)  # (b, h, d)
+    o, _ = fwd(q, k, v, True)
+    assert torch.equal(o[:, sq - sk], v0)
+    if sk == 1:
+        o, _ = fwd(q, k, v, False)
+        assert torch.equal(o, v0[:, None].expand_as(o))
 
 
 @pytest.mark.gpu
