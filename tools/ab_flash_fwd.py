@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time sources of the port's forward kernel against each other on one card.
 
-    python3 tools/ab_flash_fwd.py NAME=PATH[:FLAG,...] [NAME=PATH ...]
+    python3 tools/ab_flash_fwd.py NAME=PATH [NAME=PATH ...]
 
 Each PATH is a CUDA source with the C interface of
 ``flash_attention_tpu_torch/csrc/flash_fwd.cu`` (``fat_flash_fwd``); its
@@ -14,22 +14,16 @@ ignores, for example:
     python3 tools/ab_flash_fwd.py old=build/old/flash_fwd.cu \\
         new=flash_attention_tpu_torch/csrc/flash_fwd.cu
 
-FLAGs change a copy of the source for timing experiments (their results
-are wrong on purpose): ``noload`` loads K/V only into the first ring
-stages, ``noexp`` drops the exp2 of the softmax.
-
-Every variant is copied, with the headers beside its source, into
-``build/ab_flash_fwd/NAME/``, built with the port's flags, checked against
-the plain version on one shape, and timed with CUDA events at b8 and b2
-s2048 h32/8 d128 (causal and not), in the order a b .. b a; SDPA with
-``enable_gqa`` is timed last.
-Prints the card's name and power limit with every line. Imports no JAX.
+Every source is built with the port's flags, checked against the plain
+version on one shape, and timed with CUDA events at b8 and b2 s2048 h32/8
+d128 (causal and not), in the order a b .. b a; SDPA with ``enable_gqa`` is
+timed last. Prints the card's name and power limit with every line.
+Imports no JAX.
 """
 
 from __future__ import annotations
 
 import pathlib
-import shutil
 import subprocess
 import sys
 
@@ -43,41 +37,6 @@ from flash_attention_tpu_torch.ops.reference import reference_attention  # noqa:
 
 SHAPES = [(8, True), (8, False), (2, True)]  # (batch, causal) at s 2048
 S, H, HK, D = 2048, 32, 8, 128
-
-
-def variant(name: str, spec: str) -> _build.Kernel:
-    path, _, flags = spec.partition(":")
-    text = open(path).read()
-
-    def sub(a: str, b: str) -> None:
-        nonlocal text
-        if a not in text:
-            raise SystemExit(f"{name}: flag needs {a!r} in {path}")
-        text = text.replace(a, b)
-
-    for flag in filter(None, flags.split(",")):
-        if flag == "noload":
-            for x in "kv":
-                sub(f"hop::mbar_expect_tx(&{x}_full[s], L::KV_BYTES);",
-                    f"hop::mbar_expect_tx(&{x}_full[s], "
-                    f"j < STAGES ? L::KV_BYTES : 0);")
-                sub(f"hop::tma_load_4d({x}s + c",
-                    f"if (j < STAGES) hop::tma_load_4d({x}s + c")
-        elif flag == "noexp":
-            sub("sc[i] = hop::exp2_approx(sc[i] - m_use);",
-                "sc[i] = sc[i] - m_use;")
-            sub("sc[i + 1] = hop::exp2_approx(sc[i + 1] - m_use);",
-                "sc[i + 1] = sc[i + 1] - m_use;")
-        else:
-            raise SystemExit(f"unknown flag {flag}")
-    # a private copy with the headers beside the source, under build/
-    out = REPO / "build" / "ab_flash_fwd" / name
-    out.mkdir(parents=True, exist_ok=True)
-    for header in pathlib.Path(path).resolve().parent.glob("*.cuh"):
-        shutil.copy(header, out / header.name)
-    (out / "flash_fwd.cu").write_text(text)
-    return _build.Kernel(f"ab_{name}", str(out / "flash_fwd.cu"),
-                         fm.KERNEL.argtypes)
 
 
 def time_ms(fn, iters: int = 30) -> float:
@@ -102,8 +61,10 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip().splitlines()[0]
     print(card)
-    kernels = dict(arg.split("=", 1) for arg in sys.argv[1:])
-    kernels = {n: variant(n, spec) for n, spec in kernels.items()}
+    kernels = {name: _build.Kernel(f"ab_{name}", str(pathlib.Path(path)
+                                                     .resolve()),
+                                   fm.KERNEL.argtypes)
+               for name, path in (arg.split("=", 1) for arg in sys.argv[1:])}
     for name, log in _build.build(list(kernels.values()),
                                   ptxas_verbose=True).items():
         for line in log.splitlines():
