@@ -53,9 +53,13 @@ PAGE_SIZE = 64
 TOTAL_PAGES = 512
 MAX_BATCH = 8
 MAX_SEQ = 4096
-# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
-PEAK_BF16_FLOPS = 989e12
-PEAK_BYTES = 3.35e12
+# Dense bf16 FLOP/s and HBM bytes/s of each card this script knows, from
+# NVIDIA's data sheets; the first entry whose name is in
+# torch.cuda.get_device_name() is taken, and any other card fails the run.
+PEAKS = (("H200", 989e12, 4.8e12), ("H100 NVL", 835e12, 3.9e12),
+         ("H100 PCIe", 756e12, 2.0e12), ("H100 80GB HBM3", 989e12, 3.35e12),
+         ("H100 SXM", 989e12, 3.35e12))
+PEAK = {}  # "flops", "bytes": this card's, set by main()
 # bf16 O gates: the repo's own (tests/test_flash_fwd.py:117, 8x the fp16
 # gates for 3 fewer mantissa bits); the kernel rounds P to bf16 before P.V,
 # as the TPU kernel did. LSE is fp32: tests/test_flash_fwd.py:21's gates.
@@ -151,8 +155,16 @@ def _time_graph_ms(torch, fn, iters: int) -> float:
     return _time_ms(torch, graph.replay, 5) / iters
 
 
+def _peaks(name: str) -> tuple[float, float]:
+    for key, flops, nbytes in PEAKS:
+        if key in name:
+            return flops, nbytes
+    raise SystemExit(f"chip_smoke: no data-sheet peaks for {name!r}; add "
+                     f"the card to PEAKS")
+
+
 def _bound(flops: float, nbytes: float) -> tuple[float, str]:
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    t_ops, t_bytes = flops / PEAK["flops"], nbytes / PEAK["bytes"]
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops > t_bytes else "bytes")
 
@@ -205,7 +217,7 @@ def check_flash(torch, dev, bucket, cfg, card):
                 is_causal=causal, enable_gqa=True)
         lib = _time_ms(torch, sdpa, 20)
         if backend is None:
-            backend = _sdpa_backend(torch, sdpa)
+            backend = _sdpa_profile(torch, sdpa)[1]
         pairs = s * (s + 1) // 2 if causal else s * s
         flops = 4.0 * d * pairs * b * h
         nbytes = 2 * (q.numel() + k.numel() + v.numel() + o.numel()) \
@@ -332,16 +344,19 @@ def check_paged(torch, dev, cfg, card):
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
 
-def _sdpa_backend(torch, fn) -> str:
-    """The backend an SDPA call took, from the names of the device kernels
-    it launched (profiled over 10 calls: a later profiler session in one
-    process missed the device events of a single short call)."""
+def _sdpa_profile(torch, fn, calls: int = 10) -> tuple[float, str]:
+    """Device ms per call of ``fn`` (the summed durations of the device
+    kernels its ``calls`` calls launched: no host pacing) and the SDPA
+    backend those kernels name. Profiled over 10 calls: a later profiler
+    session in one process missed the device events of a single short
+    call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(10):
+        for _ in range(calls):
             fn()
         torch.cuda.synchronize()
     times: dict[str, float] = {}
@@ -354,12 +369,15 @@ def _sdpa_backend(torch, fn) -> str:
                else "efficient" if "fmha" in text or "efficient" in text
                else "math")
     top = sorted(times, key=times.get, reverse=True)[:3]
-    return f"{backend} (longest kernels: {'; '.join(n[:70] for n in top)})"
+    return (sum(times.values()) / calls / 1e3,
+            f"{backend} (longest kernels: {'; '.join(n[:70] for n in top)})")
 
 
 def check_bwd(torch, dev, cfg, card):
     """The three backward kernels at the training path's shapes, each
-    against its plain version; two runs bit-identical; sk = 1 exactly 0."""
+    against its plain version; two runs bit-identical; sk = 1 exactly 0.
+    Times each kernel causal (the training path) and not, beside the SDPA
+    backward's device time on the same inputs."""
     from flash_attention_tpu_torch.ops import flash_bwd as fb
     from flash_attention_tpu_torch.ops import flash_fwd as fm
     from flash_attention_tpu_torch.utils.metrics import assert_metrics
@@ -374,24 +392,6 @@ def check_bwd(torch, dev, cfg, card):
     q, k, v, do = rnd(b, s, h, d), rnd(b, s, hk, d), rnd(b, s, hk, d), \
         rnd(b, s, h, d)
     scale = d**-0.5
-    kw = dict(causal=True, sm_scale=scale)
-    o, lse = fm.flash_fwd(q, k, v, **kw)
-    di = fb.flash_bwd_di(o, do)
-    di_r = fb.di_reference(o, do)
-    m_di = assert_metrics("flash_bwd_di", di, di_r, DI_TOLS)
-    dq = fb.flash_bwd_dq(q, k, v, do, lse, di, **kw)
-    m_dq = assert_metrics("flash_bwd_dq", dq, fb.dq_reference(
-        q, k, v, do, lse, di_r, **kw), BWD_TOLS)
-    dk, dv = fb.flash_bwd_dkv(q, k, v, do, lse, di, **kw)
-    dk_r, dv_r = fb.dkv_reference(q, k, v, do, lse, di_r, **kw)
-    m_dk = assert_metrics("flash_bwd_dkv dk", dk, dk_r, BWD_TOLS)
-    m_dv = assert_metrics("flash_bwd_dkv dv", dv, dv_r, BWD_TOLS)
-    del dk_r, dv_r
-    again = fb.flash_bwd(q, k, v, o, lse, do, **kw)
-    assert all(torch.equal(a, b_) for a, b_ in zip(again, (dq, dk, dv))), \
-        "two backward runs differ"
-    print(f"flash_bwd b={b} s={s} h={h}/{hk} d={d} causal: di {m_di}; "
-          f"dq {m_dq}; dk {m_dk}; dv {m_dv}; two runs bit-identical")
     # one key: O equals its V row, so dP - D must cancel exactly
     o1, lse1 = fm.flash_fwd(q, k[:, :1], v[:, :1], causal=False,
                             sm_scale=scale)
@@ -400,77 +400,104 @@ def check_bwd(torch, dev, cfg, card):
     assert torch.all(dq1 == 0) and torch.all(dk1 == 0), \
         "sk = 1: dq and dk are not exactly 0"
     print("flash_bwd sk=1: dq and dk exactly 0")
-    del o1, lse1, dq1, dk1, again
+    del o1, lse1, dq1, dk1
 
-    pairs = s * (s + 1) // 2  # live (row, col) pairs of one causal head
     n_in = 2 * (q.numel() + k.numel() + v.numel() + do.numel()) \
-        + 4 * (lse.numel() + di.numel())  # bf16 tensors, fp32 LSE and D
-    runs = {
-        "flash_bwd_di": (
-            lambda: fb.flash_bwd_di(o, do),
-            lambda: fb.di_reference(o, do),
-            lambda: torch.linalg.vecdot(o, do, dim=-1),
-            2.0 * o.numel(), 2 * 2 * o.numel() + 4 * di.numel(), m_di,
-            "flash_bwd_di.cu", "flash_attention_tpu/ops/flash_bwd.py:129"),
-        "flash_bwd_dq": (
-            lambda: fb.flash_bwd_dq(q, k, v, do, lse, di, **kw),
-            lambda: fb.dq_reference(q, k, v, do, lse, di, **kw),
-            None, 6.0 * d * pairs * b * h, n_in + 2 * dq.numel(), m_dq,
-            "flash_bwd_dq.cu", "flash_attention_tpu/ops/flash_bwd.py:159"),
-        "flash_bwd_dkv": (
-            lambda: fb.flash_bwd_dkv(q, k, v, do, lse, di, **kw),
-            lambda: fb.dkv_reference(q, k, v, do, lse, di, **kw),
-            None, 8.0 * d * pairs * b * h, n_in + 2 * 2 * dk.numel(),
-            m_dk if m_dk.max_abs >= m_dv.max_abs else m_dv,
-            "flash_bwd_dkv.cu", "flash_attention_tpu/ops/flash_bwd.py:352"),
-    }
+        + 4 * 2 * b * h * s  # bf16 tensors, fp32 LSE and D
+    shapes = {"flash_bwd_di": {}, "flash_bwd_dq": {}, "flash_bwd_dkv": {}}
+    errs = {}
+    for causal in (True, False):
+        label = f"train b{b} {'causal' if causal else 'non-causal'}"
+        kw = dict(causal=causal, sm_scale=scale)
+        o, lse = fm.flash_fwd(q, k, v, **kw)
+        di = fb.flash_bwd_di(o, do)
+        di_r = fb.di_reference(o, do)
+        dq = fb.flash_bwd_dq(q, k, v, do, lse, di, **kw)
+        dk, dv = fb.flash_bwd_dkv(q, k, v, do, lse, di, **kw)
+        if causal:  # the training path's shape: held to the plain versions
+            errs["flash_bwd_di"] = assert_metrics("flash_bwd_di", di, di_r,
+                                                  DI_TOLS)
+            errs["flash_bwd_dq"] = assert_metrics(
+                "flash_bwd_dq", dq, fb.dq_reference(q, k, v, do, lse, di_r,
+                                                    **kw), BWD_TOLS)
+            dk_r, dv_r = fb.dkv_reference(q, k, v, do, lse, di_r, **kw)
+            m_dk = assert_metrics("flash_bwd_dkv dk", dk, dk_r, BWD_TOLS)
+            m_dv = assert_metrics("flash_bwd_dkv dv", dv, dv_r, BWD_TOLS)
+            errs["flash_bwd_dkv"] = max(m_dk, m_dv, key=lambda m: m.max_abs)
+            del dk_r, dv_r
+            again = fb.flash_bwd(q, k, v, o, lse, do, **kw)
+            assert all(torch.equal(a, b_) for a, b_ in
+                       zip(again, (dq, dk, dv))), "two backward runs differ"
+            print(f"flash_bwd b={b} s={s} h={h}/{hk} d={d} causal: di "
+                  f"{errs['flash_bwd_di']}; dq {errs['flash_bwd_dq']}; dk "
+                  f"{m_dk}; dv {m_dv}; two runs bit-identical")
+            del again
 
-    # library yardstick for dq + dk + dv: the backward of one SDPA call,
-    # (forward + backward) - forward, on the same inputs
-    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
-                  for x in (q, k, v))
-    dot = do.transpose(1, 2)
-
-    def sdpa():
-        return torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True)
-
-    def sdpa_fwd_bwd():
-        torch.autograd.grad(sdpa(), (qt, kt, vt), dot)
-
-    with torch.enable_grad():
-        sdpa_bwd = _time_ms(torch, sdpa_fwd_bwd, 40) - _time_ms(torch, sdpa,
-                                                                40)
-        backend = _sdpa_backend(torch, sdpa_fwd_bwd)
-    entries = []
-    for name, (kern, plain, lib, flops, nbytes, m, src, rep) in runs.items():
-        if name == "flash_bwd_di":  # tens of us: device time in a graph
-            ms = _time_graph_ms(torch, kern, 50)
-            plain_ms = _time_graph_ms(torch, plain, 5)
-            lib_ms = _time_graph_ms(torch, lib, 50)
-        else:
-            ms = _time_ms(torch, kern, 20)
-            plain_ms = _time_ms(torch, plain, 2, warmup=1)
-            lib_ms = sdpa_bwd
-        bound_ms, bound_by = _bound(flops, nbytes)
-        print(f"{name} b={b} s={s} h={h}/{hk} d={d} causal: kernel {ms:.4f} "
-              f"ms ({flops / ms / 1e9:.1f} TFLOP/s, {nbytes / ms / 1e6:.1f} "
-              f"GB/s), plain {plain_ms:.3f} ms, library {lib_ms:.4f} ms, "
-              f"bound {bound_ms:.4f} ms ({bound_by}) [{card}]")
-        entries.append({
-            "name": name, "route": "cuda",
-            "source": f"flash_attention_tpu_torch/csrc/{src}",
-            "replaces": rep, "max_abs_err": m.max_abs, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": lib_ms})
+        # the library yardstick for dq + dk + dv: the device time of the
+        # backward of one SDPA call on the same inputs
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+        with torch.enable_grad():
+            out = torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, enable_gqa=True)
+            sdpa_bwd, backend = _sdpa_profile(
+                torch, lambda: torch.autograd.grad(
+                    out, (qt, kt, vt), do.transpose(1, 2), retain_graph=True))
+        del out, qt, kt, vt
+        pairs = (s * (s + 1) // 2 if causal else s * s) * b * h
+        runs = {
+            "flash_bwd_di": (
+                lambda: fb.flash_bwd_di(o, do), lambda: fb.di_reference(o, do),
+                lambda: torch.linalg.vecdot(o, do, dim=-1), 2.0 * o.numel(),
+                2 * 2 * o.numel() + 4 * di.numel()),
+            "flash_bwd_dq": (
+                lambda: fb.flash_bwd_dq(q, k, v, do, lse, di, **kw),
+                lambda: fb.dq_reference(q, k, v, do, lse, di, **kw), None,
+                6.0 * d * pairs, n_in + 2 * dq.numel()),
+            "flash_bwd_dkv": (
+                lambda: fb.flash_bwd_dkv(q, k, v, do, lse, di, **kw),
+                lambda: fb.dkv_reference(q, k, v, do, lse, di, **kw), None,
+                8.0 * d * pairs, n_in + 2 * 2 * dk.numel()),
+        }
+        for name, (kern, plain, lib, flops, nbytes) in runs.items():
+            if name == "flash_bwd_di":  # tens of us: device time in a graph
+                if not causal:
+                    continue  # D does not depend on the mask
+                ms = _time_graph_ms(torch, kern, 50)
+                plain_ms = _time_graph_ms(torch, plain, 5)
+                lib_ms = _time_graph_ms(torch, lib, 50)
+            else:
+                ms = _time_ms(torch, kern, 20)
+                plain_ms = _time_ms(torch, plain, 2, warmup=1)
+                lib_ms = sdpa_bwd
+            bound_ms, bound_by = _bound(flops, nbytes)
+            print(f"{name} b={b} s={s} h={h}/{hk} d={d} {label}: kernel "
+                  f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
+                  f"{bound_ms / ms:.1%} of the bound), plain {plain_ms:.3f} "
+                  f"ms, library {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                  f"({bound_by}) [{card}]")
+            shapes[name][label] = {"ms": ms, "plain_ms": plain_ms,
+                                   "bound_ms": bound_ms, "bound_by": bound_by,
+                                   "library_ms": lib_ms}
+        pair = sum(shapes[n][label]["ms"] for n in ("flash_bwd_dq",
+                                                    "flash_bwd_dkv"))
+        print(f"flash_bwd {label}: dq + dkv {pair:.4f} ms against the SDPA "
+              f"backward's device time {sdpa_bwd:.4f} ms (dq + dk + dv, "
+              f"{pair / sdpa_bwd:.2f}x; backend {backend}) [{card}]")
+        del o, lse, di, di_r, dq, dk, dv
     print(f"flash_bwd_di times are device times in a CUDA graph of 50 "
           f"calls (5 for the plain version); library for flash_bwd_di: "
-          f"torch.linalg.vecdot(o, do) (bf16 out, (b, s, h) layout); for "
-          f"flash_bwd_dq and flash_bwd_dkv: the "
-          f"backward of one scaled_dot_product_attention(is_causal=True, "
-          f"enable_gqa=True) call, {sdpa_bwd:.4f} ms for dq + dk + dv "
-          f"together, backend {backend} [{card}]")
-    return entries
+          f"torch.linalg.vecdot(o, do) (bf16 out, (b, s, h) layout) [{card}]")
+    sources = {"flash_bwd_di": ("flash_bwd_di.cu", 129),
+               "flash_bwd_dq": ("flash_bwd_dq.cu", 159),
+               "flash_bwd_dkv": ("flash_bwd_dkv.cu", 352)}
+    main = f"train b{b} causal"
+    return [{"name": name, "route": "cuda",
+             "source": f"flash_attention_tpu_torch/csrc/{src}",
+             "replaces": f"flash_attention_tpu/ops/flash_bwd.py:{line}",
+             "max_abs_err": errs[name].max_abs, **shapes[name][main],
+             "shapes": shapes[name]}
+            for name, (src, line) in sources.items()]
 
 
 def _moe_layout(torch, moe, dev, g, t, cfg, skip_expert=None):
@@ -1323,7 +1350,10 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     card = _card_line()
-    print(f"card: {card}")
+    PEAK["flops"], PEAK["bytes"] = _peaks(torch.cuda.get_device_name(0))
+    print(f"card: {card}; peaks from its data sheet: bf16 dense "
+          f"{PEAK['flops'] / 1e12:g} TFLOP/s, HBM {PEAK['bytes'] / 1e12:g} "
+          f"TB/s")
     kernels = [flash_fwd.KERNEL, kv_update.KERNEL, paged_attention.KERNEL,
                *flash_bwd.KERNELS, *moe.KERNELS, quant.KERNEL]
 
@@ -1337,7 +1367,8 @@ def main() -> int:
             tmpl = re.search(r"kernel(I.*)EEv", fn)
             print(f"  {name} {tmpl.group(1) if tmpl else fn}: {use.strip()}")
         for line in log.splitlines():
-            if "spill" in line and not line.strip().startswith("0 bytes"):
+            if ("spill" in line and not line.strip().startswith("0 bytes")) \
+                    or "C75" in line:  # spills; "wgmma serialized"
                 print(f"  {name}: {line.strip()}")
 
     cfg = llama.LlamaConfig.llama3_8b()

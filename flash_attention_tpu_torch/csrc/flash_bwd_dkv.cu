@@ -9,197 +9,301 @@
 // that share the kv head, with P = exp(S - LSE) and dS = P * (dP - D)
 // recomputed as in flash_bwd_dq.cu. Lower-right-aligned causal masking;
 // masked entries, query rows at or past sq and rows with no live key get
-// P = 0 explicitly. Q, dO (b, sq, h, d) and K, V (b, sk, hk, d), bf16 or fp16,
-// are read through their strides; dK and dV are written contiguous
-// (b, sk, hk, d) in the input dtype.
+// P = 0. Q, dO (b, sq, h, d) and K, V (b, sk, hk, d), bf16 or fp16, d 64 or
+// 128, are read by TMA through their strides; dK and dV are written
+// contiguous (b, sk, hk, d) in the input dtype.
 //
 // What bounds it on the H100: at training shapes (sq = sk = 2048, d = 128)
 // its four products (K Q^T, V dO^T, P^T dO, dS^T Q; 8 d FLOP per live score)
 // make it compute-bound, so the tensor cores set the floor.
 //
-// What the design does about it: every product runs on the tensor cores with
-// mma.sync m16n8k16 (fp32 accumulate), in the transposed orientation: a warp
-// owns 16 key rows and computes S^T and dP^T (keys x queries) directly, so P^T
-// and dS^T are repacked in registers as the A operands of P^T dO and dS^T Q.
-// A CTA of 4 warps owns 64 key rows; their K and V tiles sit in shared memory
-// for the whole kernel, and 32-row Q / dO tiles of each query head of the
-// group stream through it (padded rows, stride d + 8; dynamic shared memory,
-// 52 KB at d = 128). The two 16 x d fp32 accumulators per warp (128 registers
-// at d = 128) stay in registers across the whole group and every query tile,
-// so the group is summed in the CTA with no atomics and no second pass, and
-// two runs give bit-identical results. dP^T takes the same products, summed
-// over the head dim in the same k-step order, as D in flash_bwd_di.cu, so
-// P * (dP - D) cancels to exactly 0 where a row attends to one key. Causal
-// query tiles wholly before the block's diagonal are never loaded, and a
-// warp skips the tiles wholly before its own rows. CTAs with the most query
-// tiles (the first key blocks) start first. Left for later work: wgmma, TMA
-// and a double buffer.
+// What the design does about it: a warp-specialised CTA of three warpgroups
+// owns 128 key rows, in the key-major orientation.
+// * Warpgroup 0, the producer, gives most of its registers away
+//   (setmaxnreg). One thread loads the CTA's K and V once and streams 64-row
+//   Q and dO tiles of every query head of the group by TMA into a ring of
+//   STAGES stages; a second warp copies the tiles' LSE (in the log2 domain,
+//   +inf past sq, so those rows get P = 0 with no test) and D into the same
+//   stage. Each stage has a full mbarrier (the TMA bytes and the warp's 32
+//   arrivals) and an empty one that the 8 consumer warps release.
+// * Warpgroups 1 and 2, the consumers, own 64 key rows each and compute
+//   S^T = K Q^T and dP^T = V dO^T as wgmma chains with both operands in
+//   shared memory (K-major, in the 128-byte swizzle TMA wrote). dP^T is
+//   hop::ss_chain, the chain flash_bwd_di.cu sums D with, so P * (dP - D)
+//   cancels to exactly 0 where a row attends to one key. P^T and dS^T,
+//   rounded to the input type, are then already the register A operands of
+//   dV += P^T dO and dK += dS^T Q, whose B operands are dO and Q read
+//   MN-major (wgmma's transpose mode), so no transposed copy is made.
+// * dK and dV stay in fp32 registers (128 a thread at d 128; the consumers
+//   raise themselves to 240 registers) across the whole group and every
+//   query tile, so the group is summed in the CTA with no atomics and no
+//   second pass, and two runs give bit-identical results.
+// * Causal query tiles wholly before the block's diagonal are never loaded;
+//   only tiles on the diagonal pay for masking, one warp's 16 keys at a
+//   time. TMA zero-fills rows past sq and sk. The grid puts the key block in
+//   its slowest dimension, so the CTAs with the most query tiles (the first
+//   key blocks) start first.
+// * The epilogue writes scale * dK and dV into the consumer's own rows of
+//   the K and V tiles in shared memory, in the swizzled layout, and stores
+//   them with TMA, which clips rows past sk.
 
 #include "flash_common.cuh"
+#include "hopper_common.cuh"
 
 namespace {
 
-using fat::Mma;
+constexpr int CONSUMERS = 2;   // consumer warpgroups, 64 key rows each
+constexpr int CTAS_PER_SM = 1;
+constexpr int BLOCK_N = 64 * CONSUMERS;  // key rows per CTA
+constexpr int BLOCK_M = 64;    // query rows per streamed tile
+constexpr int STAGES = 3;      // depth of the Q/dO ring
+constexpr int NTHREADS = 128 * (1 + CONSUMERS);
+constexpr int BOX = 64;        // head-dim elements per TMA box (128 bytes)
+constexpr int ROW = BOX * 2;   // bytes per box row
+constexpr int PRODUCER_REGS = 24;
+// what the SM's 65536 registers leave each consumer thread, up to 240
+constexpr int consumer_regs() {
+  const int r =
+      (65536 / CTAS_PER_SM - 128 * PRODUCER_REGS) / (128 * CONSUMERS) / 8 * 8;
+  return r > 240 ? 240 : r;
+}
+constexpr int CONSUMER_REGS = consumer_regs();  // 240 at 2 consumers
 
-constexpr int BLOCK_N = 64;  // key rows per CTA (16 per warp)
-constexpr int BLOCK_M = 32;  // query rows per streamed tile
-constexpr int NWARPS = 4;
-constexpr int NTHREADS = NWARPS * 32;
+template <int D>
+struct Smem {
+  static constexpr int KV_BYTES = BLOCK_N * D * 2;  // K, and V
+  static constexpr int T_BYTES = BLOCK_M * D * 2;   // a Q or dO tile
+  static constexpr int V_OFF = KV_BYTES;            // K at 0
+  static constexpr int Q_OFF = 2 * KV_BYTES;
+  static constexpr int DO_OFF = Q_OFF + STAGES * T_BYTES;
+  static constexpr int VEC_OFF = DO_OFF + STAGES * T_BYTES;  // LSE, D
+  static constexpr int VEC_BYTES = 2 * BLOCK_M * 4;
+  static constexpr int BAR_OFF = VEC_OFF + STAGES * VEC_BYTES;
+  static constexpr int N_BARS = 1 + 2 * STAGES;  // k + v; tile full; empty
+  // slack to align the tiles to 1024 bytes, the swizzle's period
+  static constexpr int BYTES = BAR_OFF + N_BARS * 8 + 1024;
+};
 
+// The query tiles of one key block: every head of the group, and in each
+// the 64-row tiles from the first that sees the block.
+struct Tiles {
+  int m_first, n_m;
+  __device__ __forceinline__ int count(int group) const { return group * n_m; }
+  __device__ __forceinline__ int head(int i, int kvh, int group) const {
+    return kvh * group + i / n_m;
+  }
+  __device__ __forceinline__ int m0(int i) const {
+    return m_first + (i % n_m) * BLOCK_M;
+  }
+};
+
+// P^T in place, for the tile at query row m0: S^T scaled into the log2
+// domain less the column's LSE, masked only where the tile is on the causal
+// diagonal for this warp. lse2 holds the tile's 64 values in shared memory.
+__device__ __forceinline__ void probs_t(float (&sc)[BLOCK_M / 2],
+                                        const float* lse2, int m0, int j0,
+                                        int g, int t, int off, int causal,
+                                        float scale_log2) {
+  if (causal && j0 + 15 > m0 + off) {
+    // a key is live for columns c >= key - off - m0; counted from this
+    // thread's first column
+    const int lo[2] = {j0 + g - off - m0 - 2 * t, j0 + g + 8 - off - m0 - 2 * t};
+#pragma unroll
+    for (int i = 0; i < BLOCK_M / 2; ++i) {
+      const float p = hop::exp2_approx(sc[i] * scale_log2 -
+                                       lse2[(i / 4) * 8 + 2 * t + (i & 1)]);
+      sc[i] = (i / 4) * 8 + (i & 1) >= lo[(i >> 1) & 1] ? p : 0.f;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < BLOCK_M / 2; ++i)
+      sc[i] = hop::exp2_approx(sc[i] * scale_log2 -
+                               lse2[(i / 4) * 8 + 2 * t + (i & 1)]);
+  }
+}
+
+// Write scale * acc, rounded to T, into this consumer's 64 rows of a tile
+// whose boxes hold BLOCK_N rows, in the swizzled layout TMA stores from.
 template <typename T, int D>
-constexpr int smem_bytes() {
-  return (2 * BLOCK_N + 2 * BLOCK_M) * (D + 8) * int(sizeof(T)) +
-         2 * BLOCK_M * int(sizeof(float));
+__device__ __forceinline__ void to_smem(uint8_t* rows, const float (&acc)[D / 2],
+                                        float scale, int warp, int g, int t) {
+#pragma unroll
+  for (int nt = 0; nt < D / 8; ++nt) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = warp * 16 + g + 8 * r;
+      const int chunk = (nt % 8) ^ (row & 7);
+      *reinterpret_cast<uint32_t*>(rows + (nt / 8) * BLOCK_N * ROW +
+                                   row * ROW + chunk * 16 + t * 4) =
+          fat::Mma<T>::pack(acc[4 * nt + 2 * r] * scale,
+                            acc[4 * nt + 2 * r + 1] * scale);
+    }
+  }
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(NTHREADS)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
+__global__ void __launch_bounds__(NTHREADS, CTAS_PER_SM)
+flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap q_map,
+                     const __grid_constant__ CUtensorMap k_map,
+                     const __grid_constant__ CUtensorMap v_map,
+                     const __grid_constant__ CUtensorMap do_map,
+                     const __grid_constant__ CUtensorMap dk_map,
+                     const __grid_constant__ CUtensorMap dv_map,
                      const float* __restrict__ lse,
-                     const float* __restrict__ di, T* __restrict__ dk,
-                     T* __restrict__ dv, int sq, int sk, int h, int hk,
-                     int group, long long q_sb, long long q_ss, long long q_sh,
-                     long long k_sb, long long k_ss, long long k_sh,
-                     long long v_sb, long long v_ss, long long v_sh,
-                     long long d_sb, long long d_ss, long long d_sh,
-                     float scale, float scale_log2, int causal) {
-  constexpr int KSTEPS = D / 16;        // k-steps over the head dim
-  constexpr int DTILES = D / 8;         // n-tiles of dK and dV
-  constexpr int NTILES = BLOCK_M / 8;   // n-tiles of S^T and dP^T
-  constexpr int STRIDE = D + 8;
+                     const float* __restrict__ di, int sq, int sk, int h,
+                     int group, float scale, float scale_log2, int causal) {
+  using L = Smem<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (hop::smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + STAGES;
 
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* k_s = reinterpret_cast<T*>(smem);
-  T* v_s = k_s + BLOCK_N * STRIDE;
-  T* q_s = v_s + BLOCK_N * STRIDE;
-  T* do_s = q_s + BLOCK_M * STRIDE;
-  float* lse_s = reinterpret_cast<float*>(do_s + BLOCK_M * STRIDE);
-  float* di_s = lse_s + BLOCK_M;
+  const int kvh = blockIdx.x;
+  const int batch = blockIdx.y;
+  const int n0 = blockIdx.z * BLOCK_N;  // the first key blocks see the most rows
+  const int off = sk - sq;              // lower-right causal offset
+  // query rows that see a key of this block: causal needs row >= key - off
+  Tiles tl;
+  tl.m_first = causal ? max(0, n0 - off) / BLOCK_M * BLOCK_M : 0;
+  tl.n_m = sq > tl.m_first ? (sq - tl.m_first + BLOCK_M - 1) / BLOCK_M : 0;
+  const int n_tiles = tl.count(group);
 
-  const int n_block = blockIdx.x;  // the first key blocks see the most rows
-  const int kvh = blockIdx.y;
-  const int batch = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int off = sk - sq;
-  const int n0 = n_block * BLOCK_N;
-  const int j0 = n0 + warp * 16;        // this warp's first key row
-  const int keys[2] = {j0 + g, j0 + g + 8};
+  const int role = __shfl_sync(0xffffffff, threadIdx.x / 128, 0);
+  if (threadIdx.x == 0) {
+    hop::mbar_init(kv_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      hop::mbar_init(&full[s], 1 + 32);  // the TMA thread and the LSE/D warp
+      hop::mbar_init(&empty[s], 4 * CONSUMERS);  // one per consumer warp
+    }
+    hop::mbar_fence_init();
+  }
+  __syncthreads();
 
-  fat::load_tile<T, BLOCK_N, D, NTHREADS>(
-      k_s, k + batch * k_sb + kvh * k_sh, k_ss, n0, sk, tid);
-  fat::load_tile<T, BLOCK_N, D, NTHREADS>(
-      v_s, v + batch * v_sb + kvh * v_sh, v_ss, n0, sk, tid);
-  const T* kw = k_s + warp * 16 * STRIDE;
-  const T* vw = v_s + warp * 16 * STRIDE;
-
-  float dk_acc[DTILES][4], dv_acc[DTILES][4];
+  if (role == 0) {
+    // ---- producer ----
+    hop::setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      hop::prefetch_map(&k_map);
+      hop::prefetch_map(&v_map);
+      hop::prefetch_map(&q_map);
+      hop::prefetch_map(&do_map);
+      hop::mbar_expect_tx(kv_full, 2 * L::KV_BYTES);
 #pragma unroll
-  for (int dt = 0; dt < DTILES; ++dt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[dt][e] = dv_acc[dt][e] = 0.f;
-
-  // query rows that see a key of this block: causal needs row >= col - off
-  const int m_first = causal ? max(0, n0 - off) / BLOCK_M * BLOCK_M : 0;
-
-  for (int gi = 0; gi < group; ++gi) {
-    const int head = kvh * group + gi;
-    const T* qb = q + batch * q_sb + head * q_sh;
-    const T* db = dout + batch * d_sb + head * d_sh;
-    const float* lb = lse + ((long long)batch * h + head) * sq;
-    const float* dib = di + ((long long)batch * h + head) * sq;
-
-    for (int m0 = m_first; m0 < sq; m0 += BLOCK_M) {
-      __syncthreads();  // every warp is done with the previous tile
-      fat::load_tile<T, BLOCK_M, D, NTHREADS>(q_s, qb, q_ss, m0, sq, tid);
-      fat::load_tile<T, BLOCK_M, D, NTHREADS>(do_s, db, d_ss, m0, sq, tid);
-      if (tid < BLOCK_M) {
-        const int row = m0 + tid;
-        lse_s[tid] = row < sq ? lb[row] * fat::LOG2E : 0.f;
-        di_s[tid] = row < sq ? dib[row] : 0.f;
+      for (int c = 0; c < D / BOX; ++c) {
+        hop::tma_load_4d(smem + c * BLOCK_N * ROW, &k_map, kv_full, c * BOX,
+                         kvh, n0, batch);
+        hop::tma_load_4d(smem + L::V_OFF + c * BLOCK_N * ROW, &v_map, kv_full,
+                         c * BOX, kvh, n0, batch);
       }
-      __syncthreads();
-      // nothing live for this warp: keys past sk, or all after the tile's
-      // last row's diagonal
-      if (j0 >= sk || (causal && j0 > m0 + BLOCK_M - 1 + off)) continue;
-
-      // S^T = K Q^T and dP^T = V dO^T for this warp's 16 keys
-      float s[NTILES][4], dp[NTILES][4];
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % STAGES;
+        const int head = tl.head(i, kvh, group), m0 = tl.m0(i);
+        uint8_t* qs = smem + L::Q_OFF + s * L::T_BYTES;
+        uint8_t* ds = smem + L::DO_OFF + s * L::T_BYTES;
+        if (i >= STAGES) hop::mbar_wait(&empty[s], (i / STAGES - 1) & 1);
+        hop::mbar_expect_tx(&full[s], 2 * L::T_BYTES);
 #pragma unroll
-      for (int nn = 0; nn < NTILES; ++nn)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[nn][e] = dp[nn][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < KSTEPS; ++kk) {
-        uint32_t ka[4], va[4];
-        fat::load_a(ka, kw, STRIDE, g, t, kk * 16);
-        fat::load_a(va, vw, STRIDE, g, t, kk * 16);
-#pragma unroll
-        for (int nn = 0; nn < NTILES; ++nn) {
-          uint32_t b0, b1;
-          fat::load_b_rows(b0, b1, q_s + nn * 8 * STRIDE, STRIDE, g, t, kk * 16);
-          Mma<T>::run(s[nn], ka, b0, b1);
-          fat::load_b_rows(b0, b1, do_s + nn * 8 * STRIDE, STRIDE, g, t,
-                           kk * 16);
-          Mma<T>::run(dp[nn], va, b0, b1);
+        for (int c = 0; c < D / BOX; ++c) {
+          hop::tma_load_4d(qs + c * BLOCK_M * ROW, &q_map, &full[s], c * BOX,
+                           head, m0, batch);
+          hop::tma_load_4d(ds + c * BLOCK_M * ROW, &do_map, &full[s], c * BOX,
+                           head, m0, batch);
         }
       }
-
-      // P^T into s, dS^T = P^T (dP^T - D) into dp
-      const bool masked = (m0 + BLOCK_M > sq) || (j0 + 16 > sk) ||
-                          (causal && j0 + 15 > m0 + off);
+    } else if (threadIdx.x / 32 == 1) {
+      const int lane = threadIdx.x % 32;
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % STAGES;
+        const int head = tl.head(i, kvh, group), m0 = tl.m0(i);
+        float* vec = reinterpret_cast<float*>(smem + L::VEC_OFF +
+                                              s * L::VEC_BYTES);
+        const long long base = ((long long)batch * h + head) * sq;
+        if (i >= STAGES) hop::mbar_wait(&empty[s], (i / STAGES - 1) & 1);
 #pragma unroll
-      for (int nn = 0; nn < NTILES; ++nn) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int ci = nn * 8 + t * 2 + (e & 1);  // query row in the tile
-          float p = exp2f(s[nn][e] * scale_log2 - lse_s[ci]);
-          if (masked) {
-            const int row = m0 + ci;
-            const int key = keys[e >> 1];
-            if (row >= sq || key >= sk || (causal && key > row + off)) p = 0.f;
-          }
-          s[nn][e] = p;
-          dp[nn][e] = p * (dp[nn][e] - di_s[ci]);
+        for (int e = 0; e < 2; ++e) {
+          const int c = lane * 2 + e, row = m0 + c;
+          vec[c] = row < sq ? lse[base + row] * fat::LOG2E : CUDART_INF_F;
+          vec[BLOCK_M + c] = row < sq ? di[base + row] : 0.f;
         }
-      }
-
-      // dV += P^T dO and dK += dS^T Q: B[k = query row][n = head-dim column]
-#pragma unroll
-      for (int kk = 0; kk < BLOCK_M / 16; ++kk) {
-        uint32_t pa[4], sa[4];
-        fat::pack_a<T>(pa, s[2 * kk], s[2 * kk + 1]);
-        fat::pack_a<T>(sa, dp[2 * kk], dp[2 * kk + 1]);
-#pragma unroll
-        for (int dt = 0; dt < DTILES; ++dt) {
-          uint32_t b0, b1;
-          fat::load_b_cols(b0, b1, do_s + kk * 16 * STRIDE + dt * 8, STRIDE, g,
-                           t);
-          Mma<T>::run(dv_acc[dt], pa, b0, b1);
-          fat::load_b_cols(b0, b1, q_s + kk * 16 * STRIDE + dt * 8, STRIDE, g,
-                           t);
-          Mma<T>::run(dk_acc[dt], sa, b0, b1);
-        }
+        hop::mbar_arrive(&full[s]);
       }
     }
-  }
+  } else {
+    // ---- consumers ----
+    hop::setmaxnreg_inc<CONSUMER_REGS>();
+    const int wg = role - 1;
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32;
+    const int lane = tid % 32;
+    const int g = lane >> 2;  // fragment row group
+    const int t = lane & 3;   // thread in group
+    const int j0 = n0 + wg * 64 + warp * 16;  // this warp's first key
+    // this consumer's 64 rows of the K and V tiles (in each 64-column box)
+    uint8_t* k_rows = smem + wg * 64 * ROW;
+    uint8_t* v_rows = smem + L::V_OFF + wg * 64 * ROW;
+    const uint32_t k_s = hop::smem_u32(k_rows);
+    const uint32_t v_s = hop::smem_u32(v_rows);
+    const uint32_t q_s = hop::smem_u32(smem + L::Q_OFF);
+    const uint32_t do_s = hop::smem_u32(smem + L::DO_OFF);
 
+    float dk[D / 2], dv[D / 2];  // unscaled dK, and dV
+    float sc[BLOCK_M / 2];       // S^T, then P^T in fp32
+    float dp[BLOCK_M / 2];       // dP^T, then dS^T in fp32
+    uint32_t pa[BLOCK_M / 16][4], sa[BLOCK_M / 16][4];  // P^T and dS^T as A
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int key = keys[r];
-    if (key >= sk) continue;
-    const long long base = (((long long)batch * sk + key) * hk + kvh) * D;
+    for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
 #pragma unroll
-    for (int dt = 0; dt < DTILES; ++dt) {
-      const int c = dt * 8 + t * 2;
-      *reinterpret_cast<uint32_t*>(dk + base + c) = Mma<T>::pack(
-          dk_acc[dt][2 * r] * scale, dk_acc[dt][2 * r + 1] * scale);
-      *reinterpret_cast<uint32_t*>(dv + base + c) =
-          Mma<T>::pack(dv_acc[dt][2 * r], dv_acc[dt][2 * r + 1]);
+    for (int i = 0; i < BLOCK_M / 2; ++i) sc[i] = dp[i] = 0.f;
+
+    hop::mbar_wait(kv_full, 0);
+    for (int i = 0; i < n_tiles; ++i) {
+      const int s = i % STAGES;
+      const uint32_t qt = q_s + s * L::T_BYTES, dot = do_s + s * L::T_BYTES;
+      const float* vec = reinterpret_cast<const float*>(
+          smem + L::VEC_OFF + s * L::VEC_BYTES);
+      hop::mbar_wait(&full[s], (i / STAGES) & 1);
+      hop::ss_chain<T, BLOCK_M, D>(sc, k_s, BLOCK_N, qt, BLOCK_M);
+      hop::wgmma_commit();
+      hop::ss_chain<T, BLOCK_M, D>(dp, v_s, BLOCK_N, dot, BLOCK_M);
+      hop::wgmma_commit();
+      hop::wgmma_wait<1>();  // S^T is done; dP^T may still run
+      hop::fence_regs(sc);
+      probs_t(sc, vec, tl.m0(i), j0, g, t, off, causal, scale_log2);
+      fat::pack_a<T, BLOCK_M>(pa, sc);
+      hop::wgmma_wait<0>();
+      hop::fence_regs(dp);
+#pragma unroll
+      for (int e = 0; e < BLOCK_M / 2; ++e)
+        dp[e] = sc[e] * (dp[e] - vec[BLOCK_M + (e / 4) * 8 + 2 * t + (e & 1)]);
+      fat::pack_a<T, BLOCK_M>(sa, dp);
+      hop::rs_chain<T, D, BLOCK_M / 16>(dv, pa, dot, BLOCK_M);
+      hop::rs_chain<T, D, BLOCK_M / 16>(dk, sa, qt, BLOCK_M);
+      hop::wgmma_commit();
+      hop::wgmma_wait<0>();
+      hop::fence_regs(dv);
+      hop::fence_regs(dk);
+      hop::fence_regs(pa);
+      hop::fence_regs(sa);
+      __syncwarp();  // every lane has read the stage's LSE and D
+      if (lane == 0) hop::mbar_arrive(&empty[s]);
+    }
+
+    // epilogue: scale * dK and dV into this consumer's rows of the K and V
+    // tiles (their last reads are done), stored by TMA
+    to_smem<T, D>(k_rows, dk, scale, warp, g, t);
+    to_smem<T, D>(v_rows, dv, 1.f, warp, g, t);
+    hop::fence_async_smem();
+    hop::named_sync(1 + wg, 128);
+    if (tid == 0) {
+#pragma unroll
+      for (int c = 0; c < D / BOX; ++c) {
+        hop::tma_store_4d(&dk_map, k_rows + c * BLOCK_N * ROW, c * BOX, kvh,
+                          n0 + wg * 64, batch);
+        hop::tma_store_4d(&dv_map, v_rows + c * BLOCK_N * ROW, c * BOX, kvh,
+                          n0 + wg * 64, batch);
+      }
+      hop::tma_store_wait();
     }
   }
 }
@@ -209,18 +313,25 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
            const float* lse, const float* di, void* dk, void* dv, int b,
            int sq, int sk, int h, int hk, const long long* st, float scale,
            int causal, cudaStream_t stream) {
-  constexpr int bytes = smem_bytes<T, D>();
+  constexpr bool fp16 = std::is_same_v<T, __half>;
+  const long long o_st[3] = {(long long)sk * hk * D, (long long)hk * D, D};
+  CUtensorMap qm, km, vm, dm, dkm, dvm;
+  int rc;
+  if ((rc = hop::make_map_bshd(&qm, q, fp16, b, sq, h, D, st, BLOCK_M)) ||
+      (rc = hop::make_map_bshd(&km, k, fp16, b, sk, hk, D, st + 3, BLOCK_N)) ||
+      (rc = hop::make_map_bshd(&vm, v, fp16, b, sk, hk, D, st + 6, BLOCK_N)) ||
+      (rc = hop::make_map_bshd(&dm, dout, fp16, b, sq, h, D, st + 9, BLOCK_M)) ||
+      (rc = hop::make_map_bshd(&dkm, dk, fp16, b, sk, hk, D, o_st, 64)) ||
+      (rc = hop::make_map_bshd(&dvm, dv, fp16, b, sk, hk, D, o_st, 64)))
+    return rc;
+  auto kernel = flash_bwd_dkv_kernel<T, D>;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Smem<D>::BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((sk + BLOCK_N - 1) / BLOCK_N, hk, b);
-  flash_bwd_dkv_kernel<T, D><<<grid, NTHREADS, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, di,
-      static_cast<T*>(dk), static_cast<T*>(dv), sq, sk, h, hk, h / hk, st[0],
-      st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10],
-      st[11], scale, scale * fat::LOG2E, causal);
+  dim3 grid(hk, b, (sk + BLOCK_N - 1) / BLOCK_N);
+  kernel<<<grid, NTHREADS, Smem<D>::BYTES, stream>>>(
+      qm, km, vm, dm, dkm, dvm, lse, di, sq, sk, h, h / hk, scale,
+      scale * fat::LOG2E, causal);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -8,193 +8,336 @@
 // S = scale Q K^T recomputed, P = exp(S - LSE) from the forward's natural-log
 // LSE, dP = dO V^T, dS = P * (dP - D) with D from flash_bwd_di.cu, and
 // dQ = scale dS K. Lower-right-aligned causal masking; masked entries, columns
-// at or past sk and rows with no live key (causal with sq > sk, LSE =
-// empty_lse) get P = 0 explicitly, so those rows get dQ = 0. Q, dO (b, sq, h,
-// d) and K, V (b, sk, hk, d), bf16 or fp16, are read through their strides;
-// dQ is written contiguous (b, sq, h, d) in the input dtype.
+// at or past sk and rows with no live key (causal with sq > sk) get P = 0
+// explicitly, so those rows get dQ = 0. Q, dO (b, sq, h, d) and K, V
+// (b, sk, hk, d), bf16 or fp16, d 64 or 128, are read by TMA through their
+// strides; dQ is written contiguous (b, sq, h, d) in the input dtype.
 //
 // What bounds it on the H100: at training shapes (sq = sk = 2048, d = 128)
 // its three products (Q K^T, dO V^T, dS K; 6 d FLOP per live score) make it
-// compute-bound, so the tensor cores set the floor.
+// compute-bound, so the tensor cores set the floor; the exp2 and the dS
+// arithmetic (about eight instructions per score) must hide behind them.
 //
-// What the design does about it: all three products run on the tensor cores
-// with mma.sync m16n8k16 (fp32 accumulate). A CTA of 4 warps owns 64 query
-// rows (16 per warp); Q and dO stay in registers as A fragments for the whole
-// kernel and the dQ accumulator in registers, so nothing but K and V moves
-// through shared memory. 64-row K/V tiles stream through padded shared memory
-// (row stride d + 8) and are consumed in two 32-column halves, which keeps the
-// S and dP accumulators at 16 registers each (about 200 a thread in all, no
-// spills). dP is summed exactly as D is (same fragments, same k-step order),
-// so P * (dP - D) cancels to exactly 0 where a row attends to one key. P
-// becomes dS in place and is repacked in registers as the A operand of dS K.
-// Causal tiles past the diagonal are never loaded, and a warp skips the
-// half-tiles wholly past its own rows' diagonal. CTAs with the longest causal
-// rows start first. Left for later work: wgmma, TMA and a double buffer.
+// What the design does about it: a warp-specialised CTA of three warpgroups
+// owns 128 query rows, as the forward (flash_fwd.cu) does.
+// * Warpgroup 0, the producer, gives most of its registers away
+//   (setmaxnreg); one of its threads loads the Q and dO tiles once and
+//   streams 64-row K and V tiles by TMA into a ring of STAGES stages, each
+//   with a full mbarrier and an empty one that the 8 consumer warps release.
+// * Warpgroups 1 and 2, the consumers, own 64 query rows each. S = Q K^T and
+//   dP = dO V^T are wgmma chains with both operands in shared memory
+//   (K-major, in the 128-byte swizzle TMA wrote); dP is hop::ss_chain, the
+//   chain flash_bwd_di.cu sums D with, so P * (dP - D) cancels to exactly 0
+//   where a row attends to one key. P and dS stay in fp32 registers; dS,
+//   rounded to the input type, is the register A operand of dQ += dS K, whose
+//   B operand is K read MN-major (wgmma's transpose mode), so no transposed
+//   copy is made. The dQ accumulator (64 fp32 a thread at d 128) stays in
+//   registers.
+// * Overlap: each consumer issues S(j + 1) and dP(j + 1) behind dS(j) K(j),
+//   and computes P(j + 1) while dP(j + 1) finishes; the two consumers
+//   interleave on the tensor cores.
+// * KV tiles wholly above the causal diagonal are never loaded, and each
+//   consumer stops at its own rows' diagonal; only tiles on the diagonal or
+//   on the ragged kv edge pay for masking, one warp's 16 rows at a time. TMA
+//   zero-fills rows past sk and sq. The grid puts the query block in its
+//   slowest dimension, reversed, so the CTAs with the longest causal rows
+//   start first.
+// * The epilogue writes scale * dQ into the consumer's own rows of the Q tile
+//   in shared memory, in the swizzled layout, and stores it with one TMA
+//   store per 64-column box, which clips rows past sq.
 
 #include "flash_common.cuh"
+#include "hopper_common.cuh"
 
 namespace {
 
-using fat::Mma;
+constexpr int BLOCK_M = 128;   // query rows per CTA, 64 per consumer
+constexpr int BLOCK_N = 64;    // kv rows per tile
+constexpr int STAGES = 3;      // depth of the K/V ring
+constexpr int NTHREADS = 384;  // producer + 2 consumer warpgroups
+constexpr int BOX = 64;        // head-dim elements per TMA box (128 bytes)
+constexpr int ROW = BOX * 2;   // bytes per box row
+constexpr int PRODUCER_REGS = 40;
+constexpr int CONSUMER_REGS = 232;  // 128 * 40 + 256 * 232 <= 65536
 
-constexpr int BLOCK_M = 64;  // query rows per CTA
-constexpr int BLOCK_N = 64;  // kv rows per shared-memory tile
-constexpr int SUB_N = 32;    // kv columns per pass over the tile
-constexpr int NWARPS = 4;
-constexpr int NTHREADS = NWARPS * 32;
+template <int D>
+struct Smem {
+  static constexpr int Q_BYTES = BLOCK_M * D * 2;  // Q, and dO
+  static constexpr int KV_BYTES = BLOCK_N * D * 2;
+  static constexpr int DO_OFF = Q_BYTES;
+  static constexpr int K_OFF = 2 * Q_BYTES;
+  static constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
+  static constexpr int BAR_OFF = V_OFF + STAGES * KV_BYTES;
+  static constexpr int N_BARS = 1 + 2 * STAGES;  // q + do; kv full; kv empty
+  // slack to align the tiles to 1024 bytes, the swizzle's period
+  static constexpr int BYTES = BAR_OFF + N_BARS * 8 + 1024;
+};
+
+// What P needs to know of this thread's rows.
+struct Rows {
+  int row[2];  // the thread's two rows, g and g + 8 of its warp's 16
+  int w0;      // the warp's first row
+  int t;       // thread in its row group of 4
+  int sk, off, causal;
+  float scale_log2;
+  float lse2[2];  // LSE in the log2 domain
+  float d[2];     // D
+};
+
+// P = exp2(S scale log2e - LSE log2e) in place, for the tile at kv column
+// n0; masked only where the tile is on an edge for this warp.
+__device__ __forceinline__ void probs(float (&sc)[BLOCK_N / 2], int n0,
+                                      const Rows& rw) {
+  const bool edge = (n0 + BLOCK_N > rw.sk) ||
+                    (rw.causal && n0 + BLOCK_N - 1 > rw.w0 + rw.off);
+  if (edge) {
+    // live columns of each row, counted from this thread's first column
+    int lim[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      lim[r] = (rw.causal ? min(rw.sk, rw.row[r] + rw.off + 1) : rw.sk) - n0 -
+               rw.t * 2;
+#pragma unroll
+    for (int i = 0; i < BLOCK_N / 2; ++i) {
+      const int r = (i >> 1) & 1;
+      const float p = hop::exp2_approx(sc[i] * rw.scale_log2 - rw.lse2[r]);
+      sc[i] = (i / 4) * 8 + (i & 1) < lim[r] ? p : 0.f;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < BLOCK_N / 2; ++i)
+      sc[i] = hop::exp2_approx(sc[i] * rw.scale_log2 - rw.lse2[(i >> 1) & 1]);
+  }
+}
+
+// dS = P * (dP - D), into sc.
+__device__ __forceinline__ void dscores(float (&sc)[BLOCK_N / 2],
+                                        const float (&dp)[BLOCK_N / 2],
+                                        const Rows& rw) {
+#pragma unroll
+  for (int i = 0; i < BLOCK_N / 2; ++i) sc[i] *= dp[i] - rw.d[(i >> 1) & 1];
+}
+
+// S(j) and dP(j) for one consumer's 64 rows: two commit groups, S first.
+template <typename T, int D>
+__device__ __forceinline__ void issue_s_dp(float (&sc)[BLOCK_N / 2],
+                                           float (&dp)[BLOCK_N / 2],
+                                           uint32_t q_s, uint32_t do_s,
+                                           uint32_t ks, uint32_t vs) {
+  hop::ss_chain<T, BLOCK_N, D>(sc, q_s, BLOCK_M, ks, BLOCK_N);
+  hop::wgmma_commit();
+  hop::ss_chain<T, BLOCK_N, D>(dp, do_s, BLOCK_M, vs, BLOCK_N);
+  hop::wgmma_commit();
+}
 
 template <typename T, int D>
-__global__ void __launch_bounds__(NTHREADS)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
+__global__ void __launch_bounds__(NTHREADS, 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map,
+                    const __grid_constant__ CUtensorMap k_map,
+                    const __grid_constant__ CUtensorMap v_map,
+                    const __grid_constant__ CUtensorMap do_map,
+                    const __grid_constant__ CUtensorMap dq_map,
                     const float* __restrict__ lse, const float* __restrict__ di,
-                    T* __restrict__ dq, int sq, int sk, int h, int group,
-                    long long q_sb, long long q_ss, long long q_sh,
-                    long long k_sb, long long k_ss, long long k_sh,
-                    long long v_sb, long long v_ss, long long v_sh,
-                    long long d_sb, long long d_ss, long long d_sh,
-                    float scale, float scale_log2, int causal) {
-  constexpr int KSTEPS = D / 16;      // k-steps over the head dim
-  constexpr int DTILES = D / 8;       // n-tiles of dQ
-  constexpr int NTILES = SUB_N / 8;   // n-tiles of S and dP per pass
-  constexpr int STRIDE = D + 8;
+                    int sq, int sk, int h, int group, float scale,
+                    float scale_log2, int causal) {
+  using L = Smem<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (hop::smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + STAGES;
 
-  __shared__ __align__(16) T k_s[BLOCK_N * STRIDE];
-  __shared__ __align__(16) T v_s[BLOCK_N * STRIDE];
+  const int head = blockIdx.x;
+  const int batch = blockIdx.y;
+  // longest causal rows first: the last query block has the most kv tiles
+  const int m_lo = (gridDim.z - 1 - blockIdx.z) * BLOCK_M;
+  const int off = sk - sq;  // lower-right causal offset
+  // kv columns that rows [lo, hi) can see: causal stops at the last row's
+  // diagonal (rows past sq are clamped: they are never stored)
+  auto n_tiles_of = [&](int hi) {
+    const int n_end = causal ? min(sk, min(hi, sq) + off) : sk;
+    return n_end > 0 ? (n_end + BLOCK_N - 1) / BLOCK_N : 0;
+  };
 
-  const int m_block = gridDim.x - 1 - blockIdx.x;  // longest rows first
-  const int head = blockIdx.y;
-  const int batch = blockIdx.z;
-  const int kvh = head / group;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int off = sk - sq;
-  const int m0 = m_block * BLOCK_M + warp * 16;
-  const int rows[2] = {m0 + g, m0 + g + 8};
-
-  const T* qb = q + batch * q_sb + head * q_sh;
-  const T* kb = k + batch * k_sb + kvh * k_sh;
-  const T* vb = v + batch * v_sb + kvh * v_sh;
-  const T* db = dout + batch * d_sb + head * d_sh;
-
-  uint32_t qf[KSTEPS][4], df[KSTEPS][4];
-#pragma unroll
-  for (int kk = 0; kk < KSTEPS; ++kk) {
-    fat::load_a(qf[kk], qb + m0 * q_ss, q_ss, g, t, kk * 16, rows[0] < sq,
-                rows[1] < sq);
-    fat::load_a(df[kk], db + m0 * d_ss, d_ss, g, t, kk * 16, rows[0] < sq,
-                rows[1] < sq);
+  const int role = __shfl_sync(0xffffffff, threadIdx.x / 128, 0);
+  if (threadIdx.x == 0) {
+    hop::mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      hop::mbar_init(&full[s], 1);
+      hop::mbar_init(&empty[s], 8);  // one arrival per consumer warp
+    }
+    hop::mbar_fence_init();
   }
-  // LSE in the log2 domain, and D, for the thread's two rows
-  float lse2[2], dr[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const long long idx = ((long long)batch * h + head) * sq + rows[r];
-    lse2[r] = rows[r] < sq ? lse[idx] * fat::LOG2E : 0.f;
-    dr[r] = rows[r] < sq ? di[idx] : 0.f;
-  }
+  __syncthreads();
 
-  float acc[DTILES][4];
+  if (role == 0) {
+    // ---- producer ----
+    hop::setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      hop::prefetch_map(&q_map);
+      hop::prefetch_map(&do_map);
+      hop::prefetch_map(&k_map);
+      hop::prefetch_map(&v_map);
+      const int kvh = head / group;
+      const int n_tiles = n_tiles_of(m_lo + BLOCK_M);
+      hop::mbar_expect_tx(q_full, 2 * L::Q_BYTES);
 #pragma unroll
-  for (int dt = 0; dt < DTILES; ++dt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[dt][e] = 0.f;
-
-  int n_end = sk;
-  if (causal) {
-    const int last_row = min((m_block + 1) * BLOCK_M, sq) - 1;
-    n_end = min(sk, last_row + off + 1);
-  }
-  const int n_tiles = n_end > 0 ? (n_end + BLOCK_N - 1) / BLOCK_N : 0;
-
-  for (int nt = 0; nt < n_tiles; ++nt) {
-    const int n0 = nt * BLOCK_N;
-    __syncthreads();
-    fat::load_tile<T, BLOCK_N, D, NTHREADS>(k_s, kb, k_ss, n0, sk, tid);
-    fat::load_tile<T, BLOCK_N, D, NTHREADS>(v_s, vb, v_ss, n0, sk, tid);
-    __syncthreads();
-
-#pragma unroll 1
-    for (int c0 = 0; c0 < BLOCK_N; c0 += SUB_N) {
-      const int col0 = n0 + c0;
-      // nothing live for this warp: past sk, or past its last row's diagonal
-      if (col0 >= sk || (causal && col0 > m0 + 15 + off)) break;
-      const T* ks = k_s + c0 * STRIDE;
-      const T* vs = v_s + c0 * STRIDE;
-
-      float s[NTILES][4], dp[NTILES][4];
-#pragma unroll
-      for (int nn = 0; nn < NTILES; ++nn) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[nn][e] = dp[nn][e] = 0.f;
-#pragma unroll
-        for (int kk = 0; kk < KSTEPS; ++kk) {
-          uint32_t b0, b1;
-          fat::load_b_rows(b0, b1, ks + nn * 8 * STRIDE, STRIDE, g, t, kk * 16);
-          Mma<T>::run(s[nn], qf[kk], b0, b1);
-          fat::load_b_rows(b0, b1, vs + nn * 8 * STRIDE, STRIDE, g, t, kk * 16);
-          Mma<T>::run(dp[nn], df[kk], b0, b1);
-        }
+      for (int c = 0; c < D / BOX; ++c) {
+        hop::tma_load_4d(smem + c * BLOCK_M * ROW, &q_map, q_full, c * BOX,
+                         head, m_lo, batch);
+        hop::tma_load_4d(smem + L::DO_OFF + c * BLOCK_M * ROW, &do_map, q_full,
+                         c * BOX, head, m_lo, batch);
       }
-
-      // P = exp2(S scale log2e - LSE log2e); dS = P (dP - D), into s
-      const bool masked = (col0 + SUB_N > sk) ||
-                          (causal && col0 + SUB_N - 1 > m0 + off);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % STAGES;
+        uint8_t* ks = smem + L::K_OFF + s * L::KV_BYTES;
+        uint8_t* vs = smem + L::V_OFF + s * L::KV_BYTES;
+        if (j >= STAGES) hop::mbar_wait(&empty[s], (j / STAGES - 1) & 1);
+        hop::mbar_expect_tx(&full[s], 2 * L::KV_BYTES);
 #pragma unroll
-      for (int nn = 0; nn < NTILES; ++nn) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float p = exp2f(s[nn][e] * scale_log2 - lse2[e >> 1]);
-          if (masked) {
-            const int col = col0 + nn * 8 + t * 2 + (e & 1);
-            if (col >= sk || (causal && col > rows[e >> 1] + off)) p = 0.f;
-          }
-          s[nn][e] = p * (dp[nn][e] - dr[e >> 1]);
-        }
-      }
-
-      // dQ += dS K: B[k = kv row][n = head-dim column] = K
-#pragma unroll
-      for (int kk = 0; kk < SUB_N / 16; ++kk) {
-        uint32_t a[4];
-        fat::pack_a<T>(a, s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-        for (int dt = 0; dt < DTILES; ++dt) {
-          uint32_t b0, b1;
-          fat::load_b_cols(b0, b1, ks + kk * 16 * STRIDE + dt * 8, STRIDE, g, t);
-          Mma<T>::run(acc[dt], a, b0, b1);
+        for (int c = 0; c < D / BOX; ++c) {
+          hop::tma_load_4d(ks + c * BLOCK_N * ROW, &k_map, &full[s], c * BOX,
+                           kvh, j * BLOCK_N, batch);
+          hop::tma_load_4d(vs + c * BLOCK_N * ROW, &v_map, &full[s], c * BOX,
+                           kvh, j * BLOCK_N, batch);
         }
       }
     }
-  }
+  } else {
+    // ---- consumers ----
+    hop::setmaxnreg_inc<CONSUMER_REGS>();
+    const int wg = role - 1;
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32;
+    const int lane = tid % 32;
+    const int g = lane >> 2;  // fragment row group
+    const int t = lane & 3;   // thread in group
+    const int wg_lo = m_lo + wg * 64;
+    const int w0 = wg_lo + warp * 16;  // this warp's first row
+    // this consumer's tiles: at most one fewer than the CTA's (consumer 0's
+    // rows end 64 earlier), and a stage is reused only STAGES >= 2 tiles
+    // later, so the release of a tile it never reads is never awaited
+    const int n_tiles = n_tiles_of(wg_lo + 64);
+    Rows rw{{w0 + g, w0 + g + 8}, w0, t, sk, off, causal, scale_log2};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const long long idx = ((long long)batch * h + head) * sq + rw.row[r];
+      // a row past sq is never stored: P = 0 keeps it finite
+      rw.lse2[r] = rw.row[r] < sq ? lse[idx] * fat::LOG2E : CUDART_INF_F;
+      rw.d[r] = rw.row[r] < sq ? di[idx] : 0.f;
+    }
+    // this consumer's 64 rows of the Q and dO tiles (in each 64-column box)
+    uint8_t* q_rows = smem + wg * 64 * ROW;
+    const uint32_t q_s = hop::smem_u32(q_rows);
+    const uint32_t do_s = hop::smem_u32(smem + L::DO_OFF + wg * 64 * ROW);
+    const uint32_t k_s = hop::smem_u32(smem + L::K_OFF);
+    const uint32_t v_s = hop::smem_u32(smem + L::V_OFF);
 
+    float acc[D / 2];            // dQ, unscaled
+    float sc[BLOCK_N / 2];       // S, then dS in fp32
+    float dp[BLOCK_N / 2];       // dP
+    uint32_t da[BLOCK_N / 16][4];  // dS as the A operand of dS K
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = rows[r];
-    if (row >= sq) continue;
-    T* out = dq + (((long long)batch * sq + row) * h + head) * D;
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
 #pragma unroll
-    for (int dt = 0; dt < DTILES; ++dt)
-      *reinterpret_cast<uint32_t*>(out + dt * 8 + t * 2) =
-          Mma<T>::pack(acc[dt][2 * r] * scale, acc[dt][2 * r + 1] * scale);
+    for (int i = 0; i < BLOCK_N / 2; ++i) sc[i] = dp[i] = 0.f;
+
+    // S(j + 1) and dP(j + 1) are issued behind dS(j) K(j); the first and
+    // last tiles are peeled off, so no wgmma is issued under a condition
+    // inside the loop.
+    hop::mbar_wait(q_full, 0);
+    if (n_tiles > 0) {
+      hop::mbar_wait(&full[0], 0);
+      issue_s_dp<T, D>(sc, dp, q_s, do_s, k_s, v_s);
+      hop::wgmma_wait<1>();
+      hop::fence_regs(sc);
+      probs(sc, 0, rw);
+      hop::wgmma_wait<0>();
+      hop::fence_regs(dp);
+      dscores(sc, dp, rw);
+      fat::pack_a<T, BLOCK_N>(da, sc);
+    }
+    for (int j = 0; j + 1 < n_tiles; ++j) {
+      const int s = j % STAGES, s1 = (j + 1) % STAGES;
+      hop::rs_chain<T, D, BLOCK_N / 16>(acc, da, k_s + s * L::KV_BYTES,
+                                        BLOCK_N);
+      hop::wgmma_commit();
+      hop::mbar_wait(&full[s1], ((j + 1) / STAGES) & 1);
+      issue_s_dp<T, D>(sc, dp, q_s, do_s, k_s + s1 * L::KV_BYTES,
+                       v_s + s1 * L::KV_BYTES);
+      hop::wgmma_wait<2>();  // dS(j) K(j) is done: stage s is free
+      hop::fence_regs(acc);
+      hop::fence_regs(da);
+      if (lane == 0) hop::mbar_arrive(&empty[s]);
+      hop::wgmma_wait<1>();  // S(j + 1) is done; dP(j + 1) may still run
+      hop::fence_regs(sc);
+      probs(sc, (j + 1) * BLOCK_N, rw);
+      hop::wgmma_wait<0>();
+      hop::fence_regs(dp);
+      dscores(sc, dp, rw);
+      fat::pack_a<T, BLOCK_N>(da, sc);
+    }
+    if (n_tiles > 0) {
+      const int s = (n_tiles - 1) % STAGES;
+      hop::rs_chain<T, D, BLOCK_N / 16>(acc, da, k_s + s * L::KV_BYTES,
+                                        BLOCK_N);
+      hop::wgmma_commit();
+      hop::wgmma_wait<0>();
+      hop::fence_regs(acc);
+      hop::fence_regs(da);
+      // (the last stage is never reused: no release)
+    }
+
+    // epilogue: scale * dQ into this consumer's rows of the Q tile (its last
+    // read of them is done), in the swizzled layout the dQ map stores from
+#pragma unroll
+    for (int nt = 0; nt < D / 8; ++nt) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = warp * 16 + g + 8 * r;
+        const int chunk = (nt % 8) ^ (row & 7);
+        *reinterpret_cast<uint32_t*>(q_rows + (nt / 8) * BLOCK_M * ROW +
+                                     row * ROW + chunk * 16 + t * 4) =
+            fat::Mma<T>::pack(acc[4 * nt + 2 * r] * scale,
+                              acc[4 * nt + 2 * r + 1] * scale);
+      }
+    }
+    hop::fence_async_smem();
+    hop::named_sync(1 + wg, 128);
+    if (tid == 0) {
+#pragma unroll
+      for (int c = 0; c < D / BOX; ++c)
+        hop::tma_store_4d(&dq_map, q_rows + c * BLOCK_M * ROW, c * BOX, head,
+                          wg_lo, batch);
+      hop::tma_store_wait();
+    }
   }
 }
 
 template <typename T, int D>
-void launch(const void* q, const void* k, const void* v, const void* dout,
-            const float* lse, const float* di, void* dq, int b, int sq, int sk,
-            int h, int hk, const long long* st, float scale, int causal,
-            cudaStream_t stream) {
-  dim3 grid((sq + BLOCK_M - 1) / BLOCK_M, h, b);
-  flash_bwd_dq_kernel<T, D><<<grid, NTHREADS, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, di,
-      static_cast<T*>(dq), sq, sk, h, h / hk, st[0], st[1], st[2], st[3],
-      st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11], scale,
+int launch(const void* q, const void* k, const void* v, const void* dout,
+           const float* lse, const float* di, void* dq, int b, int sq, int sk,
+           int h, int hk, const long long* st, float scale, int causal,
+           cudaStream_t stream) {
+  constexpr bool fp16 = std::is_same_v<T, __half>;
+  const long long dq_st[3] = {(long long)sq * h * D, (long long)h * D, D};
+  CUtensorMap qm, km, vm, dm, dqm;
+  int rc;
+  if ((rc = hop::make_map_bshd(&qm, q, fp16, b, sq, h, D, st, BLOCK_M)) ||
+      (rc = hop::make_map_bshd(&km, k, fp16, b, sk, hk, D, st + 3, BLOCK_N)) ||
+      (rc = hop::make_map_bshd(&vm, v, fp16, b, sk, hk, D, st + 6, BLOCK_N)) ||
+      (rc = hop::make_map_bshd(&dm, dout, fp16, b, sq, h, D, st + 9, BLOCK_M)) ||
+      (rc = hop::make_map_bshd(&dqm, dq, fp16, b, sq, h, D, dq_st, 64)))
+    return rc;
+  auto kernel = flash_bwd_dq_kernel<T, D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Smem<D>::BYTES);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid(h, b, (sq + BLOCK_M - 1) / BLOCK_M);
+  kernel<<<grid, NTHREADS, Smem<D>::BYTES, stream>>>(
+      qm, km, vm, dm, dqm, lse, di, sq, sk, h, h / hk, scale,
       scale * fat::LOG2E, causal);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -212,20 +355,18 @@ int fat_flash_bwd_dq(const void* q, const void* k, const void* v,
   const float* l = static_cast<const float*>(lse);
   const float* dd = static_cast<const float*>(di);
   if (d == 128 && !is_fp16)
-    launch<__nv_bfloat16, 128>(q, k, v, dout, l, dd, dq, b, sq, sk, h, hk,
+    return launch<__nv_bfloat16, 128>(q, k, v, dout, l, dd, dq, b, sq, sk, h,
+                                      hk, strides, scale, causal, s);
+  if (d == 128)
+    return launch<__half, 128>(q, k, v, dout, l, dd, dq, b, sq, sk, h, hk,
                                strides, scale, causal, s);
-  else if (d == 128)
-    launch<__half, 128>(q, k, v, dout, l, dd, dq, b, sq, sk, h, hk, strides,
-                        scale, causal, s);
-  else if (d == 64 && !is_fp16)
-    launch<__nv_bfloat16, 64>(q, k, v, dout, l, dd, dq, b, sq, sk, h, hk,
+  if (d == 64 && !is_fp16)
+    return launch<__nv_bfloat16, 64>(q, k, v, dout, l, dd, dq, b, sq, sk, h,
+                                     hk, strides, scale, causal, s);
+  if (d == 64)
+    return launch<__half, 64>(q, k, v, dout, l, dd, dq, b, sq, sk, h, hk,
                               strides, scale, causal, s);
-  else if (d == 64)
-    launch<__half, 64>(q, k, v, dout, l, dd, dq, b, sq, sk, h, hk, strides,
-                       scale, causal, s);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // extern "C"

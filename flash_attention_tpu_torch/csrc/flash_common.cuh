@@ -1,7 +1,7 @@
 // Pieces shared by the port's flash-attention kernels (flash_fwd.cu and the
-// three backward kernels flash_bwd_{di,dq,dkv}.cu): the mma.sync m16n8k16
-// wrapper for bf16 and fp16, the fragment loads, and the tile loader into
-// padded shared memory.
+// three backward kernels flash_bwd_{di,dq,dkv}.cu) and, through
+// gmm_common.cuh, its matmul kernels: the mma.sync m16n8k16 wrapper and the
+// fp32-pair packing for bf16 and fp16, and the error-string export.
 //
 // Fragment layouts of mma.m16n8k16 (g = lane / 4, t = lane % 4):
 //   A (16 x 16, row-major): a0 = (g, 2t..2t+1), a1 = (g + 8, 2t..),
@@ -9,7 +9,9 @@
 //   B (16 x 8, k x n):      b0 = (k = 2t..2t+1, n = g), b1 = (k = 2t + 8.., n = g)
 //   C (16 x 8, fp32):       c0, c1 = (g, 2t..2t+1), c2, c3 = (g + 8, 2t..2t+1)
 // Two adjacent C tiles of one row block form one A fragment (pack_a), so a
-// product's result feeds the next product without leaving the registers.
+// product's result feeds the next product without leaving the registers (the wgmma
+// accumulator and register-A layouts of hopper_common.cuh are the same per
+// 16-row warp slice).
 
 #pragma once
 
@@ -58,69 +60,17 @@ struct Mma<__half> {
   }
 };
 
-// Copy rows [row0, row0 + ROWS) of a row-major (n_rows, D) matrix with row
-// stride `ld` (elements) into shared memory with row stride D + 8 (the pad
-// keeps fragment reads free of bank conflicts), 16 bytes a thread. Rows at or
-// past n_rows are filled with zeros, so stale shared memory never enters a
-// product.
-template <typename T, int ROWS, int D, int NTHREADS>
-__device__ __forceinline__ void load_tile(T* dst, const T* src, long long ld,
-                                          int row0, int n_rows, int tid) {
-  constexpr int CHUNKS = D / 8;  // 16-byte chunks per row
-  for (int i = tid; i < ROWS * CHUNKS; i += NTHREADS) {
-    const int r = i / CHUNKS;
-    const int c = (i % CHUNKS) * 8;
-    uint4 x = make_uint4(0, 0, 0, 0);
-    if (row0 + r < n_rows)
-      x = *reinterpret_cast<const uint4*>(src + (row0 + r) * ld + c);
-    *reinterpret_cast<uint4*>(dst + r * (D + 8) + c) = x;
-  }
-}
-
-// A fragment of rows (g, g + 8) and columns [k0, k0 + 16) of a row-major
-// matrix at `m` with row stride `ld`; ok0 / ok1 false gives zeros for row
-// g / g + 8 (a row past the matrix's end is never read).
-template <typename T>
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const T* m, long long ld,
-                                       int g, int t, int k0,
-                                       bool ok0 = true, bool ok1 = true) {
-  const T* r0 = m + g * ld + k0 + t * 2;
-  const T* r1 = m + (g + 8) * ld + k0 + t * 2;
-  a[0] = ok0 ? *reinterpret_cast<const uint32_t*>(r0) : 0u;
-  a[1] = ok1 ? *reinterpret_cast<const uint32_t*>(r1) : 0u;
-  a[2] = ok0 ? *reinterpret_cast<const uint32_t*>(r0 + 8) : 0u;
-  a[3] = ok1 ? *reinterpret_cast<const uint32_t*>(r1 + 8) : 0u;
-}
-
-// B fragment with B[k][n] = M[n][k] (the K^T of Q K^T): row g of the
-// row-major M at `m`, columns [k0, k0 + 16).
-template <typename T>
-__device__ __forceinline__ void load_b_rows(uint32_t& b0, uint32_t& b1,
-                                            const T* m, long long ld, int g,
-                                            int t, int k0) {
-  const T* r = m + g * ld + k0 + t * 2;
-  b0 = *reinterpret_cast<const uint32_t*>(r);
-  b1 = *reinterpret_cast<const uint32_t*>(r + 8);
-}
-
-// B fragment with B[k][n] = M[k][n] (the V of P V): rows [0, 16) of the
-// row-major M at `m` (already offset to the k-step and n-tile), column g.
-template <typename T>
-__device__ __forceinline__ void load_b_cols(uint32_t& b0, uint32_t& b1,
-                                            const T* m, int ld, int g, int t) {
-  const uint16_t* p = reinterpret_cast<const uint16_t*>(m) + t * 2 * ld + g;
-  b0 = uint32_t(p[0]) | (uint32_t(p[ld]) << 16);
-  b1 = uint32_t(p[8 * ld]) | (uint32_t(p[9 * ld]) << 16);
-}
-
-// A fragment of k-step kk from C tiles 2 kk and 2 kk + 1 of one row block.
-template <typename T>
-__device__ __forceinline__ void pack_a(uint32_t (&a)[4], const float (&c0)[4],
-                                       const float (&c1)[4]) {
-  a[0] = Mma<T>::pack(c0[0], c0[1]);
-  a[1] = Mma<T>::pack(c0[2], c0[3]);
-  a[2] = Mma<T>::pack(c1[0], c1[1]);
-  a[3] = Mma<T>::pack(c1[2], c1[3]);
+// An accumulator of N fp32 columns in the C layout (N / 2 a thread), rounded
+// to T, as the A fragments of N / 16 k16 steps: 8-column blocks 2 kk and
+// 2 kk + 1 form step kk.
+template <typename T, int N>
+__device__ __forceinline__ void pack_a(uint32_t (&a)[N / 16][4],
+                                       const float (&x)[N / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      a[kk][e] = Mma<T>::pack(x[8 * kk + 2 * e], x[8 * kk + 2 * e + 1]);
 }
 
 }  // namespace fat

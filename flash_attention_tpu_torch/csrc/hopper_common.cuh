@@ -1,8 +1,9 @@
-// Hopper (sm_90a) building blocks for the port's warp-specialised kernels:
+// Hopper (sm_90a) building blocks for the port's warp-specialised kernels
+// (the flash forward and the backward's three kernels):
 // mbarriers, TMA tensor loads and stores, warpgroup matrix multiplies
-// (wgmma) with their shared-memory descriptors, fences, commit and wait,
-// register reallocation (setmaxnreg), named barriers, and the host-side
-// encoding of a TMA tensor map over a (b, s, heads, d) tensor.
+// (wgmma) with their shared-memory descriptors and chains, fences, commit
+// and wait, register reallocation (setmaxnreg), named barriers, and the
+// host-side encoding of a TMA tensor map over a (b, s, heads, d) tensor.
 //
 // Shared-memory tiles are what a TMA load with a 128-byte swizzle writes: a
 // box of 64 16-bit elements (128 bytes, the swizzle span) by `rows` rows,
@@ -21,7 +22,7 @@
 // 16 w + g + 8 (e / 2), column 8 j + 2 t + e % 2 -- the mma.sync m16n8k16 C
 // layout of flash_common.cuh per 16-row warp slice. An A operand from
 // registers takes that warp slice's m16n8k16 A fragment, so two adjacent
-// 8-column accumulator blocks form one k16 step of A (fat::pack_a's order).
+// 8-column accumulator blocks form one k16 step of A (fat::pack_a).
 
 #pragma once
 
@@ -224,13 +225,21 @@ __device__ __forceinline__ void wgmma_wait() {
                : OUTS                                                          \
                : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1))
 
-// wgmma m64nNk16 with fp32 accumulators in bf16 or fp16: ss at N 128 (Q K^T),
-// rs_tb at N 64 and 128 (P V at d 64 and 128).
+// wgmma m64nNk16 with fp32 accumulators in bf16 or fp16: ss at N 64 and 128
+// (Q K^T; the backward's 64-column S and dP), rs_tb at N 64 and 128 (P V at
+// d 64 and 128; the backward's dS K, P^T dO and dS^T Q).
 template <typename T, int N>
 struct Wgmma;
 
 template <typename T>
 struct Wgmma<T, 64> {
+  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t a,
+                                            uint64_t b, int scale_d) {
+    if constexpr (std::is_same_v<T, __half>)
+      HOP_SS("f16", 64, HOP_L32, HOP_D32(d), "32", "33", "34");
+    else
+      HOP_SS("bf16", 64, HOP_L32, HOP_D32(d), "32", "33", "34");
+  }
   static __device__ __forceinline__ void rs_tb(float (&d)[32],
                                                const uint32_t (&a)[4],
                                                uint64_t b) {
@@ -267,6 +276,40 @@ struct Wgmma<T, 128> {
 #undef HOP_D64
 #undef HOP_D32
 #undef HOP_D8
+
+// D = A B^T over KD elements of K, k16 steps in order (the first ignores D's
+// input), for a K-major A (64 rows at `a`) and B (N rows at `b`) in tiles
+// whose 64-column boxes hold a_rows and b_rows rows. Issued, not committed.
+// Every kernel that must sum a dot product bit for bit as another does (the
+// backward's dP and D) takes it from this one chain.
+template <typename T, int N, int KD>
+__device__ __forceinline__ void ss_chain(float (&d)[N / 2], uint32_t a,
+                                         int a_rows, uint32_t b, int b_rows) {
+  fence_regs(d);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < KD / 16; ++kk) {
+    const uint32_t box = kk / 4, ko = (kk % 4) * 32;
+    Wgmma<T, N>::ss(d, desc_sw128(a + box * a_rows * 128 + ko, 16, 1024),
+                    desc_sw128(b + box * b_rows * 128 + ko, 16, 1024), kk > 0);
+  }
+}
+
+// D += A B for A in registers (KS k16 steps of m16n8k16 A fragments) and an
+// MN-major B (16 KS rows of N columns at `b`) in a tile whose 64-column boxes
+// hold b_rows rows. Issued, not committed.
+template <typename T, int N, int KS>
+__device__ __forceinline__ void rs_chain(float (&d)[N / 2],
+                                         uint32_t (&a)[KS][4], uint32_t b,
+                                         int b_rows) {
+  fence_regs(d);
+  fence_regs(a);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+    Wgmma<T, N>::rs_tb(d, a[kk],
+                       desc_sw128(b + kk * 16 * 128, b_rows * 128, 1024));
+}
 
 __device__ __forceinline__ float exp2_approx(float x) {
   float y;

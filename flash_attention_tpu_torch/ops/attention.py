@@ -5,12 +5,17 @@ Layout (batch, seqlen, heads, head_dim) as in the JAX package; LSE comes back
 (batch, heads, seqlen_q) fp32. On a CUDA tensor each call launches the
 hand-written kernels (``ops.flash_fwd``, ``ops.flash_bwd``); on a CPU tensor
 it runs their plain fp32 versions. The kernels take bf16 and fp16 as they are
-and mask their own ragged edges, so nothing is upcast or padded here.
+and mask their own ragged edges, so nothing is upcast or padded here, except
+a head dim other than 64 or 128 below 128: the kernels run it zero-padded to
+the next of the two (:func:`padded_head_dim`), as the JAX package pads.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
+import torch.nn.functional as F
 
 from flash_attention_tpu_torch.ops import flash_bwd as _bwd_mod
 from flash_attention_tpu_torch.ops import flash_fwd as _fwd_mod
@@ -23,6 +28,34 @@ def _check_heads(q, k):
     if q.shape[2] % k.shape[2]:
         raise ValueError(f"num_heads {q.shape[2]} must be divisible by "
                          f"num_heads_k {k.shape[2]}")
+
+
+def kernel_head_dim(d: int) -> int:
+    """The head dim the CUDA kernels run ``d`` at: 64 and 128 as they are,
+    any other d below 128 zero-padded to the next of the two."""
+    if d in _fwd_mod.HEAD_DIMS:
+        return d
+    if d < 128:
+        return 64 if d < 64 else 128
+    raise NotImplementedError(
+        f"head_dim {d} on the card: the kernels take d <= 128; d 256 and 512 "
+        f"come with the Gemma-2 slice (window and softcap)")
+
+
+def padded_head_dim(fn, d_pad: int, *xs):
+    """``fn(*xs)`` with every (b, s, h, d) input zero-padded to head dim
+    ``d_pad``, and every (b, s, h, d_pad) output sliced back to d; other
+    inputs and outputs (LSE, D) pass as they are. Exact: zero columns add
+    nothing to Q K^T or dO V^T, and give zero columns of O, dQ, dK and dV.
+    The caller fixes ``sm_scale`` from the real d first."""
+    d = xs[0].shape[-1]
+    if d == d_pad:
+        return fn(*xs)
+    out = fn(*(F.pad(x, (0, d_pad - d)) if x.dim() == 4 else x for x in xs))
+
+    def cut(y):
+        return y[..., :d] if y.dim() == 4 else y
+    return tuple(map(cut, out)) if isinstance(out, tuple) else cut(out)
 
 
 def _cuda_options(window_size, softcap):
@@ -49,8 +82,9 @@ def fwd(q, k, v, is_causal: bool = False, *, sm_scale: float | None = None,
                                    sm_scale=sm_scale, window=window_size,
                                    softcap=softcap, empty_lse=empty_lse)
     _cuda_options(window_size, softcap)
-    return _fwd_mod.flash_fwd(q, k, v, causal=is_causal, sm_scale=sm_scale,
-                              empty_lse=empty_lse)
+    kernel = functools.partial(_fwd_mod.flash_fwd, causal=is_causal,
+                               sm_scale=sm_scale, empty_lse=empty_lse)
+    return padded_head_dim(kernel, kernel_head_dim(q.shape[-1]), q, k, v)
 
 
 def bwd(q, k, v, o, lse, do, is_causal: bool = False, *,
@@ -72,8 +106,10 @@ def bwd(q, k, v, o, lse, do, is_causal: bool = False, *,
             q, k, v, o, lse, do, causal=is_causal, sm_scale=sm_scale,
             window=window_size, softcap=softcap, parts=parts)
     _cuda_options(window_size, softcap)
-    return _bwd_mod.flash_bwd(q, k, v, o, lse, do, causal=is_causal,
-                              sm_scale=sm_scale, parts=parts)
+    kernel = functools.partial(_bwd_mod.flash_bwd, causal=is_causal,
+                               sm_scale=sm_scale, parts=parts)
+    return padded_head_dim(kernel, kernel_head_dim(q.shape[-1]), q, k, v, o,
+                           lse, do)
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -103,14 +139,25 @@ class _FlashAttention(torch.autograd.Function):
 
 
 def flash_attention(q, k, v, causal: bool = False,
-                    sm_scale: float | None = None,
+                    sm_scale: float | None = None, segment_ids=None,
+                    block_sizes=None, interpret: bool | None = None,
                     window_size: tuple | None = None,
                     softcap: float | None = None, return_lse: bool = False):
-    """Differentiable flash attention.
+    """Differentiable flash attention, with the JAX package's arguments in
+    its order.
 
     q: (b, sq, h, d); k/v: (b, sk, hk, d). Gradients flow to q, k and v
     through :func:`bwd` when autograd records; otherwise this is
-    :func:`fwd`. Returns o (b, sq, h, d), or (o, lse) with ``return_lse``."""
+    :func:`fwd`. Returns o (b, sq, h, d), or (o, lse) with ``return_lse``.
+    ``segment_ids`` (packed batches), ``block_sizes`` (the TPU kernels'
+    tiles) and ``interpret`` (Pallas interpret mode) are not ported: a value
+    other than None raises NotImplementedError."""
+    for name, value in (("segment_ids", segment_ids),
+                        ("block_sizes", block_sizes),
+                        ("interpret", interpret)):
+        if value is not None:
+            raise NotImplementedError(
+                f"flash_attention: {name} is not ported to the PyTorch port")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         o, lse = _FlashAttention.apply(q, k, v, causal, sm_scale,
                                        window_size, softcap)

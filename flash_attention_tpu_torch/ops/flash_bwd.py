@@ -4,18 +4,21 @@ plain PyTorch versions.
 The counterpart of the JAX package's ``ops/flash_bwd.py``, in three steps:
 
 1. ``flash_bwd_di`` (``csrc/flash_bwd_di.cu``, replaces ``_di_kernel``):
-   D = rowsum(dO * O), taken as the diagonal of dO O^T with the same mma
-   fragments and order as dP, so dP - D cancels exactly.
+   D = rowsum(dO * O), taken as the diagonal of dO O^T from the same wgmma
+   chain (``hop::ss_chain``) as dP, so dP - D cancels exactly.
 2. ``flash_bwd_dq`` (``csrc/flash_bwd_dq.cu``, replaces ``_dq_kernel``):
    dQ = scale * (P * (dP - D)) K with P and dP recomputed.
 3. ``flash_bwd_dkv`` (``csrc/flash_bwd_dkv.cu``, replaces ``_dkv_kernel``):
    dV = sum_g P^T dO and dK = scale * sum_g dS^T Q, the GQA group summed in
    the kernel (no atomics).
 
-Layouts are the port's unpadded ones: q, o, do (b, sq, h, d); k, v
-(b, sk, hk, d); lse and D (b, h, sq) fp32. The kernels read their inputs
-through strides (the head dim contiguous, the other strides multiples of 8)
-and write contiguous outputs in the input dtype. Each wrapper launches its
+All three are warp-specialised Hopper kernels on ``csrc/hopper_common.cuh``
+(TMA, mbarriers, wgmma). Layouts are the port's unpadded ones: q, o, do
+(b, sq, h, d); k, v (b, sk, hk, d); lse and D (b, h, sq) fp32. The kernels
+read their inputs by TMA through strides (the head dim contiguous; an input
+whose other strides are not multiples of 8 or whose data is not 16-byte
+aligned is copied first, as in ``ops.flash_fwd``) and write contiguous
+outputs in the input dtype. Each wrapper launches its
 kernel for CUDA tensors only; the plain versions beside them (``*_reference``)
 run on any device, cover the sliding window and softcap the kernels do not
 take, and are what ``ops.attention.bwd`` runs for CPU tensors.
@@ -34,7 +37,7 @@ import ctypes
 import torch
 
 from flash_attention_tpu_torch.ops import _build
-from flash_attention_tpu_torch.ops.flash_fwd import HEAD_DIMS, _check
+from flash_attention_tpu_torch.ops.flash_fwd import HEAD_DIMS, _prepare
 from flash_attention_tpu_torch.ops.reference import _build_mask
 
 _P = ctypes.c_void_p
@@ -65,9 +68,11 @@ def _stream(x):
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
-def _check_inputs(q, k, v, do, lse, di):
-    for x, name in ((q, "q"), (k, "k"), (v, "v"), (do, "do")):
-        _check(x, name)
+def _prepare_inputs(q, k, v, do, lse, di):
+    """(q, k, v, do) as the kernels take them (see ``_prepare``); raises on
+    anything else they cannot take."""
+    q, k, v, do = (_prepare(x, name) for x, name in ((q, "q"), (k, "k"),
+                                                      (v, "v"), (do, "do")))
     b, sq, h, d = q.shape
     if any(x.dtype != q.dtype for x in (k, v, do)):
         raise ValueError("q, k, v and do must share one dtype")
@@ -87,12 +92,12 @@ def _check_inputs(q, k, v, do, lse, di):
                 or not x.is_contiguous() or x.device != q.device:
             raise ValueError(f"{name} must be a contiguous fp32 (b, h, sq) "
                              f"tensor on q's device")
+    return q, k, v, do
 
 
 def flash_bwd_di(o, do):
     """Launch the D kernel: D = rowsum(dO * O), (b, h, sq) fp32."""
-    for x, name in ((o, "o"), (do, "do")):
-        _check(x, name)
+    o, do = _prepare(o, "o"), _prepare(do, "do")
     if do.shape != o.shape or do.dtype != o.dtype:
         raise ValueError("o and do must share one shape and dtype")
     b, sq, h, d = o.shape
@@ -113,7 +118,7 @@ def flash_bwd_di(o, do):
 
 def flash_bwd_dq(q, k, v, do, lse, di, *, causal: bool, sm_scale: float):
     """Launch the dQ kernel. Returns dq (b, sq, h, d) in q's dtype."""
-    _check_inputs(q, k, v, do, lse, di)
+    q, k, v, do = _prepare_inputs(q, k, v, do, lse, di)
     b, sq, h, d = q.shape
     sk, hk = k.shape[1], k.shape[2]
     dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
@@ -133,7 +138,7 @@ def flash_bwd_dq(q, k, v, do, lse, di, *, causal: bool, sm_scale: float):
 def flash_bwd_dkv(q, k, v, do, lse, di, *, causal: bool, sm_scale: float):
     """Launch the dK/dV kernel. Returns (dk, dv), each (b, sk, hk, d) in the
     input dtype, summed over each kv head's GQA group."""
-    _check_inputs(q, k, v, do, lse, di)
+    q, k, v, do = _prepare_inputs(q, k, v, do, lse, di)
     b, sq, h, d = q.shape
     sk, hk = k.shape[1], k.shape[2]
     dk = torch.empty((b, sk, hk, d), dtype=k.dtype, device=k.device)

@@ -5,8 +5,8 @@ The kernel (``csrc/flash_fwd.cu``) replaces the JAX package's Pallas
 fp16 through their strides and writes O (b, sq, h, d) and LSE (b, h, sq)
 fp32. The kernel masks its own ragged edges, so nothing is padded here.
 It loads by TMA through tensor maps built from the strides, so the data
-must be 16-byte aligned and the strides multiples of 16 bytes, as
-``_check`` demands.
+must be 16-byte aligned and the strides multiples of 16 bytes: ``_prepare``
+copies an input that is not into a fresh tensor.
 """
 
 from __future__ import annotations
@@ -48,23 +48,29 @@ def normalize_band(causal: bool, window) -> tuple | None:
     return (wl, wr)
 
 
-def _check(x: torch.Tensor, name: str) -> None:
+def _prepare(x: torch.Tensor, name: str) -> torch.Tensor:
+    """``x`` as the kernels take it: raises on what they cannot take, and
+    returns a fresh copy of an input that TMA cannot read in place (a stride
+    that is not a multiple of 8 elements, or data not 16-byte aligned).
+    ``.contiguous()`` alone would keep a misaligned storage offset."""
     if not x.is_cuda:
         raise ValueError(f"{name} must be a CUDA tensor")
     if x.dtype not in DTYPES:
         raise ValueError(f"{name}: the kernel takes bf16 or fp16, got {x.dtype}")
     if x.dim() != 4 or x.stride(-1) != 1:
         raise ValueError(f"{name} must be (b, s, h, d) with a contiguous head dim")
-    if any(st % 8 for st in x.stride()[:3]) or x.data_ptr() % 16:
-        raise ValueError(f"{name}: strides must be multiples of 8 elements "
-                         f"and the data 16-byte aligned")
+    # a dim of extent 1 is never stepped (the tensor map packs its stride)
+    if any(st % 8 for st, n in zip(x.stride()[:3], x.shape[:3]) if n > 1) \
+            or x.data_ptr() % 16:
+        return torch.empty(x.shape, dtype=x.dtype, device=x.device).copy_(x)
+    return x
 
 
 def flash_fwd(q, k, v, *, causal: bool, sm_scale: float,
               empty_lse: float = 0.0):
     """Launch the CUDA forward kernel. Returns (o, lse)."""
-    for x, name in ((q, "q"), (k, "k"), (v, "v")):
-        _check(x, name)
+    q, k, v = (_prepare(x, name) for x, name in ((q, "q"), (k, "k"),
+                                                  (v, "v")))
     b, sq, h, d = q.shape
     sk, hk = k.shape[1], k.shape[2]
     if k.dtype != q.dtype or v.dtype != q.dtype:

@@ -51,24 +51,39 @@ class Engine:
         page_size: int = 64,
         max_batch: int = 8,
         max_seq_len: int = 2048,
-        native_allocator: bool = False,
+        kv_dtype: torch.dtype = torch.bfloat16,
         kv_quant: bool = False,
+        native_allocator: bool = False,
         mesh=None,
+        tp_axis: str = "model",
         chunk_size: int | None = None,
         draft_cfg=None,
         draft_params=None,
+        n_draft: int = 4,
         prefix_cache: bool = False,
         decode_block: int = 1,
         lora_rank: int | None = None,
+        lora_targets: tuple = ("wq", "wk", "wv", "wo"),
+        max_loras: int = 8,
     ):
-        unsupported = {"mesh (tensor parallelism)": mesh is not None,
-                       "chunk_size (chunked prefill)": chunk_size is not None,
-                       "draft model (speculative decoding)":
-                           draft_cfg is not None or draft_params is not None,
-                       "prefix_cache": prefix_cache,
-                       "decode_block > 1 (multi-step decode)": decode_block != 1,
-                       "lora_rank (multi-LoRA)": lora_rank is not None,
-                       "kv_quant (quantized KV cache)": kv_quant}
+        # the JAX engine's keywords, in its order; an unported option at a
+        # value other than its default raises, naming the option
+        unsupported = {
+            "kv_dtype (the cache holds K/V in the weights' dtype)":
+                kv_dtype not in (torch.bfloat16, params["embed"].dtype),
+            "kv_quant (quantized KV cache)": kv_quant,
+            "mesh (tensor parallelism)": mesh is not None,
+            "tp_axis (tensor parallelism)": tp_axis != "model",
+            "chunk_size (chunked prefill)": chunk_size is not None,
+            "draft_cfg, draft_params (speculative decoding)":
+                draft_cfg is not None or draft_params is not None,
+            "n_draft (speculative decoding)": n_draft != 4,
+            "prefix_cache": prefix_cache,
+            "decode_block (multi-step decode)": decode_block != 1,
+            "lora_rank (multi-LoRA)": lora_rank is not None,
+            "lora_targets (multi-LoRA)":
+                tuple(lora_targets) != ("wq", "wk", "wv", "wo"),
+            "max_loras (multi-LoRA)": max_loras != 8}
         bad = [k for k, v in unsupported.items() if v]
         if bad:
             raise NotImplementedError(

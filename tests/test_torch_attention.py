@@ -5,8 +5,13 @@ Pallas kernel in interpret mode, the port its plain fp32 version (the CUDA
 kernel is held against that same plain version on the card, in
 ``test_torch_kernels.py``). Tolerances: fp32 on both sides, so the repo's
 forward gates (atol 5e-3, mean_atol 2e-4, mean_rtol 1e-2) for O and the LSE
-gates of ``tests/test_flash_fwd.py:21``.
+gates of ``tests/test_flash_fwd.py:21``. A head dim the kernels do not take
+(96) runs the plain versions through the kernels' zero-pad helper against
+JAX's ``fwd``/``bwd``, which pad it too; the gradients take the backward
+gates (the same values as the forward's).
 """
+
+import inspect
 
 import numpy as np
 import pytest
@@ -21,6 +26,9 @@ from flash_attention_tpu.ops.reference import reference_attention as jax_ref
 from flash_attention_tpu.utils.metrics import assert_metrics
 from flash_attention_tpu_torch import flash_attention, fwd
 from flash_attention_tpu_torch.ops import flash_fwd as fwd_mod
+from flash_attention_tpu_torch.ops.attention import (kernel_head_dim,
+                                                     padded_head_dim)
+from flash_attention_tpu_torch.ops.flash_bwd import flash_bwd_reference
 from flash_attention_tpu_torch.ops.reference import (
     reference_attention, reference_attention_bwd)
 
@@ -127,3 +135,49 @@ def test_normalize_band_matches_jax(causal, window, want):
     from flash_attention_tpu.ops.flash_fwd import normalize_band as jax_nb
     assert fwd_mod.normalize_band(causal, window) == want
     assert jax_nb(causal, window) == want
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_padded_head_dim_matches_jax(causal):
+    """d 96 runs on the card zero-padded to 128: the helper around the plain
+    versions, at the real d's scale, against JAX's fwd and bwd (interpret
+    mode). d 256 and above raise on the card until the Gemma-2 slice."""
+    assert [kernel_head_dim(d) for d in (32, 64, 80, 96, 128)] == [
+        64, 64, 128, 128, 128]
+    with pytest.raises(NotImplementedError, match="Gemma-2"):
+        kernel_head_dim(256)
+    q, k, v = _qkv(96, 1, 16, 16, 2, 1, 96)
+    do = _qkv(97, 1, 16, 16, 2, 1, 96)[0]
+    qt, kt, vt, dot = map(torch.from_numpy, (q, k, v, do))
+    kw = dict(causal=causal, sm_scale=96**-0.5)
+    o, lse = padded_head_dim(lambda *x: reference_attention(*x, **kw), 128,
+                             qt, kt, vt)
+    grads = padded_head_dim(lambda *x: flash_bwd_reference(*x, **kw), 128,
+                            qt, kt, vt, o, lse, dot)
+    qj, kj, vj, doj = map(jnp.asarray, (q, k, v, do))
+    oj, lsej = fat.fwd(qj, kj, vj, is_causal=causal)
+    want = fat.bwd(qj, kj, vj, oj, lsej, doj, is_causal=causal)
+    assert o.shape == q.shape and lse.shape == (1, 2, 16)
+    assert_metrics("o[d96]", o.numpy(), np.asarray(oj), FWD_TOLS)
+    assert_metrics("lse[d96]", lse.numpy(), np.asarray(lsej), LSE_TOLS)
+    for name, got, ref in zip(("dq", "dk", "dv"), grads, want):
+        assert got.shape == ref.shape
+        assert_metrics(f"{name}[d96]", got.numpy(), np.asarray(ref), BWD_TOLS)
+
+
+@pytest.mark.parametrize("option", ["signature", "segment_ids",
+                                    "block_sizes", "interpret"])
+def test_flash_attention_takes_jax_arguments(option):
+    """flash_attention's arguments are JAX's, in JAX's order (window_size is
+    the ninth); an unported one at a value other than None raises
+    NotImplementedError naming it."""
+    q, k, v = map(torch.from_numpy, _qkv(8, 1, 16, 16, 2, 1, 64))
+    if option == "signature":
+        assert list(inspect.signature(flash_attention).parameters) == list(
+            inspect.signature(fat.flash_attention).parameters)
+        o = flash_attention(q, k, v, True, None, None, None, None, (4, 0))
+        want, _ = reference_attention(q, k, v, causal=True, window=(4, 0))
+        assert torch.equal(o, want)
+        return
+    with pytest.raises(NotImplementedError, match=option):
+        flash_attention(q, k, v, **{option: True})

@@ -56,6 +56,14 @@ FWD_SHAPES = [
     (1, 255, 257, 4, 2), (2, 257, 255, 4, 4), (1, 129, 300, 8, 4),
     (1, 400, 100, 4, 2), (4, 1, 300, 16, 2), (2, 4096, 4096, 4, 2),
 ]
+# The backward works in 64-row kv tiles under 128-row q blocks (dq) and in
+# 64-row q tiles under 128-row key blocks (dkv): FWD_SHAPES, and sq and sk on
+# both sides of 64 and of 192 (the second tile of a block), a kv block
+# wholly past sq and one q tile of dead rows, GQA groups 1, 2, 4 and 8.
+BWD_SHAPES = FWD_SHAPES + [
+    (1, 63, 65, 8, 1), (2, 65, 63, 8, 2), (1, 191, 193, 4, 1),
+    (1, 193, 191, 8, 8), (2, 64, 320, 4, 1), (1, 320, 64, 8, 2),
+]
 
 
 @pytest.fixture
@@ -269,7 +277,7 @@ def _bwd_inputs(seed, b, sq, sk, h, hk, d, dtype, device, causal):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("b,sq,sk,h,hk", FWD_SHAPES)
+@pytest.mark.parametrize("b,sq,sk,h,hk", BWD_SHAPES)
 def test_flash_bwd_matches_plain(cuda, dtype, d, causal, b, sq, sk, h, hk):
     """Each backward kernel against its plain version on the same inputs:
     D, then dq and dk/dv, each from its own chain's D (the kernels' fp32 D
@@ -341,6 +349,73 @@ def test_flash_bwd_strided_inputs(cuda):
                                        sm_scale=128**-0.5)
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
         assert_metrics(f"{name}[strided]", a, b, BWD_BF16_TOLS)
+
+
+def _offset_by_one(x):
+    """A copy of x whose data starts one element into its storage: 2 bytes
+    past a 16-byte boundary, which TMA cannot read in place."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    y = buf[1:].view(x.shape).copy_(x)
+    assert y.data_ptr() % 16
+    return y
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("what", ["fwd", "bwd"])
+def test_misaligned_inputs_are_copied(cuda, what):
+    """Inputs one element into their storage, and a sequence stride that is
+    not a multiple of 8 (a d-64 slice of d-65 rows), run: the wrappers copy
+    them into fresh tensors (counted launches) and match the plain
+    versions."""
+    q, k, v, o, lse, do = _bwd_inputs(31, 2, 150, 170, 4, 2, 64,
+                                      torch.bfloat16, cuda, True)
+    rng = np.random.default_rng(32)
+    wide = _randn(rng, (2, 170, 2, 65), torch.bfloat16, cuda)
+    wide[..., :64] = k
+    k_odd = wide[..., :64]  # seq stride 130, head stride 65
+    assert k_odd.stride(1) % 8 and torch.equal(k_odd, k)
+    q1, v1, do1 = map(_offset_by_one, (q, v, do))
+    if what == "fwd":
+        before = fwd_mod.KERNEL.launches
+        got = fwd(q1, k_odd, v1, True)
+        assert fwd_mod.KERNEL.launches == before + 1
+        want = reference_attention(q, k, v, causal=True)
+        assert_metrics("o[misaligned]", got[0], want[0], BF16_TOLS)
+        assert_metrics("lse[misaligned]", got[1], want[1], LSE_TOLS)
+        return
+    o1 = _offset_by_one(o)
+    before = [kern.launches for kern in bwd_mod.KERNELS]
+    got = bwd(q1, k_odd, v1, o1, lse, do1, True)
+    assert [kern.launches for kern in bwd_mod.KERNELS] == [
+        n + 1 for n in before]
+    want = bwd_mod.flash_bwd_reference(q, k, v, o, lse, do, causal=True,
+                                       sm_scale=64**-0.5)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert_metrics(f"{name}[misaligned]", a, b, BWD_BF16_TOLS)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("causal", [False, True])
+def test_head_dim_96_runs_padded(cuda, dtype, causal):
+    """d 96 runs the d-128 kernels on zero-padded copies: O, LSE and the
+    gradients match the plain versions at d 96 (scale 96^-0.5)."""
+    q, k, v, _, _, do = _bwd_inputs(96, 2, 200, 180, 8, 2, 128, dtype, cuda,
+                                    causal)
+    q, k, v, do = (x[..., :96].contiguous() for x in (q, k, v, do))
+    o, lse = fwd(q, k, v, causal)
+    o_ref, lse_ref = reference_attention(q, k, v, causal=causal)
+    assert o.shape == q.shape
+    tols = BWD_BF16_TOLS if dtype == torch.bfloat16 else BWD_TOLS
+    assert_metrics("o[d96]", o, o_ref,
+                   BF16_TOLS if dtype == torch.bfloat16 else FWD_TOLS)
+    assert_metrics("lse[d96]", lse, lse_ref, LSE_TOLS)
+    got = bwd(q, k, v, o, lse, do, causal)
+    want = bwd_mod.flash_bwd_reference(q, k, v, o, lse, do, causal=causal,
+                                       sm_scale=96**-0.5)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.shape == b.shape
+        assert_metrics(f"{name}[d96]", a, b, tols)
 
 
 @pytest.mark.gpu

@@ -7,6 +7,9 @@ scheduler copies, and sampling (greedy and ``_mask_row`` equal JAX's; the
 random bits replay from (seed, position)).
 """
 
+import inspect
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -104,6 +107,35 @@ def test_engine_stream_and_unsupported_options(params):
                dict(decode_block=4), dict(chunk_size=32), dict(lora_rank=4)):
         with pytest.raises(NotImplementedError):
             Engine(tl.LlamaConfig.tiny(), pt, **kw)
+
+
+# A non-default value of each of the JAX engine's options that the port has
+# not ported yet (the params are fp32, so fp16 is neither the default nor
+# the weights' dtype).
+UNPORTED_ENGINE_OPTIONS = {
+    "kv_dtype": torch.float16, "kv_quant": True, "mesh": object(),
+    "tp_axis": "tp", "chunk_size": 32, "draft_cfg": jl.LlamaConfig.tiny(),
+    "draft_params": {}, "n_draft": 2, "prefix_cache": True,
+    "decode_block": 4, "lora_rank": 4, "lora_targets": ("wq",),
+    "max_loras": 2}
+
+
+@pytest.mark.parametrize("option", ["signature", *UNPORTED_ENGINE_OPTIONS])
+def test_engine_takes_jax_keywords(params, option):
+    """Engine takes every keyword of the JAX engine, in its order; an
+    unported option at a non-default value raises NotImplementedError
+    naming it."""
+    _, pt = params
+    if option == "signature":
+        assert list(inspect.signature(Engine.__init__).parameters) == list(
+            inspect.signature(JaxEngine.__init__).parameters)
+        Engine(tl.LlamaConfig.tiny(), pt, total_pages=8, page_size=16,
+               max_batch=1, max_seq_len=32, kv_dtype=torch.float32,
+               tp_axis="model", n_draft=4, max_loras=8)
+        return
+    with pytest.raises(NotImplementedError, match=re.escape(option)):
+        Engine(tl.LlamaConfig.tiny(), pt,
+               **{option: UNPORTED_ENGINE_OPTIONS[option]})
 
 
 def test_engine_sampling_replays(params):

@@ -1,0 +1,125 @@
+#!/usr/bin/env python3
+"""Time sets of the port's backward kernels against each other on one card.
+
+    python3 tools/ab_flash_bwd.py NAME=DIR [NAME=DIR ...]
+
+Each DIR holds ``flash_bwd_di.cu``, ``flash_bwd_dq.cu`` and
+``flash_bwd_dkv.cu`` with the C interfaces of those in
+``flash_attention_tpu_torch/csrc/`` and the headers they include; a DIR
+that lacks one of the three takes the package's. To compare with an
+earlier revision, copy its sources into a directory that git ignores:
+
+    mkdir -p build/old && for f in flash_bwd_di.cu flash_bwd_dq.cu \\
+        flash_bwd_dkv.cu flash_common.cuh hopper_common.cuh; do
+      git show REV:flash_attention_tpu_torch/csrc/$f > build/old/$f; done
+    python3 tools/ab_flash_bwd.py old=build/old \\
+        new=flash_attention_tpu_torch/csrc
+
+Every set is built with the port's flags (its ``-Xptxas -v`` register,
+spill and C75xx lines printed), and its dq, dk and dv are compared with the
+first set's bit for bit at b2 s2048 h32/8 d128 bf16, causal and not; then
+each kernel is timed with CUDA events in the order a b .. b a. Prints the
+card's name and power limit with every line. Imports no JAX.
+"""
+
+from __future__ import annotations
+
+import pathlib
+import subprocess
+import sys
+
+import torch
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(REPO))
+from flash_attention_tpu_torch.ops import _build  # noqa: E402
+from flash_attention_tpu_torch.ops import flash_bwd as fb  # noqa: E402
+from flash_attention_tpu_torch.ops import flash_fwd as fm  # noqa: E402
+
+B, S, H, HK, D = 2, 2048, 32, 8, 128
+PARTS = {"di": "DI_KERNEL", "dq": "DQ_KERNEL", "dkv": "DKV_KERNEL"}
+
+
+def time_ms(fn, iters: int = 30) -> float:
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("ab_flash_bwd: needs an NVIDIA card", file=sys.stderr)
+        return 2
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip().splitlines()[0]
+    print(card)
+    sets = {}
+    for name, path in (arg.split("=", 1) for arg in sys.argv[1:]):
+        src = pathlib.Path(path).resolve()
+        sets[name] = {}
+        for part, attr in PARTS.items():
+            pkg = getattr(fb, attr)
+            own = src / pkg.source.name
+            sets[name][part] = pkg if not own.exists() else _build.Kernel(
+                f"ab_{name}_{part}", str(own), pkg.argtypes)
+    built = [k for ks in sets.values() for k in ks.values()
+             if k.name.startswith("ab_")]
+    for name, log in _build.build(built, ptxas_verbose=True).items():
+        for line in log.splitlines():
+            if "Used" in line or "C75" in line or (
+                    "spill" in line and " 0 bytes spill" not in line):
+                print(f"  {name}: {line.strip()}")
+
+    def use(name):
+        for part, attr in PARTS.items():
+            setattr(fb, attr, sets[name][part])
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    q, k, v, do = rnd(B, S, H, D), rnd(B, S, HK, D), rnd(B, S, HK, D), \
+        rnd(B, S, H, D)
+    first = next(iter(sets))
+    for causal in (True, False):
+        kw = dict(causal=causal, sm_scale=D**-0.5)
+        o, lse = fm.flash_fwd(q, k, v, **kw)
+        out = {}
+        for name in sets:
+            use(name)
+            out[name] = fb.flash_bwd(q, k, v, o, lse, do, **kw)
+            same = all(torch.equal(a, b) for a, b in zip(out[name],
+                                                          out[first]))
+            print(f"{name} causal={causal}: dq, dk, dv bit-identical to "
+                  f"{first}'s: {same}")
+        times = {n: {p: [] for p in PARTS} for n in sets}
+        for name in list(sets) + list(sets)[::-1]:
+            use(name)
+            di = fb.flash_bwd_di(o, do)
+            times[name]["di"].append(time_ms(lambda: fb.flash_bwd_di(o, do)))
+            times[name]["dq"].append(time_ms(
+                lambda: fb.flash_bwd_dq(q, k, v, do, lse, di, **kw)))
+            times[name]["dkv"].append(time_ms(
+                lambda: fb.flash_bwd_dkv(q, k, v, do, lse, di, **kw)))
+        for part in PARTS:
+            row = ", ".join(f"{n} {' / '.join(f'{t:.4f}' for t in r[part])} ms"
+                            for n, r in times.items())
+            print(f"{part} b{B} s{S} h{H}/{HK} d{D} causal={causal}: {row} "
+                  f"[{card}]")
+    use(first)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

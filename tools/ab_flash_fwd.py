@@ -15,7 +15,7 @@ ignores, for example:
         new=flash_attention_tpu_torch/csrc/flash_fwd.cu
 
 Every source is built with the port's flags, checked against the plain
-version on one shape, and timed with CUDA events at b8 and b2 s2048 h32/8
+version and against the first source (bit for bit) on one shape, and timed with CUDA events at b8 and b2 s2048 h32/8
 d128 (causal and not), in the order a b .. b a; SDPA with ``enable_gqa`` is
 timed last. Prints the card's name and power limit with every line.
 Imports no JAX.
@@ -81,11 +81,15 @@ def main() -> int:
     qs, ks, vs = rnd(2, 1000, 8, D), rnd(2, 700, 2, D), rnd(2, 700, 2, D)
     o_ref, _ = reference_attention(qs, ks, vs, causal=True)
     times = {n: {sh: [] for sh in SHAPES} for n in kernels}
+    first = None
     for name in list(kernels) + list(kernels)[::-1]:
         fm.KERNEL = kernels[name]
-        o, _ = fm.flash_fwd(qs, ks, vs, causal=True, sm_scale=D**-0.5)
+        o, lse = fm.flash_fwd(qs, ks, vs, causal=True, sm_scale=D**-0.5)
+        first = first or (name, o, lse)
         err = (o.float() - o_ref.float()).abs().max().item()
-        print(f"{name}: max abs err against the plain version {err:.3e}")
+        same = torch.equal(o, first[1]) and torch.equal(lse, first[2])
+        print(f"{name}: max abs err against the plain version {err:.3e}; "
+              f"O and LSE bit-identical to {first[0]}'s: {same}")
         for b, causal in SHAPES:
             q, k, v = inputs[b]
             times[name][(b, causal)].append(time_ms(
