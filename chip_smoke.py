@@ -169,6 +169,20 @@ def _bound(flops: float, nbytes: float) -> tuple[float, str]:
             "operations" if t_ops > t_bytes else "bytes")
 
 
+# kernels built on csrc/hopper_common.cuh: their SASS must hold warpgroup
+# matrix multiplies (HGMMA) and TMA loads (UTMALDG)
+HOPPER_KERNELS = ("flash_fwd", "flash_bwd_di", "flash_bwd_dq", "flash_bwd_dkv")
+
+
+def _sass_counts(build, kernel) -> dict[str, int]:
+    """HGMMA and UTMALDG instructions in a built library's SASS, read with
+    the toolkit's cuobjdump (beside nvcc)."""
+    cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(kernel.lib_path())],
+                          capture_output=True, text=True, check=True).stdout
+    return {op: sass.count(op) for op in ("HGMMA", "UTMALDG")}
+
+
 def _prompts(vocab: int):
     """The 8 prompts: the same lengths for every model, ids below its vocab."""
     rng = np.random.default_rng(SEED)
@@ -1370,6 +1384,11 @@ def main() -> int:
             if ("spill" in line and not line.strip().startswith("0 bytes")) \
                     or "C75" in line:  # spills; "wgmma serialized"
                 print(f"  {name}: {line.strip()}")
+    for k in kernels:
+        if k.name in HOPPER_KERNELS:
+            counts = _sass_counts(_build, k)
+            print(f"  {k.name} SASS: {counts}")
+            assert all(counts.values()), f"{k.name}: no wgmma or TMA in SASS"
 
     cfg = llama.LlamaConfig.llama3_8b()
     mix = llama.LlamaConfig.mixtral_8x7b()
