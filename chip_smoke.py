@@ -146,13 +146,35 @@ def _time_graph_ms(torch, fn, iters: int) -> float:
     """Mean device ms per call, with ``iters`` calls captured in one CUDA
     graph: for a kernel shorter than its host-side launch, timing eager
     calls would measure the Python wrapper, not the card."""
-    fn()  # warm-up outside the capture (builds, first allocations)
+    return _time_graph_calls_ms(torch, [fn] * iters)
+
+
+# A decode step reads every weight once, so a decode-shaped product finds
+# its weight cold: it is timed over a rotation of distinct copies whose
+# bytes together exceed twice the card's 50 MB L2.
+COLD_BYTES = 100e6
+
+
+def _time_cold_ms(torch, fn, operands, min_calls: int = 20) -> float:
+    """Mean device ms per call of ``fn(operand)``, the calls rotating over
+    ``operands`` (at least ``min_calls`` of them), captured in one CUDA
+    graph: with operands larger than the L2 together, each call reads its
+    operand from device memory."""
+    calls = [operands[i % len(operands)]
+             for i in range(max(min_calls, len(operands)))]
+    return _time_graph_calls_ms(torch, [lambda o=o: fn(o) for o in calls])
+
+
+def _time_graph_calls_ms(torch, fns) -> float:
+    """Mean device ms per call of the calls ``fns``, all captured in order
+    in one CUDA graph."""
+    fns[0]()  # warm-up outside the capture (builds, first allocations)
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
-    return _time_ms(torch, graph.replay, 5) / iters
+        for f in fns:
+            f()
+    return _time_ms(torch, graph.replay, 5) / len(fns)
 
 
 def _peaks(name: str) -> tuple[float, float]:
@@ -171,7 +193,8 @@ def _bound(flops: float, nbytes: float) -> tuple[float, str]:
 
 # kernels built on csrc/hopper_common.cuh: their SASS must hold warpgroup
 # matrix multiplies (HGMMA) and TMA loads (UTMALDG)
-HOPPER_KERNELS = ("flash_fwd", "flash_bwd_di", "flash_bwd_dq", "flash_bwd_dkv")
+HOPPER_KERNELS = ("flash_fwd", "flash_bwd_di", "flash_bwd_dq", "flash_bwd_dkv",
+                  "qmm")
 
 
 def _sass_counts(build, kernel) -> dict[str, int]:
@@ -708,8 +731,8 @@ class _NoSplit:
         real = self.real = self.quant.plan
 
         def plan(m, k, n, n_sms):
-            bm, _, _ = real(m, k, n, n_sms)
-            return bm, 1, max(1, -(-k // self.quant.BK))
+            rows, _, _ = real(m, k, n, n_sms)
+            return rows, 1, max(1, -(-k // self.quant.BK))
         self.quant.plan = plan
         return self
 
@@ -722,11 +745,13 @@ def check_qmm(torch, dev, cfg, card):
     int8 and int4: every projection at prefill (8 x 2048 rows) and decode
     (8 rows), and the lm_head (8 rows on both: the prefill runs it only at
     ``logit_rows``). Two launches must be bit-identical. Times: the kernel
-    (in a CUDA graph at decode, and there also without its k split), the
-    plain version, the bound and a yardstick, the bf16 ``torch.matmul`` of
-    the same (m, k, n) with the dequantised weight: what the unquantized
-    model runs. No single PyTorch call computes this function
-    (``torch._int_mm`` quantises the activations too)."""
+    (at decode in a CUDA graph over a rotation of weights larger than the L2
+    together, as a decode step finds them, and there also without its k
+    split), the plain version, the bound and a yardstick, the bf16
+    ``torch.matmul`` of the same (m, k, n) with the dequantised weight (what
+    the unquantized model runs; cold in the same way at decode). No single
+    PyTorch call computes this function (``torch._int_mm`` quantises the
+    activations too)."""
     from flash_attention_tpu_torch.ops import quant
     from flash_attention_tpu_torch.utils.metrics import assert_metrics
     g = torch.Generator(device=dev).manual_seed(SEED + 8)
@@ -755,14 +780,22 @@ def check_qmm(torch, dev, cfg, card):
                 f"qmm {tag}: two runs differ"
             del y, want
             wb = quant.dequantize(w).to(torch.bfloat16)
-            decode = m <= quant.SMALL_M
+            decode = m <= quant.DECODE_M
             if decode:  # a few us of work: device time in a CUDA graph
-                ms = _time_graph_ms(torch, lambda: quant.quantized_matmul(
-                    x, w), 50)
+                q_bytes = w.values.numel() + 4 * w.scales.numel()
+                copies = [w] + [quant.QuantizedTensor(
+                    w.values.clone(), w.scales.clone(), bits)
+                    for _ in range(max(2, -(-int(COLD_BYTES) // q_bytes)) - 1)]
+                wbs = [wb] + [wb.clone() for _ in range(
+                    max(2, -(-int(COLD_BYTES) // (2 * wb.numel()))) - 1)]
+
+                def qmm(w_):
+                    return quant.quantized_matmul(x, w_)
+                ms = _time_cold_ms(torch, qmm, copies)
                 with _NoSplit():
-                    no_split = _time_graph_ms(
-                        torch, lambda: quant.quantized_matmul(x, w), 50)
-                lib = _time_graph_ms(torch, lambda: torch.matmul(x, wb), 50)
+                    no_split = _time_cold_ms(torch, qmm, copies)
+                lib = _time_cold_ms(torch, lambda w_: torch.matmul(x, w_), wbs)
+                del copies, wbs
             else:
                 ms = _time_ms(torch, lambda: quant.quantized_matmul(x, w), 10)
                 lib = _time_ms(torch, lambda: torch.matmul(x, wb), 10)
@@ -771,17 +804,19 @@ def check_qmm(torch, dev, cfg, card):
             flops = 2.0 * m * k * n
             nbytes = 2 * m * k + k * n * bits / 8 + 4 * n + 2 * m * n
             bound_ms, bound_by = _bound(flops, nbytes)
-            bm, splits, _ = quant.plan(
+            rows, splits, _ = quant.plan(
                 m, k, n, torch.cuda.get_device_properties(dev)
                 .multi_processor_count)
             split = (f" (k split {splits} ways; without the split "
                      f"{no_split:.4f} ms)" if decode else "")
             print(f"qmm {tag}: x ({m}, {k}) bf16 @ int{bits} ({k}, {n}), "
-                  f"{bm}-row tiles: {mt}; two runs bit-identical; kernel "
+                  f"{'decode' if decode else 'prefill'} variant, {rows} "
+                  f"rows of x a tile: {mt}; two runs bit-identical; kernel "
                   f"{ms:.4f} ms{split} ({flops / ms / 1e9:.1f} TFLOP/s, "
                   f"{nbytes / ms / 1e6:.1f} GB/s), plain {plain:.3f} ms, "
                   f"bf16 torch.matmul {lib:.4f} ms, bound {bound_ms:.4f} ms "
-                  f"({bound_by}){' [device times in a CUDA graph]' if decode else ''}"
+                  f"({bound_by})"
+                  f"{' [device times in a CUDA graph, L2 cold]' if decode else ''}"
                   f" [{card}]")
             shapes[tag] = {"ms": ms, "plain_ms": plain, "bound_ms": bound_ms,
                            "bound_by": bound_by, "library_ms": lib,

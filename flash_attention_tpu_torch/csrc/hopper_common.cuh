@@ -1,9 +1,11 @@
 // Hopper (sm_90a) building blocks for the port's warp-specialised kernels
-// (the flash forward and the backward's three kernels):
+// (the flash forward, the backward's three kernels and the quantized
+// matmul):
 // mbarriers, TMA tensor loads and stores, warpgroup matrix multiplies
 // (wgmma) with their shared-memory descriptors and chains, fences, commit
 // and wait, register reallocation (setmaxnreg), named barriers, and the
-// host-side encoding of a TMA tensor map over a (b, s, heads, d) tensor.
+// host-side encoding of TMA tensor maps over a (b, s, heads, d) tensor and
+// over a 2-D matrix.
 //
 // Shared-memory tiles are what a TMA load with a 128-byte swizzle writes: a
 // box of 64 16-bit elements (128 bytes, the swizzle span) by `rows` rows,
@@ -100,6 +102,17 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// Load the box at coordinates (c0 innermost, c1) of a 2-D `map` into `dst`.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+
 // Store `src` to the box at (c0 .. c3); elements past the tensor's extents
 // are not written. Generic-proxy writes to `src` need fence_async_smem()
 // and a barrier first.
@@ -159,6 +172,12 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 }
 
 template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+template <int N>
 __device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
 #pragma unroll
   for (int i = 0; i < N; ++i)
@@ -196,6 +215,23 @@ __device__ __forceinline__ void wgmma_wait() {
       "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
 #define HOP_D32(d) HOP_D8(d, 0), HOP_D8(d, 8), HOP_D8(d, 16), HOP_D8(d, 24)
 #define HOP_D64(d) HOP_D32(d), HOP_D8(d, 32), HOP_D8(d, 40), HOP_D8(d, 48), HOP_D8(d, 56)
+#define HOP_D4(d) "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+#define HOP_D128(d) HOP_D64(d), HOP_D8(d, 64), HOP_D8(d, 72), HOP_D8(d, 80), \
+      HOP_D8(d, 88), HOP_D8(d, 96), HOP_D8(d, 104), HOP_D8(d, 112), HOP_D8(d, 120)
+#define HOP_L4 "{%0, %1, %2, %3}"
+#define HOP_L8 "{%0, %1, %2, %3, %4, %5, %6, %7}"
+#define HOP_L128 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "                       \
+  "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "              \
+  "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "              \
+  "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "              \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "              \
+  "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "              \
+  "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "              \
+  "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "              \
+  "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "      \
+  "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "  \
+  "%120, %121, %122, %123, %124, %125, %126, %127}"
 #define HOP_L32                                                                \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "   \
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "    \
@@ -216,12 +252,13 @@ __device__ __forceinline__ void wgmma_wait() {
                : OUTS                                                          \
                : "l"(a), "l"(b), "r"(scale_d))
 
-// D += A B, A from registers (4 x 32 bits), B MN-major in shared memory.
-#define HOP_RS_TB(TY, N, LIST, OUTS, A0, A1, A2, A3, NB, NS)                   \
+// D += A B, A from registers (4 x 32 bits), B in shared memory: MN-major
+// (TB "1", rs_tb) or K-major (TB "0", rs).
+#define HOP_RS(TY, N, LIST, OUTS, A0, A1, A2, A3, NB, NS, TB)                  \
   asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" NS ", 0;\n"              \
                "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32." TY "." TY   \
                " " LIST ", {%" A0 ", %" A1 ", %" A2 ", %" A3 "}, %" NB        \
-               ", p, 1, 1, 1;\n}\n"                                           \
+               ", p, 1, 1, " TB ";\n}\n"                                      \
                : OUTS                                                          \
                : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1))
 
@@ -244,9 +281,9 @@ struct Wgmma<T, 64> {
                                                const uint32_t (&a)[4],
                                                uint64_t b) {
     if constexpr (std::is_same_v<T, __half>)
-      HOP_RS_TB("f16", 64, HOP_L32, HOP_D32(d), "32", "33", "34", "35", "36", "37");
+      HOP_RS("f16", 64, HOP_L32, HOP_D32(d), "32", "33", "34", "35", "36", "37", "1");
     else
-      HOP_RS_TB("bf16", 64, HOP_L32, HOP_D32(d), "32", "33", "34", "35", "36", "37");
+      HOP_RS("bf16", 64, HOP_L32, HOP_D32(d), "32", "33", "34", "35", "36", "37", "1");
   }
 };
 
@@ -263,18 +300,62 @@ struct Wgmma<T, 128> {
                                                const uint32_t (&a)[4],
                                                uint64_t b) {
     if constexpr (std::is_same_v<T, __half>)
-      HOP_RS_TB("f16", 128, HOP_L64, HOP_D64(d), "64", "65", "66", "67", "68", "69");
+      HOP_RS("f16", 128, HOP_L64, HOP_D64(d), "64", "65", "66", "67", "68", "69", "1");
     else
-      HOP_RS_TB("bf16", 128, HOP_L64, HOP_D64(d), "64", "65", "66", "67", "68", "69");
+      HOP_RS("bf16", 128, HOP_L64, HOP_D64(d), "64", "65", "66", "67", "68", "69", "1");
+  }
+};
+
+// rs: A from registers, B K-major in shared memory: the quantized matmul's
+// dequantised weight (A, the M side) times rows of x (B) at N 8 and 16
+// (decode) and 256 (prefill).
+template <typename T, int N>
+struct WgmmaRs;
+
+template <typename T>
+struct WgmmaRs<T, 8> {
+  static __device__ __forceinline__ void rs(float (&d)[4], const uint32_t (&a)[4],
+                                            uint64_t b) {
+    if constexpr (std::is_same_v<T, __half>)
+      HOP_RS("f16", 8, HOP_L4, HOP_D4(d), "4", "5", "6", "7", "8", "9", "0");
+    else
+      HOP_RS("bf16", 8, HOP_L4, HOP_D4(d), "4", "5", "6", "7", "8", "9", "0");
+  }
+};
+
+template <typename T>
+struct WgmmaRs<T, 16> {
+  static __device__ __forceinline__ void rs(float (&d)[8], const uint32_t (&a)[4],
+                                            uint64_t b) {
+    if constexpr (std::is_same_v<T, __half>)
+      HOP_RS("f16", 16, HOP_L8, HOP_D8(d, 0), "8", "9", "10", "11", "12", "13", "0");
+    else
+      HOP_RS("bf16", 16, HOP_L8, HOP_D8(d, 0), "8", "9", "10", "11", "12", "13", "0");
+  }
+};
+
+template <typename T>
+struct WgmmaRs<T, 256> {
+  static __device__ __forceinline__ void rs(float (&d)[128], const uint32_t (&a)[4],
+                                            uint64_t b) {
+    if constexpr (std::is_same_v<T, __half>)
+      HOP_RS("f16", 256, HOP_L128, HOP_D128(d), "128", "129", "130", "131", "132", "133", "0");
+    else
+      HOP_RS("bf16", 256, HOP_L128, HOP_D128(d), "128", "129", "130", "131", "132", "133", "0");
   }
 };
 
 #undef HOP_SS
-#undef HOP_RS_TB
+#undef HOP_RS
+#undef HOP_L128
 #undef HOP_L64
 #undef HOP_L32
+#undef HOP_L8
+#undef HOP_L4
+#undef HOP_D128
 #undef HOP_D64
 #undef HOP_D32
+#undef HOP_D4
 #undef HOP_D8
 
 // D = A B^T over KD elements of K, k16 steps in order (the first ignores D's
@@ -355,6 +436,28 @@ inline int make_map_bshd(CUtensorMap* map, const void* ptr, bool fp16, int b,
   CUresult r = encode(
       map, fp16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
       4, const_cast<void*>(ptr), dims, strides, box, elem,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// A 2-D map over a row-major (outer, inner) matrix whose rows lie
+// `row_bytes` apart (a multiple of 16), loading boxes of 128 bytes (64
+// 16-bit elements or 128 raw bytes) by box_outer rows with the 128-byte
+// swizzle. Elements past either extent read as zeros. Returns a cudaError_t
+// value.
+inline int make_map_2d(CUtensorMap* map, const void* ptr,
+                       CUtensorMapDataType type, int inner, int outer,
+                       long long row_bytes, int box_outer) {
+  auto encode = tensor_map_encoder();
+  if (encode == nullptr) return static_cast<int>(cudaErrorSharedObjectSymbolNotFound);
+  const bool bytes = type == CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  cuuint64_t dims[2] = {cuuint64_t(inner), cuuint64_t(outer)};
+  cuuint64_t strides[1] = {cuuint64_t(row_bytes)};
+  cuuint32_t box[2] = {bytes ? 128u : 64u, cuuint32_t(box_outer)};
+  cuuint32_t elem[2] = {1, 1};
+  CUresult r = encode(
+      map, type, 2, const_cast<void*>(ptr), dims, strides, box, elem,
       CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);

@@ -18,7 +18,7 @@ path):
   the contraction). A CUDA tensor launches ``csrc/qmm.cu`` (replaces
   ``_qmm_kernel``); a CPU tensor runs :func:`quantized_matmul_reference`.
   The TPU tiling knobs (``block_m/n/k``, ``interpret``) are gone: the
-  wrapper picks the kernel's tile and split itself (:func:`plan`).
+  wrapper picks the kernel's variant, tile and split itself (:func:`plan`).
 """
 
 from __future__ import annotations
@@ -38,15 +38,18 @@ KERNEL = _build.Kernel("qmm", "qmm.cu", {
                 _I, _I, _I, _I, _P],
 })
 DTYPES = (torch.bfloat16, torch.float16)
-# the kernel's tiles (csrc/qmm.cu): BK-deep k steps, BN-wide column tiles,
-# and a 16-row tile for small m (decode) or a 128-row one
-BK, BN = 32, 128
-SMALL_M = 16
-# split k only while the grid is short of this many CTAs per SM, keeping at
-# least MIN_SPLIT_STEPS k steps in each split: more CTAs keep more weight
-# loads in flight, and past a few per SM the fp32 partials cost more than
-# they hide (chip_smoke.py times the decode shapes with and without a split)
-CTAS_PER_SM = 4
+# the kernel's tiles (csrc/qmm.cu): BK-deep k steps, BN weight columns (the
+# wgmma M side) by 256 rows of x for m > DECODE_M, else (decode) 8 or 16
+BK, BN = 64, 128
+PREFILL_ROWS, DECODE_M = 256, 16
+# resident CTAs per SM of each variant (shared memory: up to 217 KB a
+# prefill CTA, under 63 KB a decode one)
+PREFILL_CTAS_PER_SM, DECODE_CTAS_PER_SM = 1, 3
+# split k only while the grid is short of one wave of resident CTAs,
+# keeping at least MIN_SPLIT_STEPS k steps in each split and the grid within
+# the wave: at decode more CTAs keep more weight bytes in flight, and past
+# a wave the fp32 partials cost more than they hide (chip_smoke.py times the
+# decode shapes with and without the split)
 MIN_SPLIT_STEPS = 4
 MAX_SPLITS = 32
 
@@ -107,21 +110,27 @@ def quantized_matmul_reference(x, w: QuantizedTensor, *, out_dtype=None):
 
 
 def plan(m: int, k: int, n: int, n_sms: int) -> tuple[int, int, int]:
-    """The kernel's row tile, its number of k splits and the k steps per
-    split for an (m, k) @ (k, n) product on a card with ``n_sms`` SMs.
+    """The kernel's rows of x per tile (8 or 16: decode; 256: prefill), its
+    number of k splits and the k steps per split for an (m, k) @ (k, n)
+    product on a card with ``n_sms`` SMs.
 
-    A small m (decode) takes the 16-row tile. Its grid of column tiles is
-    short of the card's SMs at most Llama widths (8 CTAs for n = 1024), and
-    the product is bound by the weight's bytes, so k is split until the
-    grid holds about ``CTAS_PER_SM`` CTAs per SM; each split writes an fp32
-    partial and a second pass sums them in a fixed order."""
-    bm = SMALL_M if m <= SMALL_M else 128
-    tiles = -(-m // bm) * -(-n // BN)
+    The weight is always the wgmma M side, in 128-column tiles. At a small m
+    (decode, and the lm_head at its logit rows) the grid is short of the
+    card's resident CTAs at most Llama widths (8 CTAs for n = 1024), and the
+    product is bound by the weight's bytes, so k is split as far as the grid
+    stays within one wave; each split writes an fp32 partial and a second
+    pass sums them in a fixed order. Prefill splits only a grid shorter than
+    half a wave of one CTA per SM."""
+    if m <= DECODE_M:
+        rows, per_sm = (8 if m <= 8 else 16), DECODE_CTAS_PER_SM
+    else:
+        rows, per_sm = PREFILL_ROWS, PREFILL_CTAS_PER_SM
+    tiles = -(-m // rows) * -(-n // BN)
     k_steps = max(1, -(-k // BK))
-    want = -(-CTAS_PER_SM * n_sms // tiles)
+    want = max(1, per_sm * n_sms // tiles)
     splits = max(1, min(want, MAX_SPLITS, k_steps // MIN_SPLIT_STEPS))
     per = -(-k_steps // splits)
-    return bm, -(-k_steps // per), per
+    return rows, -(-k_steps // per), per
 
 
 def _check_cuda(x, w: QuantizedTensor, out_dtype):
@@ -166,20 +175,24 @@ def quantized_matmul(x, w: QuantizedTensor, *, out_dtype=None):
         raise ValueError(f"x has k = {k}; the weight's logical k is "
                          f"{w.values.shape[0] * pack}")
     values, scales = w.values, w.scales
-    if n % 16:  # the kernel reads 16-byte chunks of each weight row
+    if n % 16:  # TMA reads weight rows 16-byte aligned
         pad = -n % 16
         values = torch.nn.functional.pad(values, (0, pad))
         scales = torch.nn.functional.pad(scales, (0, pad), value=1.0)
     np_ = values.shape[1]
-    if values.data_ptr() % 16 or scales.data_ptr() % 16:
-        raise ValueError("values and scales must be 16-byte aligned")
+    # TMA reads from 16-byte-aligned bases: a view at an odd offset is copied
+    if values.data_ptr() % 16:
+        values = values.clone()
+    if scales.data_ptr() % 16:
+        scales = scales.clone()
     if k % 8 or x.stride(1) != 1 or x.stride(0) % 8 or x.data_ptr() % 16:
-        # zero columns past k meet masked weight rows: the sum is unchanged
+        # TMA wants 16-byte rows and base; zero columns past k meet the
+        # zeros TMA reads past the weight's rows: the sum is unchanged
         x = torch.nn.functional.pad(x, (0, -k % 8)).contiguous()
     y = torch.empty((m, np_), dtype=out_dtype, device=x.device)
     if y.numel():
         n_sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-        bm, splits, per = plan(m, k, np_, n_sms)
+        rows, splits, per = plan(m, k, np_, n_sms)
         ws = None
         if splits > 1 or out_dtype != x.dtype:
             ws = torch.empty((splits, m, np_), dtype=torch.float32,
@@ -187,7 +200,7 @@ def quantized_matmul(x, w: QuantizedTensor, *, out_dtype=None):
         lib = KERNEL.lib()
         rc = lib.fat_qmm(x.data_ptr(), values.data_ptr(), scales.data_ptr(),
                          y.data_ptr(), 0 if ws is None else ws.data_ptr(),
-                         m, k, np_, x.stride(0), w.bits, bm, splits, per,
+                         m, k, np_, x.stride(0), w.bits, rows, splits, per,
                          int(x.dtype == torch.float16),
                          int(out_dtype == torch.float32),
                          torch.cuda.current_stream(x.device).cuda_stream)

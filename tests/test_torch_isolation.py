@@ -1,6 +1,6 @@
-"""The port stands alone: no module of ``flash_attention_tpu_torch`` and not
-``chip_smoke.py`` imports JAX or the JAX package, and CPU calls never launch
-(or count) a CUDA kernel."""
+"""The port stands alone: no module of ``flash_attention_tpu_torch``, not
+``chip_smoke.py`` and not the A/B tools (``tools/ab_*.py``) import JAX or
+the JAX package, and CPU calls never launch (or count) a CUDA kernel."""
 
 import ast
 import pathlib
@@ -21,7 +21,7 @@ torch.set_num_threads(2)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 SOURCES = sorted((ROOT / "flash_attention_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("ab_*.py"))
 FORBIDDEN = ("jax", "jaxlib", "flash_attention_tpu")
 
 
@@ -44,7 +44,8 @@ def test_no_jax_import(path):
 def test_sources_found():
     names = {p.name for p in SOURCES}
     assert {"engine.py", "llama.py", "attention.py", "chip_smoke.py",
-            "quant.py", "checkpoint.py"} <= names
+            "quant.py", "checkpoint.py", "ab_flash_fwd.py", "ab_flash_bwd.py",
+            "ab_qmm.py"} <= names
 
 
 def test_cpu_calls_launch_no_kernel(tmp_path):

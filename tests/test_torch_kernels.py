@@ -564,9 +564,9 @@ def test_gmm_counts_and_rejects(cuda):
 
 
 # --------------------------------------------------------- quantized matmul
-# (m, k, n): one row; decode (16-row tile, k split 16 ways); ragged k (not a
-# multiple of 8: x padded) with n not a multiple of 16 (weight padded);
-# ragged m, k and n tiles; the 128-row tile split over k.
+# (m, k, n): one row; decode (the weight on the M side, k split 16 ways);
+# ragged k (not a multiple of 8: x padded) with n not a multiple of 16
+# (weight padded); ragged m, k and n tiles; the prefill tile split over k.
 QMM_SHAPES = [(1, 64, 128), (8, 4096, 1024), (7, 202, 200), (100, 512, 512),
               (129, 264, 1040), (300, 1000, 384)]
 
@@ -592,6 +592,75 @@ def test_qmm_matches_plain(cuda, dtype, bits, m, k, n):
     assert y.shape == (m, n) and y.dtype == dtype
     assert_metrics(f"qmm[{dtype},{bits},{m},{k},{n}]", y, want,
                    _gmm_tols(dtype))
+
+
+def _every_value(bits, k, n):
+    """(k, n) int8 values (packed (k / 2, n) for int4) in which every column
+    holds every int8 value -128..127, or every int4 nibble -8..7 in both
+    nibble positions."""
+    kk, nn = np.meshgrid(np.arange(k), np.arange(n), indexing="ij")
+    if bits == 8:
+        return ((kk * 7 + nn) % 256 - 128).astype(np.int8)
+    lo = (kk[: k // 2] + nn[: k // 2]) % 16 - 8
+    hi = (kk[: k // 2] * 3 + nn[: k // 2] + 5) % 16 - 8
+    return ((lo & 0xF) | ((hi & 0xF) << 4)).astype(np.uint8).view(np.int8)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("m", [8, 16, 300])
+def test_qmm_dequantisation_exact(cuda, dtype, bits, m):
+    """One-hot rows of x pick single weight rows, so y = q s exactly before
+    one rounding: the kernel's bit-level conversion must equal the plain
+    version bit for bit, on the decode (m 8, 16; k split) and the prefill
+    variant (m 300), for every int8 value and every int4 nibble."""
+    k, n = 1024, 384
+    rng = np.random.default_rng(bits + m)
+    values = torch.from_numpy(_every_value(bits, k, n)).to(cuda)
+    scales = torch.from_numpy(rng.uniform(0.5, 1.5, n).astype(np.float32)
+                              / 64).to(cuda)
+    w = quant.QuantizedTensor(values, scales, bits)
+    x = torch.zeros((m, k), dtype=dtype, device=cuda)
+    x[torch.arange(m), torch.from_numpy(rng.integers(0, k, m))] = 1
+    got = quant.quantized_matmul(x, w)
+    assert torch.equal(got, quant.quantized_matmul_reference(x, w))
+    if m <= quant.DECODE_M:
+        assert quant.plan(m, k, n, torch.cuda.get_device_properties(cuda)
+                          .multi_processor_count)[1] > 1
+
+
+# m on both sides of the decode widths (8, 16), of 64 and of the prefill
+# tile (256 rows of x); (k, n) ragged against the 64-deep k steps and the
+# 128-column weight tiles (n = 392 is padded to 400)
+QMM_EDGE_M = [1, 8, 16, 17, 64, 65, 255, 256, 257]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("k,n", [(200, 272), (1000, 392)])
+@pytest.mark.parametrize("m", QMM_EDGE_M)
+def test_qmm_tile_edges(cuda, dtype, bits, k, n, m):
+    x, w = _qmm_inputs(m * 7 + k + n, m, k, n, bits, dtype, cuda)
+    y = quant.quantized_matmul(x, w)
+    assert y.shape == (m, n) and y.dtype == dtype
+    assert_metrics(f"qmm edge[{dtype},{bits},{m},{k},{n}]", y,
+                   quant.quantized_matmul_reference(x, w), _gmm_tols(dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [8, 16])
+def test_qmm_decode_split_repeats_bit_identical(cuda, m):
+    """The decode variant with its k split: partials summed in a fixed
+    order, so repeats give the same bits."""
+    n_sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for bits in (8, 4):
+        x, w = _qmm_inputs(11 + m, m, 4096, 4096, bits, torch.bfloat16, cuda)
+        assert quant.plan(m, 4096, 4096, n_sms)[1] > 1
+        first = quant.quantized_matmul(x, w)
+        for _ in range(3):
+            assert torch.equal(first, quant.quantized_matmul(x, w))
 
 
 @pytest.mark.gpu
@@ -639,6 +708,21 @@ def test_qmm_strided_x(cuda):
     wide[:, 8:264] = x
     got = quant.quantized_matmul(wide[:, 8:264], w)
     assert torch.equal(got, quant.quantized_matmul(x, w))
+
+
+@pytest.mark.gpu
+def test_qmm_misaligned_weight_is_copied(cuda):
+    """values and scales at an offset TMA cannot read from (not 16-byte
+    aligned) are copied, not refused."""
+    x, w = _qmm_inputs(13, 8, 256, 384, 8, torch.bfloat16, cuda)
+    vals = torch.empty(w.values.numel() + 1, dtype=torch.int8, device=cuda)
+    vals[1:] = w.values.flatten()
+    scs = torch.empty(w.scales.numel() + 1, device=cuda)
+    scs[1:] = w.scales
+    odd = quant.QuantizedTensor(vals[1:].view(w.values.shape), scs[1:], 8)
+    assert odd.values.data_ptr() % 16 and odd.scales.data_ptr() % 16
+    assert torch.equal(quant.quantized_matmul(x, odd),
+                       quant.quantized_matmul(x, w))
 
 
 @pytest.mark.gpu

@@ -123,19 +123,25 @@ def test_quantized_matmul_out_dtype():
 
 
 @pytest.mark.parametrize("m,k,n,want", [
-    # decode: 16-row tile, k split until about 4 CTAs per SM of 132
-    (8, 4096, 1024, (16, 32, 4)), (8, 4096, 4096, (16, 16, 8)),
-    (8, 4096, 14336, (16, 5, 26)), (8, 14336, 4096, (16, 17, 27)),
-    (8, 4096, 128256, (16, 1, 128)),
-    # prefill: 128-row tile, enough tiles, no split
-    (16384, 4096, 14336, (128, 1, 128)),
+    # Llama-3-8B decode (8 rows; wq/wo, wk/wv, gate/up, down, lm_head): the
+    # weight on the M side in 128-column tiles, k split as far as the grid
+    # stays within one wave of 3 CTAs per SM of 132
+    (8, 4096, 4096, (8, 11, 6)), (8, 4096, 1024, (8, 16, 4)),
+    (8, 4096, 14336, (8, 3, 22)), (8, 14336, 4096, (8, 12, 19)),
+    (8, 4096, 128256, (8, 1, 64)),
+    # Llama-3-8B prefill (8 x 2048 rows): 256 rows of x a tile, no split
+    (16384, 4096, 4096, (256, 1, 64)), (16384, 4096, 1024, (256, 1, 64)),
+    (16384, 4096, 14336, (256, 1, 64)), (16384, 14336, 4096, (256, 1, 224)),
+    # the decode variant's two widths and the prefill tile's first m
+    (9, 4096, 1024, (16, 16, 4)), (16, 4096, 4096, (16, 11, 6)),
+    (17, 4096, 4096, (256, 4, 16)),
     # ragged and short: at least 4 k steps a split; empty k
-    (100, 512, 512, (128, 4, 4)), (7, 200, 208, (16, 1, 7)),
-    (1, 0, 128, (16, 1, 1)),
+    (100, 512, 512, (256, 2, 4)), (7, 200, 208, (8, 1, 4)),
+    (1, 0, 128, (8, 1, 1)),
 ])
 def test_plan(m, k, n, want):
-    bm, splits, per = tq.plan(m, k, n, 132)
-    assert (bm, splits, per) == want
+    rows, splits, per = tq.plan(m, k, n, 132)
+    assert (rows, splits, per) == want
     steps = max(1, -(-k // tq.BK))
     assert (splits - 1) * per < steps <= splits * per  # no split is empty
 
