@@ -192,9 +192,10 @@ def _bound(flops: float, nbytes: float) -> tuple[float, str]:
 
 
 # kernels built on csrc/hopper_common.cuh: their SASS must hold warpgroup
-# matrix multiplies (HGMMA) and TMA loads (UTMALDG)
+# matrix multiplies (HGMMA) and TMA loads (UTMALDG), and ptxas must report
+# no spill and no serialized wgmma (C75xx) for them
 HOPPER_KERNELS = ("flash_fwd", "flash_bwd_di", "flash_bwd_dq", "flash_bwd_dkv",
-                  "qmm")
+                  "qmm", "gmm", "gmm_dw")
 
 
 def _sass_counts(build, kernel) -> dict[str, int]:
@@ -381,10 +382,10 @@ def check_paged(torch, dev, cfg, card):
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
 
-def _sdpa_profile(torch, fn, calls: int = 10) -> tuple[float, str]:
+def _device_kernels(torch, fn, calls: int = 10) -> tuple[float, dict]:
     """Device ms per call of ``fn`` (the summed durations of the device
-    kernels its ``calls`` calls launched: no host pacing) and the SDPA
-    backend those kernels name. Profiled over 10 calls: a later profiler
+    kernels its ``calls`` calls launched: no host pacing) and those
+    durations (us) by kernel name. Profiled over 10 calls: a later profiler
     session in one process missed the device events of a single short
     call."""
     from torch.autograd import DeviceType
@@ -400,14 +401,19 @@ def _sdpa_profile(torch, fn, calls: int = 10) -> tuple[float, str]:
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             times[e.name] = times.get(e.name, 0.0) + e.time_range.elapsed_us()
-    assert times, "SDPA's backend: the profiler saw no device kernels"
+    assert times, "the profiler saw no device kernels"
+    return sum(times.values()) / calls / 1e3, times
+
+
+def _sdpa_profile(torch, fn, calls: int = 10) -> tuple[float, str]:
+    """Device ms per call of ``fn`` and the SDPA backend its kernels name."""
+    ms, times = _device_kernels(torch, fn, calls)
     text = " ".join(times).lower()
     backend = ("cuDNN" if "cudnn" in text else "flash" if "flash" in text
                else "efficient" if "fmha" in text or "efficient" in text
                else "math")
     top = sorted(times, key=times.get, reverse=True)[:3]
-    return (sum(times.values()) / calls / 1e3,
-            f"{backend} (longest kernels: {'; '.join(n[:70] for n in top)})")
+    return ms, f"{backend} (longest kernels: {'; '.join(n[:70] for n in top)})"
 
 
 def check_bwd(torch, dev, cfg, card):
@@ -567,7 +573,8 @@ def _library(torch, fn):
         return None, f"torch._grouped_mm refused: {str(e).splitlines()[0][:120]}"
 
 
-GRAPH_NOTE = " [kernel: device time in a CUDA graph; library: eager]"
+GRAPH_NOTE = (" [kernel: device time in a CUDA graph; library: device time"
+              " from the profiler]")
 
 
 def check_gmm(torch, dev, cfg, card):
@@ -611,10 +618,10 @@ def check_gmm(torch, dev, cfg, card):
         lib_fn, why = _library(torch, lambda: torch._grouped_mm(x, w,
                                                                 offs=offs))
         decode = label.startswith("decode")
-        if decode:  # a few us of work: device time in a CUDA graph
+        if decode:  # host-bound when eager: device times on both sides
             ms = _time_graph_ms(torch, lambda: moe.gmm(x, w, be), 50)
-            # eager: the library call may not be capturable
-            lib = _time_ms(torch, lib_fn, 50) if lib_fn else None
+            # the library call may not be capturable: its kernels' durations
+            lib = _device_kernels(torch, lib_fn)[0] if lib_fn else None
         else:
             ms = _time_ms(torch, lambda: moe.gmm(x, w, be), 20)
             lib = _time_ms(torch, lib_fn, 20) if lib_fn else None
@@ -631,7 +638,8 @@ def check_gmm(torch, dev, cfg, card):
         strided = "" if w.stride(2) == 1 else " (w^T by strides)"
         print(f"gmm {label}{strided}: x ({n_pad}, {k_in}) x w {tuple(w.shape)}"
               f", {be.numel()} blocks ({n_dead} dead), {live_rows} live rows:"
-              f" {m}; kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s),"
+              f" {m}; kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s,"
+              f" {100 * bound_ms / ms:.1f}% of the bound),"
               f" plain {plain:.3f} ms, library "
               f"{'null' if lib is None else f'{lib:.4f} ms'}, bound "
               f"{bound_ms:.4f} ms ({bound_by})"
@@ -699,7 +707,8 @@ def check_gmm_dw(torch, dev, cfg, card):
         print(f"gmm_dw train {label}: x ({n_pad}, {k_in}), dy ({n_pad}, "
               f"{n_out}) -> dW ({E}, {k_in}, {n_out}), {live_rows} live rows: "
               f"{m}; two runs bit-identical; kernel {ms:.4f} ms "
-              f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain:.3f} ms, "
+              f"({flops / ms / 1e9:.1f} TFLOP/s, {100 * bound_ms / ms:.1f}% "
+              f"of the bound), plain {plain:.3f} ms, "
               f"library {'null' if lib is None else f'{lib:.4f} ms'}, bound "
               f"{bound_ms:.4f} ms ({bound_by}){' [' + why + ']' if why else ''}"
               f" [{card}]")
@@ -1416,9 +1425,13 @@ def main() -> int:
             tmpl = re.search(r"kernel(I.*)EEv", fn)
             print(f"  {name} {tmpl.group(1) if tmpl else fn}: {use.strip()}")
         for line in log.splitlines():
-            if ("spill" in line and not line.strip().startswith("0 bytes")) \
-                    or "C75" in line:  # spills; "wgmma serialized"
+            spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                               r"loads", line)
+            if (spills and spills.group(0) != "0 bytes spill stores, 0 bytes "
+                    "spill loads") or "C75" in line:  # "wgmma serialized"
                 print(f"  {name}: {line.strip()}")
+                assert name not in HOPPER_KERNELS, \
+                    f"{name}: a spill or a serialized wgmma"
     for k in kernels:
         if k.name in HOPPER_KERNELS:
             counts = _sass_counts(_build, k)

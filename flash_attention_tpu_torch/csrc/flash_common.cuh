@@ -1,17 +1,16 @@
 // Pieces shared by the port's flash-attention kernels (flash_fwd.cu and the
-// three backward kernels flash_bwd_{di,dq,dkv}.cu) and, through
-// gmm_common.cuh, its matmul kernels: the mma.sync m16n8k16 wrapper and the
-// fp32-pair packing for bf16 and fp16, and the error-string export.
+// three backward kernels flash_bwd_{di,dq,dkv}.cu) and its matmul kernels
+// (gmm.cu, gmm_dw.cu, qmm.cu): the fp32-pair packing for bf16 and fp16, the
+// accumulator-to-A-fragment packing, and the error-string export.
 //
-// Fragment layouts of mma.m16n8k16 (g = lane / 4, t = lane % 4):
+// Fragment layouts of mma.m16n8k16 (g = lane / 4, t = lane % 4), which the
+// wgmma accumulator and register-A layouts repeat per 16-row warp slice:
 //   A (16 x 16, row-major): a0 = (g, 2t..2t+1), a1 = (g + 8, 2t..),
 //                           a2 = (g, 2t + 8..),  a3 = (g + 8, 2t + 8..)
 //   B (16 x 8, k x n):      b0 = (k = 2t..2t+1, n = g), b1 = (k = 2t + 8.., n = g)
 //   C (16 x 8, fp32):       c0, c1 = (g, 2t..2t+1), c2, c3 = (g + 8, 2t..2t+1)
 // Two adjacent C tiles of one row block form one A fragment (pack_a), so a
-// product's result feeds the next product without leaving the registers (the wgmma
-// accumulator and register-A layouts of hopper_common.cuh are the same per
-// 16-row warp slice).
+// product's result feeds the next product without leaving the registers.
 
 #pragma once
 
@@ -30,14 +29,6 @@ struct Mma;
 
 template <>
 struct Mma<__nv_bfloat16> {
-  static __device__ __forceinline__ void run(float (&c)[4], const uint32_t (&a)[4],
-                                             uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
   static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
     __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
     return *reinterpret_cast<uint32_t*>(&v);
@@ -46,14 +37,6 @@ struct Mma<__nv_bfloat16> {
 
 template <>
 struct Mma<__half> {
-  static __device__ __forceinline__ void run(float (&c)[4], const uint32_t (&a)[4],
-                                             uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
   static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
     __half2 v = __floats2half2_rn(lo, hi);
     return *reinterpret_cast<uint32_t*>(&v);

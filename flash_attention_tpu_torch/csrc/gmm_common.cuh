@@ -1,51 +1,19 @@
-// Pieces shared by the port's grouped-matmul kernels (gmm.cu and
-// gmm_dw.cu): 16-byte cp.async copies into shared memory (zero-filled past a
-// ragged edge), ldmatrix fragment loads for the mma.sync m16n8k16 tiles of
-// flash_common.cuh, the tile raster and the fragment store.
-//
-// ldmatrix.x4 loads four 8 x 8 b16 matrices; lane l gives the address of
-// row l % 8 of matrix l / 8. Without .trans, lane (g, t) receives row g,
-// columns 2t..2t+1 of each matrix; with .trans, column g, rows 2t..2t+1.
+// Pieces shared by the port's matmul kernels: the tile raster (gmm.cu,
+// gmm_dw.cu and qmm.cu) and the grouped matmuls' epilogue, which rounds a
+// consumer warpgroup's accumulator into shared memory and stores it by TMA.
 
 #pragma once
 
 #include "flash_common.cuh"
+#include "hopper_common.cuh"
 
 namespace fat {
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
+// A consumer warpgroup's epilogue buffer: 64 rows by 128 columns.
+constexpr int EPI_BYTES = 2 * 64 * 128;
 
-// 16 bytes from `src` to shared `dst`; zeros when !ok (src is not read).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(ok ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// The (m, n) tile of CTA `pid` in a grid of m_tiles x n_tiles, rastered in
-// groups of `group_m` m tiles (m fastest inside a group): the CTAs resident
+// The (m, n) tile number `pid` of a grid of m_tiles x n_tiles, rastered in
+// groups of `group_m` m tiles (m fastest inside a group): the tiles in flight
 // at one time share a few m tiles and a few n tiles, so their operands are
 // read from device memory about once and then from the L2 cache.
 __device__ __forceinline__ void raster(int pid, int m_tiles, int n_tiles, int group_m,
@@ -58,27 +26,50 @@ __device__ __forceinline__ void raster(int pid, int m_tiles, int n_tiles, int gr
   nt = in / gm;
 }
 
-// Store a warp's 32 x 64 fp32 accumulator, rounded once to T, at rows
-// [r0, r0 + 32) and columns [c0, c0 + 64) of a row-major (rows, cols)
-// matrix; rows or columns out of range are skipped (cols is a multiple of 8).
-template <typename T>
-__device__ __forceinline__ void store_acc(T* out, long long ld, const float (&acc)[2][8][4],
-                                          int r0, int c0, int rows, int cols, int g,
-                                          int t) {
+// Columns 128 H .. 128 H + 127 of a consumer warpgroup's 64-row wgmma
+// accumulator (N fp32 columns, N / 2 a thread, in the layout set out in
+// hopper_common.cuh), rounded once to T, into `buf` as two 64 x 64 boxes
+// laid out as a 128-byte-swizzled TMA store reads them: row r of a box at
+// r * 128 bytes, its 16-byte chunks permuted by r % 8. The 8 rows of one
+// store instruction land in 8 distinct chunks: no bank conflict.
+template <typename T, int N, int H>
+__device__ __forceinline__ void acc_to_boxes(uint8_t* buf, const float (&acc)[N / 2],
+                                             int warp, int lane) {
+  const int g = lane >> 2, t = lane & 3;
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi) {
+  for (int j = 0; j < 16; ++j) {  // 8-column blocks of the half
+    const int jn = 16 * H + j;
+    uint8_t* box = buf + (j / 8) * 64 * 128;
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = r0 + mi * 16 + g + h * 8;
-      if (r >= rows) continue;
-#pragma unroll
-      for (int ni = 0; ni < 8; ++ni) {
-        const int c = c0 + ni * 8 + t * 2;
-        if (c < cols)
-          *reinterpret_cast<uint32_t*>(out + r * ld + c) =
-              Mma<T>::pack(acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]);
-      }
+    for (int e = 0; e < 2; ++e) {
+      const int r = 16 * warp + g + 8 * e;
+      *reinterpret_cast<uint32_t*>(box + r * 128 + (((j % 8) ^ (r & 7)) << 4) + 4 * t) =
+          Mma<T>::pack(acc[4 * jn + 2 * e], acc[4 * jn + 2 * e + 1]);
     }
+  }
+}
+
+// Columns 128 H .. 128 H + 127 of consumer warpgroup c's 64 x N
+// accumulator (tid its thread, 0..127): into its buffer `epi` (once the
+// buffer's last store has read it), then by TMA to the boxes at columns
+// col0 + 128 H .., rows row0 .. row0 + 63 and plane z of the 3-D `map`,
+// issued by one thread and left to run while the consumers go on. Columns
+// at or past n_cols are not stored; the map clips rows past its extent.
+template <typename T, int N, int H>
+__device__ __forceinline__ void store_half(uint8_t* epi, const float (&acc)[N / 2],
+                                           const CUtensorMap* map, int col0, int row0,
+                                           int z, int n_cols, int tid, int c) {
+  if (tid == 0) hop::tma_store_wait_read<0>();
+  hop::named_sync(1 + c, 128);
+  acc_to_boxes<T, N, H>(epi, acc, tid / 32, tid % 32);
+  hop::fence_async_smem();
+  hop::named_sync(1 + c, 128);
+  if (tid == 0) {
+    for (int q = 0; q < 2; ++q) {
+      const int col = col0 + 128 * H + 64 * q;
+      if (col < n_cols) hop::tma_store_3d(map, epi + q * 64 * 128, col, row0, z);
+    }
+    hop::tma_store_commit();
   }
 }
 

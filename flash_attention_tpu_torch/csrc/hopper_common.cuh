@@ -1,11 +1,11 @@
 // Hopper (sm_90a) building blocks for the port's warp-specialised kernels
-// (the flash forward, the backward's three kernels and the quantized
-// matmul):
+// (the flash forward, the backward's three kernels, the quantized matmul and
+// the grouped matmuls gmm and gmm_dw):
 // mbarriers, TMA tensor loads and stores, warpgroup matrix multiplies
 // (wgmma) with their shared-memory descriptors and chains, fences, commit
 // and wait, register reallocation (setmaxnreg), named barriers, and the
-// host-side encoding of TMA tensor maps over a (b, s, heads, d) tensor and
-// over a 2-D matrix.
+// host-side encoding of TMA tensor maps over a (b, s, heads, d) tensor, a
+// 2-D matrix and a 3-D stack of matrices.
 //
 // Shared-memory tiles are what a TMA load with a 128-byte swizzle writes: a
 // box of 64 16-bit elements (128 bytes, the swizzle span) by `rows` rows,
@@ -15,7 +15,8 @@
 //   K-major (the reduction dim contiguous, as Q and K for Q K^T):
 //     8-row groups 1024 bytes apart (SBO); a k16 step inside a box adds 32
 //     bytes to the start address, the next box adds rows * 128.
-//   MN-major (the output dim contiguous, as V for P V, "transposed" B):
+//   MN-major (the output dim contiguous, as V for P V, "transposed" B, or
+//   the rows of x as gmm_dw's A):
 //     8-row (k) groups 1024 bytes apart (SBO), 64-element column boxes
 //     rows * 128 bytes apart (LBO); a k16 step adds 16 * 128 bytes.
 //
@@ -102,6 +103,19 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// Load the box at coordinates (c0 innermost, c1, c2) of a 3-D `map` into
+// `dst`.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+
 // Load the box at coordinates (c0 innermost, c1) of a 2-D `map` into `dst`.
 __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
                                             uint64_t* bar, int c0, int c1) {
@@ -124,6 +138,29 @@ __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
       "%5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
       "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// Store `src` to the box at (c0 innermost, c1, c2) of a 3-D map; elements
+// past the extents are not written. As above, fence and synchronise
+// generic-proxy writes to `src` first.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src,
+                                             int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], "
+      "[%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// Close the stores issued so far into one bulk group.
+__device__ __forceinline__ void tma_store_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N committed groups still read shared memory.
+template <int N>
+__device__ __forceinline__ void tma_store_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
 }
 
 // Commit the issued stores and wait until they have read shared memory.
@@ -345,6 +382,35 @@ struct WgmmaRs<T, 256> {
   }
 };
 
+// D (+)= A B, both from shared memory, each K-major (0) or MN-major (1,
+// "transposed"; bf16 and fp16 only): a, b, scale_d, TA, TB are operands
+// NA .. NA + 4.
+#define HOP_SST(TY, N, LIST, OUTS, NA, NB, NS, NTA, NTB)                      \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" NS ", 0;\n"              \
+               "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32." TY "." TY   \
+               " " LIST ", %" NA ", %" NB ", p, 1, 1, %" NTA ", %" NTB       \
+               ";\n}\n"                                                      \
+               : OUTS                                                          \
+               : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB))
+
+// ss with A (TA) and B (TB) K-major (0) or MN-major (1), at N 256:
+// gmm (x K-major; the weight MN-major as stored, K-major as the view w^T)
+// and gmm_dw (x and dy both MN-major).
+template <typename T, int N, int TA, int TB>
+struct WgmmaSs;
+
+template <typename T, int TA, int TB>
+struct WgmmaSs<T, 256, TA, TB> {
+  static __device__ __forceinline__ void ss(float (&d)[128], uint64_t a,
+                                            uint64_t b, int scale_d) {
+    if constexpr (std::is_same_v<T, __half>)
+      HOP_SST("f16", 256, HOP_L128, HOP_D128(d), "128", "129", "130", "131", "132");
+    else
+      HOP_SST("bf16", 256, HOP_L128, HOP_D128(d), "128", "129", "130", "131", "132");
+  }
+};
+
+#undef HOP_SST
 #undef HOP_SS
 #undef HOP_RS
 #undef HOP_L128
@@ -402,6 +468,11 @@ __device__ __forceinline__ float exp2_approx(float x) {
 
 // cuTensorMapEncodeTiled is a driver call. The libraries link only the CUDA
 // runtime, so it is looked up in the driver library the runtime has loaded.
+// It fails in a thread with no current context: one that has made no
+// runtime call yet, as an autograd worker thread may not have. So the
+// runtime's current device is set again first, which makes its primary
+// context current (no device work: it may run during a CUDA graph capture).
+// Returns nullptr if either step fails.
 inline decltype(&cuTensorMapEncodeTiled) tensor_map_encoder() {
   static auto fn = [] {
     void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
@@ -409,6 +480,9 @@ inline decltype(&cuTensorMapEncodeTiled) tensor_map_encoder() {
     return reinterpret_cast<decltype(&cuTensorMapEncodeTiled)>(
         lib ? dlsym(lib, "cuTensorMapEncodeTiled") : nullptr);
   }();
+  int dev;
+  if (cudaGetDevice(&dev) != cudaSuccess || cudaSetDevice(dev) != cudaSuccess)
+    return nullptr;
   return fn;
 }
 
@@ -458,6 +532,32 @@ inline int make_map_2d(CUtensorMap* map, const void* ptr,
   cuuint32_t elem[2] = {1, 1};
   CUresult r = encode(
       map, type, 2, const_cast<void*>(ptr), dims, strides, box, elem,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// A 3-D map over a stack of matrices of 16-bit elements: extents (d0
+// innermost, contiguous; d1; d2), the strides of d1 and d2 in bytes
+// (multiples of 16), loading boxes of 64 x box1 x 1 with the 128-byte
+// swizzle. Elements past any extent read as zeros, so a box never reads
+// into the next matrix. Returns a cudaError_t value.
+inline int make_map_3d(CUtensorMap* map, const void* ptr, bool fp16, int d0,
+                       int d1, int d2, long long s1_bytes, long long s2_bytes,
+                       int box1) {
+  auto encode = tensor_map_encoder();
+  if (encode == nullptr) return static_cast<int>(cudaErrorSharedObjectSymbolNotFound);
+  cuuint64_t dims[3] = {cuuint64_t(d0), cuuint64_t(d1), cuuint64_t(d2)};
+  cuuint64_t strides[2] = {cuuint64_t(s1_bytes), cuuint64_t(s2_bytes)};
+  // a dim of extent 1 is never stepped: give it a packed stride, whatever
+  // stride the caller's view has there
+  if (d1 == 1) strides[0] = cuuint64_t(d0) * 2;
+  if (d2 == 1) strides[1] = strides[0] * d1;
+  cuuint32_t box[3] = {64, cuuint32_t(box1), 1};
+  cuuint32_t elem[3] = {1, 1, 1};
+  CUresult r = encode(
+      map, fp16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      3, const_cast<void*>(ptr), dims, strides, box, elem,
       CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);

@@ -22,15 +22,17 @@ capacity factor, no token dropping):
 
 Kernels (each launched only for CUDA tensors; the plain versions
 ``gmm_reference`` and ``gmm_dw_reference`` compute per block or per group in
-fp32 and are what the wrappers run for CPU tensors):
+fp32 and are what the wrappers run for CPU tensors). Both are persistent,
+warp-specialised ``wgmma`` kernels fed by TMA through an mbarrier ring, one
+CTA per SM walking the output tiles:
 
-1. ``gmm`` (``csrc/gmm.cu``, replaces ``_gmm_kernel``): one CTA per
-   (128-row tile, 128-column tile). A dead block writes zeros and loads
+1. ``gmm`` (``csrc/gmm.cu``, replaces ``_gmm_kernel``): 128-row tiles (one
+   block, one expert) by 256 columns. A dead block writes zeros and loads
    nothing.
-2. ``gmm_dw`` (``csrc/gmm_dw.cu``, replaces ``_gmm_dw_kernel``): one CTA per
-   (expert, 128 x 128 tile of dW), looping over that expert's row blocks.
-   An expert with no rows gets dW = 0; the JAX kernel leaves that slot
-   unwritten.
+2. ``gmm_dw`` (``csrc/gmm_dw.cu``, replaces ``_gmm_dw_kernel``): 128 x 256
+   tiles of dW, expert by expert, each summing its expert's row blocks in
+   index order. An expert with no rows gets dW = 0; the JAX kernel leaves
+   that slot unwritten.
 """
 
 from __future__ import annotations
@@ -45,10 +47,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 KERNEL = _build.Kernel("gmm", "gmm.cu", {
-    "fat_gmm": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P],
+    "fat_gmm": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _I, _P],
 })
 DW_KERNEL = _build.Kernel("gmm_dw", "gmm_dw.cu", {
-    "fat_gmm_dw": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _P],
+    "fat_gmm_dw": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _I, _P],
+    "fat_gmm_dw_max_experts": [],
 })
 KERNELS = (KERNEL, DW_KERNEL)
 DTYPES = (torch.bfloat16, torch.float16)
@@ -57,6 +60,11 @@ TILE_ROWS = 128  # the kernels' row tile: a block must hold a whole number
 
 def _stream(x):
     return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _n_ctas(device) -> int:
+    """CTAs of a persistent launch: one per SM."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _block_rows(x, block_expert) -> int:
@@ -121,9 +129,10 @@ def gmm(x, w, block_expert):
     strides = (ctypes.c_longlong * 3)(x.stride(0), se, s_other)
     lib = KERNEL.lib()
     rc = lib.fat_gmm(x.data_ptr(), w.data_ptr(), block_expert.data_ptr(),
-                     y.data_ptr(), n_rows, k, n, br, kn,
+                     y.data_ptr(), n_rows, k, n, br, e, kn,
                      ctypes.cast(strides, ctypes.c_void_p),
-                     int(x.dtype == torch.float16), _stream(x))
+                     int(x.dtype == torch.float16), _n_ctas(x.device),
+                     _stream(x))
     KERNEL.launches += 1
     KERNEL.check(rc)
     return y
@@ -146,13 +155,17 @@ def gmm_dw(x, dy, block_expert, n_experts: int):
     dw = torch.empty((n_experts, k, n), dtype=x.dtype, device=x.device)
     if dw.numel() == 0:
         return dw
-    strides = (ctypes.c_longlong * 2)(x.stride(0), dy.stride(0))
     lib = DW_KERNEL.lib()
+    if n_experts > lib.fat_gmm_dw_max_experts():
+        raise ValueError(f"gmm_dw: the kernel takes at most "
+                         f"{lib.fat_gmm_dw_max_experts()} experts")
+    strides = (ctypes.c_longlong * 2)(x.stride(0), dy.stride(0))
     rc = lib.fat_gmm_dw(x.data_ptr(), dy.data_ptr(), block_expert.data_ptr(),
                         dw.data_ptr(), n_rows, k, n, br,
                         block_expert.shape[0], n_experts,
                         ctypes.cast(strides, ctypes.c_void_p),
-                        int(x.dtype == torch.float16), _stream(x))
+                        int(x.dtype == torch.float16), _n_ctas(x.device),
+                        _stream(x))
     DW_KERNEL.launches += 1
     DW_KERNEL.check(rc)
     return dw

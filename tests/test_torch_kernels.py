@@ -468,11 +468,21 @@ GMM_CASES = {
     "all_dead": ([-1, -1, -1], 2, 128, 128),
     "one_expert": ([0, 0, 0, 0], 1, 512, 256),
     "ragged_edges": ([1, -1, 0, 1], 3, 200, 136),
+    # K and N multiples of 8 but not of the 64-deep k step or the 256-wide
+    # N tile; N past one tile with a last tile that has one weight box
+    "odd_widths": ([0, 1, -1, 0, 1], 2, 72, 264),
+    # each expert's blocks out of order and interleaved with the others'
+    "interleaved": ([1, 0, 2, 1, -1, 0, 2, 1, 0], 3, 320, 520),
+    # one live block; experts 0-2 get no rows (gmm_dw: exact zeros)
+    "single_live": ([-1, -1, 3, -1], 4, 192, 320),
 }
 
 
 def _gmm_inputs(case, dtype, device, seed=0):
-    be, e, k, n = GMM_CASES[case]
+    return _gmm_tensors(*GMM_CASES[case], dtype, device, seed)
+
+
+def _gmm_tensors(be, e, k, n, dtype, device, seed=0):
     rng = np.random.default_rng(seed)
     be = torch.tensor(be, dtype=torch.int32, device=device)
     x = _randn(rng, (len(be) * 128, k), dtype, device)
@@ -525,6 +535,102 @@ def test_gmm_dw_matches_plain(cuda, dtype, case):
     assert torch.equal(dw, moe_mod.gmm_dw(x, dy, be, e))
 
 
+def _many_tiles(rng, nb, e, dead_share=0.2):
+    """nb block ids over e experts in random order, some dead, expert 0
+    given no block."""
+    be = rng.integers(1, e, size=nb)
+    be[rng.random(nb) < dead_share] = -1
+    return be.tolist()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("transposed", [False, True])
+def test_gmm_persistent_tiles(cuda, monkeypatch, transposed):
+    """Three CTAs walk 40 blocks x 2 column tiles, each tile's ring stages
+    following the last tile's; dead tiles interleaved."""
+    monkeypatch.setattr(moe_mod, "_n_ctas", lambda device: 3)
+    be = _many_tiles(np.random.default_rng(5), 40, 5)
+    x, w, be = _gmm_tensors(be, 5, 200, 392, torch.bfloat16, cuda, seed=6)
+    if transposed:
+        w = w.transpose(1, 2).contiguous().transpose(1, 2)
+    y = moe_mod.gmm(x, w, be)
+    assert_metrics(f"gmm persistent[{transposed}]", y,
+                   moe_mod.gmm_reference(x, w, be), BWD_BF16_TOLS)
+    assert torch.all(y[(be < 0).repeat_interleave(128)] == 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_gmm_dw_persistent_tiles(cuda, monkeypatch, dtype):
+    """Three CTAs walk 5 experts x 5 K tiles x 3 N tiles of dW, expert 0
+    with no rows; bit-identical repeats."""
+    monkeypatch.setattr(moe_mod, "_n_ctas", lambda device: 3)
+    rng = np.random.default_rng(7)
+    be = torch.tensor(_many_tiles(rng, 24, 5), dtype=torch.int32, device=cuda)
+    x = _randn(rng, (24 * 128, 520), dtype, cuda)
+    dy = (_randn(rng, (24 * 128, 600), torch.float32, cuda) * 0.05).to(dtype)
+    dw = moe_mod.gmm_dw(x, dy, be, 5)
+    assert_metrics(f"gmm_dw persistent[{dtype}]", dw,
+                   moe_mod.gmm_dw_reference(x, dy, be, 5), _gmm_tols(dtype))
+    assert torch.all(dw[0] == 0)
+    assert torch.equal(dw, moe_mod.gmm_dw(x, dy, be, 5))
+
+
+@pytest.mark.gpu
+def test_gmm_and_gmm_dw_256_row_blocks(cuda):
+    """Blocks of 256 rows: two gmm row tiles a block, four gmm_dw stages."""
+    rng = np.random.default_rng(8)
+    be = torch.tensor([1, -1, 0, 1], dtype=torch.int32, device=cuda)
+    x = _randn(rng, (4 * 256, 136), torch.bfloat16, cuda)
+    w = (_randn(rng, (2, 136, 264), torch.float32, cuda) * 0.1).to(
+        torch.bfloat16)
+    y = moe_mod.gmm(x, w, be)
+    assert_metrics("gmm br 256", y, moe_mod.gmm_reference(x, w, be),
+                   BWD_BF16_TOLS)
+    assert torch.all(y[256:512] == 0)
+    dy = (_randn(rng, (4 * 256, 264), torch.float32, cuda) * 0.05).to(
+        torch.bfloat16)
+    assert_metrics("gmm_dw br 256", moe_mod.gmm_dw(x, dy, be, 3),
+                   moe_mod.gmm_dw_reference(x, dy, be, 3), BWD_BF16_TOLS)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("transposed", [False, True])
+def test_gmm_repeats_bit_identical(cuda, dtype, transposed):
+    x, w, be = _gmm_inputs("interleaved", dtype, cuda, seed=9)
+    if transposed:
+        w = w.transpose(1, 2).contiguous().transpose(1, 2)
+    y = moe_mod.gmm(x, w, be)
+    for _ in range(3):
+        assert torch.equal(y, moe_mod.gmm(x, w, be))
+
+
+@pytest.mark.gpu
+def test_gmm_in_cuda_graph_at_decode(cuda):
+    """8 tokens routed top-2 over 8 experts (the dispatch's 10 blocks): gmm
+    captured in a CUDA graph and replayed on new inputs equals the eager
+    call bit for bit."""
+    rng = np.random.default_rng(10)
+    ids = torch.from_numpy(np.stack([rng.choice(8, 2, replace=False)
+                                     for _ in range(8)])).to(cuda)
+    _, _, be, n_pad = moe_mod.dispatch(ids, 8)
+    x = _randn(rng, (n_pad, 256), torch.bfloat16, cuda)
+    w = (_randn(rng, (8, 256, 520), torch.float32, cuda) * 0.0625).to(
+        torch.bfloat16)
+    moe_mod.gmm(x, w, be)  # builds and loads outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y = moe_mod.gmm(x, w, be)
+    x.copy_(_randn(rng, (n_pad, 256), torch.bfloat16, cuda))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(y, moe_mod.gmm(x, w, be))
+    assert_metrics("gmm graph decode", y, moe_mod.gmm_reference(x, w, be),
+                   BWD_BF16_TOLS)
+
+
 @pytest.mark.gpu
 def test_grouped_matmul_autograd_cuda_matches_cpu(cuda):
     """dx through gmm on the strided w^T and dW through gmm_dw (bf16, card)
@@ -561,6 +667,8 @@ def test_gmm_counts_and_rejects(cuda):
         moe_mod.gmm(x, w[:, :, ::2], be)
     with pytest.raises(ValueError):  # a CUDA x with CPU block ids
         moe_mod.gmm_dw(x, x, be.cpu(), 4)
+    with pytest.raises(ValueError):  # more experts than gmm_dw's counts hold
+        moe_mod.gmm_dw(x, x, be, 1000)
 
 
 # --------------------------------------------------------- quantized matmul
