@@ -177,6 +177,23 @@ def _time_graph_calls_ms(torch, fns) -> float:
     return _time_ms(torch, graph.replay, 5) / len(fns)
 
 
+def _host_us(torch, fn, calls: int = 1000, batch: int = 100) -> float:
+    """Mean host wall (us) of ``calls`` eager calls of ``fn``, issued in
+    batches behind a long device sleep, so that no call waits for the
+    card: the wrapper's own time, not the kernel's."""
+    fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(calls // batch):
+        torch.cuda._sleep(200_000_000)  # ~0.1 s of device time
+        t0 = time.perf_counter()
+        for _ in range(batch):
+            fn()
+        total += time.perf_counter() - t0
+        torch.cuda.synchronize()
+    return total / calls * 1e6
+
+
 def _peaks(name: str) -> tuple[float, float]:
     for key, flops, nbytes in PEAKS:
         if key in name:
@@ -195,7 +212,7 @@ def _bound(flops: float, nbytes: float) -> tuple[float, str]:
 # matrix multiplies (HGMMA) and TMA loads (UTMALDG), and ptxas must report
 # no spill and no serialized wgmma (C75xx) for them
 HOPPER_KERNELS = ("flash_fwd", "flash_bwd_di", "flash_bwd_dq", "flash_bwd_dkv",
-                  "qmm", "gmm", "gmm_dw")
+                  "qmm", "gmm", "gmm_dw", "paged_attention")
 
 
 def _sass_counts(build, kernel) -> dict[str, int]:
@@ -375,11 +392,39 @@ def check_paged(torch, dev, cfg, card):
           f"lengths={lens.tolist()}: {m}; kernel {ms:.4f} ms "
           f"({nbytes / ms / 1e6:.1f} GB/s), plain {plain:.3f} ms, "
           f"bound {bound_ms:.4f} ms ({bound_by}) [{card}]")
+    # Cold, as a decode step finds its pages: the L calls of one step, each
+    # on another layer's pages, in one CUDA graph. At the lengths above and
+    # at the served decode lengths (the serving prompts plus 16 tokens).
+    shapes = {"eager, one layer (L2 warm in part)": {
+        "ms": ms, "bound_ms": bound_ms}}
+    served = np.asarray([len(p) for p in _prompts(cfg.vocab_size)]) + 16
+    for label, ls in (("linspace(1, 4096, 8)", lens),
+                      ("served decode (prompts + 16)", served)):
+        lt = torch.from_numpy(ls.astype(np.int32)).to(dev)
+        n_tok = int(ls.sum())
+        n_pages = int(sum(-(-int(n) // PAGE_SIZE) for n in ls))
+        nb = n_tok * hk * d * 2 * 2 + 2 * 2 * q.numel() + 4 * (b + n_pages)
+        bms, _ = _bound(4.0 * n_tok * h * d, nb)
+        cold = _time_graph_calls_ms(torch, [
+            lambda i=i, lt=lt: pa.paged_attention(q, kp, vp, lt, tables,
+                                                  layer=i)
+            for i in range(L)])
+        shapes[f"cold, {label}"] = {"ms": cold, "bound_ms": bms}
+        print(f"paged_attention cold ({L} layers in a CUDA graph), lengths "
+              f"{ls.tolist()}: {cold:.5f} ms ({nb / cold / 1e6:.1f} GB/s, "
+              f"{bms / cold:.1%} of the {bms:.5f} ms bound, "
+              f"{nb / 1e6:.1f} MB) [{card}]")
+    host = _host_us(torch, lambda: pa.paged_attention(
+        q, kp, vp, lengths, tables, layer=layer))
+    print(f"paged_attention wrapper host time: {host:.2f} us a call (mean "
+          f"of 1000 eager calls, the card kept busy) [{card}]")
+    main = shapes["cold, linspace(1, 4096, 8)"]
     return {"name": "paged_attention", "route": "cuda",
             "source": "flash_attention_tpu_torch/csrc/paged_attention.cu",
             "replaces": "flash_attention_tpu/ops/paged_attention.py:74",
-            "max_abs_err": m.max_abs, "ms": ms, "plain_ms": plain,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+            "max_abs_err": m.max_abs, "ms": main["ms"], "plain_ms": plain,
+            "bound_ms": main["bound_ms"], "bound_by": bound_by,
+            "library_ms": None, "host_us": host, "shapes": shapes}
 
 
 def _device_kernels(torch, fn, calls: int = 10) -> tuple[float, dict]:

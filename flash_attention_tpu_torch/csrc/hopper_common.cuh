@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks for the port's warp-specialised kernels
-// (the flash forward, the backward's three kernels, the quantized matmul and
-// the grouped matmuls gmm and gmm_dw):
+// (the flash forward, the backward's three kernels, the quantized matmul,
+// the grouped matmuls gmm and gmm_dw, and paged-attention decode):
 // mbarriers, TMA tensor loads and stores, warpgroup matrix multiplies
 // (wgmma) with their shared-memory descriptors and chains, fences, commit
 // and wait, register reallocation (setmaxnreg), named barriers, and the
@@ -345,9 +345,21 @@ struct Wgmma<T, 128> {
 
 // rs: A from registers, B K-major in shared memory: the quantized matmul's
 // dequantised weight (A, the M side) times rows of x (B) at N 8 and 16
-// (decode) and 256 (prefill).
+// (decode) and 256 (prefill); paged attention's Q (A, the GQA group's query
+// heads) times a 64-token K tile (B) at N 64.
 template <typename T, int N>
 struct WgmmaRs;
+
+template <typename T>
+struct WgmmaRs<T, 64> {
+  static __device__ __forceinline__ void rs(float (&d)[32], const uint32_t (&a)[4],
+                                            uint64_t b) {
+    if constexpr (std::is_same_v<T, __half>)
+      HOP_RS("f16", 64, HOP_L32, HOP_D32(d), "32", "33", "34", "35", "36", "37", "0");
+    else
+      HOP_RS("bf16", 64, HOP_L32, HOP_D32(d), "32", "33", "34", "35", "36", "37", "0");
+  }
+};
 
 template <typename T>
 struct WgmmaRs<T, 8> {

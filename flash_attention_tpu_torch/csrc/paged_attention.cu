@@ -7,216 +7,453 @@
 // fixed-size pages anywhere in a layer-stacked pool (L, hk, P, page_size, d).
 // A row's page table maps its i-th page of tokens to a physical page. Rows
 // with length <= 0 write zeros. Lengths past the table's width are clamped to
-// it; page ids must lie in [0, P) (the engine pads tables with its trash page).
+// it; page ids must lie in [0, P) (the engine pads tables with its trash
+// page, which several rows may share). bf16 or fp16, d 64 or 128, GQA groups
+// of up to 8 query heads per kv head.
 //
 // What bounds it on the H100: bytes. Each cached token costs 2 * d * 2 bytes
 // of K and V and only 4 * d * group FLOP, about group FLOP per byte, far below
-// the ~295 FLOP/byte where bf16 tensor cores would become the limit.
+// the ~295 FLOP/byte where bf16 tensor cores would become the limit: 67 MB
+// at 8 rows of 1..4096 tokens (Llama-3-8B's 8 kv heads) is 20 us at 3.35
+// TB/s. What stands between a kernel and that bound is latency: a (row, kv
+// head) pair streamed by one CTA lasts as long as its longest row, and loads
+// issued only after a dependent page-table read leave the memory idle.
 //
-// What the design does about it: one CTA per (batch row, kv head) reads every
-// K/V row of that head exactly once and applies it to all `group` query heads
-// that share it (GQA), so K/V are never read twice. Each warp takes 8 tokens
-// at a time and issues all 16 of their K/V row loads (256 contiguous bytes
-// per row, 8 bytes per lane) before using any, which keeps enough bytes in
-// flight to approach the memory rate; dot products reduce across the warp with
-// shuffles, and the online softmax runs in fp32 per warp. Warps merge their
-// partial (m, l, acc) through shared memory at the end. No page-table padding
-// or pages-per-block grouping is needed. Left for later work: split-K over the
-// sequence ("flash-decoding"), since b * hk CTAs do not fill 132 SMs at small
-// batch.
+// What the design does about it:
+// * A split over the sequence (flash-decoding). A pair's tokens are cut into
+//   chunks of chunk_tiles 64-token tiles; each (chunk, kv head, row) is one
+//   CTA, two resident a SM. The chunking comes from the table's width, b, hk
+//   and the SM count on the host (ops/paged_attention.py::plan), never from
+//   lengths, so the call reads nothing back and can be captured in a CUDA
+//   graph. A CTA whose chunk starts past its row's length exits at once.
+// * Pages by TMA through an mbarrier ring. Warp 4, the first of a producer
+//   warpgroup that gives its registers to the consumers (setmaxnreg),
+//   issues the loads: its lanes read the tile's page ids in parallel, ahead
+//   of waiting for a free stage, and issue one TMA load per box of box_rows
+//   tokens (a power of two that divides the page size, at most 64) and 64
+//   columns, from a 3-D map over the pool viewed as (L hk P, page_size, d),
+//   with the 128-byte swizzle. The maps are encoded once per pool and cached.
+//   Boxes past the row's length load an out-of-range page, which TMA fills
+//   with zeros without reading memory, so every stage completes the same
+//   byte count. A ring of STAGES stages (96 KB a CTA, 192 KB a SM) keeps
+//   the SM's loads in flight while earlier tiles are consumed.
+// * The group's products on tensor cores. Warps 0-3 are one consumer
+//   warpgroup: the group's query heads are the M side of wgmma m64 (rows
+//   past the group are zeros), held in registers as the A operand of S =
+//   Q K^T against the K tile (K-major), and P stays in registers as the A
+//   operand of O += P V, V read MN-major. The tensor work this wastes on the
+//   zero rows is hidden behind the loads. Only warp 0 holds live rows, so
+//   only it runs the online softmax (fp32, log2 domain).
+// * A combine in a fixed order. A row that fits in one chunk writes its
+//   output directly. Otherwise each chunk writes an fp32 partial (m, l and
+//   the unnormalised O of the group) to a workspace and counts itself on
+//   the pair's counter; the CTA that completes the count resets it to 0 and
+//   merges the partials in chunk order. No floating-point atomics: repeats
+//   are bit-identical whichever CTA merges.
+//
+// Exactness: scores are scaled into the log2 domain and rounded before the
+// max is subtracted, so a row of length 1 gets exp2(0) = 1 and O equal to
+// that token's V bit for bit.
+//
+// Left for later work: the zero rows of the M side (a token-major layout
+// would waste no tensor work but needs a reduction over tokens across the
+// warpgroup), and a persistent schedule in place of CTAs that exit at once.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
-#include <math_constants.h>
-#include <stdint.h>
+#include <atomic>
+#include <climits>
+#include <mutex>
+
+#include "flash_common.cuh"
+#include "hopper_common.cuh"
 
 namespace {
 
-constexpr int NWARPS = 8;
-constexpr int NTHREADS = NWARPS * 32;
-constexpr int U = 8;  // tokens per warp per iteration
+constexpr int TILE = 64;         // tokens per ring stage
+constexpr int BOX = 64;          // head-dim elements per TMA box (128 bytes)
+constexpr int ROW = BOX * 2;     // bytes per box row
+constexpr int NCONSUMERS = 128;  // one consumer warpgroup
+constexpr int NTHREADS = 2 * NCONSUMERS;  // and a producer warpgroup
+constexpr int CTAS_PER_SM = 2;
+// 2 CTAs of 256 threads launch with 128 registers a thread; setmaxnreg moves
+// them from the producer to the consumers: 128 * 40 + 128 * 216 = 256 * 128
+constexpr int PRODUCER_REGS = 40;
+constexpr int CONSUMER_REGS = 216;
+constexpr int MAX_GROUP = 8;
+constexpr int MAX_CHUNKS = 64;   // ops/paged_attention.py::plan stays within
 
-template <typename T>
-__device__ __forceinline__ float to_f(T x);
-template <>
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <>
-__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f(float x) { return __float2bfloat16(x); }
-template <>
-__device__ __forceinline__ __half from_f(float x) { return __float2half(x); }
-
-// E consecutive elements of one lane, loaded as one vector
-template <typename T, int E>
-struct alignas(E * sizeof(T)) Vec {
-  T x[E];
+template <int D>
+struct Smem {
+  static constexpr int STAGES = 3 * 128 / D;  // 96 KB of ring at d 64 and 128
+  static constexpr int TILE_BYTES = TILE * D * 2;
+  static constexpr int STAGE_BYTES = 2 * TILE_BYTES;  // K, then V
+  static constexpr int BAR_OFF = STAGES * STAGE_BYTES;
+  static constexpr int W_OFF = BAR_OFF + 2 * STAGES * 8;  // merge weights
+  static constexpr int INV_OFF = W_OFF + MAX_CHUNKS * MAX_GROUP * 4;
+  static constexpr int FLAG_OFF = INV_OFF + MAX_GROUP * 4;
+  // slack to align the ring to 1024 bytes, the swizzle's period
+  static constexpr int BYTES = FLAG_OFF + 16 + 1024;
 };
 
-template <typename T, int D, int G>
-__global__ void __launch_bounds__(NTHREADS)
-paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
-                  const T* __restrict__ v_pages, const int* __restrict__ lengths,
-                  const int* __restrict__ tables, T* __restrict__ out, int h,
-                  int hk, int page_size, int pages_per_seq, long long layer_off,
-                  long long head_stride, float scale_log2) {
-  constexpr int E = D / 32;  // elements per lane
-  const int b = blockIdx.x;
-  const int kvh = blockIdx.y;
+// Floats of one chunk's partial: O (MAX_GROUP x D), then m and l.
+template <int D>
+constexpr int PARTIAL = MAX_GROUP * D + 2 * MAX_GROUP;
+
+template <typename T, int D>
+__global__ void __launch_bounds__(NTHREADS, CTAS_PER_SM)
+paged_attn_kernel(const __grid_constant__ CUtensorMap k_map,
+                  const __grid_constant__ CUtensorMap v_map,
+                  const T* __restrict__ q, const int* __restrict__ lengths,
+                  const int* __restrict__ tables, T* __restrict__ out,
+                  float* __restrict__ ws, int* __restrict__ counters, int h,
+                  int hk, int page_size, int box_rows, int pages_per_seq,
+                  int total_pages, int pages_all, int layer, int chunk_tiles,
+                  float scale_log2) {
+  using S = Smem<D>;
+  constexpr int STAGES = S::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (hop::smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + S::BAR_OFF);
+  uint64_t* empty = full + STAGES;
+
+  const int chunk = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
   const int group = h / hk;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-
-  __shared__ float sm_m[NWARPS][G];
-  __shared__ float sm_l[NWARPS][G];
-  __shared__ float sm_acc[NWARPS][G][D];
-
-  const long long q0 = ((long long)b * h + (long long)kvh * group) * D;
   const int len = min(lengths[b], pages_per_seq * page_size);
+  const int chunk_tokens = chunk_tiles * TILE;
+  const int tok0 = chunk * chunk_tokens;
+  const long long row0 = (long long)b * h + (long long)kvh * group;
   if (len <= 0) {
-    for (int i = tid; i < group * D; i += NTHREADS) out[q0 + i] = from_f<T>(0.f);
+    if (chunk == 0) {
+      uint16_t* o = reinterpret_cast<uint16_t*>(out) + row0 * D;
+      for (int i = threadIdx.x; i < group * D; i += NTHREADS) o[i] = 0;
+    }
     return;
   }
+  if (tok0 >= len) return;
+  // producer and consumers agree on the tile count; every tile holds at
+  // least one live token
+  const int n_tiles = min(chunk_tiles, (len - tok0 + TILE - 1) / TILE);
+  const int n_live = (len + chunk_tokens - 1) / chunk_tokens;
 
-  float qf[G][E];
-#pragma unroll
-  for (int gi = 0; gi < G; ++gi)
-#pragma unroll
-    for (int e = 0; e < E; ++e)
-      qf[gi][e] = gi < group
-          ? to_f(q[q0 + gi * D + lane * E + e]) * scale_log2 : 0.f;
-
-  float m[G], l[G], acc[G][E];
-#pragma unroll
-  for (int gi = 0; gi < G; ++gi) {
-    m[gi] = -CUDART_INF_F;
-    l[gi] = 0.f;
-#pragma unroll
-    for (int e = 0; e < E; ++e) acc[gi][e] = 0.f;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      hop::mbar_init(&full[s], 1);
+      hop::mbar_init(&empty[s], 4);  // one arrival per consumer warp
+    }
+    hop::mbar_fence_init();
   }
+  __syncthreads();
 
-  const T* kb = k_pages + layer_off + kvh * head_stride;
-  const T* vb = v_pages + layer_off + kvh * head_stride;
-  const int* tab = tables + (long long)b * pages_per_seq;
-
-  for (int t0 = warp * U; t0 < len; t0 += NWARPS * U) {
-    Vec<T, E> kv[U], vv[U];
+  // warpgroup index, warp-uniform to the compiler (the shuffle): each role
+  // is one branch that runs to the end, with its own setmaxnreg limit
+  const int role = __shfl_sync(0xffffffff, threadIdx.x / NCONSUMERS, 0);
+  if (role == 1) {
+    // ---- producer: the warpgroup's first warp ----
+    hop::setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x >= NCONSUMERS + 32) return;
+    const int lane = threadIdx.x % 32;
+    if (lane == 0) {
+      hop::prefetch_map(&k_map);
+      hop::prefetch_map(&v_map);
+    }
+    const int* tab = tables + (long long)b * pages_per_seq;
+    const int boxes = TILE / box_rows;
+    const int base = (layer * hk + kvh) * total_pages;
+    for (int j = 0; j < n_tiles; ++j) {
+      const int s = j % STAGES;
+      const int t0 = tok0 + j * TILE;
+      // this lane's boxes (i = lane, lane + 32) and their pages, read before
+      // the wait for a free stage
+      int page[2], row[2];
 #pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int t = t0 + u;
-      if (t < len) {
-        const long long row =
-            (long long)tab[t / page_size] * page_size + t % page_size;
-        kv[u] = *reinterpret_cast<const Vec<T, E>*>(kb + row * D + lane * E);
-        vv[u] = *reinterpret_cast<const Vec<T, E>*>(vb + row * D + lane * E);
-      } else {
+      for (int u = 0; u < 2; ++u) {
+        const int i = lane + 32 * u;
+        const int t = t0 + i * box_rows;
+        const bool live = i < boxes && t < len;
+        // a dead box reads past the map's last page: TMA fills zeros
+        page[u] = live ? base + tab[t / page_size] : pages_all;
+        row[u] = live ? t % page_size : 0;
+      }
+      if (j >= STAGES) hop::mbar_wait(&empty[s], (j / STAGES - 1) & 1);
+      if (lane == 0) hop::mbar_expect_tx(&full[s], S::STAGE_BYTES);
+      __syncwarp();
+      uint8_t* ks = smem + s * S::STAGE_BYTES;
+      uint8_t* vs = ks + S::TILE_BYTES;
 #pragma unroll
-        for (int e = 0; e < E; ++e) {
-          kv[u].x[e] = from_f<T>(0.f);
-          vv[u].x[e] = from_f<T>(0.f);
+      for (int u = 0; u < 2; ++u) {
+        const int i = lane + 32 * u;
+        if (i < boxes) {
+#pragma unroll
+          for (int c = 0; c < D / BOX; ++c) {
+            const int off = c * TILE * ROW + i * box_rows * ROW;
+            hop::tma_load_3d(ks + off, &k_map, &full[s], c * BOX, row[u],
+                             page[u]);
+            hop::tma_load_3d(vs + off, &v_map, &full[s], c * BOX, row[u],
+                             page[u]);
+          }
         }
       }
     }
-    // scores of the U tokens for every query head of the group (log2 domain)
-    float s[U][G];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-#pragma unroll
-      for (int gi = 0; gi < G; ++gi) {
-        float dot = 0.f;
-#pragma unroll
-        for (int e = 0; e < E; ++e) dot += qf[gi][e] * to_f(kv[u].x[e]);
-#pragma unroll
-        for (int w = 16; w > 0; w >>= 1)
-          dot += __shfl_xor_sync(0xffffffff, dot, w);
-        s[u][gi] = t0 + u < len ? dot : -CUDART_INF_F;
-      }
-    }
-    // online softmax; token t0 is live, so the running max is finite
-#pragma unroll
-    for (int gi = 0; gi < G; ++gi) {
-      float mx = m[gi];
-#pragma unroll
-      for (int u = 0; u < U; ++u) mx = fmaxf(mx, s[u][gi]);
-      const float alpha = exp2f(m[gi] - mx);
-      l[gi] *= alpha;
-#pragma unroll
-      for (int e = 0; e < E; ++e) acc[gi][e] *= alpha;
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const float p = exp2f(s[u][gi] - mx);
-        l[gi] += p;
-#pragma unroll
-        for (int e = 0; e < E; ++e) acc[gi][e] += p * to_f(vv[u].x[e]);
-      }
-      m[gi] = mx;
-    }
+    return;
   }
 
-  // merge the warps' partial softmax states
+  // ---- consumer warpgroup ----
+  hop::setmaxnreg_inc<CONSUMER_REGS>();
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int g = lane >> 2;  // fragment row group: head g of the group
+  const int t = lane & 3;   // thread in its row group
+  const bool live_row = warp == 0 && g < group;
+
+  // Q as wgmma's A fragments: row g of warp 0 is the group's head g; rows
+  // g + 8 and the other warps' rows are zeros
+  uint32_t qa[D / 16][4];
 #pragma unroll
-  for (int gi = 0; gi < G; ++gi) {
-    if (lane == 0) {
-      sm_m[warp][gi] = m[gi];
-      sm_l[warp][gi] = l[gi];
-    }
-#pragma unroll
-    for (int e = 0; e < E; ++e) sm_acc[warp][gi][lane * E + e] = acc[gi][e];
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t* qr =
+        reinterpret_cast<const uint32_t*>(q + (row0 + g) * D + kk * 16 + 2 * t);
+    qa[kk][0] = live_row ? qr[0] : 0u;
+    qa[kk][1] = 0u;
+    qa[kk][2] = live_row ? qr[4] : 0u;
+    qa[kk][3] = 0u;
   }
-  __syncthreads();
-  for (int i = tid; i < group * D; i += NTHREADS) {
-    const int gi = i / D;
-    const int dd = i % D;
-    float mx = -CUDART_INF_F;
+
+  float acc[D / 2];        // O, unnormalised
+  float sc[TILE / 2];      // S, then P in fp32
+  uint32_t pa[TILE / 16][4];  // P as the A operand of P V
 #pragma unroll
-    for (int w = 0; w < NWARPS; ++w) mx = fmaxf(mx, sm_m[w][gi]);
-    float lsum = 0.f, o = 0.f;
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
 #pragma unroll
-    for (int w = 0; w < NWARPS; ++w) {
-      const float wt = exp2f(sm_m[w][gi] - mx);  // 0 for a warp with no token
-      lsum += sm_l[w][gi] * wt;
-      o += sm_acc[w][gi][dd] * wt;
+  for (int kk = 0; kk < TILE / 16; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) pa[kk][e] = 0u;
+  float m_r = -CUDART_INF_F;  // row g's running max (log2 domain)
+  float l_r = 0.f;            // this thread's share of row g's sum
+
+  const uint32_t ring = hop::smem_u32(smem);
+  for (int j = 0; j < n_tiles; ++j) {
+    const int s = j % STAGES;
+    const uint32_t ks = ring + s * S::STAGE_BYTES;
+    const uint32_t vs = ks + S::TILE_BYTES;
+    hop::mbar_wait(&full[s], (j / STAGES) & 1);
+    // S = Q K^T (the tile K-major), started from zero
+#pragma unroll
+    for (int i = 0; i < TILE / 2; ++i) sc[i] = 0.f;
+    hop::fence_regs(sc);
+    hop::fence_regs(qa);
+    hop::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      hop::WgmmaRs<T, TILE>::rs(
+          sc, qa[kk],
+          hop::desc_sw128(ks + (kk / 4) * TILE * ROW + (kk % 4) * 32, 16, 1024));
+    hop::wgmma_commit();
+    hop::wgmma_wait<0>();
+    hop::fence_regs(sc);
+    if (warp == 0) {
+      // the online softmax of row g over the tile's 64 tokens; thread t
+      // holds columns 8 nn + 2 t and + 1 in sc[4 nn] and sc[4 nn + 1]
+      const int t0 = tok0 + j * TILE;
+      const int lim = len - t0 - 2 * t;  // live columns from the thread's first
+      float mx = -CUDART_INF_F;
+#pragma unroll
+      for (int nn = 0; nn < TILE / 8; ++nn) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float x = sc[4 * nn + e] * scale_log2;
+          sc[4 * nn + e] = 8 * nn + e < lim ? x : -CUDART_INF_F;
+          mx = fmaxf(mx, sc[4 * nn + e]);
+        }
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffff, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffff, mx, 2));
+      // every tile has a live token, so the max is finite
+      const float m_new = fmaxf(m_r, mx);
+      const float alpha = hop::exp2_approx(m_r - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int nn = 0; nn < TILE / 8; ++nn) {
+        sc[4 * nn] = hop::exp2_approx(sc[4 * nn] - m_new);
+        sc[4 * nn + 1] = hop::exp2_approx(sc[4 * nn + 1] - m_new);
+        sum += sc[4 * nn] + sc[4 * nn + 1];
+      }
+      l_r = l_r * alpha + sum;
+      m_r = m_new;
+      if (alpha != 1.f) {
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) acc[i] *= alpha;
+      }
+      // P of row g, rounded to T; row g + 8 stays zero
+#pragma unroll
+      for (int kk = 0; kk < TILE / 16; ++kk) {
+        pa[kk][0] = fat::Mma<T>::pack(sc[8 * kk], sc[8 * kk + 1]);
+        pa[kk][2] = fat::Mma<T>::pack(sc[8 * kk + 4], sc[8 * kk + 5]);
+      }
     }
-    out[q0 + i] = from_f<T>(o / lsum);
+    // O += P V (V MN-major)
+    hop::rs_chain<T, D, TILE / 16>(acc, pa, vs, TILE);
+    hop::wgmma_commit();
+    hop::wgmma_wait<0>();
+    hop::fence_regs(acc);
+    hop::fence_regs(pa);
+    if (lane == 0) hop::mbar_arrive(&empty[s]);
+  }
+
+  // ---- epilogue ----
+  const int pair = b * hk + kvh;
+  float* part = ws + ((long long)pair * gridDim.x + chunk) * PARTIAL<D>;
+  if (warp == 0) {
+    l_r += __shfl_xor_sync(0xffffffff, l_r, 1);
+    l_r += __shfl_xor_sync(0xffffffff, l_r, 2);
+    if (n_live == 1) {
+      // the whole row is in this chunk: O = acc / l (l = 1 gives exactly 1)
+      const float inv = __fdividef(1.f, l_r);
+      if (g < group) {
+        uint32_t* o = reinterpret_cast<uint32_t*>(out + (row0 + g) * D);
+#pragma unroll
+        for (int nt = 0; nt < D / 8; ++nt)
+          o[nt * 4 + t] =
+              fat::Mma<T>::pack(acc[4 * nt] * inv, acc[4 * nt + 1] * inv);
+      }
+      return;
+    }
+    if (g < group) {
+#pragma unroll
+      for (int nt = 0; nt < D / 8; ++nt)
+        *reinterpret_cast<float2*>(part + g * D + nt * 8 + 2 * t) =
+            make_float2(acc[4 * nt], acc[4 * nt + 1]);
+      if (t == 0) {
+        part[MAX_GROUP * D + g] = m_r;
+        part[MAX_GROUP * D + MAX_GROUP + g] = l_r;
+      }
+    }
+    __threadfence();
+    __syncwarp();
+    if (lane == 0) {
+      const int done = atomicAdd(&counters[pair], 1);
+      const int last = done == n_live - 1;
+      if (last) {
+        counters[pair] = 0;  // ready for the next call
+        __threadfence();
+      }
+      *reinterpret_cast<int*>(smem + S::FLAG_OFF) = last;
+    }
+  }
+  if (n_live == 1) return;
+  hop::named_sync(1, NCONSUMERS);
+  if (!*reinterpret_cast<volatile int*>(smem + S::FLAG_OFF)) return;
+
+  // The last chunk of the pair merges every chunk's partial, in chunk
+  // order. Weights first: 16 threads a head, each over every 16th chunk.
+  const float* parts = ws + (long long)pair * gridDim.x * PARTIAL<D>;
+  float* wts = reinterpret_cast<float*>(smem + S::W_OFF);  // [chunk][head]
+  float* inv_l = reinterpret_cast<float*>(smem + S::INV_OFF);
+  {
+    const int gi = tid / 16, c0 = tid % 16;
+    float mx = -CUDART_INF_F;
+    for (int c = c0; c < n_live; c += 16)
+      mx = fmaxf(mx, __ldcg(parts + c * PARTIAL<D> + MAX_GROUP * D + gi));
+#pragma unroll
+    for (int w = 8; w > 0; w >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffff, mx, w));
+    float lsum = 0.f;
+    for (int c = c0; c < n_live; c += 16) {
+      const float* pc = parts + c * PARTIAL<D> + MAX_GROUP * D;
+      const float wt = hop::exp2_approx(__ldcg(pc + gi) - mx);
+      lsum += __ldcg(pc + MAX_GROUP + gi) * wt;
+      wts[c * MAX_GROUP + gi] = wt;
+    }
+#pragma unroll
+    for (int w = 8; w > 0; w >>= 1)
+      lsum += __shfl_xor_sync(0xffffffff, lsum, w);
+    if (c0 == 0) inv_l[gi] = __fdividef(1.f, lsum);
+  }
+  hop::named_sync(1, NCONSUMERS);
+  for (int i = tid; i < group * D; i += NCONSUMERS) {
+    const int gi = i / D;
+    float o = 0.f;
+    for (int c = 0; c < n_live; ++c)
+      o += __ldcg(parts + c * PARTIAL<D> + i) * wts[c * MAX_GROUP + gi];
+    reinterpret_cast<uint16_t*>(out)[row0 * D + i] =
+        fat::Mma<T>::pack(o * inv_l[gi], 0.f) & 0xffffu;
   }
 }
 
-template <typename T, int D, int G>
-void launch(const void* q, const void* kp, const void* vp, const int* lengths,
-            const int* tables, void* out, int b, int h, int hk, int page_size,
-            int pages_per_seq, long long layer_off, long long head_stride,
-            float scale_log2, cudaStream_t stream) {
-  dim3 grid(b, hk);
-  paged_attn_kernel<T, D, G><<<grid, NTHREADS, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kp),
-      static_cast<const T*>(vp), lengths, tables, static_cast<T*>(out), h, hk,
-      page_size, pages_per_seq, layer_off, head_stride, scale_log2);
+// Tensor maps over one pool, by (pointer, shape, dtype, box height): the
+// engine allocates its pool once, so after the first call a launch encodes
+// nothing. A map depends only on these, so a pool freed and another
+// allocated at the same address with the same shape reuses a right map.
+struct MapKey {
+  const void* ptr;
+  int d, page_size, pages_all, fp16, box_rows;
+  bool operator==(const MapKey& o) const {
+    return ptr == o.ptr && d == o.d && page_size == o.page_size &&
+           pages_all == o.pages_all && fp16 == o.fp16 && box_rows == o.box_rows;
+  }
+};
+
+constexpr int MAP_CACHE = 16;
+
+int pool_map(CUtensorMap* map, const MapKey& key) {
+  static std::mutex mu;
+  static MapKey keys[MAP_CACHE];
+  static CUtensorMap maps[MAP_CACHE];
+  static int used = 0, next = 0;
+  std::lock_guard<std::mutex> lock(mu);
+  for (int i = 0; i < used; ++i)
+    if (keys[i] == key) {
+      *map = maps[i];
+      return 0;
+    }
+  // (L hk P, page_size, d): one page of one head is page_size x d elements
+  const int rc = hop::make_map_3d(
+      map, key.ptr, key.fp16, key.d, key.page_size, key.pages_all,
+      (long long)key.d * 2, (long long)key.page_size * key.d * 2, key.box_rows);
+  if (rc) return rc;
+  keys[next] = key;
+  maps[next] = *map;
+  next = (next + 1) % MAP_CACHE;
+  used = used < MAP_CACHE ? used + 1 : used;
+  return 0;
 }
 
 template <typename T, int D>
-int dispatch_group(int group, const void* q, const void* kp, const void* vp,
-                   const int* lengths, const int* tables, void* out, int b,
-                   int h, int hk, int page_size, int pages_per_seq,
-                   long long layer_off, long long head_stride, float scale_log2,
-                   cudaStream_t s) {
-  if (group == 1)
-    launch<T, D, 1>(q, kp, vp, lengths, tables, out, b, h, hk, page_size,
-                    pages_per_seq, layer_off, head_stride, scale_log2, s);
-  else if (group == 2)
-    launch<T, D, 2>(q, kp, vp, lengths, tables, out, b, h, hk, page_size,
-                    pages_per_seq, layer_off, head_stride, scale_log2, s);
-  else if (group <= 4)
-    launch<T, D, 4>(q, kp, vp, lengths, tables, out, b, h, hk, page_size,
-                    pages_per_seq, layer_off, head_stride, scale_log2, s);
-  else if (group <= 8)
-    launch<T, D, 8>(q, kp, vp, lengths, tables, out, b, h, hk, page_size,
-                    pages_per_seq, layer_off, head_stride, scale_log2, s);
-  else
+int launch(const void* q, const void* kp, const void* vp, const int* lengths,
+           const int* tables, void* out, float* ws, int* counters, int b,
+           int h, int hk, int L, int layer, int total_pages, int page_size,
+           int pages_per_seq, int chunk_tiles, int n_chunks, float scale_log2,
+           cudaStream_t stream) {
+  constexpr bool fp16 = std::is_same_v<T, __half>;
+  const long long pages_all = (long long)L * hk * total_pages;
+  if (pages_all >= INT_MAX || n_chunks > MAX_CHUNKS || chunk_tiles < 1 ||
+      (long long)n_chunks * chunk_tiles * TILE < (long long)pages_per_seq * page_size)
     return static_cast<int>(cudaErrorInvalidValue);
+  // the largest power of two that divides the page size, at most a tile: a
+  // box never crosses a page
+  const int box_rows = min(TILE, page_size & -page_size);
+  CUtensorMap km, vm;
+  int rc;
+  if ((rc = pool_map(&km, {kp, D, page_size, (int)pages_all, fp16, box_rows})) ||
+      (rc = pool_map(&vm, {vp, D, page_size, (int)pages_all, fp16, box_rows})))
+    return rc;
+  auto kernel = paged_attn_kernel<T, D>;
+  // the shared-memory limit is raised once per device
+  static std::atomic<uint64_t> raised{0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const uint64_t bit = uint64_t(1) << (dev & 63);
+  if (!(raised.load() & bit)) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Smem<D>::BYTES);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    raised.fetch_or(bit);
+  }
+  dim3 grid(n_chunks, hk, b);
+  kernel<<<grid, NTHREADS, Smem<D>::BYTES, stream>>>(
+      km, vm, static_cast<const T*>(q), lengths, tables, static_cast<T*>(out),
+      ws, counters, h, hk, page_size, box_rows, pages_per_seq, total_pages,
+      (int)pages_all, layer, chunk_tiles, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -225,39 +462,33 @@ int dispatch_group(int group, const void* q, const void* kp, const void* vp,
 extern "C" {
 
 // q, out: contiguous (b, h, d); k/v pages: contiguous (L, hk, P, ps, d);
-// lengths (b,) and tables (b, pages_per_seq): contiguous int32.
+// lengths (b,) and tables (b, pages_per_seq): contiguous int32. workspace:
+// fp32, (b hk n_chunks) partials of (8 d + 16) floats (unused when n_chunks
+// is 1); counters: b hk int32 zeros, left zero by every call. The chunks
+// (n_chunks of chunk_tiles 64-token tiles) must cover pages_per_seq pages,
+// and h / hk must be at most 8.
 int fat_paged_attention(const void* q, const void* k_pages, const void* v_pages,
                         const void* lengths, const void* tables, void* out,
-                        int b, int h, int hk, int d, int layer, int total_pages,
-                        int page_size, int pages_per_seq, float scale_log2,
-                        int is_fp16, void* stream) {
+                        void* workspace, void* counters, int b, int h, int hk,
+                        int d, int L, int layer, int total_pages, int page_size,
+                        int pages_per_seq, int chunk_tiles, int n_chunks,
+                        float scale_log2, int is_fp16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long head_stride = (long long)total_pages * page_size * d;
-  const long long layer_off = (long long)layer * hk * head_stride;
   const int* len = static_cast<const int*>(lengths);
   const int* tab = static_cast<const int*>(tables);
-  const int group = h / hk;
-  if (d == 128 && !is_fp16)
-    return dispatch_group<__nv_bfloat16, 128>(group, q, k_pages, v_pages, len,
-        tab, out, b, h, hk, page_size, pages_per_seq, layer_off, head_stride,
-        scale_log2, s);
-  if (d == 128)
-    return dispatch_group<__half, 128>(group, q, k_pages, v_pages, len, tab,
-        out, b, h, hk, page_size, pages_per_seq, layer_off, head_stride,
-        scale_log2, s);
-  if (d == 64 && !is_fp16)
-    return dispatch_group<__nv_bfloat16, 64>(group, q, k_pages, v_pages, len,
-        tab, out, b, h, hk, page_size, pages_per_seq, layer_off, head_stride,
-        scale_log2, s);
-  if (d == 64)
-    return dispatch_group<__half, 64>(group, q, k_pages, v_pages, len, tab,
-        out, b, h, hk, page_size, pages_per_seq, layer_off, head_stride,
-        scale_log2, s);
+  float* ws = static_cast<float*>(workspace);
+  int* cnt = static_cast<int*>(counters);
+  if (h % hk || h / hk > MAX_GROUP) return static_cast<int>(cudaErrorInvalidValue);
+#define FAT_PAGED_LAUNCH(T, D)                                                 \
+  return launch<T, D>(q, k_pages, v_pages, len, tab, out, ws, cnt, b, h, hk, L, \
+                      layer, total_pages, page_size, pages_per_seq,            \
+                      chunk_tiles, n_chunks, scale_log2, s)
+  if (d == 128 && !is_fp16) FAT_PAGED_LAUNCH(__nv_bfloat16, 128);
+  if (d == 128) FAT_PAGED_LAUNCH(__half, 128);
+  if (d == 64 && !is_fp16) FAT_PAGED_LAUNCH(__nv_bfloat16, 64);
+  if (d == 64) FAT_PAGED_LAUNCH(__half, 64);
+#undef FAT_PAGED_LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);
-}
-
-const char* fat_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
 }  // extern "C"

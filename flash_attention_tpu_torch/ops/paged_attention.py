@@ -7,11 +7,20 @@ On a CUDA tensor the call launches the hand-written kernel
 ``paged_attention_reference``. The kernel walks each row's own pages, so the
 JAX package's pages-per-block grouping and its padding of the page-table
 width are not needed (a table padded that way is still accepted).
+
+The kernel splits each (row, kv head) pair's tokens into chunks that
+``plan`` chooses from the table's width, b, hk and the SM count, never from
+``lengths``: a call reads nothing back to the host and can be captured in a
+CUDA graph. Chunks write fp32 partials to a workspace from PyTorch's
+allocator, and the last chunk of each pair merges them, found by a per-pair
+counter that the kernel leaves at zero (one counter buffer per device:
+calls on one device run one at a time, in stream order).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -23,11 +32,52 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 
 KERNEL = _build.Kernel("paged_attention", "paged_attention.cu", {
-    "fat_paged_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                            _I, _I, _F, _I, _P],
+    "fat_paged_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                            _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
 })
 HEAD_DIMS = (64, 128)
 MAX_GROUP = 8
+TILE = 64  # tokens per tile of the kernel's ring
+_LOG2E = math.log2(math.e)
+# The split: about CHUNKS_PER_SM live chunks a SM when every row is full,
+# each at least MIN_CHUNK_TILES tiles (a chunk pays its start and its partial
+# once), and at most MAX_CHUNKS a pair (the merge's weights in shared memory;
+# csrc/paged_attention.cu).
+CHUNKS_PER_SM = 8
+MIN_CHUNK_TILES = 4
+MAX_CHUNKS = 64
+# device index -> (SM count, the per-pair counters: int32 zeros)
+_DEVICES: dict[int, tuple[int, torch.Tensor]] = {}
+
+
+def plan(pages_per_seq: int, page_size: int, b: int, hk: int,
+         n_sms: int) -> tuple[int, int]:
+    """The kernel's chunk of each (row, kv head) pair, in 64-token tiles,
+    and the number of chunks, for a table of ``pages_per_seq`` pages of
+    ``page_size`` tokens. Depends on the shapes only, never on lengths: the
+    chunks cover the table's every page, and a chunk past a row's length
+    exits at once on the card."""
+    tiles = max(1, -(-pages_per_seq * page_size // TILE))
+    want = max(1, -(-CHUNKS_PER_SM * n_sms // max(1, b * hk)))
+    chunks = max(1, min(want, tiles // MIN_CHUNK_TILES, MAX_CHUNKS))
+    chunk_tiles = -(-tiles // chunks)
+    return chunk_tiles, -(-tiles // chunk_tiles)
+
+
+_plan = functools.lru_cache(maxsize=256)(plan)
+
+
+def _device(device, pairs: int) -> tuple[int, torch.Tensor]:
+    """The device's SM count and its per-pair counters (zeros, which every
+    call leaves zero), at least ``pairs`` of them. Made at a device's first
+    call: a call captured in a CUDA graph needs an eager call before it."""
+    state = _DEVICES.get(device.index)
+    if state is None or state[1].numel() < pairs:
+        state = _DEVICES[device.index] = (
+            torch.cuda.get_device_properties(device).multi_processor_count,
+            torch.zeros(max(pairs, 1 << 16), dtype=torch.int32,
+                        device=device))
+    return state
 
 
 def paged_attention_reference(q, k_pages, v_pages, lengths, page_indices, *,
@@ -129,12 +179,19 @@ def paged_attention(q, k_pages, v_pages, lengths, page_indices, *,
     if b == 0:
         return out
     lib = KERNEL.lib()
+    dev = q.device
+    n_sms, counters = _device(dev, b * hk)
+    pps = page_indices.shape[1]
+    chunk_tiles, n_chunks = _plan(pps, page_size, b, hk, n_sms)
+    ws = torch.empty(b * hk * n_chunks * (MAX_GROUP * d + 2 * MAX_GROUP)
+                     if n_chunks > 1 else 0, dtype=torch.float32, device=dev)
     rc = lib.fat_paged_attention(
         q.data_ptr(), pk.data_ptr(), pv.data_ptr(), lengths.data_ptr(),
-        page_indices.data_ptr(), out.data_ptr(), b, h, hk, d, layer,
-        total_pages, page_size, page_indices.shape[1],
-        sm_scale * math.log2(math.e), int(q.dtype == torch.float16),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        page_indices.data_ptr(), out.data_ptr(), ws.data_ptr(),
+        counters.data_ptr(), b, h, hk, d, L, layer, total_pages, page_size,
+        pps, chunk_tiles, n_chunks, sm_scale * _LOG2E,
+        int(q.dtype == torch.float16),
+        torch._C._cuda_getCurrentRawStream(dev.index))
     KERNEL.launches += 1
     KERNEL.check(rc)
     return out

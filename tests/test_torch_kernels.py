@@ -220,6 +220,185 @@ def test_paged_attention_long_rows(cuda):
     assert_metrics("paged[long]", o, o_ref, BF16_TOLS)
 
 
+def _paged_check(label, q, kp, vp, lens, tab, layer):
+    o = pa_mod.paged_attention(q, kp, vp, lens, tab, layer=layer)
+    o_ref = pa_mod.paged_attention_reference(q, kp, vp, lens, tab,
+                                             layer=layer)
+    assert_metrics(label, o, o_ref,
+                   BF16_TOLS if q.dtype == torch.bfloat16 else FWD_TOLS)
+    return o
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("ps", [8, 32, 128])
+def test_paged_attention_page_sizes(cuda, dtype, d, ps):
+    """Pages of 8, 32 and 128 tokens: a tile of several pages, and a page
+    of two tiles; rows of one token, a page edge, a tile edge, several
+    chunks and a full table."""
+    rng = np.random.default_rng(20 + ps)
+    b, hk, group = 8, 4, 4
+    pps = 2048 // ps
+    q, kp, vp, tab = _paged_setup(rng, b, hk * group, hk, d, ps, pps,
+                                  b * pps + 5, 2, dtype, cuda)
+    lens = torch.tensor([1, ps, ps + 1, 63, 64, 65, 1000, 2048],
+                        dtype=torch.int32, device=cuda)
+    o = _paged_check(f"paged[ps{ps},{dtype},{d}]", q, kp, vp, lens, tab, 1)
+    assert torch.equal(o[0], vp[1][:, tab[0, 0].long(), 0]
+                       .repeat_interleave(group, dim=0))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [64, 128])
+def test_paged_attention_full_rows(cuda, dtype, d):
+    """Every row 4096 tokens long: every chunk of every pair is live and
+    merged."""
+    rng = np.random.default_rng(21)
+    b, hk, group, ps, pps = 4, 4, 4, 64, 64
+    q, kp, vp, tab = _paged_setup(rng, b, hk * group, hk, d, ps, pps, b * pps,
+                                  1, dtype, cuda)
+    lens = torch.full((b,), ps * pps, dtype=torch.int32, device=cuda)
+    _paged_check(f"paged[full,{dtype},{d}]", q, kp, vp, lens, tab, 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("ps", [8, 64])
+def test_paged_attention_length_one_rows_equal_v(cuda, dtype, d, ps):
+    """Every row of length 1: O is the first token's V, bit for bit."""
+    rng = np.random.default_rng(22)
+    b, hk, group, pps = 6, 2, 4, 16
+    q, kp, vp, tab = _paged_setup(rng, b, hk * group, hk, d, ps, pps,
+                                  b * pps, 2, dtype, cuda)
+    lens = torch.ones((b,), dtype=torch.int32, device=cuda)
+    o = pa_mod.paged_attention(q, kp, vp, lens, tab, layer=1)
+    v0 = vp[1][:, tab[:, 0].long(), 0]  # (hk, b, d)
+    want = v0.permute(1, 0, 2).repeat_interleave(group, dim=1)
+    assert torch.equal(o, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ps", [16, 64, 128])
+def test_paged_attention_chunk_boundaries(cuda, ps):
+    """Lengths on a chunk boundary of the wrapper's plan, one before and one
+    past it, and on a tile boundary inside a chunk."""
+    rng = np.random.default_rng(23)
+    b, hk, group, d = 7, 2, 4, 128
+    pps = 4096 // ps
+    n_sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    chunk_tiles, n_chunks = pa_mod.plan(pps, ps, b, hk, n_sms)
+    assert n_chunks > 2
+    c = chunk_tiles * pa_mod.TILE
+    q, kp, vp, tab = _paged_setup(rng, b, hk * group, hk, d, ps, pps,
+                                  b * pps, 1, torch.bfloat16, cuda)
+    lens = torch.tensor([c, c + 1, c - 1, 2 * c, 2 * c + 1, 65, 64],
+                        dtype=torch.int32, device=cuda)
+    _paged_check(f"paged[chunks,{ps}]", q, kp, vp, lens, tab, 0)
+
+
+@pytest.mark.gpu
+def test_paged_attention_wide_table_and_clamped_lengths(cuda):
+    """A table wider than the rows need (padded with valid pages), and
+    lengths past its width, which count as the full width."""
+    rng = np.random.default_rng(24)
+    b, hk, group, d, ps, pps = 4, 2, 4, 128, 16, 40
+    q, kp, vp, tab = _paged_setup(rng, b, hk * group, hk, d, ps, pps,
+                                  b * pps, 1, torch.bfloat16, cuda)
+    lens = torch.tensor([100, ps * pps + 1, 10**6, 33], dtype=torch.int32,
+                        device=cuda)
+    o = _paged_check("paged[wide]", q, kp, vp, lens, tab, 0)
+    full = torch.full_like(lens, ps * pps)
+    assert torch.equal(o[1:3], pa_mod.paged_attention(
+        q, kp, vp, full, tab, layer=0)[1:3])
+
+
+@pytest.mark.gpu
+def test_paged_attention_rows_share_the_trash_page(cuda):
+    """Padding rows whose whole table is the trash page, beside live rows
+    that also end on it, and a zero-length row."""
+    rng = np.random.default_rng(25)
+    b, hk, group, d, ps, pps, total = 6, 2, 4, 128, 64, 8, 64
+    q, kp, vp, tab = _paged_setup(rng, b, hk * group, hk, d, ps, pps, total,
+                                  1, torch.bfloat16, cuda)
+    trash = total - 1
+    tab[3:] = trash
+    tab[0, 5:] = trash
+    lens = torch.tensor([300, 512, 77, 1, 64, 0], dtype=torch.int32,
+                        device=cuda)
+    o = _paged_check("paged[trash]", q, kp, vp, lens, tab, 0)
+    assert torch.all(o[5] == 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ps", [24, 12])
+def test_paged_attention_page_sizes_not_powers_of_two(cuda, ps):
+    """Pages loaded in boxes of the largest power of two dividing the page
+    size (8 and 4 rows)."""
+    rng = np.random.default_rng(26)
+    b, hk, group, d, pps = 4, 2, 4, 128, 80
+    q, kp, vp, tab = _paged_setup(rng, b, hk * group, hk, d, ps, pps, b * pps,
+                                  2, torch.bfloat16, cuda)
+    lens = torch.tensor([ps * pps, 1000, ps + 5, 3], dtype=torch.int32,
+                        device=cuda)
+    _paged_check(f"paged[ps{ps}]", q, kp, vp, lens, tab, 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [64, 128])
+def test_paged_attention_repeats_bit_identical(cuda, dtype, d):
+    rng = np.random.default_rng(27)
+    b, hk, group, ps, pps = 8, 8, 4, 64, 64
+    q, kp, vp, tab = _paged_setup(rng, b, hk * group, hk, d, ps, pps, b * pps,
+                                  1, dtype, cuda)
+    lens = torch.from_numpy(np.linspace(1, 4096, b).astype(np.int32)).to(cuda)
+    o = pa_mod.paged_attention(q, kp, vp, lens, tab, layer=0)
+    for _ in range(5):
+        assert torch.equal(o, pa_mod.paged_attention(q, kp, vp, lens, tab,
+                                                     layer=0))
+
+
+@pytest.mark.gpu
+def test_paged_attention_in_cuda_graph_with_new_lengths(cuda):
+    """A call captured in a CUDA graph and replayed after new lengths (and
+    a new query) are copied in equals the eager call bit for bit."""
+    rng = np.random.default_rng(28)
+    b, hk, group, d, ps, pps = 8, 8, 4, 128, 64, 64
+    q, kp, vp, tab = _paged_setup(rng, b, hk * group, hk, d, ps, pps, b * pps,
+                                  2, torch.bfloat16, cuda)
+    lens = torch.from_numpy(np.linspace(1, 4096, b).astype(np.int32)).to(cuda)
+    pa_mod.paged_attention(q, kp, vp, lens, tab, layer=1)  # outside capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        o = pa_mod.paged_attention(q, kp, vp, lens, tab, layer=1)
+    for new in ([1778, 1367, 1125, 662, 735, 222, 288, 175],
+                [4096, 0, 1, 63, 64, 65, 2000, 3000]):
+        lens.copy_(torch.tensor(new, dtype=torch.int32))
+        q.copy_(_randn(rng, q.shape, q.dtype, cuda))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(o, pa_mod.paged_attention(q, kp, vp, lens, tab,
+                                                     layer=1))
+        assert_metrics("paged[graph]", o, pa_mod.paged_attention_reference(
+            q, kp, vp, lens, tab, layer=1), BF16_TOLS)
+
+
+@pytest.mark.gpu
+def test_paged_attention_counts_one_launch_per_call(cuda):
+    rng = np.random.default_rng(29)
+    q, kp, vp, tab = _paged_setup(rng, 2, 8, 2, 128, 64, 64, 128, 1,
+                                  torch.bfloat16, cuda)
+    for lens in ([4096, 4096], [1, 0], [0, 0]):
+        before = pa_mod.KERNEL.launches
+        pa_mod.paged_attention(q, kp, vp, torch.tensor(
+            lens, dtype=torch.int32, device=cuda), tab, layer=0)
+        assert pa_mod.KERNEL.launches == before + 1
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_kv_write_matches_plain(cuda, dtype):

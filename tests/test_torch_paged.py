@@ -137,3 +137,58 @@ def test_write_token_kv_matches_jax(quantized):
         np.testing.assert_array_equal(a.numpy()[:, :, keep],
                                       np.asarray(bj)[:, :, keep])
     assert not np.array_equal(out_t[0].numpy(), kp)  # something was written
+
+
+def _chunk_tokens(length, pps, ps, chunk_tiles, n_chunks):
+    """The tokens each chunk of the kernel reads for a row of ``length``
+    (csrc/paged_attention.cu: a chunk starting past the length exits; the
+    others take min(chunk_tiles, the tiles left) 64-token tiles, masked by
+    the length), and the number of chunks that run."""
+    tile = pa_mod.TILE
+    n = min(length, pps * ps)
+    if n <= 0:
+        return [], 0
+    seen, live = [], 0
+    for c in range(n_chunks):
+        t0 = c * chunk_tiles * tile
+        if t0 >= n:
+            continue
+        live += 1
+        tiles = min(chunk_tiles, -(-(n - t0) // tile))
+        seen += [t for t in range(t0, t0 + tiles * tile) if t < n]
+    assert live == -(-n // (chunk_tiles * tile))  # the kernel's n_live
+    return seen, live
+
+
+@pytest.mark.parametrize("pps,ps", [(64, 64), (256, 16), (32, 128), (1, 8),
+                                    (7, 24), (2048, 64), (0, 64), (3, 1)])
+@pytest.mark.parametrize("b,hk", [(1, 1), (8, 8), (64, 8), (1, 32)])
+@pytest.mark.parametrize("n_sms", [132, 114, 1])
+def test_paged_plan_covers_every_page(pps, ps, b, hk, n_sms):
+    """The chunks cover the table's every token, none starts past a full
+    row, and there are at most MAX_CHUNKS a pair."""
+    chunk_tiles, n_chunks = pa_mod.plan(pps, ps, b, hk, n_sms)
+    span = chunk_tiles * pa_mod.TILE
+    assert chunk_tiles >= 1 and 1 <= n_chunks <= pa_mod.MAX_CHUNKS
+    assert n_chunks * span >= pps * ps
+    assert (n_chunks - 1) * span < max(1, pps * ps)
+    if pps * ps >= pa_mod.MIN_CHUNK_TILES * pa_mod.TILE:
+        assert chunk_tiles >= pa_mod.MIN_CHUNK_TILES or n_chunks == 1
+
+
+def test_paged_plan_reads_shapes_only():
+    """The plan takes the shapes and the SM count, as Python ints, and no
+    tensor: the same plan serves every set of lengths, each token of each
+    row read exactly once and lengths past the table clamped."""
+    import inspect
+    assert list(inspect.signature(pa_mod.plan).parameters) == [
+        "pages_per_seq", "page_size", "b", "hk", "n_sms"]
+    pps, ps = 64, 64
+    plan = pa_mod.plan(pps, ps, 8, 8, 132)
+    assert plan == (4, 16)  # Llama-3-8B's decode at b 8 on an H100
+    rng = np.random.default_rng(0)
+    lengths = [0, -3, 1, 63, 64, 65, 255, 256, 257, 4095, 4096, 4097, 10**6]
+    for n in lengths + rng.integers(1, 4200, 50).tolist():
+        seen, live = _chunk_tokens(n, pps, ps, *plan)
+        assert seen == list(range(min(max(n, 0), pps * ps)))
+        assert live <= plan[1]
