@@ -26,7 +26,24 @@ drives the two paths on two models with random bf16 weights, full width:
 * Mixtral-8x7B (8 experts, top-2), depth cut to fit the card: the same
   serving at 16 layers and training at 8, adding the grouped matmul (gmm)
   on both paths and its weight gradient (gmm_dw) in training, with the
-  routing recorded where bf16 rounding may swap a token's experts.
+  routing recorded where bf16 rounding may swap a token's experts;
+* Mistral-7B-v0.1 (a 4096-token window on every layer), full width and
+  depth: 8 requests of up to 7700 prompt tokens served with the window's
+  page reclamation (the pages held checked against the JAX engine's rule
+  after every step), then training on 1 x 8192; the attention kernels run
+  their window mode on both paths;
+* the window and softcap paths against the CPU's plain versions: Mistral
+  at 2 layers with the window cut to 64, and a Gemma-2 config
+  (``tiny_gemma2``, 4 layers, d 128: softcaps, GeGLU, sandwich norms, the
+  embed scale) with its window on every second layer and on every layer,
+  each prefill against decode and training, and the Gemma-2 config served.
+
+Before the models, the window and softcap modes of the forward, dq, dkv
+and paged kernels are held against their plain versions (Mistral's window
+at b1 s8192, a two-sided band with sq != sk, rows with no live key, softcap
+50 at b8 s2048, both modes together, and paged decode at W 4096 with hole
+entries in the table), and the windowed kernels are timed against the same
+kernels without the window, which they must beat by the live area's margin.
 
 Each path checks that every one of its kernels was launched on it, with the
 counts set to 0 just before it. Exits non-zero if any phase fails or no card
@@ -37,7 +54,9 @@ nothing of JAX.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
+import math
 import os
 import re
 import subprocess
@@ -112,6 +131,31 @@ MAX_FLIP_SHARE = 0.10
 MIX_CONSISTENCY_PROMPTS = 4
 # Weight-only quantized serving, in this order
 QUANT_BITS = (8, 4)
+# Mistral-7B-v0.1 (window 4096 on every layer), full width and depth: 8
+# requests whose windows bind in prefill and decode (4600 frees a block of
+# pages during decode, 4090 crosses the window during decode), and training
+# on 1 x 8192, where the window binds for the second half of the rows.
+MISTRAL_PROMPT_LENS = (7700, 6144, 4600, 4090, 2048, 1024, 512, 129)
+MISTRAL_MAX_SEQ = 8192
+MISTRAL_TRAIN = (1, 8192)
+# Consistency configs: Mistral at 2 layers with its window cut to 64, and
+# tiny_gemma2 at 4 layers (d 128, every Gemma-2 extra), window every layer
+# and every second layer; prompts longer than the window. The Gemma-2
+# config is also served, one prompt long enough for window page
+# reclamation (8 pages of 64 tokens behind a window of 64).
+WINDOW_CUT = 64
+# Card greedy token = CPU greedy token wherever the CPU's top-2 gap exceeds
+# this many times the largest card-vs-CPU logit error of the pass.
+GREEDY_MARGIN = 4
+CONSISTENCY_LENS = (300, 200)
+GEMMA_LAYERS = 4
+# Random weights give attention scores and logits of about unit scale,
+# where Gemma-2's caps (50 and 30) move the logits by 2e-3 in rel L2, below
+# the card-vs-CPU gate; at 5 and 3 each moves them by about 0.11, so a path
+# without either cap fails that gate.
+GEMMA_CAPS = dict(attn_softcap=5.0, final_softcap=3.0)
+GEMMA_PROMPT_LENS = (700, 300, 129, 65)
+GEMMA_MAX_SEQ = 1024
 # 2-layer quantized Llama, card (bf16 activations through qmm) against CPU
 # (fp32 activations through the plain version) on the same QuantizedTensors:
 # the weights are identical, so the two differ by the bf16 rounding of the
@@ -125,6 +169,56 @@ def _card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+
+
+class WindowPages:
+    """Called after every engine step of a model with a window on every
+    layer: each running request must hold exactly the pages the JAX
+    engine's rule leaves it (``flash_attention_tpu/serving/engine.py``:
+    whole blocks of 8 pages behind the window are holes or freed), counted
+    here from its length alone."""
+
+    PPB = 8  # the JAX paged kernel's pages_per_block
+
+    def __init__(self, window: int, page_size: int):
+        self.window, self.ps = window, page_size
+        self.first = self.last = None
+        self.freed_in_decode = 0
+
+    def want(self, n: int) -> int:
+        blk = self.PPB * self.ps
+        return -(-n // self.ps) - max(n - self.window, 0) // blk * self.PPB
+
+    def __call__(self, eng):
+        held = {}
+        for r in eng.sched.running:
+            if r.slot < 0:
+                continue
+            n = eng.rt.seq_length(r.slot)
+            pages = -(-n // self.ps)
+            live = sum(p >= 0 for p in eng.rt.seq_page_table(r.slot, pages,
+                                                             pad=-1))
+            assert live == self.want(n), (r.uid, n, live, self.want(n))
+            held[r.uid] = (n, live, pages)
+        if self.last is not None:
+            # held before + pages appended - held now
+            self.freed_in_decode += sum(
+                self.last[u][1] + held[u][2] - self.last[u][2] - held[u][1]
+                for u in held if u in self.last)
+        if held:
+            self.first = self.first or held
+            self.last = held
+
+    def report(self, model: str) -> str:
+        def line(h):
+            return (f"{sum(v[1] for v in h.values())} pages held by "
+                    f"{len(h)} requests (without reclamation "
+                    f"{sum(v[2] for v in h.values())}; per request (length, "
+                    f"held): {[v[:2] for v in h.values()]})")
+        return (f"{model} window pages, JAX's rule held after every step: "
+                f"after admission {line(self.first)}; at the last decode "
+                f"step {line(self.last)}; pages freed during decode "
+                f"{self.freed_in_decode}")
 
 
 def _time_ms(torch, fn, iters: int, warmup: int = 2) -> float:
@@ -215,20 +309,54 @@ HOPPER_KERNELS = ("flash_fwd", "flash_bwd_di", "flash_bwd_dq", "flash_bwd_dkv",
                   "qmm", "gmm", "gmm_dw", "paged_attention")
 
 
-def _sass_counts(build, kernel) -> dict[str, int]:
-    """HGMMA and UTMALDG instructions in a built library's SASS, read with
-    the toolkit's cuobjdump (beside nvcc)."""
+def _sass_counts(build, kernel) -> dict[str, dict[str, int]]:
+    """HGMMA and UTMALDG instructions in each kernel function of a built
+    library's SASS (by its template arguments), read with the toolkit's
+    cuobjdump (beside nvcc)."""
     cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(kernel.lib_path())],
                           capture_output=True, text=True, check=True).stdout
-    return {op: sass.count(op) for op in ("HGMMA", "UTMALDG")}
+    counts = {}
+    for part in sass.split("Function : ")[1:]:
+        name = part.split(None, 1)[0]
+        tmpl = re.search(r"kernel(I.*)EEv", name)
+        counts[tmpl.group(1) if tmpl else name] = {
+            op: part.count(op) for op in ("HGMMA", "UTMALDG")}
+    return counts
 
 
-def _prompts(vocab: int):
-    """The 8 prompts: the same lengths for every model, ids below its vocab."""
+# HGMMA and UTMALDG counts, by head dim, of the attention kernels before
+# their window and softcap modes (the same for fp16 and bf16): each
+# no-softcap instance (template argument CAP false, "Lb0E") must keep them,
+# and each softcap instance must hold both ops.
+SASS_NO_CAP = {"flash_fwd": {64: (24, 3), 128: (32, 6)},
+               "flash_bwd_dq": {64: (24, 4), 128: (40, 8)},
+               "flash_bwd_dkv": {64: (16, 4), 128: (24, 8)},
+               "paged_attention": {64: (8, 4), 128: (12, 8)}}
+
+
+def _check_cap_instances(name, per_fn):
+    """Hold each instance of an attention kernel to SASS_NO_CAP."""
+    seen = []
+    for fn, c in per_fn.items():
+        m = re.fullmatch(r"I\w+?Li(\d+)ELb([01])E", fn)
+        assert m, f"{name}: unexpected instance {fn}"
+        got = (c["HGMMA"], c["UTMALDG"])
+        assert all(got), f"{name} {fn}: no wgmma or TMA in SASS"
+        if m.group(2) == "0":
+            want = SASS_NO_CAP[name][int(m.group(1))]
+            assert got == want, f"{name} {fn}: SASS counts {got}, not {want}"
+        seen.append(m.groups())
+    assert len(seen) == 2 * 2 * len(SASS_NO_CAP[name]), (name, seen)
+
+
+def _prompts(vocab: int, lens=None):
+    """The 8 prompts: the same lengths for every model (or ``lens``), ids
+    below its vocab."""
     rng = np.random.default_rng(SEED)
-    lens = rng.integers(128, 2049, size=N_REQUESTS)
-    return [list(map(int, rng.integers(0, vocab, size=n))) for n in lens]
+    drawn = rng.integers(128, 2049, size=N_REQUESTS)
+    return [list(map(int, rng.integers(0, vocab, size=n)))
+            for n in (drawn if lens is None else lens)]
 
 
 def check_flash(torch, dev, bucket, cfg, card):
@@ -586,6 +714,410 @@ def check_bwd(torch, dev, cfg, card):
              "max_abs_err": errs[name].max_abs, **shapes[name][main],
              "shapes": shapes[name]}
             for name, (src, line) in sources.items()]
+
+
+# Window and softcap modes of the attention kernels: Mistral's window at its
+# full context (b 1, s 8192, W 4096: the band's live area is 0.75 of the
+# causal triangle), the softcap at the prefill shape, a two-sided band with
+# sq != sk, rows the band leaves without a key, and both modes together.
+# The scores scale * q.k of unit-normal q and k are about N(0, 1), so the
+# caps are small enough to bind there: cap * tanh(s / cap) differs from s
+# by about s^3 / (3 cap^2), which at Gemma-2's cap 50 moves the LSE by about
+# 5e-4, under its gate, and a kernel without the cap would pass. At cap 5
+# it moves the LSE by about 4e-2; _softcap_controls checks that the gates
+# see it.
+MISTRAL_W = 4096
+WINDOW_CASES = (
+    # label, b, sq, sk, causal, window, softcap, timed
+    ("window (4095, 0) b1 s8192", 1, 8192, 8192, True, (4095, 0), None, True),
+    ("band (128, 64) non-causal b2 sq2048 sk3072", 2, 2048, 3072, False,
+     (128, 64), None, False),
+    ("band (20, 5) non-causal sq1024 sk300: 719 rows with no key", 1, 1024,
+     300, False, (20, 5), None, False),
+    ("softcap 5 b8 s2048 causal", 8, 2048, 2048, True, None, 5.0, True),
+    ("softcap 3 + window (1023, 0) b2 s4096", 2, 4096, 4096, True,
+     (1023, 0), 3.0, False),
+)
+# The acceptance bounds: the windowed kernels skip the tiles outside the band
+WINDOW_FWD_RATIO = 0.85   # fwd, and dq + dkv, windowed / causal
+WINDOW_PAGED_RATIO = 0.65  # paged decode, every row 8192, W 4096 / none
+PAGED_CAP = 5.0  # binds at unit-scale scores, as in WINDOW_CASES
+
+
+def _plain_by_kv_head(torch, fn, q, k, v, *per_head, **kw):
+    """``fn`` on one kv head and its query heads at a time, outputs joined
+    on the head dims: the plain versions' (b, h, sq, sk) scores of 32 heads
+    at s 8192 would take 8.6 GB each in fp32 (17 GB in float64). Tensors in
+    ``per_head`` are (b, s, h, d) like q or (b, h, s) like LSE."""
+    hk, g = k.shape[2], q.shape[2] // k.shape[2]
+    outs = []
+    for i in range(hk):
+        sl = slice(i * g, (i + 1) * g)
+        rest = [x[:, sl] if x.dim() == 3 else x[:, :, sl] for x in per_head]
+        outs.append(fn(q[:, :, sl], k[:, :, i:i + 1], v[:, :, i:i + 1],
+                       *[x.contiguous() for x in rest], **kw))
+    outs = [o if isinstance(o, tuple) else (o,) for o in outs]
+    joined = tuple(torch.cat(parts, dim=1 if parts[0].dim() == 3 else 2)
+                   for parts in zip(*outs))
+    return joined if len(joined) > 1 else joined[0]
+
+
+def _ulp_tols(torch, tols, ref):
+    """``tols`` with atol no tighter than one ulp of ``ref``'s dtype at its
+    largest magnitude: kernel and plain version each round an fp32 sum to
+    that dtype once, so they may differ by one ulp there (at unit dO a
+    narrow band's dV reaches 8 to 16, where a bf16 ulp is 6.25e-2)."""
+    top = float(ref.abs().max())
+    if top == 0:
+        return tols
+    ulp = torch.finfo(ref.dtype).eps * 2.0 ** math.floor(math.log2(top))
+    return {**tols, "atol": max(tols["atol"], ulp)}
+
+
+def _straight_through_grads(torch, q, k, v, do, *, causal, sm_scale, window,
+                            softcap):
+    """fp32 dq, dk, dv of the capped attention without the softcap's
+    chain-rule factor 1 - t^2, as a backward that drops it would give:
+    autograd through the plain forward with the tanh passed straight
+    through."""
+    from flash_attention_tpu_torch.ops.reference import _build_mask
+    g = q.shape[2] // k.shape[2]
+    qf, kf, vf = (x.detach().float().requires_grad_() for x in (q, k, v))
+    with torch.enable_grad():
+        kt = kf.repeat_interleave(g, 2).transpose(1, 2)
+        vt = vf.repeat_interleave(g, 2).transpose(1, 2)
+        s = qf.transpose(1, 2) @ kt.transpose(-1, -2) * sm_scale
+        s = s + (softcap * torch.tanh(s / softcap) - s).detach()
+        mask = _build_mask(q.shape[1], k.shape[1], causal, window,
+                           device=q.device)
+        if mask is not None:
+            s = s.masked_fill(~mask, float("-inf"))
+        o = (torch.softmax(s, -1) @ vt).transpose(1, 2)
+        return torch.autograd.grad(o, (qf, kf, vf), do.float())
+
+
+def _softcap_controls(torch, q, k, v, do, kw, refs, label):
+    """The gates the softcap instances passed must catch, on the same
+    inputs, a kernel that ignores the softcap (the no-softcap instances of
+    the forward and both backward kernels: LSE, dq, dk and dv) and a
+    backward that drops the factor 1 - t^2 (the straight-through plain
+    backward: dq and dk; dV does not depend on it)."""
+    from flash_attention_tpu_torch.ops import flash_bwd as fb
+    from flash_attention_tpu_torch.ops import flash_fwd as fm
+    from flash_attention_tpu_torch.utils.metrics import assert_metrics
+    lse_r, dq_r, dk_r, dv_r = refs
+    nocap = {**kw, "softcap": None}
+    with torch.inference_mode():
+        o0, lse0 = fm.flash_fwd(q, k, v, empty_lse=-1.0, **nocap)
+    di0 = fb.flash_bwd_di(o0, do)
+    dq0 = fb.flash_bwd_dq(q, k, v, do, lse0, di0, **nocap)
+    dk0, dv0 = fb.flash_bwd_dkv(q, k, v, do, lse0, di0, **nocap)
+    st = _plain_by_kv_head(torch, functools.partial(_straight_through_grads,
+                                                    torch), q, k, v, do, **kw)
+    checks = (("no-softcap kernel's LSE", lse0, lse_r, LSE_TOLS),
+              ("no-softcap kernels' dq", dq0, dq_r, None),
+              ("no-softcap kernels' dk", dk0, dk_r, None),
+              ("no-softcap kernels' dv", dv0, dv_r, None),
+              ("backward without 1 - t^2: dq", st[0], dq_r, None),
+              ("backward without 1 - t^2: dk", st[1], dk_r, None))
+    for name, x, ref, tols in checks:
+        try:
+            assert_metrics(name, x.to(ref.dtype), ref,
+                           tols or _ulp_tols(torch, BWD_TOLS, ref))
+        except AssertionError as e:
+            print(f"  control {label}: caught the {name}: "
+                  f"{str(e).split(': ', 1)[1].split(' (')[0]}")
+            continue
+        raise AssertionError(f"{label}: the gates do not catch the {name}")
+    del o0, lse0, di0, dq0, dk0, dv0, st
+
+
+def _band_pairs(torch, dev, sq, sk, causal, window):
+    """Live (row, key) pairs of the band: the work a kernel that skips the
+    dead tiles must do."""
+    from flash_attention_tpu_torch.ops.reference import _build_mask
+    mask = _build_mask(sq, sk, causal, window, device=dev)
+    return int(mask.sum()) if mask is not None else sq * sk
+
+
+def check_window_softcap(torch, dev, cfg, card):
+    """The forward, dq and dkv kernels' window and softcap modes against
+    their plain versions, at WINDOW_CASES; the timed cases beside the same
+    kernels without the mode on the same inputs (the windowed ones bounded
+    by WINDOW_FWD_RATIO), and SDPA with the band as a boolean mask as the
+    window's library yardstick (no PyTorch call takes a softcap). Returns
+    {kernel: {label: numbers}} for the kernel table."""
+    from flash_attention_tpu_torch.ops import flash_bwd as fb
+    from flash_attention_tpu_torch.ops import flash_fwd as fm
+    from flash_attention_tpu_torch.ops.reference import (_build_mask,
+                                                         reference_attention)
+    from flash_attention_tpu_torch.utils.metrics import assert_metrics
+    g = torch.Generator(device=dev).manual_seed(SEED + 10)
+    h, hk, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    scale = d**-0.5
+    out = {"flash_fwd": {}, "flash_bwd_dq": {}, "flash_bwd_dkv": {}}
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev,
+                           dtype=torch.float32).to(torch.bfloat16)
+
+    for label, b, sq, sk, causal, window, cap, timed in WINDOW_CASES:
+        q, k, v = rnd(b, sq, h, d), rnd(b, sk, hk, d), rnd(b, sk, hk, d)
+        do = rnd(b, sq, h, d)
+        kw = dict(causal=causal, sm_scale=scale, window=window, softcap=cap)
+        with torch.inference_mode():
+            o, lse = fm.flash_fwd(q, k, v, empty_lse=-1.0, **kw)
+            o_r, lse_r = _plain_by_kv_head(
+                torch, reference_attention, q, k, v, causal=causal,
+                sm_scale=scale, window=window, softcap=cap, empty_lse=-1.0)
+        m = assert_metrics(f"flash_fwd {label}", o, o_r, O_TOLS)
+        assert_metrics(f"flash_fwd {label} lse", lse, lse_r, LSE_TOLS)
+        mask = _build_mask(sq, sk, causal, window, device=dev)
+        empty = ~mask.any(-1) if mask is not None else \
+            torch.zeros(sq, dtype=torch.bool, device=dev)
+        assert torch.all(o[:, empty] == 0) and \
+            torch.all(lse[:, :, empty] == -1.0), label
+        del o_r
+        di = fb.flash_bwd_di(o, do)
+        di_r = fb.di_reference(o, do)
+        dq = fb.flash_bwd_dq(q, k, v, do, lse, di, **kw)
+        dk, dv = fb.flash_bwd_dkv(q, k, v, do, lse, di, **kw)
+        dq_r = _plain_by_kv_head(torch, fb.dq_reference, q, k, v, do, lse,
+                                 di_r, **kw)
+        m_dq = assert_metrics(f"flash_bwd_dq {label}", dq, dq_r,
+                              _ulp_tols(torch, BWD_TOLS, dq_r))
+        dk_r, dv_r = _plain_by_kv_head(torch, fb.dkv_reference, q, k, v, do,
+                                       lse, di_r, **kw)
+        m_dk = assert_metrics(f"flash_bwd_dkv {label} dk", dk, dk_r,
+                              _ulp_tols(torch, BWD_TOLS, dk_r))
+        m_dv = assert_metrics(f"flash_bwd_dkv {label} dv", dv, dv_r,
+                              _ulp_tols(torch, BWD_TOLS, dv_r))
+        if cap is not None:
+            _softcap_controls(torch, q, k, v, do, kw,
+                              (lse_r, dq_r, dk_r, dv_r), label)
+        del lse_r, dq_r, dk_r, dv_r
+        assert torch.all(dq[:, empty] == 0), label
+        print(f"window/softcap {label} h={h}/{hk} d={d}: fwd {m}; dq {m_dq}; "
+              f"dk {m_dk}; dv {m_dv}; rows with no key: {int(empty.sum())} "
+              f"(O = 0, LSE = empty_lse, dq = 0)")
+        errs = {"flash_fwd": m.max_abs, "flash_bwd_dq": m_dq.max_abs,
+                "flash_bwd_dkv": max(m_dk.max_abs, m_dv.max_abs)}
+        if not timed:
+            for name, err in errs.items():
+                out[name][label] = {"max_abs_err": err}
+            continue
+
+        # timed: the mode against the same kernel without it, in turns
+        base = dict(causal=causal, sm_scale=scale)
+        with torch.inference_mode():
+            o0, lse0 = fm.flash_fwd(q, k, v, **base)
+        di0 = fb.flash_bwd_di(o0, do)
+        runs = {
+            "flash_fwd": (lambda: fm.flash_fwd(q, k, v, **kw),
+                          lambda: fm.flash_fwd(q, k, v, **base)),
+            "flash_bwd_dq": (
+                lambda: fb.flash_bwd_dq(q, k, v, do, lse, di, **kw),
+                lambda: fb.flash_bwd_dq(q, k, v, do, lse0, di0, **base)),
+            "flash_bwd_dkv": (
+                lambda: fb.flash_bwd_dkv(q, k, v, do, lse, di, **kw),
+                lambda: fb.flash_bwd_dkv(q, k, v, do, lse0, di0, **base)),
+        }
+        times = {}
+        for name, (mode, plain_mode) in runs.items():
+            a1, b1 = _time_ms(torch, mode, 20), _time_ms(torch, plain_mode, 20)
+            b2, a2 = _time_ms(torch, plain_mode, 20), _time_ms(torch, mode, 20)
+            times[name] = (min(a1, a2), min(b1, b2))
+        plain = {
+            "flash_fwd": _time_ms(torch, lambda: _plain_by_kv_head(
+                torch, reference_attention, q, k, v, causal=causal,
+                sm_scale=scale, window=window, softcap=cap), 1, warmup=0),
+            "flash_bwd_dq": _time_ms(torch, lambda: _plain_by_kv_head(
+                torch, fb.dq_reference, q, k, v, do, lse, di_r, **kw), 1,
+                warmup=0),
+            "flash_bwd_dkv": _time_ms(torch, lambda: _plain_by_kv_head(
+                torch, fb.dkv_reference, q, k, v, do, lse, di_r, **kw), 1,
+                warmup=0),
+        }
+        lib, backend = {}, "none (no PyTorch call takes a softcap)"
+        if cap is None:
+            # SDPA with the band as a boolean mask, K/V heads expanded
+            qt = q.transpose(1, 2)
+            kt = k.repeat_interleave(h // hk, 2).transpose(1, 2)
+            vt = v.repeat_interleave(h // hk, 2).transpose(1, 2)
+
+            def sdpa():
+                return torch.nn.functional.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask)
+            try:
+                lib["flash_fwd"], backend = _sdpa_profile(torch, sdpa)
+                qg, kg, vg = (x.detach().requires_grad_() for x in
+                              (qt, kt, vt))
+                with torch.enable_grad():
+                    y = torch.nn.functional.scaled_dot_product_attention(
+                        qg, kg, vg, attn_mask=mask)
+                    lib["flash_bwd_dq"], bwd_backend = _sdpa_profile(
+                        torch, lambda: torch.autograd.grad(
+                            y, (qg, kg, vg), do.transpose(1, 2),
+                            retain_graph=True))
+                lib["flash_bwd_dkv"] = lib["flash_bwd_dq"]
+                backend += f"; backward {bwd_backend}"
+                del qg, kg, vg, y
+            except RuntimeError as e:  # a yardstick only: record why not
+                backend = f"not measured ({str(e).splitlines()[0][:120]})"
+            del qt, kt, vt
+        pairs = _band_pairs(torch, dev, sq, sk, causal, window) * b * h
+        n_in = 2 * (q.numel() + k.numel() + v.numel())
+        flops = {"flash_fwd": 4.0 * d * pairs, "flash_bwd_dq": 6.0 * d * pairs,
+                 "flash_bwd_dkv": 8.0 * d * pairs}
+        nbytes = {"flash_fwd": n_in + 2 * o.numel() + 4 * lse.numel(),
+                  "flash_bwd_dq": n_in + 2 * do.numel() + 8 * lse.numel()
+                  + 2 * dq.numel(),
+                  "flash_bwd_dkv": n_in + 2 * do.numel() + 8 * lse.numel()
+                  + 4 * dk.numel()}
+        for name, (ms, ms0) in times.items():
+            bound_ms, bound_by = _bound(flops[name], nbytes[name])
+            out[name][label] = {
+                "ms": ms, "plain_ms": plain[name], "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": lib.get(name),
+                "max_abs_err": errs[name],
+                "ms_without_mode": ms0, "ratio_to_without": ms / ms0}
+            print(f"{name} {label}: kernel {ms:.4f} ms ({flops[name] / ms / 1e9:.1f}"
+                  f" TFLOP/s, {bound_ms / ms:.1%} of the bound {bound_ms:.4f} ms"
+                  f" ({bound_by}), live pairs {pairs}); the same kernel without"
+                  f" the {'window' if cap is None else 'softcap'} {ms0:.4f} ms"
+                  f" ({ms / ms0:.3f}x); plain {plain[name]:.3f} ms; library "
+                  f"{lib.get(name)} [{card}]")
+        if cap is None:
+            fwd_ratio = times["flash_fwd"][0] / times["flash_fwd"][1]
+            bwd_ratio = (times["flash_bwd_dq"][0] + times["flash_bwd_dkv"][0]) \
+                / (times["flash_bwd_dq"][1] + times["flash_bwd_dkv"][1])
+            print(f"{label}: forward {fwd_ratio:.3f}x and dq + dkv "
+                  f"{bwd_ratio:.3f}x the causal call's time (bound "
+                  f"{WINDOW_FWD_RATIO}; live area "
+                  f"{pairs / (b * h * sq * (sq + 1) / 2):.3f}); library: "
+                  f"scaled_dot_product_attention(attn_mask=band), K/V heads "
+                  f"expanded, backend {backend} [{card}]")
+            assert fwd_ratio <= WINDOW_FWD_RATIO, fwd_ratio
+            assert bwd_ratio <= WINDOW_FWD_RATIO, bwd_ratio
+        del o0, lse0, di0
+        del q, k, v, do, o, lse, di, di_r, dq, dk, dv
+        torch.cuda.empty_cache()
+    return out
+
+
+def check_paged_window(torch, dev, cfg, card):
+    """The paged kernel's window and softcap: lengths linspace(1, 8192, 8)
+    against the plain version, with the entries of pages wholly behind the
+    window as holes (-1) and every page the layer's rows do not read NaN;
+    then cold (32 layers in a CUDA graph) with every row at 8192: W 4096
+    against no window (bounded by WINDOW_PAGED_RATIO), and the softcap.
+    Returns {label: numbers} for the kernel table."""
+    from flash_attention_tpu_torch.ops import paged_attention as pa
+    from flash_attention_tpu_torch.utils.metrics import assert_metrics
+    g = torch.Generator(device=dev).manual_seed(SEED + 11)
+    L, h, hk, d, b = (cfg.n_layers, cfg.n_heads, cfg.n_kv_heads,
+                      cfg.head_dim, MAX_BATCH)
+    ps, pps = PAGE_SIZE, MISTRAL_MAX_SEQ // PAGE_SIZE
+    total = b * pps + 8
+    kp = torch.empty((L, hk, total, ps, d), dtype=torch.bfloat16, device=dev)
+    vp = torch.empty_like(kp)
+    for pool in (kp, vp):
+        for i in range(L):  # one layer's fp32 draw at a time
+            pool[i].copy_(torch.randn(pool[i].shape, generator=g, device=dev))
+    q = torch.randn((b, h, d), generator=g, device=dev).to(torch.bfloat16)
+    tables = torch.randperm(total, generator=g, device=dev)[:b * pps]
+    tables = tables.reshape(b, pps).to(torch.int32)
+
+    def holed(lens, w):
+        """The table with holes for pages wholly behind each row's window,
+        and which pages the rows read."""
+        tab = tables.clone()
+        read = torch.zeros(total, dtype=torch.bool, device=dev)
+        for i, n in enumerate(lens):
+            first = max(int(n) - w, 0) // ps
+            tab[i, :first] = -1
+            read[tables[i, first:-(-int(n) // ps)].long()] = True
+        return tab, read
+
+    out = {}
+    layer = L - 1
+    lens = np.linspace(1, MISTRAL_MAX_SEQ, b).astype(np.int32)
+    lengths = torch.from_numpy(lens).to(dev)
+    for w, cap in ((MISTRAL_W, None), (MISTRAL_W, PAGED_CAP),
+                   (None, PAGED_CAP)):
+        o_ref = pa.paged_attention_reference(
+            q, kp, vp, lengths, tables, window=w, softcap=cap, layer=layer)
+        tab, read = holed(lens, w or 10**9)
+        saved = kp[layer].clone(), vp[layer].clone()
+        kp[layer][:, ~read] = float("nan")
+        vp[layer][:, ~read] = float("nan")
+        o = pa.paged_attention(q, kp, vp, lengths, tab, window=w, softcap=cap,
+                               layer=layer)
+        kp[layer].copy_(saved[0])
+        vp[layer].copy_(saved[1])
+        del saved
+        label = f"window {w} softcap {cap} lengths linspace(1, 8192, 8)"
+        m = assert_metrics(f"paged_attention {label}", o, o_ref, O_TOLS)
+        control = ""
+        if cap is not None:  # the gate catches a kernel without the cap
+            o0 = pa.paged_attention(q, kp, vp, lengths, tab, window=w,
+                                    layer=layer)
+            try:
+                assert_metrics("no-softcap instance", o0, o_ref, O_TOLS)
+            except AssertionError:
+                control = "; the no-softcap instance fails the gate"
+            else:
+                raise AssertionError(f"{label}: the gate does not catch "
+                                     f"the no-softcap instance")
+        print(f"paged_attention {label}: {m}; {int((tab < 0).sum())} hole "
+              f"entries, unread pages NaN{control}")
+        out[label] = {"max_abs_err": m.max_abs}
+
+    full = np.full(b, MISTRAL_MAX_SEQ, np.int32)
+    lengths = torch.from_numpy(full).to(dev)
+    tab, _ = holed(full, MISTRAL_W)
+
+    def cold(**kw):
+        tb = kw.pop("tab", tables)
+        return _time_graph_calls_ms(torch, [
+            lambda i=i: pa.paged_attention(q, kp, vp, lengths, tb, layer=i,
+                                           **kw)
+            for i in range(L)])
+
+    runs = {"none": dict(), "window": dict(window=MISTRAL_W, tab=tab),
+            "softcap": dict(softcap=PAGED_CAP)}
+    times = {n: [] for n in runs}
+    for n in list(runs) + list(runs)[::-1]:
+        times[n].append(cold(**dict(runs[n])))
+    ms = {n: min(t) for n, t in times.items()}
+    plain = _time_ms(torch, lambda: pa.paged_attention_reference(
+        q, kp, vp, lengths, tables, window=MISTRAL_W, layer=layer), 2,
+        warmup=1)
+    for n, tokens in (("none", MISTRAL_MAX_SEQ), ("window", MISTRAL_W),
+                      ("softcap", MISTRAL_MAX_SEQ)):
+        n_tok = tokens * b
+        nb = n_tok * hk * d * 2 * 2 + 2 * 2 * q.numel() \
+            + 4 * (b + n_tok // ps)
+        bms, bby = _bound(4.0 * n_tok * h * d, nb)
+        label = {"none": "cold, every row 8192, no window",
+                 "window": f"cold, every row 8192, window {MISTRAL_W}",
+                 "softcap": f"cold, every row 8192, softcap "
+                            f"{PAGED_CAP:g}"}[n]
+        out[label] = {"ms": ms[n], "bound_ms": bms, "bound_by": bby,
+                      "library_ms": None,
+                      **({"plain_ms": plain} if n == "window" else {})}
+        print(f"paged_attention {label} (L{L} b{b} h{h}/{hk} d{d}): "
+              f"{' / '.join(f'{t:.5f}' for t in times[n])} ms "
+              f"({nb / ms[n] / 1e6:.1f} GB/s, {bms / ms[n]:.1%} of the "
+              f"{bms:.5f} ms bound) [{card}]")
+    ratio = ms["window"] / ms["none"]
+    print(f"paged_attention window {MISTRAL_W} at 8192: {ratio:.3f}x the "
+          f"no-window call (bound {WINDOW_PAGED_RATIO}); plain version "
+          f"(one layer, eager) {plain:.3f} ms [{card}]")
+    assert ratio <= WINDOW_PAGED_RATIO, ratio
+    del kp, vp
+    torch.cuda.empty_cache()
+    return out
 
 
 def _moe_layout(torch, moe, dev, g, t, cfg, skip_expert=None):
@@ -976,13 +1508,15 @@ def _weight_bytes(params) -> str:
                if quant else ""))
 
 
-def serve(torch, params, cfg, prompts, card, kernels, model):
-    """Serve the 8 prompts through the engine with exact launch counts.
+def serve(torch, params, cfg, prompts, card, kernels, model,
+          max_seq=MAX_SEQ, after_step=None):
+    """Serve the prompts through the engine with exact launch counts,
+    calling ``after_step(eng)`` after every engine step when given.
     Returns (the serving path's launches, each request's tokens)."""
     from flash_attention_tpu_torch import Engine
     from flash_attention_tpu_torch.models import llama
     eng = Engine(cfg, params, total_pages=TOTAL_PAGES, page_size=PAGE_SIZE,
-                 max_batch=MAX_BATCH, max_seq_len=MAX_SEQ,
+                 max_batch=MAX_BATCH, max_seq_len=max_seq,
                  native_allocator=True)
     print(f"runtime: {'native C++' if eng.rt.is_native else 'Python'} "
           f"page allocator")
@@ -992,7 +1526,7 @@ def serve(torch, params, cfg, prompts, card, kernels, model):
         k.launches = 0
     t0 = time.perf_counter()
     reqs = [eng.add_request(p, MAX_NEW) for p in prompts]
-    eng.run()
+    eng.run(on_step=after_step)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k.name: k.launches for k in kernels}
@@ -1102,6 +1636,34 @@ def profile_serving(torch, eng, prompts, card, model):
     profile_window(torch, f"{model} decode steps", eng.run, card)
 
 
+def _prefill_vs_decode(torch, params, cfg, p):
+    """Prefill logits at p[-1] (flash kernel), and the logits of one decode
+    step on p[-1] after p[:-1]'s K/V went into pages (kv-write and paged
+    kernels), on the params' device."""
+    from flash_attention_tpu_torch.models import llama
+    dev = params["embed"].device
+    L, hk, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+    n = len(p)
+    toks = torch.tensor([p], device=dev)
+    a, _, _ = llama.prefill(params, toks, cfg, return_kv=False,
+                            logit_rows=torch.tensor([n - 1], device=dev))
+    _, ks, vs = llama.prefill(params, toks[:, :-1], cfg)
+    npg = -(-n // PAGE_SIZE)
+    kp = torch.zeros((L, hk, npg, PAGE_SIZE, hd),
+                     dtype=params["embed"].dtype, device=dev)
+    vp = torch.zeros_like(kp)
+    ids = torch.arange(-(-(n - 1) // PAGE_SIZE), device=dev)
+    llama.write_prefill_to_pages(kp, vp, (ks, vs), ids, torch.zeros_like(ids),
+                                 ids, PAGE_SIZE)
+    i32 = dict(dtype=torch.int32, device=dev)
+    b, *_ = llama.decode_step(
+        params, kp, vp, None, None, toks[:, -1], torch.tensor([n], **i32),
+        torch.arange(npg, **i32)[None],
+        torch.tensor([(n - 1) // PAGE_SIZE], **i32),
+        torch.tensor([(n - 1) % PAGE_SIZE], **i32), cfg)
+    return a[0].float().cpu(), b[0].float().cpu()
+
+
 def consistency(torch, params, cfg, prompts, model, n_prompts=2):
     """Prefill logits at p[-1] (flash kernel) against prefill of p[:-1],
     pages, and one decode step on p[-1] (kv-write and paged kernels).
@@ -1112,44 +1674,23 @@ def consistency(torch, params, cfg, prompts, model, n_prompts=2):
     in every layer is held to the gates; one that flips is printed only
     (one swapped expert moves a token's output by tens of percent, a fact of
     top-k routing, not of a kernel). At least one prompt must route alike."""
-    from flash_attention_tpu_torch.models import llama
-    dev = params["embed"].device
-    L, hk, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+    L = cfg.n_layers
     held = 0
     with torch.inference_mode():
         for p in prompts[:n_prompts]:
             n = len(p)
-            toks = torch.tensor([p], device=dev)
-            with _RouteLog() as full:
-                a, _, _ = llama.prefill(params, toks, cfg, return_kv=False,
-                                        logit_rows=torch.tensor([n - 1],
-                                                                device=dev))
-            with _RouteLog() as short:
-                _, ks, vs = llama.prefill(params, toks[:, :-1], cfg)
-            npg = -(-n // PAGE_SIZE)
-            kp = torch.zeros((L, hk, npg, PAGE_SIZE, hd), dtype=torch.bfloat16,
-                             device=dev)
-            vp = torch.zeros_like(kp)
-            ids = torch.arange(-(-(n - 1) // PAGE_SIZE), device=dev)
-            llama.write_prefill_to_pages(kp, vp, (ks, vs), ids,
-                                         torch.zeros_like(ids), ids, PAGE_SIZE)
-            i32 = dict(dtype=torch.int32, device=dev)
-            with _RouteLog() as dec:
-                b, *_ = llama.decode_step(
-                    params, kp, vp, None, None, toks[:, -1],
-                    torch.tensor([n], **i32), torch.arange(npg, **i32)[None],
-                    torch.tensor([(n - 1) // PAGE_SIZE], **i32),
-                    torch.tensor([(n - 1) % PAGE_SIZE], **i32), cfg)
-            a, b = a[0], b[0]
+            with _RouteLog() as log:  # L calls in each of the three passes
+                a, b = _prefill_vs_decode(torch, params, cfg, p)
+            full, short, dec = (log.ids[i * L:(i + 1) * L] for i in range(3))
             assert torch.isfinite(a).all() and torch.isfinite(b).all()
             rel = float((a - b).norm() / a.norm())
             top2 = torch.topk(a, 2).values
             routing, agree = "", True
             if cfg.n_experts:
                 same = [bool(torch.equal(f[n - 1], d[0]))
-                        for f, d in zip(full.ids, dec.ids)]
+                        for f, d in zip(full, dec)]
                 earlier = sum(int((f[:n - 1] != sh).any(-1).sum())
-                              for f, sh in zip(full.ids, short.ids))
+                              for f, sh in zip(full, short))
                 agree = all(same)
                 routing = (f"; checked token routed alike in {sum(same)}/{L}"
                            f" layers ({''.join('=' if x else 'x' for x in same)}"
@@ -1168,6 +1709,65 @@ def consistency(torch, params, cfg, prompts, model, n_prompts=2):
     print(f"{model} prefill vs decode: {held} of {min(n_prompts, len(prompts))}"
           f" prompts held to the gates")
     assert held >= 1, "no prompt routed alike in prefill and decode"
+
+
+def _greedy_agree(x, y) -> bool:
+    """x and y share a greedy token: some id is a maximum of both. The
+    card's logits are bf16 values, and two of them can be equal at the top,
+    where argmax alone would pick the lower id."""
+    return bool(((x == x.max()) & (y == y.max())).any())
+
+
+def window_consistency(torch, dev, cfg, card, model):
+    """Prefill against decode, on the card (bf16, kernels) and on the CPU
+    (fp32, plain versions) with the same weights, at CONSISTENCY_LENS: each
+    side's two logits agree (rel L2 <= CONSISTENCY_REL_L2, equal greedy
+    tokens, ties at the top counting for each tied id: _greedy_agree), and
+    the card's agree with the CPU's (the same rel L2 gate).
+    The card's greedy token must equal the CPU's wherever the CPU's top-2
+    gap exceeds GREEDY_MARGIN times the largest card-vs-CPU logit error of
+    that pass: below it the card's error may swap the two, and the card's
+    logits at the CPU's top two ids are printed to show it."""
+    from flash_attention_tpu_torch.models import llama
+    params = llama.init_params(cfg, seed=SEED + 12, device=dev)
+    cpu = {n: w.to("cpu", torch.float32) for n, w in params.items()}
+    torch.set_num_threads(os.cpu_count() or 1)
+
+    def rel(x, y):
+        return float((x - y).norm() / y.norm())
+    with torch.inference_mode():
+        for p in _prompts(cfg.vocab_size, CONSISTENCY_LENS):
+            a, b = _prefill_vs_decode(torch, params, cfg, p)
+            ac, bc = _prefill_vs_decode(torch, cpu, cfg, p)
+            assert all(torch.isfinite(x).all() for x in (a, b, ac, bc))
+            card_top = torch.topk(a, 2)
+            print(f"{model} prefill vs decode, prompt {len(p)} tokens: card "
+                  f"rel L2 {rel(b, a):.3e}, CPU {rel(bc, ac):.3e}; card vs "
+                  f"CPU prefill {rel(a, ac):.3e}, decode {rel(b, bc):.3e}; "
+                  f"card greedy {int(a.argmax())}/{int(b.argmax())} (card "
+                  f"prefill top-2 ids {card_top.indices.tolist()}, gap "
+                  f"{float(card_top.values[0] - card_top.values[1]):.4e}; "
+                  f"decode there {float(b[card_top.indices[0]]):.6f} / "
+                  f"{float(b[card_top.indices[1]]):.6f}) [{card}]")
+            for x, y in ((b, a), (bc, ac), (a, ac), (b, bc)):
+                assert rel(x, y) <= CONSISTENCY_REL_L2, rel(x, y)
+            assert _greedy_agree(ac, bc), (model, len(p))
+            for name, x, xc in (("prefill", a, ac), ("decode", b, bc)):
+                top = torch.topk(xc, 2)
+                gap = float(top.values[0] - top.values[1])
+                err = float((x - xc).abs().max())
+                held = gap > GREEDY_MARGIN * err
+                ids = top.indices.tolist()
+                print(f"  {name}: greedy card {int(x.argmax())}, CPU {ids[0]}"
+                      f"; CPU top-2 gap {gap:.4e} (ids {ids}: CPU "
+                      f"{top.values[0]:.6f} / {top.values[1]:.6f}, card "
+                      f"{x[ids[0]]:.6f} / {x[ids[1]]:.6f}); max |card - CPU|"
+                      f" {err:.4e}: {'held' if held else 'not held'} (gap > "
+                      f"{GREEDY_MARGIN:g} x max error)")
+                if held:
+                    assert _greedy_agree(x, xc), (name, len(p))
+            assert _greedy_agree(a, b), (model, len(p))
+    del params, cpu
 
 
 def _quant_error(torch, params, qparams) -> str:
@@ -1334,15 +1934,16 @@ def train_consistency(torch, dev, cfg, card, model, n_layers=2):
     assert rel[worst] <= TRAIN_GRAD_REL_L2, (worst, rel[worst])
 
 
-def train(torch, params, cfg, card, kernels, model, lr=LR):
+def train(torch, params, cfg, card, kernels, model, lr=LR,
+          shape=(TRAIN_BATCH, TRAIN_SEQ)):
     """The training path: train_loss with remat, .backward() and plain SGD
-    on a fixed batch, with exact launch counts per step. The last step runs
-    under the profiler."""
+    on a fixed (b, s) batch of ``shape``, with exact launch counts per step.
+    The last step runs under the profiler."""
     import torch.nn.functional as F
     from flash_attention_tpu_torch.models import llama
     dev = params["embed"].device
-    toks, tgt = _batch(torch, dev, cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ,
-                       SEED)
+    batch, seq = shape
+    toks, tgt = _batch(torch, dev, cfg.vocab_size, batch, seq, SEED)
     with torch.no_grad():  # the inference forward's cross-entropy
         logits, _, _ = llama.prefill(params, toks, cfg, return_kv=False)
         ref = float(F.cross_entropy(logits.flatten(0, 1), tgt.flatten(),
@@ -1416,9 +2017,9 @@ def train(torch, params, cfg, card, kernels, model, lr=LR):
     assert 0.0 < losses[0] < 20.0, losses
     assert abs(losses[0] - ref) <= TRAIN_FWD_REL * abs(ref), (losses[0], ref)
     assert final < losses[0], (losses, final)
-    tokens = TRAIN_BATCH * TRAIN_SEQ
+    tokens = batch * seq
     steady = float(np.mean(step_ms[1:]))
-    print(f"train {model} L{L} b{TRAIN_BATCH} s{TRAIN_SEQ} remat, SGD lr "
+    print(f"train {model} L{L} b{batch} s{seq} remat, SGD lr "
           f"{lr}: losses {[round(x, 6) for x in losses]}, after the last "
           f"step {final:.6f}; first loss vs inference-forward cross-entropy "
           f"{ref:.6f} (rel {abs(losses[0] - ref) / abs(ref):.2e})")
@@ -1479,12 +2080,18 @@ def main() -> int:
                     f"{name}: a spill or a serialized wgmma"
     for k in kernels:
         if k.name in HOPPER_KERNELS:
-            counts = _sass_counts(_build, k)
-            print(f"  {k.name} SASS: {counts}")
-            assert all(counts.values()), f"{k.name}: no wgmma or TMA in SASS"
+            per_fn = _sass_counts(_build, k)
+            for fn, counts in per_fn.items():
+                print(f"  {k.name} {fn} SASS: {counts}")
+            assert all(sum(c[op] for c in per_fn.values())
+                       for op in ("HGMMA", "UTMALDG")), \
+                f"{k.name}: no wgmma or TMA in SASS"
+            if k.name in SASS_NO_CAP:
+                _check_cap_instances(k.name, per_fn)
 
     cfg = llama.LlamaConfig.llama3_8b()
     mix = llama.LlamaConfig.mixtral_8x7b()
+    mistral = llama.LlamaConfig.mistral_7b()
     prompts = _prompts(cfg.vocab_size)
     bucket = max(32, 1 << (max(map(len, prompts)) - 1).bit_length())
     print(f"prompt lengths {[len(p) for p in prompts]} -> prefill bucket "
@@ -1500,6 +2107,16 @@ def main() -> int:
                    check_qmm(torch, dev, cfg, card)]
     torch.cuda.empty_cache()
     entries += check_bwd(torch, dev, cfg, card)
+    torch.cuda.empty_cache()
+    # the window and softcap modes, at Mistral's widths
+    modes = check_window_softcap(torch, dev, mistral, card)
+    torch.cuda.empty_cache()
+    with torch.inference_mode():
+        modes["paged_attention"] = check_paged_window(torch, dev, mistral,
+                                                      card)
+    for e in entries:
+        if e["name"] in modes:
+            e["shapes"].update(modes[e["name"]])
     torch.cuda.empty_cache()
     check_moe_ffn(torch, dev, mix, card)
     torch.cuda.empty_cache()
@@ -1581,6 +2198,58 @@ def main() -> int:
     paths["train_mixtral"] = train(torch, params, mix_train, card, kernels,
                                    "Mixtral-8x7B", lr=MIX_LR)
     del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 7. Mistral-7B-v0.1 (window 4096 on every layer), full width and depth:
+    #    serving with window page reclamation, then training on 1 x 8192
+    t0 = time.perf_counter()
+    params = llama.init_params(mistral, seed=SEED, device=dev,
+                               dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    print(f"init_params Mistral-7B bf16 on device: "
+          f"{time.perf_counter() - t0:.3f} s")
+    pages = WindowPages(mistral.sliding_window, PAGE_SIZE)
+    paths["serve_mistral"], _ = serve(
+        torch, params, mistral, _prompts(mistral.vocab_size,
+                                         MISTRAL_PROMPT_LENS),
+        card, kernels, "Mistral-7B", max_seq=MISTRAL_MAX_SEQ,
+        after_step=pages)
+    print(pages.report("Mistral-7B"))
+    assert pages.freed_in_decode > 0, "the window freed no page in decode"
+    torch.cuda.empty_cache()
+    paths["train_mistral"] = train(torch, params, mistral, card, kernels,
+                                   "Mistral-7B", shape=MISTRAL_TRAIN)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 8. consistency of the window and softcap paths: Mistral at 2 layers
+    #    with the window cut to 64, and the Gemma-2 config (window every
+    #    second layer, and every layer), card against CPU; the Gemma-2
+    #    config served through the engine
+    m64 = dataclasses.replace(mistral, n_layers=2, sliding_window=WINDOW_CUT)
+    window_consistency(torch, dev, m64, card, "Mistral-7B L2 W64")
+    train_consistency(torch, dev, m64, card, "Mistral-7B W64")
+    for pattern in (2, 1):
+        gcfg = llama.LlamaConfig.tiny_gemma2(
+            n_layers=GEMMA_LAYERS, window_pattern=pattern, **GEMMA_CAPS)
+        model = (f"Gemma-2 config (tiny_gemma2 L{GEMMA_LAYERS}, window "
+                 f"{gcfg.sliding_window} every {pattern} layers, softcaps "
+                 f"{gcfg.attn_softcap:g}/{gcfg.final_softcap:g})")
+        window_consistency(torch, dev, gcfg, card, model)
+        train_consistency(torch, dev, gcfg, card, model,
+                          n_layers=GEMMA_LAYERS)
+        params = llama.init_params(gcfg, seed=SEED, device=dev,
+                                   dtype=torch.bfloat16)
+        gpages = WindowPages(gcfg.sliding_window, PAGE_SIZE) \
+            if pattern == 1 else None
+        paths[f"serve_gemma2_every{pattern}"], _ = serve(
+            torch, params, gcfg, _prompts(gcfg.vocab_size, GEMMA_PROMPT_LENS),
+            card, kernels, model, max_seq=GEMMA_MAX_SEQ, after_step=gpages)
+        if gpages is not None:
+            print(gpages.report(model))
+        del params
 
     kernel_of = {"kv_write": "kv_update"}  # entry name -> counter name
     for e in entries:

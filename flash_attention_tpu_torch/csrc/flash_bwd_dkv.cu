@@ -7,9 +7,11 @@
 // Computes, per (batch, kv head) and key row j: dV = sum_g P^T dO and
 // dK = scale sum_g dS^T Q, the sum running over the GQA group of query heads
 // that share the kv head, with P = exp(S - LSE) and dS = P * (dP - D)
-// recomputed as in flash_bwd_dq.cu. Lower-right-aligned causal masking;
-// masked entries, query rows at or past sq and rows with no live key get
-// P = 0. Q, dO (b, sq, h, d) and K, V (b, sk, hk, d), bf16 or fp16, d 64 or
+// recomputed as in flash_bwd_dq.cu, under the band of flash_fwd.cu (causal
+// is right = 0) and, in the softcap instance (CAP), with t = tanh(S / cap)
+// recomputed and dS times 1 - t^2. Masked entries, query rows at or past sq
+// and rows with no live key get P = 0. Q, dO (b, sq, h, d) and K, V
+// (b, sk, hk, d), bf16 or fp16, d 64 or
 // 128, are read by TMA through their strides; dK and dV are written
 // contiguous (b, sk, hk, d) in the input dtype.
 //
@@ -38,9 +40,13 @@
 //   raise themselves to 240 registers) across the whole group and every
 //   query tile, so the group is summed in the CTA with no atomics and no
 //   second pass, and two runs give bit-identical results.
-// * Causal query tiles wholly before the block's diagonal are never loaded;
-//   only tiles on the diagonal pay for masking, one warp's 16 keys at a
-//   time. TMA zero-fills rows past sq and sk. The grid puts the key block in
+// * Query tiles wholly outside the band are never loaded: a key block's
+//   rows run from its first key's right edge to its last key's left edge
+//   (the band mirrored); only tiles that cross an edge pay for masking, one
+//   warp's 16 keys at a time. Under CAP the consumers wait for dP^T before
+//   they form P^T, then form P^T and dS^T in one pass, so that t needs no
+//   registers of its own past the tile's arithmetic (dK and dV hold 128 a
+//   thread). TMA zero-fills rows past sq and sk. The grid puts the key block in
 //   its slowest dimension, so the CTAs with the most query tiles (the first
 //   key blocks) start first.
 // * The epilogue writes scale * dK and dV into the consumer's own rows of
@@ -97,28 +103,78 @@ struct Tiles {
   }
 };
 
+// The band as the consumers see it, key-major.
+struct Band {
+  int off, left, right;   // fat::UNBOUNDED for an open side
+  float scale_log2;
+  float cap_scale, cap_log2;  // scale / cap and cap log2(e), with CAP
+};
+
+// Whether the tile at query row m0 crosses an edge of the band for this
+// warp's keys j0 .. j0 + 15; if so, the live columns [lo, hi] of each of the
+// thread's keys (g and g + 8), counted from this thread's first column: key
+// j is live for rows j - off - right .. j - off + left.
+__device__ __forceinline__ bool tile_edge(int m0, int j0, int g, int t,
+                                          const Band& bd, int (&lo)[2],
+                                          int (&hi)[2]) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int j = j0 + g + 8 * r;
+    lo[r] = j - bd.off - bd.right - m0 - 2 * t;
+    hi[r] = j - bd.off + bd.left - m0 - 2 * t;
+  }
+  return (j0 + 15 > m0 + bd.off + bd.right) ||
+         (m0 + BLOCK_M - 1 + bd.off - bd.left > j0);
+}
+
+__device__ __forceinline__ bool live(int i, const int (&lo)[2],
+                                     const int (&hi)[2]) {
+  const int c = (i / 4) * 8 + (i & 1), r = (i >> 1) & 1;
+  return c >= lo[r] && c <= hi[r];
+}
+
 // P^T in place, for the tile at query row m0: S^T scaled into the log2
-// domain less the column's LSE, masked only where the tile is on the causal
-// diagonal for this warp. lse2 holds the tile's 64 values in shared memory.
+// domain less the column's LSE, masked only where the tile crosses an edge
+// of the band for this warp. lse2 holds the tile's 64 values in shared
+// memory.
 __device__ __forceinline__ void probs_t(float (&sc)[BLOCK_M / 2],
                                         const float* lse2, int m0, int j0,
-                                        int g, int t, int off, int causal,
-                                        float scale_log2) {
-  if (causal && j0 + 15 > m0 + off) {
-    // a key is live for columns c >= key - off - m0; counted from this
-    // thread's first column
-    const int lo[2] = {j0 + g - off - m0 - 2 * t, j0 + g + 8 - off - m0 - 2 * t};
+                                        int g, int t, const Band& bd) {
+  const float scale_log2 = bd.scale_log2;
+  int lo[2], hi[2];
+  if (tile_edge(m0, j0, g, t, bd, lo, hi)) {
 #pragma unroll
     for (int i = 0; i < BLOCK_M / 2; ++i) {
       const float p = hop::exp2_approx(sc[i] * scale_log2 -
                                        lse2[(i / 4) * 8 + 2 * t + (i & 1)]);
-      sc[i] = (i / 4) * 8 + (i & 1) >= lo[(i >> 1) & 1] ? p : 0.f;
+      sc[i] = live(i, lo, hi) ? p : 0.f;
     }
   } else {
 #pragma unroll
     for (int i = 0; i < BLOCK_M / 2; ++i)
       sc[i] = hop::exp2_approx(sc[i] * scale_log2 -
                                lse2[(i / 4) * 8 + 2 * t + (i & 1)]);
+  }
+}
+
+// The softcap instance's P^T (into sc) and dS^T (into dp) in one pass, for
+// the tile at query row m0: t = tanh(S^T scale / cap), P^T = exp2(cap log2e
+// t - LSE log2e), dS^T = P^T (dP^T - D) (1 - t^2). vec holds the tile's LSE
+// (log2) and D in shared memory.
+__device__ __forceinline__ void probs_ds_cap(float (&sc)[BLOCK_M / 2],
+                                             float (&dp)[BLOCK_M / 2],
+                                             const float* vec, int m0, int j0,
+                                             int g, int t, const Band& bd) {
+  int lo[2], hi[2];
+  const bool edge = tile_edge(m0, j0, g, t, bd, lo, hi);
+#pragma unroll
+  for (int i = 0; i < BLOCK_M / 2; ++i) {
+    const int c = (i / 4) * 8 + 2 * t + (i & 1);
+    const float th = hop::tanh_exp2(sc[i] * bd.cap_scale);
+    float p = hop::exp2_approx(bd.cap_log2 * th - vec[c]);
+    p = !edge || live(i, lo, hi) ? p : 0.f;
+    sc[i] = p;
+    dp[i] = p * (dp[i] - vec[BLOCK_M + c]) * (1.f - th * th);
   }
 }
 
@@ -141,7 +197,7 @@ __device__ __forceinline__ void to_smem(uint8_t* rows, const float (&acc)[D / 2]
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool CAP>
 __global__ void __launch_bounds__(NTHREADS, CTAS_PER_SM)
 flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap q_map,
                      const __grid_constant__ CUtensorMap k_map,
@@ -151,7 +207,8 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap q_map,
                      const __grid_constant__ CUtensorMap dv_map,
                      const float* __restrict__ lse,
                      const float* __restrict__ di, int sq, int sk, int h,
-                     int group, float scale, float scale_log2, int causal) {
+                     int group, float scale, float scale_log2, int left,
+                     int right, float cap_scale, float cap_log2) {
   using L = Smem<D>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (hop::smem_u32(smem_raw) & 1023)) & 1023);
@@ -162,11 +219,20 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap q_map,
   const int kvh = blockIdx.x;
   const int batch = blockIdx.y;
   const int n0 = blockIdx.z * BLOCK_N;  // the first key blocks see the most rows
-  const int off = sk - sq;              // lower-right causal offset
-  // query rows that see a key of this block: causal needs row >= key - off
+  const int off = sk - sq;              // lower-right offset of the band
+  // query rows that see a key of this block, the band mirrored: from the
+  // first key's right edge (row >= key - off - right) to the last key's
+  // left edge (row <= key - off + left). Producer and consumers count the
+  // same tiles.
   Tiles tl;
-  tl.m_first = causal ? max(0, n0 - off) / BLOCK_M * BLOCK_M : 0;
-  tl.n_m = sq > tl.m_first ? (sq - tl.m_first + BLOCK_M - 1) / BLOCK_M : 0;
+  tl.m_first = right < fat::UNBOUNDED
+                   ? max(0, n0 - off - right) / BLOCK_M * BLOCK_M
+                   : 0;
+  const int m_end = left < fat::UNBOUNDED
+                        ? min(sq, min(n0 + BLOCK_N, sk) - off + left)
+                        : sq;
+  tl.n_m = m_end > tl.m_first ? (m_end - tl.m_first + BLOCK_M - 1) / BLOCK_M
+                              : 0;
   const int n_tiles = tl.count(group);
 
   const int role = __shfl_sync(0xffffffff, threadIdx.x / 128, 0);
@@ -239,6 +305,7 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap q_map,
     const int g = lane >> 2;  // fragment row group
     const int t = lane & 3;   // thread in group
     const int j0 = n0 + wg * 64 + warp * 16;  // this warp's first key
+    const Band bd{off, left, right, scale_log2, cap_scale, cap_log2};
     // this consumer's 64 rows of the K and V tiles (in each 64-column box)
     uint8_t* k_rows = smem + wg * 64 * ROW;
     uint8_t* v_rows = smem + L::V_OFF + wg * 64 * ROW;
@@ -269,13 +336,21 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap q_map,
       hop::wgmma_commit();
       hop::wgmma_wait<1>();  // S^T is done; dP^T may still run
       hop::fence_regs(sc);
-      probs_t(sc, vec, tl.m0(i), j0, g, t, off, causal, scale_log2);
-      fat::pack_a<T, BLOCK_M>(pa, sc);
-      hop::wgmma_wait<0>();
-      hop::fence_regs(dp);
+      if constexpr (CAP) {
+        hop::wgmma_wait<0>();
+        hop::fence_regs(dp);
+        probs_ds_cap(sc, dp, vec, tl.m0(i), j0, g, t, bd);
+        fat::pack_a<T, BLOCK_M>(pa, sc);
+      } else {
+        probs_t(sc, vec, tl.m0(i), j0, g, t, bd);
+        fat::pack_a<T, BLOCK_M>(pa, sc);
+        hop::wgmma_wait<0>();
+        hop::fence_regs(dp);
 #pragma unroll
-      for (int e = 0; e < BLOCK_M / 2; ++e)
-        dp[e] = sc[e] * (dp[e] - vec[BLOCK_M + (e / 4) * 8 + 2 * t + (e & 1)]);
+        for (int e = 0; e < BLOCK_M / 2; ++e)
+          dp[e] =
+              sc[e] * (dp[e] - vec[BLOCK_M + (e / 4) * 8 + 2 * t + (e & 1)]);
+      }
       fat::pack_a<T, BLOCK_M>(sa, dp);
       hop::rs_chain<T, D, BLOCK_M / 16>(dv, pa, dot, BLOCK_M);
       hop::rs_chain<T, D, BLOCK_M / 16>(dk, sa, qt, BLOCK_M);
@@ -312,7 +387,8 @@ template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const void* dout,
            const float* lse, const float* di, void* dk, void* dv, int b,
            int sq, int sk, int h, int hk, const long long* st, float scale,
-           int causal, cudaStream_t stream) {
+           int left, int right, float cap_scale, float cap_log2,
+           cudaStream_t stream) {
   constexpr bool fp16 = std::is_same_v<T, __half>;
   const long long o_st[3] = {(long long)sk * hk * D, (long long)hk * D, D};
   CUtensorMap qm, km, vm, dm, dkm, dvm;
@@ -324,14 +400,16 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
       (rc = hop::make_map_bshd(&dkm, dk, fp16, b, sk, hk, D, o_st, 64)) ||
       (rc = hop::make_map_bshd(&dvm, dv, fp16, b, sk, hk, D, o_st, 64)))
     return rc;
-  auto kernel = flash_bwd_dkv_kernel<T, D>;
+  auto kernel = cap_scale != 0.f ? flash_bwd_dkv_kernel<T, D, true>
+                                 : flash_bwd_dkv_kernel<T, D, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Smem<D>::BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid(hk, b, (sk + BLOCK_N - 1) / BLOCK_N);
   kernel<<<grid, NTHREADS, Smem<D>::BYTES, stream>>>(
       qm, km, vm, dm, dkm, dvm, lse, di, sq, sk, h, h / hk, scale,
-      scale * fat::LOG2E, causal);
+      scale * fat::LOG2E, fat::band_side(left),
+      fat::band_side(right), cap_scale, cap_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -341,27 +419,24 @@ extern "C" {
 
 // strides: 12 int64 in elements, (batch, seq, head) for q, k, v, dout.
 // lse and di are contiguous (b, h, sq) fp32; dk and dv contiguous
-// (b, sk, hk, d).
+// (b, sk, hk, d). left, right, cap_scale, cap_log2: as fat_flash_fwd's.
 int fat_flash_bwd_dkv(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* di,
                       void* dk, void* dv, int b, int sq, int sk, int h, int hk,
-                      int d, const long long* strides, float scale, int causal,
-                      int is_fp16, void* stream) {
+                      int d, const long long* strides, float scale, int left,
+                      int right, float cap_scale, float cap_log2, int is_fp16,
+                      void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   const float* dd = static_cast<const float*>(di);
-  if (d == 128 && !is_fp16)
-    return launch<__nv_bfloat16, 128>(q, k, v, dout, l, dd, dk, dv, b, sq, sk,
-                                      h, hk, strides, scale, causal, s);
-  if (d == 128)
-    return launch<__half, 128>(q, k, v, dout, l, dd, dk, dv, b, sq, sk, h, hk,
-                               strides, scale, causal, s);
-  if (d == 64 && !is_fp16)
-    return launch<__nv_bfloat16, 64>(q, k, v, dout, l, dd, dk, dv, b, sq, sk,
-                                     h, hk, strides, scale, causal, s);
-  if (d == 64)
-    return launch<__half, 64>(q, k, v, dout, l, dd, dk, dv, b, sq, sk, h, hk,
-                              strides, scale, causal, s);
+#define FAT_DKV_LAUNCH(T, D)                                                 \
+  return launch<T, D>(q, k, v, dout, l, dd, dk, dv, b, sq, sk, h, hk,       \
+                      strides, scale, left, right, cap_scale, cap_log2, s)
+  if (d == 128 && !is_fp16) FAT_DKV_LAUNCH(__nv_bfloat16, 128);
+  if (d == 128) FAT_DKV_LAUNCH(__half, 128);
+  if (d == 64 && !is_fp16) FAT_DKV_LAUNCH(__nv_bfloat16, 64);
+  if (d == 64) FAT_DKV_LAUNCH(__half, 64);
+#undef FAT_DKV_LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

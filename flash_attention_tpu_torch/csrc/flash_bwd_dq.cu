@@ -7,9 +7,11 @@
 // Computes, per (batch, head) and query row i, with the kv head head / group:
 // S = scale Q K^T recomputed, P = exp(S - LSE) from the forward's natural-log
 // LSE, dP = dO V^T, dS = P * (dP - D) with D from flash_bwd_di.cu, and
-// dQ = scale dS K. Lower-right-aligned causal masking; masked entries, columns
-// at or past sk and rows with no live key (causal with sq > sk) get P = 0
-// explicitly, so those rows get dQ = 0. Q, dO (b, sq, h, d) and K, V
+// dQ = scale dS K. The band of flash_fwd.cu (lower-right-aligned, causal is
+// right = 0); masked entries, columns at or past sk and rows with no live
+// key get P = 0 explicitly, so those rows get dQ = 0. With the softcap
+// instance (CAP), S is cap tanh(S / cap) with t = tanh(...) recomputed, and
+// dS takes the chain rule's 1 - t^2. Q, dO (b, sq, h, d) and K, V
 // (b, sk, hk, d), bf16 or fp16, d 64 or 128, are read by TMA through their
 // strides; dQ is written contiguous (b, sq, h, d) in the input dtype.
 //
@@ -36,9 +38,12 @@
 // * Overlap: each consumer issues S(j + 1) and dP(j + 1) behind dS(j) K(j),
 //   and computes P(j + 1) while dP(j + 1) finishes; the two consumers
 //   interleave on the tensor cores.
-// * KV tiles wholly above the causal diagonal are never loaded, and each
-//   consumer stops at its own rows' diagonal; only tiles on the diagonal or
-//   on the ragged kv edge pay for masking, one warp's 16 rows at a time. TMA
+// * KV tiles wholly outside the band are never loaded: the CTA's tiles
+//   start at the one holding its first row's left edge, and each consumer
+//   stops at its own rows' right edge; only tiles that cross an edge of the
+//   band or the ragged kv edge pay for masking, one warp's 16 rows at a
+//   time. Under CAP a consumer waits for dP before it forms P, so that t
+//   needs no registers of its own past the tile's arithmetic. TMA
 //   zero-fills rows past sk and sq. The grid puts the query block in its
 //   slowest dimension, reversed, so the CTAs with the longest causal rows
 //   start first.
@@ -78,30 +83,45 @@ struct Rows {
   int row[2];  // the thread's two rows, g and g + 8 of its warp's 16
   int w0;      // the warp's first row
   int t;       // thread in its row group of 4
-  int sk, off, causal;
+  int sk, off, left, right;  // the band (fat::UNBOUNDED for an open side)
   float scale_log2;
+  float cap_scale, cap_log2;  // scale / cap and cap log2(e), with CAP
   float lse2[2];  // LSE in the log2 domain
   float d[2];     // D
 };
 
+// Whether the tile at kv column n0 crosses an edge of the band or sk for
+// this warp; if so, the live columns [lo, hi) of each row, counted from this
+// thread's first column.
+__device__ __forceinline__ bool tile_edge(int n0, const Rows& rw, int (&lo)[2],
+                                          int (&hi)[2]) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    hi[r] = min(rw.sk, rw.row[r] + rw.off + rw.right + 1) - n0 - rw.t * 2;
+    lo[r] = rw.row[r] + rw.off - rw.left - n0 - rw.t * 2;
+  }
+  return (n0 + BLOCK_N > rw.sk) ||
+         (n0 + BLOCK_N - 1 > rw.w0 + rw.off + rw.right) ||
+         (n0 < rw.w0 + 15 + rw.off - rw.left);
+}
+
+__device__ __forceinline__ bool live(int i, const int (&lo)[2],
+                                     const int (&hi)[2]) {
+  const int c = (i / 4) * 8 + (i & 1), r = (i >> 1) & 1;
+  return c < hi[r] && c >= lo[r];
+}
+
 // P = exp2(S scale log2e - LSE log2e) in place, for the tile at kv column
-// n0; masked only where the tile is on an edge for this warp.
+// n0; masked only where the tile crosses an edge for this warp.
 __device__ __forceinline__ void probs(float (&sc)[BLOCK_N / 2], int n0,
                                       const Rows& rw) {
-  const bool edge = (n0 + BLOCK_N > rw.sk) ||
-                    (rw.causal && n0 + BLOCK_N - 1 > rw.w0 + rw.off);
-  if (edge) {
-    // live columns of each row, counted from this thread's first column
-    int lim[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r)
-      lim[r] = (rw.causal ? min(rw.sk, rw.row[r] + rw.off + 1) : rw.sk) - n0 -
-               rw.t * 2;
+  int lo[2], hi[2];
+  if (tile_edge(n0, rw, lo, hi)) {
 #pragma unroll
     for (int i = 0; i < BLOCK_N / 2; ++i) {
       const int r = (i >> 1) & 1;
       const float p = hop::exp2_approx(sc[i] * rw.scale_log2 - rw.lse2[r]);
-      sc[i] = (i / 4) * 8 + (i & 1) < lim[r] ? p : 0.f;
+      sc[i] = live(i, lo, hi) ? p : 0.f;
     }
   } else {
 #pragma unroll
@@ -118,6 +138,23 @@ __device__ __forceinline__ void dscores(float (&sc)[BLOCK_N / 2],
   for (int i = 0; i < BLOCK_N / 2; ++i) sc[i] *= dp[i] - rw.d[(i >> 1) & 1];
 }
 
+// The softcap instance's P and dS in one pass, into sc: t = tanh(S scale /
+// cap), P = exp2(cap log2e t - LSE log2e), dS = P (dP - D) (1 - t^2).
+__device__ __forceinline__ void dscores_cap(float (&sc)[BLOCK_N / 2],
+                                            const float (&dp)[BLOCK_N / 2],
+                                            int n0, const Rows& rw) {
+  int lo[2], hi[2];
+  const bool edge = tile_edge(n0, rw, lo, hi);
+#pragma unroll
+  for (int i = 0; i < BLOCK_N / 2; ++i) {
+    const int r = (i >> 1) & 1;
+    const float t = hop::tanh_exp2(sc[i] * rw.cap_scale);
+    const float p = hop::exp2_approx(rw.cap_log2 * t - rw.lse2[r]);
+    const float ds = p * (dp[i] - rw.d[r]) * (1.f - t * t);
+    sc[i] = !edge || live(i, lo, hi) ? ds : 0.f;
+  }
+}
+
 // S(j) and dP(j) for one consumer's 64 rows: two commit groups, S first.
 template <typename T, int D>
 __device__ __forceinline__ void issue_s_dp(float (&sc)[BLOCK_N / 2],
@@ -130,7 +167,7 @@ __device__ __forceinline__ void issue_s_dp(float (&sc)[BLOCK_N / 2],
   hop::wgmma_commit();
 }
 
-template <typename T, int D>
+template <typename T, int D, bool CAP>
 __global__ void __launch_bounds__(NTHREADS, 1)
 flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map,
                     const __grid_constant__ CUtensorMap k_map,
@@ -139,7 +176,8 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map,
                     const __grid_constant__ CUtensorMap dq_map,
                     const float* __restrict__ lse, const float* __restrict__ di,
                     int sq, int sk, int h, int group, float scale,
-                    float scale_log2, int causal) {
+                    float scale_log2, int left, int right, float cap_scale,
+                    float cap_log2) {
   using L = Smem<D>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (hop::smem_u32(smem_raw) & 1023)) & 1023);
@@ -151,12 +189,19 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map,
   const int batch = blockIdx.y;
   // longest causal rows first: the last query block has the most kv tiles
   const int m_lo = (gridDim.z - 1 - blockIdx.z) * BLOCK_M;
-  const int off = sk - sq;  // lower-right causal offset
-  // kv columns that rows [lo, hi) can see: causal stops at the last row's
-  // diagonal (rows past sq are clamped: they are never stored)
+  const int off = sk - sq;  // lower-right offset of the band
+  // The CTA's kv tiles start at the one holding its first row's left edge;
+  // rows [m_lo, hi) see kv columns up to the last row's right edge (rows
+  // past sq are clamped: they are never stored). Producer and consumers read
+  // tiles t_begin + j, j < n_tiles_of(their last row + 1).
+  const int t_begin =
+      left < fat::UNBOUNDED ? max(0, m_lo + off - left) / BLOCK_N : 0;
   auto n_tiles_of = [&](int hi) {
-    const int n_end = causal ? min(sk, min(hi, sq) + off) : sk;
-    return n_end > 0 ? (n_end + BLOCK_N - 1) / BLOCK_N : 0;
+    const int n_end =
+        right < fat::UNBOUNDED ? min(sk, min(hi, sq) + off + right) : sk;
+    return n_end > t_begin * BLOCK_N
+               ? (n_end + BLOCK_N - 1) / BLOCK_N - t_begin
+               : 0;
   };
 
   const int role = __shfl_sync(0xffffffff, threadIdx.x / 128, 0);
@@ -197,9 +242,9 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
         for (int c = 0; c < D / BOX; ++c) {
           hop::tma_load_4d(ks + c * BLOCK_N * ROW, &k_map, &full[s], c * BOX,
-                           kvh, j * BLOCK_N, batch);
+                           kvh, (t_begin + j) * BLOCK_N, batch);
           hop::tma_load_4d(vs + c * BLOCK_N * ROW, &v_map, &full[s], c * BOX,
-                           kvh, j * BLOCK_N, batch);
+                           kvh, (t_begin + j) * BLOCK_N, batch);
         }
       }
     }
@@ -218,7 +263,8 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map,
     // rows end 64 earlier), and a stage is reused only STAGES >= 2 tiles
     // later, so the release of a tile it never reads is never awaited
     const int n_tiles = n_tiles_of(wg_lo + 64);
-    Rows rw{{w0 + g, w0 + g + 8}, w0, t, sk, off, causal, scale_log2};
+    Rows rw{{w0 + g, w0 + g + 8}, w0, t, sk, off, left, right, scale_log2,
+            cap_scale, cap_log2};
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const long long idx = ((long long)batch * h + head) * sq + rw.row[r];
@@ -251,10 +297,13 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map,
       issue_s_dp<T, D>(sc, dp, q_s, do_s, k_s, v_s);
       hop::wgmma_wait<1>();
       hop::fence_regs(sc);
-      probs(sc, 0, rw);
+      if constexpr (!CAP) probs(sc, t_begin * BLOCK_N, rw);
       hop::wgmma_wait<0>();
       hop::fence_regs(dp);
-      dscores(sc, dp, rw);
+      if constexpr (CAP)
+        dscores_cap(sc, dp, t_begin * BLOCK_N, rw);
+      else
+        dscores(sc, dp, rw);
       fat::pack_a<T, BLOCK_N>(da, sc);
     }
     for (int j = 0; j + 1 < n_tiles; ++j) {
@@ -271,10 +320,14 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map,
       if (lane == 0) hop::mbar_arrive(&empty[s]);
       hop::wgmma_wait<1>();  // S(j + 1) is done; dP(j + 1) may still run
       hop::fence_regs(sc);
-      probs(sc, (j + 1) * BLOCK_N, rw);
+      const int n1 = (t_begin + j + 1) * BLOCK_N;
+      if constexpr (!CAP) probs(sc, n1, rw);
       hop::wgmma_wait<0>();
       hop::fence_regs(dp);
-      dscores(sc, dp, rw);
+      if constexpr (CAP)
+        dscores_cap(sc, dp, n1, rw);
+      else
+        dscores(sc, dp, rw);
       fat::pack_a<T, BLOCK_N>(da, sc);
     }
     if (n_tiles > 0) {
@@ -317,8 +370,8 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map,
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const void* dout,
            const float* lse, const float* di, void* dq, int b, int sq, int sk,
-           int h, int hk, const long long* st, float scale, int causal,
-           cudaStream_t stream) {
+           int h, int hk, const long long* st, float scale, int left,
+           int right, float cap_scale, float cap_log2, cudaStream_t stream) {
   constexpr bool fp16 = std::is_same_v<T, __half>;
   const long long dq_st[3] = {(long long)sq * h * D, (long long)h * D, D};
   CUtensorMap qm, km, vm, dm, dqm;
@@ -329,14 +382,16 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
       (rc = hop::make_map_bshd(&dm, dout, fp16, b, sq, h, D, st + 9, BLOCK_M)) ||
       (rc = hop::make_map_bshd(&dqm, dq, fp16, b, sq, h, D, dq_st, 64)))
     return rc;
-  auto kernel = flash_bwd_dq_kernel<T, D>;
+  auto kernel = cap_scale != 0.f ? flash_bwd_dq_kernel<T, D, true>
+                                 : flash_bwd_dq_kernel<T, D, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Smem<D>::BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid(h, b, (sq + BLOCK_M - 1) / BLOCK_M);
   kernel<<<grid, NTHREADS, Smem<D>::BYTES, stream>>>(
       qm, km, vm, dm, dqm, lse, di, sq, sk, h, h / hk, scale,
-      scale * fat::LOG2E, causal);
+      scale * fat::LOG2E, fat::band_side(left),
+      fat::band_side(right), cap_scale, cap_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -346,26 +401,24 @@ extern "C" {
 
 // strides: 12 int64 in elements, (batch, seq, head) for q, k, v, dout.
 // lse and di are contiguous (b, h, sq) fp32; dq a contiguous (b, sq, h, d).
+// left, right, cap_scale, cap_log2: as fat_flash_fwd's.
 int fat_flash_bwd_dq(const void* q, const void* k, const void* v,
                      const void* dout, const void* lse, const void* di,
                      void* dq, int b, int sq, int sk, int h, int hk, int d,
-                     const long long* strides, float scale, int causal,
-                     int is_fp16, void* stream) {
+                     const long long* strides, float scale, int left,
+                     int right, float cap_scale, float cap_log2, int is_fp16,
+                     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   const float* dd = static_cast<const float*>(di);
-  if (d == 128 && !is_fp16)
-    return launch<__nv_bfloat16, 128>(q, k, v, dout, l, dd, dq, b, sq, sk, h,
-                                      hk, strides, scale, causal, s);
-  if (d == 128)
-    return launch<__half, 128>(q, k, v, dout, l, dd, dq, b, sq, sk, h, hk,
-                               strides, scale, causal, s);
-  if (d == 64 && !is_fp16)
-    return launch<__nv_bfloat16, 64>(q, k, v, dout, l, dd, dq, b, sq, sk, h,
-                                     hk, strides, scale, causal, s);
-  if (d == 64)
-    return launch<__half, 64>(q, k, v, dout, l, dd, dq, b, sq, sk, h, hk,
-                              strides, scale, causal, s);
+#define FAT_DQ_LAUNCH(T, D)                                                 \
+  return launch<T, D>(q, k, v, dout, l, dd, dq, b, sq, sk, h, hk, strides, \
+                      scale, left, right, cap_scale, cap_log2, s)
+  if (d == 128 && !is_fp16) FAT_DQ_LAUNCH(__nv_bfloat16, 128);
+  if (d == 128) FAT_DQ_LAUNCH(__half, 128);
+  if (d == 64 && !is_fp16) FAT_DQ_LAUNCH(__nv_bfloat16, 64);
+  if (d == 64) FAT_DQ_LAUNCH(__half, 64);
+#undef FAT_DQ_LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

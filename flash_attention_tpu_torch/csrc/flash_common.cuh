@@ -1,7 +1,8 @@
 // Pieces shared by the port's flash-attention kernels (flash_fwd.cu and the
 // three backward kernels flash_bwd_{di,dq,dkv}.cu) and its matmul kernels
 // (gmm.cu, gmm_dw.cu, qmm.cu): the fp32-pair packing for bf16 and fp16, the
-// accumulator-to-A-fragment packing, and the error-string export.
+// accumulator-to-A-fragment packing, the attention band's open side, and the
+// error-string export.
 //
 // Fragment layouts of mma.m16n8k16 (g = lane / 4, t = lane % 4), which the
 // wgmma accumulator and register-A layouts repeat per 16-row warp slice:
@@ -23,6 +24,12 @@
 namespace fat {
 
 constexpr float LOG2E = 1.4426950408889634f;
+
+// An open side of an attention band (left or right): far past any offset,
+// and small enough that a row index plus it stays inside an int. The C
+// interfaces take < 0 for an open side; band_side maps it here.
+constexpr int UNBOUNDED = 1 << 30;
+inline int band_side(int x) { return x < 0 ? UNBOUNDED : x; }
 
 template <typename T>
 struct Mma;

@@ -3,12 +3,15 @@
 // Replaces: flash_attention_tpu/ops/flash_fwd.py::_fwd_kernel (the Pallas
 // TPU kernel launched by flash_fwd).
 //
-// Computes, per (batch, head): S = scale * Q K^T, an online softmax in fp32,
-// O = P V, and LSE = m + log(l) (natural log), with lower-right-aligned causal
-// masking and GQA (kv head = head / group). Q is (b, sq, h, d) and K/V are
-// (b, sk, hk, d), bf16 or fp16, d 64 or 128, read by TMA through their
-// strides (the head dim must be contiguous), so no copy is made. Fully-masked
-// rows (causal with sq > sk) write O = 0 and LSE = empty_lse.
+// Computes, per (batch, head): S = scale * Q K^T, optionally softcapped to
+// cap * tanh(S / cap), an online softmax in fp32, O = P V, and LSE = m +
+// log(l) (natural log), with GQA (kv head = head / group) and a band of
+// lower-right-aligned relative offsets: key c is live for row r iff
+// -left <= c - r - (sk - sq) <= right (causal is right = 0; either side may
+// be unbounded). Q is (b, sq, h, d) and K/V are (b, sk, hk, d), bf16 or
+// fp16, d 64 or 128, read by TMA through their strides (the head dim must be
+// contiguous), so no copy is made. Rows with no live key (causal with
+// sq > sk, or a band that misses every key) write O = 0 and LSE = empty_lse.
 //
 // What bounds it on the H100: at prefill shapes (sq = sk = 2048, d = 128) the
 // two products make it compute-bound (4 d FLOP per score against a few bytes
@@ -34,10 +37,17 @@
 //   products, so one's softmax runs while the other's hold the tensor
 //   cores; and each issues S(j + 1) together with P(j) V(j), so the softmax
 //   of tile j + 1 runs while P(j) V(j) finishes.
-// * KV tiles wholly above the causal diagonal are never loaded; only tiles
-//   on the diagonal or on the ragged kv edge pay for masking, one warp's 16
-//   rows at a time. TMA zero-fills K/V rows past sk and Q rows past sq.
-//   CTAs with the longest causal rows start first.
+// * KV tiles wholly outside the band are never loaded: a CTA's tiles run
+//   from the one holding its first row's left edge to the one holding its
+//   last row's right edge, and the producer and the consumers count them
+//   from the same integers. Only tiles that cross an edge of the band or the
+//   ragged kv edge pay for masking, one warp's 16 rows at a time. TMA
+//   zero-fills K/V rows past sk and Q rows past sq. CTAs with the longest
+//   causal rows start first.
+// * The softcap is a compile-time instance (CAP): cap * tanh(s scale / cap)
+//   with tanh from exp2 (hop::tanh_exp2) and 1 / cap folded on the host, so
+//   the consumers hold no division; without it the instance is the plain
+//   one, instruction for instruction.
 // * The epilogue writes O into the consumer's own 64 rows of the Q tile in
 //   shared memory, in the swizzled layout, and stores it with one TMA store
 //   per 64-column box, which clips rows past sq.
@@ -82,8 +92,9 @@ struct Rows {
   int row[2];  // the thread's two rows, g and g + 8 of its warp's 16
   int w0;      // the warp's first row
   int t;       // thread in its row group of 4
-  int sk, off, causal;
+  int sk, off, left, right;  // the band (fat::UNBOUNDED for an open side)
   float scale_log2;
+  float cap_scale, cap_log2;  // scale / cap and cap log2(e), with CAP
 };
 
 // S(j) = Q K(j)^T for one consumer's 64 rows, both K-major in shared memory:
@@ -103,32 +114,44 @@ __device__ __forceinline__ void issue_qk(float (&sc)[BLOCK_N / 2], uint32_t q_s,
   hop::wgmma_commit();
 }
 
+// A raw score in the log2 domain: scaled, or with CAP softcapped first.
+template <bool CAP>
+__device__ __forceinline__ float to_log2(float s, const Rows& rw) {
+  if constexpr (CAP) return rw.cap_log2 * hop::tanh_exp2(s * rw.cap_scale);
+  return s * rw.scale_log2;
+}
+
 // The online softmax of the tile at kv column n0 on the thread's two rows (4
 // threads share a row): S is scaled into the log2 domain and rounded, masked
-// only where the tile is on an edge for this warp, and turned into P in
-// place. m and l move on; alpha is the factor that rescales O. O itself is
-// not touched (P(j - 1) V(j - 1) may still be running on it).
+// only where the tile crosses an edge of the band (or sk) for this warp, and
+// turned into P in place. m and l move on; alpha is the factor that rescales
+// O. O itself is not touched (P(j - 1) V(j - 1) may still be running on it).
+template <bool CAP>
 __device__ __forceinline__ void softmax_tile(float (&sc)[BLOCK_N / 2],
                                              float (&m_r)[2], float (&l_r)[2],
                                              float (&alpha)[2], int n0,
                                              const Rows& rw) {
   const bool edge = (n0 + BLOCK_N > rw.sk) ||
-                    (rw.causal && n0 + BLOCK_N - 1 > rw.w0 + rw.off);
+                    (n0 + BLOCK_N - 1 > rw.w0 + rw.off + rw.right) ||
+                    (n0 < rw.w0 + 15 + rw.off - rw.left);
   if (edge) {
-    // live columns of each row, counted from this thread's first column
-    int lim[2];
+    // live columns [lo, hi) of each row, counted from this thread's first
+    // column
+    int lo[2], hi[2];
 #pragma unroll
-    for (int r = 0; r < 2; ++r)
-      lim[r] = (rw.causal ? min(rw.sk, rw.row[r] + rw.off + 1) : rw.sk) - n0 -
-               rw.t * 2;
+    for (int r = 0; r < 2; ++r) {
+      hi[r] = min(rw.sk, rw.row[r] + rw.off + rw.right + 1) - n0 - rw.t * 2;
+      lo[r] = rw.row[r] + rw.off - rw.left - n0 - rw.t * 2;
+    }
 #pragma unroll
     for (int i = 0; i < BLOCK_N / 2; ++i) {
-      const float x = sc[i] * rw.scale_log2;
-      sc[i] = (i / 4) * 8 + (i & 1) < lim[(i >> 1) & 1] ? x : -CUDART_INF_F;
+      const float x = to_log2<CAP>(sc[i], rw);
+      const int c = (i / 4) * 8 + (i & 1), r = (i >> 1) & 1;
+      sc[i] = c < hi[r] && c >= lo[r] ? x : -CUDART_INF_F;
     }
   } else {
 #pragma unroll
-    for (int i = 0; i < BLOCK_N / 2; ++i) sc[i] *= rw.scale_log2;
+    for (int i = 0; i < BLOCK_N / 2; ++i) sc[i] = to_log2<CAP>(sc[i], rw);
   }
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -189,14 +212,15 @@ __device__ __forceinline__ void to_p(uint32_t (&pa)[BLOCK_N / 16][4],
       pa[kk][e] = fat::Mma<T>::pack(sc[8 * kk + 2 * e], sc[8 * kk + 2 * e + 1]);
 }
 
-template <typename T, int D>
+template <typename T, int D, bool CAP>
 __global__ void __launch_bounds__(NTHREADS, 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
                  const __grid_constant__ CUtensorMap k_map,
                  const __grid_constant__ CUtensorMap v_map,
                  const __grid_constant__ CUtensorMap o_map,
                  float* __restrict__ lse, int sq, int sk, int h, int group,
-                 float scale_log2, int causal, float empty_lse) {
+                 float scale_log2, int left, int right, float cap_scale,
+                 float cap_log2, float empty_lse) {
   using L = Smem<D>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (hop::smem_u32(smem_raw) & 1023)) & 1023);
@@ -211,11 +235,18 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
   const int head = blockIdx.y;
   const int batch = blockIdx.z;
   const int m_lo = m_block * BLOCK_M;
-  const int off = sk - sq;  // lower-right causal offset
-  // kv columns this CTA can see: causal stops at its last row's diagonal
+  const int off = sk - sq;  // lower-right offset of the band
+  // kv columns this CTA can see, [n_begin, n_end): the band's right edge
+  // stops at its last row's, the left edge starts at its first row's
+  // (floored to a tile). Producer and consumers load and read tiles
+  // n_begin / BLOCK_N + j, j < n_tiles.
   int n_end = sk;
-  if (causal) n_end = min(sk, min(m_lo + BLOCK_M, sq) + off);
-  const int n_tiles = n_end > 0 ? (n_end + BLOCK_N - 1) / BLOCK_N : 0;
+  if (right < fat::UNBOUNDED)
+    n_end = min(sk, min(m_lo + BLOCK_M, sq) + off + right);
+  const int t_begin =
+      left < fat::UNBOUNDED ? max(0, m_lo + off - left) / BLOCK_N : 0;
+  const int n_tiles =
+      n_end > t_begin * BLOCK_N ? (n_end + BLOCK_N - 1) / BLOCK_N - t_begin : 0;
 
   // warpgroup index, warp-uniform to the compiler (the shuffle): each role
   // is one branch that runs to the end, with its own setmaxnreg limit
@@ -257,13 +288,13 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
         for (int c = 0; c < D / BOX; ++c)
           hop::tma_load_4d(ks + c * BLOCK_N * ROW, &k_map, &k_full[s], c * BOX,
-                           kvh, j * BLOCK_N, batch);
+                           kvh, (t_begin + j) * BLOCK_N, batch);
         if (j >= STAGES) hop::mbar_wait(&v_empty[s], prev);
         hop::mbar_expect_tx(&v_full[s], L::KV_BYTES);
 #pragma unroll
         for (int c = 0; c < D / BOX; ++c)
           hop::tma_load_4d(vs + c * BLOCK_N * ROW, &v_map, &v_full[s], c * BOX,
-                           kvh, j * BLOCK_N, batch);
+                           kvh, (t_begin + j) * BLOCK_N, batch);
       }
     }
   } else {
@@ -293,7 +324,8 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
     float m_r[2] = {-CUDART_INF_F, -CUDART_INF_F};
     float l_r[2] = {0.f, 0.f};  // this thread's share of the row sums
     float alpha[2];
-    const Rows rw{{rows[0], rows[1]}, w0, t, sk, off, causal, scale_log2};
+    const Rows rw{{rows[0], rows[1]}, w0, t, sk, off, left, right,
+                  scale_log2, cap_scale, cap_log2};
 
     // The consumers take turns to issue their products (named barriers 3
     // and 4, consumer 0 first), so one's softmax runs while the other's
@@ -312,7 +344,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
       hop::wgmma_wait<0>();
       hop::fence_regs(sc);
       if (lane == 0) hop::mbar_arrive(&k_empty[0]);
-      softmax_tile(sc, m_r, l_r, alpha, 0, rw);
+      softmax_tile<CAP>(sc, m_r, l_r, alpha, t_begin * BLOCK_N, rw);
       to_p<T>(pa, sc);
     }
     for (int j = 0; j + 1 < n_tiles; ++j) {
@@ -326,7 +358,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
       hop::wgmma_wait<1>();  // S(j + 1) is done; P(j) V(j) may still run
       hop::fence_regs(sc);
       if (lane == 0) hop::mbar_arrive(&k_empty[s1]);
-      softmax_tile(sc, m_r, l_r, alpha, (j + 1) * BLOCK_N, rw);
+      softmax_tile<CAP>(sc, m_r, l_r, alpha, (t_begin + j + 1) * BLOCK_N, rw);
       hop::wgmma_wait<0>();
       hop::fence_regs(acc);
       hop::fence_regs(pa);
@@ -398,7 +430,8 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            int b, int sq, int sk, int h, int hk, const long long* st,
-           float scale_log2, int causal, float empty_lse, cudaStream_t stream) {
+           float scale_log2, int left, int right, float cap_scale,
+           float cap_log2, float empty_lse, cudaStream_t stream) {
   constexpr bool fp16 = std::is_same_v<T, __half>;
   const long long o_st[3] = {(long long)sq * h * D, (long long)h * D, D};
   CUtensorMap qm, km, vm, om;
@@ -408,13 +441,16 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
       (rc = hop::make_map_bshd(&vm, v, fp16, b, sk, hk, D, st + 6, BLOCK_N)) ||
       (rc = hop::make_map_bshd(&om, o, fp16, b, sq, h, D, o_st, 64)))
     return rc;
-  auto kernel = flash_fwd_kernel<T, D>;
+  auto kernel = cap_scale != 0.f ? flash_fwd_kernel<T, D, true>
+                                 : flash_fwd_kernel<T, D, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Smem<D>::BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((sq + BLOCK_M - 1) / BLOCK_M, h, b);
   kernel<<<grid, NTHREADS, Smem<D>::BYTES, stream>>>(
-      qm, km, vm, om, lse, sq, sk, h, h / hk, scale_log2, causal, empty_lse);
+      qm, km, vm, om, lse, sq, sk, h, h / hk, scale_log2,
+      fat::band_side(left), fat::band_side(right), cap_scale,
+      cap_log2, empty_lse);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -424,24 +460,24 @@ extern "C" {
 
 // strides: 9 int64 in elements, (batch, seq, head) for q, k, v.
 // o is a contiguous (b, sq, h, d) tensor; lse a contiguous (b, h, sq) fp32.
+// left, right: the band (< 0 = unbounded; causal is right = 0). cap_scale =
+// scale / cap and cap_log2 = cap log2(e) run the softcap instance; 0 and 0
+// the plain one.
 int fat_flash_fwd(const void* q, const void* k, const void* v, void* o,
                   void* lse, int b, int sq, int sk, int h, int hk, int d,
-                  const long long* strides, float scale_log2, int causal,
-                  float empty_lse, int is_fp16, void* stream) {
+                  const long long* strides, float scale_log2, int left,
+                  int right, float cap_scale, float cap_log2, float empty_lse,
+                  int is_fp16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
-  if (d == 128 && !is_fp16)
-    return launch<__nv_bfloat16, 128>(q, k, v, o, l, b, sq, sk, h, hk, strides,
-                                      scale_log2, causal, empty_lse, s);
-  if (d == 128)
-    return launch<__half, 128>(q, k, v, o, l, b, sq, sk, h, hk, strides,
-                               scale_log2, causal, empty_lse, s);
-  if (d == 64 && !is_fp16)
-    return launch<__nv_bfloat16, 64>(q, k, v, o, l, b, sq, sk, h, hk, strides,
-                                     scale_log2, causal, empty_lse, s);
-  if (d == 64)
-    return launch<__half, 64>(q, k, v, o, l, b, sq, sk, h, hk, strides,
-                              scale_log2, causal, empty_lse, s);
+#define FAT_FWD_LAUNCH(T, D)                                                 \
+  return launch<T, D>(q, k, v, o, l, b, sq, sk, h, hk, strides, scale_log2, \
+                      left, right, cap_scale, cap_log2, empty_lse, s)
+  if (d == 128 && !is_fp16) FAT_FWD_LAUNCH(__nv_bfloat16, 128);
+  if (d == 128) FAT_FWD_LAUNCH(__half, 128);
+  if (d == 64 && !is_fp16) FAT_FWD_LAUNCH(__nv_bfloat16, 64);
+  if (d == 64) FAT_FWD_LAUNCH(__half, 64);
+#undef FAT_FWD_LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -476,6 +476,15 @@ __device__ __forceinline__ float exp2_approx(float x) {
   return y;
 }
 
+// tanh(x) = 1 - 2 / (2^(2 x log2 e) + 1), from ex2.approx and a fast
+// reciprocal: an absolute error of a few 1e-7 over the whole line (where
+// tanh.approx.f32 has a relative error near 2^-11, which a softcap of 50
+// turns into logit errors near 5e-3), exactly +-1 at the ends, and no IEEE
+// division (whose slow path is a call; see mbar_wait).
+__device__ __forceinline__ float tanh_exp2(float x) {
+  return 1.f - __fdividef(2.f, exp2_approx(x * 2.8853900817779268f) + 1.f);
+}
+
 // ---- host: TMA tensor maps --------------------------------------------------
 
 // cuTensorMapEncodeTiled is a driver call. The libraries link only the CUDA

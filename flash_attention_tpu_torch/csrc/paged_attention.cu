@@ -9,7 +9,11 @@
 // with length <= 0 write zeros. Lengths past the table's width are clamped to
 // it; page ids must lie in [0, P) (the engine pads tables with its trash
 // page, which several rows may share). bf16 or fp16, d 64 or 128, GQA groups
-// of up to 8 query heads per kv head.
+// of up to 8 query heads per kv head. With a sliding window W the query sees
+// the tokens [max(len - W, 0), len) only; a table entry whose page holds no
+// such token may be a hole (-1 or any other id) and is never read. The
+// softcap instance (CAP) squashes scaled scores to cap tanh(s / cap) as
+// flash_fwd.cu does.
 //
 // What bounds it on the H100: bytes. Each cached token costs 2 * d * 2 bytes
 // of K and V and only 4 * d * group FLOP, about group FLOP per byte, far below
@@ -26,6 +30,10 @@
 //   and the SM count on the host (ops/paged_attention.py::plan), never from
 //   lengths, so the call reads nothing back and can be captured in a CUDA
 //   graph. A CTA whose chunk starts past its row's length exits at once.
+//   With a window, a pair's chunks start at the 64-token tile that holds the
+//   window's first token, so the plan covers ceil(W / 64) + 1 tiles a pair
+//   instead of the table's width, and no tile wholly behind the window is
+//   loaded.
 // * Pages by TMA through an mbarrier ring. Warp 4, the first of a producer
 //   warpgroup that gives its registers to the consumers (setmaxnreg),
 //   issues the loads: its lanes read the tile's page ids in parallel, ahead
@@ -33,9 +41,10 @@
 //   tokens (a power of two that divides the page size, at most 64) and 64
 //   columns, from a 3-D map over the pool viewed as (L hk P, page_size, d),
 //   with the 128-byte swizzle. The maps are encoded once per pool and cached.
-//   Boxes past the row's length load an out-of-range page, which TMA fills
-//   with zeros without reading memory, so every stage completes the same
-//   byte count. A ring of STAGES stages (96 KB a CTA, 192 KB a SM) keeps
+//   Boxes past the row's length, or wholly before the window, load an
+//   out-of-range page, which TMA fills with zeros without reading memory, so
+//   every stage completes the same byte count; the page id of such a box is
+//   never used, so a hole in the table is never turned into a coordinate. A ring of STAGES stages (96 KB a CTA, 192 KB a SM) keeps
 //   the SM's loads in flight while earlier tiles are consumed.
 // * The group's products on tensor cores. Warps 0-3 are one consumer
 //   warpgroup: the group's query heads are the M side of wgmma m64 (rows
@@ -98,7 +107,7 @@ struct Smem {
 template <int D>
 constexpr int PARTIAL = MAX_GROUP * D + 2 * MAX_GROUP;
 
-template <typename T, int D>
+template <typename T, int D, bool CAP>
 __global__ void __launch_bounds__(NTHREADS, CTAS_PER_SM)
 paged_attn_kernel(const __grid_constant__ CUtensorMap k_map,
                   const __grid_constant__ CUtensorMap v_map,
@@ -107,7 +116,8 @@ paged_attn_kernel(const __grid_constant__ CUtensorMap k_map,
                   float* __restrict__ ws, int* __restrict__ counters, int h,
                   int hk, int page_size, int box_rows, int pages_per_seq,
                   int total_pages, int pages_all, int layer, int chunk_tiles,
-                  float scale_log2) {
+                  int window, float scale_log2, float cap_scale,
+                  float cap_log2) {
   using S = Smem<D>;
   constexpr int STAGES = S::STAGES;
   extern __shared__ uint8_t smem_raw[];
@@ -118,8 +128,10 @@ paged_attn_kernel(const __grid_constant__ CUtensorMap k_map,
   const int chunk = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
   const int group = h / hk;
   const int len = min(lengths[b], pages_per_seq * page_size);
-  const int chunk_tokens = chunk_tiles * TILE;
-  const int tok0 = chunk * chunk_tokens;
+  // the first live token, and the tile the pair's first chunk starts at
+  const int start = window > 0 ? max(len - window, 0) : 0;
+  const int tile0 = start / TILE;
+  const int tok0 = (tile0 + chunk * chunk_tiles) * TILE;
   const long long row0 = (long long)b * h + (long long)kvh * group;
   if (len <= 0) {
     if (chunk == 0) {
@@ -132,7 +144,8 @@ paged_attn_kernel(const __grid_constant__ CUtensorMap k_map,
   // producer and consumers agree on the tile count; every tile holds at
   // least one live token
   const int n_tiles = min(chunk_tiles, (len - tok0 + TILE - 1) / TILE);
-  const int n_live = (len + chunk_tokens - 1) / chunk_tokens;
+  const int n_live =
+      ((len + TILE - 1) / TILE - tile0 + chunk_tiles - 1) / chunk_tiles;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
@@ -168,7 +181,7 @@ paged_attn_kernel(const __grid_constant__ CUtensorMap k_map,
       for (int u = 0; u < 2; ++u) {
         const int i = lane + 32 * u;
         const int t = t0 + i * box_rows;
-        const bool live = i < boxes && t < len;
+        const bool live = i < boxes && t < len && t + box_rows > start;
         // a dead box reads past the map's last page: TMA fills zeros
         page[u] = live ? base + tab[t / page_size] : pages_all;
         row[u] = live ? t % page_size : 0;
@@ -254,14 +267,20 @@ paged_attn_kernel(const __grid_constant__ CUtensorMap k_map,
       // the online softmax of row g over the tile's 64 tokens; thread t
       // holds columns 8 nn + 2 t and + 1 in sc[4 nn] and sc[4 nn + 1]
       const int t0 = tok0 + j * TILE;
-      const int lim = len - t0 - 2 * t;  // live columns from the thread's first
+      // live columns [lo, hi) counted from the thread's first
+      const int hi = len - t0 - 2 * t, lo = start - t0 - 2 * t;
       float mx = -CUDART_INF_F;
 #pragma unroll
       for (int nn = 0; nn < TILE / 8; ++nn) {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const float x = sc[4 * nn + e] * scale_log2;
-          sc[4 * nn + e] = 8 * nn + e < lim ? x : -CUDART_INF_F;
+          float x;
+          if constexpr (CAP)
+            x = cap_log2 * hop::tanh_exp2(sc[4 * nn + e] * cap_scale);
+          else
+            x = sc[4 * nn + e] * scale_log2;
+          const int c = 8 * nn + e;
+          sc[4 * nn + e] = c < hi && c >= lo ? x : -CUDART_INF_F;
           mx = fmaxf(mx, sc[4 * nn + e]);
         }
       }
@@ -421,12 +440,18 @@ template <typename T, int D>
 int launch(const void* q, const void* kp, const void* vp, const int* lengths,
            const int* tables, void* out, float* ws, int* counters, int b,
            int h, int hk, int L, int layer, int total_pages, int page_size,
-           int pages_per_seq, int chunk_tiles, int n_chunks, float scale_log2,
+           int pages_per_seq, int chunk_tiles, int n_chunks, int window,
+           float scale_log2, float cap_scale, float cap_log2,
            cudaStream_t stream) {
   constexpr bool fp16 = std::is_same_v<T, __half>;
   const long long pages_all = (long long)L * hk * total_pages;
+  // the tiles a pair's chunks must cover: the table's, or with a window the
+  // most tiles W tokens can touch
+  long long need = ((long long)pages_per_seq * page_size + TILE - 1) / TILE;
+  const long long span = (long long)(window + TILE - 1) / TILE + 1;
+  if (window > 0 && span < need) need = span;
   if (pages_all >= INT_MAX || n_chunks > MAX_CHUNKS || chunk_tiles < 1 ||
-      (long long)n_chunks * chunk_tiles * TILE < (long long)pages_per_seq * page_size)
+      window < 0 || (long long)n_chunks * chunk_tiles < need)
     return static_cast<int>(cudaErrorInvalidValue);
   // the largest power of two that divides the page size, at most a tile: a
   // box never crosses a page
@@ -436,24 +461,27 @@ int launch(const void* q, const void* kp, const void* vp, const int* lengths,
   if ((rc = pool_map(&km, {kp, D, page_size, (int)pages_all, fp16, box_rows})) ||
       (rc = pool_map(&vm, {vp, D, page_size, (int)pages_all, fp16, box_rows})))
     return rc;
-  auto kernel = paged_attn_kernel<T, D>;
-  // the shared-memory limit is raised once per device
-  static std::atomic<uint64_t> raised{0};
+  auto kernel = cap_scale != 0.f ? paged_attn_kernel<T, D, true>
+                                 : paged_attn_kernel<T, D, false>;
+  // the shared-memory limit is raised once per device and instance
+  static std::atomic<uint64_t> raised[2]{};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   const uint64_t bit = uint64_t(1) << (dev & 63);
-  if (!(raised.load() & bit)) {
+  std::atomic<uint64_t>& done = raised[cap_scale != 0.f];
+  if (!(done.load() & bit)) {
     err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Smem<D>::BYTES);
     if (err != cudaSuccess) return static_cast<int>(err);
-    raised.fetch_or(bit);
+    done.fetch_or(bit);
   }
   dim3 grid(n_chunks, hk, b);
   kernel<<<grid, NTHREADS, Smem<D>::BYTES, stream>>>(
       km, vm, static_cast<const T*>(q), lengths, tables, static_cast<T*>(out),
       ws, counters, h, hk, page_size, box_rows, pages_per_seq, total_pages,
-      (int)pages_all, layer, chunk_tiles, scale_log2);
+      (int)pages_all, layer, chunk_tiles, window, scale_log2, cap_scale,
+      cap_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -466,13 +494,16 @@ extern "C" {
 // fp32, (b hk n_chunks) partials of (8 d + 16) floats (unused when n_chunks
 // is 1); counters: b hk int32 zeros, left zero by every call. The chunks
 // (n_chunks of chunk_tiles 64-token tiles) must cover pages_per_seq pages,
-// and h / hk must be at most 8.
+// or with a window (W > 0 tokens; 0 = none) ceil(W / 64) + 1 tiles, and
+// h / hk must be at most 8. cap_scale = scale / cap and cap_log2 = cap
+// log2(e) run the softcap instance; 0 and 0 the plain one.
 int fat_paged_attention(const void* q, const void* k_pages, const void* v_pages,
                         const void* lengths, const void* tables, void* out,
                         void* workspace, void* counters, int b, int h, int hk,
                         int d, int L, int layer, int total_pages, int page_size,
                         int pages_per_seq, int chunk_tiles, int n_chunks,
-                        float scale_log2, int is_fp16, void* stream) {
+                        int window, float scale_log2, float cap_scale,
+                        float cap_log2, int is_fp16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* len = static_cast<const int*>(lengths);
   const int* tab = static_cast<const int*>(tables);
@@ -482,7 +513,8 @@ int fat_paged_attention(const void* q, const void* k_pages, const void* v_pages,
 #define FAT_PAGED_LAUNCH(T, D)                                                 \
   return launch<T, D>(q, k_pages, v_pages, len, tab, out, ws, cnt, b, h, hk, L, \
                       layer, total_pages, page_size, pages_per_seq,            \
-                      chunk_tiles, n_chunks, scale_log2, s)
+                      chunk_tiles, n_chunks, window, scale_log2, cap_scale,    \
+                      cap_log2, s)
   if (d == 128 && !is_fp16) FAT_PAGED_LAUNCH(__nv_bfloat16, 128);
   if (d == 128) FAT_PAGED_LAUNCH(__half, 128);
   if (d == 64 && !is_fp16) FAT_PAGED_LAUNCH(__nv_bfloat16, 64);

@@ -5,6 +5,11 @@ serving and training paths: RMSNorm + RoPE (with the Llama-3.1 frequency
 remap) + GQA attention + SwiGLU, optional QKV biases (Qwen-2), and the
 Mixtral sparse MoE feed-forward (``ops.moe``: top-k routing, the sorted
 block dispatch and the grouped-matmul kernels) when ``n_experts > 0``.
+Sliding windows (Mistral: every layer; Gemma-2: every ``window_pattern``-th
+layer, ``LlamaConfig.layer_window``) and the attention softcap run in the
+attention kernels themselves; the Gemma-2 extras (GeGLU, sandwich norms,
+the embedding scale, ``query_scale`` and the final-logit softcap) around
+them.
 
 * ``prefill`` runs the dense flash attention (``ops.attention``) and returns
   logits plus every layer's K/V for the cache; with ``return_kv=False`` and
@@ -30,9 +35,9 @@ product with such a weight then runs ``ops.quant.quantized_matmul`` (the
 qmm kernel on the card). A quantized model serves; ``train_loss`` on it
 raises, as the JAX package has no gradient for the quantized matmul.
 
-Outside this slice (they raise): sliding windows, softcaps, the Gemma-2
-extras, LoRA, quantized MoE experts and tensor parallelism (and with it
-expert parallelism).
+Outside this slice (they raise): LoRA, quantized MoE experts and tensor
+parallelism (and with it expert parallelism). On the card, a head dim
+above 128 (Gemma-2-9B's 256) raises in the attention kernels.
 """
 
 from __future__ import annotations
@@ -83,6 +88,12 @@ class LlamaConfig:
     def sm_scale(self) -> float | None:
         return None if self.query_scale is None else self.query_scale**-0.5
 
+    def layer_window(self, j: int) -> int | None:
+        """Sliding window of layer ``j`` (None = global attention)."""
+        if self.sliding_window is None or j % self.window_pattern:
+            return None
+        return self.sliding_window
+
     @classmethod
     def llama2_7b(cls):
         return cls()
@@ -116,8 +127,10 @@ class LlamaConfig:
 
     @classmethod
     def gemma2_9b(cls):
-        """Gemma-2-9B geometry (not servable by this slice: windows and
-        softcaps run only in the plain version)."""
+        """Gemma-2-9B geometry: alternating 4096-window/global layers, GeGLU,
+        sandwich norms, attention softcap 50 and final-logit softcap 30. Its
+        head dim 256 runs on the CPU; the card's attention kernels take
+        d <= 128 so far."""
         return cls(vocab_size=256000, dim=3584, n_layers=42, n_heads=16,
                    n_kv_heads=8, head_dim=256, hidden_dim=14336,
                    rope_theta=10000.0, sliding_window=4096, window_pattern=2,
@@ -169,18 +182,14 @@ class LlamaConfig:
 _LAYER_NAMES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
                 "norm_attn", "norm_mlp")
 _BIAS_NAMES = ("bq", "bk", "bv")
-_OPTIONAL_NAMES = _BIAS_NAMES + ("w_router",)
+_POST_NAMES = ("norm_post_attn", "norm_post_mlp")
+_OPTIONAL_NAMES = _BIAS_NAMES + _POST_NAMES + ("w_router",)
 _MATMUL_NAMES = _LAYER_NAMES[:7]  # the weights quantize_params quantizes
 
 
 def check_supported(cfg: LlamaConfig, params=None, tp_axis=None) -> None:
     """Raise for what this slice of the port does not run."""
     unsupported = {
-        "a sliding window": cfg.sliding_window is not None,
-        "softcaps": (cfg.attn_softcap is not None
-                     or cfg.final_softcap is not None),
-        "the Gemma-2 extras (gelu, post norms, embed scale)": (
-            cfg.act != "silu" or cfg.post_norms or cfg.embed_scale),
         "tensor parallelism (tp_axis)": tp_axis is not None,
     }
     if params is not None:
@@ -196,6 +205,10 @@ def check_supported(cfg: LlamaConfig, params=None, tp_axis=None) -> None:
     if bad:
         raise NotImplementedError(
             f"outside this slice of the PyTorch port: {', '.join(bad)}")
+    period = cfg.window_pattern if cfg.sliding_window is not None else 1
+    if cfg.n_layers % period:
+        raise ValueError(f"n_layers {cfg.n_layers} not divisible by "
+                         f"window_pattern {period}")
 
 
 def is_quantized(params) -> bool:
@@ -251,7 +264,8 @@ def init_params(cfg: LlamaConfig, *, seed: int = 0, device="cuda",
     params["lm_head"] = torch.empty((D, cfg.vocab_size), dtype=dtype,
                                     device=device)
     _randn_into(params["lm_head"], D**-0.5, gen, rows=512)
-    for name in ("norm_attn", "norm_mlp"):
+    for name in ("norm_attn", "norm_mlp") + (_POST_NAMES if cfg.post_norms
+                                             else ()):
         params[name] = torch.ones((L, D), dtype=dtype, device=device)
     params["norm_out"] = torch.ones((D,), dtype=dtype, device=device)
     if cfg.attn_bias:
@@ -373,28 +387,54 @@ def _proj(h, w, name):
     return out + w[bias] if bias in w else out
 
 
-def _act(x):
-    """The SwiGLU gate activation, in fp32."""
+def _act(x, kind: str = "silu"):
+    """The gate activation in fp32: SiLU (Llama, Mistral) or GELU in its
+    tanh form (Gemma-2's GeGLU)."""
+    if kind == "gelu":
+        return F.gelu(x.float(), approximate="tanh")
     return F.silu(x.float())
 
 
 def _ffn(h, w, cfg: LlamaConfig):
     """The FFN half of a layer, shared by prefill, decode and training:
-    SwiGLU, or with a router the sparse MoE layer over every token of h
-    (pad rows and pad batch entries included, as in the JAX package)."""
+    SwiGLU (GeGLU with ``act="gelu"``), or with a router the sparse MoE
+    layer over every token of h (pad rows and pad batch entries included,
+    as in the JAX package)."""
     if "w_router" not in w:
-        gate = _act(_mm(h, w["w_gate"]))
+        gate = _act(_mm(h, w["w_gate"]), cfg.act)
         return _mm(gate.to(h.dtype) * _mm(h, w["w_up"]), w["w_down"])
     out, _ = moe_ffn(h.reshape(-1, h.shape[-1]), w["w_router"], w["w_gate"],
                      w["w_up"], w["w_down"], n_top=cfg.n_experts_per_tok,
-                     act=_act)
+                     act=lambda a: _act(a, cfg.act))
     return out.view(h.shape)
 
 
-def _dense_layer(x, w, cfg: LlamaConfig, positions):
+def _post(x, w, name, cfg: LlamaConfig):
+    """Gemma-2's sandwich norm on a sublayer's output (with post_norms)."""
+    return _rmsnorm(x, w[name], cfg.norm_eps) if cfg.post_norms else x
+
+
+def _embed(params, tokens, cfg: LlamaConfig):
+    """The token embedding, times sqrt(dim) in fp32 with Gemma's embed
+    scale, rounded back to the weights' dtype as the JAX package rounds
+    it."""
+    x = params["embed"][tokens]
+    if cfg.embed_scale:
+        x = (x.float() * cfg.dim**0.5).to(x.dtype)
+    return x
+
+
+def _final_softcap(logits, cfg: LlamaConfig):
+    if cfg.final_softcap is None:
+        return logits
+    return cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
+
+
+def _dense_layer(x, w, cfg: LlamaConfig, positions, window=None):
     """One transformer layer (weights ``w``, one dict of ``_layer_weights``)
-    on a dense (b, s, D) activation. Returns (x, (k, v)) with k/v
-    (b, s, hk, hd) after RoPE."""
+    on a dense (b, s, D) activation, with the layer's sliding ``window``
+    (None = global). Returns (x, (k, v)) with k/v (b, s, hk, hd) after
+    RoPE."""
     b, s = x.shape[:2]
     h = _rmsnorm(x, w["norm_attn"], cfg.norm_eps)
     q = _proj(h, w, "wq").view(b, s, cfg.n_heads, cfg.head_dim)
@@ -402,14 +442,16 @@ def _dense_layer(x, w, cfg: LlamaConfig, positions):
     v = _proj(h, w, "wv").view(b, s, cfg.n_kv_heads, cfg.head_dim)
     q = _rope(q, positions, cfg.rope_theta, cfg.rope_scaling)
     k = _rope(k, positions, cfg.rope_theta, cfg.rope_scaling)
-    o = flash_attention(q, k, v, causal=True, sm_scale=cfg.sm_scale)
-    x = x + _mm(o.reshape(b, s, -1), w["wo"])
+    o = flash_attention(q, k, v, causal=True, sm_scale=cfg.sm_scale,
+                        window_size=None if window is None else (window - 1, 0),
+                        softcap=cfg.attn_softcap)
+    x = x + _post(_mm(o.reshape(b, s, -1), w["wo"]), w, "norm_post_attn", cfg)
     h = _rmsnorm(x, w["norm_mlp"], cfg.norm_eps)
-    return x + _ffn(h, w, cfg), (k, v)
+    return x + _post(_ffn(h, w, cfg), w, "norm_post_mlp", cfg), (k, v)
 
 
-def _layer_out(x, w, cfg: LlamaConfig, positions):
-    return _dense_layer(x, w, cfg, positions)[0]
+def _layer_out(x, w, cfg: LlamaConfig, positions, window):
+    return _dense_layer(x, w, cfg, positions, window)[0]
 
 
 def prefill(params, tokens, cfg: LlamaConfig, *, tp_axis=None,
@@ -430,7 +472,7 @@ def prefill(params, tokens, cfg: LlamaConfig, *, tp_axis=None,
     ``remat`` applies only without the cache."""
     check_supported(cfg, params, tp_axis)
     b, s = tokens.shape
-    x = params["embed"][tokens]
+    x = _embed(params, tokens, cfg)
     positions = torch.arange(s, device=x.device).expand(b, s)
     ks = vs = None
     if return_kv:
@@ -439,17 +481,18 @@ def prefill(params, tokens, cfg: LlamaConfig, *, tp_axis=None,
         vs = torch.empty_like(ks)
     remat = remat and not return_kv and torch.is_grad_enabled()
     for i, w in enumerate(_layer_weights(params)):
+        window = cfg.layer_window(i)
         if remat:
-            x = checkpoint(_layer_out, x, w, cfg, positions,
+            x = checkpoint(_layer_out, x, w, cfg, positions, window,
                            use_reentrant=False, preserve_rng_state=False)
             continue
-        x, (k, v) = _dense_layer(x, w, cfg, positions)
+        x, (k, v) = _dense_layer(x, w, cfg, positions, window)
         if return_kv:
             ks[i], vs[i] = k, v
     if logit_rows is not None:
         x = x[torch.arange(b, device=x.device), logit_rows.long()]
     x = _rmsnorm(x, params["norm_out"], cfg.norm_eps)
-    return _mm(x, params["lm_head"]).float(), ks, vs
+    return _final_softcap(_mm(x, params["lm_head"]).float(), cfg), ks, vs
 
 
 def train_loss(params, tokens, targets, cfg: LlamaConfig, *,
@@ -495,7 +538,7 @@ def decode_step(params, k_pages, v_pages, k_scales, v_scales, tokens, lengths,
         raise NotImplementedError("a quantized KV cache is outside this "
                                   "slice of the PyTorch port")
     b = tokens.shape[0]
-    x = params["embed"][tokens]
+    x = _embed(params, tokens, cfg)
     pos = (lengths - 1).long()[:, None]
     H, HK, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     for i, w in enumerate(_layer_weights(params)):
@@ -510,12 +553,15 @@ def decode_step(params, k_pages, v_pages, k_scales, v_scales, tokens, lengths,
                        v.to(v_pages.dtype).contiguous(), None, None,
                        write_page, write_off, layer=i)
         o = paged_attention(q.contiguous(), k_pages, v_pages, lengths,
-                            page_tables, sm_scale=cfg.sm_scale, layer=i)
-        x = x + _mm(o.reshape(b, -1), w["wo"])
+                            page_tables, sm_scale=cfg.sm_scale,
+                            window=cfg.layer_window(i),
+                            softcap=cfg.attn_softcap, layer=i)
+        x = x + _post(_mm(o.reshape(b, -1), w["wo"]), w, "norm_post_attn",
+                      cfg)
         h = _rmsnorm(x, w["norm_mlp"], cfg.norm_eps)
-        x = x + _ffn(h, w, cfg)
+        x = x + _post(_ffn(h, w, cfg), w, "norm_post_mlp", cfg)
     x = _rmsnorm(x, params["norm_out"], cfg.norm_eps)
-    logits = _mm(x, params["lm_head"]).float()
+    logits = _final_softcap(_mm(x, params["lm_head"]).float(), cfg)
     return logits, k_pages, v_pages, k_scales, v_scales
 
 

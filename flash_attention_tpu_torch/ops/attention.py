@@ -39,7 +39,7 @@ def kernel_head_dim(d: int) -> int:
         return 64 if d < 64 else 128
     raise NotImplementedError(
         f"head_dim {d} on the card: the kernels take d <= 128; d 256 and 512 "
-        f"come with the Gemma-2 slice (window and softcap)")
+        f"(Gemma-2-9B's 256) need tile designs of their own, not ported yet")
 
 
 def padded_head_dim(fn, d_pad: int, *xs):
@@ -58,12 +58,6 @@ def padded_head_dim(fn, d_pad: int, *xs):
     return tuple(map(cut, out)) if isinstance(out, tuple) else cut(out)
 
 
-def _cuda_options(window_size, softcap):
-    if window_size is not None or softcap is not None:
-        raise NotImplementedError("window_size and softcap run only in the "
-                                  "plain version (CPU) so far")
-
-
 def fwd(q, k, v, is_causal: bool = False, *, sm_scale: float | None = None,
         window_size: tuple | None = None, softcap: float | None = None,
         empty_lse: float = 0.0):
@@ -71,9 +65,9 @@ def fwd(q, k, v, is_causal: bool = False, *, sm_scale: float | None = None,
 
     q: (b, sq, h, d); k/v: (b, sk, hk, d) with h % hk == 0. ``window_size``
     is an optional (left, right) sliding window (entries < 0 = unbounded),
-    ``softcap`` squashes scaled scores to ``softcap * tanh(s / softcap)``;
-    both run only in the plain version so far. Rows with no live key (causal
-    with sq > sk) give O = 0 and LSE = ``empty_lse``."""
+    ``softcap`` squashes scaled scores to ``softcap * tanh(s / softcap)``.
+    Rows with no live key (causal with sq > sk, or a window that misses
+    every key) give O = 0 and LSE = ``empty_lse``."""
     _check_heads(q, k)
     if sm_scale is None:
         sm_scale = 1.0 / q.shape[-1]**0.5
@@ -81,9 +75,9 @@ def fwd(q, k, v, is_causal: bool = False, *, sm_scale: float | None = None,
         return reference_attention(q, k, v, causal=is_causal,
                                    sm_scale=sm_scale, window=window_size,
                                    softcap=softcap, empty_lse=empty_lse)
-    _cuda_options(window_size, softcap)
     kernel = functools.partial(_fwd_mod.flash_fwd, causal=is_causal,
-                               sm_scale=sm_scale, empty_lse=empty_lse)
+                               sm_scale=sm_scale, empty_lse=empty_lse,
+                               window=window_size, softcap=softcap)
     return padded_head_dim(kernel, kernel_head_dim(q.shape[-1]), q, k, v)
 
 
@@ -96,8 +90,7 @@ def bwd(q, k, v, o, lse, do, is_causal: bool = False, *,
     o and lse are the forward's outputs, do the gradient of o. ``parts`` is
     a profiling hook: "di" runs only D = rowsum(dO * O) and returns it
     (b, h, sq) fp32, "dq" runs D and dQ and returns dq, "all" (the default)
-    runs everything. ``window_size`` and ``softcap`` run only in the plain
-    version so far."""
+    runs everything. ``window_size`` and ``softcap`` as in :func:`fwd`."""
     _check_heads(q, k)
     if sm_scale is None:
         sm_scale = 1.0 / q.shape[-1]**0.5
@@ -105,9 +98,9 @@ def bwd(q, k, v, o, lse, do, is_causal: bool = False, *,
         return _bwd_mod.flash_bwd_reference(
             q, k, v, o, lse, do, causal=is_causal, sm_scale=sm_scale,
             window=window_size, softcap=softcap, parts=parts)
-    _cuda_options(window_size, softcap)
     kernel = functools.partial(_bwd_mod.flash_bwd, causal=is_causal,
-                               sm_scale=sm_scale, parts=parts)
+                               sm_scale=sm_scale, window=window_size,
+                               softcap=softcap, parts=parts)
     return padded_head_dim(kernel, kernel_head_dim(q.shape[-1]), q, k, v, o,
                            lse, do)
 

@@ -20,8 +20,9 @@ whose other strides are not multiples of 8 or whose data is not 16-byte
 aligned is copied first, as in ``ops.flash_fwd``) and write contiguous
 outputs in the input dtype. Each wrapper launches its
 kernel for CUDA tensors only; the plain versions beside them (``*_reference``)
-run on any device, cover the sliding window and softcap the kernels do not
-take, and are what ``ops.attention.bwd`` runs for CPU tensors.
+run on any device and are what ``ops.attention.bwd`` runs for CPU tensors.
+The kernels and the plain versions take the same band (causal, a sliding
+window, or both; ``ops.flash_fwd.normalize_band``) and softcap.
 
 The plain versions compute in float64 and keep their own D in float64. Where
 a row attends to one key, dP - D is exactly 0 in the kernels (D is summed as
@@ -37,7 +38,8 @@ import ctypes
 import torch
 
 from flash_attention_tpu_torch.ops import _build
-from flash_attention_tpu_torch.ops.flash_fwd import HEAD_DIMS, _prepare
+from flash_attention_tpu_torch.ops.flash_fwd import (HEAD_DIMS, _prepare,
+                                                     band_args, softcap_args)
 from flash_attention_tpu_torch.ops.reference import _build_mask
 
 _P = ctypes.c_void_p
@@ -49,11 +51,11 @@ DI_KERNEL = _build.Kernel("flash_bwd_di", "flash_bwd_di.cu", {
 })
 DQ_KERNEL = _build.Kernel("flash_bwd_dq", "flash_bwd_dq.cu", {
     "fat_flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                         _P, _F, _I, _I, _P],
+                         _P, _F, _I, _I, _F, _F, _I, _P],
 })
 DKV_KERNEL = _build.Kernel("flash_bwd_dkv", "flash_bwd_dkv.cu", {
     "fat_flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                          _I, _P, _F, _I, _I, _P],
+                          _I, _P, _F, _I, _I, _F, _F, _I, _P],
 })
 KERNELS = (DI_KERNEL, DQ_KERNEL, DKV_KERNEL)
 PARTS = ("di", "dq", "all")
@@ -116,7 +118,8 @@ def flash_bwd_di(o, do):
     return di
 
 
-def flash_bwd_dq(q, k, v, do, lse, di, *, causal: bool, sm_scale: float):
+def flash_bwd_dq(q, k, v, do, lse, di, *, causal: bool, sm_scale: float,
+                 window=None, softcap=None):
     """Launch the dQ kernel. Returns dq (b, sq, h, d) in q's dtype."""
     q, k, v, do = _prepare_inputs(q, k, v, do, lse, di)
     b, sq, h, d = q.shape
@@ -128,14 +131,16 @@ def flash_bwd_dq(q, k, v, do, lse, di, *, causal: bool, sm_scale: float):
     rc = lib.fat_flash_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), di.data_ptr(), dq.data_ptr(), b, sq, sk, h, hk, d,
-        _strides(q, k, v, do), sm_scale, int(causal),
-        int(q.dtype == torch.float16), _stream(q))
+        _strides(q, k, v, do), sm_scale, *band_args(causal, window),
+        *softcap_args(softcap, sm_scale), int(q.dtype == torch.float16),
+        _stream(q))
     DQ_KERNEL.launches += 1
     DQ_KERNEL.check(rc)
     return dq
 
 
-def flash_bwd_dkv(q, k, v, do, lse, di, *, causal: bool, sm_scale: float):
+def flash_bwd_dkv(q, k, v, do, lse, di, *, causal: bool, sm_scale: float,
+                  window=None, softcap=None):
     """Launch the dK/dV kernel. Returns (dk, dv), each (b, sk, hk, d) in the
     input dtype, summed over each kv head's GQA group."""
     q, k, v, do = _prepare_inputs(q, k, v, do, lse, di)
@@ -149,7 +154,8 @@ def flash_bwd_dkv(q, k, v, do, lse, di, *, causal: bool, sm_scale: float):
     rc = lib.fat_flash_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), di.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, sq,
-        sk, h, hk, d, _strides(q, k, v, do), sm_scale, int(causal),
+        sk, h, hk, d, _strides(q, k, v, do), sm_scale,
+        *band_args(causal, window), *softcap_args(softcap, sm_scale),
         int(q.dtype == torch.float16), _stream(q))
     DKV_KERNEL.launches += 1
     DKV_KERNEL.check(rc)
@@ -157,7 +163,7 @@ def flash_bwd_dkv(q, k, v, do, lse, di, *, causal: bool, sm_scale: float):
 
 
 def flash_bwd(q, k, v, o, lse, do, *, causal: bool, sm_scale: float,
-              parts: str = "all"):
+              window=None, softcap=None, parts: str = "all"):
     """The CUDA backward: D, then dQ, then dK/dV. Returns (dq, dk, dv);
     ``parts="di"`` stops after D and returns it, ``parts="dq"`` stops after
     dQ and returns dq."""
@@ -167,11 +173,12 @@ def flash_bwd(q, k, v, o, lse, do, *, causal: bool, sm_scale: float,
     if parts == "di":
         return di
     lse = lse.float().contiguous()
-    dq = flash_bwd_dq(q, k, v, do, lse, di, causal=causal, sm_scale=sm_scale)
+    kw = dict(causal=causal, sm_scale=sm_scale, window=window,
+              softcap=softcap)
+    dq = flash_bwd_dq(q, k, v, do, lse, di, **kw)
     if parts == "dq":
         return dq
-    dk, dv = flash_bwd_dkv(q, k, v, do, lse, di, causal=causal,
-                           sm_scale=sm_scale)
+    dk, dv = flash_bwd_dkv(q, k, v, do, lse, di, **kw)
     return dq, dk, dv
 
 

@@ -3,7 +3,9 @@
 The kernel (``csrc/flash_fwd.cu``) replaces the JAX package's Pallas
 ``_fwd_kernel``. It reads q (b, sq, h, d) and k/v (b, sk, hk, d) in bf16 or
 fp16 through their strides and writes O (b, sq, h, d) and LSE (b, h, sq)
-fp32. The kernel masks its own ragged edges, so nothing is padded here.
+fp32, under a band of relative offsets (causal, a sliding window, or both)
+and an optional softcap. The kernel masks its own ragged edges, so nothing
+is padded here.
 It loads by TMA through tensor maps built from the strides, so the data
 must be 16-byte aligned and the strides multiples of 16 bytes: ``_prepare``
 copies an input that is not into a fresh tensor.
@@ -24,7 +26,7 @@ _F = ctypes.c_float
 
 KERNEL = _build.Kernel("flash_fwd", "flash_fwd.cu", {
     "fat_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _F, _I,
-                      _F, _I, _P],
+                      _I, _F, _F, _F, _I, _P],
 })
 HEAD_DIMS = (64, 128)
 DTYPES = (torch.bfloat16, torch.float16)
@@ -48,6 +50,26 @@ def normalize_band(causal: bool, window) -> tuple | None:
     return (wl, wr)
 
 
+def band_args(causal: bool, window) -> tuple[int, int]:
+    """The kernels' (left, right) band arguments, -1 for an unbounded side
+    (both -1: dense)."""
+    band = normalize_band(causal, window)
+    if band is None:
+        return -1, -1
+    return tuple(-1 if x is None else x for x in band)
+
+
+def softcap_args(softcap, sm_scale: float) -> tuple[float, float]:
+    """The kernels' softcap arguments (scale / cap, cap log2 e): the
+    division is done here, never in the kernel; (0, 0) runs the instance
+    without the softcap."""
+    if softcap is None:
+        return 0.0, 0.0
+    if not softcap > 0:
+        raise ValueError(f"softcap must be > 0, got {softcap}")
+    return sm_scale / softcap, softcap * math.log2(math.e)
+
+
 def _prepare(x: torch.Tensor, name: str) -> torch.Tensor:
     """``x`` as the kernels take it: raises on what they cannot take, and
     returns a fresh copy of an input that TMA cannot read in place (a stride
@@ -67,8 +89,11 @@ def _prepare(x: torch.Tensor, name: str) -> torch.Tensor:
 
 
 def flash_fwd(q, k, v, *, causal: bool, sm_scale: float,
-              empty_lse: float = 0.0):
-    """Launch the CUDA forward kernel. Returns (o, lse)."""
+              empty_lse: float = 0.0, window=None, softcap=None):
+    """Launch the CUDA forward kernel. Returns (o, lse). ``window`` is a
+    (left, right) sliding window (entries < 0 unbounded), folded with
+    ``causal`` by :func:`normalize_band`; ``softcap`` squashes the scaled
+    scores to ``softcap * tanh(s / softcap)``."""
     q, k, v = (_prepare(x, name) for x, name in ((q, "q"), (k, "k"),
                                                   (v, "v")))
     b, sq, h, d = q.shape
@@ -83,6 +108,8 @@ def flash_fwd(q, k, v, *, causal: bool, sm_scale: float,
                          f"(supported: {HEAD_DIMS})")
     if h % hk:
         raise ValueError(f"num_heads {h} must be divisible by num_heads_k {hk}")
+    left, right = band_args(causal, window)
+    cap_scale, cap_log2 = softcap_args(softcap, sm_scale)
     o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     if o.numel() == 0:
@@ -93,7 +120,8 @@ def flash_fwd(q, k, v, *, causal: bool, sm_scale: float,
     rc = lib.fat_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
         b, sq, sk, h, hk, d, ctypes.cast(strides, ctypes.c_void_p),
-        sm_scale * math.log2(math.e), int(causal), float(empty_lse),
+        sm_scale * math.log2(math.e), left, right, cap_scale, cap_log2,
+        float(empty_lse),
         int(q.dtype == torch.float16),
         torch.cuda.current_stream(q.device).cuda_stream)
     KERNEL.launches += 1

@@ -9,9 +9,9 @@ JAX package's pages-per-block grouping and its padding of the page-table
 width are not needed (a table padded that way is still accepted).
 
 The kernel splits each (row, kv head) pair's tokens into chunks that
-``plan`` chooses from the table's width, b, hk and the SM count, never from
-``lengths``: a call reads nothing back to the host and can be captured in a
-CUDA graph. Chunks write fp32 partials to a workspace from PyTorch's
+``plan`` chooses from the table's width (or a sliding window's span), b, hk
+and the SM count, never from ``lengths``: a call reads nothing back to the
+host and can be captured in a CUDA graph. Chunks write fp32 partials to a workspace from PyTorch's
 allocator, and the last chunk of each pair merges them, found by a per-pair
 counter that the kernel leaves at zero (one counter buffer per device:
 calls on one device run one at a time, in stream order).
@@ -26,6 +26,7 @@ import math
 import torch
 
 from flash_attention_tpu_torch.ops import _build
+from flash_attention_tpu_torch.ops.flash_fwd import softcap_args
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -33,7 +34,8 @@ _F = ctypes.c_float
 
 KERNEL = _build.Kernel("paged_attention", "paged_attention.cu", {
     "fat_paged_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                            _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+                            _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _I,
+                            _P],
 })
 HEAD_DIMS = (64, 128)
 MAX_GROUP = 8
@@ -51,13 +53,17 @@ _DEVICES: dict[int, tuple[int, torch.Tensor]] = {}
 
 
 def plan(pages_per_seq: int, page_size: int, b: int, hk: int,
-         n_sms: int) -> tuple[int, int]:
+         n_sms: int, window: int | None = None) -> tuple[int, int]:
     """The kernel's chunk of each (row, kv head) pair, in 64-token tiles,
     and the number of chunks, for a table of ``pages_per_seq`` pages of
-    ``page_size`` tokens. Depends on the shapes only, never on lengths: the
-    chunks cover the table's every page, and a chunk past a row's length
-    exits at once on the card."""
+    ``page_size`` tokens. Depends on the shapes (and the static window)
+    only, never on lengths: the chunks cover the table's every page, or
+    with a window of W tokens the ceil(W / 64) + 1 tiles its tokens can
+    touch (they start at the tile of the window's first token), and a chunk
+    past a row's length exits at once on the card."""
     tiles = max(1, -(-pages_per_seq * page_size // TILE))
+    if window is not None:
+        tiles = min(tiles, -(-window // TILE) + 1)
     want = max(1, -(-CHUNKS_PER_SM * n_sms // max(1, b * hk)))
     chunks = max(1, min(want, tiles // MIN_CHUNK_TILES, MAX_CHUNKS))
     chunk_tiles = -(-tiles // chunks)
@@ -85,7 +91,10 @@ def paged_attention_reference(q, k_pages, v_pages, lengths, page_indices, *,
                               window=None, softcap=None, layer=None):
     """Plain version: gather each row's pages densely, run masked attention
     in fp32. ``k_pages`` is (hk, P, ps, d), or (L, hk, P, ps, d) with
-    ``layer``. Rows with length <= 0 return zeros."""
+    ``layer``. Rows with length <= 0 return zeros. Masked tokens (past the
+    length, before the window, or in a hole entry of -1) contribute exactly
+    0, whatever their pages hold: their V rows are zeroed, not only their
+    weights, so a non-finite value there cannot reach the output."""
     if layer is not None:
         k_pages, v_pages = k_pages[int(layer)], v_pages[int(layer)]
         if k_scales is not None:
@@ -112,6 +121,7 @@ def paged_attention_reference(q, k_pages, v_pages, lengths, page_indices, *,
     if window is not None:
         mask &= pos >= (lens - window).clamp(min=0)
     s = s.masked_fill(~mask[:, None, None, :], float("-inf"))
+    v = v.masked_fill(~mask[:, None, :, None], 0.0)
     alive = (lengths.to(q.device) > 0)[:, None, None, None]
     p = torch.softmax(torch.where(alive, s, torch.zeros_like(s)), dim=-1)
     o = torch.einsum("bhgt,bhtd->bhgd", p, v)
@@ -128,8 +138,11 @@ def paged_attention(q, k_pages, v_pages, lengths, page_indices, *,
     (L, hk, P, ps, d) with ``layer`` an int; lengths (b,) int32 (each row's
     length including this token); page_indices (b, pages_per_seq) int32.
     Returns o (b, h, d) in q.dtype; rows with length <= 0 are zeros.
-    ``k_scales``/``v_scales`` (int8/fp8 cache), ``window`` and ``softcap``
-    run only in the plain version so far."""
+    ``window`` W: the query sees the tokens [max(length - W, 0), length),
+    and table entries whose pages hold none of them may be holes (-1).
+    ``softcap`` squashes scaled scores to ``softcap * tanh(s / softcap)``.
+    ``k_scales``/``v_scales`` (int8/fp8 cache) run only in the plain version
+    so far."""
     b, h, d = q.shape
     layered = k_pages.dim() == 5
     if layered and layer is None:
@@ -148,9 +161,9 @@ def paged_attention(q, k_pages, v_pages, lengths, page_indices, *,
             q, k_pages, v_pages, lengths, page_indices, k_scales=k_scales,
             v_scales=v_scales, sm_scale=sm_scale, window=window,
             softcap=softcap, layer=layer)
-    if k_scales is not None or window is not None or softcap is not None:
-        raise NotImplementedError("quantized KV, window and softcap run only "
-                                  "in the plain version (CPU) so far")
+    if k_scales is not None:
+        raise NotImplementedError("quantized KV runs only in the plain "
+                                  "version (CPU) so far")
     pk = k_pages if layered else k_pages[None]
     pv = v_pages if layered else v_pages[None]
     L, _, total_pages, page_size, _ = pk.shape
@@ -182,15 +195,17 @@ def paged_attention(q, k_pages, v_pages, lengths, page_indices, *,
     dev = q.device
     n_sms, counters = _device(dev, b * hk)
     pps = page_indices.shape[1]
-    chunk_tiles, n_chunks = _plan(pps, page_size, b, hk, n_sms)
+    chunk_tiles, n_chunks = _plan(pps, page_size, b, hk, n_sms,
+                                  None if window is None else int(window))
+    cap_scale, cap_log2 = softcap_args(softcap, sm_scale)
     ws = torch.empty(b * hk * n_chunks * (MAX_GROUP * d + 2 * MAX_GROUP)
                      if n_chunks > 1 else 0, dtype=torch.float32, device=dev)
     rc = lib.fat_paged_attention(
         q.data_ptr(), pk.data_ptr(), pv.data_ptr(), lengths.data_ptr(),
         page_indices.data_ptr(), out.data_ptr(), ws.data_ptr(),
         counters.data_ptr(), b, h, hk, d, L, layer, total_pages, page_size,
-        pps, chunk_tiles, n_chunks, sm_scale * _LOG2E,
-        int(q.dtype == torch.float16),
+        pps, chunk_tiles, n_chunks, 0 if window is None else int(window),
+        sm_scale * _LOG2E, cap_scale, cap_log2, int(q.dtype == torch.float16),
         torch._C._cuda_getCurrentRawStream(dev.index))
     KERNEL.launches += 1
     KERNEL.check(rc)

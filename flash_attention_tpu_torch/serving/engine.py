@@ -12,6 +12,12 @@ basic path. Per ``step()``:
  4. sample (greedy by default; temperature/top-k/top-p keyed by
     (seed, position)) and retire finished sequences.
 
+With a sliding window on every layer (Mistral: ``window_pattern == 1``)
+the engine reclaims pages as the JAX engine does: admission allocates the
+pages wholly behind the window as holes, and decode frees them as the window
+moves, in blocks of 8 pages, so a sequence holds O(window) pages. With
+alternating window and global layers (Gemma-2) every page stays live.
+
 The power-of-two batch and bucket padding and the trash page are kept so the
 port emits the same tokens as the JAX engine; on the GPU they are not needed
 for compilation and may go with CUDA graphs later. A Mixtral (MoE) model
@@ -35,6 +41,9 @@ from flash_attention_tpu_torch.models import llama
 from flash_attention_tpu_torch.serving import sampling
 from flash_attention_tpu_torch.serving.native import PagedRuntime
 from flash_attention_tpu_torch.serving.scheduler import Request, Scheduler
+
+
+KERNEL_PPB = 8  # the JAX paged kernel's pages_per_block
 
 
 def _pow2(n: int) -> int:
@@ -100,8 +109,31 @@ class Engine:
         trash_slot = self.rt.seq_alloc(1)
         assert trash_slot >= 0
         self.trash_page = self.rt.seq_page_table(trash_slot, 1)[0]
+        # Sliding-window serving (cfg.sliding_window = W): a token at
+        # position n - 1 reads keys [n - W, n). Pages in whole blocks of
+        # KERNEL_PPB pages behind the window are never allocated (admission)
+        # or freed as the window moves (decode): the JAX engine's rule, so
+        # both hold the same pages. Only when EVERY layer slides
+        # (window_pattern == 1): a global layer reads the whole cache.
+        window = cfg.sliding_window if cfg.window_pattern == 1 else None
+        self.window = window
+
+        def live_from_page(tokens: int) -> int:
+            """The first page a sequence of ``tokens`` tokens still reads:
+            the pages before it lie wholly behind the window, in whole
+            blocks of KERNEL_PPB pages (0 without window reclamation). A
+            closure over the window, not a method: the scheduler keeps it,
+            and a bound method would tie the engine (and its cache) into a
+            reference cycle that outlives ``del engine``."""
+            if window is None:
+                return 0
+            blk = KERNEL_PPB * page_size
+            return max(tokens - window, 0) // blk * KERNEL_PPB
+
+        self.live_from_page = live_from_page
         self.sched = Scheduler(self.rt, max_batch=max_batch,
-                               reserve_pages=max_batch)
+                               reserve_pages=max_batch,
+                               live_from_page_fn=live_from_page)
         # page-table width: one batch row must span max_seq_len
         self.pages_per_seq = -(-max_seq_len // page_size)
         L, hk, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
@@ -127,6 +159,11 @@ class Engine:
                 f"prompt+max_new_tokens = {total} exceeds max_seq_len "
                 f"{self.max_seq_len}")
         need = -(-total // self.page_size)
+        if self.window is not None:
+            # a windowed sequence holds at most the window and one block of
+            # not yet reclaimed pages, whatever its length
+            need = min(need, -(-self.window // self.page_size)
+                       + KERNEL_PPB + 1)
         budget = self.rt.total_pages - 1 - self.sched.reserve_pages  # -trash
         if need > budget:
             raise ValueError(
@@ -184,7 +221,10 @@ class Engine:
         dest, src_row, src_page = [], [], []
         for i, req in enumerate(reqs):
             n_pages = self.rt.seq_num_pages(req.slot)
-            for j, pid in enumerate(self.rt.seq_page_table(req.slot, n_pages)):
+            for j, pid in enumerate(self.rt.seq_page_table(req.slot, n_pages,
+                                                           pad=-1)):
+                if pid < 0:
+                    continue  # a window hole: its KV is never read
                 dest.append(pid)
                 src_row.append(i)
                 src_page.append(j)
@@ -214,6 +254,8 @@ class Engine:
         woff = np.zeros((bsz,), np.int32)
         for i, (r, t) in enumerate(zip(reqs, tokens)):
             ln = self.rt.seq_length(r.slot)  # already grown for this token
+            if self.window is not None:  # pages the window moved past
+                self.rt.seq_release_prefix(r.slot, self.live_from_page(ln))
             if ln > self.pages_per_seq * self.page_size:
                 raise RuntimeError(
                     f"request {r.uid}: length {ln} exceeds the page-table "
@@ -302,12 +344,16 @@ class Engine:
                     yield req, req.output[n:], req in done
                     seen[req.uid] = len(req.output)
 
-    def run(self, max_steps: int = 10_000) -> list[Request]:
+    def run(self, max_steps: int = 10_000, on_step=None) -> list[Request]:
+        """Step until no request is left; ``on_step(self)``, when given, is
+        called after every step."""
         done = []
         for _ in range(max_steps):
             if not self.sched.has_work:
                 break
             done.extend(self.step())
+            if on_step is not None:
+                on_step(self)
         return done
 
     def throughput(self) -> dict:

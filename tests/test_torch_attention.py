@@ -141,7 +141,8 @@ def test_normalize_band_matches_jax(causal, window, want):
 def test_padded_head_dim_matches_jax(causal):
     """d 96 runs on the card zero-padded to 128: the helper around the plain
     versions, at the real d's scale, against JAX's fwd and bwd (interpret
-    mode). d 256 and above raise on the card until the Gemma-2 slice."""
+    mode). d 256 and above raise on the card (Gemma-2-9B's 256 waits for
+    its own tile design)."""
     assert [kernel_head_dim(d) for d in (32, 64, 80, 96, 128)] == [
         64, 64, 128, 128, 128]
     with pytest.raises(NotImplementedError, match="Gemma-2"):

@@ -173,8 +173,9 @@ def test_flash_fwd_counts_and_rejects(cuda):
     assert fwd_mod.KERNEL.launches == before + 1
     with pytest.raises(ValueError):
         fwd(q.float(), q.float(), q.float())
-    with pytest.raises(NotImplementedError):
-        fwd(q, q, q, softcap=30.0)
+    q256 = torch.zeros((1, 16, 2, 256), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(NotImplementedError):  # d 256: no tile design yet
+        fwd(q256, q256, q256, softcap=30.0)
 
 
 def _paged_setup(rng, b, h, hk, d, ps, pps, total, L, dtype, device):
@@ -628,12 +629,223 @@ def test_flash_bwd_counts_and_rejects(cuda):
         n + 1 for n in before]
     assert bwd(q, q, q, o, lse, q, True, parts="di").shape == (1, 2, 16)
     assert bwd(q, q, q, o, lse, q, True, parts="dq").shape == q.shape
+    q256 = torch.zeros((1, 16, 2, 256), dtype=torch.bfloat16, device=cuda)
+    o256 = torch.zeros_like(q256)
+    with pytest.raises(NotImplementedError):  # d 256: no tile design yet
+        bwd(q256, q256, q256, o256, lse, q256, True, softcap=30.0)
     with pytest.raises(NotImplementedError):
-        bwd(q, q, q, o, lse, q, True, softcap=30.0)
-    with pytest.raises(NotImplementedError):
-        bwd(q, q, q, o, lse, q, True, window_size=(8, 0))
+        bwd(q256, q256, q256, o256, lse, q256, True, window_size=(8, 0))
     with pytest.raises(ValueError):
         bwd_mod.flash_bwd_di(o.cpu(), q.cpu())
+
+
+# --------------------------------------------------- window and softcap
+# The band of relative offsets (left, right) and the softcap in the forward
+# and both backward kernels, against the plain versions under the same gates:
+# a left edge only (causal and not), a right edge only, two-sided
+# non-causal bands with sq != sk, rows the band leaves without a key (O = 0,
+# LSE = empty_lse, dq = 0), the softcap alone and with a band. The inputs
+# and dO are unit normal, so the scores scale * q.k are about N(0, 1): the
+# caps (2 to 5) are small enough to bind there (at Gemma-2's 50 a kernel
+# without the cap would pass every gate), and each softcap case checks that
+# the gates catch the no-softcap instances and a backward without the
+# factor 1 - t^2. The gradients' atol is at least one ulp of the output at
+# its largest magnitude (_ulp_tols): a key near the start of a causal band
+# sums dV over rows with weights near 1, and reaches 8 to 16, where one
+# fp16 ulp (2^-7) exceeds the fp16 atol.
+BAND_CASES = {
+    "left-causal": (True, (63, 0), None, 2, 300, 300, 4, 2),
+    "left-causal-long": (True, (255, 0), None, 1, 1000, 1000, 8, 2),
+    "left-causal-sq>sk": (True, (100, 0), None, 1, 400, 250, 4, 1),
+    "left-only": (False, (50, -1), None, 2, 260, 330, 4, 2),
+    "right-only": (False, (-1, 30), None, 1, 330, 260, 8, 8),
+    "two-sided": (False, (128, 64), None, 2, 700, 500, 8, 2),
+    "two-sided-sq<sk": (False, (70, 10), None, 1, 190, 420, 4, 4),
+    "empty-rows": (False, (20, 5), None, 1, 300, 100, 4, 2),
+    "softcap-causal": (True, None, 2.0, 2, 500, 500, 8, 2),
+    "softcap-dense": (False, None, 5.0, 2, 257, 300, 4, 4),
+    "softcap-left-causal": (True, (127, 0), 3.0, 2, 600, 600, 8, 2),
+    "softcap-two-sided": (False, (64, 200), 2.0, 1, 300, 450, 4, 1),
+}
+
+
+def _ulp_tols(tols, ref):
+    """``tols`` with atol no tighter than one ulp of ``ref``'s dtype at its
+    largest magnitude: kernel and plain version each round an fp32 sum to
+    that dtype once, so they may differ by one ulp there."""
+    top = float(ref.abs().max())
+    if top == 0:
+        return tols
+    ulp = torch.finfo(ref.dtype).eps * 2.0 ** math.floor(math.log2(top))
+    return {**tols, "atol": max(tols["atol"], ulp)}
+
+
+def _straight_through_grads(q, k, v, do, *, causal, sm_scale, window,
+                            softcap):
+    """fp32 dq, dk, dv of the capped attention without the softcap's
+    chain-rule factor 1 - t^2, as a backward that drops it would give:
+    autograd through the plain forward with the tanh passed straight
+    through."""
+    from flash_attention_tpu_torch.ops.reference import _build_mask
+    g = q.shape[2] // k.shape[2]
+    qf, kf, vf = (x.detach().float().requires_grad_() for x in (q, k, v))
+    with torch.enable_grad():
+        kt = kf.repeat_interleave(g, 2).transpose(1, 2)
+        vt = vf.repeat_interleave(g, 2).transpose(1, 2)
+        s = qf.transpose(1, 2) @ kt.transpose(-1, -2) * sm_scale
+        s = s + (softcap * torch.tanh(s / softcap) - s).detach()
+        mask = _build_mask(q.shape[1], k.shape[1], causal, window,
+                           device=q.device)
+        if mask is not None:
+            s = s.masked_fill(~mask, float("-inf"))
+        o = (torch.softmax(s, -1) @ vt).transpose(1, 2)
+        return torch.autograd.grad(o, (qf, kf, vf), do.float())
+
+
+def _band_empty_rows(sq, sk, causal, window):
+    """Rows the band gives no live key (the plain version's mask)."""
+    from flash_attention_tpu_torch.ops.reference import _build_mask
+    mask = _build_mask(sq, sk, causal, window)
+    return ~mask.any(-1) if mask is not None else torch.zeros(sq, dtype=bool)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("case", sorted(BAND_CASES))
+def test_flash_band_and_softcap_match_plain(cuda, dtype, d, case):
+    causal, window, cap, b, sq, sk, h, hk = BAND_CASES[case]
+    rng = np.random.default_rng(sq + sk + d)
+    q = _randn(rng, (b, sq, h, d), dtype, cuda)
+    k = _randn(rng, (b, sk, hk, d), dtype, cuda)
+    v = _randn(rng, (b, sk, hk, d), dtype, cuda)
+    do = _randn(rng, (b, sq, h, d), dtype, cuda)
+    kw = dict(window_size=window, softcap=cap)
+    o, lse = fwd(q, k, v, causal, empty_lse=-2.0, **kw)
+    o_ref, lse_ref = reference_attention(q, k, v, causal=causal,
+                                         window=window, softcap=cap,
+                                         empty_lse=-2.0)
+    tag = f"[{case},{dtype},{d}]"
+    assert_metrics("fwd" + tag, o, o_ref,
+                   BF16_TOLS if dtype == torch.bfloat16 else FWD_TOLS)
+    assert_metrics("fwd lse" + tag, lse, lse_ref, LSE_TOLS)
+    empty = _band_empty_rows(sq, sk, causal, window).to(cuda)
+    assert bool(empty.any()) or case != "empty-rows"
+    assert torch.all(o[:, empty] == 0) and torch.all(lse[:, :, empty] == -2.0)
+
+    scale = d**-0.5
+    bkw = dict(causal=causal, sm_scale=scale, window=window, softcap=cap)
+    di = bwd_mod.flash_bwd_di(o, do)
+    di_r = bwd_mod.di_reference(o, do)
+    dq = bwd_mod.flash_bwd_dq(q, k, v, do, lse, di, **bkw)
+    dk, dv = bwd_mod.flash_bwd_dkv(q, k, v, do, lse, di, **bkw)
+    dq_r = bwd_mod.dq_reference(q, k, v, do, lse, di_r, **bkw)
+    dk_r, dv_r = bwd_mod.dkv_reference(q, k, v, do, lse, di_r, **bkw)
+    tols = BWD_BF16_TOLS if dtype == torch.bfloat16 else BWD_TOLS
+    assert_metrics("dq" + tag, dq, dq_r, _ulp_tols(tols, dq_r))
+    assert_metrics("dk" + tag, dk, dk_r, _ulp_tols(tols, dk_r))
+    assert_metrics("dv" + tag, dv, dv_r, _ulp_tols(tols, dv_r))
+    assert torch.all(dq[:, empty] == 0)
+    again = bwd(q, k, v, o, lse, do, causal, **kw)
+    assert all(torch.equal(a, b_) for a, b_ in zip(again, (dq, dk, dv)))
+    if cap is None:
+        return
+    # the same gates catch the no-softcap instances and a backward that
+    # drops the factor 1 - t^2 (dV does not depend on it)
+    nocap = {**bkw, "softcap": None}
+    o0, lse0 = fwd(q, k, v, causal, empty_lse=-2.0, window_size=window)
+    di0 = bwd_mod.flash_bwd_di(o0, do)
+    dk0, dv0 = bwd_mod.flash_bwd_dkv(q, k, v, do, lse0, di0, **nocap)
+    st = _straight_through_grads(q, k, v, do, **bkw)
+    wrong = [("no-cap lse", lse0, lse_ref, LSE_TOLS),
+             ("no-cap dq", bwd_mod.flash_bwd_dq(q, k, v, do, lse0, di0,
+                                                **nocap), dq_r, None),
+             ("no-cap dk", dk0, dk_r, None), ("no-cap dv", dv0, dv_r, None),
+             ("no-factor dq", st[0].to(dtype), dq_r, None),
+             ("no-factor dk", st[1].to(dtype), dk_r, None)]
+    for name, x, ref, t in wrong:
+        with pytest.raises(AssertionError):
+            assert_metrics(name + tag, x, ref, t or _ulp_tols(tols, ref))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_band_covering_every_key_is_bit_identical(cuda, dtype, causal):
+    """A band wider than the sequences loads the same tiles and masks the
+    same entries as no band: the forward's and the backward's outputs are
+    the same bits as the call without a window."""
+    q, k, v, o, lse, do = _bwd_inputs(3, 2, 700, 600, 8, 2, 128, dtype,
+                                      cuda, causal)
+    wide = (2000, 0 if causal else 2000)
+    o2, lse2 = fwd(q, k, v, causal, window_size=wide)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    plain = bwd(q, k, v, o, lse, do, causal)
+    banded = bwd(q, k, v, o, lse, do, causal, window_size=wide)
+    assert all(torch.equal(a, b_) for a, b_ in zip(plain, banded))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("ps", [8, 64, 128])
+@pytest.mark.parametrize("window,cap", [(100, None), (1000, None),
+                                        (1000, 5.0), (None, 5.0)])
+def test_paged_window_softcap_and_holes(cuda, dtype, ps, window, cap):
+    """The window and the softcap against the plain version on the real
+    pages. In the kernel's table, the entries of pages wholly behind a row's
+    window are holes (-1), and every page no row reads is NaN: the kernel
+    must never read them (a hole is never turned into a TMA coordinate).
+    The cap binds at these unit-scale scores: the no-softcap instance fails
+    the gate."""
+    rng = np.random.default_rng(ps + (window or 0))
+    b, hk, group, d = 8, 4, 4, 128
+    pps = 4096 // ps
+    q, kp, vp, tab = _paged_setup(rng, b, hk * group, hk, d, ps, pps,
+                                  b * pps + 5, 2, dtype, cuda)
+    w = window or 10**9
+    lens = [1, 99, 100, 101, 1000, 2049, 3000, 4096]
+    o_ref = pa_mod.paged_attention_reference(
+        q, kp, vp, torch.tensor(lens, dtype=torch.int32, device=cuda), tab,
+        window=window, softcap=cap, layer=1)
+    holed = tab.clone()
+    read = torch.zeros(kp.shape[2], dtype=torch.bool, device=cuda)
+    for i, n in enumerate(lens):
+        first = max(n - w, 0) // ps  # the first page the window reads
+        holed[i, :first] = -1
+        read[tab[i, first:-(-n // ps)].long()] = True
+    assert bool((holed < 0).any()) == (window is not None)
+    kp[:, :, ~read] = float("nan")
+    vp[:, :, ~read] = float("nan")
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    o = pa_mod.paged_attention(q, kp, vp, lengths, holed, window=window,
+                               softcap=cap, layer=1)
+    assert_metrics(f"paged[w{window},cap{cap},ps{ps},{dtype}]", o, o_ref,
+                   BF16_TOLS if dtype == torch.bfloat16 else FWD_TOLS)
+    again = pa_mod.paged_attention(q, kp, vp, lengths, holed, window=window,
+                                   softcap=cap, layer=1)
+    assert torch.equal(o, again)
+    if cap is not None:
+        o0 = pa_mod.paged_attention(q, kp, vp, lengths, holed, window=window,
+                                    layer=1)
+        with pytest.raises(AssertionError):
+            assert_metrics("no-cap paged", o0, o_ref,
+                           BF16_TOLS if dtype == torch.bfloat16 else FWD_TOLS)
+
+
+@pytest.mark.gpu
+def test_paged_window_covering_every_key_is_bit_identical(cuda):
+    """A window as long as the table reads what no window reads, in the
+    same chunks: the same bits."""
+    rng = np.random.default_rng(3)
+    b, hk, group, d, ps, pps = 8, 4, 4, 128, 64, 64
+    q, kp, vp, tab = _paged_setup(rng, b, hk * group, hk, d, ps, pps,
+                                  b * pps, 2, torch.bfloat16, cuda)
+    lengths = torch.tensor([1, 63, 64, 65, 1000, 2048, 3000, 4096],
+                           dtype=torch.int32, device=cuda)
+    o = pa_mod.paged_attention(q, kp, vp, lengths, tab, layer=0)
+    o2 = pa_mod.paged_attention(q, kp, vp, lengths, tab, window=4096,
+                                layer=0)
+    assert torch.equal(o, o2)
 
 
 # --------------------------------------------------------------- grouped mm

@@ -169,7 +169,16 @@ def test_init_params_layout_matches_jax():
     tl.LlamaConfig.mistral_7b(),
 ])
 def test_configs_outside_the_slice_raise(cfg):
+    """Softcaps, sliding windows and the Gemma-2 extras are in the slice;
+    what is outside it still raises with each of these configs: tensor
+    parallelism, LoRA adapters and quantized MoE experts."""
+    tl.check_supported(cfg)
+    params = tl.init_params(tl.LlamaConfig.tiny(n_layers=1), device="cpu",
+                            dtype=torch.float32)
     with pytest.raises(NotImplementedError):
-        tl.check_supported(cfg)
+        tl.check_supported(cfg, tp_axis="model")
     with pytest.raises(NotImplementedError):
-        tl.check_supported(tl.LlamaConfig.tiny(), tp_axis="model")
+        tl.check_supported(cfg, {**params, "lora": {}})
+    qparams = tl.quantize_params(params)
+    with pytest.raises(NotImplementedError):
+        tl.check_supported(cfg, {**qparams, "w_router": params["wq"]})

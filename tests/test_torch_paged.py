@@ -58,6 +58,41 @@ def test_paged_attention_matches_jax(group, layer):
                    FWD_TOLS)
 
 
+@pytest.mark.parametrize("window,softcap", [(40, None), (40, 50.0),
+                                            (None, 50.0)])
+def test_paged_window_and_softcap_match_jax(window, softcap):
+    """The window and the softcap against JAX's kernel. On the port's side
+    every page that holds no token a row reads is NaN, and the entries of
+    pages wholly behind a row's window are holes (-1): masked tokens must
+    contribute exactly 0, so the output is finite and equal to JAX's on the
+    real pages."""
+    hk, group = 2, 2
+    q, kp, vp, tab = _setup(31, 4, hk * group, hk)
+    lens = np.asarray([1, PAGES_PER_SEQ * PAGE_SIZE, 41, 77], np.int32)
+    oj = jax_paged(jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
+                   jnp.asarray(lens), jnp.asarray(tab), window=window,
+                   softcap=softcap, layer=1)
+    read = np.zeros(TOTAL, bool)
+    tab_t = tab.copy()
+    for i, n in enumerate(lens):
+        start = max(n - window, 0) if window else 0
+        for j in range(PAGES_PER_SEQ):
+            if (j + 1) * PAGE_SIZE <= start:
+                tab_t[i, j] = -1
+            elif j * PAGE_SIZE < n:
+                read[tab[i, j]] = True
+    kp_t, vp_t = kp.copy(), vp.copy()
+    kp_t[:, :, ~read] = np.nan
+    vp_t[:, :, ~read] = np.nan
+    assert (tab_t < 0).any() == (window is not None)
+    o = paged_attention(torch.from_numpy(q), torch.from_numpy(kp_t),
+                        torch.from_numpy(vp_t), torch.from_numpy(lens),
+                        torch.from_numpy(tab_t), window=window,
+                        softcap=softcap, layer=1)
+    assert_metrics(f"paged[w{window},cap{softcap}]", o.numpy(),
+                   np.asarray(oj), FWD_TOLS)
+
+
 def test_paged_attention_zero_length_rows_are_zero():
     q, kp, vp, tab = _setup(7, 3, 4, 2)
     lens = np.asarray([0, 64, 128], np.int32)
@@ -139,24 +174,28 @@ def test_write_token_kv_matches_jax(quantized):
     assert not np.array_equal(out_t[0].numpy(), kp)  # something was written
 
 
-def _chunk_tokens(length, pps, ps, chunk_tiles, n_chunks):
+def _chunk_tokens(length, pps, ps, chunk_tiles, n_chunks, window=None):
     """The tokens each chunk of the kernel reads for a row of ``length``
-    (csrc/paged_attention.cu: a chunk starting past the length exits; the
+    (csrc/paged_attention.cu: the chunks start at the tile of the window's
+    first token, or at 0; a chunk starting past the length exits; the
     others take min(chunk_tiles, the tiles left) 64-token tiles, masked by
-    the length), and the number of chunks that run."""
+    the window and the length), and the number of chunks that run."""
     tile = pa_mod.TILE
     n = min(length, pps * ps)
     if n <= 0:
         return [], 0
+    start = max(n - window, 0) if window else 0
+    tile0 = start // tile
     seen, live = [], 0
     for c in range(n_chunks):
-        t0 = c * chunk_tiles * tile
+        t0 = (tile0 + c * chunk_tiles) * tile
         if t0 >= n:
             continue
         live += 1
         tiles = min(chunk_tiles, -(-(n - t0) // tile))
-        seen += [t for t in range(t0, t0 + tiles * tile) if t < n]
-    assert live == -(-n // (chunk_tiles * tile))  # the kernel's n_live
+        seen += [t for t in range(t0, t0 + tiles * tile) if start <= t < n]
+    # the kernel's n_live
+    assert live == -(-(-(-n // tile) - tile0) // chunk_tiles)
     return seen, live
 
 
@@ -182,7 +221,7 @@ def test_paged_plan_reads_shapes_only():
     row read exactly once and lengths past the table clamped."""
     import inspect
     assert list(inspect.signature(pa_mod.plan).parameters) == [
-        "pages_per_seq", "page_size", "b", "hk", "n_sms"]
+        "pages_per_seq", "page_size", "b", "hk", "n_sms", "window"]
     pps, ps = 64, 64
     plan = pa_mod.plan(pps, ps, 8, 8, 132)
     assert plan == (4, 16)  # Llama-3-8B's decode at b 8 on an H100
@@ -191,4 +230,23 @@ def test_paged_plan_reads_shapes_only():
     for n in lengths + rng.integers(1, 4200, 50).tolist():
         seen, live = _chunk_tokens(n, pps, ps, *plan)
         assert seen == list(range(min(max(n, 0), pps * ps)))
+        assert live <= plan[1]
+
+
+@pytest.mark.parametrize("window", [1, 63, 64, 65, 100, 4096])
+@pytest.mark.parametrize("pps,ps", [(128, 64), (64, 16), (3, 8)])
+def test_paged_plan_covers_the_window(window, pps, ps):
+    """With a sliding window the chunks start at the tile of the window's
+    first token and cover ceil(W / 64) + 1 tiles (or the table): every row
+    reads exactly its window's tokens, and the plan depends on W, never on
+    the lengths."""
+    plan = pa_mod.plan(pps, ps, 8, 8, 132, window)
+    tiles = min(-(-pps * ps // pa_mod.TILE), -(-window // pa_mod.TILE) + 1)
+    assert plan[0] * plan[1] >= tiles
+    rng = np.random.default_rng(window)
+    for n in [1, window - 1, window, window + 1, pps * ps, pps * ps + 5] + \
+            rng.integers(1, pps * ps + 1, 30).tolist():
+        seen, live = _chunk_tokens(n, pps, ps, *plan, window=window)
+        m = min(max(n, 0), pps * ps)
+        assert seen == list(range(max(m - window, 0), m)), n
         assert live <= plan[1]

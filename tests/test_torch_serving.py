@@ -93,6 +93,23 @@ def test_engine_matches_jax_engine(params, jax_outputs, case, native):
     assert st["prefill_dispatches"] >= 1 and st["decode_steps"] >= n_new - 1
 
 
+def test_engine_run_calls_on_step_after_every_step(params, jax_outputs):
+    """``run(on_step=f)`` calls f(engine) once after each step, the last
+    time when no work is left, and serves the same tokens as ``run()``."""
+    _, pt = params
+    seed, sizes, n_new, kw = CASES["three_prompts"]
+    eng = Engine(tl.LlamaConfig.tiny(), pt, **kw)
+    reqs = [eng.add_request(p, max_new_tokens=n_new)
+            for p in _prompts(seed, sizes)]
+    seen = []
+    eng.run(on_step=lambda e: seen.append(
+        (e.sched.has_work, sum(len(r.output) for r in reqs))))
+    assert [w for w, _ in seen] == [True] * (len(seen) - 1) + [False]
+    assert [n for _, n in seen] == sorted(n for _, n in seen)
+    assert seen[-1][1] == n_new * len(sizes)
+    assert [r.output for r in reqs] == jax_outputs("three_prompts")
+
+
 def test_engine_stream_and_unsupported_options(params):
     _, pt = params
     eng = Engine(tl.LlamaConfig.tiny(), pt, total_pages=32, page_size=16,

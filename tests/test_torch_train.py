@@ -136,7 +136,7 @@ def test_layer_weights_are_views_with_stacked_grads():
 
 
 @pytest.mark.parametrize("cfg,kw", [
-    (tl.LlamaConfig.tiny_gemma2(), {}),
+    (tl.LlamaConfig.tiny_gemma2(), {"tp_axis": "model"}),
     (tl.LlamaConfig.tiny(), {"tp_axis": "model"}),
     (tl.LlamaConfig.tiny(), {"lora_ids": torch.zeros(2, dtype=torch.int32)}),
 ], ids=["gemma2", "tp_axis", "lora"])

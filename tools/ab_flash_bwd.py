@@ -6,12 +6,17 @@
 Each DIR holds ``flash_bwd_di.cu``, ``flash_bwd_dq.cu`` and
 ``flash_bwd_dkv.cu`` with the C interfaces of those in
 ``flash_attention_tpu_torch/csrc/`` and the headers they include; a DIR
-that lacks one of the three takes the package's. To compare with an
-earlier revision, copy its sources into a directory that git ignores:
+that lacks one of the three takes the package's. A DIR may also hold the
+``ops/flash_bwd.py`` whose wrappers call those interfaces, as
+``flash_bwd.py``: its ``flash_bwd`` then runs that set (an earlier
+revision's interfaces may differ). To compare with an earlier revision,
+copy its sources into a directory that git ignores:
 
     mkdir -p build/old && for f in flash_bwd_di.cu flash_bwd_dq.cu \\
         flash_bwd_dkv.cu flash_common.cuh hopper_common.cuh; do
       git show REV:flash_attention_tpu_torch/csrc/$f > build/old/$f; done
+    git show REV:flash_attention_tpu_torch/ops/flash_bwd.py \\
+        > build/old/flash_bwd.py
     python3 tools/ab_flash_bwd.py old=build/old \\
         new=flash_attention_tpu_torch/csrc
 
@@ -24,6 +29,7 @@ card's name and power limit with every line. Imports no JAX.
 
 from __future__ import annotations
 
+import importlib.util
 import pathlib
 import subprocess
 import sys
@@ -54,6 +60,15 @@ def time_ms(fn, iters: int = 30) -> float:
     return start.elapsed_time(end) / iters
 
 
+def load_wrapper(path: pathlib.Path, name: str):
+    """A private copy of a backward wrapper module, so each set keeps its
+    kernels and their interfaces."""
+    spec = importlib.util.spec_from_file_location(f"ab_bwd_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("ab_flash_bwd: needs an NVIDIA card", file=sys.stderr)
@@ -65,23 +80,23 @@ def main() -> int:
     sets = {}
     for name, path in (arg.split("=", 1) for arg in sys.argv[1:]):
         src = pathlib.Path(path).resolve()
-        sets[name] = {}
-        for part, attr in PARTS.items():
-            pkg = getattr(fb, attr)
+        wrapper = src / "flash_bwd.py"
+        mod = load_wrapper(wrapper if wrapper.exists()
+                           else pathlib.Path(fb.__file__), name)
+        for attr in PARTS.values():
+            pkg = getattr(mod, attr)
             own = src / pkg.source.name
-            sets[name][part] = pkg if not own.exists() else _build.Kernel(
-                f"ab_{name}_{part}", str(own), pkg.argtypes)
-    built = [k for ks in sets.values() for k in ks.values()
-             if k.name.startswith("ab_")]
+            setattr(mod, attr, _build.Kernel(
+                f"ab_{name}_{attr.lower()}",
+                str(own if own.exists() else pkg.source), pkg.argtypes))
+        sets[name] = mod
+    built = [getattr(m, a) for m in sets.values() for a in PARTS.values()]
     for name, log in _build.build(built, ptxas_verbose=True).items():
         for line in log.splitlines():
             if "Used" in line or "C75" in line or (
                     "spill" in line and " 0 bytes spill" not in line):
                 print(f"  {name}: {line.strip()}")
 
-    def use(name):
-        for part, attr in PARTS.items():
-            setattr(fb, attr, sets[name][part])
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
@@ -96,28 +111,26 @@ def main() -> int:
         kw = dict(causal=causal, sm_scale=D**-0.5)
         o, lse = fm.flash_fwd(q, k, v, **kw)
         out = {}
-        for name in sets:
-            use(name)
-            out[name] = fb.flash_bwd(q, k, v, o, lse, do, **kw)
+        for name, mod in sets.items():
+            out[name] = mod.flash_bwd(q, k, v, o, lse, do, **kw)
             same = all(torch.equal(a, b) for a, b in zip(out[name],
                                                           out[first]))
             print(f"{name} causal={causal}: dq, dk, dv bit-identical to "
                   f"{first}'s: {same}")
         times = {n: {p: [] for p in PARTS} for n in sets}
         for name in list(sets) + list(sets)[::-1]:
-            use(name)
-            di = fb.flash_bwd_di(o, do)
-            times[name]["di"].append(time_ms(lambda: fb.flash_bwd_di(o, do)))
+            mod = sets[name]
+            di = mod.flash_bwd_di(o, do)
+            times[name]["di"].append(time_ms(lambda: mod.flash_bwd_di(o, do)))
             times[name]["dq"].append(time_ms(
-                lambda: fb.flash_bwd_dq(q, k, v, do, lse, di, **kw)))
+                lambda: mod.flash_bwd_dq(q, k, v, do, lse, di, **kw)))
             times[name]["dkv"].append(time_ms(
-                lambda: fb.flash_bwd_dkv(q, k, v, do, lse, di, **kw)))
+                lambda: mod.flash_bwd_dkv(q, k, v, do, lse, di, **kw)))
         for part in PARTS:
             row = ", ".join(f"{n} {' / '.join(f'{t:.4f}' for t in r[part])} ms"
                             for n, r in times.items())
             print(f"{part} b{B} s{S} h{H}/{HK} d{D} causal={causal}: {row} "
                   f"[{card}]")
-    use(first)
     return 0
 
 

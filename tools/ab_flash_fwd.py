@@ -5,12 +5,17 @@
 
 Each PATH is a CUDA source with the C interface of
 ``flash_attention_tpu_torch/csrc/flash_fwd.cu`` (``fat_flash_fwd``); its
-own headers are found beside it. To compare with an earlier kernel, copy
-that revision's ``flash_fwd.cu`` and headers into a directory that git
-ignores, for example:
+own headers are found beside it. A ``flash_fwd.py`` beside it, the
+``ops/flash_fwd.py`` whose wrapper calls that interface, runs that source
+(an earlier revision's interface may differ). To compare with an earlier
+kernel, copy that revision's ``flash_fwd.cu``, headers and wrapper into a
+directory that git ignores, for example:
 
-    mkdir -p build/old && for f in flash_fwd.cu flash_common.cuh; do
+    mkdir -p build/old && for f in flash_fwd.cu flash_common.cuh \\
+        hopper_common.cuh; do
       git show REV:flash_attention_tpu_torch/csrc/$f > build/old/$f; done
+    git show REV:flash_attention_tpu_torch/ops/flash_fwd.py \\
+        > build/old/flash_fwd.py
     python3 tools/ab_flash_fwd.py old=build/old/flash_fwd.cu \\
         new=flash_attention_tpu_torch/csrc/flash_fwd.cu
 
@@ -23,6 +28,7 @@ Imports no JAX.
 
 from __future__ import annotations
 
+import importlib.util
 import pathlib
 import subprocess
 import sys
@@ -53,6 +59,15 @@ def time_ms(fn, iters: int = 30) -> float:
     return start.elapsed_time(end) / iters
 
 
+def load_wrapper(path: pathlib.Path, name: str):
+    """A private copy of a forward wrapper module, so each source keeps its
+    kernel and its interface."""
+    spec = importlib.util.spec_from_file_location(f"ab_fwd_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("ab_flash_fwd: needs an NVIDIA card", file=sys.stderr)
@@ -61,11 +76,15 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip().splitlines()[0]
     print(card)
-    kernels = {name: _build.Kernel(f"ab_{name}", str(pathlib.Path(path)
-                                                     .resolve()),
-                                   fm.KERNEL.argtypes)
-               for name, path in (arg.split("=", 1) for arg in sys.argv[1:])}
-    for name, log in _build.build(list(kernels.values()),
+    mods = {}
+    for name, path in (arg.split("=", 1) for arg in sys.argv[1:]):
+        src = pathlib.Path(path).resolve()
+        wrapper = src.parent / "flash_fwd.py"
+        mod = load_wrapper(wrapper if wrapper.exists()
+                           else pathlib.Path(fm.__file__), name)
+        mod.KERNEL = _build.Kernel(f"ab_{name}", str(src), mod.KERNEL.argtypes)
+        mods[name] = mod
+    for name, log in _build.build([m.KERNEL for m in mods.values()],
                                   ptxas_verbose=True).items():
         for line in log.splitlines():
             if "Used" in line or ("spill" in line and " 0 bytes spill" not in line):
@@ -80,11 +99,11 @@ def main() -> int:
               for b in {b for b, _ in SHAPES}}
     qs, ks, vs = rnd(2, 1000, 8, D), rnd(2, 700, 2, D), rnd(2, 700, 2, D)
     o_ref, _ = reference_attention(qs, ks, vs, causal=True)
-    times = {n: {sh: [] for sh in SHAPES} for n in kernels}
+    times = {n: {sh: [] for sh in SHAPES} for n in mods}
     first = None
-    for name in list(kernels) + list(kernels)[::-1]:
-        fm.KERNEL = kernels[name]
-        o, lse = fm.flash_fwd(qs, ks, vs, causal=True, sm_scale=D**-0.5)
+    for name in list(mods) + list(mods)[::-1]:
+        mod = mods[name]
+        o, lse = mod.flash_fwd(qs, ks, vs, causal=True, sm_scale=D**-0.5)
         first = first or (name, o, lse)
         err = (o.float() - o_ref.float()).abs().max().item()
         same = torch.equal(o, first[1]) and torch.equal(lse, first[2])
@@ -92,8 +111,15 @@ def main() -> int:
               f"O and LSE bit-identical to {first[0]}'s: {same}")
         for b, causal in SHAPES:
             q, k, v = inputs[b]
+            same = same and all(torch.equal(x, y) for x, y in zip(
+                mod.flash_fwd(q, k, v, causal=causal, sm_scale=D**-0.5),
+                mods[first[0]].flash_fwd(q, k, v, causal=causal,
+                                         sm_scale=D**-0.5)))
             times[name][(b, causal)].append(time_ms(
-                lambda: fm.flash_fwd(q, k, v, causal=causal, sm_scale=D**-0.5)))
+                lambda: mod.flash_fwd(q, k, v, causal=causal,
+                                      sm_scale=D**-0.5)))
+        print(f"{name}: at every timed shape too, O and LSE bit-identical to "
+              f"{first[0]}'s: {same}")
     for b, causal in SHAPES:
         q, k, v = inputs[b]
         sdpa = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
