@@ -36,14 +36,23 @@ drives the two paths on two models with random bf16 weights, full width:
   at 2 layers with the window cut to 64, and a Gemma-2 config
   (``tiny_gemma2``, 4 layers, d 128: softcaps, GeGLU, sandwich norms, the
   embed scale) with its window on every second layer and on every layer,
-  each prefill against decode and training, and the Gemma-2 config served.
+  each prefill against decode and training, and the Gemma-2 config served;
+* Gemma-2-9B (head dim 256; a 4096-token window on every second layer,
+  softcaps 50/30), full width and depth: its consistency at 2 layers
+  (card against CPU, with its logits at the served prompts' last
+  positions gated), then served with Mistral's traffic (every page held
+  under the global layers) and trained on 1 x 8192; every attention
+  kernel runs its d-256 instances.
 
-Before the models, the window and softcap modes of the forward, dq, dkv
-and paged kernels are held against their plain versions (Mistral's window
-at b1 s8192, a two-sided band with sq != sk, rows with no live key, softcap
-50 at b8 s2048, both modes together, and paged decode at W 4096 with hole
-entries in the table), and the windowed kernels are timed against the same
-kernels without the window, which they must beat by the live area's margin.
+Before the models, every attention kernel's d-256 instances are held
+against their plain versions at Gemma-2-9B's widths (``check_head_dim_256``:
+the d-128 phases again), and the window and softcap modes of the forward,
+dq, dkv and paged kernels are held against their plain versions
+(Mistral's window at b1 s8192, a two-sided band with sq != sk, rows with no
+live key, softcap 5 at b8 s2048, both modes together, and paged decode at W
+4096 with hole entries in the table), and the windowed kernels are timed
+against the same kernels without the window, which they must beat by the
+live area's margin.
 
 Each path checks that every one of its kernels was launched on it, with the
 counts set to 0 just before it. Exits non-zero if any phase fails or no card
@@ -156,6 +165,16 @@ GEMMA_LAYERS = 4
 GEMMA_CAPS = dict(attn_softcap=5.0, final_softcap=3.0)
 GEMMA_PROMPT_LENS = (700, 300, 129, 65)
 GEMMA_MAX_SEQ = 1024
+# Gemma-2-9B (head dim 256, a 4096-token window on every second layer,
+# softcaps 50 and 30), full width and depth: served with Mistral's traffic
+# (MISTRAL_PROMPT_LENS, max_seq_len 8192; the window binds in prefill on the
+# local layers, and every page stays live for the global ones) and trained
+# on 1 x 8192. Its consistency runs at its widths with 2 layers (one local,
+# one global), the window cut to WINDOW_CUT and the binding GEMMA_CAPS; the
+# card's logits at the served prompts' last positions are held to the CPU's
+# there (rel L2 <= CONSISTENCY_REL_L2), a gate a wrong kernel fails where a
+# greedy token on random weights may not.
+GEMMA2_LAYERS_CHECK = 2
 # 2-layer quantized Llama, card (bf16 activations through qmm) against CPU
 # (fp32 activations through the plain version) on the same QuantizedTensors:
 # the weights are identical, so the two differ by the bf16 rounding of the
@@ -180,12 +199,17 @@ class WindowPages:
 
     PPB = 8  # the JAX paged kernel's pages_per_block
 
-    def __init__(self, window: int, page_size: int):
+    def __init__(self, window: int | None, page_size: int):
+        """``window`` None: a model with global layers, which holds every
+        page of every running request (the JAX engine reclaims only when
+        every layer slides)."""
         self.window, self.ps = window, page_size
         self.first = self.last = None
         self.freed_in_decode = 0
 
     def want(self, n: int) -> int:
+        if self.window is None:
+            return -(-n // self.ps)
         blk = self.PPB * self.ps
         return -(-n // self.ps) - max(n - self.window, 0) // blk * self.PPB
 
@@ -328,11 +352,12 @@ def _sass_counts(build, kernel) -> dict[str, dict[str, int]]:
 # HGMMA and UTMALDG counts, by head dim, of the attention kernels before
 # their window and softcap modes (the same for fp16 and bf16): each
 # no-softcap instance (template argument CAP false, "Lb0E") must keep them,
-# and each softcap instance must hold both ops.
-SASS_NO_CAP = {"flash_fwd": {64: (24, 3), 128: (32, 6)},
-               "flash_bwd_dq": {64: (24, 4), 128: (40, 8)},
-               "flash_bwd_dkv": {64: (16, 4), 128: (24, 8)},
-               "paged_attention": {64: (8, 4), 128: (12, 8)}}
+# and each softcap instance must hold both ops. The d-256 instances' counts
+# are those of their own tile designs.
+SASS_NO_CAP = {"flash_fwd": {64: (24, 3), 128: (32, 6), 256: (40, 12)},
+               "flash_bwd_dq": {64: (24, 4), 128: (40, 8), 256: (72, 16)},
+               "flash_bwd_dkv": {64: (16, 4), 128: (24, 8), 256: (40, 16)},
+               "paged_attention": {64: (8, 4), 128: (12, 8), 256: (20, 16)}}
 
 
 def _check_cap_instances(name, per_fn):
@@ -434,13 +459,20 @@ def check_flash(torch, dev, bucket, cfg, card):
             "shapes": shapes}
 
 
+def _random_pool(torch, g, dev, shape):
+    """A bf16 page pool of unit normals, one layer's fp32 draw at a time."""
+    pool = torch.empty(shape, dtype=torch.bfloat16, device=dev)
+    for i in range(shape[0]):
+        pool[i].copy_(torch.randn(pool[i].shape, generator=g, device=dev))
+    return pool
+
+
 def check_kv_write(torch, dev, cfg, card):
     from flash_attention_tpu_torch.ops import kv_update as kv
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
     L, hk, d, b = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim, MAX_BATCH
-    shape = (L, hk, TOTAL_PAGES, PAGE_SIZE, d)
-    kp = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
-    vp = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+    kp, vp = (_random_pool(torch, g, dev, (L, hk, TOTAL_PAGES, PAGE_SIZE, d))
+              for _ in range(2))
     kval = torch.randn((b, hk, d), generator=g, device=dev).to(torch.bfloat16)
     vval = torch.randn((b, hk, d), generator=g, device=dev).to(torch.bfloat16)
     trash = TOTAL_PAGES - 1
@@ -487,20 +519,24 @@ def check_kv_write(torch, dev, cfg, card):
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib}
 
 
-def check_paged(torch, dev, cfg, card):
+def check_paged(torch, dev, cfg, card, max_seq=MAX_SEQ, served=None):
+    """The paged kernel against its plain version at lengths linspace(1,
+    max_seq, 8), then cold over the L layers of a decode step there and at
+    the served decode lengths: ``served`` (prompt lengths) plus 16, or the
+    serving prompts' when None."""
     from flash_attention_tpu_torch.ops import paged_attention as pa
     from flash_attention_tpu_torch.utils.metrics import assert_metrics
     g = torch.Generator(device=dev).manual_seed(SEED + 2)
     L, h, hk, d, b = (cfg.n_layers, cfg.n_heads, cfg.n_kv_heads,
                       cfg.head_dim, MAX_BATCH)
-    pps = MAX_SEQ // PAGE_SIZE
-    shape = (L, hk, TOTAL_PAGES, PAGE_SIZE, d)
-    kp = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
-    vp = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+    pps = max_seq // PAGE_SIZE
+    total = max(TOTAL_PAGES, b * pps)
+    kp, vp = (_random_pool(torch, g, dev, (L, hk, total, PAGE_SIZE, d))
+              for _ in range(2))
     q = torch.randn((b, h, d), generator=g, device=dev).to(torch.bfloat16)
-    tables = torch.randperm(TOTAL_PAGES, generator=g, device=dev)[:b * pps]
+    tables = torch.randperm(total, generator=g, device=dev)[:b * pps]
     tables = tables.reshape(b, pps).to(torch.int32)
-    lens = np.linspace(1, MAX_SEQ, b).astype(np.int32)
+    lens = np.linspace(1, max_seq, b).astype(np.int32)
     lengths = torch.from_numpy(lens).to(dev)
     layer = L - 1
     o = pa.paged_attention(q, kp, vp, lengths, tables, layer=layer)
@@ -525,8 +561,9 @@ def check_paged(torch, dev, cfg, card):
     # at the served decode lengths (the serving prompts plus 16 tokens).
     shapes = {"eager, one layer (L2 warm in part)": {
         "ms": ms, "bound_ms": bound_ms}}
-    served = np.asarray([len(p) for p in _prompts(cfg.vocab_size)]) + 16
-    for label, ls in (("linspace(1, 4096, 8)", lens),
+    served = np.asarray(served if served is not None else
+                        [len(p) for p in _prompts(cfg.vocab_size)]) + 16
+    for label, ls in ((f"linspace(1, {max_seq}, 8)", lens),
                       ("served decode (prompts + 16)", served)):
         lt = torch.from_numpy(ls.astype(np.int32)).to(dev)
         n_tok = int(ls.sum())
@@ -546,7 +583,7 @@ def check_paged(torch, dev, cfg, card):
         q, kp, vp, lengths, tables, layer=layer))
     print(f"paged_attention wrapper host time: {host:.2f} us a call (mean "
           f"of 1000 eager calls, the card kept busy) [{card}]")
-    main = shapes["cold, linspace(1, 4096, 8)"]
+    main = shapes[f"cold, linspace(1, {max_seq}, 8)"]
     return {"name": "paged_attention", "route": "cuda",
             "source": "flash_attention_tpu_torch/csrc/paged_attention.cu",
             "replaces": "flash_attention_tpu/ops/paged_attention.py:74",
@@ -1019,11 +1056,8 @@ def check_paged_window(torch, dev, cfg, card):
                       cfg.head_dim, MAX_BATCH)
     ps, pps = PAGE_SIZE, MISTRAL_MAX_SEQ // PAGE_SIZE
     total = b * pps + 8
-    kp = torch.empty((L, hk, total, ps, d), dtype=torch.bfloat16, device=dev)
-    vp = torch.empty_like(kp)
-    for pool in (kp, vp):
-        for i in range(L):  # one layer's fp32 draw at a time
-            pool[i].copy_(torch.randn(pool[i].shape, generator=g, device=dev))
+    kp, vp = (_random_pool(torch, g, dev, (L, hk, total, ps, d))
+              for _ in range(2))
     q = torch.randn((b, h, d), generator=g, device=dev).to(torch.bfloat16)
     tables = torch.randperm(total, generator=g, device=dev)[:b * pps]
     tables = tables.reshape(b, pps).to(torch.int32)
@@ -1116,6 +1150,43 @@ def check_paged_window(torch, dev, cfg, card):
           f"(one layer, eager) {plain:.3f} ms [{card}]")
     assert ratio <= WINDOW_PAGED_RATIO, ratio
     del kp, vp
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_head_dim_256(torch, dev, cfg, card):
+    """Every attention kernel's d-256 instance at Gemma-2-9B's widths (h
+    16/8) against its plain version, with the gates, controls and timings
+    of the d-128 phases: the forward at the prefill shape b8 s2048 (the
+    FLOPs of Llama-3-8B's b8 s2048 h32/8 d128) and the training shape b2
+    s2048, the backward at the training shape, the kv write, paged decode at
+    linspace(1, 8192, 8) and the served lengths, and the window and softcap
+    modes (WINDOW_CASES, and paged decode with every row at 8192, with and
+    without the window). Returns {kernel: {"d256 <label>": numbers}}."""
+    out = {}
+
+    def add(name, shapes):
+        out.setdefault(name, {}).update(
+            {f"d256 {label}": nums for label, nums in shapes.items()})
+
+    with torch.inference_mode():
+        add("flash_fwd", check_flash(torch, dev, 2048, cfg, card)["shapes"])
+        kv = check_kv_write(torch, dev, cfg, card)
+        add("kv_write", {"decode b8": {k: kv[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "max_abs_err")}})
+        paged = check_paged(torch, dev, cfg, card, max_seq=MISTRAL_MAX_SEQ,
+                            served=MISTRAL_PROMPT_LENS)
+        add("paged_attention", paged["shapes"])
+    torch.cuda.empty_cache()
+    for e in check_bwd(torch, dev, cfg, card):
+        add(e["name"], e["shapes"])
+    torch.cuda.empty_cache()
+    for name, shapes in check_window_softcap(torch, dev, cfg, card).items():
+        add(name, shapes)
+    torch.cuda.empty_cache()
+    with torch.inference_mode():
+        add("paged_attention", check_paged_window(torch, dev, cfg, card))
     torch.cuda.empty_cache()
     return out
 
@@ -1718,7 +1789,7 @@ def _greedy_agree(x, y) -> bool:
     return bool(((x == x.max()) & (y == y.max())).any())
 
 
-def window_consistency(torch, dev, cfg, card, model):
+def window_consistency(torch, dev, cfg, card, model, served=()):
     """Prefill against decode, on the card (bf16, kernels) and on the CPU
     (fp32, plain versions) with the same weights, at CONSISTENCY_LENS: each
     side's two logits agree (rel L2 <= CONSISTENCY_REL_L2, equal greedy
@@ -1727,7 +1798,10 @@ def window_consistency(torch, dev, cfg, card, model):
     The card's greedy token must equal the CPU's wherever the CPU's top-2
     gap exceeds GREEDY_MARGIN times the largest card-vs-CPU logit error of
     that pass: below it the card's error may swap the two, and the card's
-    logits at the CPU's top two ids are printed to show it."""
+    logits at the CPU's top two ids are printed to show it. With
+    ``served`` (prompt lengths), the card's prefill logits at each such
+    prompt's last position are held to the CPU's (rel L2 <=
+    CONSISTENCY_REL_L2)."""
     from flash_attention_tpu_torch.models import llama
     params = llama.init_params(cfg, seed=SEED + 12, device=dev)
     cpu = {n: w.to("cpu", torch.float32) for n, w in params.items()}
@@ -1767,6 +1841,21 @@ def window_consistency(torch, dev, cfg, card, model):
                 if held:
                     assert _greedy_agree(x, xc), (name, len(p))
             assert _greedy_agree(a, b), (model, len(p))
+        rels = []
+        for p in _prompts(cfg.vocab_size, served) if served else ():
+            last = [len(p) - 1]
+            x, xc = (llama.prefill(w, torch.tensor([p], device=d), cfg,
+                                   return_kv=False,
+                                   logit_rows=torch.tensor(last, device=d)
+                                   )[0][0].float().cpu()
+                     for w, d in ((params, dev), (cpu, "cpu")))
+            assert torch.isfinite(x).all() and torch.isfinite(xc).all()
+            rels.append(rel(x, xc))
+            print(f"{model} served prompt {len(p)} tokens, logits at its "
+                  f"last position: card vs CPU rel L2 {rels[-1]:.3e}, max "
+                  f"abs {float((x - xc).abs().max()):.3e}; greedy card "
+                  f"{int(x.argmax())}, CPU {int(xc.argmax())} [{card}]")
+        assert all(r <= CONSISTENCY_REL_L2 for r in rels), rels
     del params, cpu
 
 
@@ -2118,6 +2207,11 @@ def main() -> int:
         if e["name"] in modes:
             e["shapes"].update(modes[e["name"]])
     torch.cuda.empty_cache()
+    # the d-256 instances, at Gemma-2-9B's widths
+    gemma = llama.LlamaConfig.gemma2_9b()
+    for name, shapes in check_head_dim_256(torch, dev, gemma, card).items():
+        e = next(e for e in entries if e["name"] == name)
+        e.setdefault("shapes", {}).update(shapes)
     check_moe_ffn(torch, dev, mix, card)
     torch.cuda.empty_cache()
     paths = {}  # path -> {kernel: launches}
@@ -2250,6 +2344,48 @@ def main() -> int:
         if gpages is not None:
             print(gpages.report(model))
         del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 9. Gemma-2-9B (head dim 256; window 4096 on every second layer,
+    #    softcaps 50/30), full width and depth: its consistency at 2 layers
+    #    (card against CPU, with the served prompts' logits gate), then
+    #    serving with Mistral's traffic (every page held: JAX's rule for
+    #    global layers), then training on 1 x 8192
+    g2 = dataclasses.replace(gemma, n_layers=GEMMA2_LAYERS_CHECK,
+                             sliding_window=WINDOW_CUT, **GEMMA_CAPS)
+    model = (f"Gemma-2-9B L{GEMMA2_LAYERS_CHECK} W{WINDOW_CUT} softcaps "
+             f"{g2.attn_softcap:g}/{g2.final_softcap:g}")
+    window_consistency(torch, dev, g2, card, model,
+                       served=MISTRAL_PROMPT_LENS)
+    train_consistency(torch, dev, g2, card, model,
+                      n_layers=GEMMA2_LAYERS_CHECK)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = llama.init_params(gemma, seed=SEED, device=dev,
+                               dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    print(f"init_params Gemma-2-9B bf16 on device: "
+          f"{time.perf_counter() - t0:.3f} s; {_weight_bytes(params)}")
+    pages = WindowPages(None, PAGE_SIZE)
+    paths["serve_gemma2_9b"], _ = serve(
+        torch, params, gemma, _prompts(gemma.vocab_size, MISTRAL_PROMPT_LENS),
+        card, kernels, "Gemma-2-9B", max_seq=MISTRAL_MAX_SEQ,
+        after_step=pages)
+    print(pages.report("Gemma-2-9B"))
+    assert pages.freed_in_decode == 0, "a page was freed under global layers"
+    torch.cuda.empty_cache()
+    w_bytes = sum(w.numel() * w.element_size() for w in params.values())
+    logits = MISTRAL_TRAIN[0] * MISTRAL_TRAIN[1] * gemma.vocab_size * 4
+    print(f"Gemma-2-9B training, reckoned peak: weights and gradients "
+          f"{2 * w_bytes / 2**30:.2f} GiB, plus fp32 logits of "
+          f"{logits / 2**30:.2f} GiB a copy (the softcap, log-softmax and "
+          f"their gradients hold about four at once): about "
+          f"{(2 * w_bytes + 4 * logits) / 2**30:.2f} GiB")
+    paths["train_gemma2_9b"] = train(torch, params, gemma, card, kernels,
+                                     "Gemma-2-9B", shape=MISTRAL_TRAIN)
+    del params
 
     kernel_of = {"kv_write": "kv_update"}  # entry name -> counter name
     for e in entries:

@@ -5,7 +5,7 @@
 // kernel launched by flash_bwd).
 //
 // Computes D[b, h, i] = sum_d dO[b, i, h, d] * O[b, i, h, d] in fp32 for O and
-// dO (b, sq, h, d), bf16 or fp16, read by TMA through their strides (the head
+// dO (b, sq, h, d), bf16 or fp16, d 64, 128 or 256, read by TMA through their strides (the head
 // dim must be contiguous), into a contiguous (b, h, sq) fp32 tensor.
 //
 // Why a matrix product: the backward forms dS = P * (dP - D) with
@@ -24,8 +24,9 @@
 // cores' rate.
 //
 // What the design does about it: one warpgroup per (64 query rows, head,
-// batch), with about 33 KB of shared memory at d 128, so several CTAs per SM
-// keep TMA loads in flight; one thread loads both tiles on one mbarrier.
+// batch), with about 33 KB of shared memory at d 128 (65 KB at d 256), so
+// several CTAs per SM keep TMA loads in flight; one thread loads both tiles
+// on one mbarrier.
 
 #include "flash_common.cuh"
 #include "hopper_common.cuh"
@@ -126,6 +127,9 @@ int fat_flash_bwd_di(const void* o, const void* dout, void* di, int b, int sq,
                      void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* out = static_cast<float*>(di);
+  if (d == 256 && !is_fp16)
+    return launch<__nv_bfloat16, 256>(o, dout, out, b, sq, h, strides, s);
+  if (d == 256) return launch<__half, 256>(o, dout, out, b, sq, h, strides, s);
   if (d == 128 && !is_fp16)
     return launch<__nv_bfloat16, 128>(o, dout, out, b, sq, h, strides, s);
   if (d == 128) return launch<__half, 128>(o, dout, out, b, sq, h, strides, s);

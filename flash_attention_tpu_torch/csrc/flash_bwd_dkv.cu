@@ -11,9 +11,9 @@
 // is right = 0) and, in the softcap instance (CAP), with t = tanh(S / cap)
 // recomputed and dS times 1 - t^2. Masked entries, query rows at or past sq
 // and rows with no live key get P = 0. Q, dO (b, sq, h, d) and K, V
-// (b, sk, hk, d), bf16 or fp16, d 64 or
-// 128, are read by TMA through their strides; dK and dV are written
-// contiguous (b, sk, hk, d) in the input dtype.
+// (b, sk, hk, d), bf16 or fp16, d 64, 128 or 256, are read by TMA through
+// their strides; dK and dV are written contiguous (b, sk, hk, d) in the input
+// dtype.
 //
 // What bounds it on the H100: at training shapes (sq = sk = 2048, d = 128)
 // its four products (K Q^T, V dO^T, P^T dO, dS^T Q; 8 d FLOP per live score)
@@ -49,6 +49,12 @@
 //   thread). TMA zero-fills rows past sq and sk. The grid puts the key block in
 //   its slowest dimension, so the CTAs with the most query tiles (the first
 //   key blocks) start first.
+// * At d 256 (Cfg::SPLIT) a CTA owns 64 key rows and its two consumers
+//   split the accumulators: consumer 0 computes S^T and P^T and holds dV,
+//   consumer 1 computes dP^T and holds dK, and P^T (times 1 - t^2 under
+//   CAP) reaches consumer 1 through an fp32 buffer in each ring stage. The
+//   two run their products side by side, so the tensor cores see two
+//   chains at a time, as at d 128.
 // * The epilogue writes scale * dK and dV into the consumer's own rows of
 //   the K and V tiles in shared memory, in the swizzled layout, and stores
 //   them with TMA, which clips rows past sk.
@@ -58,11 +64,9 @@
 
 namespace {
 
-constexpr int CONSUMERS = 2;   // consumer warpgroups, 64 key rows each
+constexpr int CONSUMERS = 2;   // consumer warpgroups
 constexpr int CTAS_PER_SM = 1;
-constexpr int BLOCK_N = 64 * CONSUMERS;  // key rows per CTA
 constexpr int BLOCK_M = 64;    // query rows per streamed tile
-constexpr int STAGES = 3;      // depth of the Q/dO ring
 constexpr int NTHREADS = 128 * (1 + CONSUMERS);
 constexpr int BOX = 64;        // head-dim elements per TMA box (128 bytes)
 constexpr int ROW = BOX * 2;   // bytes per box row
@@ -75,8 +79,23 @@ constexpr int consumer_regs() {
 }
 constexpr int CONSUMER_REGS = consumer_regs();  // 240 at 2 consumers
 
+// The CTA by head dim. At d 64 and 128 each consumer owns 64 key rows and
+// both their dK and dV (128 fp32 a thread at d 128), over a 3-stage ring. At
+// d 256 the two would be 256 fp32 a thread, above the 255-register limit, so
+// both consumers own the same 64 key rows (SPLIT): consumer 0 forms P^T and
+// holds dV, consumer 1 forms dP^T and dS^T and holds dK, and P^T crosses
+// from the first to the second through shared memory. K and V (64 KB) and
+// two stages of Q and dO (128 KB) fill the shared memory.
+template <int D>
+struct Cfg {
+  static constexpr bool SPLIT = D == 256;
+  static constexpr int BLOCK_N = SPLIT ? 64 : 64 * CONSUMERS;  // key rows
+  static constexpr int STAGES = SPLIT ? 2 : 3;  // depth of the Q/dO ring
+};
+
 template <int D>
 struct Smem {
+  static constexpr int BLOCK_N = Cfg<D>::BLOCK_N, STAGES = Cfg<D>::STAGES;
   static constexpr int KV_BYTES = BLOCK_N * D * 2;  // K, and V
   static constexpr int T_BYTES = BLOCK_M * D * 2;   // a Q or dO tile
   static constexpr int V_OFF = KV_BYTES;            // K at 0
@@ -84,7 +103,11 @@ struct Smem {
   static constexpr int DO_OFF = Q_OFF + STAGES * T_BYTES;
   static constexpr int VEC_OFF = DO_OFF + STAGES * T_BYTES;  // LSE, D
   static constexpr int VEC_BYTES = 2 * BLOCK_M * 4;
-  static constexpr int BAR_OFF = VEC_OFF + STAGES * VEC_BYTES;
+  // SPLIT: each stage's P^T (or, with CAP, P^T (1 - t^2)) in fp32, from
+  // consumer 0 to consumer 1
+  static constexpr int X_OFF = VEC_OFF + STAGES * VEC_BYTES;
+  static constexpr int X_BYTES = Cfg<D>::SPLIT ? BLOCK_M * 64 * 4 : 0;
+  static constexpr int BAR_OFF = X_OFF + STAGES * X_BYTES;
   static constexpr int N_BARS = 1 + 2 * STAGES;  // k + v; tile full; empty
   // slack to align the tiles to 1024 bytes, the swizzle's period
   static constexpr int BYTES = BAR_OFF + N_BARS * 8 + 1024;
@@ -180,7 +203,7 @@ __device__ __forceinline__ void probs_ds_cap(float (&sc)[BLOCK_M / 2],
 
 // Write scale * acc, rounded to T, into this consumer's 64 rows of a tile
 // whose boxes hold BLOCK_N rows, in the swizzled layout TMA stores from.
-template <typename T, int D>
+template <typename T, int D, int BLOCK_N = Cfg<D>::BLOCK_N>
 __device__ __forceinline__ void to_smem(uint8_t* rows, const float (&acc)[D / 2],
                                         float scale, int warp, int g, int t) {
 #pragma unroll
@@ -210,6 +233,7 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap q_map,
                      int group, float scale, float scale_log2, int left,
                      int right, float cap_scale, float cap_log2) {
   using L = Smem<D>;
+  constexpr int BLOCK_N = Cfg<D>::BLOCK_N, STAGES = Cfg<D>::STAGES;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (hop::smem_u32(smem_raw) & 1023)) & 1023);
   uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
@@ -294,6 +318,122 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap q_map,
         }
         hop::mbar_arrive(&full[s]);
       }
+    }
+  } else if constexpr (Cfg<D>::SPLIT) {
+    // ---- consumers, d 256: 0 holds dV, 1 holds dK, of the same 64 keys ----
+    hop::setmaxnreg_inc<CONSUMER_REGS>();
+    const int wg = role - 1;
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32;
+    const int lane = tid % 32;
+    const int g = lane >> 2;  // fragment row group
+    const int t = lane & 3;   // thread in group
+    const int j0 = n0 + warp * 16;  // this warp's first key
+    const Band bd{off, left, right, scale_log2, cap_scale, cap_log2};
+    uint8_t* kv_rows = smem + (1 - wg) * L::V_OFF;  // V for 0, K for 1
+    const uint32_t k_s = hop::smem_u32(smem);
+    const uint32_t v_s = hop::smem_u32(smem + L::V_OFF);
+    const uint32_t q_s = hop::smem_u32(smem + L::Q_OFF);
+    const uint32_t do_s = hop::smem_u32(smem + L::DO_OFF);
+
+    float acc[D / 2];         // unscaled dV (consumer 0) or dK (consumer 1)
+    float sc[BLOCK_M / 2];    // S^T then P^T, or dP^T then dS^T, in fp32
+    uint32_t fa[BLOCK_M / 16][4];  // P^T or dS^T as the A operand
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < BLOCK_M / 2; ++i) sc[i] = 0.f;
+
+    // Each stage carries its P^T factor in X; consumer 0 writes it and
+    // arrives on named barrier 3 + (i & 1), which consumer 1 waits on. The
+    // two barriers alternate, so consumer 0 (which cannot run more than a
+    // stage ahead: the ring's empty barrier waits for both) never arrives
+    // twice on one before consumer 1 has waited there. Each consumer's loop
+    // is its own branch, so every wgmma chain is issued and waited for
+    // inside it.
+    hop::mbar_wait(kv_full, 0);
+    if (wg == 0) {
+      for (int i = 0; i < n_tiles; ++i) {
+        // S^T = K Q^T, then P^T; dV += P^T dO
+        const int s = i % STAGES;
+        const uint32_t qt = q_s + s * L::T_BYTES, dot = do_s + s * L::T_BYTES;
+        const float* vec = reinterpret_cast<const float*>(
+            smem + L::VEC_OFF + s * L::VEC_BYTES);
+        float* xs = reinterpret_cast<float*>(smem + L::X_OFF + s * L::X_BYTES);
+        hop::mbar_wait(&full[s], (i / STAGES) & 1);
+        hop::ss_chain<T, BLOCK_M, D>(sc, k_s, BLOCK_N, qt, BLOCK_M);
+        hop::wgmma_commit();
+        hop::wgmma_wait<0>();
+        hop::fence_regs(sc);
+        int lo[2], hi[2];
+        const bool edge = tile_edge(tl.m0(i), j0, g, t, bd, lo, hi);
+#pragma unroll
+        for (int e = 0; e < BLOCK_M / 2; ++e) {
+          const int c = (e / 4) * 8 + 2 * t + (e & 1);
+          float p, th = 0.f;
+          if constexpr (CAP) {
+            th = hop::tanh_exp2(sc[e] * bd.cap_scale);
+            p = hop::exp2_approx(bd.cap_log2 * th - vec[c]);
+          } else {
+            p = hop::exp2_approx(sc[e] * bd.scale_log2 - vec[c]);
+          }
+          p = !edge || live(e, lo, hi) ? p : 0.f;
+          sc[e] = p;
+          xs[e * 128 + tid] = CAP ? p * (1.f - th * th) : p;
+        }
+        hop::named_arrive(3 + (i & 1), 256);
+        fat::pack_a<T, BLOCK_M>(fa, sc);
+        hop::rs_chain<T, D, BLOCK_M / 16>(acc, fa, dot, BLOCK_M);
+        hop::wgmma_commit();
+        hop::wgmma_wait<0>();
+        hop::fence_regs(acc);
+        hop::fence_regs(fa);
+        __syncwarp();  // every lane has read the stage
+        if (lane == 0) hop::mbar_arrive(&empty[s]);
+      }
+    } else {
+      for (int i = 0; i < n_tiles; ++i) {
+        // dP^T = V dO^T, then dS^T = X (dP^T - D); dK += dS^T Q
+        const int s = i % STAGES;
+        const uint32_t qt = q_s + s * L::T_BYTES, dot = do_s + s * L::T_BYTES;
+        const float* vec = reinterpret_cast<const float*>(
+            smem + L::VEC_OFF + s * L::VEC_BYTES);
+        const float* xs =
+            reinterpret_cast<const float*>(smem + L::X_OFF + s * L::X_BYTES);
+        hop::mbar_wait(&full[s], (i / STAGES) & 1);
+        hop::ss_chain<T, BLOCK_M, D>(sc, v_s, BLOCK_N, dot, BLOCK_M);
+        hop::wgmma_commit();
+        hop::wgmma_wait<0>();
+        hop::fence_regs(sc);
+        hop::named_sync(3 + (i & 1), 256);
+#pragma unroll
+        for (int e = 0; e < BLOCK_M / 2; ++e)
+          sc[e] = xs[e * 128 + tid] *
+                  (sc[e] - vec[BLOCK_M + (e / 4) * 8 + 2 * t + (e & 1)]);
+        fat::pack_a<T, BLOCK_M>(fa, sc);
+        hop::rs_chain<T, D, BLOCK_M / 16>(acc, fa, qt, BLOCK_M);
+        hop::wgmma_commit();
+        hop::wgmma_wait<0>();
+        hop::fence_regs(acc);
+        hop::fence_regs(fa);
+        __syncwarp();  // every lane has read the stage
+        if (lane == 0) hop::mbar_arrive(&empty[s]);
+      }
+    }
+
+    // epilogue: dV into the V tile, scale * dK into the K tile, once both
+    // consumers' last products (consumer 1's last reads V) are done
+    hop::named_sync(5, 256);
+    to_smem<T, D>(kv_rows, acc, wg == 0 ? 1.f : scale, warp, g, t);
+    hop::fence_async_smem();
+    hop::named_sync(1 + wg, 128);
+    if (tid == 0) {
+#pragma unroll
+      for (int c = 0; c < D / BOX; ++c)
+        hop::tma_store_4d(wg == 0 ? &dv_map : &dk_map,
+                          kv_rows + c * BLOCK_N * ROW, c * BOX, kvh, n0,
+                          batch);
+      hop::tma_store_wait();
     }
   } else {
     // ---- consumers ----
@@ -390,6 +530,7 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
            int left, int right, float cap_scale, float cap_log2,
            cudaStream_t stream) {
   constexpr bool fp16 = std::is_same_v<T, __half>;
+  constexpr int BLOCK_N = Cfg<D>::BLOCK_N;
   const long long o_st[3] = {(long long)sk * hk * D, (long long)hk * D, D};
   CUtensorMap qm, km, vm, dm, dkm, dvm;
   int rc;
@@ -432,6 +573,8 @@ int fat_flash_bwd_dkv(const void* q, const void* k, const void* v,
 #define FAT_DKV_LAUNCH(T, D)                                                 \
   return launch<T, D>(q, k, v, dout, l, dd, dk, dv, b, sq, sk, h, hk,       \
                       strides, scale, left, right, cap_scale, cap_log2, s)
+  if (d == 256 && !is_fp16) FAT_DKV_LAUNCH(__nv_bfloat16, 256);
+  if (d == 256) FAT_DKV_LAUNCH(__half, 256);
   if (d == 128 && !is_fp16) FAT_DKV_LAUNCH(__nv_bfloat16, 128);
   if (d == 128) FAT_DKV_LAUNCH(__half, 128);
   if (d == 64 && !is_fp16) FAT_DKV_LAUNCH(__nv_bfloat16, 64);

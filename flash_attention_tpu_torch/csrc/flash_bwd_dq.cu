@@ -12,8 +12,8 @@
 // key get P = 0 explicitly, so those rows get dQ = 0. With the softcap
 // instance (CAP), S is cap tanh(S / cap) with t = tanh(...) recomputed, and
 // dS takes the chain rule's 1 - t^2. Q, dO (b, sq, h, d) and K, V
-// (b, sk, hk, d), bf16 or fp16, d 64 or 128, are read by TMA through their
-// strides; dQ is written contiguous (b, sq, h, d) in the input dtype.
+// (b, sk, hk, d), bf16 or fp16, d 64, 128 or 256, are read by TMA through
+// their strides; dQ is written contiguous (b, sq, h, d) in the input dtype.
 //
 // What bounds it on the H100: at training shapes (sq = sk = 2048, d = 128)
 // its three products (Q K^T, dO V^T, dS K; 6 d FLOP per live score) make it
@@ -47,6 +47,10 @@
 //   zero-fills rows past sk and sq. The grid puts the query block in its
 //   slowest dimension, reversed, so the CTAs with the longest causal rows
 //   start first.
+// * At d 256 (Cfg) the CTA is one consumer warpgroup and the producer over
+//   64 query rows, with a 2-stage ring: the consumer overlaps its own
+//   products as above, but no second consumer fills the tensor cores while
+//   it computes dS.
 // * The epilogue writes scale * dQ into the consumer's own rows of the Q tile
 //   in shared memory, in the swizzled layout, and stores it with one TMA
 //   store per 64-column box, which clips rows past sq.
@@ -56,17 +60,30 @@
 
 namespace {
 
-constexpr int BLOCK_M = 128;   // query rows per CTA, 64 per consumer
 constexpr int BLOCK_N = 64;    // kv rows per tile
-constexpr int STAGES = 3;      // depth of the K/V ring
-constexpr int NTHREADS = 384;  // producer + 2 consumer warpgroups
 constexpr int BOX = 64;        // head-dim elements per TMA box (128 bytes)
 constexpr int ROW = BOX * 2;   // bytes per box row
 constexpr int PRODUCER_REGS = 40;
 constexpr int CONSUMER_REGS = 232;  // 128 * 40 + 256 * 232 <= 65536
 
+// The CTA by head dim: at d 64 and 128 two consumer warpgroups (64 query
+// rows each) and a 3-stage K/V ring. At d 256 one consumer and 2 stages:
+// Q and dO for 64 rows (64 KB) and two stages of K and V (128 KB) fill the
+// shared memory, and the consumer's dQ (128 fp32), S, dP (32 each) and dS
+// (16) take up to 255 registers, which 256 threads a CTA leave every thread
+// with no setmaxnreg.
+template <int D>
+struct Cfg {
+  static constexpr int CONSUMERS = D == 256 ? 1 : 2;
+  static constexpr int BLOCK_M = 64 * CONSUMERS;  // query rows per CTA
+  static constexpr int STAGES = D == 256 ? 2 : 3;  // depth of the K/V ring
+  static constexpr int NTHREADS = 128 * (1 + CONSUMERS);  // and a producer
+};
+
 template <int D>
 struct Smem {
+  static constexpr int BLOCK_M = Cfg<D>::BLOCK_M;
+  static constexpr int STAGES = Cfg<D>::STAGES;
   static constexpr int Q_BYTES = BLOCK_M * D * 2;  // Q, and dO
   static constexpr int KV_BYTES = BLOCK_N * D * 2;
   static constexpr int DO_OFF = Q_BYTES;
@@ -161,6 +178,7 @@ __device__ __forceinline__ void issue_s_dp(float (&sc)[BLOCK_N / 2],
                                            float (&dp)[BLOCK_N / 2],
                                            uint32_t q_s, uint32_t do_s,
                                            uint32_t ks, uint32_t vs) {
+  constexpr int BLOCK_M = Cfg<D>::BLOCK_M;
   hop::ss_chain<T, BLOCK_N, D>(sc, q_s, BLOCK_M, ks, BLOCK_N);
   hop::wgmma_commit();
   hop::ss_chain<T, BLOCK_N, D>(dp, do_s, BLOCK_M, vs, BLOCK_N);
@@ -168,7 +186,7 @@ __device__ __forceinline__ void issue_s_dp(float (&sc)[BLOCK_N / 2],
 }
 
 template <typename T, int D, bool CAP>
-__global__ void __launch_bounds__(NTHREADS, 1)
+__global__ void __launch_bounds__(Cfg<D>::NTHREADS, 1)
 flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map,
                     const __grid_constant__ CUtensorMap k_map,
                     const __grid_constant__ CUtensorMap v_map,
@@ -179,6 +197,8 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map,
                     float scale_log2, int left, int right, float cap_scale,
                     float cap_log2) {
   using L = Smem<D>;
+  constexpr int BLOCK_M = Cfg<D>::BLOCK_M, STAGES = Cfg<D>::STAGES;
+  constexpr int CONSUMERS = Cfg<D>::CONSUMERS;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (hop::smem_u32(smem_raw) & 1023)) & 1023);
   uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
@@ -209,7 +229,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map,
     hop::mbar_init(q_full, 1);
     for (int s = 0; s < STAGES; ++s) {
       hop::mbar_init(&full[s], 1);
-      hop::mbar_init(&empty[s], 8);  // one arrival per consumer warp
+      hop::mbar_init(&empty[s], 4 * CONSUMERS);  // one per consumer warp
     }
     hop::mbar_fence_init();
   }
@@ -217,7 +237,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map,
 
   if (role == 0) {
     // ---- producer ----
-    hop::setmaxnreg_dec<PRODUCER_REGS>();
+    if constexpr (CONSUMERS == 2) hop::setmaxnreg_dec<PRODUCER_REGS>();
     if (threadIdx.x == 0) {
       hop::prefetch_map(&q_map);
       hop::prefetch_map(&do_map);
@@ -250,7 +270,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map,
     }
   } else {
     // ---- consumers ----
-    hop::setmaxnreg_inc<CONSUMER_REGS>();
+    if constexpr (CONSUMERS == 2) hop::setmaxnreg_inc<CONSUMER_REGS>();
     const int wg = role - 1;
     const int tid = threadIdx.x % 128;
     const int warp = tid / 32;
@@ -376,6 +396,7 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
   const long long dq_st[3] = {(long long)sq * h * D, (long long)h * D, D};
   CUtensorMap qm, km, vm, dm, dqm;
   int rc;
+  constexpr int BLOCK_M = Cfg<D>::BLOCK_M;
   if ((rc = hop::make_map_bshd(&qm, q, fp16, b, sq, h, D, st, BLOCK_M)) ||
       (rc = hop::make_map_bshd(&km, k, fp16, b, sk, hk, D, st + 3, BLOCK_N)) ||
       (rc = hop::make_map_bshd(&vm, v, fp16, b, sk, hk, D, st + 6, BLOCK_N)) ||
@@ -387,8 +408,8 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Smem<D>::BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid(h, b, (sq + BLOCK_M - 1) / BLOCK_M);
-  kernel<<<grid, NTHREADS, Smem<D>::BYTES, stream>>>(
+  dim3 grid(h, b, (sq + Cfg<D>::BLOCK_M - 1) / Cfg<D>::BLOCK_M);
+  kernel<<<grid, Cfg<D>::NTHREADS, Smem<D>::BYTES, stream>>>(
       qm, km, vm, dm, dqm, lse, di, sq, sk, h, h / hk, scale,
       scale * fat::LOG2E, fat::band_side(left),
       fat::band_side(right), cap_scale, cap_log2);
@@ -414,6 +435,8 @@ int fat_flash_bwd_dq(const void* q, const void* k, const void* v,
 #define FAT_DQ_LAUNCH(T, D)                                                 \
   return launch<T, D>(q, k, v, dout, l, dd, dq, b, sq, sk, h, hk, strides, \
                       scale, left, right, cap_scale, cap_log2, s)
+  if (d == 256 && !is_fp16) FAT_DQ_LAUNCH(__nv_bfloat16, 256);
+  if (d == 256) FAT_DQ_LAUNCH(__half, 256);
   if (d == 128 && !is_fp16) FAT_DQ_LAUNCH(__nv_bfloat16, 128);
   if (d == 128) FAT_DQ_LAUNCH(__half, 128);
   if (d == 64 && !is_fp16) FAT_DQ_LAUNCH(__nv_bfloat16, 64);

@@ -9,8 +9,8 @@
 // lower-right-aligned relative offsets: key c is live for row r iff
 // -left <= c - r - (sk - sq) <= right (causal is right = 0; either side may
 // be unbounded). Q is (b, sq, h, d) and K/V are (b, sk, hk, d), bf16 or
-// fp16, d 64 or 128, read by TMA through their strides (the head dim must be
-// contiguous), so no copy is made. Rows with no live key (causal with
+// fp16, d 64, 128 or 256, read by TMA through their strides (the head dim
+// must be contiguous), so no copy is made. Rows with no live key (causal with
 // sq > sk, or a band that misses every key) write O = 0 and LSE = empty_lse.
 //
 // What bounds it on the H100: at prefill shapes (sq = sk = 2048, d = 128) the
@@ -23,7 +23,7 @@
 // owns 128 query rows.
 // * Warpgroup 0, the producer, gives most of its registers away
 //   (setmaxnreg); one of its threads loads Q once and streams 128-row K and
-//   V tiles by TMA into a ring of STAGES stages. K and V each have a full
+//   V tiles (64-row at d 256, KV_ROWS) by TMA into a ring of STAGES stages. K and V each have a full
 //   mbarrier per stage (so Q K^T starts before V lands) and an empty one
 //   that the 8 consumer warps release (K as soon as Q K^T is done).
 // * Warpgroups 1 and 2, the consumers, own 64 query rows each. S = Q K^T is
@@ -48,6 +48,10 @@
 //   with tanh from exp2 (hop::tanh_exp2) and 1 / cap folded on the host, so
 //   the consumers hold no division; without it the instance is the plain
 //   one, instruction for instruction.
+// * At d 256 the same layout holds with 64-row kv tiles: Q (64 KB) and two
+//   stages of K and V (128 KB) fit the CTA's shared memory, and a consumer
+//   thread's O (128 fp32), S (32) and P (16) fit its 232 registers. The
+//   products are m64n64 for S and m64n256 for P V.
 // * The epilogue writes O into the consumer's own 64 rows of the Q tile in
 //   shared memory, in the swizzled layout, and stores it with one TMA store
 //   per 64-column box, which clips rows past sq.
@@ -67,7 +71,10 @@
 namespace {
 
 constexpr int BLOCK_M = 128;   // query rows per CTA, 64 per consumer
-constexpr int BLOCK_N = 128;   // kv rows per tile
+// kv rows per tile: 128 at d 64 and 128; 64 at d 256, where Q (64 KB) and
+// two stages of K and V (128 KB) fill the CTA's shared memory
+template <int D>
+constexpr int KV_ROWS = D == 256 ? 64 : 128;
 constexpr int STAGES = 2;      // depth of the K/V ring
 constexpr int NTHREADS = 384;  // producer + 2 consumer warpgroups
 constexpr int BOX = 64;        // head-dim elements per TMA box (128 bytes)
@@ -78,7 +85,7 @@ constexpr int CONSUMER_REGS = 232;  // 128 * 40 + 256 * 232 <= 65536
 template <int D>
 struct Smem {
   static constexpr int Q_BYTES = BLOCK_M * D * 2;
-  static constexpr int KV_BYTES = BLOCK_N * D * 2;
+  static constexpr int KV_BYTES = KV_ROWS<D> * D * 2;
   static constexpr int K_OFF = Q_BYTES;
   static constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
   static constexpr int BAR_OFF = V_OFF + STAGES * KV_BYTES;
@@ -99,17 +106,17 @@ struct Rows {
 
 // S(j) = Q K(j)^T for one consumer's 64 rows, both K-major in shared memory:
 // one wgmma chain, committed and not waited for.
-template <typename T, int D>
-__device__ __forceinline__ void issue_qk(float (&sc)[BLOCK_N / 2], uint32_t q_s,
+template <typename T, int D, int BN = KV_ROWS<D>>
+__device__ __forceinline__ void issue_qk(float (&sc)[BN / 2], uint32_t q_s,
                                          uint32_t ks) {
   hop::fence_regs(sc);
   hop::wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const uint32_t kb = (kk / 4) * ROW, ko = (kk % 4) * 32;
-    hop::Wgmma<T, BLOCK_N>::ss(
+    hop::Wgmma<T, BN>::ss(
         sc, hop::desc_sw128(q_s + kb * BLOCK_M + ko, 16, 1024),
-        hop::desc_sw128(ks + kb * BLOCK_N + ko, 16, 1024), kk > 0);
+        hop::desc_sw128(ks + kb * BN + ko, 16, 1024), kk > 0);
   }
   hop::wgmma_commit();
 }
@@ -126,13 +133,13 @@ __device__ __forceinline__ float to_log2(float s, const Rows& rw) {
 // only where the tile crosses an edge of the band (or sk) for this warp, and
 // turned into P in place. m and l move on; alpha is the factor that rescales
 // O. O itself is not touched (P(j - 1) V(j - 1) may still be running on it).
-template <bool CAP>
-__device__ __forceinline__ void softmax_tile(float (&sc)[BLOCK_N / 2],
+template <bool CAP, int BN>
+__device__ __forceinline__ void softmax_tile(float (&sc)[BN / 2],
                                              float (&m_r)[2], float (&l_r)[2],
                                              float (&alpha)[2], int n0,
                                              const Rows& rw) {
-  const bool edge = (n0 + BLOCK_N > rw.sk) ||
-                    (n0 + BLOCK_N - 1 > rw.w0 + rw.off + rw.right) ||
+  const bool edge = (n0 + BN > rw.sk) ||
+                    (n0 + BN - 1 > rw.w0 + rw.off + rw.right) ||
                     (n0 < rw.w0 + 15 + rw.off - rw.left);
   if (edge) {
     // live columns [lo, hi) of each row, counted from this thread's first
@@ -144,20 +151,20 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[BLOCK_N / 2],
       lo[r] = rw.row[r] + rw.off - rw.left - n0 - rw.t * 2;
     }
 #pragma unroll
-    for (int i = 0; i < BLOCK_N / 2; ++i) {
+    for (int i = 0; i < BN / 2; ++i) {
       const float x = to_log2<CAP>(sc[i], rw);
       const int c = (i / 4) * 8 + (i & 1), r = (i >> 1) & 1;
       sc[i] = c < hi[r] && c >= lo[r] ? x : -CUDART_INF_F;
     }
   } else {
 #pragma unroll
-    for (int i = 0; i < BLOCK_N / 2; ++i) sc[i] = to_log2<CAP>(sc[i], rw);
+    for (int i = 0; i < BN / 2; ++i) sc[i] = to_log2<CAP>(sc[i], rw);
   }
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     float mx = -CUDART_INF_F;
 #pragma unroll
-    for (int nn = 0; nn < BLOCK_N / 8; ++nn)
+    for (int nn = 0; nn < BN / 8; ++nn)
       mx = fmaxf(mx, fmaxf(sc[4 * nn + 2 * r], sc[4 * nn + 2 * r + 1]));
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffff, mx, 1));
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffff, mx, 2));
@@ -167,7 +174,7 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[BLOCK_N / 2],
     alpha[r] = hop::exp2_approx(m_r[r] - m_use);
     float sum = 0.f;
 #pragma unroll
-    for (int nn = 0; nn < BLOCK_N / 8; ++nn) {
+    for (int nn = 0; nn < BN / 8; ++nn) {
       const int i = 4 * nn + 2 * r;
       sc[i] = hop::exp2_approx(sc[i] - m_use);
       sc[i + 1] = hop::exp2_approx(sc[i + 1] - m_use);
@@ -180,9 +187,9 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[BLOCK_N / 2],
 
 // O = alpha O + P V, P in registers, V MN-major in shared memory: one wgmma
 // chain, committed and not waited for.
-template <typename T, int D>
+template <typename T, int D, int BN = KV_ROWS<D>>
 __device__ __forceinline__ void issue_pv(float (&acc)[D / 2],
-                                         uint32_t (&pa)[BLOCK_N / 16][4],
+                                         uint32_t (&pa)[BN / 16][4],
                                          const float (&alpha)[2], uint32_t vs) {
   // O moves only where a row's max moved (alpha < 1): after the first
   // tiles, mostly nowhere in the warp
@@ -194,19 +201,19 @@ __device__ __forceinline__ void issue_pv(float (&acc)[D / 2],
   hop::fence_regs(pa);
   hop::wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < BLOCK_N / 16; ++kk)
+  for (int kk = 0; kk < BN / 16; ++kk)
     hop::Wgmma<T, D>::rs_tb(
-        acc, pa[kk], hop::desc_sw128(vs + kk * 16 * ROW, BLOCK_N * ROW, 1024));
+        acc, pa[kk], hop::desc_sw128(vs + kk * 16 * ROW, BN * ROW, 1024));
   hop::wgmma_commit();
 }
 
 // P, rounded to the input type, as A fragments: 8-column blocks 2 kk and
 // 2 kk + 1 form k-step kk.
-template <typename T>
-__device__ __forceinline__ void to_p(uint32_t (&pa)[BLOCK_N / 16][4],
-                                     const float (&sc)[BLOCK_N / 2]) {
+template <typename T, int BN>
+__device__ __forceinline__ void to_p(uint32_t (&pa)[BN / 16][4],
+                                     const float (&sc)[BN / 2]) {
 #pragma unroll
-  for (int kk = 0; kk < BLOCK_N / 16; ++kk)
+  for (int kk = 0; kk < BN / 16; ++kk)
 #pragma unroll
     for (int e = 0; e < 4; ++e)
       pa[kk][e] = fat::Mma<T>::pack(sc[8 * kk + 2 * e], sc[8 * kk + 2 * e + 1]);
@@ -222,6 +229,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
                  float scale_log2, int left, int right, float cap_scale,
                  float cap_log2, float empty_lse) {
   using L = Smem<D>;
+  constexpr int BLOCK_N = KV_ROWS<D>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (hop::smem_u32(smem_raw) & 1023)) & 1023);
   uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
@@ -344,8 +352,8 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
       hop::wgmma_wait<0>();
       hop::fence_regs(sc);
       if (lane == 0) hop::mbar_arrive(&k_empty[0]);
-      softmax_tile<CAP>(sc, m_r, l_r, alpha, t_begin * BLOCK_N, rw);
-      to_p<T>(pa, sc);
+      softmax_tile<CAP, BLOCK_N>(sc, m_r, l_r, alpha, t_begin * BLOCK_N, rw);
+      to_p<T, BLOCK_N>(pa, sc);
     }
     for (int j = 0; j + 1 < n_tiles; ++j) {
       const int s = j % STAGES, s1 = (j + 1) % STAGES;
@@ -358,12 +366,13 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
       hop::wgmma_wait<1>();  // S(j + 1) is done; P(j) V(j) may still run
       hop::fence_regs(sc);
       if (lane == 0) hop::mbar_arrive(&k_empty[s1]);
-      softmax_tile<CAP>(sc, m_r, l_r, alpha, (t_begin + j + 1) * BLOCK_N, rw);
+      softmax_tile<CAP, BLOCK_N>(sc, m_r, l_r, alpha,
+                                 (t_begin + j + 1) * BLOCK_N, rw);
       hop::wgmma_wait<0>();
       hop::fence_regs(acc);
       hop::fence_regs(pa);
       if (lane == 0) hop::mbar_arrive(&v_empty[s]);
-      to_p<T>(pa, sc);
+      to_p<T, BLOCK_N>(pa, sc);
     }
     if (n_tiles > 0) {
       const int j = n_tiles - 1, s = j % STAGES;
@@ -437,8 +446,10 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
   CUtensorMap qm, km, vm, om;
   int rc;
   if ((rc = hop::make_map_bshd(&qm, q, fp16, b, sq, h, D, st, BLOCK_M)) ||
-      (rc = hop::make_map_bshd(&km, k, fp16, b, sk, hk, D, st + 3, BLOCK_N)) ||
-      (rc = hop::make_map_bshd(&vm, v, fp16, b, sk, hk, D, st + 6, BLOCK_N)) ||
+      (rc = hop::make_map_bshd(&km, k, fp16, b, sk, hk, D, st + 3,
+                               KV_ROWS<D>)) ||
+      (rc = hop::make_map_bshd(&vm, v, fp16, b, sk, hk, D, st + 6,
+                               KV_ROWS<D>)) ||
       (rc = hop::make_map_bshd(&om, o, fp16, b, sq, h, D, o_st, 64)))
     return rc;
   auto kernel = cap_scale != 0.f ? flash_fwd_kernel<T, D, true>
@@ -473,6 +484,8 @@ int fat_flash_fwd(const void* q, const void* k, const void* v, void* o,
 #define FAT_FWD_LAUNCH(T, D)                                                 \
   return launch<T, D>(q, k, v, o, l, b, sq, sk, h, hk, strides, scale_log2, \
                       left, right, cap_scale, cap_log2, empty_lse, s)
+  if (d == 256 && !is_fp16) FAT_FWD_LAUNCH(__nv_bfloat16, 256);
+  if (d == 256) FAT_FWD_LAUNCH(__half, 256);
   if (d == 128 && !is_fp16) FAT_FWD_LAUNCH(__nv_bfloat16, 128);
   if (d == 128) FAT_FWD_LAUNCH(__half, 128);
   if (d == 64 && !is_fp16) FAT_FWD_LAUNCH(__nv_bfloat16, 64);

@@ -300,8 +300,8 @@ __device__ __forceinline__ void wgmma_wait() {
                : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1))
 
 // wgmma m64nNk16 with fp32 accumulators in bf16 or fp16: ss at N 64 and 128
-// (Q K^T; the backward's 64-column S and dP), rs_tb at N 64 and 128 (P V at
-// d 64 and 128; the backward's dS K, P^T dO and dS^T Q).
+// (Q K^T; the backward's 64-column S and dP), rs_tb at N 64, 128 and 256 (P V
+// at d 64, 128 and 256; the backward's dS K, P^T dO and dS^T Q).
 template <typename T, int N>
 struct Wgmma;
 
@@ -340,6 +340,18 @@ struct Wgmma<T, 128> {
       HOP_RS("f16", 128, HOP_L64, HOP_D64(d), "64", "65", "66", "67", "68", "69", "1");
     else
       HOP_RS("bf16", 128, HOP_L64, HOP_D64(d), "64", "65", "66", "67", "68", "69", "1");
+  }
+};
+
+template <typename T>
+struct Wgmma<T, 256> {
+  static __device__ __forceinline__ void rs_tb(float (&d)[128],
+                                               const uint32_t (&a)[4],
+                                               uint64_t b) {
+    if constexpr (std::is_same_v<T, __half>)
+      HOP_RS("f16", 256, HOP_L128, HOP_D128(d), "128", "129", "130", "131", "132", "133", "1");
+    else
+      HOP_RS("bf16", 256, HOP_L128, HOP_D128(d), "128", "129", "130", "131", "132", "133", "1");
   }
 };
 

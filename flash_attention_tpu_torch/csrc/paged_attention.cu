@@ -8,9 +8,9 @@
 // A row's page table maps its i-th page of tokens to a physical page. Rows
 // with length <= 0 write zeros. Lengths past the table's width are clamped to
 // it; page ids must lie in [0, P) (the engine pads tables with its trash
-// page, which several rows may share). bf16 or fp16, d 64 or 128, GQA groups
-// of up to 8 query heads per kv head. With a sliding window W the query sees
-// the tokens [max(len - W, 0), len) only; a table entry whose page holds no
+// page, which several rows may share). bf16 or fp16, d 64, 128 or 256, GQA
+// groups of up to 8 query heads per kv head. With a sliding window W the
+// query sees the tokens [max(len - W, 0), len) only; a table entry whose page holds no
 // such token may be a hole (-1 or any other id) and is never read. The
 // softcap instance (CAP) squashes scaled scores to cap tanh(s / cap) as
 // flash_fwd.cu does.
@@ -44,12 +44,15 @@
 //   Boxes past the row's length, or wholly before the window, load an
 //   out-of-range page, which TMA fills with zeros without reading memory, so
 //   every stage completes the same byte count; the page id of such a box is
-//   never used, so a hole in the table is never turned into a coordinate. A ring of STAGES stages (96 KB a CTA, 192 KB a SM) keeps
-//   the SM's loads in flight while earlier tiles are consumed.
+//   never used, so a hole in the table is never turned into a coordinate.
+//   A ring of STAGES stages (96 KB a CTA, 192 KB a SM; at d 256 2 stages,
+//   128 KB, 1 CTA a SM) keeps the SM's loads in flight while earlier tiles
+//   are consumed.
 // * The group's products on tensor cores. Warps 0-3 are one consumer
 //   warpgroup: the group's query heads are the M side of wgmma m64 (rows
 //   past the group are zeros), held in registers as the A operand of S =
-//   Q K^T against the K tile (K-major), and P stays in registers as the A
+//   Q K^T against the K tile (K-major; at d 256 a 64-row tile in shared
+//   memory, see Cfg), and P stays in registers as the A
 //   operand of O += P V, V read MN-major. The tensor work this wastes on the
 //   zero rows is hidden behind the loads. Only warp 0 holds live rows, so
 //   only it runs the online softmax (fp32, log2 domain).
@@ -82,20 +85,35 @@ constexpr int BOX = 64;          // head-dim elements per TMA box (128 bytes)
 constexpr int ROW = BOX * 2;     // bytes per box row
 constexpr int NCONSUMERS = 128;  // one consumer warpgroup
 constexpr int NTHREADS = 2 * NCONSUMERS;  // and a producer warpgroup
-constexpr int CTAS_PER_SM = 2;
-// 2 CTAs of 256 threads launch with 128 registers a thread; setmaxnreg moves
-// them from the producer to the consumers: 128 * 40 + 128 * 216 = 256 * 128
+// At d 64 and 128, 2 CTAs of 256 threads launch with 128 registers a thread;
+// setmaxnreg moves them from the producer to the consumers: 128 * 40 + 128 *
+// 216 = 256 * 128
 constexpr int PRODUCER_REGS = 40;
 constexpr int CONSUMER_REGS = 216;
 constexpr int MAX_GROUP = 8;
 constexpr int MAX_CHUNKS = 64;   // ops/paged_attention.py::plan stays within
 
+// The CTA by head dim. At d 64 and 128: 2 CTAs a SM, 96 KB of ring each,
+// and Q in registers as wgmma's A operand (D / 4 registers a thread). At
+// d 256 those registers, O (128) and S (32) would not fit 216, and two
+// stages of K and V take 128 KB: 1 CTA a SM, whose 256 threads launch with
+// every register they can use (no setmaxnreg), 2 stages, and Q as a 64-row
+// K-major tile in shared memory (Q_SMEM; rows past the group zeros).
+template <int D>
+struct Cfg {
+  static constexpr bool Q_SMEM = D == 256;
+  static constexpr int CTAS_PER_SM = Q_SMEM ? 1 : 2;
+  static constexpr int STAGES = Q_SMEM ? 2 : 3 * 128 / D;  // 96 or 128 KB
+};
+
 template <int D>
 struct Smem {
-  static constexpr int STAGES = 3 * 128 / D;  // 96 KB of ring at d 64 and 128
+  static constexpr int STAGES = Cfg<D>::STAGES;
   static constexpr int TILE_BYTES = TILE * D * 2;
   static constexpr int STAGE_BYTES = 2 * TILE_BYTES;  // K, then V
-  static constexpr int BAR_OFF = STAGES * STAGE_BYTES;
+  static constexpr int Q_OFF = STAGES * STAGE_BYTES;  // Q_SMEM: 64 rows of Q
+  static constexpr int Q_BYTES = Cfg<D>::Q_SMEM ? 64 * D * 2 : 0;
+  static constexpr int BAR_OFF = Q_OFF + Q_BYTES;
   static constexpr int W_OFF = BAR_OFF + 2 * STAGES * 8;  // merge weights
   static constexpr int INV_OFF = W_OFF + MAX_CHUNKS * MAX_GROUP * 4;
   static constexpr int FLAG_OFF = INV_OFF + MAX_GROUP * 4;
@@ -108,7 +126,7 @@ template <int D>
 constexpr int PARTIAL = MAX_GROUP * D + 2 * MAX_GROUP;
 
 template <typename T, int D, bool CAP>
-__global__ void __launch_bounds__(NTHREADS, CTAS_PER_SM)
+__global__ void __launch_bounds__(NTHREADS, Cfg<D>::CTAS_PER_SM)
 paged_attn_kernel(const __grid_constant__ CUtensorMap k_map,
                   const __grid_constant__ CUtensorMap v_map,
                   const T* __restrict__ q, const int* __restrict__ lengths,
@@ -161,7 +179,7 @@ paged_attn_kernel(const __grid_constant__ CUtensorMap k_map,
   const int role = __shfl_sync(0xffffffff, threadIdx.x / NCONSUMERS, 0);
   if (role == 1) {
     // ---- producer: the warpgroup's first warp ----
-    hop::setmaxnreg_dec<PRODUCER_REGS>();
+    if constexpr (!Cfg<D>::Q_SMEM) hop::setmaxnreg_dec<PRODUCER_REGS>();
     if (threadIdx.x >= NCONSUMERS + 32) return;
     const int lane = threadIdx.x % 32;
     if (lane == 0) {
@@ -210,7 +228,7 @@ paged_attn_kernel(const __grid_constant__ CUtensorMap k_map,
   }
 
   // ---- consumer warpgroup ----
-  hop::setmaxnreg_inc<CONSUMER_REGS>();
+  if constexpr (!Cfg<D>::Q_SMEM) hop::setmaxnreg_inc<CONSUMER_REGS>();
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
@@ -218,17 +236,33 @@ paged_attn_kernel(const __grid_constant__ CUtensorMap k_map,
   const int t = lane & 3;   // thread in its row group
   const bool live_row = warp == 0 && g < group;
 
-  // Q as wgmma's A fragments: row g of warp 0 is the group's head g; rows
-  // g + 8 and the other warps' rows are zeros
-  uint32_t qa[D / 16][4];
+  // Q as wgmma's A operand: row g of warp 0 is the group's head g; rows
+  // g + 8 and the other warps' rows are zeros. In registers, as m16n8k16 A
+  // fragments (Q_SMEM: none), or as a K-major tile of 64 rows in the 128-byte
+  // swizzle (row r's 16-byte chunk k of a box at r * 128 + (k ^ r % 8) * 16)
+  uint32_t qa[Cfg<D>::Q_SMEM ? 1 : D / 16][4];
+  const uint32_t q_s = hop::smem_u32(smem + S::Q_OFF);
+  if constexpr (Cfg<D>::Q_SMEM) {
+    for (int i = tid; i < 64 * D / 8; i += NCONSUMERS) {
+      const int c = i % 8, r = (i / 8) % 64, box = i / 512;
+      const uint4 x = r < group ? *reinterpret_cast<const uint4*>(
+                                      q + (row0 + r) * D + box * BOX + c * 8)
+                                : make_uint4(0u, 0u, 0u, 0u);
+      *reinterpret_cast<uint4*>(smem + S::Q_OFF + box * 64 * ROW + r * ROW +
+                                ((c ^ (r & 7)) * 16)) = x;
+    }
+    hop::fence_async_smem();  // the tile is read by wgmma (async proxy)
+    hop::named_sync(1, NCONSUMERS);
+  } else {
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const uint32_t* qr =
-        reinterpret_cast<const uint32_t*>(q + (row0 + g) * D + kk * 16 + 2 * t);
-    qa[kk][0] = live_row ? qr[0] : 0u;
-    qa[kk][1] = 0u;
-    qa[kk][2] = live_row ? qr[4] : 0u;
-    qa[kk][3] = 0u;
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t* qr = reinterpret_cast<const uint32_t*>(
+          q + (row0 + g) * D + kk * 16 + 2 * t);
+      qa[kk][0] = live_row ? qr[0] : 0u;
+      qa[kk][1] = 0u;
+      qa[kk][2] = live_row ? qr[4] : 0u;
+      qa[kk][3] = 0u;
+    }
   }
 
   float acc[D / 2];        // O, unnormalised
@@ -250,16 +284,21 @@ paged_attn_kernel(const __grid_constant__ CUtensorMap k_map,
     const uint32_t vs = ks + S::TILE_BYTES;
     hop::mbar_wait(&full[s], (j / STAGES) & 1);
     // S = Q K^T (the tile K-major), started from zero
+    if constexpr (Cfg<D>::Q_SMEM) {
+      hop::ss_chain<T, TILE, D>(sc, q_s, 64, ks, TILE);
+    } else {
 #pragma unroll
-    for (int i = 0; i < TILE / 2; ++i) sc[i] = 0.f;
-    hop::fence_regs(sc);
-    hop::fence_regs(qa);
-    hop::wgmma_fence();
+      for (int i = 0; i < TILE / 2; ++i) sc[i] = 0.f;
+      hop::fence_regs(sc);
+      hop::fence_regs(qa);
+      hop::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      hop::WgmmaRs<T, TILE>::rs(
-          sc, qa[kk],
-          hop::desc_sw128(ks + (kk / 4) * TILE * ROW + (kk % 4) * 32, 16, 1024));
+      for (int kk = 0; kk < D / 16; ++kk)
+        hop::WgmmaRs<T, TILE>::rs(
+            sc, qa[kk],
+            hop::desc_sw128(ks + (kk / 4) * TILE * ROW + (kk % 4) * 32, 16,
+                            1024));
+    }
     hop::wgmma_commit();
     hop::wgmma_wait<0>();
     hop::fence_regs(sc);
@@ -515,6 +554,8 @@ int fat_paged_attention(const void* q, const void* k_pages, const void* v_pages,
                       layer, total_pages, page_size, pages_per_seq,            \
                       chunk_tiles, n_chunks, window, scale_log2, cap_scale,    \
                       cap_log2, s)
+  if (d == 256 && !is_fp16) FAT_PAGED_LAUNCH(__nv_bfloat16, 256);
+  if (d == 256) FAT_PAGED_LAUNCH(__half, 256);
   if (d == 128 && !is_fp16) FAT_PAGED_LAUNCH(__nv_bfloat16, 128);
   if (d == 128) FAT_PAGED_LAUNCH(__half, 128);
   if (d == 64 && !is_fp16) FAT_PAGED_LAUNCH(__nv_bfloat16, 64);

@@ -56,6 +56,7 @@ from flash_attention_tpu_torch.ops.paged_attention import paged_attention
 from flash_attention_tpu_torch.ops.quant import (QuantizedTensor,
                                                  quantize_int4, quantize_int8,
                                                  quantized_matmul)
+from flash_attention_tpu_torch.utils.options import reject_unported
 
 
 @dataclasses.dataclass(frozen=True)
@@ -129,8 +130,9 @@ class LlamaConfig:
     def gemma2_9b(cls):
         """Gemma-2-9B geometry: alternating 4096-window/global layers, GeGLU,
         sandwich norms, attention softcap 50 and final-logit softcap 30. Its
-        head dim 256 runs on the CPU; the card's attention kernels take
-        d <= 128 so far."""
+        head dim 256 runs as it is in the card's attention kernels (the
+        forward, the backward's three and paged decode) and in the plain
+        versions on the CPU."""
         return cls(vocab_size=256000, dim=3584, n_layers=42, n_heads=16,
                    n_kv_heads=8, head_dim=256, hidden_dim=14336,
                    rope_theta=10000.0, sliding_window=4096, window_pattern=2,
@@ -454,8 +456,9 @@ def _layer_out(x, w, cfg: LlamaConfig, positions, window):
     return _dense_layer(x, w, cfg, positions, window)[0]
 
 
-def prefill(params, tokens, cfg: LlamaConfig, *, tp_axis=None,
-            return_kv: bool = True, remat: bool = False, logit_rows=None):
+def prefill(params, tokens, cfg: LlamaConfig, tp_axis=None,
+            kv_fake_quant=None, lora_ids=None, return_kv: bool = True,
+            remat: bool = False, logit_rows=None):
     """Full-prompt forward. tokens: (b, s) int.
 
     Returns (logits (b, s, vocab) fp32, k_cache (L, b, s, hk, hd), v_cache).
@@ -469,7 +472,11 @@ def prefill(params, tokens, cfg: LlamaConfig, *, tp_axis=None,
     backward keeps only each layer's input and recomputes the rest (the
     flash-attention forward included) layer by layer: activation memory
     O(1) in depth for one extra forward of work. As in the JAX package,
-    ``remat`` applies only without the cache."""
+    ``remat`` applies only without the cache. ``kv_fake_quant`` (the
+    quantized cache's rounding) and ``lora_ids`` (LoRA adapters) are not
+    ported: a value other than None raises NotImplementedError."""
+    reject_unported("prefill", kv_fake_quant=(kv_fake_quant, None),
+                    lora_ids=(lora_ids, None))
     check_supported(cfg, params, tp_axis)
     b, s = tokens.shape
     x = _embed(params, tokens, cfg)
@@ -521,18 +528,20 @@ def train_loss(params, tokens, targets, cfg: LlamaConfig, *,
 
 
 def decode_step(params, k_pages, v_pages, k_scales, v_scales, tokens, lengths,
-                page_tables, write_page, write_off, cfg: LlamaConfig, *,
-                tp_axis=None):
+                page_tables, write_page, write_off, cfg: LlamaConfig,
+                tp_axis=None, lora_ids=None):
     """One decode token for a batch of sequences against the paged cache.
 
     k_pages/v_pages (L, hk, P, ps, hd) are updated IN PLACE (each layer's
     new K/V lands in its slot before that layer's attention). tokens (b,),
     lengths (b,) int32 including this token, page_tables (b, pages_per_seq)
     int32, write_page/write_off (b,) int32. k_scales/v_scales (a quantized
-    cache) are outside this slice and must be None.
+    cache) are outside this slice and must be None, as ``lora_ids`` (LoRA
+    adapters) must.
 
     Returns (logits (b, vocab) fp32, k_pages, v_pages, k_scales, v_scales).
     """
+    reject_unported("decode_step", lora_ids=(lora_ids, None))
     check_supported(cfg, params, tp_axis)
     if k_scales is not None or v_scales is not None:
         raise NotImplementedError("a quantized KV cache is outside this "

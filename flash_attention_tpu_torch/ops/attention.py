@@ -6,8 +6,9 @@ Layout (batch, seqlen, heads, head_dim) as in the JAX package; LSE comes back
 hand-written kernels (``ops.flash_fwd``, ``ops.flash_bwd``); on a CPU tensor
 it runs their plain fp32 versions. The kernels take bf16 and fp16 as they are
 and mask their own ragged edges, so nothing is upcast or padded here, except
-a head dim other than 64 or 128 below 128: the kernels run it zero-padded to
-the next of the two (:func:`padded_head_dim`), as the JAX package pads.
+a head dim other than 64, 128 or 256 below 256: the kernels run it
+zero-padded to the next of the three (:func:`padded_head_dim`), as the JAX
+package pads.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import torch.nn.functional as F
 from flash_attention_tpu_torch.ops import flash_bwd as _bwd_mod
 from flash_attention_tpu_torch.ops import flash_fwd as _fwd_mod
 from flash_attention_tpu_torch.ops.reference import reference_attention
+from flash_attention_tpu_torch.utils.options import reject_unported
 
 
 def _check_heads(q, k):
@@ -31,15 +33,16 @@ def _check_heads(q, k):
 
 
 def kernel_head_dim(d: int) -> int:
-    """The head dim the CUDA kernels run ``d`` at: 64 and 128 as they are,
-    any other d below 128 zero-padded to the next of the two."""
-    if d in _fwd_mod.HEAD_DIMS:
-        return d
-    if d < 128:
-        return 64 if d < 64 else 128
+    """The head dim the CUDA kernels run ``d`` at: 64, 128 and 256 as they
+    are, any other d up to 256 zero-padded to the next of the three (so 192
+    runs at 256, as the JAX package pads it to a multiple of 128)."""
+    for kd in _fwd_mod.HEAD_DIMS:
+        if d <= kd:
+            return kd
     raise NotImplementedError(
-        f"head_dim {d} on the card: the kernels take d <= 128; d 256 and 512 "
-        f"(Gemma-2-9B's 256) need tile designs of their own, not ported yet")
+        f"head_dim {d} on the card: the kernels take d <= 256; d 384 and 512, "
+        f"which the JAX package runs, are not ported yet (ROADMAP.md, queue "
+        f"B part 1)")
 
 
 def padded_head_dim(fn, d_pad: int, *xs):
@@ -59,15 +62,23 @@ def padded_head_dim(fn, d_pad: int, *xs):
 
 
 def fwd(q, k, v, is_causal: bool = False, *, sm_scale: float | None = None,
+        block_sizes=None, interpret: bool | None = None, segs=None,
         window_size: tuple | None = None, softcap: float | None = None,
-        empty_lse: float = 0.0):
+        empty_lse: float = 0.0, kv_split: int | None = None):
     """Forward pass: (o, lse).
 
     q: (b, sq, h, d); k/v: (b, sk, hk, d) with h % hk == 0. ``window_size``
     is an optional (left, right) sliding window (entries < 0 = unbounded),
     ``softcap`` squashes scaled scores to ``softcap * tanh(s / softcap)``.
     Rows with no live key (causal with sq > sk, or a window that misses
-    every key) give O = 0 and LSE = ``empty_lse``."""
+    every key) give O = 0 and LSE = ``empty_lse``. ``block_sizes`` and
+    ``interpret`` (the TPU kernels' tiles, Pallas interpret mode), ``segs``
+    (segment ids and positions) and ``kv_split`` (the long-context KV
+    split) are not ported: a value other than None raises
+    NotImplementedError."""
+    reject_unported("fwd", block_sizes=(block_sizes, None),
+                    interpret=(interpret, None), segs=(segs, None),
+                    kv_split=(kv_split, None))
     _check_heads(q, k)
     if sm_scale is None:
         sm_scale = 1.0 / q.shape[-1]**0.5
@@ -82,15 +93,20 @@ def fwd(q, k, v, is_causal: bool = False, *, sm_scale: float | None = None,
 
 
 def bwd(q, k, v, o, lse, do, is_causal: bool = False, *,
-        sm_scale: float | None = None, window_size: tuple | None = None,
-        softcap: float | None = None, parts: str = "all"):
+        sm_scale: float | None = None, block_sizes=None,
+        interpret: bool | None = None, segs=None,
+        window_size: tuple | None = None, softcap: float | None = None,
+        parts: str = "all"):
     """Backward pass: (dq, dk, dv), dq like q and dk/dv like k (the GQA
     group summed in the kernel), each in its input's dtype.
 
     o and lse are the forward's outputs, do the gradient of o. ``parts`` is
     a profiling hook: "di" runs only D = rowsum(dO * O) and returns it
     (b, h, sq) fp32, "dq" runs D and dQ and returns dq, "all" (the default)
-    runs everything. ``window_size`` and ``softcap`` as in :func:`fwd`."""
+    runs everything. ``window_size``, ``softcap`` and the options that are
+    not ported (``block_sizes``, ``interpret``, ``segs``) as in :func:`fwd`."""
+    reject_unported("bwd", block_sizes=(block_sizes, None),
+                    interpret=(interpret, None), segs=(segs, None))
     _check_heads(q, k)
     if sm_scale is None:
         sm_scale = 1.0 / q.shape[-1]**0.5
@@ -145,12 +161,9 @@ def flash_attention(q, k, v, causal: bool = False,
     ``segment_ids`` (packed batches), ``block_sizes`` (the TPU kernels'
     tiles) and ``interpret`` (Pallas interpret mode) are not ported: a value
     other than None raises NotImplementedError."""
-    for name, value in (("segment_ids", segment_ids),
-                        ("block_sizes", block_sizes),
-                        ("interpret", interpret)):
-        if value is not None:
-            raise NotImplementedError(
-                f"flash_attention: {name} is not ported to the PyTorch port")
+    reject_unported("flash_attention", segment_ids=(segment_ids, None),
+                    block_sizes=(block_sizes, None),
+                    interpret=(interpret, None))
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         o, lse = _FlashAttention.apply(q, k, v, causal, sm_scale,
                                        window_size, softcap)

@@ -24,7 +24,11 @@ run on any device and are what ``ops.attention.bwd`` runs for CPU tensors.
 The kernels and the plain versions take the same band (causal, a sliding
 window, or both; ``ops.flash_fwd.normalize_band``) and softcap.
 
-The plain versions compute in float64 and keep their own D in float64. Where
+The plain versions compute in float64 and keep their own D in float64; the
+operands the TPU kernel rounds to the input dtype before a product (P before
+dV = P^T dO, dS before dK and dQ) they round the same way, as the CUDA
+kernels do, so on bf16 inputs a kernel is held to its own arithmetic and an
+output whose terms cancel to near zero is not off by the rounding alone. Where
 a row attends to one key, dP - D is exactly 0 in the kernels (D is summed as
 dP is); an fp32 plain version would leave about 1e-7 there instead, which is
 above the fp16 gates' resolution on such rows. In float64 the residue is far
@@ -220,17 +224,27 @@ def _probs_and_dscores(q, k, v, do, lse, di, causal, sm_scale, window,
     return p, ds, qf, kf, dof
 
 
+def _rounded(x, dtype):
+    """x rounded to ``dtype`` and back to float64: an operand the TPU
+    kernel (and the CUDA one) rounds to the input dtype before a product."""
+    return x.to(dtype).double()
+
+
 def dq_reference(q, k, v, do, lse, di, *, causal: bool, sm_scale: float,
                  window=None, softcap: float | None = None):
-    """dQ = scale * dS K, (b, sq, h, d) in q's dtype."""
+    """dQ = scale * dS K, (b, sq, h, d) in q's dtype, dS rounded to K's
+    dtype before the product as in the TPU kernel."""
     _, ds, _, kf, _ = _probs_and_dscores(q, k, v, do, lse, di, causal,
                                          sm_scale, window, softcap)
-    return (torch.matmul(ds, kf) * sm_scale).transpose(1, 2).to(q.dtype)
+    return (torch.matmul(_rounded(ds, k.dtype), kf)
+            * sm_scale).transpose(1, 2).to(q.dtype)
 
 
 def dkv_reference(q, k, v, do, lse, di, *, causal: bool, sm_scale: float,
                   window=None, softcap: float | None = None):
-    """dK = scale * sum_g dS^T Q and dV = sum_g P^T dO, (b, sk, hk, d)."""
+    """dK = scale * sum_g dS^T Q and dV = sum_g P^T dO, (b, sk, hk, d), dS
+    and P rounded to Q's and dO's dtype before the products as in the TPU
+    kernel."""
     b, sk, hk, d = k.shape
     p, ds, qf, _, dof = _probs_and_dscores(q, k, v, do, lse, di, causal,
                                            sm_scale, window, softcap)
@@ -238,8 +252,9 @@ def dkv_reference(q, k, v, do, lse, di, *, causal: bool, sm_scale: float,
     def group_sum(x):  # (b, h, sk, d) -> (b, sk, hk, d)
         return x.view(b, hk, -1, sk, d).sum(2).transpose(1, 2)
 
-    dk = group_sum(torch.matmul(ds.transpose(-1, -2), qf)) * sm_scale
-    dv = group_sum(torch.matmul(p.transpose(-1, -2), dof))
+    dk = group_sum(torch.matmul(_rounded(ds, q.dtype).transpose(-1, -2),
+                                qf)) * sm_scale
+    dv = group_sum(torch.matmul(_rounded(p, do.dtype).transpose(-1, -2), dof))
     return dk.to(k.dtype), dv.to(v.dtype)
 
 

@@ -28,7 +28,7 @@ KERNEL = _build.Kernel("flash_fwd", "flash_fwd.cu", {
     "fat_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _F, _I,
                       _I, _F, _F, _F, _I, _P],
 })
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)
 DTYPES = (torch.bfloat16, torch.float16)
 
 

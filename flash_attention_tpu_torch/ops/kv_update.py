@@ -15,6 +15,7 @@ import ctypes
 import torch
 
 from flash_attention_tpu_torch.ops import _build
+from flash_attention_tpu_torch.utils.options import reject_unported
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -42,7 +43,8 @@ def _write_scales_reference(scales, sc, wpage, woff, layer):
 
 
 def write_token_kv(k_pages, v_pages, k_scales, v_scales, kval, vval, kscale,
-                   vscale, wpage, woff, layer=None):
+                   vscale, wpage, woff, layer=None,
+                   interpret: bool | None = None):
     """Write one token row per sequence into its page slot, in place.
 
     k_pages/v_pages: (hk, P, ps, d) or layer-stacked (L, hk, P, ps, d) with
@@ -50,7 +52,9 @@ def write_token_kv(k_pages, v_pages, k_scales, v_scales, kval, vval, kscale,
     (b,) int32. k_scales/v_scales ((L,) hk, P, 8, 128) fp32 with kscale/vscale
     (b, hk) are the quantized cache (plain version only so far). Rows that
     share a target slot race on CUDA; only the trash page may be shared.
-    Returns (k_pages, v_pages, k_scales, v_scales), the same tensors."""
+    ``interpret`` (Pallas interpret mode) raises off its default. Returns
+    (k_pages, v_pages, k_scales, v_scales), the same tensors."""
+    reject_unported("write_token_kv", interpret=(interpret, None))
     if k_pages.dim() == 5 and layer is None:
         raise ValueError("a layer-stacked (5D) cache needs the layer index")
     quantized = k_scales is not None

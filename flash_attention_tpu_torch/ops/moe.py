@@ -42,6 +42,7 @@ import ctypes
 import torch
 
 from flash_attention_tpu_torch.ops import _build
+from flash_attention_tpu_torch.utils.options import reject_unported
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -242,12 +243,17 @@ class _GroupedMatmul(torch.autograd.Function):
         return dx, dw, None, None, None
 
 
-def grouped_matmul(x, w, block_expert):
+def grouped_matmul(x, w, block_expert, *, block_n: int = 512,
+                   block_k: int = 512, interpret: bool | None = None):
     """Differentiable y[r] = x[r] @ w[expert of r's block].
 
     x (N, K) with N a whole number of row blocks; w (E, K, M); block_expert
     (N / B,) int32, -1 for dead blocks, whose rows come out 0. Gradients
-    flow to x and w through the kernels (plain versions on the CPU)."""
+    flow to x and w through the kernels (plain versions on the CPU).
+    ``block_n``, ``block_k`` and ``interpret`` (the TPU kernel's tiles,
+    Pallas interpret mode) raise NotImplementedError off their defaults."""
+    reject_unported("grouped_matmul", block_n=(block_n, 512),
+                    block_k=(block_k, 512), interpret=(interpret, None))
     return _GroupedMatmul.apply(x, w, block_expert, gmm, gmm_dw)
 
 
@@ -303,13 +309,16 @@ def dispatch(ids, n_experts: int, block_rows: int = 128):
 
 
 def moe_ffn(x, router_w, w_gate, w_up, w_down, *, n_top: int, act,
-            expert_offset=None, block_rows: int = 128):
+            expert_offset=None, block_rows: int = 128,
+            interpret: bool | None = None):
     """Sparse MoE feed-forward over a flat token batch.
 
     x (T, D); router_w (D, E); w_gate/w_up (E, D, F); w_down (E, F, D);
     ``act`` the fp32 gate activation. Returns (out (T, D) in x's dtype, the
     router logits (T, E) fp32). ``expert_offset`` (expert parallelism)
-    belongs with tensor parallelism and raises."""
+    belongs with tensor parallelism and raises, as ``interpret`` (Pallas
+    interpret mode) does off its default."""
+    reject_unported("moe_ffn", interpret=(interpret, None))
     if expert_offset is not None:
         raise NotImplementedError("expert_offset (expert parallelism) is "
                                   "outside this slice of the PyTorch port")

@@ -27,6 +27,7 @@ import torch
 
 from flash_attention_tpu_torch.ops import _build
 from flash_attention_tpu_torch.ops.flash_fwd import softcap_args
+from flash_attention_tpu_torch.utils.options import reject_unported
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -37,7 +38,7 @@ KERNEL = _build.Kernel("paged_attention", "paged_attention.cu", {
                             _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _I,
                             _P],
 })
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)
 MAX_GROUP = 8
 TILE = 64  # tokens per tile of the kernel's ring
 _LOG2E = math.log2(math.e)
@@ -130,8 +131,9 @@ def paged_attention_reference(q, k_pages, v_pages, lengths, page_indices, *,
 
 
 def paged_attention(q, k_pages, v_pages, lengths, page_indices, *,
-                    k_scales=None, v_scales=None, sm_scale=None, window=None,
-                    softcap=None, layer=None):
+                    k_scales=None, v_scales=None, sm_scale=None,
+                    pages_per_block: int = 8, window=None, softcap=None,
+                    interpret: bool | None = None, layer=None):
     """Single-token decode attention against a paged KV cache.
 
     q (b, h, d); k_pages/v_pages (hk, P, ps, d) or the layer-stacked
@@ -142,7 +144,12 @@ def paged_attention(q, k_pages, v_pages, lengths, page_indices, *,
     and table entries whose pages hold none of them may be holes (-1).
     ``softcap`` squashes scaled scores to ``softcap * tanh(s / softcap)``.
     ``k_scales``/``v_scales`` (int8/fp8 cache) run only in the plain version
-    so far."""
+    so far. ``pages_per_block`` and ``interpret`` (the TPU kernel's
+    grouping, Pallas interpret mode) raise NotImplementedError off their
+    defaults."""
+    reject_unported("paged_attention",
+                    pages_per_block=(pages_per_block, 8),
+                    interpret=(interpret, None))
     b, h, d = q.shape
     layered = k_pages.dim() == 5
     if layered and layer is None:
@@ -188,6 +195,8 @@ def paged_attention(q, k_pages, v_pages, lengths, page_indices, *,
         raise ValueError("page_indices must be (b, pages_per_seq) int32")
     if not 0 <= layer < L:
         raise ValueError(f"layer {layer} out of range [0, {L})")
+    if q.data_ptr() % 16:  # the kernel reads q in aligned vectors
+        q = q.clone()
     out = torch.empty_like(q)
     if b == 0:
         return out

@@ -17,8 +17,9 @@ path):
   per-channel scale applied once to the sum (exact: the scale commutes with
   the contraction). A CUDA tensor launches ``csrc/qmm.cu`` (replaces
   ``_qmm_kernel``); a CPU tensor runs :func:`quantized_matmul_reference`.
-  The TPU tiling knobs (``block_m/n/k``, ``interpret``) are gone: the
-  wrapper picks the kernel's variant, tile and split itself (:func:`plan`).
+  The TPU tiling knobs (``block_m/n/k``, ``interpret``) are taken at their
+  JAX defaults only: the wrapper picks the kernel's variant, tile and split
+  itself (:func:`plan`).
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from typing import NamedTuple
 import torch
 
 from flash_attention_tpu_torch.ops import _build
+from flash_attention_tpu_torch.utils.options import reject_unported
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -156,14 +158,21 @@ def _check_cuda(x, w: QuantizedTensor, out_dtype):
         raise ValueError("scales must be a contiguous (n,) fp32 tensor")
 
 
-def quantized_matmul(x, w: QuantizedTensor, *, out_dtype=None):
+def quantized_matmul(x, w: QuantizedTensor, *, block_m: int = 256,
+                     block_n: int = 512, block_k: int = 512, out_dtype=None,
+                     interpret: bool | None = None):
     """y = x @ dequant(w): weight-only quantized matmul.
 
     x (m, k) activations; w a logical (k, n) ``QuantizedTensor``. Returns
     (m, n) in ``out_dtype`` (default x's dtype), summed in fp32 and scaled
     per channel before one rounding. A CUDA tensor launches
     ``csrc/qmm.cu`` (bf16 or fp16 x, out_dtype x's dtype or fp32); a CPU
-    tensor runs :func:`quantized_matmul_reference`."""
+    tensor runs :func:`quantized_matmul_reference`. ``block_m/n/k`` and
+    ``interpret`` (the TPU kernel's tiles, Pallas interpret mode) raise
+    NotImplementedError at any other value than their defaults."""
+    reject_unported("quantized_matmul", block_m=(block_m, 256),
+                    block_n=(block_n, 512), block_k=(block_k, 512),
+                    interpret=(interpret, None))
     out_dtype = out_dtype or x.dtype
     if x.device.type == "cpu":
         return quantized_matmul_reference(x, w, out_dtype=out_dtype)

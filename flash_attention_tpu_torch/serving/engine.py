@@ -41,6 +41,7 @@ from flash_attention_tpu_torch.models import llama
 from flash_attention_tpu_torch.serving import sampling
 from flash_attention_tpu_torch.serving.native import PagedRuntime
 from flash_attention_tpu_torch.serving.scheduler import Request, Scheduler
+from flash_attention_tpu_torch.utils.options import reject_unported
 
 
 KERNEL_PPB = 8  # the JAX paged kernel's pages_per_block
@@ -152,7 +153,11 @@ class Engine:
     def add_request(self, prompt: list[int], max_new_tokens: int,
                     eos_id: int | None = None, *, temperature: float = 0.0,
                     top_k: int = 0, top_p: float = 1.0, seed: int = 0,
-                    stop_ids=(), logprobs: bool = False) -> Request:
+                    lora: str | None = None, stop_ids=(),
+                    logprobs: bool = False) -> Request:
+        """Queue a request. ``lora`` (an adapter by name) is not ported: a
+        value other than None raises NotImplementedError."""
+        reject_unported("Engine.add_request", lora=(lora, None))
         total = len(prompt) + max_new_tokens
         if total > self.max_seq_len:
             raise ValueError(
@@ -176,6 +181,12 @@ class Engine:
         self.sched.add(req)
         return req
 
+    def add_adapter(self, name: str, adapter) -> int:
+        """Register a LoRA adapter: not ported (LoRA serving is a later
+        slice), so it raises NotImplementedError."""
+        raise NotImplementedError("Engine.add_adapter: LoRA adapters are not "
+                                  "ported to the PyTorch port")
+
     # -------------------------------------------------------------- sampling
     def _sample_batch(self, reqs: list[Request], logits) -> list[int]:
         """Next token per request; row i of ``logits`` belongs to reqs[i]
@@ -185,7 +196,8 @@ class Engine:
         toks = sampling.sample_tokens(
             logits[:n], [r.temperature for r in reqs], [r.top_k for r in reqs],
             [r.top_p for r in reqs], [r.seed for r in reqs],
-            [len(r.output) for r in reqs])
+            [len(r.output) for r in reqs],
+            need_filters=any(r.top_k > 0 or r.top_p < 1.0 for r in reqs))
         self._last_lps = (sampling.token_logprobs(logits[:n], toks).tolist()
                           if any(r.logprobs for r in reqs) else None)
         return toks.tolist()

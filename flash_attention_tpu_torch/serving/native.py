@@ -259,7 +259,7 @@ class PagedRuntime:
     pure-Python mirror (``native=False``).
     """
 
-    def __init__(self, total_pages: int, page_size: int, max_seqs: int, *,
+    def __init__(self, total_pages: int, page_size: int, max_seqs: int,
                  native: bool):
         lib = _load_native() if native else None
         self._lib = lib

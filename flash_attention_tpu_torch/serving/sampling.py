@@ -50,17 +50,20 @@ def _mask_row(scaled, top_k: int, top_p: float):
     return torch.where(scaled >= thr, scaled, torch.full_like(scaled, float("-inf")))
 
 
-def sample_tokens(logits, temps, top_ks, top_ps, seeds, positions):
+def sample_tokens(logits, temps, top_ks, top_ps, seeds, positions, *,
+                  need_filters: bool):
     """One token per row. logits (b, vocab); temps, top_ks, top_ps, seeds,
     positions: per-row Python sequences (temperature <= 0 = greedy, top_k 0
-    and top_p 1.0 = off). Returns (b,) int64 on the logits' device."""
+    and top_p 1.0 = off). ``need_filters`` False skips top-k and top-p for
+    every row, as the JAX package compiles them out when no request of the
+    batch uses them. Returns (b,) int64 on the logits' device."""
     logits = logits.float()
     out = torch.argmax(logits, dim=-1)
     for i, t in enumerate(temps):
         if t <= 0.0:
             continue
         row = logits[i] / max(float(t), 1e-6)
-        if top_ks[i] > 0 or top_ps[i] < 1.0:
+        if need_filters and (top_ks[i] > 0 or top_ps[i] < 1.0):
             row = _mask_row(row, int(top_ks[i]), float(top_ps[i]))
         g = _row_generator(seeds[i], positions[i], logits.device)
         out[i] = torch.multinomial(torch.softmax(row, dim=-1), 1, generator=g)[0]

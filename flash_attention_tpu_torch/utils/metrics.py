@@ -8,9 +8,17 @@ the same parity contract against the same kind of fp32 oracle.
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
+import time
 
 import numpy as np
 import torch
+
+# Failure forensics: set FAT_FAIL_DUMP=<dir> to write the worst elements and
+# the metrics of any failed parity gate there.
+FAIL_DUMP_ENV = "FAT_FAIL_DUMP"
+FAIL_DUMP_TOPK = 1000
 
 # The reference's backward-pass tolerance gates; max_rel and l2 are
 # effectively informational (rtol=1000, 100).
@@ -66,11 +74,14 @@ def error_metrics(test, ref, eps: float = 1e-6) -> ErrorMetrics:
     )
 
 
-def assert_metrics(name: str, test, ref, tols: dict | None = None) -> ErrorMetrics:
+def assert_metrics(name: str, test, ref, tols: dict | None = None,
+                   aux: dict | None = None) -> ErrorMetrics:
     """Assert the tolerance gates on (test, ref); return the metrics.
 
     Non-finite values fail first: every threshold compare is False for NaN,
-    so without that check a tensor of NaNs would pass every gate."""
+    so without that check a tensor of NaNs would pass every gate. ``aux``:
+    optional named arrays (the LSE beside gradient gates, say) written into
+    the failure dump (``FAT_FAIL_DUMP``)."""
     tols = {**DEFAULT_TOLS, **(tols or {})}
     m = error_metrics(test, ref)
     failures = []
@@ -87,5 +98,41 @@ def assert_metrics(name: str, test, ref, tols: dict | None = None) -> ErrorMetri
         failures.append(f"mean_rel {m.mean_rel:.3e} > mean_rtol {tols['mean_rtol']:.1e}")
     if m.l2_rel > tols["rtol_l2"]:
         failures.append(f"l2_rel {m.l2_rel:.3e} > rtol_l2 {tols['rtol_l2']:.1e}")
+    if failures and os.environ.get(FAIL_DUMP_ENV):
+        _dump_failure(os.environ[FAIL_DUMP_ENV], name, test, ref, m, failures,
+                      aux=aux)
     assert not failures, f"[{name}] parity gate failed: {'; '.join(failures)} ({m})"
     return m
+
+
+def _dump_failure(dump_dir: str, name: str, test, ref, m: ErrorMetrics,
+                  failures: list[str], topk: int = FAIL_DUMP_TOPK,
+                  aux: dict | None = None) -> None:
+    """Write the worst elements by absolute and relative error and the
+    metric summary (CSV and JSON), and any ``aux`` arrays as an .npz."""
+    os.makedirs(dump_dir, exist_ok=True)
+    t, r = _f32(test), _f32(ref)
+    diff = np.abs(t - r)
+    rel = diff / (np.abs(r) + 1e-6)
+    tag = "".join(c if c.isalnum() else "_" for c in name)
+    base = os.path.join(dump_dir, f"fail_{tag}_{int(time.time() * 1000)}")
+    with open(base + ".json", "w") as f:
+        json.dump({"name": name, "failures": failures,
+                   "metrics": dataclasses.asdict(m),
+                   "shape": list(t.shape)}, f, indent=2)
+    if aux:
+        np.savez(base + "_aux.npz",
+                 **{k: _f32(v) for k, v in aux.items() if v is not None})
+    with open(base + ".csv", "w") as f:
+        f.write("rank,kind,index,test,ref,abs_err,rel_err\n")
+        for kind, score in (("abs", diff), ("rel", rel)):
+            flat = score.ravel()
+            k = min(topk, flat.size)
+            if k == 0:
+                continue
+            worst = np.argpartition(flat, -k)[-k:]
+            worst = worst[np.argsort(-flat[worst])]
+            for rank, idx in enumerate(worst):
+                mi = np.unravel_index(idx, t.shape)
+                f.write(f"{rank},{kind},\"{mi}\",{t[mi]:.6e},{r[mi]:.6e},"
+                        f"{diff[mi]:.6e},{rel[mi]:.6e}\n")

@@ -1,6 +1,6 @@
 """The port stands alone: no module of ``flash_attention_tpu_torch``, not
-``chip_smoke.py`` and not the port's tools (the A/B tools ``tools/ab_*.py``
-and the probes ``tools/probe_*.py``) import JAX or the JAX package, and CPU
+``chip_smoke.py`` and not the port's tools (the A/B tools ``tools/ab_*.py``,
+``tools/sass_diff.py`` and the probes ``tools/probe_*.py``) import JAX or the JAX package, and CPU
 calls never launch (or count) a CUDA kernel."""
 
 import ast
@@ -22,7 +22,8 @@ torch.set_num_threads(2)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 SOURCES = sorted((ROOT / "flash_attention_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("ab_*.py")) + \
+    ROOT / "chip_smoke.py", ROOT / "tools" / "sass_diff.py"] + \
+    sorted((ROOT / "tools").glob("ab_*.py")) + \
     sorted((ROOT / "tools").glob("probe_*.py"))
 FORBIDDEN = ("jax", "jaxlib", "flash_attention_tpu")
 
@@ -47,7 +48,8 @@ def test_sources_found():
     names = {p.name for p in SOURCES}
     assert {"engine.py", "llama.py", "attention.py", "chip_smoke.py",
             "quant.py", "checkpoint.py", "ab_flash_fwd.py", "ab_flash_bwd.py",
-            "ab_qmm.py", "ab_gmm.py", "ab_paged.py", "probe_gmm_dw.py"} <= names
+            "ab_qmm.py", "ab_gmm.py", "ab_paged.py", "probe_gmm_dw.py",
+            "sass_diff.py", "options.py"} <= names
 
 
 def test_cpu_calls_launch_no_kernel(tmp_path):

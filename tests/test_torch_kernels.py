@@ -8,7 +8,10 @@ so it also runs on a machine without it:
 Tolerances: O is held to the repo's forward gates (atol 5e-3, mean_atol
 2e-4, mean_rtol 1e-2) and LSE to ``tests/test_flash_fwd.py``'s LSE gates,
 comparing the kernel with the fp32 plain version on the same bf16/fp16
-inputs, both cast to the input dtype. bf16 O takes the repo's bf16 gates
+inputs, both cast to the input dtype. The attention kernels run at head dims
+64, 128 and 256 (Gemma-2-9B's), whose instances tile differently: at d 256
+the forward takes 64-row kv tiles, dq 64-row query blocks, dkv 64-key blocks
+split between its consumers, and paged decode Q from shared memory. bf16 O takes the repo's bf16 gates
 (``tests/test_flash_fwd.py:117``: 3 fewer mantissa bits than fp16); the
 kernel rounds P to bf16 before P.V, as the TPU kernel did. The kv write must
 match exactly. The backward kernels take the repo's backward gates: fp16
@@ -82,7 +85,7 @@ def _randn(rng, shape, dtype, device):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("b,sq,sk,h,hk", FWD_SHAPES)
 def test_flash_fwd_matches_plain(cuda, dtype, d, causal, b, sq, sk, h, hk):
@@ -130,7 +133,7 @@ def test_flash_fwd_head_major_views(cuda):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 def test_flash_fwd_repeats_bit_identical(cuda, dtype, d):
     """Two runs give the same bits: each row's sums run in a fixed order."""
     rng = np.random.default_rng(d)
@@ -146,7 +149,7 @@ def test_flash_fwd_repeats_bit_identical(cuda, dtype, d):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("sq,sk", [(300, 300), (300, 170), (1, 1), (200, 1)])
 def test_flash_fwd_one_key_rows_equal_v(cuda, dtype, d, sq, sk):
     """A row that sees one key gets exactly that V row (p = exp2(0) = 1,
@@ -174,8 +177,11 @@ def test_flash_fwd_counts_and_rejects(cuda):
     with pytest.raises(ValueError):
         fwd(q.float(), q.float(), q.float())
     q256 = torch.zeros((1, 16, 2, 256), dtype=torch.bfloat16, device=cuda)
-    with pytest.raises(NotImplementedError):  # d 256: no tile design yet
-        fwd(q256, q256, q256, softcap=30.0)
+    fwd(q256, q256, q256, softcap=30.0)  # d 256 launches as it is
+    assert fwd_mod.KERNEL.launches == before + 2
+    q512 = torch.zeros((1, 16, 2, 512), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(NotImplementedError, match="512"):
+        fwd(q512, q512, q512, softcap=30.0)
 
 
 def _paged_setup(rng, b, h, hk, d, ps, pps, total, L, dtype, device):
@@ -189,7 +195,7 @@ def _paged_setup(rng, b, h, hk, d, ps, pps, total, L, dtype, device):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("group", [1, 2, 4, 7, 8])
 @pytest.mark.parametrize("ps", [16, 64])
 def test_paged_attention_matches_plain(cuda, dtype, d, group, ps):
@@ -232,7 +238,7 @@ def _paged_check(label, q, kp, vp, lens, tab, layer):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("ps", [8, 32, 128])
 def test_paged_attention_page_sizes(cuda, dtype, d, ps):
     """Pages of 8, 32 and 128 tokens: a tile of several pages, and a page
@@ -252,7 +258,7 @@ def test_paged_attention_page_sizes(cuda, dtype, d, ps):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 def test_paged_attention_full_rows(cuda, dtype, d):
     """Every row 4096 tokens long: every chunk of every pair is live and
     merged."""
@@ -266,7 +272,7 @@ def test_paged_attention_full_rows(cuda, dtype, d):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("ps", [8, 64])
 def test_paged_attention_length_one_rows_equal_v(cuda, dtype, d, ps):
     """Every row of length 1: O is the first token's V, bit for bit."""
@@ -349,7 +355,7 @@ def test_paged_attention_page_sizes_not_powers_of_two(cuda, ps):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 def test_paged_attention_repeats_bit_identical(cuda, dtype, d):
     rng = np.random.default_rng(27)
     b, hk, group, ps, pps = 8, 8, 4, 64, 64
@@ -386,6 +392,23 @@ def test_paged_attention_in_cuda_graph_with_new_lengths(cuda):
                                                      layer=1))
         assert_metrics("paged[graph]", o, pa_mod.paged_attention_reference(
             q, kp, vp, lens, tab, layer=1), BF16_TOLS)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [128, 256])
+def test_paged_attention_misaligned_q_is_copied(cuda, d):
+    """A contiguous q whose data is not 16-byte aligned (a view at an odd
+    element offset) gives the same output as an aligned copy."""
+    rng = np.random.default_rng(d)
+    q, kp, vp, tab = _paged_setup(rng, 2, 8, 2, d, 16, 4, 8, 1,
+                                  torch.bfloat16, cuda)
+    lens = torch.tensor([40, 64], dtype=torch.int32, device=cuda)
+    base = torch.empty(q.numel() + 1, dtype=q.dtype, device=cuda)
+    shifted = base[1:].view(q.shape).copy_(q)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    want = pa_mod.paged_attention(q, kp, vp, lens, tab, layer=0)
+    got = pa_mod.paged_attention(shifted, kp, vp, lens, tab, layer=0)
+    assert torch.equal(got, want)
 
 
 @pytest.mark.gpu
@@ -483,18 +506,47 @@ def test_flash_bwd_matches_plain(cuda, dtype, d, causal, b, sq, sk, h, hk):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("b,sq,sk,h,hk", BWD_SHAPES)
+def test_flash_bwd_d256_matches_plain(cuda, dtype, causal, b, sq, sk, h, hk):
+    """test_flash_bwd_matches_plain at d 256 (the split dkv, the
+    one-consumer dq), with the gates' atol no tighter than one ulp of each
+    output at its largest magnitude (_ulp_tols, as the band cases): under
+    causal GQA the first keys sum dV over every row of the group with
+    weights near 1 and reach 8 to 16, where kernel and plain version, each
+    rounding one sum to the output dtype, may differ by that ulp."""
+    d = 256
+    q, k, v, o, lse, do = _bwd_inputs(sq * 7 + sk + 1, b, sq, sk, h, hk, d,
+                                      dtype, cuda, causal)
+    tols = BWD_BF16_TOLS if dtype == torch.bfloat16 else BWD_TOLS
+    tag = f"[{dtype},{d},{causal},{b},{sq},{sk},{h},{hk}]"
+    di = bwd_mod.flash_bwd_di(o, do)
+    di_r = bwd_mod.di_reference(o, do)
+    assert_metrics("di" + tag, di, di_r, LSE_TOLS)
+    kw = dict(causal=causal, sm_scale=d**-0.5)
+    dq = bwd_mod.flash_bwd_dq(q, k, v, do, lse, di, **kw)
+    dk, dv = bwd_mod.flash_bwd_dkv(q, k, v, do, lse, di, **kw)
+    dq_r = bwd_mod.dq_reference(q, k, v, do, lse, di_r, **kw)
+    dk_r, dv_r = bwd_mod.dkv_reference(q, k, v, do, lse, di_r, **kw)
+    for name, x, ref in (("dq", dq, dq_r), ("dk", dk, dk_r), ("dv", dv, dv_r)):
+        assert_metrics(name + tag, x, ref, _ulp_tols(tols, ref))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [128, 256])
+@pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("sq", [1, 64, 130])
-def test_flash_bwd_single_key_is_exactly_zero(cuda, dtype, causal, sq):
+def test_flash_bwd_single_key_is_exactly_zero(cuda, dtype, d, causal, sq):
     """sk = 1: every live row attends to its one key, so O equals that V row
     and dP - D must cancel bit for bit; dq and dk are exactly 0 (dead rows
     of causal sq > sk too), and dv is the plain version's."""
-    q, k, v, o, lse, do = _bwd_inputs(sq, 2, sq, 1, 8, 2, 128, dtype, cuda,
+    q, k, v, o, lse, do = _bwd_inputs(sq, 2, sq, 1, 8, 2, d, dtype, cuda,
                                       causal)
     dq, dk, dv = bwd(q, k, v, o, lse, do, causal)
     assert torch.all(dq == 0) and torch.all(dk == 0)
     _, _, dv_r = bwd_mod.flash_bwd_reference(q, k, v, o, lse, do,
                                              causal=causal,
-                                             sm_scale=128**-0.5)
+                                             sm_scale=d**-0.5)
     assert_metrics("dv[sk=1]", dv, dv_r,
                    BWD_BF16_TOLS if dtype == torch.bfloat16 else BWD_TOLS)
 
@@ -631,10 +683,14 @@ def test_flash_bwd_counts_and_rejects(cuda):
     assert bwd(q, q, q, o, lse, q, True, parts="dq").shape == q.shape
     q256 = torch.zeros((1, 16, 2, 256), dtype=torch.bfloat16, device=cuda)
     o256 = torch.zeros_like(q256)
-    with pytest.raises(NotImplementedError):  # d 256: no tile design yet
-        bwd(q256, q256, q256, o256, lse, q256, True, softcap=30.0)
-    with pytest.raises(NotImplementedError):
-        bwd(q256, q256, q256, o256, lse, q256, True, window_size=(8, 0))
+    before = [kern.launches for kern in bwd_mod.KERNELS]
+    bwd(q256, q256, q256, o256, lse, q256, True, softcap=30.0)
+    bwd(q256, q256, q256, o256, lse, q256, True, window_size=(8, 0))
+    assert [kern.launches for kern in bwd_mod.KERNELS] == [
+        n + 2 for n in before]  # d 256 launches as it is
+    q512 = torch.zeros((1, 16, 2, 512), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(NotImplementedError, match="512"):
+        bwd(q512, q512, q512, q512, lse, q512, True, softcap=30.0)
     with pytest.raises(ValueError):
         bwd_mod.flash_bwd_di(o.cpu(), q.cpu())
 
@@ -711,7 +767,7 @@ def _band_empty_rows(sq, sk, causal, window):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("case", sorted(BAND_CASES))
 def test_flash_band_and_softcap_match_plain(cuda, dtype, d, case):
     causal, window, cap, b, sq, sk, h, hk = BAND_CASES[case]
@@ -787,10 +843,11 @@ def test_flash_band_covering_every_key_is_bit_identical(cuda, dtype, causal):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [128, 256])
 @pytest.mark.parametrize("ps", [8, 64, 128])
 @pytest.mark.parametrize("window,cap", [(100, None), (1000, None),
                                         (1000, 5.0), (None, 5.0)])
-def test_paged_window_softcap_and_holes(cuda, dtype, ps, window, cap):
+def test_paged_window_softcap_and_holes(cuda, dtype, d, ps, window, cap):
     """The window and the softcap against the plain version on the real
     pages. In the kernel's table, the entries of pages wholly behind a row's
     window are holes (-1), and every page no row reads is NaN: the kernel
@@ -798,7 +855,7 @@ def test_paged_window_softcap_and_holes(cuda, dtype, ps, window, cap):
     The cap binds at these unit-scale scores: the no-softcap instance fails
     the gate."""
     rng = np.random.default_rng(ps + (window or 0))
-    b, hk, group, d = 8, 4, 4, 128
+    b, hk, group = 8, 4, 4
     pps = 4096 // ps
     q, kp, vp, tab = _paged_setup(rng, b, hk * group, hk, d, ps, pps,
                                   b * pps + 5, 2, dtype, cuda)

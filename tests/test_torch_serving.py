@@ -211,7 +211,8 @@ def test_greedy_and_logprobs_match_jax():
         jnp.ones(b), jnp.zeros(b, jnp.int32), jnp.zeros(b, jnp.int32),
         need_filters=False)
     tt = sampling.sample_tokens(torch.from_numpy(logits), [0.0] * b, [0] * b,
-                                [1.0] * b, [0] * b, [0] * b)
+                                [1.0] * b, [0] * b, [0] * b,
+                                need_filters=False)
     assert tt.tolist() == np.asarray(jt).tolist() and tt[2] == 10
     np.testing.assert_allclose(
         sampling.token_logprobs(torch.from_numpy(logits), tt).numpy(),
@@ -235,7 +236,7 @@ def test_sampling_replay_property():
 
     def draw(seed, pos):
         return int(sampling.sample_tokens(logits, [1.0], [0], [1.0], [seed],
-                                          [pos])[0])
+                                          [pos], need_filters=False)[0])
 
     assert draw(3, 17) == draw(3, 17)
     assert len({draw(3, p) for p in range(20)}) > 1  # positions differ

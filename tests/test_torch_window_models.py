@@ -1,10 +1,11 @@
 """Sliding windows, softcaps and the Gemma-2 extras in the port's model and
 engine, against the JAX package's, on the CPU.
 
-Three tiny configs: a Mistral-style window on every layer
+Four tiny configs: a Mistral-style window on every layer
 (``tiny(sliding_window=32)``), and ``tiny_gemma2`` (window 64, attention
 softcap 50, final softcap 30, GeGLU, sandwich norms, embed scale,
-``query_scale``) with its window on every second layer and on every layer.
+``query_scale``) with its window on every second layer and on every layer,
+and at Gemma-2-9B's head dim 256 (2 layers).
 JAX's parameters cross over with ``params_from_jax`` and inputs come from
 numpy seeds; both sides run fp32 (the JAX side's Pallas kernels in
 interpret mode, the port's plain versions). Prompts are longer than the
@@ -41,6 +42,7 @@ CONFIGS = {
     "mistral-tiny": ("tiny", dict(sliding_window=32)),
     "gemma2-tiny": ("tiny_gemma2", {}),
     "gemma2-tiny-every-layer": ("tiny_gemma2", dict(window_pattern=1)),
+    "gemma2-tiny-d256": ("tiny_gemma2", dict(head_dim=256, n_layers=2)),
 }
 
 
@@ -103,7 +105,7 @@ def test_prefill_and_decode_match_jax(model):
     dest = np.asarray([*range(12), trash, trash, trash, trash], np.int32)
     src_row = np.asarray([0] * 7 + [1] * 5 + [0] * 4, np.int32)
     src_page = np.asarray([*range(7), *range(5), 0, 0, 0, 0], np.int32)
-    shape = (L, hk, NPAGES, PS, 128)
+    shape = (L, hk, NPAGES, PS, cfg_t.head_dim)
     kpj, vpj, _, _ = jl.write_prefill_to_pages(
         jnp.zeros(shape), jnp.zeros(shape), (kj, vj), jnp.asarray(dest),
         jnp.asarray(src_row), jnp.asarray(src_page), PS)

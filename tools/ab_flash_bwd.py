@@ -22,7 +22,8 @@ copy its sources into a directory that git ignores:
 
 Every set is built with the port's flags (its ``-Xptxas -v`` register,
 spill and C75xx lines printed), and its dq, dk and dv are compared with the
-first set's bit for bit at b2 s2048 h32/8 d128 bf16, causal and not; then
+first set's bit for bit at b2 s2048 h32/8 d64 and d128 bf16, causal and
+not; then
 each kernel is timed with CUDA events in the order a b .. b a. Prints the
 card's name and power limit with every line. Imports no JAX.
 """
@@ -42,7 +43,8 @@ from flash_attention_tpu_torch.ops import _build  # noqa: E402
 from flash_attention_tpu_torch.ops import flash_bwd as fb  # noqa: E402
 from flash_attention_tpu_torch.ops import flash_fwd as fm  # noqa: E402
 
-B, S, H, HK, D = 2, 2048, 32, 8, 128
+B, S, H, HK = 2, 2048, 32, 8
+DIMS = (64, 128)  # the head dims whose instances are compared
 PARTS = {"di": "DI_KERNEL", "dq": "DQ_KERNEL", "dkv": "DKV_KERNEL"}
 
 
@@ -104,33 +106,36 @@ def main() -> int:
     def rnd(*shape):
         return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
 
-    q, k, v, do = rnd(B, S, H, D), rnd(B, S, HK, D), rnd(B, S, HK, D), \
-        rnd(B, S, H, D)
     first = next(iter(sets))
-    for causal in (True, False):
-        kw = dict(causal=causal, sm_scale=D**-0.5)
-        o, lse = fm.flash_fwd(q, k, v, **kw)
-        out = {}
-        for name, mod in sets.items():
-            out[name] = mod.flash_bwd(q, k, v, o, lse, do, **kw)
-            same = all(torch.equal(a, b) for a, b in zip(out[name],
-                                                          out[first]))
-            print(f"{name} causal={causal}: dq, dk, dv bit-identical to "
-                  f"{first}'s: {same}")
-        times = {n: {p: [] for p in PARTS} for n in sets}
-        for name in list(sets) + list(sets)[::-1]:
-            mod = sets[name]
-            di = mod.flash_bwd_di(o, do)
-            times[name]["di"].append(time_ms(lambda: mod.flash_bwd_di(o, do)))
-            times[name]["dq"].append(time_ms(
-                lambda: mod.flash_bwd_dq(q, k, v, do, lse, di, **kw)))
-            times[name]["dkv"].append(time_ms(
-                lambda: mod.flash_bwd_dkv(q, k, v, do, lse, di, **kw)))
-        for part in PARTS:
-            row = ", ".join(f"{n} {' / '.join(f'{t:.4f}' for t in r[part])} ms"
-                            for n, r in times.items())
-            print(f"{part} b{B} s{S} h{H}/{HK} d{D} causal={causal}: {row} "
-                  f"[{card}]")
+    for d in DIMS:
+        q, k, v, do = rnd(B, S, H, d), rnd(B, S, HK, d), rnd(B, S, HK, d), \
+            rnd(B, S, H, d)
+        for causal in (True, False):
+            kw = dict(causal=causal, sm_scale=d**-0.5)
+            o, lse = fm.flash_fwd(q, k, v, **kw)
+            out = {}
+            for name, mod in sets.items():
+                out[name] = mod.flash_bwd(q, k, v, o, lse, do, **kw)
+                same = all(torch.equal(a, b) for a, b in zip(out[name],
+                                                              out[first]))
+                print(f"{name} d{d} causal={causal}: dq, dk, dv "
+                      f"bit-identical to {first}'s: {same}")
+            times = {n: {p: [] for p in PARTS} for n in sets}
+            for name in list(sets) + list(sets)[::-1]:
+                mod = sets[name]
+                di = mod.flash_bwd_di(o, do)
+                times[name]["di"].append(time_ms(
+                    lambda: mod.flash_bwd_di(o, do)))
+                times[name]["dq"].append(time_ms(
+                    lambda: mod.flash_bwd_dq(q, k, v, do, lse, di, **kw)))
+                times[name]["dkv"].append(time_ms(
+                    lambda: mod.flash_bwd_dkv(q, k, v, do, lse, di, **kw)))
+            for part in PARTS:
+                row = ", ".join(
+                    f"{n} {' / '.join(f'{t:.4f}' for t in r[part])} ms"
+                    for n, r in times.items())
+                print(f"{part} b{B} s{S} h{H}/{HK} d{d} causal={causal}: "
+                      f"{row} [{card}]")
     return 0
 
 

@@ -20,8 +20,9 @@ directory that git ignores, for example:
         new=flash_attention_tpu_torch/csrc/flash_fwd.cu
 
 Every source is built with the port's flags, checked against the plain
-version and against the first source (bit for bit) on one shape, and timed with CUDA events at b8 and b2 s2048 h32/8
-d128 (causal and not), in the order a b .. b a; SDPA with ``enable_gqa`` is
+version and against the first source (bit for bit) on one shape and at
+every timed shape, and timed with CUDA events at b8 and b2 s2048 h32/8, d 64
+and 128 (causal and not), in the order a b .. b a; SDPA with ``enable_gqa`` is
 timed last. Prints the card's name and power limit with every line.
 Imports no JAX.
 """
@@ -42,7 +43,8 @@ from flash_attention_tpu_torch.ops import flash_fwd as fm  # noqa: E402
 from flash_attention_tpu_torch.ops.reference import reference_attention  # noqa: E402
 
 SHAPES = [(8, True), (8, False), (2, True)]  # (batch, causal) at s 2048
-S, H, HK, D = 2048, 32, 8, 128
+S, H, HK = 2048, 32, 8
+DIMS = (64, 128)  # the head dims whose instances are compared
 
 
 def time_ms(fn, iters: int = 30) -> float:
@@ -95,43 +97,50 @@ def main() -> int:
     def rnd(*shape):
         return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
 
-    inputs = {b: (rnd(b, S, H, D), rnd(b, S, HK, D), rnd(b, S, HK, D))
-              for b in {b for b, _ in SHAPES}}
-    qs, ks, vs = rnd(2, 1000, 8, D), rnd(2, 700, 2, D), rnd(2, 700, 2, D)
-    o_ref, _ = reference_attention(qs, ks, vs, causal=True)
-    times = {n: {sh: [] for sh in SHAPES} for n in mods}
-    first = None
+    inputs = {(b, d): (rnd(b, S, H, d), rnd(b, S, HK, d), rnd(b, S, HK, d))
+              for d in DIMS for b in {b for b, _ in SHAPES}}
+    checks = {d: (rnd(2, 1000, 8, d), rnd(2, 700, 2, d), rnd(2, 700, 2, d))
+              for d in DIMS}
+    refs = {d: reference_attention(*x, causal=True)[0]
+            for d, x in checks.items()}
+    cells = [(b, causal, d) for d in DIMS for b, causal in SHAPES]
+    times = {n: {c: [] for c in cells} for n in mods}
+    first = {}  # d -> (name, O, LSE) of the first source
     for name in list(mods) + list(mods)[::-1]:
         mod = mods[name]
-        o, lse = mod.flash_fwd(qs, ks, vs, causal=True, sm_scale=D**-0.5)
-        first = first or (name, o, lse)
-        err = (o.float() - o_ref.float()).abs().max().item()
-        same = torch.equal(o, first[1]) and torch.equal(lse, first[2])
-        print(f"{name}: max abs err against the plain version {err:.3e}; "
-              f"O and LSE bit-identical to {first[0]}'s: {same}")
-        for b, causal in SHAPES:
-            q, k, v = inputs[b]
+        same = True
+        for d in DIMS:
+            o, lse = mod.flash_fwd(*checks[d], causal=True, sm_scale=d**-0.5)
+            first.setdefault(d, (name, o, lse))
+            err = (o.float() - refs[d].float()).abs().max().item()
+            same_d = torch.equal(o, first[d][1]) and torch.equal(
+                lse, first[d][2])
+            same = same and same_d
+            print(f"{name} d{d}: max abs err against the plain version "
+                  f"{err:.3e}; O and LSE bit-identical to {first[d][0]}'s: "
+                  f"{same_d}")
+        ref_mod = mods[first[DIMS[0]][0]]
+        for b, causal, d in cells:
+            q, k, v = inputs[(b, d)]
+            kw = dict(causal=causal, sm_scale=d**-0.5)
             same = same and all(torch.equal(x, y) for x, y in zip(
-                mod.flash_fwd(q, k, v, causal=causal, sm_scale=D**-0.5),
-                mods[first[0]].flash_fwd(q, k, v, causal=causal,
-                                         sm_scale=D**-0.5)))
-            times[name][(b, causal)].append(time_ms(
-                lambda: mod.flash_fwd(q, k, v, causal=causal,
-                                      sm_scale=D**-0.5)))
+                mod.flash_fwd(q, k, v, **kw), ref_mod.flash_fwd(q, k, v, **kw)))
+            times[name][(b, causal, d)].append(time_ms(
+                lambda: mod.flash_fwd(q, k, v, **kw)))
         print(f"{name}: at every timed shape too, O and LSE bit-identical to "
-              f"{first[0]}'s: {same}")
-    for b, causal in SHAPES:
-        q, k, v = inputs[b]
+              f"{first[DIMS[0]][0]}'s: {same}")
+    for b, causal, d in cells:
+        q, k, v = inputs[(b, d)]
         sdpa = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             is_causal=causal, enable_gqa=True))
         pairs = S * (S + 1) // 2 if causal else S * S
-        flops = 4.0 * D * pairs * b * H
+        flops = 4.0 * d * pairs * b * H
         parts = ", ".join(
-            f"{n} {' / '.join(f'{t:.4f}' for t in r[(b, causal)])} ms "
-            f"({flops / min(r[(b, causal)]) / 1e9:.0f} TFLOP/s)"
+            f"{n} {' / '.join(f'{t:.4f}' for t in r[(b, causal, d)])} ms "
+            f"({flops / min(r[(b, causal, d)]) / 1e9:.0f} TFLOP/s)"
             for n, r in times.items())
-        print(f"b{b} s{S} h{H}/{HK} d{D} causal={causal}: {parts}; "
+        print(f"b{b} s{S} h{H}/{HK} d{d} causal={causal}: {parts}; "
               f"sdpa {sdpa:.4f} ms [{card}]")
     return 0
 

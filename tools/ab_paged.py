@@ -21,7 +21,7 @@ revision, copy its files into a directory that git ignores:
 
 Every source is built with the port's flags (its ``-Xptxas -v`` register,
 spill and C75xx lines printed). At Llama-3-8B's attention widths (32 query
-and 8 kv heads, d 128, bf16) in a pool of 32 layers of 512 pages of 64
+and 8 kv heads, d 64 and 128, bf16) in a pool of 32 layers of 512 pages of 64
 tokens, b 8, three sets of lengths: ``linspace(1, 4096, 8)``, the served
 decode lengths (the serving prompts plus 16 tokens) and every row full
 (4096). Each output is compared
@@ -49,7 +49,8 @@ sys.path.insert(0, str(REPO))
 from flash_attention_tpu_torch.ops import _build  # noqa: E402
 from flash_attention_tpu_torch.ops import paged_attention as pa  # noqa: E402
 
-L, H, HK, D, B = 32, 32, 8, 128, 8
+L, H, HK, B = 32, 32, 8, 8
+DIMS = (64, 128)  # the head dims whose instances are compared
 PAGE_SIZE, TOTAL_PAGES, MAX_SEQ = 64, 512, 4096
 SERVED = [1762, 1351, 1109, 646, 719, 206, 272, 159]  # chip_smoke's prompts
 LENGTHS = {"linspace(1, 4096, 8)": np.linspace(1, MAX_SEQ, B).astype(np.int32),
@@ -135,34 +136,37 @@ def main() -> int:
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
-    shape = (L, HK, TOTAL_PAGES, PAGE_SIZE, D)
-    kp = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
-    vp = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
-    q = torch.randn((B, H, D), generator=g, device=dev).to(torch.bfloat16)
     pps = MAX_SEQ // PAGE_SIZE
     tables = torch.randperm(TOTAL_PAGES, generator=g, device=dev)[:B * pps]
     tables = tables.reshape(B, pps).to(torch.int32)
     first = next(iter(mods))
-    for label, lens in LENGTHS.items():
-        lengths = torch.from_numpy(lens).to(dev)
-        out = {name: mod.paged_attention(q, kp, vp, lengths, tables,
-                                         layer=L - 1)
-               for name, mod in mods.items()}
-        same = {name: torch.equal(o, out[first]) for name, o in out.items()}
-        tokens = int(lens.sum())
-        nbytes = tokens * HK * D * 2 * 2 + 2 * 2 * q.numel()
-        times = {name: [] for name in mods}
-        for name in list(mods) + list(mods)[::-1]:
-            mod = mods[name]
-            times[name].append(graph_calls_ms([
-                lambda mod=mod, i=i: mod.paged_attention(
-                    q, kp, vp, lengths, tables, layer=i) for i in range(L)]))
-        row = ", ".join(
-            f"{name} {' / '.join(f'{v:.5f}' for v in ts)} ms "
-            f"({nbytes / min(ts) / 1e6:.1f} GB/s)" for name, ts in times.items())
-        print(f"paged {label}, {nbytes / 1e6:.1f} MB a call, cold (32 layers "
-              f"in a CUDA graph): {row}; bit-identical to {first}'s: {same} "
-              f"[{card}]")
+    for d in DIMS:
+        shape = (L, HK, TOTAL_PAGES, PAGE_SIZE, d)
+        kp = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+        vp = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+        q = torch.randn((B, H, d), generator=g, device=dev).to(torch.bfloat16)
+        for label, lens in LENGTHS.items():
+            lengths = torch.from_numpy(lens).to(dev)
+            out = {name: mod.paged_attention(q, kp, vp, lengths, tables,
+                                             layer=L - 1)
+                   for name, mod in mods.items()}
+            same = {name: torch.equal(o, out[first]) for name, o in out.items()}
+            tokens = int(lens.sum())
+            nbytes = tokens * HK * d * 2 * 2 + 2 * 2 * q.numel()
+            times = {name: [] for name in mods}
+            for name in list(mods) + list(mods)[::-1]:
+                mod = mods[name]
+                times[name].append(graph_calls_ms([
+                    lambda mod=mod, i=i: mod.paged_attention(
+                        q, kp, vp, lengths, tables, layer=i)
+                    for i in range(L)]))
+            row = ", ".join(
+                f"{name} {' / '.join(f'{v:.5f}' for v in ts)} ms "
+                f"({nbytes / min(ts) / 1e6:.1f} GB/s)"
+                for name, ts in times.items())
+            print(f"paged d{d} {label}, {nbytes / 1e6:.1f} MB a call, cold "
+                  f"(32 layers in a CUDA graph): {row}; bit-identical to "
+                  f"{first}'s: {same} [{card}]")
     lengths = torch.from_numpy(LENGTHS["served decode (prompts + 16)"]).to(dev)
     host = {name: [] for name in mods}
     for name in list(mods) + list(mods)[::-1]:
