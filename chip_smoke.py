@@ -42,7 +42,14 @@ drives the two paths on two models with random bf16 weights, full width:
   (card against CPU, with its logits at the served prompts' last
   positions gated), then served with Mistral's traffic (every page held
   under the global layers) and trained on 1 x 8192; every attention
-  kernel runs its d-256 instances.
+  kernel runs its d-256 instances;
+* chunked prefill: the Llama-3-8B weights served with Mistral's traffic
+  through ``Engine(chunk_size=2048)`` (``llama.prefill_chunk``: the
+  segmented forward over [prefix pages || chunk]) and through an
+  unchunked engine, the last-position logits of the two held together,
+  and a control (the last chunk with its prefix masked off) that must
+  fail that gate; then the Gemma-2 config (window and softcaps) chunked
+  against unchunked and against the CPU's plain versions.
 
 Before the models, every attention kernel's d-256 instances are held
 against their plain versions at Gemma-2-9B's widths (``check_head_dim_256``:
@@ -52,7 +59,13 @@ dq, dkv and paged kernels are held against their plain versions
 live key, softcap 5 at b8 s2048, both modes together, and paged decode at W
 4096 with hole entries in the table), and the windowed kernels are timed
 against the same kernels without the window, which they must beat by the
-live area's margin.
+live area's margin. The segmented instances of the forward, dq and dkv
+(packed batches, varlen, chunked prefill) are held against their plain
+versions at Llama-3-8B's and Gemma-2-9B's widths (``check_segments``: 8
+packed sequences against the dense call, bit for bit and in time, 12
+ragged sequences causal, non-causal, windowed and softcapped, and the
+chunked prefill's fallback layout), and ``varlen_fwd``/``varlen_bwd`` run
+as the path "varlen".
 
 Each path checks that every one of its kernels was launched on it, with the
 counts set to 0 just before it. Exits non-zero if any phase fails or no card
@@ -64,6 +77,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import gc
 import json
 import math
 import os
@@ -353,26 +367,33 @@ def _sass_counts(build, kernel) -> dict[str, dict[str, int]]:
 # their window and softcap modes (the same for fp16 and bf16): each
 # no-softcap instance (template argument CAP false, "Lb0E") must keep them,
 # and each softcap instance must hold both ops. The d-256 instances' counts
-# are those of their own tile designs.
+# are those of their own tile designs. The segmented instances (a last
+# template argument SEG true) of flash_fwd, dq and dkv run the same
+# products and loads, so their no-softcap instances must show the same.
 SASS_NO_CAP = {"flash_fwd": {64: (24, 3), 128: (32, 6), 256: (40, 12)},
                "flash_bwd_dq": {64: (24, 4), 128: (40, 8), 256: (72, 16)},
                "flash_bwd_dkv": {64: (16, 4), 128: (24, 8), 256: (40, 16)},
                "paged_attention": {64: (8, 4), 128: (12, 8), 256: (20, 16)}}
 
 
+SEG_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+
+
 def _check_cap_instances(name, per_fn):
     """Hold each instance of an attention kernel to SASS_NO_CAP."""
     seen = []
     for fn, c in per_fn.items():
-        m = re.fullmatch(r"I\w+?Li(\d+)ELb([01])E", fn)
+        m = re.fullmatch(r"I\w+?Li(\d+)ELb([01])E(?:Lb([01])E)?", fn)
         assert m, f"{name}: unexpected instance {fn}"
+        assert (m.group(3) is not None) == (name in SEG_KERNELS), fn
         got = (c["HGMMA"], c["UTMALDG"])
         assert all(got), f"{name} {fn}: no wgmma or TMA in SASS"
         if m.group(2) == "0":
             want = SASS_NO_CAP[name][int(m.group(1))]
             assert got == want, f"{name} {fn}: SASS counts {got}, not {want}"
         seen.append(m.groups())
-    assert len(seen) == 2 * 2 * len(SASS_NO_CAP[name]), (name, seen)
+    per_d = 2 * 2 * (2 if name in SEG_KERNELS else 1)
+    assert len(seen) == per_d * len(SASS_NO_CAP[name]), (name, seen)
 
 
 def _prompts(vocab: int, lens=None):
@@ -1189,6 +1210,607 @@ def check_head_dim_256(torch, dev, cfg, card):
         add("paged_attention", check_paged_window(torch, dev, cfg, card))
     torch.cuda.empty_cache()
     return out
+
+
+# Segment ids and varlen (check_segments): the segmented instances of the
+# forward, dq and dkv kernels against their plain versions, at Llama-3-8B's
+# widths (h 32/8, d 128) and Gemma-2-9B's (h 16/8, d 256), bf16:
+# (a) 8 packed causal sequences of 2048 against the dense b8 s2048 causal
+#     call of the same kernels: the same tiles, so the outputs must agree
+#     bit for bit, and the same live work and bound; the packed forward and
+#     dq + dkv must take at most SEG_PACKED_RATIO of the dense calls' time
+#     (a kernel that ignored the ranges would take about 8x the forward's
+#     live tiles: every q block against all 16384 keys);
+# (b) SEG_RAGGED_N ragged sequences, lengths drawn from the seed in 1..4096
+#     with 1 and 4096 among them and len_k >= len_q in each: causal,
+#     non-causal and the window (4095, 0), and at d 256 softcap 5 too;
+# (c) the segs of the served chunked prefill's last chunk (b 8, chunk 2048,
+#     an 8192-token prefix table): the kv key is not sorted there, so the
+#     rows take the full-range fallback.
+SEG_PACKED = (8, 2048)
+SEG_PACKED_RATIO = 1.5
+SEG_RAGGED_N = 12
+SEG_MAX_LEN = 4096
+SEG_WINDOW = (4095, 0)
+SEG_CAP = 5.0
+# Llama-3-8B served with chunked prefill: Mistral's traffic, chunks of 2048
+CHUNK_SIZE = 2048
+CHUNK_REL_L2 = 5e-2  # chunked against unchunked last-position logits
+# the Gemma-2 config (window 64 every second layer, softcaps 5/3) chunked
+GEMMA_CHUNK = 256
+
+
+def _ragged_lens(seed: int):
+    """SEG_RAGGED_N (len_q, len_k) pairs in 1..SEG_MAX_LEN with len_k >=
+    len_q, one q length 1 and one SEG_MAX_LEN."""
+    rng = np.random.default_rng(seed)
+    lq = rng.integers(1, SEG_MAX_LEN + 1, size=SEG_RAGGED_N)
+    lq[0], lq[1] = 1, SEG_MAX_LEN
+    lk = np.minimum(lq + rng.integers(0, 512, size=SEG_RAGGED_N), SEG_MAX_LEN)
+    return lq, lk
+
+
+def _seg_pairs(torch, segs, causal, window, rows: int = 1024) -> int:
+    """Live (query, key) pairs of a segmented layout: the work the kernels
+    must do, counted from the same mask as the plain versions."""
+    from flash_attention_tpu_torch.ops.reference import _build_mask
+    q_seg, kv_seg, q_pos, kv_pos = segs
+    total = 0
+    for r0 in range(0, q_seg.shape[1], rows):
+        sl = slice(r0, r0 + rows)
+        mask = _build_mask(0, 0, causal, window,
+                           segs=(q_seg[:, sl], kv_seg, q_pos[:, sl], kv_pos))
+        total += int(mask.sum())
+    return total
+
+
+def _timed_once(torch, fn):
+    """(fn(), its ms by CUDA events): a plain version, run once."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _varlen_library(torch, q, k, v, cu_q, cu_k, lq, lk, causal,
+                    window=None):
+    """The device ms of torch.nn.attention.varlen.varlen_attn on the same
+    packed inputs, a yardstick only; (None, why) where this torch lacks it
+    or refuses the call. Its causal and window are (left, right) windows in
+    newer torch (``window_size``) and a flag in older."""
+    import inspect
+    try:
+        from torch.nn.attention.varlen import varlen_attn
+    except ImportError:
+        return None, "torch.nn.attention.varlen.varlen_attn is absent"
+    params = inspect.signature(varlen_attn).parameters
+    kw, kx, vx = {}, k[0], v[0]
+    if "enable_gqa" in params:
+        kw["enable_gqa"] = True
+    else:
+        g = q.shape[2] // k.shape[2]
+        kx, vx = kx.repeat_interleave(g, 1), vx.repeat_interleave(g, 1)
+    if "window_size" in params:
+        left = -1 if window is None else window[0]
+        kw["window_size"] = (left, 0 if causal else -1)
+    elif window is not None:
+        return None, "varlen_attn takes no window in this torch"
+    else:
+        kw["is_causal"] = causal
+    cq, ck = cu_q.to(q.device, torch.int32), cu_k.to(q.device, torch.int32)
+
+    def call():
+        return varlen_attn(q[0], kx, vx, cq, ck, int(max(lq)), int(max(lk)),
+                           **kw)
+    try:
+        call()
+        torch.cuda.synchronize()
+        return _time_ms(torch, call, 10), f"varlen_attn({kw})"
+    except Exception as e:  # a yardstick only: report why it is missing
+        return None, f"varlen_attn refused: {str(e).splitlines()[0][:120]}"
+
+
+def _seg_kernel_ms(torch, call, kernel, d, segs, causal, direction,
+                   iters: int = 10) -> tuple[float, float]:
+    """(kernel ms, block ranges ms): device times of a segmented wrapper's
+    call in a CUDA graph, less the same block ranges alone (the wrapper's
+    few small torch ops on the segs, which ``kernel``'s tiles size), so the
+    kernel is timed apart from its host time and its ranges."""
+    from flash_attention_tpu_torch.ops import flash_fwd as fm
+    from flash_attention_tpu_torch.ops import segments
+    q_seg, kv_seg, q_pos, kv_pos = segs
+    args = (q_seg, q_pos, kv_seg, kv_pos) if direction == "kv_le_q" \
+        else (kv_seg, kv_pos, q_seg, q_pos)
+    tiles = fm.seg_tiles(kernel, d)
+    ranges = _time_graph_ms(torch, lambda: segments.block_ranges(
+        *args, *tiles, causal=causal, causal_dir=direction), iters)
+    return _time_graph_ms(torch, call, iters) - ranges, ranges
+
+
+def _seg_bound(torch, segs, causal, window, q, k):
+    """{kernel: (bound ms, bound_by, live pairs)} of a segmented call."""
+    pairs = _seg_pairs(torch, segs, causal, window) * q.shape[2]
+    d = q.shape[-1]
+    n_in = 2 * (q.numel() + 2 * k.numel())
+    rows = q.shape[0] * q.shape[1] * q.shape[2]
+    out = {}
+    for name, mult, nbytes in (
+            ("flash_fwd", 4.0, n_in + 2 * q.numel() + 4 * rows),
+            ("flash_bwd_dq", 6.0, n_in + 2 * 2 * q.numel() + 8 * rows),
+            ("flash_bwd_dkv", 8.0, n_in + 2 * q.numel() + 8 * rows
+             + 4 * k.numel())):
+        out[name] = (*_bound(mult * d * pairs, nbytes), pairs)
+    return out
+
+
+def _check_seg_case(torch, label, q, k, v, do, segs, kw, card, out,
+                    library=(None, "")):
+    """One segmented case: forward, D, dq and dkv against their plain
+    versions (the backward from the plain version's D), each kernel timed
+    beside its plain version's one run; numbers into ``out``."""
+    from flash_attention_tpu_torch.ops import flash_bwd as fb
+    from flash_attention_tpu_torch.ops import flash_fwd as fm
+    from flash_attention_tpu_torch.utils.metrics import assert_metrics
+    kw = dict(kw, segs=segs)
+    with torch.inference_mode():
+        o, lse = fm.flash_fwd(q, k, v, empty_lse=-1.0, **kw)
+        (o_r, lse_r), plain_fwd = _timed_once(
+            torch, lambda: fm.flash_fwd_segmented_reference(
+                q, k, v, empty_lse=-1.0, **kw))
+    m = assert_metrics(f"flash_fwd {label}", o, o_r, O_TOLS)
+    assert_metrics(f"flash_fwd {label} lse", lse, lse_r, LSE_TOLS)
+    dead = segs[0] < 0
+    assert torch.all(o[dead] == 0) and torch.all(
+        lse.transpose(1, 2)[dead] == -1.0), label
+    del o_r, lse_r
+    di = fb.flash_bwd_di(o, do)
+    di_r = fb.di_reference(o, do)
+    dq = fb.flash_bwd_dq(q, k, v, do, lse, di, **kw)
+    dk, dv = fb.flash_bwd_dkv(q, k, v, do, lse, di, **kw)
+    dq_r, plain_dq = _timed_once(torch, lambda: fb.dq_reference(
+        q, k, v, do, lse, di_r, **kw))
+    m_dq = assert_metrics(f"flash_bwd_dq {label}", dq, dq_r,
+                          _ulp_tols(torch, BWD_TOLS, dq_r))
+    del dq_r
+    (dk_r, dv_r), plain_dkv = _timed_once(torch, lambda: fb.dkv_reference(
+        q, k, v, do, lse, di_r, **kw))
+    m_dk = assert_metrics(f"flash_bwd_dkv {label} dk", dk, dk_r,
+                          _ulp_tols(torch, BWD_TOLS, dk_r))
+    m_dv = assert_metrics(f"flash_bwd_dkv {label} dv", dv, dv_r,
+                          _ulp_tols(torch, BWD_TOLS, dv_r))
+    del dk_r, dv_r
+    assert torch.all(dq[dead] == 0), label
+    d, causal = q.shape[-1], kw["causal"]
+    times = {
+        "flash_fwd": (*_seg_kernel_ms(
+            torch, lambda: fm.flash_fwd(q, k, v, **kw), fm.KERNEL, d, segs,
+            causal, "kv_le_q"), plain_fwd, m.max_abs),
+        "flash_bwd_dq": (*_seg_kernel_ms(
+            torch, lambda: fb.flash_bwd_dq(q, k, v, do, lse, di, **kw),
+            fb.DQ_KERNEL, d, segs, causal, "kv_le_q"), plain_dq, m_dq.max_abs),
+        "flash_bwd_dkv": (*_seg_kernel_ms(
+            torch, lambda: fb.flash_bwd_dkv(q, k, v, do, lse, di, **kw),
+            fb.DKV_KERNEL, d, segs, causal, "q_ge_kv"), plain_dkv,
+            max(m_dk.max_abs, m_dv.max_abs)),
+    }
+    bounds = _seg_bound(torch, segs, kw["causal"], kw.get("window"), q, k)
+    for name, (ms, ranges_ms, plain, err) in times.items():
+        bound_ms, bound_by, pairs = bounds[name]
+        lib = library[0] if name == "flash_fwd" else None
+        out[name][label] = {"ms": ms, "plain_ms": plain, "bound_ms": bound_ms,
+                            "bound_by": bound_by, "library_ms": lib,
+                            "max_abs_err": err, "ranges_ms": ranges_ms}
+        print(f"{name} {label}: kernel {ms:.4f} ms ({bound_ms / ms:.1%} of "
+              f"the bound {bound_ms:.4f} ms ({bound_by}), live pairs "
+              f"{pairs}); its block ranges {ranges_ms:.4f} ms; plain "
+              f"{plain:.3f} ms; library "
+              f"{'null' if lib is None else f'{lib:.4f} ms'} [{card}]")
+    print(f"segmented {label}: fwd {m}; dq {m_dq}; dk {m_dk}; dv {m_dv}; "
+          f"rows with no key: {int(dead.sum())} (O = 0, LSE = empty_lse, "
+          f"dq = 0); yardstick: {library[1] or 'none'}")
+    return o, lse, dq, dk, dv
+
+
+def _chunk_segs(torch, dev, lens, chunk):
+    """The (q_seg, kv_seg, q_pos, kv_pos) prefill_chunk builds for the last
+    chunk of prompts of ``lens`` (b = len(lens)), with the engine's
+    power-of-two prefix table: what the chunked engine's last dispatch
+    gives the segmented forward."""
+    lens = torch.tensor(lens, device=dev)
+    base = (int(lens.max()) - 1) // chunk * chunk
+    done = lens.clamp(max=base)
+    clen = (lens - base).clamp(0, chunk)
+    pages = max(1, -(-base // PAGE_SIZE))
+    pref = (1 << (pages - 1).bit_length()) * PAGE_SIZE
+    b = lens.shape[0]
+    idx = torch.arange(chunk, device=dev)
+    positions = done[:, None] + idx
+    kv_pos_prefix = torch.arange(pref, device=dev).expand(b, pref)
+    live = idx < clen[:, None]
+    kv_seg = torch.cat([torch.where(kv_pos_prefix < done[:, None], 0, -1),
+                        torch.where(live, 0, -1)], 1)
+    kv_pos = torch.cat([kv_pos_prefix, positions], 1)
+    return tuple(t.int() for t in (torch.where(live, 0, -2), kv_seg,
+                                   positions, kv_pos))
+
+
+def check_segments(torch, dev, cfg, card, tag, kernels, paths=None):
+    """The segmented forward, dq and dkv at ``cfg``'s widths: (a) packed
+    against dense, bit for bit and in time (SEG_PACKED_RATIO), (b) ragged
+    varlen causal, non-causal, windowed (and at d 256 softcapped), (c) the
+    served chunked prefill's fallback segs; each against its plain version.
+    With ``paths`` the library's entry points varlen_fwd and varlen_bwd run
+    on (b)'s causal inputs as the path "varlen", with the launch counts set
+    to 0 first and their outputs held to the kernels' bit for bit. Returns
+    {kernel: {"<tag> seg <label>": numbers}}."""
+    import flash_attention_tpu_torch as ft
+    from flash_attention_tpu_torch.ops import flash_bwd as fb
+    from flash_attention_tpu_torch.ops import flash_fwd as fm
+    from flash_attention_tpu_torch.ops.attention import _varlen_segs
+    g = torch.Generator(device=dev).manual_seed(SEED + 20)
+    h, hk, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    scale = d**-0.5
+    out = {"flash_fwd": {}, "flash_bwd_dq": {}, "flash_bwd_dkv": {}}
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev,
+                           dtype=torch.float32).to(torch.bfloat16)
+
+    # (a) packed against dense
+    b, s = SEG_PACKED
+    q, k, v, do = rnd(b, s, h, d), rnd(b, s, hk, d), rnd(b, s, hk, d), \
+        rnd(b, s, h, d)
+    seg = (torch.arange(b * s, device=dev, dtype=torch.int32) // s)[None]
+    pos = (torch.arange(b * s, device=dev, dtype=torch.int32) % s)[None]
+    segs = (seg, seg, pos, pos)
+    packed = [x.reshape(1, b * s, *x.shape[2:]) for x in (q, k, v, do)]
+    kw = dict(causal=True, sm_scale=scale)
+    with torch.inference_mode():
+        o, lse = fm.flash_fwd(q, k, v, **kw)
+        o_s, lse_s = fm.flash_fwd(*packed[:3], segs=segs, **kw)
+    assert torch.equal(o_s.view(o.shape), o) and torch.equal(
+        lse_s.view(1, h, b, s).transpose(0, 2)[:, :, 0], lse), \
+        "packed forward differs from the dense one"
+    di = fb.flash_bwd_di(o, do)
+    dense = (fb.flash_bwd_dq(q, k, v, do, lse, di, **kw),
+             *fb.flash_bwd_dkv(q, k, v, do, lse, di, **kw))
+    di_s = di.view(b, h, s).transpose(0, 1).reshape(1, h, b * s)
+    seg_kw = dict(kw, segs=segs)
+    got = (fb.flash_bwd_dq(*packed[:3], packed[3], lse_s, di_s, **seg_kw),
+           *fb.flash_bwd_dkv(*packed[:3], packed[3], lse_s, di_s, **seg_kw))
+    for name, x, y in zip(("dq", "dk", "dv"), got, dense):
+        assert torch.equal(x.view(y.shape), y), f"packed {name} differs"
+    seg_calls = {  # entry name: (segmented call, its kernel, direction)
+        "flash_fwd": (lambda: fm.flash_fwd(*packed[:3], segs=segs, **kw),
+                      fm.KERNEL, "kv_le_q"),
+        "flash_bwd_dq": (lambda: fb.flash_bwd_dq(
+            *packed[:3], packed[3], lse_s, di_s, **seg_kw), fb.DQ_KERNEL,
+            "kv_le_q"),
+        "flash_bwd_dkv": (lambda: fb.flash_bwd_dkv(
+            *packed[:3], packed[3], lse_s, di_s, **seg_kw), fb.DKV_KERNEL,
+            "q_ge_kv"),
+    }
+    dense_calls = {
+        "flash_fwd": lambda: fm.flash_fwd(q, k, v, **kw),
+        "flash_bwd_dq": lambda: fb.flash_bwd_dq(q, k, v, do, lse, di, **kw),
+        "flash_bwd_dkv": lambda: fb.flash_bwd_dkv(q, k, v, do, lse, di, **kw),
+    }
+    parts = {"fwd": ("flash_fwd",),
+             "dq + dkv": ("flash_bwd_dq", "flash_bwd_dkv")}
+    label = f"{tag} seg packed {b}x{s} causal"
+    lens = np.full(b, s)
+    cu = torch.tensor(np.concatenate([[0], np.cumsum(lens)]))
+    lib, lib_note = _varlen_library(torch, *packed[:3], cu, cu, lens, lens,
+                                    True)
+    bounds = _seg_bound(torch, segs, True, None, packed[0], packed[1])
+    for part, entry_names in parts.items():
+        # device times in CUDA graphs, in turns: segmented, dense, dense,
+        # segmented; the segmented kernels less their block ranges
+        per = {}
+        for seg_turn in (True, False, False, True):
+            for n in entry_names:
+                if seg_turn:
+                    call, kern, direction = seg_calls[n]
+                    t, r = _seg_kernel_ms(torch, call, kern, d, segs, True,
+                                          direction)
+                    per.setdefault(("ranges", n), []).append(r)
+                else:
+                    t = _time_graph_ms(torch, dense_calls[n], 10)
+                per.setdefault((seg_turn, n), []).append(t)
+        best = {key: min(v) for key, v in per.items()}
+        ms = sum(best[(True, n)] for n in entry_names)
+        ms0 = sum(best[(False, n)] for n in entry_names)
+        ranges = sum(best[("ranges", n)] for n in entry_names)
+        bound_ms = sum(bounds[n][0] for n in entry_names)
+        print(f"{tag} packed {b} x {s} causal {part}: segmented kernels "
+              f"{ms:.4f} ms, dense b{b} s{s} {ms0:.4f} ms ({ms / ms0:.3f}x; "
+              f"bound {SEG_PACKED_RATIO}); the segmented wrappers' block "
+              f"ranges {ranges:.4f} ms more; live-work bound {bound_ms:.4f} "
+              f"ms ({bound_ms / ms:.1%} of it); outputs bit-identical; "
+              f"yardstick {lib_note}: "
+              f"{'null' if lib is None else f'{lib:.4f} ms'} [{card}]")
+        assert ms / ms0 <= SEG_PACKED_RATIO, (part, ms / ms0)
+        for n in entry_names:
+            bound_n, by, _ = bounds[n]
+            out[n][label] = {"ms": best[(True, n)], "bound_ms": bound_n,
+                             "bound_by": by,
+                             "library_ms": lib if n == "flash_fwd" else None,
+                             "max_abs_err": 0.0,
+                             "ranges_ms": best[("ranges", n)],
+                             "dense_ms": best[(False, n)],
+                             "ratio_to_dense": ms / ms0}
+    del q, k, v, do, o, lse, o_s, lse_s, di, di_s, dense, got, packed
+    torch.cuda.empty_cache()
+
+    # (b) ragged varlen
+    lq, lk = _ragged_lens(SEED + d)
+    cu_q = torch.tensor(np.concatenate([[0], np.cumsum(lq)]))
+    cu_k = torch.tensor(np.concatenate([[0], np.cumsum(lk)]))
+    tq, tk = int(cu_q[-1]), int(cu_k[-1])
+    segs = tuple(x.to(dev) for x in _varlen_segs(cu_q, cu_k, tq, tk))
+    q, k, v, do = rnd(1, tq, h, d), rnd(1, tk, hk, d), rnd(1, tk, hk, d), \
+        rnd(1, tq, h, d)
+    modes = [("causal", True, None, None), ("non-causal", False, None, None),
+             (f"window {SEG_WINDOW}", True, SEG_WINDOW, None)]
+    if d == 256:
+        modes.append((f"softcap {SEG_CAP:g}", True, None, SEG_CAP))
+    print(f"{tag} ragged varlen: {SEG_RAGGED_N} sequences, len_q "
+          f"{lq.tolist()}, len_k {lk.tolist()} (total {tq} / {tk})")
+    for name, causal, window, cap in modes:
+        label = f"{tag} seg ragged {SEG_RAGGED_N} {name}"
+        kw = dict(causal=causal, sm_scale=scale, window=window, softcap=cap)
+        lib = (None, "none (no PyTorch call takes a softcap)")
+        if cap is None:
+            lib = _varlen_library(torch, q, k, v, cu_q, cu_k, lq, lk, causal,
+                                  window)
+        res = _check_seg_case(torch, label, q, k, v, do, segs, kw, card, out,
+                              lib)
+        if paths is not None and name == "causal":
+            # the library's entry points on the same inputs: the path
+            for kern in kernels:
+                kern.launches = 0
+            o3, lse3 = ft.varlen_fwd(q[0], k[0], v[0], cu_q, cu_k,
+                                     is_causal=True)
+            grads = ft.varlen_bwd(q[0], k[0], v[0], o3, lse3, do[0], cu_q,
+                                  cu_k, is_causal=True)
+            torch.cuda.synchronize()
+            paths["varlen"] = {kern.name: kern.launches for kern in kernels}
+            want = (res[0][0], res[1][0], res[2][0], res[3][0], res[4][0])
+            assert all(torch.equal(x, y) for x, y in zip(
+                (o3, lse3, *grads), want)), "varlen_* differ from the kernels"
+            print(f"varlen path: varlen_fwd and varlen_bwd on the ragged "
+                  f"inputs, outputs bit-identical to the kernels'; launches "
+                  f"{paths['varlen']}")
+        del res
+    del q, k, v, do
+    torch.cuda.empty_cache()
+
+    # (c) the served chunked prefill's last chunk: the fallback
+    segs = _chunk_segs(torch, dev, MISTRAL_PROMPT_LENS, CHUNK_SIZE)
+    b, c = segs[0].shape
+    sk = segs[1].shape[1]
+    q, do = rnd(b, c, h, d), rnd(b, c, h, d)
+    k, v = rnd(b, sk, hk, d), rnd(b, sk, hk, d)
+    label = f"{tag} seg chunk b{b} c{c} prefix {sk - c} (fallback)"
+    _check_seg_case(torch, label, q, k, v, do, segs,
+                    dict(causal=True, sm_scale=scale), card, out)
+    del q, k, v, do
+    torch.cuda.empty_cache()
+    return out
+
+
+class _RangeLog:
+    """Records the forward's block ranges while a chunked engine runs
+    (``segments.block_ranges`` wrapped): for each call, (lo, hi) of every
+    row's query blocks."""
+
+    def __enter__(self):
+        from flash_attention_tpu_torch.ops import segments
+        self.mod, self.orig, self.calls = segments, segments.block_ranges, []
+
+        def logged(*args, **kw):
+            lo, hi = self.orig(*args, **kw)
+            if kw.get("causal_dir") == "kv_le_q":
+                self.calls.append((lo, hi, -(-args[2].shape[1] // args[5])))
+            return lo, hi
+        segments.block_ranges = logged
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.block_ranges = self.orig
+
+    def report(self, n_layers: int) -> list[str]:
+        """Per chunk (the first layer's call), each row's range: "full"
+        (the whole kv, the unsorted-key fallback), "narrowed" or "empty",
+        and the kv tiles loaded against the full range's."""
+        lines = []
+        for i, (lo, hi, n_kv) in enumerate(self.calls[::n_layers]):
+            tiles = (hi - lo + 1).clamp(min=0)
+            kinds = []
+            for r in range(lo.shape[0]):
+                if int(tiles[r].sum()) == 0:
+                    kinds.append("empty")
+                elif bool((lo[r] == 0).all() and (hi[r] == n_kv - 1).all()):
+                    kinds.append("full (fallback)")
+                else:
+                    kinds.append("narrowed")
+            lines.append(f"chunk {i}: rows {kinds}; kv tiles loaded "
+                         f"{int(tiles.sum())} of {tiles.numel() * n_kv}")
+        return lines
+
+
+class _PrefillLogits:
+    """Records the logits the engine samples its prefill tokens from (the
+    first ``_sample_batch`` call of a run that admits every request at
+    once): each request's last-position logits."""
+
+    def __init__(self, eng):
+        self.rows, orig = None, eng._sample_batch
+
+        def sample(reqs, logits):
+            if self.rows is None:
+                self.rows = logits[:len(reqs)].float().cpu()
+            return orig(reqs, logits)
+        eng._sample_batch = sample
+
+
+def _rel(torch, x, y) -> float:
+    return float((x - y).norm() / y.norm())
+
+
+def serve_chunked(torch, params, cfg, prompts, card, kernels, model,
+                  chunk=CHUNK_SIZE, max_seq=MISTRAL_MAX_SEQ):
+    """The prompts through Engine(chunk_size=chunk) and through an
+    unchunked engine, with exact launch counts: tokens/s, peak memory, the
+    ranges each chunk took, and the chunked engine's last-position prefill
+    logits held to the unchunked ones (rel L2 <= CHUNK_REL_L2). Returns
+    (the chunked path's launches, the chunked and the unchunked engine's
+    last-position prefill logits)."""
+    from flash_attention_tpu_torch import Engine
+    out = {}
+    L = cfg.n_layers
+    for cs in (chunk, None):
+        eng = Engine(cfg, params, total_pages=TOTAL_PAGES, page_size=PAGE_SIZE,
+                     max_batch=MAX_BATCH, max_seq_len=max_seq,
+                     native_allocator=True, chunk_size=cs)
+        rec = _PrefillLogits(eng)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for kern in kernels:
+            kern.launches = 0
+        t0 = time.perf_counter()
+        with _RangeLog() as ranges:
+            reqs = [eng.add_request(p, MAX_NEW) for p in prompts]
+            eng.run()
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {kern.name: kern.launches for kern in kernels}
+        peak = torch.cuda.max_memory_allocated()
+        for r in reqs:
+            assert r.error is None, f"request {r.uid} failed: {r.error}"
+            assert len(r.output) == MAX_NEW, (r.uid, len(r.output))
+        st = eng.throughput()
+        name = f"{model} {'chunked ' + str(cs) if cs else 'unchunked'}"
+        fwd_calls = st.get("prefill_chunks", st["prefill_dispatches"])
+        assert launches["flash_fwd"] == L * fwd_calls > 0, launches
+        assert launches["kv_update"] == L * st["decode_steps"] > 0, launches
+        assert launches["paged_attention"] == L * st["decode_steps"]
+        if cs:
+            assert st["prefill_chunks"] > 1 and len(ranges.calls) == \
+                L * st["prefill_chunks"], (st, len(ranges.calls))
+        print(f"{name} L{L}: served {len(reqs)} requests ({sum(map(len, prompts))}"
+              f" prompt tokens) x {MAX_NEW} tokens in {wall:.3f} s; prefill "
+              f"tokens/s {st['prefill_tokens_per_s']:.1f} "
+              f"({st['prefill_dispatches']} dispatches"
+              f"{', ' + str(st['prefill_chunks']) + ' chunks' if cs else ''})"
+              f"; decode tokens/s {st['decode_tokens_per_s']:.1f}; peak device"
+              f" memory {peak / 2**30:.2f} GiB [{card}]")
+        print(f"{name} kernel launches: {launches}")
+        for line in ranges.report(L):
+            print(f"  {name} ranges, {line}")
+        if cs:  # where the time goes: the prompts again, prefill step
+            for p in prompts:
+                eng.add_request(p, 4)
+            profile_window(torch, f"{name} prefill (every chunk) + decode "
+                           f"step", eng.step, card)
+        out[cs] = (launches, rec.rows, [r.output for r in reqs])
+        # the recorder's wrapper ties the engine into a cycle: collect it,
+        # or its cache stays on the card into the next phase
+        del eng, rec
+        gc.collect()
+        torch.cuda.empty_cache()
+    rows_c, rows_u = out[chunk][1], out[None][1]
+    rels = [_rel(torch, a, b) for a, b in zip(rows_c, rows_u)]
+    agree = [int(a.argmax()) == int(b.argmax())
+             for a, b in zip(rows_c, rows_u)]
+    same = sum(x == y for x, y in zip(out[chunk][2], out[None][2]))
+    print(f"{model} chunked vs unchunked last-position logits: rel L2 "
+          f"{[f'{r:.3e}' for r in rels]} (gate {CHUNK_REL_L2}); greedy first "
+          f"token agrees {sum(agree)}/{len(agree)}; whole completions equal "
+          f"{same}/{len(prompts)} (printed, not gated: random weights) "
+          f"[{card}]")
+    assert max(rels) <= CHUNK_REL_L2, rels
+    return out[chunk][0], rows_c, rows_u
+
+
+def chunk_control(torch, params, cfg, prompt, ref_row, card, model,
+                  chunk=CHUNK_SIZE):
+    """The last chunk of ``prompt`` through prefill_chunk over its prefix's
+    pages: its last-position logits held to the unchunked ``ref_row`` (rel
+    L2 <= CHUNK_REL_L2), and with ``done`` forced to 0 (the prefix masked
+    off) the same gate must fail."""
+    from flash_attention_tpu_torch.models import llama
+    dev = params["embed"].device
+    n = len(prompt)
+    base = (n - 1) // chunk * chunk
+    toks = torch.tensor([prompt + [0] * (base + chunk - n)], device=dev)
+    with torch.inference_mode():
+        _, ks, vs = llama.prefill(params, toks[:, :base], cfg,
+                                  logit_rows=torch.tensor([base - 1],
+                                                          device=dev))
+        npg = base // PAGE_SIZE
+        kp = torch.zeros((cfg.n_layers, cfg.n_kv_heads, npg, PAGE_SIZE,
+                          cfg.head_dim), dtype=ks.dtype, device=dev)
+        vp = torch.zeros_like(kp)
+        ids = torch.arange(npg, device=dev)
+        llama.write_prefill_to_pages(kp, vp, (ks, vs), ids,
+                                     torch.zeros_like(ids), ids, PAGE_SIZE)
+        del ks, vs
+        rels = {}
+        for done in (base, 0):
+            logits, _, _ = llama.prefill_chunk(
+                params, toks[:, base:], torch.tensor([done], device=dev),
+                torch.tensor([n - base], device=dev), kp, vp, None, None,
+                ids[None], cfg,
+                logit_rows=torch.tensor([n - 1 - base], device=dev))
+            rels[done] = _rel(torch, logits[0].float().cpu(), ref_row)
+    print(f"{model} prompt {n}: its last chunk ({n - base} tokens after "
+          f"{base}) against the unchunked logits: rel L2 {rels[base]:.3e}; "
+          f"control with done forced to 0 (prefix masked off): "
+          f"{rels[0]:.3e} (must fail the gate {CHUNK_REL_L2}) [{card}]")
+    assert rels[base] <= CHUNK_REL_L2, rels
+    assert rels[0] > CHUNK_REL_L2, "the control passed the gate"
+    del kp, vp
+
+
+def gemma2_chunked(torch, dev, card, kernels):
+    """The Gemma-2 config (window 64 on every second layer, softcaps 5/3)
+    served chunked (GEMMA_CHUNK) against unchunked on the card, and the
+    chunked engine's prefill logits on the card against the CPU's plain
+    versions on the same weights. Returns the chunked path's launches."""
+    from flash_attention_tpu_torch import Engine
+    from flash_attention_tpu_torch.models import llama
+    gcfg = llama.LlamaConfig.tiny_gemma2(n_layers=GEMMA_LAYERS,
+                                         window_pattern=2, **GEMMA_CAPS)
+    model = (f"Gemma-2 config (tiny_gemma2 L{GEMMA_LAYERS}, window "
+             f"{gcfg.sliding_window} every 2 layers, softcaps "
+             f"{gcfg.attn_softcap:g}/{gcfg.final_softcap:g})")
+    params = llama.init_params(gcfg, seed=SEED + 13, device=dev)
+    cpu = {n: w.to("cpu", torch.float32) for n, w in params.items()}
+    prompts = _prompts(gcfg.vocab_size, GEMMA_PROMPT_LENS)
+    launches, rows_c, _ = serve_chunked(torch, params, gcfg, prompts, card,
+                                        kernels, model, chunk=GEMMA_CHUNK,
+                                        max_seq=GEMMA_MAX_SEQ)
+    eng = Engine(gcfg, cpu, total_pages=TOTAL_PAGES, page_size=PAGE_SIZE,
+                 max_batch=MAX_BATCH, max_seq_len=GEMMA_MAX_SEQ,
+                 chunk_size=GEMMA_CHUNK)
+    rec = _PrefillLogits(eng)
+    for p in prompts:
+        eng.add_request(p, 1)
+    eng.run()
+    rels = [_rel(torch, a, b) for a, b in zip(rows_c, rec.rows)]
+    del eng, rec
+    gc.collect()
+    print(f"{model} chunked prefill, card (bf16, kernels) vs CPU (fp32, "
+          f"plain versions) last-position logits: rel L2 "
+          f"{[f'{r:.3e}' for r in rels]} (gate {CONSISTENCY_REL_L2}) [{card}]")
+    assert max(rels) <= CONSISTENCY_REL_L2, rels
+    del params, cpu
+    return launches
 
 
 def _moe_layout(torch, moe, dev, g, t, cfg, skip_expert=None):
@@ -2127,8 +2749,6 @@ def train(torch, params, cfg, card, kernels, model, lr=LR,
 
 
 def main() -> int:
-    import gc
-
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on an "
@@ -2212,9 +2832,22 @@ def main() -> int:
     for name, shapes in check_head_dim_256(torch, dev, gemma, card).items():
         e = next(e for e in entries if e["name"] == name)
         e.setdefault("shapes", {}).update(shapes)
+    paths = {}  # path -> {kernel: launches}
+    # the segmented instances at Llama-3-8B's and Gemma-2-9B's widths; the
+    # library's varlen entry points as the path "varlen"
+    t0 = time.perf_counter()
+    for seg_cfg, tag, seg_paths in ((cfg, "d128", paths),
+                                    (gemma, "d256", None)):
+        for name, shapes in check_segments(torch, dev, seg_cfg, card, tag,
+                                           kernels, seg_paths).items():
+            e = next(e for e in entries if e["name"] == name)
+            e["shapes"].update(shapes)
+        torch.cuda.empty_cache()
+    print(f"check_segments: {time.perf_counter() - t0:.1f} s")
+    for name in SEG_KERNELS + ("flash_bwd_di",):
+        assert paths["varlen"][name] > 0, (name, paths["varlen"])
     check_moe_ffn(torch, dev, mix, card)
     torch.cuda.empty_cache()
-    paths = {}  # path -> {kernel: launches}
 
     # 3. Llama-3-8B, full width and depth: serving, prefill vs decode, then
     #    training (a 2-layer card-vs-CPU check first)
@@ -2227,6 +2860,17 @@ def main() -> int:
                                     kernels, "Llama-3-8B")
     consistency(torch, params, cfg, prompts, "Llama-3-8B")
     ref_rows = generated_logits(torch, params, cfg, prompts, outputs)
+    # the same weights with chunked prefill (Mistral's traffic, chunks of
+    # CHUNK_SIZE) against an unchunked engine, and the masked-prefix control
+    t0 = time.perf_counter()
+    chunk_prompts = _prompts(cfg.vocab_size, MISTRAL_PROMPT_LENS)
+    paths["serve_chunked"], _, rows_u = serve_chunked(
+        torch, params, cfg, chunk_prompts, card, kernels, "Llama-3-8B")
+    chunk_control(torch, params, cfg, chunk_prompts[0], rows_u[0], card,
+                  "Llama-3-8B")
+    del rows_u
+    torch.cuda.empty_cache()
+    print(f"Llama-3-8B chunked serving phase: {time.perf_counter() - t0:.1f} s")
     train_consistency(torch, dev, cfg, card, "Llama-3-8B")
     torch.cuda.empty_cache()
     paths["train"] = train(torch, params, cfg, card, kernels, "Llama-3-8B")
@@ -2344,6 +2988,9 @@ def main() -> int:
         if gpages is not None:
             print(gpages.report(model))
         del params
+    # the Gemma-2 config served with chunked prefill: the window and the
+    # softcaps through the segmented forward, card against CPU
+    paths["serve_chunked_gemma2"] = gemma2_chunked(torch, dev, card, kernels)
     gc.collect()
     torch.cuda.empty_cache()
 

@@ -8,11 +8,15 @@ differentiable ``flash_attention`` with its three backward kernels, under
 backward), and weight-only int8/int4 quantized serving (``ops.quant``: the
 quantizers and the quantized matmul, under ``llama.quantize_params``). Each
 kernel is hand-written CUDA on the card and a plain PyTorch version on the
-CPU, under the Llama model and the continuous-batching engine. Imports no
-JAX.
+CPU, under the Llama model and the continuous-batching engine. Packed
+variable-length batches (``varlen_fwd``, ``varlen_bwd``, ``SegmentIds``,
+``segs``) run the attention kernels' segmented instances, and the engine's
+chunked prefill (``Engine(chunk_size=)``) runs on them. Imports no JAX.
 """
 
-from flash_attention_tpu_torch.ops.attention import bwd, flash_attention, fwd
+from flash_attention_tpu_torch.ops.attention import (SegmentIds, bwd,
+                                                     flash_attention, fwd,
+                                                     varlen_bwd, varlen_fwd)
 from flash_attention_tpu_torch.ops.kv_update import write_token_kv
 from flash_attention_tpu_torch.ops.paged_attention import paged_attention
 from flash_attention_tpu_torch.ops.quant import (QuantizedTensor, dequantize,
@@ -20,6 +24,7 @@ from flash_attention_tpu_torch.ops.quant import (QuantizedTensor, dequantize,
                                                  quantized_matmul)
 from flash_attention_tpu_torch.serving.engine import Engine
 
-__all__ = ["Engine", "QuantizedTensor", "bwd", "dequantize", "flash_attention",
-           "fwd", "paged_attention", "quantize_int4", "quantize_int8",
-           "quantized_matmul", "write_token_kv"]
+__all__ = ["Engine", "QuantizedTensor", "SegmentIds", "bwd", "dequantize",
+           "flash_attention", "fwd", "paged_attention", "quantize_int4",
+           "quantize_int8", "quantized_matmul", "varlen_bwd", "varlen_fwd",
+           "write_token_kv"]

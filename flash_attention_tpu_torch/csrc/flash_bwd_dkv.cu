@@ -1,8 +1,8 @@
 // Flash-attention backward, step 3 of 3: dK and dV, for Hopper (sm_90a),
 // hand-written CUDA C++.
 //
-// Replaces: flash_attention_tpu/ops/flash_bwd.py::_dkv_kernel, its dense
-// pallas_call (the segmented one, for varlen and segment ids, is not ported).
+// Replaces: flash_attention_tpu/ops/flash_bwd.py::_dkv_kernel, its dense and
+// its segmented pallas_call.
 //
 // Computes, per (batch, kv head) and key row j: dV = sum_g P^T dO and
 // dK = scale sum_g dS^T Q, the sum running over the GQA group of query heads
@@ -58,6 +58,15 @@
 // * The epilogue writes scale * dK and dV into the consumer's own rows of
 //   the K and V tiles in shared memory, in the swizzled layout, and stores
 //   them with TMA, which clips rows past sk.
+// * The segmented instance (SEG, fat::Seg): the CTA's query tiles are the
+//   range ops/segments.py computed for its BLOCK_N keys over 64-row query
+//   tiles (fat_flash_bwd_dkv_seg_tiles), in every head of the group; the
+//   LSE/D warp also copies each tile's query ids and positions into the
+//   stage (Q_PAD_SEG past sq; at d 256, where the stage has no room for
+//   them, consumer 0 reads them from global memory, 512 bytes a tile that
+//   the L1 holds), and the consumer that forms P^T holds its keys' ids and
+//   positions in registers and masks every element by id and by the band
+//   over positions. An empty range writes dK = dV = 0.
 
 #include "flash_common.cuh"
 #include "hopper_common.cuh"
@@ -93,7 +102,7 @@ struct Cfg {
   static constexpr int STAGES = SPLIT ? 2 : 3;  // depth of the Q/dO ring
 };
 
-template <int D>
+template <int D, bool SEG = false>
 struct Smem {
   static constexpr int BLOCK_N = Cfg<D>::BLOCK_N, STAGES = Cfg<D>::STAGES;
   static constexpr int KV_BYTES = BLOCK_N * D * 2;  // K, and V
@@ -101,8 +110,12 @@ struct Smem {
   static constexpr int V_OFF = KV_BYTES;            // K at 0
   static constexpr int Q_OFF = 2 * KV_BYTES;
   static constexpr int DO_OFF = Q_OFF + STAGES * T_BYTES;
-  static constexpr int VEC_OFF = DO_OFF + STAGES * T_BYTES;  // LSE, D
-  static constexpr int VEC_BYTES = 2 * BLOCK_M * 4;
+  static constexpr int VEC_OFF = DO_OFF + STAGES * T_BYTES;
+  // LSE, D and, SEG, below d 256 the query ids and positions (int32; at
+  // d 256 they would take the shared memory past the CTA's limit), then the
+  // tile's fat::SegSpan
+  static constexpr int SPAN_INT = (SEG && !Cfg<D>::SPLIT ? 4 : 2) * BLOCK_M;
+  static constexpr int VEC_BYTES = (SPAN_INT + (SEG ? 4 : 0)) * 4;
   // SPLIT: each stage's P^T (or, with CAP, P^T (1 - t^2)) in fp32, from
   // consumer 0 to consumer 1
   static constexpr int X_OFF = VEC_OFF + STAGES * VEC_BYTES;
@@ -156,16 +169,95 @@ __device__ __forceinline__ bool live(int i, const int (&lo)[2],
   return c >= lo[r] && c <= hi[r];
 }
 
+// SEG: the segment ids and positions of the thread's two keys (g and g + 8
+// of its warp's 16).
+struct SegKeys {
+  int seg[2], pos[2];
+  fat::SegSpan warp;  // the span of the warp's 16 keys
+};
+
+// SEG at d 256: seg_live with the tile's query ids and positions read from
+// global memory (q_seg, q_pos: the batch row's), rows from m0 on (Q_PAD_SEG
+// past sq).
+__device__ __forceinline__ bool seg_live_global(int i, const int* q_seg,
+                                                const int* q_pos, int sq,
+                                                int m0, const SegKeys& sk,
+                                                int t, const Band& bd) {
+  const int c = (i / 4) * 8 + 2 * t + (i & 1), r = (i >> 1) & 1;
+  const int row = m0 + c;
+  const int qs = row < sq ? q_seg[row] : fat::Q_PAD_SEG;
+  const int rel = sk.pos[r] - (row < sq ? q_pos[row] : 0);
+  return qs == sk.seg[r] && rel >= -bd.left && rel <= bd.right;
+}
+
+// SEG: the ids and positions of keys j and j + 8 (KV_PAD_SEG past sk).
+// (kv_seg, kv_pos: the batch row's.)
+template <bool SEG>
+__device__ __forceinline__ SegKeys seg_keys(const int* kv_seg,
+                                            const int* kv_pos, int sk, int j) {
+  SegKeys out{};
+  if constexpr (SEG) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int key = j + 8 * r;
+      out.seg[r] = key < sk ? kv_seg[key] : fat::KV_PAD_SEG;
+      out.pos[r] = key < sk ? kv_pos[key] : 0;
+    }
+    out.warp = fat::seg_span(min(out.seg[0], out.seg[1]),
+                             max(out.seg[0], out.seg[1]),
+                             min(out.pos[0], out.pos[1]),
+                             max(out.pos[0], out.pos[1]));
+  }
+  return out;
+}
+
+// SEG: whether every pair of the warp's keys and the query tile whose span
+// is ``span`` is live (an interior tile: no mask).
+__device__ __forceinline__ bool seg_interior(const int* span,
+                                             const SegKeys& sk,
+                                             const Band& bd) {
+  return fat::seg_all_live(*reinterpret_cast<const fat::SegSpan*>(span),
+                           sk.warp, bd.left, bd.right);
+}
+
+// SEG: whether element i of a query tile whose ids and positions are
+// ``qseg`` and ``qseg + BLOCK_M`` (in the stage) is live.
+__device__ __forceinline__ bool seg_live(int i, const int* qseg,
+                                         const SegKeys& sk, int t,
+                                         const Band& bd) {
+  const int c = (i / 4) * 8 + 2 * t + (i & 1), r = (i >> 1) & 1;
+  const int rel = sk.pos[r] - qseg[BLOCK_M + c];
+  return qseg[c] == sk.seg[r] && rel >= -bd.left && rel <= bd.right;
+}
+
 // P^T in place, for the tile at query row m0: S^T scaled into the log2
 // domain less the column's LSE, masked only where the tile crosses an edge
-// of the band for this warp. lse2 holds the tile's 64 values in shared
-// memory.
+// of the band for this warp, or with SEG everywhere by ids and positions.
+// lse2 holds the tile's 64 values in shared memory (then D and, SEG, the
+// query ids and positions).
+template <bool SEG>
 __device__ __forceinline__ void probs_t(float (&sc)[BLOCK_M / 2],
                                         const float* lse2, int m0, int j0,
-                                        int g, int t, const Band& bd) {
+                                        int g, int t, const Band& bd,
+                                        const SegKeys& sk) {
   const float scale_log2 = bd.scale_log2;
   int lo[2], hi[2];
-  if (tile_edge(m0, j0, g, t, bd, lo, hi)) {
+  if constexpr (SEG) {
+    const int* qseg = reinterpret_cast<const int*>(lse2 + 2 * BLOCK_M);
+    if (seg_interior(qseg + 2 * BLOCK_M, sk, bd)) {
+#pragma unroll
+      for (int i = 0; i < BLOCK_M / 2; ++i)
+        sc[i] = hop::exp2_approx(sc[i] * scale_log2 -
+                                 lse2[(i / 4) * 8 + 2 * t + (i & 1)]);
+      return;
+    }
+#pragma unroll
+    for (int i = 0; i < BLOCK_M / 2; ++i) {
+      const float p = hop::exp2_approx(sc[i] * scale_log2 -
+                                       lse2[(i / 4) * 8 + 2 * t + (i & 1)]);
+      sc[i] = seg_live(i, qseg, sk, t, bd) ? p : 0.f;
+    }
+  } else if (tile_edge(m0, j0, g, t, bd, lo, hi)) {
 #pragma unroll
     for (int i = 0; i < BLOCK_M / 2; ++i) {
       const float p = hop::exp2_approx(sc[i] * scale_log2 -
@@ -183,19 +275,26 @@ __device__ __forceinline__ void probs_t(float (&sc)[BLOCK_M / 2],
 // The softcap instance's P^T (into sc) and dS^T (into dp) in one pass, for
 // the tile at query row m0: t = tanh(S^T scale / cap), P^T = exp2(cap log2e
 // t - LSE log2e), dS^T = P^T (dP^T - D) (1 - t^2). vec holds the tile's LSE
-// (log2) and D in shared memory.
+// (log2) and D in shared memory (and, SEG, the query ids and positions).
+template <bool SEG>
 __device__ __forceinline__ void probs_ds_cap(float (&sc)[BLOCK_M / 2],
                                              float (&dp)[BLOCK_M / 2],
                                              const float* vec, int m0, int j0,
-                                             int g, int t, const Band& bd) {
+                                             int g, int t, const Band& bd,
+                                             const SegKeys& sk) {
   int lo[2], hi[2];
-  const bool edge = tile_edge(m0, j0, g, t, bd, lo, hi);
+  const int* qseg = reinterpret_cast<const int*>(vec + 2 * BLOCK_M);
+  const bool edge = SEG ? !seg_interior(qseg + 2 * BLOCK_M, sk, bd)
+                        : tile_edge(m0, j0, g, t, bd, lo, hi);
 #pragma unroll
   for (int i = 0; i < BLOCK_M / 2; ++i) {
     const int c = (i / 4) * 8 + 2 * t + (i & 1);
     const float th = hop::tanh_exp2(sc[i] * bd.cap_scale);
     float p = hop::exp2_approx(bd.cap_log2 * th - vec[c]);
-    p = !edge || live(i, lo, hi) ? p : 0.f;
+    if constexpr (SEG)
+      p = !edge || seg_live(i, qseg, sk, t, bd) ? p : 0.f;
+    else
+      p = !edge || live(i, lo, hi) ? p : 0.f;
     sc[i] = p;
     dp[i] = p * (dp[i] - vec[BLOCK_M + c]) * (1.f - th * th);
   }
@@ -220,7 +319,7 @@ __device__ __forceinline__ void to_smem(uint8_t* rows, const float (&acc)[D / 2]
   }
 }
 
-template <typename T, int D, bool CAP>
+template <typename T, int D, bool CAP, bool SEG>
 __global__ void __launch_bounds__(NTHREADS, CTAS_PER_SM)
 flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap q_map,
                      const __grid_constant__ CUtensorMap k_map,
@@ -231,8 +330,9 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap q_map,
                      const float* __restrict__ lse,
                      const float* __restrict__ di, int sq, int sk, int h,
                      int group, float scale, float scale_log2, int left,
-                     int right, float cap_scale, float cap_log2) {
-  using L = Smem<D>;
+                     int right, float cap_scale, float cap_log2,
+                     const fat::Seg seg) {
+  using L = Smem<D, SEG>;
   constexpr int BLOCK_N = Cfg<D>::BLOCK_N, STAGES = Cfg<D>::STAGES;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (hop::smem_u32(smem_raw) & 1023)) & 1023);
@@ -257,6 +357,12 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap q_map,
                         : sq;
   tl.n_m = m_end > tl.m_first ? (m_end - tl.m_first + BLOCK_M - 1) / BLOCK_M
                               : 0;
+  if constexpr (SEG) {
+    // the query tiles of this key block, from ops/segments.py
+    const int blk = batch * gridDim.z + blockIdx.z;
+    tl.m_first = seg.lo[blk] * BLOCK_M;
+    tl.n_m = max(0, seg.hi[blk] - seg.lo[blk] + 1);
+  }
   const int n_tiles = tl.count(group);
 
   const int role = __shfl_sync(0xffffffff, threadIdx.x / 128, 0);
@@ -311,10 +417,28 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap q_map,
         const long long base = ((long long)batch * h + head) * sq;
         if (i >= STAGES) hop::mbar_wait(&empty[s], (i / STAGES - 1) & 1);
 #pragma unroll
+        int q_id[2], q_ps[2];  // SEG: the lane's two rows' ids and positions
         for (int e = 0; e < 2; ++e) {
           const int c = lane * 2 + e, row = m0 + c;
           vec[c] = row < sq ? lse[base + row] * fat::LOG2E : CUDART_INF_F;
           vec[BLOCK_M + c] = row < sq ? di[base + row] : 0.f;
+          if constexpr (SEG) {
+            const long long idx = (long long)batch * sq + row;
+            q_id[e] = row < sq ? seg.q_seg[idx] : fat::Q_PAD_SEG;
+            q_ps[e] = row < sq ? seg.q_pos[idx] : 0;
+            if constexpr (!Cfg<D>::SPLIT) {
+              int* qv = reinterpret_cast<int*>(vec + 2 * BLOCK_M);
+              qv[c] = q_id[e];
+              qv[BLOCK_M + c] = q_ps[e];
+            }
+          }
+        }
+        if constexpr (SEG) {
+          const fat::SegSpan span = fat::seg_span(
+              min(q_id[0], q_id[1]), max(q_id[0], q_id[1]),
+              min(q_ps[0], q_ps[1]), max(q_ps[0], q_ps[1]));
+          if (lane == 0)
+            *reinterpret_cast<fat::SegSpan*>(vec + L::SPAN_INT) = span;
         }
         hop::mbar_arrive(&full[s]);
       }
@@ -330,6 +454,9 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap q_map,
     const int t = lane & 3;   // thread in group
     const int j0 = n0 + warp * 16;  // this warp's first key
     const Band bd{off, left, right, scale_log2, cap_scale, cap_log2};
+    const SegKeys sk_ = seg_keys<SEG>(seg.kv_seg + (long long)batch * sk,
+                                      seg.kv_pos + (long long)batch * sk, sk,
+                                      j0 + g);
     uint8_t* kv_rows = smem + (1 - wg) * L::V_OFF;  // V for 0, K for 1
     const uint32_t k_s = hop::smem_u32(smem);
     const uint32_t v_s = hop::smem_u32(smem + L::V_OFF);
@@ -366,7 +493,10 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap q_map,
         hop::wgmma_wait<0>();
         hop::fence_regs(sc);
         int lo[2], hi[2];
-        const bool edge = tile_edge(tl.m0(i), j0, g, t, bd, lo, hi);
+        const bool edge =
+            SEG ? !seg_interior(reinterpret_cast<const int*>(vec) +
+                                    L::SPAN_INT, sk_, bd)
+                : tile_edge(tl.m0(i), j0, g, t, bd, lo, hi);
 #pragma unroll
         for (int e = 0; e < BLOCK_M / 2; ++e) {
           const int c = (e / 4) * 8 + 2 * t + (e & 1);
@@ -377,7 +507,13 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap q_map,
           } else {
             p = hop::exp2_approx(sc[e] * bd.scale_log2 - vec[c]);
           }
-          p = !edge || live(e, lo, hi) ? p : 0.f;
+          if constexpr (SEG)
+            p = !edge || seg_live_global(e, seg.q_seg + (long long)batch * sq,
+                                         seg.q_pos + (long long)batch * sq,
+                                         sq, tl.m0(i), sk_, t, bd)
+                    ? p : 0.f;
+          else
+            p = !edge || live(e, lo, hi) ? p : 0.f;
           sc[e] = p;
           xs[e * 128 + tid] = CAP ? p * (1.f - th * th) : p;
         }
@@ -446,6 +582,9 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap q_map,
     const int t = lane & 3;   // thread in group
     const int j0 = n0 + wg * 64 + warp * 16;  // this warp's first key
     const Band bd{off, left, right, scale_log2, cap_scale, cap_log2};
+    const SegKeys sk_ = seg_keys<SEG>(seg.kv_seg + (long long)batch * sk,
+                                      seg.kv_pos + (long long)batch * sk, sk,
+                                      j0 + g);
     // this consumer's 64 rows of the K and V tiles (in each 64-column box)
     uint8_t* k_rows = smem + wg * 64 * ROW;
     uint8_t* v_rows = smem + L::V_OFF + wg * 64 * ROW;
@@ -479,10 +618,10 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap q_map,
       if constexpr (CAP) {
         hop::wgmma_wait<0>();
         hop::fence_regs(dp);
-        probs_ds_cap(sc, dp, vec, tl.m0(i), j0, g, t, bd);
+        probs_ds_cap<SEG>(sc, dp, vec, tl.m0(i), j0, g, t, bd, sk_);
         fat::pack_a<T, BLOCK_M>(pa, sc);
       } else {
-        probs_t(sc, vec, tl.m0(i), j0, g, t, bd);
+        probs_t<SEG>(sc, vec, tl.m0(i), j0, g, t, bd, sk_);
         fat::pack_a<T, BLOCK_M>(pa, sc);
         hop::wgmma_wait<0>();
         hop::fence_regs(dp);
@@ -523,12 +662,12 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool SEG>
 int launch(const void* q, const void* k, const void* v, const void* dout,
            const float* lse, const float* di, void* dk, void* dv, int b,
            int sq, int sk, int h, int hk, const long long* st, float scale,
            int left, int right, float cap_scale, float cap_log2,
-           cudaStream_t stream) {
+           const fat::Seg& seg, cudaStream_t stream) {
   constexpr bool fp16 = std::is_same_v<T, __half>;
   constexpr int BLOCK_N = Cfg<D>::BLOCK_N;
   const long long o_st[3] = {(long long)sk * hk * D, (long long)hk * D, D};
@@ -541,16 +680,17 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
       (rc = hop::make_map_bshd(&dkm, dk, fp16, b, sk, hk, D, o_st, 64)) ||
       (rc = hop::make_map_bshd(&dvm, dv, fp16, b, sk, hk, D, o_st, 64)))
     return rc;
-  auto kernel = cap_scale != 0.f ? flash_bwd_dkv_kernel<T, D, true>
-                                 : flash_bwd_dkv_kernel<T, D, false>;
+  auto kernel = cap_scale != 0.f ? flash_bwd_dkv_kernel<T, D, true, SEG>
+                                 : flash_bwd_dkv_kernel<T, D, false, SEG>;
+  constexpr int bytes = Smem<D, SEG>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Smem<D>::BYTES);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid(hk, b, (sk + BLOCK_N - 1) / BLOCK_N);
-  kernel<<<grid, NTHREADS, Smem<D>::BYTES, stream>>>(
+  kernel<<<grid, NTHREADS, bytes, stream>>>(
       qm, km, vm, dm, dkm, dvm, lse, di, sq, sk, h, h / hk, scale,
       scale * fat::LOG2E, fat::band_side(left),
-      fat::band_side(right), cap_scale, cap_log2);
+      fat::band_side(right), cap_scale, cap_log2, seg);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -560,19 +700,25 @@ extern "C" {
 
 // strides: 12 int64 in elements, (batch, seq, head) for q, k, v, dout.
 // lse and di are contiguous (b, h, sq) fp32; dk and dv contiguous
-// (b, sk, hk, d). left, right, cap_scale, cap_log2: as fat_flash_fwd's.
+// (b, sk, hk, d). left, right, cap_scale, cap_log2, seg: as fat_flash_fwd's
+// (the ranges of key blocks over query tiles, fat_flash_bwd_dkv_seg_tiles).
 int fat_flash_bwd_dkv(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* di,
                       void* dk, void* dv, int b, int sq, int sk, int h, int hk,
                       int d, const long long* strides, float scale, int left,
                       int right, float cap_scale, float cap_log2, int is_fp16,
-                      void* stream) {
+                      const void* seg, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   const float* dd = static_cast<const float*>(di);
+  const fat::Seg sg = fat::seg_arg(seg);
 #define FAT_DKV_LAUNCH(T, D)                                                 \
-  return launch<T, D>(q, k, v, dout, l, dd, dk, dv, b, sq, sk, h, hk,       \
-                      strides, scale, left, right, cap_scale, cap_log2, s)
+  return seg ? launch<T, D, true>(q, k, v, dout, l, dd, dk, dv, b, sq, sk,   \
+                                  h, hk, strides, scale, left, right,        \
+                                  cap_scale, cap_log2, sg, s)                \
+             : launch<T, D, false>(q, k, v, dout, l, dd, dk, dv, b, sq, sk,  \
+                                   h, hk, strides, scale, left, right,       \
+                                   cap_scale, cap_log2, sg, s)
   if (d == 256 && !is_fp16) FAT_DKV_LAUNCH(__nv_bfloat16, 256);
   if (d == 256) FAT_DKV_LAUNCH(__half, 256);
   if (d == 128 && !is_fp16) FAT_DKV_LAUNCH(__nv_bfloat16, 128);
@@ -581,6 +727,16 @@ int fat_flash_bwd_dkv(const void* q, const void* k, const void* v,
   if (d == 64) FAT_DKV_LAUNCH(__half, 64);
 #undef FAT_DKV_LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The segmented instance's tiles at head dim d: out[0] key rows a CTA owns
+// (Cfg::BLOCK_N), out[1] query rows a streamed tile holds.
+int fat_flash_bwd_dkv_seg_tiles(int d, int* out) {
+  if (d != 64 && d != 128 && d != 256)
+    return static_cast<int>(cudaErrorInvalidValue);
+  out[0] = d == 256 ? Cfg<256>::BLOCK_N : Cfg<128>::BLOCK_N;
+  out[1] = BLOCK_M;
+  return 0;
 }
 
 }  // extern "C"

@@ -1,8 +1,8 @@
 // Flash-attention backward, step 2 of 3: dQ, for Hopper (sm_90a),
 // hand-written CUDA C++.
 //
-// Replaces: flash_attention_tpu/ops/flash_bwd.py::_dq_kernel, its dense
-// pallas_call (the segmented one, for varlen and segment ids, is not ported).
+// Replaces: flash_attention_tpu/ops/flash_bwd.py::_dq_kernel, its dense and
+// its segmented pallas_call.
 //
 // Computes, per (batch, head) and query row i, with the kv head head / group:
 // S = scale Q K^T recomputed, P = exp(S - LSE) from the forward's natural-log
@@ -54,6 +54,13 @@
 // * The epilogue writes scale * dQ into the consumer's own rows of the Q tile
 //   in shared memory, in the swizzled layout, and stores it with one TMA
 //   store per 64-column box, which clips rows past sq.
+// * The segmented instance (SEG, fat::Seg), as flash_fwd.cu's: the CTA's kv
+//   tiles are the range ops/segments.py computed for its BLOCK_M rows at
+//   this kernel's tiles (fat_flash_bwd_dq_seg_tiles), shared by both
+//   consumers; a second producer warp copies each tile's kv ids and
+//   positions into the stage beside K and V and arrives on its full
+//   barrier; every element is masked by id and by the band over positions
+//   (P = 0), so rows with no live key get dQ = 0.
 
 #include "flash_common.cuh"
 #include "hopper_common.cuh"
@@ -80,7 +87,7 @@ struct Cfg {
   static constexpr int NTHREADS = 128 * (1 + CONSUMERS);  // and a producer
 };
 
-template <int D>
+template <int D, bool SEG = false>
 struct Smem {
   static constexpr int BLOCK_M = Cfg<D>::BLOCK_M;
   static constexpr int STAGES = Cfg<D>::STAGES;
@@ -91,8 +98,11 @@ struct Smem {
   static constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
   static constexpr int BAR_OFF = V_OFF + STAGES * KV_BYTES;
   static constexpr int N_BARS = 1 + 2 * STAGES;  // q + do; kv full; kv empty
+  // SEG: each stage's kv ids, positions and their fat::SegSpan (int32)
+  static constexpr int META_OFF = BAR_OFF + N_BARS * 8;
+  static constexpr int META_INTS = SEG ? 2 * BLOCK_N + 4 : 0;
   // slack to align the tiles to 1024 bytes, the swizzle's period
-  static constexpr int BYTES = BAR_OFF + N_BARS * 8 + 1024;
+  static constexpr int BYTES = META_OFF + STAGES * META_INTS * 4 + 1024;
 };
 
 // What P needs to know of this thread's rows.
@@ -128,12 +138,53 @@ __device__ __forceinline__ bool live(int i, const int (&lo)[2],
   return c < hi[r] && c >= lo[r];
 }
 
+// SEG: the segment ids and positions of the thread's two rows and the span
+// of its warp's 16; whether element i of a tile whose kv ids, positions and
+// span are ``meta`` is live, and whether every element is (an interior
+// tile, fat::seg_all_live).
+struct SegRows {
+  int seg[2], pos[2];
+  fat::SegSpan warp;
+};
+
+__device__ __forceinline__ bool seg_interior(const int* meta,
+                                             const SegRows& sr,
+                                             const Rows& rw) {
+  return fat::seg_all_live(
+      sr.warp, *reinterpret_cast<const fat::SegSpan*>(meta + 2 * BLOCK_N),
+      rw.left, rw.right);
+}
+
+__device__ __forceinline__ bool seg_live(int i, const int* meta,
+                                         const SegRows& sr, const Rows& rw) {
+  const int c = (i / 4) * 8 + (i & 1) + rw.t * 2, r = (i >> 1) & 1;
+  const int rel = meta[BLOCK_N + c] - sr.pos[r];
+  return meta[c] == sr.seg[r] && rel >= -rw.left && rel <= rw.right;
+}
+
 // P = exp2(S scale log2e - LSE log2e) in place, for the tile at kv column
-// n0; masked only where the tile crosses an edge for this warp.
+// n0; masked only where the tile crosses an edge for this warp, or with SEG
+// everywhere by the tile's ids and positions in ``meta``.
+template <bool SEG>
 __device__ __forceinline__ void probs(float (&sc)[BLOCK_N / 2], int n0,
-                                      const Rows& rw) {
+                                      const Rows& rw, const SegRows& sr,
+                                      const int* meta) {
   int lo[2], hi[2];
-  if (tile_edge(n0, rw, lo, hi)) {
+  if constexpr (SEG) {
+    if (seg_interior(meta, sr, rw)) {
+#pragma unroll
+      for (int i = 0; i < BLOCK_N / 2; ++i)
+        sc[i] =
+            hop::exp2_approx(sc[i] * rw.scale_log2 - rw.lse2[(i >> 1) & 1]);
+      return;
+    }
+#pragma unroll
+    for (int i = 0; i < BLOCK_N / 2; ++i) {
+      const int r = (i >> 1) & 1;
+      const float p = hop::exp2_approx(sc[i] * rw.scale_log2 - rw.lse2[r]);
+      sc[i] = seg_live(i, meta, sr, rw) ? p : 0.f;
+    }
+  } else if (tile_edge(n0, rw, lo, hi)) {
 #pragma unroll
     for (int i = 0; i < BLOCK_N / 2; ++i) {
       const int r = (i >> 1) & 1;
@@ -157,18 +208,25 @@ __device__ __forceinline__ void dscores(float (&sc)[BLOCK_N / 2],
 
 // The softcap instance's P and dS in one pass, into sc: t = tanh(S scale /
 // cap), P = exp2(cap log2e t - LSE log2e), dS = P (dP - D) (1 - t^2).
+template <bool SEG>
 __device__ __forceinline__ void dscores_cap(float (&sc)[BLOCK_N / 2],
                                             const float (&dp)[BLOCK_N / 2],
-                                            int n0, const Rows& rw) {
+                                            int n0, const Rows& rw,
+                                            const SegRows& sr,
+                                            const int* meta) {
   int lo[2], hi[2];
-  const bool edge = tile_edge(n0, rw, lo, hi);
+  const bool edge = SEG ? !seg_interior(meta, sr, rw)
+                        : tile_edge(n0, rw, lo, hi);
 #pragma unroll
   for (int i = 0; i < BLOCK_N / 2; ++i) {
     const int r = (i >> 1) & 1;
     const float t = hop::tanh_exp2(sc[i] * rw.cap_scale);
     const float p = hop::exp2_approx(rw.cap_log2 * t - rw.lse2[r]);
     const float ds = p * (dp[i] - rw.d[r]) * (1.f - t * t);
-    sc[i] = !edge || live(i, lo, hi) ? ds : 0.f;
+    if constexpr (SEG)
+      sc[i] = !edge || seg_live(i, meta, sr, rw) ? ds : 0.f;
+    else
+      sc[i] = !edge || live(i, lo, hi) ? ds : 0.f;
   }
 }
 
@@ -185,7 +243,7 @@ __device__ __forceinline__ void issue_s_dp(float (&sc)[BLOCK_N / 2],
   hop::wgmma_commit();
 }
 
-template <typename T, int D, bool CAP>
+template <typename T, int D, bool CAP, bool SEG>
 __global__ void __launch_bounds__(Cfg<D>::NTHREADS, 1)
 flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map,
                     const __grid_constant__ CUtensorMap k_map,
@@ -195,8 +253,8 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map,
                     const float* __restrict__ lse, const float* __restrict__ di,
                     int sq, int sk, int h, int group, float scale,
                     float scale_log2, int left, int right, float cap_scale,
-                    float cap_log2) {
-  using L = Smem<D>;
+                    float cap_log2, const fat::Seg seg) {
+  using L = Smem<D, SEG>;
   constexpr int BLOCK_M = Cfg<D>::BLOCK_M, STAGES = Cfg<D>::STAGES;
   constexpr int CONSUMERS = Cfg<D>::CONSUMERS;
   extern __shared__ uint8_t smem_raw[];
@@ -223,12 +281,20 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map,
                ? (n_end + BLOCK_N - 1) / BLOCK_N - t_begin
                : 0;
   };
+  // SEG: the range of this query block, from ops/segments.py, for both
+  // consumers
+  int seg_begin = 0, seg_tiles = 0;
+  if constexpr (SEG) {
+    const int blk = batch * gridDim.z + (gridDim.z - 1 - blockIdx.z);
+    seg_begin = seg.lo[blk];
+    seg_tiles = max(0, seg.hi[blk] - seg_begin + 1);
+  }
 
   const int role = __shfl_sync(0xffffffff, threadIdx.x / 128, 0);
   if (threadIdx.x == 0) {
     hop::mbar_init(q_full, 1);
     for (int s = 0; s < STAGES; ++s) {
-      hop::mbar_init(&full[s], 1);
+      hop::mbar_init(&full[s], SEG ? 1 + 32 : 1);  // SEG: the meta warp
       hop::mbar_init(&empty[s], 4 * CONSUMERS);  // one per consumer warp
     }
     hop::mbar_fence_init();
@@ -244,7 +310,8 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map,
       hop::prefetch_map(&k_map);
       hop::prefetch_map(&v_map);
       const int kvh = head / group;
-      const int n_tiles = n_tiles_of(m_lo + BLOCK_M);
+      const int n_tiles = SEG ? seg_tiles : n_tiles_of(m_lo + BLOCK_M);
+      const int t0 = SEG ? seg_begin : t_begin;
       hop::mbar_expect_tx(q_full, 2 * L::Q_BYTES);
 #pragma unroll
       for (int c = 0; c < D / BOX; ++c) {
@@ -262,9 +329,34 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
         for (int c = 0; c < D / BOX; ++c) {
           hop::tma_load_4d(ks + c * BLOCK_N * ROW, &k_map, &full[s], c * BOX,
-                           kvh, (t_begin + j) * BLOCK_N, batch);
+                           kvh, (t0 + j) * BLOCK_N, batch);
           hop::tma_load_4d(vs + c * BLOCK_N * ROW, &v_map, &full[s], c * BOX,
-                           kvh, (t_begin + j) * BLOCK_N, batch);
+                           kvh, (t0 + j) * BLOCK_N, batch);
+        }
+      }
+    } else if constexpr (SEG) {
+      if (threadIdx.x / 32 == 1) {
+        // each kv tile's ids, positions and span into its stage, read from
+        // global memory a tile ahead of the stage's release
+        constexpr int PER = BLOCK_N / 32;  // columns a lane
+        const int lane = threadIdx.x % 32;
+        const int* kv_seg = seg.kv_seg + (long long)batch * sk;
+        const int* kv_pos = seg.kv_pos + (long long)batch * sk;
+        int ids[PER], pss[PER];
+        if (seg_tiles > 0)
+          fat::seg_fetch(kv_seg, kv_pos, seg_begin * BLOCK_N, sk,
+                         fat::KV_PAD_SEG, lane, ids, pss);
+        for (int j = 0; j < seg_tiles; ++j) {
+          const int s = j % STAGES;
+          const fat::SegSpan span = fat::seg_span_of(ids, pss);
+          if (j >= STAGES) hop::mbar_wait(&empty[s], (j / STAGES - 1) & 1);
+          fat::seg_store(reinterpret_cast<int*>(smem + L::META_OFF) +
+                             s * L::META_INTS,
+                         ids, pss, span, lane);
+          hop::mbar_arrive(&full[s]);
+          if (j + 1 < seg_tiles)
+            fat::seg_fetch(kv_seg, kv_pos, (seg_begin + j + 1) * BLOCK_N, sk,
+                           fat::KV_PAD_SEG, lane, ids, pss);
         }
       }
     }
@@ -282,9 +374,25 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map,
     // this consumer's tiles: at most one fewer than the CTA's (consumer 0's
     // rows end 64 earlier), and a stage is reused only STAGES >= 2 tiles
     // later, so the release of a tile it never reads is never awaited
-    const int n_tiles = n_tiles_of(wg_lo + 64);
+    const int n_tiles = SEG ? seg_tiles : n_tiles_of(wg_lo + 64);
+    const int t0 = SEG ? seg_begin : t_begin;
     Rows rw{{w0 + g, w0 + g + 8}, w0, t, sk, off, left, right, scale_log2,
             cap_scale, cap_log2};
+    SegRows sr{};
+    if constexpr (SEG) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const long long idx = (long long)batch * sq + rw.row[r];
+        sr.seg[r] = rw.row[r] < sq ? seg.q_seg[idx] : fat::Q_PAD_SEG;
+        sr.pos[r] = rw.row[r] < sq ? seg.q_pos[idx] : 0;
+      }
+      sr.warp = fat::seg_span(min(sr.seg[0], sr.seg[1]),
+                              max(sr.seg[0], sr.seg[1]),
+                              min(sr.pos[0], sr.pos[1]),
+                              max(sr.pos[0], sr.pos[1]));
+    }
+    // SEG: the stages' kv ids, positions and spans
+    const int* meta = reinterpret_cast<const int*>(smem + L::META_OFF);
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const long long idx = ((long long)batch * h + head) * sq + rw.row[r];
@@ -317,11 +425,11 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map,
       issue_s_dp<T, D>(sc, dp, q_s, do_s, k_s, v_s);
       hop::wgmma_wait<1>();
       hop::fence_regs(sc);
-      if constexpr (!CAP) probs(sc, t_begin * BLOCK_N, rw);
+      if constexpr (!CAP) probs<SEG>(sc, t0 * BLOCK_N, rw, sr, meta);
       hop::wgmma_wait<0>();
       hop::fence_regs(dp);
       if constexpr (CAP)
-        dscores_cap(sc, dp, t_begin * BLOCK_N, rw);
+        dscores_cap<SEG>(sc, dp, t0 * BLOCK_N, rw, sr, meta);
       else
         dscores(sc, dp, rw);
       fat::pack_a<T, BLOCK_N>(da, sc);
@@ -340,12 +448,13 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map,
       if (lane == 0) hop::mbar_arrive(&empty[s]);
       hop::wgmma_wait<1>();  // S(j + 1) is done; dP(j + 1) may still run
       hop::fence_regs(sc);
-      const int n1 = (t_begin + j + 1) * BLOCK_N;
-      if constexpr (!CAP) probs(sc, n1, rw);
+      const int n1 = (t0 + j + 1) * BLOCK_N;
+      if constexpr (!CAP)
+        probs<SEG>(sc, n1, rw, sr, meta + s1 * L::META_INTS);
       hop::wgmma_wait<0>();
       hop::fence_regs(dp);
       if constexpr (CAP)
-        dscores_cap(sc, dp, n1, rw);
+        dscores_cap<SEG>(sc, dp, n1, rw, sr, meta + s1 * L::META_INTS);
       else
         dscores(sc, dp, rw);
       fat::pack_a<T, BLOCK_N>(da, sc);
@@ -387,11 +496,12 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool SEG>
 int launch(const void* q, const void* k, const void* v, const void* dout,
            const float* lse, const float* di, void* dq, int b, int sq, int sk,
            int h, int hk, const long long* st, float scale, int left,
-           int right, float cap_scale, float cap_log2, cudaStream_t stream) {
+           int right, float cap_scale, float cap_log2, const fat::Seg& seg,
+           cudaStream_t stream) {
   constexpr bool fp16 = std::is_same_v<T, __half>;
   const long long dq_st[3] = {(long long)sq * h * D, (long long)h * D, D};
   CUtensorMap qm, km, vm, dm, dqm;
@@ -403,16 +513,17 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
       (rc = hop::make_map_bshd(&dm, dout, fp16, b, sq, h, D, st + 9, BLOCK_M)) ||
       (rc = hop::make_map_bshd(&dqm, dq, fp16, b, sq, h, D, dq_st, 64)))
     return rc;
-  auto kernel = cap_scale != 0.f ? flash_bwd_dq_kernel<T, D, true>
-                                 : flash_bwd_dq_kernel<T, D, false>;
+  auto kernel = cap_scale != 0.f ? flash_bwd_dq_kernel<T, D, true, SEG>
+                                 : flash_bwd_dq_kernel<T, D, false, SEG>;
+  constexpr int bytes = Smem<D, SEG>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Smem<D>::BYTES);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid(h, b, (sq + Cfg<D>::BLOCK_M - 1) / Cfg<D>::BLOCK_M);
-  kernel<<<grid, Cfg<D>::NTHREADS, Smem<D>::BYTES, stream>>>(
+  kernel<<<grid, Cfg<D>::NTHREADS, bytes, stream>>>(
       qm, km, vm, dm, dqm, lse, di, sq, sk, h, h / hk, scale,
       scale * fat::LOG2E, fat::band_side(left),
-      fat::band_side(right), cap_scale, cap_log2);
+      fat::band_side(right), cap_scale, cap_log2, seg);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -422,19 +533,25 @@ extern "C" {
 
 // strides: 12 int64 in elements, (batch, seq, head) for q, k, v, dout.
 // lse and di are contiguous (b, h, sq) fp32; dq a contiguous (b, sq, h, d).
-// left, right, cap_scale, cap_log2: as fat_flash_fwd's.
+// left, right, cap_scale, cap_log2, seg: as fat_flash_fwd's (the ranges
+// over fat_flash_bwd_dq_seg_tiles' blocks).
 int fat_flash_bwd_dq(const void* q, const void* k, const void* v,
                      const void* dout, const void* lse, const void* di,
                      void* dq, int b, int sq, int sk, int h, int hk, int d,
                      const long long* strides, float scale, int left,
                      int right, float cap_scale, float cap_log2, int is_fp16,
-                     void* stream) {
+                     const void* seg, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   const float* dd = static_cast<const float*>(di);
-#define FAT_DQ_LAUNCH(T, D)                                                 \
-  return launch<T, D>(q, k, v, dout, l, dd, dq, b, sq, sk, h, hk, strides, \
-                      scale, left, right, cap_scale, cap_log2, s)
+  const fat::Seg sg = fat::seg_arg(seg);
+#define FAT_DQ_LAUNCH(T, D)                                                  \
+  return seg ? launch<T, D, true>(q, k, v, dout, l, dd, dq, b, sq, sk, h, hk, \
+                                  strides, scale, left, right, cap_scale,     \
+                                  cap_log2, sg, s)                            \
+             : launch<T, D, false>(q, k, v, dout, l, dd, dq, b, sq, sk, h,    \
+                                   hk, strides, scale, left, right,           \
+                                   cap_scale, cap_log2, sg, s)
   if (d == 256 && !is_fp16) FAT_DQ_LAUNCH(__nv_bfloat16, 256);
   if (d == 256) FAT_DQ_LAUNCH(__half, 256);
   if (d == 128 && !is_fp16) FAT_DQ_LAUNCH(__nv_bfloat16, 128);
@@ -443,6 +560,16 @@ int fat_flash_bwd_dq(const void* q, const void* k, const void* v,
   if (d == 64) FAT_DQ_LAUNCH(__half, 64);
 #undef FAT_DQ_LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The segmented instance's tiles at head dim d: out[0] query rows a CTA
+// owns (Cfg::BLOCK_M), out[1] kv rows a streamed tile holds.
+int fat_flash_bwd_dq_seg_tiles(int d, int* out) {
+  if (d != 64 && d != 128 && d != 256)
+    return static_cast<int>(cudaErrorInvalidValue);
+  out[0] = d == 256 ? Cfg<256>::BLOCK_M : Cfg<128>::BLOCK_M;
+  out[1] = BLOCK_N;
+  return 0;
 }
 
 }  // extern "C"

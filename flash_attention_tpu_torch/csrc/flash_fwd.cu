@@ -1,7 +1,8 @@
 // Flash-attention forward for Hopper (sm_90a), hand-written CUDA C++.
 //
 // Replaces: flash_attention_tpu/ops/flash_fwd.py::_fwd_kernel (the Pallas
-// TPU kernel launched by flash_fwd).
+// TPU kernel launched by flash_fwd), its dense and its segmented
+// pallas_call.
 //
 // Computes, per (batch, head): S = scale * Q K^T, optionally softcapped to
 // cap * tanh(S / cap), an online softmax in fp32, O = P V, and LSE = m +
@@ -64,6 +65,22 @@
 // Rows past a sequence's own length in a padded prefill bucket are ordinary
 // rows here: causal masking keeps them from influencing earlier rows, and no
 // key-length mask beyond sk is applied.
+//
+// The segmented instance (SEG; packed batches and varlen, fat::Seg): a query
+// sees a key of its own segment id whose kv_pos - q_pos lies in the band
+// (causal is right = 0 over positions; the row and column indices are never
+// compared). The CTA's kv tiles are the range [lo, hi] that
+// ops/segments.py computed for its 128 rows at this kernel's tile sizes
+// (fat_flash_fwd_seg_tiles); an empty range loads nothing and writes O = 0
+// and LSE = empty_lse. A second producer warp reads each kv tile's ids and
+// positions (KV_PAD_SEG past sk) a tile ahead, and copies them with their
+// span (fat::SegSpan) into the K stage's slot, arriving on its full
+// barrier; the consumers release the slot after the tile's softmax, not
+// after S, so the ids live until then. The consumers hold their rows' ids
+// and positions (Q_PAD_SEG past sq) in registers, and mask every tile of
+// the range but those whose every pair with the warp's rows is live, which
+// take the dense path's unmasked softmax. Tiles that cross a sequence
+// boundary read the neighbour's rows, which the ids mask off.
 
 #include "flash_common.cuh"
 #include "hopper_common.cuh"
@@ -82,7 +99,7 @@ constexpr int ROW = BOX * 2;   // bytes per box row
 constexpr int PRODUCER_REGS = 40;
 constexpr int CONSUMER_REGS = 232;  // 128 * 40 + 256 * 232 <= 65536
 
-template <int D>
+template <int D, bool SEG = false>
 struct Smem {
   static constexpr int Q_BYTES = BLOCK_M * D * 2;
   static constexpr int KV_BYTES = KV_ROWS<D> * D * 2;
@@ -90,8 +107,11 @@ struct Smem {
   static constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
   static constexpr int BAR_OFF = V_OFF + STAGES * KV_BYTES;
   static constexpr int N_BARS = 1 + 4 * STAGES;  // q; k, v full; k, v empty
+  // SEG: each K stage's kv ids, positions and their fat::SegSpan (int32)
+  static constexpr int META_OFF = BAR_OFF + N_BARS * 8;
+  static constexpr int META_INTS = SEG ? 2 * KV_ROWS<D> + 4 : 0;
   // slack to align the tiles to 1024 bytes, the swizzle's period
-  static constexpr int BYTES = BAR_OFF + N_BARS * 8 + 1024;
+  static constexpr int BYTES = META_OFF + STAGES * META_INTS * 4 + 1024;
 };
 
 // What the softmax needs to know of this thread's rows.
@@ -102,6 +122,13 @@ struct Rows {
   int sk, off, left, right;  // the band (fat::UNBOUNDED for an open side)
   float scale_log2;
   float cap_scale, cap_log2;  // scale / cap and cap log2(e), with CAP
+};
+
+// SEG: the segment ids and positions of the thread's two rows, and the
+// span of its warp's 16.
+struct SegRows {
+  int seg[2], pos[2];
+  fat::SegSpan warp;
 };
 
 // S(j) = Q K(j)^T for one consumer's 64 rows, both K-major in shared memory:
@@ -133,15 +160,42 @@ __device__ __forceinline__ float to_log2(float s, const Rows& rw) {
 // only where the tile crosses an edge of the band (or sk) for this warp, and
 // turned into P in place. m and l move on; alpha is the factor that rescales
 // O. O itself is not touched (P(j - 1) V(j - 1) may still be running on it).
-template <bool CAP, int BN>
+// SEG masks by the tile's ids and positions in ``meta``, every element of a
+// tile unless all its pairs with the warp's rows are live (its span in
+// ``meta``, fat::seg_all_live).
+template <bool CAP, bool SEG, int BN>
 __device__ __forceinline__ void softmax_tile(float (&sc)[BN / 2],
                                              float (&m_r)[2], float (&l_r)[2],
                                              float (&alpha)[2], int n0,
-                                             const Rows& rw) {
+                                             const Rows& rw, const SegRows& sr,
+                                             const int* meta) {
   const bool edge = (n0 + BN > rw.sk) ||
                     (n0 + BN - 1 > rw.w0 + rw.off + rw.right) ||
                     (n0 < rw.w0 + 15 + rw.off - rw.left);
-  if (edge) {
+  if constexpr (SEG) {
+    if (fat::seg_all_live(sr.warp,
+                          *reinterpret_cast<const fat::SegSpan*>(meta + 2 * BN),
+                          rw.left, rw.right)) {
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) sc[i] = to_log2<CAP>(sc[i], rw);
+    } else {
+#pragma unroll
+      for (int nn = 0; nn < BN / 8; ++nn) {
+        // this thread's two columns of 8-column block nn
+        const int c = nn * 8 + rw.t * 2;
+        const int2 ks = *reinterpret_cast<const int2*>(meta + c);
+        const int2 kp = *reinterpret_cast<const int2*>(meta + BN + c);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * nn + e, r = e >> 1;
+          const int rel = (e & 1 ? kp.y : kp.x) - sr.pos[r];
+          const bool live = (e & 1 ? ks.y : ks.x) == sr.seg[r] &&
+                            rel >= -rw.left && rel <= rw.right;
+          sc[i] = live ? to_log2<CAP>(sc[i], rw) : -CUDART_INF_F;
+        }
+      }
+    }
+  } else if (edge) {
     // live columns [lo, hi) of each row, counted from this thread's first
     // column
     int lo[2], hi[2];
@@ -219,7 +273,7 @@ __device__ __forceinline__ void to_p(uint32_t (&pa)[BN / 16][4],
       pa[kk][e] = fat::Mma<T>::pack(sc[8 * kk + 2 * e], sc[8 * kk + 2 * e + 1]);
 }
 
-template <typename T, int D, bool CAP>
+template <typename T, int D, bool CAP, bool SEG>
 __global__ void __launch_bounds__(NTHREADS, 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
                  const __grid_constant__ CUtensorMap k_map,
@@ -227,8 +281,8 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
                  const __grid_constant__ CUtensorMap o_map,
                  float* __restrict__ lse, int sq, int sk, int h, int group,
                  float scale_log2, int left, int right, float cap_scale,
-                 float cap_log2, float empty_lse) {
-  using L = Smem<D>;
+                 float cap_log2, float empty_lse, const fat::Seg seg) {
+  using L = Smem<D, SEG>;
   constexpr int BLOCK_N = KV_ROWS<D>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (hop::smem_u32(smem_raw) & 1023)) & 1023);
@@ -251,10 +305,20 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
   int n_end = sk;
   if (right < fat::UNBOUNDED)
     n_end = min(sk, min(m_lo + BLOCK_M, sq) + off + right);
+  // SEG: the range of this query block, from ops/segments.py
+  int seg_lo = 0, seg_n = 0;
+  if constexpr (SEG) {
+    const int blk = batch * gridDim.x + m_block;
+    seg_lo = seg.lo[blk];
+    seg_n = max(0, seg.hi[blk] - seg_lo + 1);
+  }
   const int t_begin =
-      left < fat::UNBOUNDED ? max(0, m_lo + off - left) / BLOCK_N : 0;
+      SEG ? seg_lo
+          : (left < fat::UNBOUNDED ? max(0, m_lo + off - left) / BLOCK_N : 0);
   const int n_tiles =
-      n_end > t_begin * BLOCK_N ? (n_end + BLOCK_N - 1) / BLOCK_N - t_begin : 0;
+      SEG ? seg_n
+          : (n_end > t_begin * BLOCK_N ? (n_end + BLOCK_N - 1) / BLOCK_N - t_begin
+                                       : 0);
 
   // warpgroup index, warp-uniform to the compiler (the shuffle): each role
   // is one branch that runs to the end, with its own setmaxnreg limit
@@ -262,7 +326,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
   if (threadIdx.x == 0) {
     hop::mbar_init(q_full, 1);
     for (int s = 0; s < STAGES; ++s) {
-      hop::mbar_init(&k_full[s], 1);
+      hop::mbar_init(&k_full[s], SEG ? 1 + 32 : 1);  // SEG: the meta warp
       hop::mbar_init(&v_full[s], 1);
       hop::mbar_init(&k_empty[s], 8);  // one arrival per consumer warp
       hop::mbar_init(&v_empty[s], 8);
@@ -304,6 +368,31 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
           hop::tma_load_4d(vs + c * BLOCK_N * ROW, &v_map, &v_full[s], c * BOX,
                            kvh, (t_begin + j) * BLOCK_N, batch);
       }
+    } else if constexpr (SEG) {
+      if (threadIdx.x / 32 == 1) {
+        // each kv tile's ids, positions and span into its K stage's slot,
+        // read from global memory a tile ahead of the slot's release
+        constexpr int PER = BLOCK_N / 32;  // columns a lane
+        const int lane = threadIdx.x % 32;
+        const int* kv_seg = seg.kv_seg + (long long)batch * sk;
+        const int* kv_pos = seg.kv_pos + (long long)batch * sk;
+        int ids[PER], pss[PER];
+        if (n_tiles > 0)
+          fat::seg_fetch(kv_seg, kv_pos, t_begin * BLOCK_N, sk,
+                         fat::KV_PAD_SEG, lane, ids, pss);
+        for (int j = 0; j < n_tiles; ++j) {
+          const int s = j % STAGES;
+          const fat::SegSpan span = fat::seg_span_of(ids, pss);
+          if (j >= STAGES) hop::mbar_wait(&k_empty[s], (j / STAGES - 1) & 1);
+          fat::seg_store(reinterpret_cast<int*>(smem + L::META_OFF) +
+                             s * L::META_INTS,
+                         ids, pss, span, lane);
+          hop::mbar_arrive(&k_full[s]);
+          if (j + 1 < n_tiles)
+            fat::seg_fetch(kv_seg, kv_pos, (t_begin + j + 1) * BLOCK_N, sk,
+                           fat::KV_PAD_SEG, lane, ids, pss);
+        }
+      }
     }
   } else {
     // ---- consumers ----
@@ -334,6 +423,21 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
     float alpha[2];
     const Rows rw{{rows[0], rows[1]}, w0, t, sk, off, left, right,
                   scale_log2, cap_scale, cap_log2};
+    SegRows sr{};
+    if constexpr (SEG) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const long long idx = (long long)batch * sq + rows[r];
+        sr.seg[r] = rows[r] < sq ? seg.q_seg[idx] : fat::Q_PAD_SEG;
+        sr.pos[r] = rows[r] < sq ? seg.q_pos[idx] : 0;
+      }
+      sr.warp = fat::seg_span(min(sr.seg[0], sr.seg[1]),
+                              max(sr.seg[0], sr.seg[1]),
+                              min(sr.pos[0], sr.pos[1]),
+                              max(sr.pos[0], sr.pos[1]));
+    }
+    // SEG: the stages' kv ids, positions and spans
+    const int* meta = reinterpret_cast<const int*>(smem + L::META_OFF);
 
     // The consumers take turns to issue their products (named barriers 3
     // and 4, consumer 0 first), so one's softmax runs while the other's
@@ -351,8 +455,11 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
       hop::named_arrive(next_turn, 256);
       hop::wgmma_wait<0>();
       hop::fence_regs(sc);
-      if (lane == 0) hop::mbar_arrive(&k_empty[0]);
-      softmax_tile<CAP, BLOCK_N>(sc, m_r, l_r, alpha, t_begin * BLOCK_N, rw);
+      // SEG: K's slot holds the tile's ids until its softmax is done
+      if (!SEG && lane == 0) hop::mbar_arrive(&k_empty[0]);
+      softmax_tile<CAP, SEG, BLOCK_N>(sc, m_r, l_r, alpha, t_begin * BLOCK_N,
+                                      rw, sr, meta);
+      if (SEG && lane == 0) hop::mbar_arrive(&k_empty[0]);
       to_p<T, BLOCK_N>(pa, sc);
     }
     for (int j = 0; j + 1 < n_tiles; ++j) {
@@ -365,9 +472,11 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
       hop::named_arrive(next_turn, 256);
       hop::wgmma_wait<1>();  // S(j + 1) is done; P(j) V(j) may still run
       hop::fence_regs(sc);
-      if (lane == 0) hop::mbar_arrive(&k_empty[s1]);
-      softmax_tile<CAP, BLOCK_N>(sc, m_r, l_r, alpha,
-                                 (t_begin + j + 1) * BLOCK_N, rw);
+      if (!SEG && lane == 0) hop::mbar_arrive(&k_empty[s1]);
+      softmax_tile<CAP, SEG, BLOCK_N>(sc, m_r, l_r, alpha,
+                                      (t_begin + j + 1) * BLOCK_N, rw, sr,
+                                      meta + s1 * L::META_INTS);
+      if (SEG && lane == 0) hop::mbar_arrive(&k_empty[s1]);
       hop::wgmma_wait<0>();
       hop::fence_regs(acc);
       hop::fence_regs(pa);
@@ -436,11 +545,12 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool SEG>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            int b, int sq, int sk, int h, int hk, const long long* st,
            float scale_log2, int left, int right, float cap_scale,
-           float cap_log2, float empty_lse, cudaStream_t stream) {
+           float cap_log2, float empty_lse, const fat::Seg& seg,
+           cudaStream_t stream) {
   constexpr bool fp16 = std::is_same_v<T, __half>;
   const long long o_st[3] = {(long long)sq * h * D, (long long)h * D, D};
   CUtensorMap qm, km, vm, om;
@@ -452,16 +562,17 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
                                KV_ROWS<D>)) ||
       (rc = hop::make_map_bshd(&om, o, fp16, b, sq, h, D, o_st, 64)))
     return rc;
-  auto kernel = cap_scale != 0.f ? flash_fwd_kernel<T, D, true>
-                                 : flash_fwd_kernel<T, D, false>;
+  auto kernel = cap_scale != 0.f ? flash_fwd_kernel<T, D, true, SEG>
+                                 : flash_fwd_kernel<T, D, false, SEG>;
+  constexpr int bytes = Smem<D, SEG>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Smem<D>::BYTES);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((sq + BLOCK_M - 1) / BLOCK_M, h, b);
-  kernel<<<grid, NTHREADS, Smem<D>::BYTES, stream>>>(
+  kernel<<<grid, NTHREADS, bytes, stream>>>(
       qm, km, vm, om, lse, sq, sk, h, h / hk, scale_log2,
       fat::band_side(left), fat::band_side(right), cap_scale,
-      cap_log2, empty_lse);
+      cap_log2, empty_lse, seg);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -473,17 +584,24 @@ extern "C" {
 // o is a contiguous (b, sq, h, d) tensor; lse a contiguous (b, h, sq) fp32.
 // left, right: the band (< 0 = unbounded; causal is right = 0). cap_scale =
 // scale / cap and cap_log2 = cap log2(e) run the softcap instance; 0 and 0
-// the plain one.
+// the plain one. seg: null for a dense launch, or a host array of the six
+// device pointers of fat::Seg (the ranges over fat_flash_fwd_seg_tiles'
+// blocks), which runs the segmented instance with the band over positions.
 int fat_flash_fwd(const void* q, const void* k, const void* v, void* o,
                   void* lse, int b, int sq, int sk, int h, int hk, int d,
                   const long long* strides, float scale_log2, int left,
                   int right, float cap_scale, float cap_log2, float empty_lse,
-                  int is_fp16, void* stream) {
+                  int is_fp16, const void* seg, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
+  const fat::Seg sg = fat::seg_arg(seg);
 #define FAT_FWD_LAUNCH(T, D)                                                 \
-  return launch<T, D>(q, k, v, o, l, b, sq, sk, h, hk, strides, scale_log2, \
-                      left, right, cap_scale, cap_log2, empty_lse, s)
+  return seg ? launch<T, D, true>(q, k, v, o, l, b, sq, sk, h, hk, strides,  \
+                                  scale_log2, left, right, cap_scale,        \
+                                  cap_log2, empty_lse, sg, s)                \
+             : launch<T, D, false>(q, k, v, o, l, b, sq, sk, h, hk, strides, \
+                                   scale_log2, left, right, cap_scale,       \
+                                   cap_log2, empty_lse, sg, s)
   if (d == 256 && !is_fp16) FAT_FWD_LAUNCH(__nv_bfloat16, 256);
   if (d == 256) FAT_FWD_LAUNCH(__half, 256);
   if (d == 128 && !is_fp16) FAT_FWD_LAUNCH(__nv_bfloat16, 128);
@@ -492,6 +610,16 @@ int fat_flash_fwd(const void* q, const void* k, const void* v, void* o,
   if (d == 64) FAT_FWD_LAUNCH(__half, 64);
 #undef FAT_FWD_LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The segmented instance's tiles at head dim d: out[0] query rows a CTA
+// owns, out[1] kv rows a streamed tile holds; the blocks of its ranges.
+int fat_flash_fwd_seg_tiles(int d, int* out) {
+  if (d != 64 && d != 128 && d != 256)
+    return static_cast<int>(cudaErrorInvalidValue);
+  out[0] = BLOCK_M;
+  out[1] = d == 256 ? KV_ROWS<256> : KV_ROWS<128>;
+  return 0;
 }
 
 }  // extern "C"

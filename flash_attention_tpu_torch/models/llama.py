@@ -20,6 +20,10 @@ them.
   ``.backward()`` reaches the flash-attention backward kernels.
 * ``decode_step`` writes each layer's new K/V into the layer-stacked paged
   cache in place (``ops.kv_update``) and attends with ``ops.paged_attention``.
+* ``prefill_chunk`` runs one chunk of a chunked prefill: the chunk's queries
+  attend to the prefix gathered from the pages and the chunk itself through
+  the segmented flash forward (``fwd(segs=...)``), with the segment ids and
+  global positions that mask the dead prefix slots and the chunk's pad tail.
 
 Parameters are a plain dict of tensors with layer weights stacked on axis 0,
 ``(L, in, out)``, the JAX package's layout, so ``params_from_jax`` is a cast
@@ -49,7 +53,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from flash_attention_tpu_torch.models.checkpoint import to_tensor
-from flash_attention_tpu_torch.ops.attention import flash_attention
+from flash_attention_tpu_torch.ops.attention import flash_attention, fwd
 from flash_attention_tpu_torch.ops.kv_update import write_token_kv
 from flash_attention_tpu_torch.ops.moe import moe_ffn
 from flash_attention_tpu_torch.ops.paged_attention import paged_attention
@@ -432,11 +436,14 @@ def _final_softcap(logits, cfg: LlamaConfig):
     return cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
 
 
-def _dense_layer(x, w, cfg: LlamaConfig, positions, window=None):
+def _dense_layer(x, w, cfg: LlamaConfig, positions, window=None,
+                 attend=None):
     """One transformer layer (weights ``w``, one dict of ``_layer_weights``)
     on a dense (b, s, D) activation, with the layer's sliding ``window``
     (None = global). Returns (x, (k, v)) with k/v (b, s, hk, hd) after
-    RoPE."""
+    RoPE. ``attend(q, k, v, window_size)`` replaces the causal flash
+    attention over the layer's own k, v (a chunk's attention to its
+    prefix)."""
     b, s = x.shape[:2]
     h = _rmsnorm(x, w["norm_attn"], cfg.norm_eps)
     q = _proj(h, w, "wq").view(b, s, cfg.n_heads, cfg.head_dim)
@@ -444,9 +451,12 @@ def _dense_layer(x, w, cfg: LlamaConfig, positions, window=None):
     v = _proj(h, w, "wv").view(b, s, cfg.n_kv_heads, cfg.head_dim)
     q = _rope(q, positions, cfg.rope_theta, cfg.rope_scaling)
     k = _rope(k, positions, cfg.rope_theta, cfg.rope_scaling)
-    o = flash_attention(q, k, v, causal=True, sm_scale=cfg.sm_scale,
-                        window_size=None if window is None else (window - 1, 0),
-                        softcap=cfg.attn_softcap)
+    win = None if window is None else (window - 1, 0)
+    if attend is None:
+        o = flash_attention(q, k, v, causal=True, sm_scale=cfg.sm_scale,
+                            window_size=win, softcap=cfg.attn_softcap)
+    else:
+        o = attend(q, k, v, win)
     x = x + _post(_mm(o.reshape(b, s, -1), w["wo"]), w, "norm_post_attn", cfg)
     h = _rmsnorm(x, w["norm_mlp"], cfg.norm_eps)
     return x + _post(_ffn(h, w, cfg), w, "norm_post_mlp", cfg), (k, v)
@@ -572,6 +582,73 @@ def decode_step(params, k_pages, v_pages, k_scales, v_scales, tokens, lengths,
     x = _rmsnorm(x, params["norm_out"], cfg.norm_eps)
     logits = _final_softcap(_mm(x, params["lm_head"]).float(), cfg)
     return logits, k_pages, v_pages, k_scales, v_scales
+
+
+def prefill_chunk(params, tokens, done, chunk_len, k_pages, v_pages,
+                  k_scales, v_scales, prefix_tables, cfg: LlamaConfig,
+                  tp_axis=None, lora_ids=None, *, logit_rows=None):
+    """One chunk of a chunked prefill.
+
+    tokens (b, c): the next ``chunk_len[i]`` prompt tokens of row i, whose
+    first ``done[i]`` tokens already live in the paged cache k_pages/v_pages
+    (L, hk, P, ps, hd); prefix_tables (b, npp) int: the pages holding tokens
+    [0, npp * ps) of each row (a row with fewer live prefix tokens may pad
+    with any valid page id: ``done`` masks it off). Each layer gathers the
+    prefix pages densely, and the chunk's queries (positions done + arange(c))
+    attend to [prefix || chunk] through the segmented flash forward, with
+    causal and the layer's window over positions; prefix slots at or past
+    ``done`` and the chunk's tail past ``chunk_len`` carry the pad segment
+    ids, so a row with chunk_len 0 gets finite zeros.
+
+    Returns (logits (b, c, vocab) fp32, ks, vs (L, b, c, hk, hd)): the
+    chunk's K/V for ``write_prefill_to_pages``. With ``logit_rows`` ((b,)
+    int) the lm_head runs only at each row's given chunk position and the
+    logits come back (b, vocab), as in :func:`prefill`. ``k_scales`` and
+    ``v_scales`` (a quantized cache) and ``lora_ids`` are not ported: a value
+    other than None raises NotImplementedError."""
+    reject_unported("prefill_chunk", k_scales=(k_scales, None),
+                    v_scales=(v_scales, None), lora_ids=(lora_ids, None))
+    check_supported(cfg, params, tp_axis)
+    b, c = tokens.shape
+    dev = k_pages.device
+    done = torch.as_tensor(done, device=dev).long()
+    chunk_len = torch.as_tensor(chunk_len, device=dev).long()
+    tables = torch.as_tensor(prefix_tables, device=dev).long()
+    ps = k_pages.shape[-2]
+    pref = tables.shape[1] * ps
+    x = _embed(params, tokens, cfg)
+    idx = torch.arange(c, device=dev)
+    positions = done[:, None] + idx
+    # kv = [prefix tokens 0..pref) || chunk tokens done..done + c)
+    kv_pos_prefix = torch.arange(pref, device=dev).expand(b, pref)
+    live = idx < chunk_len[:, None]
+    kv_seg = torch.cat([torch.where(kv_pos_prefix < done[:, None], 0, -1),
+                        torch.where(live, 0, -1)], dim=1)
+    kv_pos = torch.cat([kv_pos_prefix, positions], dim=1)
+    q_seg = torch.where(live, 0, -2)
+    segs = tuple(t.int() for t in (q_seg, kv_seg, positions, kv_pos))
+    hk, hd = cfg.n_kv_heads, cfg.head_dim
+
+    def gather(pages):
+        # (hk, b, npp, ps, hd) -> (b, npp * ps, hk, hd)
+        return pages[:, tables].permute(1, 2, 3, 0, 4).reshape(b, pref, hk,
+                                                               hd)
+
+    ks = torch.empty((cfg.n_layers, b, c, hk, hd), dtype=x.dtype, device=dev)
+    vs = torch.empty_like(ks)
+    for i, w in enumerate(_layer_weights(params)):
+        def attend(q, k, v, win, i=i):
+            kcat = torch.cat([gather(k_pages[i]).to(k.dtype), k], dim=1)
+            vcat = torch.cat([gather(v_pages[i]).to(v.dtype), v], dim=1)
+            return fwd(q, kcat, vcat, True, sm_scale=cfg.sm_scale, segs=segs,
+                       window_size=win, softcap=cfg.attn_softcap)[0]
+        x, (ks[i], vs[i]) = _dense_layer(x, w, cfg, positions,
+                                         cfg.layer_window(i), attend)
+    if logit_rows is not None:
+        x = x[torch.arange(b, device=dev), torch.as_tensor(
+            logit_rows, device=dev).long()]
+    x = _rmsnorm(x, params["norm_out"], cfg.norm_eps)
+    return _final_softcap(_mm(x, params["lm_head"]).float(), cfg), ks, vs
 
 
 def write_prefill_to_pages(k_pages, v_pages, layer_kv, page_ids, batch_idx,

@@ -22,7 +22,15 @@ outputs in the input dtype. Each wrapper launches its
 kernel for CUDA tensors only; the plain versions beside them (``*_reference``)
 run on any device and are what ``ops.attention.bwd`` runs for CPU tensors.
 The kernels and the plain versions take the same band (causal, a sliding
-window, or both; ``ops.flash_fwd.normalize_band``) and softcap.
+window, or both; ``ops.flash_fwd.normalize_band``) and softcap. With
+``segs`` (segment ids and positions of a packed batch) dq and dkv run their
+segmented instances (the segmented ``pallas_call``s of ``_dq_kernel`` and
+``_dkv_kernel``): dq loops over the kv tiles of its query block's range and
+dkv over the query tiles of its key block's range, both from
+``ops.segments.block_ranges``, and both mask by segment id and by the band
+over positions; D does not depend on the mask. The plain versions take
+``segs`` too and then hold one GQA group and one block of query rows at a
+time (``ops.flash_fwd.query_blocks``).
 
 The plain versions compute in float64 and keep their own D in float64; the
 operands the TPU kernel rounds to the input dtype before a product (P before
@@ -41,9 +49,12 @@ import ctypes
 
 import torch
 
-from flash_attention_tpu_torch.ops import _build
+from flash_attention_tpu_torch.ops import _build, segments
 from flash_attention_tpu_torch.ops.flash_fwd import (HEAD_DIMS, _prepare,
-                                                     band_args, softcap_args)
+                                                     band_args, prepare_segs,
+                                                     query_blocks,
+                                                     seg_pointers, seg_tiles,
+                                                     softcap_args)
 from flash_attention_tpu_torch.ops.reference import _build_mask
 
 _P = ctypes.c_void_p
@@ -55,11 +66,13 @@ DI_KERNEL = _build.Kernel("flash_bwd_di", "flash_bwd_di.cu", {
 })
 DQ_KERNEL = _build.Kernel("flash_bwd_dq", "flash_bwd_dq.cu", {
     "fat_flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                         _P, _F, _I, _I, _F, _F, _I, _P],
+                         _P, _F, _I, _I, _F, _F, _I, _P, _P],
+    "fat_flash_bwd_dq_seg_tiles": [_I, _P],
 })
 DKV_KERNEL = _build.Kernel("flash_bwd_dkv", "flash_bwd_dkv.cu", {
     "fat_flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                          _I, _P, _F, _I, _I, _F, _F, _I, _P],
+                          _I, _P, _F, _I, _I, _F, _F, _I, _P, _P],
+    "fat_flash_bwd_dkv_seg_tiles": [_I, _P],
 })
 KERNELS = (DI_KERNEL, DQ_KERNEL, DKV_KERNEL)
 PARTS = ("di", "dq", "all")
@@ -122,31 +135,57 @@ def flash_bwd_di(o, do):
     return di
 
 
+def _seg_launch(kernel, segs, q, k, causal, causal_dir):
+    """The segment pointers of a dq or dkv launch (None without ``segs``)
+    and the tensors they point into, with the block ranges computed at the
+    kernel's own tiles: query blocks over kv tiles for dq, key blocks over
+    query tiles for dkv."""
+    if segs is None:
+        return None, None
+    b, sq, _, d = q.shape
+    segs = prepare_segs(segs, b, sq, k.shape[1], q.device)
+    owned, streamed = seg_tiles(kernel, d)
+    q_seg, kv_seg, q_pos, kv_pos = segs
+    if causal_dir == "kv_le_q":
+        lo, hi = segments.block_ranges(q_seg, q_pos, kv_seg, kv_pos, owned,
+                                       streamed, causal=causal,
+                                       causal_dir=causal_dir)
+    else:
+        lo, hi = segments.block_ranges(kv_seg, kv_pos, q_seg, q_pos, owned,
+                                       streamed, causal=causal,
+                                       causal_dir=causal_dir)
+    return seg_pointers(segs, lo, hi)
+
+
 def flash_bwd_dq(q, k, v, do, lse, di, *, causal: bool, sm_scale: float,
-                 window=None, softcap=None):
-    """Launch the dQ kernel. Returns dq (b, sq, h, d) in q's dtype."""
+                 window=None, softcap=None, segs=None):
+    """Launch the dQ kernel. Returns dq (b, sq, h, d) in q's dtype. With
+    ``segs`` the segmented instance runs (see ``ops.flash_fwd.flash_fwd``)."""
     q, k, v, do = _prepare_inputs(q, k, v, do, lse, di)
     b, sq, h, d = q.shape
     sk, hk = k.shape[1], k.shape[2]
     dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     if dq.numel() == 0:
         return dq
+    seg_ptr, keep = _seg_launch(DQ_KERNEL, segs, q, k, causal, "kv_le_q")
     lib = DQ_KERNEL.lib()
     rc = lib.fat_flash_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), di.data_ptr(), dq.data_ptr(), b, sq, sk, h, hk, d,
         _strides(q, k, v, do), sm_scale, *band_args(causal, window),
         *softcap_args(softcap, sm_scale), int(q.dtype == torch.float16),
-        _stream(q))
+        seg_ptr, _stream(q))
+    del keep
     DQ_KERNEL.launches += 1
     DQ_KERNEL.check(rc)
     return dq
 
 
 def flash_bwd_dkv(q, k, v, do, lse, di, *, causal: bool, sm_scale: float,
-                  window=None, softcap=None):
+                  window=None, softcap=None, segs=None):
     """Launch the dK/dV kernel. Returns (dk, dv), each (b, sk, hk, d) in the
-    input dtype, summed over each kv head's GQA group."""
+    input dtype, summed over each kv head's GQA group. With ``segs`` the
+    segmented instance runs (see ``ops.flash_fwd.flash_fwd``)."""
     q, k, v, do = _prepare_inputs(q, k, v, do, lse, di)
     b, sq, h, d = q.shape
     sk, hk = k.shape[1], k.shape[2]
@@ -154,23 +193,25 @@ def flash_bwd_dkv(q, k, v, do, lse, di, *, causal: bool, sm_scale: float,
     dv = torch.empty_like(dk)
     if dk.numel() == 0:
         return dk, dv
+    seg_ptr, keep = _seg_launch(DKV_KERNEL, segs, q, k, causal, "q_ge_kv")
     lib = DKV_KERNEL.lib()
     rc = lib.fat_flash_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), di.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, sq,
         sk, h, hk, d, _strides(q, k, v, do), sm_scale,
         *band_args(causal, window), *softcap_args(softcap, sm_scale),
-        int(q.dtype == torch.float16), _stream(q))
+        int(q.dtype == torch.float16), seg_ptr, _stream(q))
+    del keep
     DKV_KERNEL.launches += 1
     DKV_KERNEL.check(rc)
     return dk, dv
 
 
 def flash_bwd(q, k, v, o, lse, do, *, causal: bool, sm_scale: float,
-              window=None, softcap=None, parts: str = "all"):
+              window=None, softcap=None, parts: str = "all", segs=None):
     """The CUDA backward: D, then dQ, then dK/dV. Returns (dq, dk, dv);
     ``parts="di"`` stops after D and returns it, ``parts="dq"`` stops after
-    dQ and returns dq."""
+    dQ and returns dq. ``segs`` runs dq and dkv segmented."""
     if parts not in PARTS:
         raise ValueError(f"parts must be one of {PARTS}, got {parts!r}")
     di = flash_bwd_di(o, do)
@@ -178,7 +219,7 @@ def flash_bwd(q, k, v, o, lse, do, *, causal: bool, sm_scale: float,
         return di
     lse = lse.float().contiguous()
     kw = dict(causal=causal, sm_scale=sm_scale, window=window,
-              softcap=softcap)
+              softcap=softcap, segs=segs)
     dq = flash_bwd_dq(q, k, v, do, lse, di, **kw)
     if parts == "dq":
         return dq
@@ -197,7 +238,7 @@ def di_reference(o, do):
 
 
 def _probs_and_dscores(q, k, v, do, lse, di, causal, sm_scale, window,
-                       softcap):
+                       softcap, segs=None):
     """P and dS, (b, h, sq, sk) float64, with the GQA heads expanded.
 
     P = exp(S - LSE) is 0 on masked entries (so rows with no live key give
@@ -215,9 +256,9 @@ def _probs_and_dscores(q, k, v, do, lse, di, causal, sm_scale, window,
         s = softcap * t
     p = torch.exp(s - lse.double()[..., None])
     mask = _build_mask(q.shape[1], k.shape[1], causal, window,
-                       device=q.device)
+                       device=q.device, segs=segs)
     if mask is not None:
-        p = p.masked_fill(~mask, 0.0)
+        p = p.masked_fill(~(mask if mask.dim() == 2 else mask[:, None]), 0.0)
     ds = p * (torch.matmul(dof, vf.transpose(-1, -2)) - di.double()[..., None])
     if softcap is not None:
         ds = ds * (1.0 - t * t)
@@ -230,24 +271,22 @@ def _rounded(x, dtype):
     return x.to(dtype).double()
 
 
-def dq_reference(q, k, v, do, lse, di, *, causal: bool, sm_scale: float,
-                 window=None, softcap: float | None = None):
-    """dQ = scale * dS K, (b, sq, h, d) in q's dtype, dS rounded to K's
-    dtype before the product as in the TPU kernel."""
+def _dq64(q, k, v, do, lse, di, causal, sm_scale, window, softcap,
+          segs=None):
+    """dQ = scale * dS K in float64, (b, sq, h, d)."""
     _, ds, _, kf, _ = _probs_and_dscores(q, k, v, do, lse, di, causal,
-                                         sm_scale, window, softcap)
+                                         sm_scale, window, softcap, segs)
     return (torch.matmul(_rounded(ds, k.dtype), kf)
-            * sm_scale).transpose(1, 2).to(q.dtype)
+            * sm_scale).transpose(1, 2)
 
 
-def dkv_reference(q, k, v, do, lse, di, *, causal: bool, sm_scale: float,
-                  window=None, softcap: float | None = None):
-    """dK = scale * sum_g dS^T Q and dV = sum_g P^T dO, (b, sk, hk, d), dS
-    and P rounded to Q's and dO's dtype before the products as in the TPU
-    kernel."""
+def _dkv64(q, k, v, do, lse, di, causal, sm_scale, window, softcap,
+           segs=None):
+    """dK = scale * sum_g dS^T Q and dV = sum_g P^T dO in float64,
+    (b, sk, hk, d) each."""
     b, sk, hk, d = k.shape
     p, ds, qf, _, dof = _probs_and_dscores(q, k, v, do, lse, di, causal,
-                                           sm_scale, window, softcap)
+                                           sm_scale, window, softcap, segs)
 
     def group_sum(x):  # (b, h, sk, d) -> (b, sk, hk, d)
         return x.view(b, hk, -1, sk, d).sum(2).transpose(1, 2)
@@ -255,12 +294,60 @@ def dkv_reference(q, k, v, do, lse, di, *, causal: bool, sm_scale: float,
     dk = group_sum(torch.matmul(_rounded(ds, q.dtype).transpose(-1, -2),
                                 qf)) * sm_scale
     dv = group_sum(torch.matmul(_rounded(p, do.dtype).transpose(-1, -2), dof))
+    return dk, dv
+
+
+def _row_segs(segs, rows):
+    """``segs`` with the query side cut to ``rows``."""
+    q_seg, kv_seg, q_pos, kv_pos = segs
+    return q_seg[:, rows], kv_seg, q_pos[:, rows], kv_pos
+
+
+def dq_reference(q, k, v, do, lse, di, *, causal: bool, sm_scale: float,
+                 window=None, softcap: float | None = None, segs=None):
+    """dQ = scale * dS K, (b, sq, h, d) in q's dtype, dS rounded to K's
+    dtype before the product as in the TPU kernel. With ``segs`` the
+    segmented mask, one GQA group and block of query rows at a time."""
+    args = (causal, sm_scale, window, softcap)
+    if segs is None:
+        return _dq64(q, k, v, do, lse, di, *args).to(q.dtype)
+    segs = prepare_segs(segs, q.shape[0], q.shape[1], k.shape[1], q.device)
+    dq = torch.empty_like(q)
+    for i, hs, rs in query_blocks(q, k):
+        kv = slice(i, i + 1)
+        dq[:, rs, hs] = _dq64(q[:, rs, hs], k[:, :, kv], v[:, :, kv],
+                              do[:, rs, hs], lse[:, hs, rs], di[:, hs, rs],
+                              *args, _row_segs(segs, rs)).to(q.dtype)
+    return dq
+
+
+def dkv_reference(q, k, v, do, lse, di, *, causal: bool, sm_scale: float,
+                  window=None, softcap: float | None = None, segs=None):
+    """dK = scale * sum_g dS^T Q and dV = sum_g P^T dO, (b, sk, hk, d), dS
+    and P rounded to Q's and dO's dtype before the products as in the TPU
+    kernel. With ``segs`` the segmented mask, one GQA group and block of
+    query rows at a time, summed in float64 and rounded once."""
+    args = (causal, sm_scale, window, softcap)
+    if segs is None:
+        dk, dv = _dkv64(q, k, v, do, lse, di, *args)
+        return dk.to(k.dtype), dv.to(v.dtype)
+    segs = prepare_segs(segs, q.shape[0], q.shape[1], k.shape[1], q.device)
+    dk = torch.zeros(k.shape, dtype=torch.float64, device=k.device)
+    dv = torch.zeros_like(dk)
+    for i, hs, rs in query_blocks(q, k):
+        kv = slice(i, i + 1)
+        dki, dvi = _dkv64(q[:, rs, hs], k[:, :, kv], v[:, :, kv],
+                          do[:, rs, hs], lse[:, hs, rs], di[:, hs, rs], *args,
+                          _row_segs(segs, rs))
+        dk[:, :, kv] += dki
+        dv[:, :, kv] += dvi
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
 def flash_bwd_reference(q, k, v, o, lse, do, *, causal: bool,
                         sm_scale: float, window=None,
-                        softcap: float | None = None, parts: str = "all"):
+                        softcap: float | None = None, parts: str = "all",
+                        segs=None):
     """The plain backward, step for step as :func:`flash_bwd`."""
     if parts not in PARTS:
         raise ValueError(f"parts must be one of {PARTS}, got {parts!r}")
@@ -268,7 +355,7 @@ def flash_bwd_reference(q, k, v, o, lse, do, *, causal: bool,
     if parts == "di":
         return di.float()
     kw = dict(causal=causal, sm_scale=sm_scale, window=window,
-              softcap=softcap)
+              softcap=softcap, segs=segs)
     dq = dq_reference(q, k, v, do, lse, di, **kw)
     if parts == "dq":
         return dq

@@ -6,6 +6,9 @@ The same semantics as the JAX package's ``ops/reference.py``:
 * Lower-right-aligned causal masking: (row, col) is masked iff
   ``col - row > seqlen_k - seqlen_q``; a (left, right) window bounds the
   same relative offset (entries < 0 are unbounded).
+* Segment ids and positions (packed batches): with positions the relative
+  offset is ``kv_pos - q_pos`` instead, for causal and the window alike, and
+  a query sees only keys of its own segment id.
 * Optional softcap ``softcap * tanh(s / softcap)`` before masking.
 * Fully-masked rows give O = 0 and LSE = ``empty_lse`` (0 by default).
 * LSE = m + log(sum(exp(s - m))), natural log, shape (batch, heads, sq).
@@ -22,11 +25,20 @@ import torch
 
 
 def _build_mask(seqlen_q: int, seqlen_k: int, causal: bool, window=None,
-                device=None):
-    """Boolean (sq, sk) mask, True = attend; None when nothing is masked."""
-    rows = torch.arange(seqlen_q, device=device)[:, None]
-    cols = torch.arange(seqlen_k, device=device)[None, :]
-    rel = (cols - rows) - (seqlen_k - seqlen_q)
+                device=None, segs=None):
+    """Boolean (sq, sk) mask, or (b, sq, sk) with ``segs``; True = attend;
+    None when nothing is masked.
+
+    ``segs`` is (q_seg, kv_seg, q_pos, kv_pos), each (b, s) int, any entry
+    None: segment ids mask unequal pairs, and positions replace the
+    lower-right row and column offsets."""
+    q_seg, kv_seg, q_pos, kv_pos = segs if segs is not None else (None,) * 4
+    if q_pos is None:
+        rows = torch.arange(seqlen_q, device=device)[:, None]
+        cols = torch.arange(seqlen_k, device=device)[None, :]
+        rel = (cols - rows) - (seqlen_k - seqlen_q)
+    else:
+        rel = kv_pos[..., None, :].long() - q_pos[..., :, None].long()
     mask = None
     if causal:
         mask = rel <= 0
@@ -36,15 +48,24 @@ def _build_mask(seqlen_q: int, seqlen_k: int, causal: bool, window=None,
             mask = rel >= -wl if mask is None else mask & (rel >= -wl)
         if wr is not None and wr >= 0:
             mask = rel <= wr if mask is None else mask & (rel <= wr)
+    if q_seg is not None:
+        same = q_seg[..., :, None] == kv_seg[..., None, :]
+        mask = same if mask is None else mask & same
     return mask
 
 
 def reference_attention(q, k, v, causal: bool = False,
-                        sm_scale: float | None = None, window=None,
+                        sm_scale: float | None = None, q_segment_ids=None,
+                        kv_segment_ids=None, q_positions=None,
+                        kv_positions=None, window=None,
                         softcap: float | None = None, empty_lse: float = 0.0):
     """Dense attention. q (b, sq, h, d); k/v (b, sk, hk, d).
 
-    Returns (o (b, sq, h, d) in q.dtype, lse (b, h, sq) float32)."""
+    ``q_segment_ids``/``kv_segment_ids`` (b, sq)/(b, sk) int: tokens attend
+    only within equal ids; ``q_positions``/``kv_positions``: positions for
+    the causal compare and the window (``kv_pos - q_pos``) in place of the
+    row and column indices. Returns (o (b, sq, h, d) in q.dtype, lse
+    (b, h, sq) float32)."""
     b, sq, h, d = q.shape
     sk, hk = k.shape[1], k.shape[2]
     if h % hk:
@@ -57,9 +78,12 @@ def reference_attention(q, k, v, causal: bool = False,
     s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
     if softcap is not None:
         s = softcap * torch.tanh(s / softcap)
-    mask = _build_mask(sq, sk, causal, window, device=q.device)
+    mask = _build_mask(sq, sk, causal, window, device=q.device,
+                       segs=(q_segment_ids, kv_segment_ids, q_positions,
+                             kv_positions))
     if mask is not None:
-        s = s.masked_fill(~mask, float("-inf"))
+        s = s.masked_fill(~(mask if mask.dim() == 2 else mask[:, None]),
+                          float("-inf"))
     m = s.amax(dim=-1, keepdim=True)
     alive = m > float("-inf")
     p = torch.exp(s - torch.where(alive, m, torch.zeros_like(m)))
@@ -73,12 +97,16 @@ def reference_attention(q, k, v, causal: bool = False,
 
 def reference_attention_bwd(q, k, v, do, causal: bool = False,
                             sm_scale: float | None = None, window=None,
-                            softcap: float | None = None):
+                            softcap: float | None = None, segs=None):
     """Oracle gradients (dq, dk, dv), fp32, by autograd through the fp32
-    ``reference_attention`` (causal, window and softcap included)."""
+    ``reference_attention`` (causal, window, softcap and ``segs``, the
+    (q_seg, kv_seg, q_pos, kv_pos) of a packed batch, included)."""
     qf, kf, vf = (x.detach().float().requires_grad_() for x in (q, k, v))
+    seg_kw = {} if segs is None else dict(zip(
+        ("q_segment_ids", "kv_segment_ids", "q_positions", "kv_positions"),
+        segs))
     with torch.enable_grad():
         o, _ = reference_attention(qf, kf, vf, causal=causal,
                                    sm_scale=sm_scale, window=window,
-                                   softcap=softcap)
+                                   softcap=softcap, **seg_kw)
         return torch.autograd.grad(o, (qf, kf, vf), do.float())

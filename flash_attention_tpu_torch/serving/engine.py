@@ -18,6 +18,13 @@ pages wholly behind the window as holes, and decode frees them as the window
 moves, in blocks of 8 pages, so a sequence holds O(window) pages. With
 alternating window and global layers (Gemma-2) every page stays live.
 
+With ``chunk_size`` (chunked prefill) a batch whose longest context exceeds
+it prefills in chunks of ``chunk_size`` tokens (``llama.prefill_chunk``,
+the segmented flash forward over [prefix pages || chunk]), each chunk's K/V
+scattered into its pages before the next; under a window, admission holes
+only the pages dead to the second chunk's first query, and each chunk
+releases the pages behind its own window, by the JAX engine's rules.
+
 The power-of-two batch and bucket padding and the trash page are kept so the
 port emits the same tokens as the JAX engine; on the GPU they are not needed
 for compilation and may go with CUDA graphs later. A Mixtral (MoE) model
@@ -25,8 +32,8 @@ routes every row it is given, pad rows and pad batch entries included, as
 the JAX engine does. Weight-only quantized params (``llama.quantize_params``)
 serve as they are; the device and the cache dtype come from the bf16
 embedding. Tensor parallelism (and expert parallelism with it),
-speculative decoding, prefix caching, chunked prefill, multi-step decode,
-LoRA and a quantized KV cache are outside this slice and raise.
+speculative decoding, prefix caching, multi-step decode, LoRA and a
+quantized KV cache are outside this slice and raise.
 """
 
 from __future__ import annotations
@@ -76,15 +83,26 @@ class Engine:
         lora_targets: tuple = ("wq", "wk", "wv", "wo"),
         max_loras: int = 8,
     ):
-        # the JAX engine's keywords, in its order; an unported option at a
-        # value other than its default raises, naming the option
+        # the JAX engine's errors for chunk_size first, then, in its order,
+        # each unported option at a value other than its default raises,
+        # naming the option
+        if chunk_size is not None and chunk_size % page_size:
+            raise ValueError(
+                f"chunk_size {chunk_size} must be a multiple of page_size "
+                f"{page_size} (chunks scatter whole pages)")
+        if chunk_size is not None and prefix_cache:
+            raise ValueError("prefix caching with chunked prefill is not "
+                             "supported; the prefix path already prefills in "
+                             "one suffix chunk")
+        if chunk_size is not None and draft_cfg is not None:
+            raise ValueError("speculative decoding with chunked prefill is "
+                             "not supported yet")
         unsupported = {
             "kv_dtype (the cache holds K/V in the weights' dtype)":
                 kv_dtype not in (torch.bfloat16, params["embed"].dtype),
             "kv_quant (quantized KV cache)": kv_quant,
             "mesh (tensor parallelism)": mesh is not None,
             "tp_axis (tensor parallelism)": tp_axis != "model",
-            "chunk_size (chunked prefill)": chunk_size is not None,
             "draft_cfg, draft_params (speculative decoding)":
                 draft_cfg is not None or draft_params is not None,
             "n_draft (speculative decoding)": n_draft != 4,
@@ -104,6 +122,7 @@ class Engine:
         self.device = params["embed"].device
         self.page_size = page_size
         self.max_seq_len = max_seq_len
+        self.chunk_size = chunk_size
         # +1 slot/page budget for the trash page dummy rows write into
         self.rt = PagedRuntime(total_pages, page_size, max_seqs=max_batch + 1,
                                native=native_allocator)
@@ -132,9 +151,17 @@ class Engine:
             return max(tokens - window, 0) // blk * KERNEL_PPB
 
         self.live_from_page = live_from_page
+        sched_live = live_from_page
+        if chunk_size is not None:
+            # chunked prefill reads mid-prompt prefix K/V back out of the
+            # pages, so admission holes only the pages dead to the second
+            # chunk's first query (position chunk_size); _prefill_chunked
+            # releases the rest as the chunk frontier moves
+            def sched_live(tokens: int) -> int:
+                return live_from_page(min(tokens, chunk_size + 1))
         self.sched = Scheduler(self.rt, max_batch=max_batch,
                                reserve_pages=max_batch,
-                               live_from_page_fn=live_from_page)
+                               live_from_page_fn=sched_live)
         # page-table width: one batch row must span max_seq_len
         self.pages_per_seq = -(-max_seq_len // page_size)
         L, hk, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
@@ -164,9 +191,11 @@ class Engine:
                 f"prompt+max_new_tokens = {total} exceeds max_seq_len "
                 f"{self.max_seq_len}")
         need = -(-total // self.page_size)
-        if self.window is not None:
+        if self.window is not None and self.chunk_size is None:
             # a windowed sequence holds at most the window and one block of
-            # not yet reclaimed pages, whatever its length
+            # not yet reclaimed pages, whatever its length (not with chunked
+            # prefill: admission keeps the whole prompt but the first chunk's
+            # dead pages live)
             need = min(need, -(-self.window // self.page_size)
                        + KERNEL_PPB + 1)
         budget = self.rt.total_pages - 1 - self.sched.reserve_pages  # -trash
@@ -218,6 +247,8 @@ class Engine:
         t0 = time.perf_counter()
         seqs = [r.prompt + r.output for r in reqs]
         n_max = max(len(s) for s in seqs)
+        if self.chunk_size is not None and n_max > self.chunk_size:
+            return self._prefill_chunked(reqs, seqs, t0)
         bucket = max(32, _pow2(n_max))
         bsz = _pow2(len(reqs))
         toks = np.zeros((bsz, bucket), np.int64)
@@ -249,6 +280,86 @@ class Engine:
             self.k_pages, self.v_pages, (ks, vs), torch.tensor(dest),
             torch.tensor(src_row), torch.tensor(src_page), self.page_size)
         for i, (req, tok) in enumerate(zip(reqs, self._sample_batch(reqs, logits))):
+            self._append_token(req, i, tok)
+        self.stats["prefill_dispatches"] += 1
+        self.stats["prefill_time"] += time.perf_counter() - t0
+
+    def _prefill_chunked(self, reqs: list[Request], seqs, t0) -> None:
+        """Prefill ``reqs`` in chunks of ``chunk_size`` tokens.
+
+        Each chunk is one ``llama.prefill_chunk`` at (batch, chunk_size):
+        the chunk's queries attend to [prefix pages || chunk], then its
+        whole pages scatter into the cache through ``write_prefill_to_pages``.
+        The batch pads to a power of two, and the prefix table to a power of
+        two in pages with the trash page (masked off by ``done``), as in the
+        JAX engine. Only each row's last context position reaches the
+        lm_head (``logit_rows``)."""
+        cs, ps = self.chunk_size, self.page_size
+        dev = self.device
+        n = len(reqs)
+        bsz = _pow2(n)
+        lens = np.zeros((bsz,), np.int64)
+        for i, s in enumerate(seqs):
+            lens[i] = len(s)
+        n_chunks = -(-int(lens.max()) // cs)
+        toks = np.zeros((bsz, n_chunks * cs), np.int64)
+        for i, s in enumerate(seqs):
+            toks[i, : len(s)] = s
+        final = None  # (bsz, vocab) fp32: each row's last-token logits
+        for step in range(n_chunks):
+            base = step * cs
+            done = np.minimum(lens, base)
+            clen = np.clip(lens - base, 0, cs)
+            if self.window is not None and base:
+                # the chunk frontier is the oldest remaining query: release
+                # the prefix pages behind its window
+                for i, r in enumerate(reqs):
+                    self.rt.seq_release_prefix(
+                        r.slot, self.live_from_page(min(int(lens[i]), base)
+                                                    + 1))
+            npp = _pow2(max(1, -(-base // ps)))
+            tables = np.full((bsz, npp), self.trash_page, np.int64)
+            for i, r in enumerate(reqs):
+                row = np.asarray(self.rt.seq_page_table(r.slot, npp, pad=-1))
+                tables[i] = np.where(row < 0, self.trash_page, row)
+            last = lens - 1
+            logits, ks, vs = llama.prefill_chunk(
+                self.params, torch.from_numpy(toks[:, base:base + cs]).to(dev),
+                torch.from_numpy(done).to(dev), torch.from_numpy(clen).to(dev),
+                self.k_pages, self.v_pages, None, None,
+                torch.from_numpy(tables).to(dev), self.cfg,
+                logit_rows=torch.from_numpy(np.clip(last - base, 0,
+                                                    cs - 1)).to(dev))
+            # this chunk's whole pages (chunk_size % page_size == 0, so
+            # chunk-local page j holds tokens [base + j ps, ...))
+            dest, src_row, src_page = [], [], []
+            p0 = base // ps
+            for i, r in enumerate(reqs):
+                for j in range(-(-int(clen[i]) // ps)):
+                    pid = self.rt.seq_page_table(r.slot, p0 + j + 1,
+                                                 pad=-1)[p0 + j]
+                    if pid < 0:
+                        continue  # a window hole: its KV is never read
+                    dest.append(pid)
+                    src_row.append(i)
+                    src_page.append(j)
+            if dest:
+                n_pad = _pow2(len(dest))
+                dest += [self.trash_page] * (n_pad - len(dest))
+                src_row += [0] * (n_pad - len(src_row))
+                src_page += [0] * (n_pad - len(src_page))
+                llama.write_prefill_to_pages(
+                    self.k_pages, self.v_pages, (ks, vs), torch.tensor(dest),
+                    torch.tensor(src_row), torch.tensor(src_page), ps)
+            # rows whose last context token falls in this chunk take its
+            # logits
+            here = torch.from_numpy((last >= base) & (last < base + clen))
+            final = logits if final is None else torch.where(
+                here.to(dev)[:, None], logits, final)
+            self.stats["prefill_chunks"] = self.stats.get("prefill_chunks",
+                                                          0) + 1
+        self.stats["prefill_tokens"] += int(lens[:n].sum())
+        for i, (req, tok) in enumerate(zip(reqs, self._sample_batch(reqs, final))):
             self._append_token(req, i, tok)
         self.stats["prefill_dispatches"] += 1
         self.stats["prefill_time"] += time.perf_counter() - t0

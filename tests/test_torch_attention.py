@@ -24,11 +24,13 @@ import jax.numpy as jnp
 import flash_attention_tpu as fat
 from flash_attention_tpu.ops.reference import reference_attention as jax_ref
 from flash_attention_tpu.utils.metrics import assert_metrics
-from flash_attention_tpu_torch import flash_attention, fwd
+from flash_attention_tpu_torch import SegmentIds, flash_attention, fwd
 from flash_attention_tpu_torch.ops import flash_fwd as fwd_mod
 from flash_attention_tpu_torch.ops.attention import (kernel_head_dim,
                                                      padded_head_dim)
-from flash_attention_tpu_torch.ops.flash_bwd import flash_bwd_reference
+from flash_attention_tpu_torch.ops.flash_bwd import (flash_bwd_dkv,
+                                                     flash_bwd_dq,
+                                                     flash_bwd_reference)
 from flash_attention_tpu_torch.ops.reference import (
     reference_attention, reference_attention_bwd)
 
@@ -119,12 +121,23 @@ def test_flash_attention_forward_only():
 
 
 def test_kernel_wrapper_never_falls_back():
-    """The CUDA wrapper takes no CPU tensor: the plain path is chosen by
-    ``fwd`` from the device, and the kernel wrapper raises instead."""
+    """The CUDA wrappers take no CPU tensor: the plain path is chosen by
+    ``fwd`` and ``bwd`` from the device, and the kernel wrappers raise
+    instead, the forward's dense and segmented, and the segmented dq and
+    dkv."""
     q, k, v = map(torch.from_numpy, _qkv(6, 1, 16, 16, 2, 2, 64))
+    q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
     with pytest.raises(ValueError, match="CUDA"):
-        fwd_mod.flash_fwd(q.bfloat16(), k.bfloat16(), v.bfloat16(),
-                          causal=True, sm_scale=0.125)
+        fwd_mod.flash_fwd(q, k, v, causal=True, sm_scale=0.125)
+    segs = tuple(torch.zeros((1, 16), dtype=torch.int32) for _ in range(4))
+    lse = torch.zeros((1, 2, 16))
+    kw = dict(causal=True, sm_scale=0.125, segs=segs)
+    with pytest.raises(ValueError, match="CUDA"):
+        fwd_mod.flash_fwd(q, k, v, **kw)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_bwd_dq(q, k, v, q, lse, lse, **kw)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_bwd_dkv(q, k, v, q, lse, lse, **kw)
 
 
 @pytest.mark.parametrize("causal,window,want", [
@@ -170,14 +183,25 @@ def test_padded_head_dim_matches_jax(causal):
                                     "block_sizes", "interpret"])
 def test_flash_attention_takes_jax_arguments(option):
     """flash_attention's arguments are JAX's, in JAX's order (window_size is
-    the ninth); an unported one at a value other than None raises
-    NotImplementedError naming it."""
+    the ninth, segment_ids the sixth); an unported one at a value other
+    than None raises NotImplementedError naming it."""
     q, k, v = map(torch.from_numpy, _qkv(8, 1, 16, 16, 2, 1, 64))
     if option == "signature":
         assert list(inspect.signature(flash_attention).parameters) == list(
             inspect.signature(fat.flash_attention).parameters)
         o = flash_attention(q, k, v, True, None, None, None, None, (4, 0))
         want, _ = reference_attention(q, k, v, causal=True, window=(4, 0))
+        assert torch.equal(o, want)
+        return
+    if option == "segment_ids":
+        # two packed segments: each attends causally within itself
+        seg = torch.tensor([[0] * 6 + [1] * 10])
+        o = flash_attention(q, k, v, True, None,
+                            SegmentIds(seg, seg))
+        pos = torch.tensor([list(range(6)) + list(range(10))])
+        want, _ = reference_attention(q, k, v, causal=True,
+                                      q_segment_ids=seg, kv_segment_ids=seg,
+                                      q_positions=pos, kv_positions=pos)
         assert torch.equal(o, want)
         return
     with pytest.raises(NotImplementedError, match=option):

@@ -1324,3 +1324,129 @@ def test_quantized_prefill_cuda_matches_cpu(cuda, bits):
     assert quant.KERNEL.launches == before + 7 * cfg.n_layers + 1
     rel = float((got.cpu() - want).norm() / want.norm())
     assert rel < 5e-2, rel
+
+
+# Segmented (varlen) instances of the forward, dq and dkv kernels against
+# the plain segmented versions (the mask from segment ids and positions),
+# with the gates of the dense instances. Ragged sequences with cu_k >= cu_q
+# per sequence, a length-1 sequence, sequences that cross the 64- and
+# 128-row tiles, and tail tokens past cu[-1] in both packed buffers.
+SEG_LENS = ([1, 70, 130, 200, 33], [1, 90, 130, 260, 33])
+SEG_CASES = {  # causal, window, softcap
+    "causal": (True, None, None), "non-causal": (False, None, None),
+    "window": (True, (40, 0), None), "softcap": (True, None, 5.0)}
+
+
+def _seg_inputs(rng, lens_q, lens_k, h, hk, d, dtype, device, tail=(7, 9)):
+    from flash_attention_tpu_torch.ops.attention import _varlen_segs
+    cu_q = torch.tensor(np.concatenate([[0], np.cumsum(lens_q)]))
+    cu_k = torch.tensor(np.concatenate([[0], np.cumsum(lens_k)]))
+    tq, tk = int(cu_q[-1]) + tail[0], int(cu_k[-1]) + tail[1]
+    segs = tuple(x.to(device) for x in _varlen_segs(cu_q, cu_k, tq, tk))
+    q, do = (_randn(rng, (1, tq, h, d), dtype, device) for _ in range(2))
+    k, v = (_randn(rng, (1, tk, hk, d), dtype, device) for _ in range(2))
+    return q, k, v, do, segs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("case", sorted(SEG_CASES))
+def test_flash_segmented_matches_plain(cuda, dtype, d, case):
+    """The segmented forward, dq and dkv against their plain versions; the
+    query tail (pad id) gets O = 0, LSE = empty_lse and dq = 0, the key
+    tail dK = dV = 0."""
+    causal, window, cap = SEG_CASES[case]
+    rng = np.random.default_rng(d + len(case))
+    q, k, v, do, segs = _seg_inputs(rng, *SEG_LENS, 8, 2, d, dtype, cuda)
+    kw = dict(causal=causal, sm_scale=d**-0.5, window=window, softcap=cap,
+              segs=segs)
+    before = fwd_mod.KERNEL.launches
+    o, lse = fwd_mod.flash_fwd(q, k, v, empty_lse=-2.0, **kw)
+    assert fwd_mod.KERNEL.launches == before + 1
+    o_ref, lse_ref = fwd_mod.flash_fwd_segmented_reference(
+        q, k, v, empty_lse=-2.0, **kw)
+    tag = f"[{case},{dtype},{d}]"
+    assert_metrics("fwd" + tag, o, o_ref,
+                   BF16_TOLS if dtype == torch.bfloat16 else FWD_TOLS)
+    assert_metrics("fwd lse" + tag, lse, lse_ref, LSE_TOLS)
+    tail_q, tail_k = segs[0][0] < 0, segs[1][0] < 0
+    assert torch.all(o[:, tail_q] == 0) and torch.all(lse[:, :, tail_q] == -2)
+    di = bwd_mod.flash_bwd_di(o, do)
+    di_r = bwd_mod.di_reference(o, do)
+    dq = bwd_mod.flash_bwd_dq(q, k, v, do, lse, di, **kw)
+    dk, dv = bwd_mod.flash_bwd_dkv(q, k, v, do, lse, di, **kw)
+    dq_r = bwd_mod.dq_reference(q, k, v, do, lse, di_r, **kw)
+    dk_r, dv_r = bwd_mod.dkv_reference(q, k, v, do, lse, di_r, **kw)
+    tols = BWD_BF16_TOLS if dtype == torch.bfloat16 else BWD_TOLS
+    for name, x, ref in (("dq", dq, dq_r), ("dk", dk, dk_r), ("dv", dv, dv_r)):
+        assert_metrics(name + tag, x, ref, _ulp_tols(tols, ref))
+    assert torch.all(dq[:, tail_q] == 0)
+    assert torch.all(dk[:, tail_k] == 0) and torch.all(dv[:, tail_k] == 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_flash_segmented_packed_equals_dense(cuda, d):
+    """Four packed causal sequences of 256 tokens, whose boundaries fall on
+    every kernel's tiles, take the same tiles in the same order as the
+    dense kernels on (4, 256): O, LSE, dq, dk and dv equal them bit for
+    bit."""
+    rng = np.random.default_rng(d)
+    b, s, h, hk = 4, 256, 8, 2
+    q, k, v, do = (_randn(rng, (b, s, n, d), torch.bfloat16, cuda)
+                   for n in (h, hk, hk, h))
+    seg = torch.arange(b * s, device=cuda, dtype=torch.int32)[None] // s
+    pos = torch.arange(b * s, device=cuda, dtype=torch.int32)[None] % s
+    segs = (seg, seg, pos, pos)
+    kw = dict(causal=True, sm_scale=d**-0.5)
+    o, lse = fwd_mod.flash_fwd(q, k, v, **kw)
+    packed = [x.reshape(1, b * s, *x.shape[2:]) for x in (q, k, v, do)]
+    o_s, lse_s = fwd_mod.flash_fwd(*packed[:3], segs=segs, **kw)
+    assert torch.equal(o_s.view(o.shape), o)
+    assert torch.equal(lse_s.view(1, h, b, s).transpose(0, 2)[:, :, 0], lse)
+    dense = bwd_mod.flash_bwd(q, k, v, o, lse, do, **kw)
+    seg_out = bwd_mod.flash_bwd(*packed[:3], o_s, lse_s, packed[3],
+                                segs=segs, **kw)
+    for name, x, y in zip(("dq", "dk", "dv"), seg_out, dense):
+        assert torch.equal(x.view(y.shape), y), name
+
+
+@pytest.mark.gpu
+def test_flash_segmented_empty_ranges_and_unsorted_keys(cuda):
+    """Query blocks with no key of their segment (empty ranges: nothing
+    loaded, O = 0, LSE = empty_lse) and an unsorted kv key (the full-range
+    fallback, a chunked-prefill layout) against the plain versions."""
+    rng = np.random.default_rng(5)
+    b, sq, pref, c, h, hk, d = 2, 256, 384, 256, 8, 2, 128
+    q, do = (_randn(rng, (b, sq, h, d), torch.bfloat16, cuda)
+             for _ in range(2))
+    k, v = (_randn(rng, (b, pref + c, hk, d), torch.bfloat16, cuda)
+            for _ in range(2))
+    done = torch.tensor([300, 0], device=cuda)
+    idx = torch.arange(c, device=cuda)
+    positions = done[:, None] + idx
+    kv_pos = torch.cat([torch.arange(pref, device=cuda).expand(b, pref),
+                        positions], 1)
+    kv_seg = torch.cat([torch.where(kv_pos[:, :pref] < done[:, None], 0, -1),
+                        torch.zeros((b, c), device=cuda, dtype=torch.long)],
+                       1)
+    q_seg = torch.zeros((b, sq), device=cuda, dtype=torch.long)
+    q_seg[1, 128:] = 7  # a segment with no key: an empty range
+    segs = tuple(x.int() for x in (q_seg, kv_seg, positions, kv_pos))
+    kw = dict(causal=True, sm_scale=d**-0.5, segs=segs)
+    o, lse = fwd_mod.flash_fwd(q, k, v, empty_lse=-1.0, **kw)
+    o_ref, lse_ref = fwd_mod.flash_fwd_segmented_reference(
+        q, k, v, empty_lse=-1.0, **kw)
+    assert_metrics("fwd[unsorted]", o, o_ref, BF16_TOLS)
+    assert_metrics("fwd lse[unsorted]", lse, lse_ref, LSE_TOLS)
+    assert torch.all(o[1, 128:] == 0) and torch.all(lse[1, :, 128:] == -1.0)
+    di = bwd_mod.flash_bwd_di(o, do)
+    di_r = bwd_mod.di_reference(o, do)
+    dq = bwd_mod.flash_bwd_dq(q, k, v, do, lse, di, **kw)
+    dk, dv = bwd_mod.flash_bwd_dkv(q, k, v, do, lse, di, **kw)
+    dq_r = bwd_mod.dq_reference(q, k, v, do, lse, di_r, **kw)
+    dk_r, dv_r = bwd_mod.dkv_reference(q, k, v, do, lse, di_r, **kw)
+    for name, x, ref in (("dq", dq, dq_r), ("dk", dk, dk_r), ("dv", dv, dv_r)):
+        assert_metrics(name + "[unsorted]", x, ref,
+                       _ulp_tols(BWD_BF16_TOLS, ref))

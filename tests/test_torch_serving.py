@@ -121,7 +121,7 @@ def test_engine_stream_and_unsupported_options(params):
     with pytest.raises(ValueError):
         eng.add_request([1] * 60, max_new_tokens=10)
     for kw in (dict(kv_quant=True), dict(prefix_cache=True),
-               dict(decode_block=4), dict(chunk_size=32), dict(lora_rank=4)):
+               dict(decode_block=4), dict(lora_rank=4)):
         with pytest.raises(NotImplementedError):
             Engine(tl.LlamaConfig.tiny(), pt, **kw)
 
@@ -131,7 +131,7 @@ def test_engine_stream_and_unsupported_options(params):
 # the weights' dtype).
 UNPORTED_ENGINE_OPTIONS = {
     "kv_dtype": torch.float16, "kv_quant": True, "mesh": object(),
-    "tp_axis": "tp", "chunk_size": 32, "draft_cfg": jl.LlamaConfig.tiny(),
+    "tp_axis": "tp", "draft_cfg": jl.LlamaConfig.tiny(),
     "draft_params": {}, "n_draft": 2, "prefix_cache": True,
     "decode_block": 4, "lora_rank": 4, "lora_targets": ("wq",),
     "max_loras": 2}

@@ -5,8 +5,8 @@ public method of a public class) defined in the port's module and present
 in the JAX one must take the same parameter names in the same order, with
 the same kinds (positional or keyword-only), so a call written for one
 package binds on the other. Each difference is listed below with its
-reason: the port's own extensions (``PORT_EXTRA``), JAX parameters whose
-slice is not ported yet (``JAX_ONLY``), and functions whose signatures
+reason: the port's own extensions (``PORT_EXTRA``), JAX parameters the
+port does not take (``JAX_ONLY``), and functions whose signatures
 differ as a whole (``DIFFERENT``). Each test also fails on an entry that no
 longer differs, so the lists cannot outlive what they describe. The
 options the port takes only at their defaults raise NotImplementedError
@@ -25,12 +25,15 @@ pytest.importorskip("jax")  # the JAX reference; skip where it is not installed
 MODULES = ("models.checkpoint", "models.llama", "ops.attention",
            "ops.flash_bwd", "ops.flash_fwd", "ops.kv_update", "ops.moe",
            "ops.paged_attention", "ops.quant", "ops.reference",
-           "serving.engine", "serving.native", "serving.sampling",
-           "serving.scheduler", "utils.debug_inputs", "utils.metrics")
+           "ops.segments", "serving.engine", "serving.native",
+           "serving.sampling", "serving.scheduler", "utils.debug_inputs",
+           "utils.metrics")
 
 # port-only parameters: each an extension of the port
 PORT_EXTRA = {
     "models.checkpoint.load_checkpoint": ("device",),
+    # the lm_head at one row per sequence, as prefill's logit_rows
+    "models.llama.prefill_chunk": ("logit_rows",),
     "ops.paged_attention.paged_attention_reference": ("layer",),
     "ops.reference.reference_attention": ("empty_lse",),
     "serving.engine.Engine.run": ("on_step",),
@@ -38,12 +41,10 @@ PORT_EXTRA = {
     "utils.debug_inputs.identity_batch": ("device",),
     "utils.debug_inputs.identity_packed": ("device",),
 }
-# JAX parameters the port does not take yet: segment ids and positions
-# come with varlen (ROADMAP.md queue A item 1)
+# JAX parameters the port does not take: the plain attention always
+# returns (o, lse)
 JAX_ONLY = {
-    "ops.reference.reference_attention": (
-        "q_segment_ids", "kv_segment_ids", "q_positions", "kv_positions",
-        "return_lse"),
+    "ops.reference.reference_attention": ("return_lse",),
 }
 # signatures that differ as a whole
 DIFFERENT = {
@@ -144,13 +145,11 @@ def _unported_calls():
     toks = torch.zeros((1, 4), dtype=torch.int64)
     calls = [("block_sizes", lambda: fat.fwd(q, q, q, block_sizes=1)),
              ("interpret", lambda: fat.fwd(q, q, q, interpret=True)),
-             ("segs", lambda: fat.fwd(q, q, q, segs=1)),
              ("kv_split", lambda: fat.fwd(q, q, q, kv_split=2)),
              ("block_sizes", lambda: fat.bwd(q, q, q, o, lse, q,
                                              block_sizes=1)),
              ("interpret", lambda: fat.bwd(q, q, q, o, lse, q,
                                            interpret=False)),
-             ("segs", lambda: fat.bwd(q, q, q, o, lse, q, segs=1)),
              ("pages_per_block", lambda: fat.paged_attention(
                  q[:, 0], pages, pages, torch.ones(1, dtype=torch.int32),
                  torch.zeros((1, 1), dtype=torch.int32), layer=0,
@@ -181,13 +180,13 @@ def _unported_calls():
     return calls
 
 
-@pytest.mark.parametrize("i", range(18))
+@pytest.mark.parametrize("i", range(16))
 def test_unported_options_raise(i):
     """Each option the port takes only at its JAX default raises
     NotImplementedError naming it at another value (Engine.add_adapter, LoRA
     registration, always raises)."""
     calls = _unported_calls()
-    assert len(calls) == 18
+    assert len(calls) == 16
     option, call = calls[i]
     with pytest.raises(NotImplementedError, match=option):
         call()

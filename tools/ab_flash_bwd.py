@@ -24,13 +24,17 @@ Every set is built with the port's flags (its ``-Xptxas -v`` register,
 spill and C75xx lines printed), and its dq, dk and dv are compared with the
 first set's bit for bit at b2 s2048 h32/8 d64 and d128 bf16, causal and
 not; then
-each kernel is timed with CUDA events in the order a b .. b a. Prints the
-card's name and power limit with every line. Imports no JAX.
+each kernel is timed with CUDA events in the order a b .. b a. Sets whose
+wrappers take ``segs`` also run the segmented dq and dkv on 8 packed
+sequences of 2048 (one row of 16384 tokens, causal), checked and timed the
+same way against the other such sets. Prints the card's name and power
+limit with every line. Imports no JAX.
 """
 
 from __future__ import annotations
 
 import importlib.util
+import inspect
 import pathlib
 import subprocess
 import sys
@@ -44,6 +48,7 @@ from flash_attention_tpu_torch.ops import flash_bwd as fb  # noqa: E402
 from flash_attention_tpu_torch.ops import flash_fwd as fm  # noqa: E402
 
 B, S, H, HK = 2, 2048, 32, 8
+SEG_BATCH = 8  # packed sequences of S tokens in the segmented cell
 DIMS = (64, 128)  # the head dims whose instances are compared
 PARTS = {"di": "DI_KERNEL", "dq": "DQ_KERNEL", "dkv": "DKV_KERNEL"}
 
@@ -136,6 +141,37 @@ def main() -> int:
                     for n, r in times.items())
                 print(f"{part} b{B} s{S} h{H}/{HK} d{d} causal={causal}: "
                       f"{row} [{card}]")
+        seg_sets = [n for n, m in sets.items()
+                    if "segs" in inspect.signature(m.flash_bwd).parameters]
+        if not seg_sets:
+            continue
+        n_tok = SEG_BATCH * S
+        seg = (torch.arange(n_tok, device=dev, dtype=torch.int32) // S)[None]
+        pos = (torch.arange(n_tok, device=dev, dtype=torch.int32) % S)[None]
+        segs = (seg, seg, pos, pos)
+        q, k, v, do = rnd(1, n_tok, H, d), rnd(1, n_tok, HK, d), \
+            rnd(1, n_tok, HK, d), rnd(1, n_tok, H, d)
+        kw = dict(causal=True, sm_scale=d**-0.5, segs=segs)
+        o, lse = fm.flash_fwd(q, k, v, **kw)
+        ref = sets[seg_sets[0]].flash_bwd(q, k, v, o, lse, do, **kw)
+        times = {n: {p: [] for p in ("dq", "dkv")} for n in seg_sets}
+        for name in seg_sets:
+            same = all(torch.equal(a, b) for a, b in zip(
+                sets[name].flash_bwd(q, k, v, o, lse, do, **kw), ref))
+            print(f"{name} segmented {SEG_BATCH} x {S} packed d{d}: dq, dk, "
+                  f"dv bit-identical to {seg_sets[0]}'s: {same}")
+        for name in seg_sets + seg_sets[::-1]:
+            mod = sets[name]
+            di = mod.flash_bwd_di(o, do)
+            times[name]["dq"].append(time_ms(
+                lambda: mod.flash_bwd_dq(q, k, v, do, lse, di, **kw)))
+            times[name]["dkv"].append(time_ms(
+                lambda: mod.flash_bwd_dkv(q, k, v, do, lse, di, **kw)))
+        for part in ("dq", "dkv"):
+            row = ", ".join(f"{n} {' / '.join(f'{t:.4f}' for t in r[part])} ms"
+                            for n, r in times.items())
+            print(f"{part} segmented {SEG_BATCH} x {S} packed causal "
+                  f"h{H}/{HK} d{d}: {row} [{card}]")
     return 0
 
 

@@ -23,13 +23,16 @@ Every source is built with the port's flags, checked against the plain
 version and against the first source (bit for bit) on one shape and at
 every timed shape, and timed with CUDA events at b8 and b2 s2048 h32/8, d 64
 and 128 (causal and not), in the order a b .. b a; SDPA with ``enable_gqa`` is
-timed last. Prints the card's name and power limit with every line.
-Imports no JAX.
+timed last. A source whose wrapper takes ``segs`` also runs the segmented
+instance on 8 packed sequences of 2048 (one row of 16384 tokens, causal),
+checked and timed the same way against the other such sources. Prints the
+card's name and power limit with every line. Imports no JAX.
 """
 
 from __future__ import annotations
 
 import importlib.util
+import inspect
 import pathlib
 import subprocess
 import sys
@@ -43,6 +46,7 @@ from flash_attention_tpu_torch.ops import flash_fwd as fm  # noqa: E402
 from flash_attention_tpu_torch.ops.reference import reference_attention  # noqa: E402
 
 SHAPES = [(8, True), (8, False), (2, True)]  # (batch, causal) at s 2048
+SEG_BATCH = 8  # packed sequences of S tokens in the segmented cell
 S, H, HK = 2048, 32, 8
 DIMS = (64, 128)  # the head dims whose instances are compared
 
@@ -68,6 +72,17 @@ def load_wrapper(path: pathlib.Path, name: str):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def packed_segs(dev, n: int, s: int):
+    """(q_seg, kv_seg, q_pos, kv_pos) of n packed sequences of s tokens."""
+    seg = torch.arange(n * s, device=dev, dtype=torch.int32) // s
+    pos = torch.arange(n * s, device=dev, dtype=torch.int32) % s
+    return seg[None], seg[None], pos[None], pos[None]
+
+
+def takes_segs(mod) -> bool:
+    return "segs" in inspect.signature(mod.flash_fwd).parameters
 
 
 def main() -> int:
@@ -104,6 +119,11 @@ def main() -> int:
     refs = {d: reference_attention(*x, causal=True)[0]
             for d, x in checks.items()}
     cells = [(b, causal, d) for d in DIMS for b, causal in SHAPES]
+    segs = packed_segs(dev, SEG_BATCH, S)
+    seg_inputs = {d: tuple(x.reshape(1, SEG_BATCH * S, *x.shape[2:])
+                           for x in inputs[(SEG_BATCH, d)]) for d in DIMS}
+    seg_mods = [n for n, m in mods.items() if takes_segs(m)]
+    seg_times = {n: {d: [] for d in DIMS} for n in seg_mods}
     times = {n: {c: [] for c in cells} for n in mods}
     first = {}  # d -> (name, O, LSE) of the first source
     for name in list(mods) + list(mods)[::-1]:
@@ -129,6 +149,17 @@ def main() -> int:
                 lambda: mod.flash_fwd(q, k, v, **kw)))
         print(f"{name}: at every timed shape too, O and LSE bit-identical to "
               f"{first[DIMS[0]][0]}'s: {same}")
+        if name in seg_mods:
+            seg_ref = mods[seg_mods[0]]
+            for d in DIMS:
+                kw = dict(causal=True, sm_scale=d**-0.5, segs=segs)
+                out = mod.flash_fwd(*seg_inputs[d], **kw)
+                same_seg = all(torch.equal(x, y) for x, y in zip(
+                    out, seg_ref.flash_fwd(*seg_inputs[d], **kw)))
+                seg_times[name][d].append(time_ms(
+                    lambda: mod.flash_fwd(*seg_inputs[d], **kw)))
+                print(f"{name} segmented {SEG_BATCH} x {S} packed d{d}: O "
+                      f"and LSE bit-identical to {seg_mods[0]}'s: {same_seg}")
     for b, causal, d in cells:
         q, k, v = inputs[(b, d)]
         sdpa = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
@@ -142,6 +173,12 @@ def main() -> int:
             for n, r in times.items())
         print(f"b{b} s{S} h{H}/{HK} d{d} causal={causal}: {parts}; "
               f"sdpa {sdpa:.4f} ms [{card}]")
+    for d in DIMS:
+        if seg_mods:
+            parts = ", ".join(f"{n} {' / '.join(f'{t:.4f}' for t in r[d])} ms"
+                              for n, r in seg_times.items())
+            print(f"segmented {SEG_BATCH} x {S} packed causal h{H}/{HK} "
+                  f"d{d}: {parts} [{card}]")
     return 0
 
 

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Compare the SASS of two revisions of a kernel source, function by function.
 
-    python3 tools/sass_diff.py NAME OLD.cu NEW.cu [--skip REGEX]
+    python3 tools/sass_diff.py NAME OLD.cu NEW.cu [--skip REGEX] [--strip REGEX]
 
 Builds both sources with the port's flags (each finds its own headers beside
 it), disassembles each library with the toolkit's ``cuobjdump -sass`` and
@@ -10,6 +10,11 @@ instructions are the same (the instruction text with the offsets, comments
 and the function's name left out), and the functions only one of them has.
 Functions whose template arguments match ``--skip`` (for example
 ``Li256E``, a head-dim instance only the new revision has) are left out.
+``--strip`` removes what it matches from the new revision's template
+arguments before they are paired: a template argument that only the new
+revision has, at the value that gives the old function (``Lb0E$`` pairs the
+instances whose last bool argument, such as SEG, is false with the old ones;
+those where it is true are then only in the new revision).
 Exits 1 if a common function differs. To take an earlier revision's source,
 copy it and its headers into a directory that git ignores, as
 ``tools/ab_flash_fwd.py`` says. Imports no JAX.
@@ -54,12 +59,15 @@ def main() -> int:
     ap.add_argument("old")
     ap.add_argument("new")
     ap.add_argument("--skip", default=None)
+    ap.add_argument("--strip", default=None)
     args = ap.parse_args()
     kernels = [_build.Kernel(f"sass_{args.name}_{tag}",
                              str(pathlib.Path(src).resolve()), {})
                for tag, src in (("old", args.old), ("new", args.new))]
     _build.build(kernels)
     old, new = (functions(k) for k in kernels)
+    if args.strip:
+        new = {re.sub(args.strip, "", n): body for n, body in new.items()}
     skip = re.compile(args.skip) if args.skip else None
     differ = 0
     for name in sorted(set(old) | set(new)):
