@@ -195,6 +195,16 @@ GEMMA2_LAYERS_CHECK = 2
 # activations at every projection, as prefill and decode do (see
 # CONSISTENCY_REL_L2): a few percent at most.
 QUANT_CARD_CPU_REL_L2 = CONSISTENCY_REL_L2
+# The quantized KV cache (int8 and fp8 e4m3 pages with per-token scales in
+# (8, 128) fp32 tiles): Llama-3-8B served at full width and depth with bf16
+# weights, the bf16 serve's traffic and its 32,768 token slots, in pages of
+# 128 tokens (the scale tile's lanes). Its cache dtypes by name, set by
+# main().
+KV_QUANT_PAGE_SIZE = 128
+KV_QUANT_PAGES = TOTAL_PAGES * PAGE_SIZE // KV_QUANT_PAGE_SIZE
+KV_QUANT = {}
+# layers of the d-256 (Gemma-2-9B's widths) and d-64 quantized paged pools
+PAGED_QUANT_LAYERS = (16, 4)
 
 
 def _card_line() -> str:
@@ -380,19 +390,25 @@ SEG_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 
 
 def _check_cap_instances(name, per_fn):
-    """Hold each instance of an attention kernel to SASS_NO_CAP."""
+    """Hold each instance of an attention kernel to SASS_NO_CAP. The paged
+    kernel's last template argument is its page type (0: q's; 1 int8 and 2
+    fp8, bf16 q only); its quantized instances are new designs, held only
+    to having wgmma and TMA."""
     seen = []
+    paged = name == "paged_attention"
     for fn, c in per_fn.items():
-        m = re.fullmatch(r"I\w+?Li(\d+)ELb([01])E(?:Lb([01])E)?", fn)
+        m = re.fullmatch(r"I\w+?Li(\d+)ELb([01])E(?:Lb([01])E)?"
+                         r"(?:Li([012])E)?", fn)
         assert m, f"{name}: unexpected instance {fn}"
         assert (m.group(3) is not None) == (name in SEG_KERNELS), fn
+        assert (m.group(4) is not None) == paged, fn
         got = (c["HGMMA"], c["UTMALDG"])
         assert all(got), f"{name} {fn}: no wgmma or TMA in SASS"
-        if m.group(2) == "0":
+        if m.group(2) == "0" and m.group(4) in (None, "0"):
             want = SASS_NO_CAP[name][int(m.group(1))]
             assert got == want, f"{name} {fn}: SASS counts {got}, not {want}"
         seen.append(m.groups())
-    per_d = 2 * 2 * (2 if name in SEG_KERNELS else 1)
+    per_d = 2 * 2 * (2 if name in SEG_KERNELS or paged else 1)
     assert len(seen) == per_d * len(SASS_NO_CAP[name]), (name, seen)
 
 
@@ -623,17 +639,22 @@ def _device_kernels(torch, fn, calls: int = 10) -> tuple[float, dict]:
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    times: dict[str, float] = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            times[e.name] = times.get(e.name, 0.0) + e.time_range.elapsed_us()
-    assert times, "the profiler saw no device kernels"
-    return sum(times.values()) / calls / 1e3, times
+    # a session now and then records no device event at all (seen on the
+    # grouped-matmul yardstick at decode): profile again, up to 3 sessions
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        times: dict[str, float] = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                times[e.name] = (times.get(e.name, 0.0)
+                                 + e.time_range.elapsed_us())
+        if times:
+            return sum(times.values()) / calls / 1e3, times
+    raise AssertionError("the profiler saw no device kernels in 3 sessions")
 
 
 def _sdpa_profile(torch, fn, calls: int = 10) -> tuple[float, str]:
@@ -1643,19 +1664,25 @@ class _RangeLog:
         return lines
 
 
-class _PrefillLogits:
-    """Records the logits the engine samples its prefill tokens from (the
-    first ``_sample_batch`` call of a run that admits every request at
-    once): each request's last-position logits."""
+class _SampleLog:
+    """Records the logits of an engine's first ``n`` ``_sample_batch``
+    calls, with the tokens sampled from them: in a run that admits every
+    request at once, the prefill's last positions (``rows``), then the
+    decode steps'."""
 
-    def __init__(self, eng):
-        self.rows, orig = None, eng._sample_batch
+    def __init__(self, eng, n: int = 1):
+        self.calls, orig = [], eng._sample_batch
 
         def sample(reqs, logits):
-            if self.rows is None:
-                self.rows = logits[:len(reqs)].float().cpu()
-            return orig(reqs, logits)
+            toks = orig(reqs, logits)
+            if len(self.calls) < n:
+                self.calls.append((logits[:len(reqs)].float().cpu(), toks))
+            return toks
         eng._sample_batch = sample
+
+    @property
+    def rows(self):
+        return self.calls[0][0] if self.calls else None
 
 
 def _rel(torch, x, y) -> float:
@@ -1677,7 +1704,7 @@ def serve_chunked(torch, params, cfg, prompts, card, kernels, model,
         eng = Engine(cfg, params, total_pages=TOTAL_PAGES, page_size=PAGE_SIZE,
                      max_batch=MAX_BATCH, max_seq_len=max_seq,
                      native_allocator=True, chunk_size=cs)
-        rec = _PrefillLogits(eng)
+        rec = _SampleLog(eng)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         for kern in kernels:
@@ -1798,7 +1825,7 @@ def gemma2_chunked(torch, dev, card, kernels):
     eng = Engine(gcfg, cpu, total_pages=TOTAL_PAGES, page_size=PAGE_SIZE,
                  max_batch=MAX_BATCH, max_seq_len=GEMMA_MAX_SEQ,
                  chunk_size=GEMMA_CHUNK)
-    rec = _PrefillLogits(eng)
+    rec = _SampleLog(eng)
     for p in prompts:
         eng.add_request(p, 1)
     eng.run()
@@ -2202,15 +2229,17 @@ def _weight_bytes(params) -> str:
 
 
 def serve(torch, params, cfg, prompts, card, kernels, model,
-          max_seq=MAX_SEQ, after_step=None):
+          max_seq=MAX_SEQ, after_step=None, page_size=PAGE_SIZE,
+          total_pages=TOTAL_PAGES, **engine_kw):
     """Serve the prompts through the engine with exact launch counts,
-    calling ``after_step(eng)`` after every engine step when given.
+    calling ``after_step(eng)`` after every engine step when given;
+    ``engine_kw`` goes to the engine (kv_quant, kv_dtype).
     Returns (the serving path's launches, each request's tokens)."""
     from flash_attention_tpu_torch import Engine
     from flash_attention_tpu_torch.models import llama
-    eng = Engine(cfg, params, total_pages=TOTAL_PAGES, page_size=PAGE_SIZE,
+    eng = Engine(cfg, params, total_pages=total_pages, page_size=page_size,
                  max_batch=MAX_BATCH, max_seq_len=max_seq,
-                 native_allocator=True)
+                 native_allocator=True, **engine_kw)
     print(f"runtime: {'native C++' if eng.rt.is_native else 'Python'} "
           f"page allocator")
     torch.cuda.synchronize()
@@ -2264,7 +2293,7 @@ _KERNEL_GROUPS = (("flash_fwd", "flash_fwd_kernel"),
                   ("flash_bwd_di", "flash_bwd_di_kernel"),
                   ("flash_bwd_dq", "flash_bwd_dq_kernel"),
                   ("flash_bwd_dkv", "flash_bwd_dkv_kernel"),
-                  ("kv_write", "kv_write_kernel"),
+                  ("kv_write", "kv_write_kernel|kv_write_quant_kernel"),
                   ("paged_attention", "paged_attn_kernel"),
                   ("matmul", "gemm|gemv|cutlass|xmma|nvjet|cublas"))
 
@@ -2498,10 +2527,12 @@ def _quant_error(torch, params, qparams) -> str:
     return ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
 
 
-def generated_logits(torch, params, cfg, prompts, outputs):
+def generated_logits(torch, params, cfg, prompts, outputs,
+                     kv_fake_quant=None):
     """Teacher-forced logits at the generated positions: each served
-    sequence (its prompt and its tokens but the last) through one prefill,
-    and the rows that predict its generated tokens. Returns
+    sequence (its prompt and its tokens but the last) through one prefill
+    (with ``kv_fake_quant``, K/V rounded through the quantized cache's
+    quantizer), and the rows that predict its generated tokens. Returns
     (n_requests, MAX_NEW, vocab) fp32 on the card."""
     from flash_attention_tpu_torch.models import llama
     dev = params["embed"].device
@@ -2509,7 +2540,8 @@ def generated_logits(torch, params, cfg, prompts, outputs):
     with torch.inference_mode():
         for p, o in zip(prompts, outputs):
             seq = torch.tensor([p + o[:-1]], device=dev)
-            logits, _, _ = llama.prefill(params, seq, cfg, return_kv=False)
+            logits, _, _ = llama.prefill(params, seq, cfg, return_kv=False,
+                                         kv_fake_quant=kv_fake_quant)
             rows.append(logits[0, len(p) - 1:])
             del logits
     return torch.stack(rows)
@@ -2573,6 +2605,502 @@ def quant_card_vs_cpu(torch, dev, cfg, card, n_layers=2):
                   f"{agree:.2%} of positions (CPU {t_cpu:.2f} s) [{card}]")
             assert rel <= QUANT_CARD_CPU_REL_L2, (bits, rel)
             del qp, card_logits, cpu_logits
+
+
+# ------------------------------------------------- the quantized KV cache
+
+def _quant_rows(torch, g, dev, b, hk, d, dtype):
+    """bf16 K or V rows (b, hk, d) of unit scale with the quantizer's hard
+    cases: a zero row (scale 1e-8), a row whose amax gives scale 1 exactly
+    (int8: 127; e4m3: 448) holding ties (int8: n + 0.5; e4m3: odd integers
+    in [17, 31], halfway between two steps of 2), and amax elements of
+    either sign."""
+    x = torch.randn((b, hk, d), generator=g, device=dev)
+    x[0, 0] = 0.0
+    i = torch.arange(d, device=dev, dtype=torch.float32)
+    if dtype == torch.int8:
+        x[0, -1] = i % 20 - 9.5
+        x[0, -1, 0] = 127.0
+    else:
+        x[0, -1] = (17 + 2 * (i % 8)) * (1 - 2 * (i % 2))
+        x[0, -1, 0] = 448.0
+    x[-1, 0, d // 2] = -40.0
+    return x.to(torch.bfloat16)
+
+
+def _quant_pool(torch, g, dev, shape, dtype, spread=False):
+    """A quantized pool (L, hk, P, 128, d) and its scale tiles, each layer
+    drawn as unit normals (with ``spread``, K's: times a log-normal factor
+    per token, as real caches' token norms vary, so a scale read for the
+    wrong token moves the scores) and quantized per token, one layer's fp32
+    draw at a time."""
+    from flash_attention_tpu_torch.ops.quant import quantize_kv_pages
+    L, hk, P, ps, d = shape
+    pages = torch.empty(shape, dtype=dtype, device=dev)
+    scales = torch.empty((L, hk, P, 8, 128), dtype=torch.float32, device=dev)
+    for i in range(L):
+        x = torch.randn((hk, P, ps, d), generator=g, device=dev)
+        if spread:
+            x *= torch.randn((hk, P, ps, 1), generator=g, device=dev).exp()
+        pages[i], scales[i] = quantize_kv_pages(x, dtype)
+        del x
+    return pages, scales
+
+
+def _bits_equal(torch, got, want, trash) -> bool:
+    """Bit-identical everywhere but the trash page (axis 2)."""
+    keep = torch.ones(got.shape[2], dtype=torch.bool, device=got.device)
+    keep[trash] = False
+    g, w = got[:, :, keep], want[:, :, keep]
+    if g.element_size() == 1:
+        g, w = g.view(torch.uint8), w.view(torch.uint8)
+    return bool(torch.equal(g, w))
+
+
+def check_kv_write_quant(torch, dev, cfg, card):
+    """The kv write's two quantized instances (rows already in the cache's
+    type with their scales, "store"; bf16 rows quantized in the kernel,
+    "quantize") against their plain versions, int8 and fp8, d 64, 128 and
+    256, pools and scale tiles bit for bit; then timed in a CUDA graph at
+    the serving shape (L32 b8 hk8 d128, 256 pages of 128)."""
+    from flash_attention_tpu_torch.ops import kv_update as kv
+    from flash_attention_tpu_torch.ops.quant import _quantize_token
+    g = torch.Generator(device=dev).manual_seed(SEED + 21)
+    hk, b = cfg.n_kv_heads, MAX_BATCH
+    shapes = {}
+    for name, dtype in KV_QUANT.items():
+        for d, L, P in ((64, 2, 64), (128, 2, 64), (256, 2, 64),
+                        (cfg.head_dim, cfg.n_layers, KV_QUANT_PAGES)):
+            timed = L == cfg.n_layers
+            kp, ks = _quant_pool(torch, g, dev, (L, hk, P, 128, d), dtype)
+            vp, vs = _quant_pool(torch, g, dev, (L, hk, P, 128, d), dtype)
+            k = _quant_rows(torch, g, dev, b, hk, d, dtype)
+            v = _quant_rows(torch, g, dev, b, hk, d, dtype)
+            trash = P - 1
+            wpage = torch.randperm(P - 1, generator=g, device=dev)[:b]
+            wpage[-2:] = trash  # two padding rows share the trash page
+            wpage = wpage.to(torch.int32)
+            woff = torch.randint(0, 128, (b,), generator=g, device=dev,
+                                 dtype=torch.int32)
+            woff[0], woff[1] = 0, 127
+            layer = L - 1
+            kq, ksc = _quantize_token(k, dtype)
+            vq, vsc = _quantize_token(v, dtype)
+
+            def plain(kp, vp, ks, vs):
+                kq, ksc = _quantize_token(k, dtype)
+                vq, vsc = _quantize_token(v, dtype)
+                kv.write_token_kv_reference(kp, vp, kq, vq, wpage, woff,
+                                            layer)
+                kv._write_scales_reference(ks, ksc, wpage, woff, layer)
+                kv._write_scales_reference(vs, vsc, wpage, woff, layer)
+            pools = (kp, vp, ks, vs)
+            orig = [x.clone() for x in pools]
+            ref = [x.clone() for x in pools]
+            plain(*ref)
+            calls = {
+                "store": lambda: kv.write_token_kv(
+                    kp, vp, ks, vs, kq, vq, ksc, vsc, wpage, woff,
+                    layer=layer),
+                "quantize": lambda: kv.quantize_write_token_kv(
+                    kp, vp, ks, vs, k, v, wpage, woff, layer=layer)}
+            for mode, call in calls.items():
+                for x, o in zip(pools, orig):
+                    x.copy_(o)
+                call()
+                same = all(_bits_equal(torch, x, r, trash)
+                           for x, r in zip(pools, ref))
+                assert same, f"kv write {mode} {name} d{d}: not bit-identical"
+            print(f"kv_write {name} d{d} L{L} b{b} hk{hk} (trash page shared "
+                  f"by 2 rows; a zero row, ties and amax elements): store and"
+                  f" quantize instances bit-identical to their plain "
+                  f"versions, pools and scale tiles")
+            if timed:
+                rows = b * hk * d
+                for mode, call in calls.items():
+                    ms = _time_graph_ms(torch, call, 100)
+                    # read: the rows (bf16 to quantize, else 8-bit and an
+                    # fp32 scale) and wpage/woff; written: the 8-bit rows and
+                    # each scale into the 8 rows of its tile
+                    nread = 2 * (rows * (2 if mode == "quantize" else 1)
+                                 + (0 if mode == "quantize" else 4 * b * hk))
+                    nbytes = nread + 2 * (rows + 8 * 4 * b * hk) + 8 * b
+                    bound_ms, bound_by = _bound(0.0, nbytes)
+                    shapes[f"{name} {mode} L{L} b{b} hk{hk} d{d}"] = {
+                        "ms": ms, "bound_ms": bound_ms}
+                    print(f"kv_write {name} {mode} L{L} b{b} hk{hk} d{d}: "
+                          f"device time in a CUDA graph {ms:.5f} ms, bound "
+                          f"{bound_ms:.6f} ms ({bound_by}) [{card}]")
+                p_ms = _time_graph_ms(torch, lambda: plain(kp, vp, ks, vs),
+                                      20)
+                shapes[f"{name} quantize L{L} b{b} hk{hk} d{d}"][
+                    "plain_ms"] = p_ms
+                print(f"kv_write {name} plain version (quantize, write "
+                      f"rows and scales) in a CUDA graph: {p_ms:.5f} ms "
+                      f"[{card}]")
+            del kp, vp, ks, vs, pools, orig, ref
+    return shapes
+
+
+def _paged_live(lens, window=None) -> tuple[float, float]:
+    """The tokens a paged call reads (each row's last ``window`` tokens,
+    or all of them) and the pages of KV_QUANT_PAGE_SIZE they lie in."""
+    ps, tokens, pages = KV_QUANT_PAGE_SIZE, 0, 0
+    for n in map(int, lens):
+        lo = max(n - window, 0) if window else 0
+        tokens += n - lo
+        pages += -(-n // ps) - lo // ps
+    return float(tokens), float(pages)
+
+
+def _paged_bytes(lens, hk, d, q, quant: bool, window=None) -> float:
+    """Bytes a paged call must move: each live token's K and V (8-bit with
+    a 4-byte scale each, or bf16), q and out, lengths and table entries."""
+    n, pages = _paged_live(lens, window)
+    per_token = 2 * d + 8 if quant else 4 * d
+    return n * hk * per_token + 2 * 2 * q.numel() + 4 * (len(lens) + pages)
+
+
+def check_paged_quant(torch, dev, cfg, gemma, card):
+    """The paged kernel's int8 and fp8 instances against the plain version
+    on the same quantized cache (O_TOLS), with two controls that must fail
+    the gate (the scales ignored; the scales read one token off), and timed
+    cold (the L calls of a decode step in one CUDA graph, each on another
+    layer's pages) beside the bf16 instance at the same shape: d 128 L32 b8
+    h32/8, lengths linspace(1, 4096, 8) and the served decode lengths;
+    every row 8192 with W 4096 and holes; softcap 5; then d 256 at
+    Gemma-2-9B's widths (h16/8) and d 64."""
+    from flash_attention_tpu_torch.ops import paged_attention as pa
+    from flash_attention_tpu_torch.utils.metrics import assert_metrics
+    g = torch.Generator(device=dev).manual_seed(SEED + 22)
+    ps, b = KV_QUANT_PAGE_SIZE, MAX_BATCH
+    shapes = {}
+
+    def gate_and_controls(label, q, kp, vp, ks, vs, lens, tab, layer, **kw):
+        lt = torch.from_numpy(np.asarray(lens, np.int32)).to(dev)
+        o = pa.paged_attention(q, kp, vp, lt, tab, k_scales=ks, v_scales=vs,
+                               layer=layer, **kw)
+        o_ref = pa.paged_attention_reference(
+            q, kp, vp, lt, tab.clamp(min=0), k_scales=ks, v_scales=vs,
+            layer=layer, **kw)
+        m = assert_metrics(f"paged_attention {label}", o, o_ref, O_TOLS)
+        ones = torch.ones_like(ks[layer:layer + 1])
+        fails = []
+        for ctl, (kc, vc) in {
+                "scales ignored": (ones, ones),
+                "scales one token off": (ks[layer:layer + 1].roll(1, -1),
+                                         vs[layer:layer + 1].roll(1, -1))
+        }.items():
+            bad = pa.paged_attention(q, kp[layer:layer + 1],
+                                     vp[layer:layer + 1], lt, tab,
+                                     k_scales=kc, v_scales=vc, layer=0, **kw)
+            try:
+                assert_metrics(f"control {ctl}", bad, o_ref, O_TOLS)
+            except AssertionError:
+                fails.append(ctl)
+                continue
+            raise AssertionError(f"paged_attention {label}: the control "
+                                 f"'{ctl}' passed the gate")
+        print(f"paged_attention {label}: {m}; controls failing the gate: "
+              f"{fails} [{card}]")
+        return m
+
+    def cold(fn, L):
+        return _time_graph_calls_ms(torch, [lambda i=i: fn(i)
+                                            for i in range(L)])
+
+    def timed(label, q, pools, lens, tab, L, hk, d, **kw):
+        """Cold ms of each dtype's pools, % of its byte bound, and the
+        ratio to the bf16 instance."""
+        lt = torch.from_numpy(np.asarray(lens, np.int32)).to(dev)
+        h = q.shape[1]
+        res = {}
+        for name, (kp, vp, ks, vs) in pools.items():
+            quant = ks is not None
+            ms = cold(lambda i: pa.paged_attention(
+                q, kp, vp, lt, tab, k_scales=ks, v_scales=vs, layer=i, **kw),
+                L)
+            nb = _paged_bytes(lens, hk, d, q, quant, kw.get("window"))
+            n_live, _ = _paged_live(lens, kw.get("window"))
+            bms, by = _bound(4.0 * n_live * h * d, nb)
+            res[name] = (ms, bms, by, nb)
+        bf16_ms = res["bf16"][0]
+        for name, (ms, bms, by, nb) in res.items():
+            if name == "bf16":
+                continue
+            shapes[f"{name} {label}"] = {"ms": ms, "bound_ms": bms,
+                                         "vs_bf16": ms / bf16_ms}
+            print(f"paged_attention {name} cold ({L} layers in a CUDA "
+                  f"graph), {label}: {ms:.5f} ms ({nb / ms / 1e6:.1f} GB/s, "
+                  f"{bms / ms:.1%} of the {bms:.5f} ms bound ({by}), "
+                  f"{nb / 1e6:.1f} MB); bf16 instance at the same shape "
+                  f"{bf16_ms:.5f} ms ({res['bf16'][1] / bf16_ms:.1%} of its "
+                  f"{res['bf16'][1]:.5f} ms bound): {ms / bf16_ms:.3f}x "
+                  f"[{card}]")
+
+    # d 128 at Llama-3-8B's widths, 512 pages of 128 tokens a layer: every
+    # row of 8192 tokens fits
+    L, h, hk, d = cfg.n_layers, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    P = b * 8192 // ps
+    pools = {}
+    for name, dtype in KV_QUANT.items():
+        kp, ks = _quant_pool(torch, g, dev, (L, hk, P, ps, d), dtype,
+                             spread=True)
+        vp, vs = _quant_pool(torch, g, dev, (L, hk, P, ps, d), dtype)
+        pools[name] = (kp, vp, ks, vs)
+    pools["bf16"] = (_random_pool(torch, g, dev, (L, hk, P, ps, d)),
+                     _random_pool(torch, g, dev, (L, hk, P, ps, d)),
+                     None, None)
+    q = torch.randn((b, h, d), generator=g, device=dev).to(torch.bfloat16)
+    perm = torch.randperm(P, generator=g, device=dev).to(torch.int32)
+    tab32 = perm[:b * 32].reshape(b, 32).contiguous()  # 4096-token rows
+    tab64 = perm.reshape(b, 64).contiguous()            # 8192-token rows
+    lin = np.linspace(1, 4096, b).astype(np.int32)
+    served = np.asarray([len(p) for p in _prompts(cfg.vocab_size)]) + 16
+    full = np.full(b, 8192, np.int32)
+    # holes: the entries of pages wholly behind each row's window
+    w = MISTRAL_W
+    holed = tab64.clone()
+    for i, n in enumerate(full):
+        holed[i, :max(int(n) - w, 0) // ps] = -1
+    t_plain, max_abs = {}, {}
+    for name in KV_QUANT:
+        kp, vp, ks, vs = pools[name]
+        args = (q, kp, vp, ks, vs)
+        m = gate_and_controls(f"{name} L{L} b{b} h{h}/{hk} d{d} lengths "
+                              f"{lin.tolist()}", *args, lin, tab32, L - 1)
+        max_abs[name] = m.max_abs
+        gate_and_controls(f"{name} served decode lengths {served.tolist()}",
+                          *args, served, tab32, 0)
+        gate_and_controls(f"{name} every row 8192, window {w}, "
+                          f"{int((holed < 0).sum())} hole entries", *args,
+                          full, holed, 1, window=w)
+        gate_and_controls(f"{name} softcap {PAGED_CAP}", *args, lin, tab32,
+                          L // 2, softcap=PAGED_CAP)
+        lt = torch.from_numpy(lin).to(dev)
+        t_plain[name] = _time_ms(torch, lambda: pa.paged_attention_reference(
+            q, kp, vp, lt, tab32, k_scales=ks, v_scales=vs, layer=0), 3,
+            warmup=1)
+    main = f"L{L} b{b} h{h}/{hk} d{d}, lengths linspace(1, 4096, 8)"
+    timed(main, q, pools, lin, tab32, L, hk, d)
+    for name in KV_QUANT:
+        shapes[f"{name} {main}"].update(max_abs_err=max_abs[name],
+                                        plain_ms=t_plain[name])
+    timed(f"L{L} b{b} h{h}/{hk} d{d}, served decode lengths", q, pools,
+          served, tab32, L, hk, d)
+    timed(f"L{L} b{b} h{h}/{hk} d{d}, every row 8192, window {w}", q, pools,
+          full, holed, L, hk, d, window=w)
+    timed(f"L{L} b{b} h{h}/{hk} d{d}, linspace(1, 4096, 8), softcap "
+          f"{PAGED_CAP}", q, pools, lin, tab32, L, hk, d, softcap=PAGED_CAP)
+    del pools
+    torch.cuda.empty_cache()
+    # d 256 at Gemma-2-9B's widths (h16/8), and d 64 at Llama's heads
+    for (hh, hkk, dd, LL) in ((gemma.n_heads, gemma.n_kv_heads,
+                               gemma.head_dim, PAGED_QUANT_LAYERS[0]),
+                              (h, hk, 64, PAGED_QUANT_LAYERS[1])):
+        P2 = b * 32
+        pools = {}
+        for name, dtype in KV_QUANT.items():
+            kp, ks = _quant_pool(torch, g, dev, (LL, hkk, P2, ps, dd), dtype,
+                                 spread=True)
+            vp, vs = _quant_pool(torch, g, dev, (LL, hkk, P2, ps, dd), dtype)
+            pools[name] = (kp, vp, ks, vs)
+        pools["bf16"] = (_random_pool(torch, g, dev, (LL, hkk, P2, ps, dd)),
+                         _random_pool(torch, g, dev, (LL, hkk, P2, ps, dd)),
+                         None, None)
+        q2 = torch.randn((b, hh, dd), generator=g, device=dev).to(
+            torch.bfloat16)
+        tab = torch.randperm(P2, generator=g, device=dev).to(
+            torch.int32).reshape(b, 32)
+        for name in KV_QUANT:
+            gate_and_controls(f"{name} L{LL} b{b} h{hh}/{hkk} d{dd} lengths "
+                              f"{lin.tolist()}", q2, *pools[name], lin, tab,
+                              LL - 1)
+        gate_and_controls(f"fp8 L{LL} d{dd} window {w // 4} softcap "
+                          f"{PAGED_CAP}", q2, *pools["fp8"], lin, tab, 0,
+                          window=w // 4, softcap=PAGED_CAP)
+        timed(f"L{LL} b{b} h{hh}/{hkk} d{dd}, lengths linspace(1, 4096, 8)",
+              q2, pools, lin, tab, LL, hkk, dd)
+        del pools
+        torch.cuda.empty_cache()
+    print(f"paged_attention quantized plain version (one layer, eager, "
+          f"L{L} b{b} lengths linspace(1, 4096, 8)): "
+          + ", ".join(f"{n} {t:.3f} ms" for n, t in t_plain.items())
+          + f" [{card}]")
+    return shapes
+
+
+def serve_kv_quant(torch, params, cfg, prompts, card, kernels, name):
+    """Llama-3-8B served with a quantized cache (``name`` int8 or fp8) at
+    the bf16 serve's token slots: KV_QUANT_PAGES pages of 128 tokens. The
+    exact launch counts of ``serve``, and the cache's bytes."""
+    from flash_attention_tpu_torch.models import llama
+    kw = dict(kv_quant=True)
+    if name == "fp8":
+        kw["kv_dtype"] = KV_QUANT["fp8"]
+    L, hk, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+    pages = L * hk * KV_QUANT_PAGES * KV_QUANT_PAGE_SIZE * hd * 2
+    scales = L * hk * KV_QUANT_PAGES * 8 * 128 * 4 * 2
+    bf16 = L * hk * TOTAL_PAGES * PAGE_SIZE * hd * 2 * 2
+    print(f"Llama-3-8B KV {name} cache: {KV_QUANT_PAGES} pages of "
+          f"{KV_QUANT_PAGE_SIZE} tokens ({KV_QUANT_PAGES * KV_QUANT_PAGE_SIZE}"
+          f" slots): pages {pages / 2**30:.3f} GiB + scale tiles "
+          f"{scales / 2**30:.3f} GiB = {(pages + scales) / 2**30:.3f} GiB, "
+          f"against the bf16 cache's {bf16 / 2**30:.3f} GiB at the same "
+          f"slots")
+    held = []
+    out = serve(torch, params, cfg, prompts, card, kernels,
+                f"Llama-3-8B KV {name}", page_size=KV_QUANT_PAGE_SIZE,
+                total_pages=KV_QUANT_PAGES,
+                after_step=lambda e: held.append(
+                    e.rt.total_pages - e.rt.free_pages()), **kw)
+    print(f"Llama-3-8B KV {name} pages held (trash page included): at most "
+          f"{max(held)} of {KV_QUANT_PAGES}, after admission {held[0]}")
+    return out
+
+
+def _quant_prefill_vs_decode(torch, params, cfg, p, dtype, fake_quant=None,
+                             ignore_scales=False):
+    """The logits of one decode step on p[-1] against a quantized cache
+    (``dtype``) holding p[:-1]'s K/V, from prefill (with ``fake_quant``, its
+    K/V rounded through the quantizer first) and write_prefill_to_pages; with
+    ``ignore_scales`` the decode reads the cache with unit scales."""
+    from flash_attention_tpu_torch.models import llama
+    dev = params["embed"].device
+    L, hk, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+    n, ps = len(p), KV_QUANT_PAGE_SIZE
+    toks = torch.tensor([p], device=dev)
+    _, ks, vs = llama.prefill(params, toks[:, :-1], cfg,
+                              kv_fake_quant=fake_quant,
+                              logit_rows=torch.tensor([n - 2], device=dev))
+    npg = -(-n // ps)
+    kp = torch.zeros((L, hk, npg, ps, hd), dtype=dtype, device=dev)
+    vp = torch.zeros_like(kp)
+    ksc = torch.ones((L, hk, npg, 8, 128), dtype=torch.float32, device=dev)
+    vsc = torch.ones_like(ksc)
+    ids = torch.arange(-(-(n - 1) // ps), device=dev)
+    llama.write_prefill_to_pages(kp, vp, (ks, vs), ids, torch.zeros_like(ids),
+                                 ids, ps, k_scales=ksc, v_scales=vsc)
+    del ks, vs
+    if ignore_scales:
+        ksc.fill_(1.0)
+        vsc.fill_(1.0)
+    i32 = dict(dtype=torch.int32, device=dev)
+    b, *_ = llama.decode_step(
+        params, kp, vp, ksc, vsc, toks[:, -1], torch.tensor([n], **i32),
+        torch.arange(npg, **i32)[None], torch.tensor([(n - 1) // ps], **i32),
+        torch.tensor([(n - 1) % ps], **i32), cfg)
+    return b[0].float().cpu()
+
+
+def kv_quant_consistency(torch, dev, params, cfg, prompts, card):
+    """The quantized cache's decode logits held to gates a wrong kernel
+    fails:
+    * full width, 2 layers, int8 and fp8: the card's decode logits (bf16,
+      the kv-write and paged kernels' quantized instances) against the CPU's
+      (fp32, plain versions) on the same weights, rel L2 <=
+      CONSISTENCY_REL_L2;
+    * full depth (``params``): the decode logits over a cache written from
+      prefill(kv_fake_quant=)'s K/V against prefill(kv_fake_quant=)'s own
+      logits at the last position (the same rounding of K and V on both
+      sides), rel L2 <= CONSISTENCY_REL_L2; with the scales ignored the
+      gate must fail."""
+    from flash_attention_tpu_torch.models import llama
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    p2 = llama.init_params(cfg2, seed=SEED + 23, device=dev)
+    cpu = {n: w.to("cpu", torch.float32) for n, w in p2.items()}
+    torch.set_num_threads(os.cpu_count() or 1)
+    with torch.inference_mode():
+        for name, dtype in KV_QUANT.items():
+            for p in _prompts(cfg.vocab_size, CONSISTENCY_LENS):
+                a = _quant_prefill_vs_decode(torch, p2, cfg2, p, dtype)
+                ac = _quant_prefill_vs_decode(torch, cpu, cfg2, p, dtype)
+                r = _rel(torch, a, ac)
+                print(f"Llama-3-8B L2 KV {name} decode logits, prompt "
+                      f"{len(p)} tokens: card vs CPU rel L2 {r:.3e}, max abs "
+                      f"{float((a - ac).abs().max()):.3e}; greedy card "
+                      f"{int(a.argmax())}, CPU {int(ac.argmax())} [{card}]")
+                assert torch.isfinite(a).all() and r <= CONSISTENCY_REL_L2, r
+        del p2, cpu
+        for name, dtype in KV_QUANT.items():
+            p = prompts[0]
+            a = llama.prefill(params, torch.tensor([p], device=dev), cfg,
+                              kv_fake_quant=dtype, return_kv=False,
+                              logit_rows=torch.tensor([len(p) - 1],
+                                                      device=dev)
+                              )[0][0].float().cpu()
+            b = _quant_prefill_vs_decode(torch, params, cfg, p, dtype,
+                                         fake_quant=dtype)
+            c = _quant_prefill_vs_decode(torch, params, cfg, p, dtype,
+                                         fake_quant=dtype,
+                                         ignore_scales=True)
+            r, rc = _rel(torch, b, a), _rel(torch, c, a)
+            print(f"Llama-3-8B L{cfg.n_layers} KV {name}, prompt {len(p)} "
+                  f"tokens: decode over the quantized cache vs "
+                  f"prefill(kv_fake_quant) logits at the last position: rel "
+                  f"L2 {r:.3e} (gate {CONSISTENCY_REL_L2}), greedy "
+                  f"{int(b.argmax())} vs {int(a.argmax())}; control with the "
+                  f"scales ignored: {rc:.3e} (must fail the gate) [{card}]")
+            assert r <= CONSISTENCY_REL_L2, r
+            assert rc > CONSISTENCY_REL_L2, "the control passed the gate"
+
+
+def gemma2_kv_quant(torch, dev, card, kernels):
+    """The Gemma-2 config (window 64 on every second layer, softcaps 5/3)
+    served with an int8 cache and chunked prefill (GEMMA_CHUNK) on the card
+    and on the CPU (plain versions) with the same weights: the prefill's
+    last-position logits (the last chunk over its dequantized prefix) and
+    the first decode step's (the quantized kv write and paged kernels with
+    the window and the softcap) held together, rel L2 <=
+    CONSISTENCY_REL_L2; a decode row is compared where both sides sampled
+    the same prefill token. Returns the card path's launches."""
+    from flash_attention_tpu_torch import Engine
+    from flash_attention_tpu_torch.models import llama
+    gcfg = llama.LlamaConfig.tiny_gemma2(n_layers=GEMMA_LAYERS,
+                                         window_pattern=2, **GEMMA_CAPS)
+    model = (f"Gemma-2 config (tiny_gemma2 L{GEMMA_LAYERS}, window "
+             f"{gcfg.sliding_window} every 2 layers, softcaps "
+             f"{gcfg.attn_softcap:g}/{gcfg.final_softcap:g}) KV int8 chunked "
+             f"{GEMMA_CHUNK}")
+    params = llama.init_params(gcfg, seed=SEED + 24, device=dev)
+    cpu = {n: w.to("cpu", torch.float32) for n, w in params.items()}
+    prompts = _prompts(gcfg.vocab_size, GEMMA_PROMPT_LENS)
+    rec, launches = {}, None
+    for side, w in (("card", params), ("CPU", cpu)):
+        eng = Engine(gcfg, w, total_pages=32, page_size=KV_QUANT_PAGE_SIZE,
+                     max_batch=MAX_BATCH, max_seq_len=GEMMA_MAX_SEQ,
+                     chunk_size=GEMMA_CHUNK, kv_quant=True)
+        rec[side] = _SampleLog(eng, 2)
+        for kern in kernels:
+            kern.launches = 0
+        reqs = [eng.add_request(p, 2) for p in prompts]
+        eng.run()
+        for r in reqs:
+            assert r.error is None, f"{side} request {r.uid}: {r.error}"
+        st = eng.throughput()
+        if side == "card":
+            launches = {kern.name: kern.launches for kern in kernels}
+            L = gcfg.n_layers
+            assert launches["flash_fwd"] == L * st["prefill_chunks"] > 0
+            assert launches["kv_update"] == L * st["decode_steps"] > 0
+            assert launches["paged_attention"] == L * st["decode_steps"]
+        del eng
+        gc.collect()
+    (pc, tc), (dc, _) = rec["card"].calls
+    (pu, tu), (du, _) = rec["CPU"].calls
+    rels_p = [_rel(torch, a, b) for a, b in zip(pc, pu)]
+    same = [i for i in range(len(prompts)) if tc[i] == tu[i]]
+    rels_d = [_rel(torch, dc[i], du[i]) for i in same]
+    print(f"{model}: card (bf16, kernels) vs CPU (fp32, plain versions): "
+          f"prefill last-position logits rel L2 "
+          f"{[f'{r:.3e}' for r in rels_p]}; first decode step "
+          f"{[f'{r:.3e}' for r in rels_d]} (rows {same}, where the prefill "
+          f"tokens agree) (gate {CONSISTENCY_REL_L2}); launches {launches} "
+          f"[{card}]")
+    assert same and max(rels_p + rels_d) <= CONSISTENCY_REL_L2, (rels_p,
+                                                                 rels_d)
+    del params, cpu
+    return launches
 
 
 def _batch(torch, dev, vocab, b, s, seed):
@@ -2759,11 +3287,15 @@ def main() -> int:
     from flash_attention_tpu_torch.ops import flash_bwd, flash_fwd, kv_update
     from flash_attention_tpu_torch.ops import moe, paged_attention, quant
     t_start = time.perf_counter()
+
+    def mark(phase):  # the script's own clock at the start of each phase
+        print(f"wall {time.perf_counter() - t_start:.1f} s: {phase}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     card = _card_line()
     PEAK["flops"], PEAK["bytes"] = _peaks(torch.cuda.get_device_name(0))
+    KV_QUANT.update(int8=torch.int8, fp8=torch.float8_e4m3fn)
     print(f"card: {card}; peaks from its data sheet: bf16 dense "
           f"{PEAK['flops'] / 1e12:g} TFLOP/s, HBM {PEAK['bytes'] / 1e12:g} "
           f"TB/s")
@@ -2806,6 +3338,7 @@ def main() -> int:
     print(f"prompt lengths {[len(p) for p in prompts]} -> prefill bucket "
           f"{bucket}, batch {MAX_BATCH}")
 
+    mark("kernel checks")
     # 2. each kernel against its plain version at its path's shapes
     with torch.inference_mode():
         entries = [check_flash(torch, dev, bucket, cfg, card),
@@ -2832,6 +3365,19 @@ def main() -> int:
     for name, shapes in check_head_dim_256(torch, dev, gemma, card).items():
         e = next(e for e in entries if e["name"] == name)
         e.setdefault("shapes", {}).update(shapes)
+    mark("quantized KV kernel checks")
+    # the quantized KV cache's instances: the kv write's two (rows in the
+    # cache's type; bf16 rows quantized in the kernel) and the paged
+    # kernel's int8 and fp8, d 64, 128 and 256, with window and softcap
+    with torch.inference_mode():
+        for name, shapes in (
+                ("kv_write", check_kv_write_quant(torch, dev, cfg, card)),
+                ("paged_attention", check_paged_quant(torch, dev, cfg, gemma,
+                                                      card))):
+            e = next(e for e in entries if e["name"] == name)
+            e.setdefault("shapes", {}).update(shapes)
+    torch.cuda.empty_cache()
+    mark("segmented instances")
     paths = {}  # path -> {kernel: launches}
     # the segmented instances at Llama-3-8B's and Gemma-2-9B's widths; the
     # library's varlen entry points as the path "varlen"
@@ -2849,6 +3395,7 @@ def main() -> int:
     check_moe_ffn(torch, dev, mix, card)
     torch.cuda.empty_cache()
 
+    mark("Llama-3-8B")
     # 3. Llama-3-8B, full width and depth: serving, prefill vs decode, then
     #    training (a 2-layer card-vs-CPU check first)
     t0 = time.perf_counter()
@@ -2871,6 +3418,22 @@ def main() -> int:
     del rows_u
     torch.cuda.empty_cache()
     print(f"Llama-3-8B chunked serving phase: {time.perf_counter() - t0:.1f} s")
+    # the same weights with a quantized KV cache, int8 then fp8: serving,
+    # the consistency gates, and the quality of prefill(kv_fake_quant)
+    # against bf16 on the served sequences
+    t0 = time.perf_counter()
+    for name, dtype in KV_QUANT.items():
+        paths[f"serve_kv_{name}"], kv_outputs = serve_kv_quant(
+            torch, params, cfg, prompts, card, kernels, name)
+        torch.cuda.empty_cache()
+        quant_quality(torch, ref_rows,
+                      generated_logits(torch, params, cfg, prompts, outputs,
+                                       kv_fake_quant=dtype),
+                      outputs, kv_outputs,
+                      f"Llama-3-8B KV {name} (prefill kv_fake_quant)")
+    kv_quant_consistency(torch, dev, params, cfg, prompts, card)
+    torch.cuda.empty_cache()
+    print(f"Llama-3-8B quantized KV phase: {time.perf_counter() - t0:.1f} s")
     train_consistency(torch, dev, cfg, card, "Llama-3-8B")
     torch.cuda.empty_cache()
     paths["train"] = train(torch, params, cfg, card, kernels, "Llama-3-8B")
@@ -2878,6 +3441,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    mark("Llama-3-8B int8 and int4")
     # 4. the same Llama-3-8B weights (the same seed) quantized, int8 then
     #    int4: only the quantized copy and the bf16 embedding and norms stay
     #    on the card while it serves
@@ -2909,6 +3473,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    mark("Mixtral-8x7B serving")
     # 5. Mixtral-8x7B, full width, 16 layers: serving, prefill vs decode
     mix_serve = dataclasses.replace(mix, n_layers=MIX_SERVE_LAYERS)
     mix_prompts = _prompts(mix.vocab_size)
@@ -2926,6 +3491,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    mark("Mixtral-8x7B training")
     # 6. Mixtral training: a 1-layer card-vs-CPU check, then 8 layers
     train_consistency(torch, dev, mix, card, "Mixtral-8x7B", n_layers=1)
     gc.collect()
@@ -2939,6 +3505,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    mark("Mistral-7B")
     # 7. Mistral-7B-v0.1 (window 4096 on every layer), full width and depth:
     #    serving with window page reclamation, then training on 1 x 8192
     t0 = time.perf_counter()
@@ -2962,6 +3529,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    mark("window and softcap consistency")
     # 8. consistency of the window and softcap paths: Mistral at 2 layers
     #    with the window cut to 64, and the Gemma-2 config (window every
     #    second layer, and every layer), card against CPU; the Gemma-2
@@ -2991,9 +3559,12 @@ def main() -> int:
     # the Gemma-2 config served with chunked prefill: the window and the
     # softcaps through the segmented forward, card against CPU
     paths["serve_chunked_gemma2"] = gemma2_chunked(torch, dev, card, kernels)
+    paths["serve_chunked_gemma2_kv_int8"] = gemma2_kv_quant(torch, dev, card,
+                                                            kernels)
     gc.collect()
     torch.cuda.empty_cache()
 
+    mark("Gemma-2-9B")
     # 9. Gemma-2-9B (head dim 256; window 4096 on every second layer,
     #    softcaps 50/30), full width and depth: its consistency at 2 layers
     #    (card against CPU, with the served prompts' logits gate), then

@@ -67,13 +67,34 @@
 // max is subtracted, so a row of length 1 gets exp2(0) = 1 and O equal to
 // that token's V bit for bit.
 //
+// The quantized cache (instances Q = 1, int8, and Q = 2, fp8 e4m3; bf16 q,
+// page_size 128): pages hold one byte an element, and each page has an fp32
+// (8, 128) scale tile whose lane t holds token t's scale. The math is the TPU
+// kernel's: the scores are scaled by kscale[t] (before the softcap and the
+// mask) and P by vscale[t] before it is rounded to bf16 for P V; the scales
+// are never applied to K or V. Per 64-token tile the producer TMA-loads the
+// 8-bit K and V tiles (unswizzled rows, boxes of up to 128 bytes a row) and
+// the tile's 64 scales from row 0 of the page's K and V scale tiles (256
+// contiguous bytes each; the other 7 rows are never read) into the stage. The
+// consumer warpgroup converts the 8-bit tiles to bf16 (exact for int8 and
+// e4m3) in one shared buffer in the 128-byte swizzle the bf16 instances' TMA
+// writes, fences the async proxy, and runs the same wgmma chains on it. The
+// bytes a cached token costs fall from 4 d to 2 d + 8, but on the H100 these
+// instances are bound by the conversion pass, which no load overlaps inside
+// a CTA, not by the bytes (PERF.md).
+//
 // Left for later work: the zero rows of the M side (a token-major layout
 // would waste no tensor work but needs a reduction over tokens across the
-// warpgroup), and a persistent schedule in place of CTAs that exit at once.
+// warpgroup; for the quantized cache it would also put the dequantised K on
+// the M side, as qmm.cu does for weights, with no conversion pass through
+// shared memory), and a persistent schedule in place of CTAs that exit at
+// once.
 
 #include <atomic>
 #include <climits>
 #include <mutex>
+
+#include <cuda_fp8.h>
 
 #include "flash_common.cuh"
 #include "hopper_common.cuh"
@@ -99,19 +120,32 @@ constexpr int MAX_CHUNKS = 64;   // ops/paged_attention.py::plan stays within
 // stages of K and V take 128 KB: 1 CTA a SM, whose 256 threads launch with
 // every register they can use (no setmaxnreg), 2 stages, and Q as a 64-row
 // K-major tile in shared memory (Q_SMEM; rows past the group zeros).
+// The quantized instances' stages are half the bytes plus the scales, and
+// the bf16 buffer they convert into takes one bf16 stage: 4 stages at d 64
+// and 128 (53 and 103 KB), 3 at d 256 (195 KB with Q).
 template <int D>
 struct Cfg {
   static constexpr bool Q_SMEM = D == 256;
   static constexpr int CTAS_PER_SM = Q_SMEM ? 1 : 2;
   static constexpr int STAGES = Q_SMEM ? 2 : 3 * 128 / D;  // 96 or 128 KB
+  static constexpr int QUANT_STAGES = Q_SMEM ? 3 : 4;
 };
 
-template <int D>
+// Q: 0 pages in T; 1 int8 pages; 2 fp8 e4m3 pages (with scale tiles)
+template <int D, int Q = 0>
 struct Smem {
-  static constexpr int STAGES = Cfg<D>::STAGES;
-  static constexpr int TILE_BYTES = TILE * D * 2;
-  static constexpr int STAGE_BYTES = 2 * TILE_BYTES;  // K, then V
-  static constexpr int Q_OFF = STAGES * STAGE_BYTES;  // Q_SMEM: 64 rows of Q
+  static constexpr bool QUANT = Q != 0;
+  static constexpr int STAGES = QUANT ? Cfg<D>::QUANT_STAGES : Cfg<D>::STAGES;
+  static constexpr int TILE_BYTES = TILE * D * (QUANT ? 1 : 2);
+  // K, then V, then (QUANT) the tile's 64 K scales and 64 V scales, the
+  // stage padded to the swizzle's 1024-byte period
+  static constexpr int SCALE_OFF = 2 * TILE_BYTES;
+  static constexpr int STAGE_BYTES = 2 * TILE_BYTES + (QUANT ? 1024 : 0);
+  static constexpr int TX_BYTES = 2 * TILE_BYTES + (QUANT ? 2 * TILE * 4 : 0);
+  // QUANT: the K and V tiles converted to bf16, as the bf16 instances' stage
+  static constexpr int CVT_OFF = STAGES * STAGE_BYTES;
+  static constexpr int CVT_BYTES = QUANT ? 2 * TILE * D * 2 : 0;
+  static constexpr int Q_OFF = CVT_OFF + CVT_BYTES;  // Q_SMEM: 64 rows of Q
   static constexpr int Q_BYTES = Cfg<D>::Q_SMEM ? 64 * D * 2 : 0;
   static constexpr int BAR_OFF = Q_OFF + Q_BYTES;
   static constexpr int W_OFF = BAR_OFF + 2 * STAGES * 8;  // merge weights
@@ -125,7 +159,59 @@ struct Smem {
 template <int D>
 constexpr int PARTIAL = MAX_GROUP * D + 2 * MAX_GROUP;
 
-template <typename T, int D, bool CAP>
+// Bytes a row of an 8-bit tile's TMA box: the whole row up to 128
+__host__ __device__ constexpr int qbox_row(int d) { return d < 128 ? d : 128; }
+
+// Two 8-bit elements (bytes 2 half and 2 half + 1 of w) as a bf16 pair,
+// exactly. int8: the byte with its sign bit flipped is the mantissa of 2^23 +
+// (x + 128), from which 2^23 + 128 is subtracted (a byte permute and an add a
+// value, where a conversion instruction runs at a quarter of the add's rate).
+template <int Q>
+__device__ __forceinline__ uint32_t dequant_pair(uint32_t w, int half) {
+  if constexpr (Q == 1) {
+    const uint32_t u = w ^ 0x80808080u;
+    return fat::Mma<__nv_bfloat16>::pack(
+        __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + 2 * half)) -
+            8388736.f,
+        __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7541 + 2 * half)) -
+            8388736.f);
+  } else {
+    const __half2 h2 = __nv_cvt_fp8x2_to_halfraw2(
+        static_cast<__nv_fp8x2_storage_t>(w >> (16 * half)), __NV_E4M3);
+    const float2 f = __half22float2(h2);
+    return fat::Mma<__nv_bfloat16>::pack(f.x, f.y);
+  }
+}
+
+// An 8-bit K or V tile of the ring (TILE rows of D bytes, in boxes of
+// qbox_row(D) bytes a row) to bf16 at dst, in the 128-byte swizzle a bf16
+// TMA load writes: 64-element boxes of TILE rows, row r's 16-byte chunk k at
+// r * 128 + (k ^ r % 8) * 16. The consumer warpgroup's 128 threads each take
+// 16 bytes a step.
+template <int D, int Q>
+__device__ __forceinline__ void dequant_tile(const uint8_t* src, uint8_t* dst,
+                                             int tid) {
+  constexpr int IN_ROW = qbox_row(D);
+  constexpr int ROW_CHUNKS = D / 16;
+#pragma unroll
+  for (int it = 0; it < TILE * ROW_CHUNKS / NCONSUMERS; ++it) {
+    const int i = tid + it * NCONSUMERS;
+    const int r = i / ROW_CHUNKS, c = (i % ROW_CHUNKS) * 16;  // row, byte
+    const uint4 x = *reinterpret_cast<const uint4*>(
+        src + (c / IN_ROW) * TILE * IN_ROW + r * IN_ROW + c % IN_ROW);
+    const uint4 lo = make_uint4(dequant_pair<Q>(x.x, 0), dequant_pair<Q>(x.x, 1),
+                                dequant_pair<Q>(x.y, 0), dequant_pair<Q>(x.y, 1));
+    const uint4 hi = make_uint4(dequant_pair<Q>(x.z, 0), dequant_pair<Q>(x.z, 1),
+                                dequant_pair<Q>(x.w, 0), dequant_pair<Q>(x.w, 1));
+    // elements c .. c + 15: box c / 64, chunks (c % 64) / 8 and the next
+    uint8_t* row = dst + (c / BOX) * TILE * ROW + r * ROW;
+    const int k = (c % BOX) / 8;
+    *reinterpret_cast<uint4*>(row + ((k ^ (r & 7)) * 16)) = lo;
+    *reinterpret_cast<uint4*>(row + (((k + 1) ^ (r & 7)) * 16)) = hi;
+  }
+}
+
+template <typename T, int D, bool CAP, int Q>
 __global__ void __launch_bounds__(NTHREADS, Cfg<D>::CTAS_PER_SM)
 paged_attn_kernel(const __grid_constant__ CUtensorMap k_map,
                   const __grid_constant__ CUtensorMap v_map,
@@ -135,8 +221,11 @@ paged_attn_kernel(const __grid_constant__ CUtensorMap k_map,
                   int hk, int page_size, int box_rows, int pages_per_seq,
                   int total_pages, int pages_all, int layer, int chunk_tiles,
                   int window, float scale_log2, float cap_scale,
-                  float cap_log2) {
-  using S = Smem<D>;
+                  float cap_log2,
+                  const __grid_constant__ CUtensorMap ks_map,
+                  const __grid_constant__ CUtensorMap vs_map) {
+  using S = Smem<D, Q>;
+  constexpr bool QUANT = S::QUANT;
   constexpr int STAGES = S::STAGES;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (hop::smem_u32(smem_raw) & 1023)) & 1023);
@@ -189,6 +278,38 @@ paged_attn_kernel(const __grid_constant__ CUtensorMap k_map,
     const int* tab = tables + (long long)b * pages_per_seq;
     const int boxes = TILE / box_rows;
     const int base = (layer * hk + kvh) * total_pages;
+    if constexpr (QUANT) {
+      // page_size 128: one box of TILE rows a tile, and its scales, from
+      // lane 0; a tile always holds a live token
+      if (lane == 0) {
+        hop::prefetch_map(&ks_map);
+        hop::prefetch_map(&vs_map);
+      }
+      constexpr int IN_ROW = qbox_row(D);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % STAGES;
+        const int t0 = tok0 + j * TILE;
+        if (lane == 0) {
+          const int page = base + tab[t0 / page_size];
+          const int row = t0 % page_size;
+          if (j >= STAGES) hop::mbar_wait(&empty[s], (j / STAGES - 1) & 1);
+          hop::mbar_expect_tx(&full[s], S::TX_BYTES);
+          uint8_t* ks = smem + s * S::STAGE_BYTES;
+          uint8_t* vs = ks + S::TILE_BYTES;
+#pragma unroll
+          for (int c = 0; c < D / IN_ROW; ++c) {
+            hop::tma_load_3d(ks + c * TILE * IN_ROW, &k_map, &full[s],
+                             c * IN_ROW, row, page);
+            hop::tma_load_3d(vs + c * TILE * IN_ROW, &v_map, &full[s],
+                             c * IN_ROW, row, page);
+          }
+          hop::tma_load_2d(ks + S::SCALE_OFF, &ks_map, &full[s], row, page);
+          hop::tma_load_2d(ks + S::SCALE_OFF + TILE * 4, &vs_map, &full[s],
+                           row, page);
+        }
+      }
+      return;
+    }
     for (int j = 0; j < n_tiles; ++j) {
       const int s = j % STAGES;
       const int t0 = tok0 + j * TILE;
@@ -205,7 +326,7 @@ paged_attn_kernel(const __grid_constant__ CUtensorMap k_map,
         row[u] = live ? t % page_size : 0;
       }
       if (j >= STAGES) hop::mbar_wait(&empty[s], (j / STAGES - 1) & 1);
-      if (lane == 0) hop::mbar_expect_tx(&full[s], S::STAGE_BYTES);
+      if (lane == 0) hop::mbar_expect_tx(&full[s], S::TX_BYTES);
       __syncwarp();
       uint8_t* ks = smem + s * S::STAGE_BYTES;
       uint8_t* vs = ks + S::TILE_BYTES;
@@ -280,9 +401,24 @@ paged_attn_kernel(const __grid_constant__ CUtensorMap k_map,
   const uint32_t ring = hop::smem_u32(smem);
   for (int j = 0; j < n_tiles; ++j) {
     const int s = j % STAGES;
-    const uint32_t ks = ring + s * S::STAGE_BYTES;
-    const uint32_t vs = ks + S::TILE_BYTES;
+    uint32_t ks = ring + s * S::STAGE_BYTES;
+    uint32_t vs = ks + S::TILE_BYTES;
     hop::mbar_wait(&full[s], (j / STAGES) & 1);
+    // QUANT: the stage's tile scales (K, then V), and its K and V in bf16
+    const float* tile_scales =
+        reinterpret_cast<const float*>(smem + s * S::STAGE_BYTES + S::SCALE_OFF);
+    if constexpr (QUANT) {
+      // the previous tile's products are complete (each warp waited for
+      // them), so the bf16 buffer is free
+      uint8_t* k8 = smem + s * S::STAGE_BYTES;
+      dequant_tile<D, Q>(k8, smem + S::CVT_OFF, tid);
+      dequant_tile<D, Q>(k8 + S::TILE_BYTES, smem + S::CVT_OFF + TILE * D * 2,
+                         tid);
+      hop::fence_async_smem();  // read by wgmma (async proxy)
+      hop::named_sync(1, NCONSUMERS);
+      ks = ring + S::CVT_OFF;
+      vs = ks + TILE * D * 2;
+    }
     // S = Q K^T (the tile K-major), started from zero
     if constexpr (Cfg<D>::Q_SMEM) {
       hop::ss_chain<T, TILE, D>(sc, q_s, 64, ks, TILE);
@@ -313,11 +449,12 @@ paged_attn_kernel(const __grid_constant__ CUtensorMap k_map,
       for (int nn = 0; nn < TILE / 8; ++nn) {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          float x;
+          float x = sc[4 * nn + e];
+          if constexpr (QUANT) x *= tile_scales[8 * nn + 2 * t + e];
           if constexpr (CAP)
-            x = cap_log2 * hop::tanh_exp2(sc[4 * nn + e] * cap_scale);
+            x = cap_log2 * hop::tanh_exp2(x * cap_scale);
           else
-            x = sc[4 * nn + e] * scale_log2;
+            x = x * scale_log2;
           const int c = 8 * nn + e;
           sc[4 * nn + e] = c < hi && c >= lo ? x : -CUDART_INF_F;
           mx = fmaxf(mx, sc[4 * nn + e]);
@@ -341,7 +478,15 @@ paged_attn_kernel(const __grid_constant__ CUtensorMap k_map,
 #pragma unroll
         for (int i = 0; i < D / 2; ++i) acc[i] *= alpha;
       }
-      // P of row g, rounded to T; row g + 8 stays zero
+      // P of row g (QUANT: times vscale), rounded to T; row g + 8 stays zero
+      if constexpr (QUANT) {
+        const float* vsc = tile_scales + TILE;
+#pragma unroll
+        for (int nn = 0; nn < TILE / 8; ++nn) {
+          sc[4 * nn] *= vsc[8 * nn + 2 * t];
+          sc[4 * nn + 1] *= vsc[8 * nn + 2 * t + 1];
+        }
+      }
 #pragma unroll
       for (int kk = 0; kk < TILE / 16; ++kk) {
         pa[kk][0] = fat::Mma<T>::pack(sc[8 * kk], sc[8 * kk + 1]);
@@ -437,20 +582,47 @@ paged_attn_kernel(const __grid_constant__ CUtensorMap k_map,
   }
 }
 
-// Tensor maps over one pool, by (pointer, shape, dtype, box height): the
+// Tensor maps over one pool, by (pointer, shape, kind, box height): the
 // engine allocates its pool once, so after the first call a launch encodes
 // nothing. A map depends only on these, so a pool freed and another
 // allocated at the same address with the same shape reuses a right map.
+// kind: 0 bf16 pages, 1 fp16 pages, 2 8-bit pages, 3 fp32 scale tiles.
+enum MapKind : int { BF16 = 0, FP16 = 1, BYTES8 = 2, SCALES = 3 };
+
 struct MapKey {
   const void* ptr;
-  int d, page_size, pages_all, fp16, box_rows;
+  int d, page_size, pages_all, kind, box_rows;
   bool operator==(const MapKey& o) const {
     return ptr == o.ptr && d == o.d && page_size == o.page_size &&
-           pages_all == o.pages_all && fp16 == o.fp16 && box_rows == o.box_rows;
+           pages_all == o.pages_all && kind == o.kind && box_rows == o.box_rows;
   }
 };
 
 constexpr int MAP_CACHE = 16;
+
+// The quantized cache's maps, unswizzled: 8-bit pages as (L hk P, page_size,
+// d) bytes in boxes of qbox_row(d) x box_rows x 1, and scale tiles as (L hk
+// P) rows of 8 x 128 floats in boxes of 64 floats (a tile's scales, from row
+// 0). Reads past the pool (a dead box's page) fill zeros.
+int quant_map(CUtensorMap* map, const MapKey& key) {
+  auto encode = hop::tensor_map_encoder();
+  if (encode == nullptr) return static_cast<int>(cudaErrorSharedObjectSymbolNotFound);
+  const bool pages = key.kind == BYTES8;
+  cuuint64_t dims[3] = {cuuint64_t(pages ? key.d : 8 * 128),
+                        cuuint64_t(pages ? key.page_size : key.pages_all),
+                        cuuint64_t(key.pages_all)};
+  cuuint64_t strides[2] = {cuuint64_t(pages ? key.d : 8 * 128 * 4),
+                           cuuint64_t(key.page_size) * key.d};
+  cuuint32_t box[3] = {cuuint32_t(pages ? qbox_row(key.d) : TILE),
+                       cuuint32_t(pages ? key.box_rows : 1), 1};
+  cuuint32_t elem[3] = {1, 1, 1};
+  CUresult r = encode(
+      map, pages ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+      pages ? 3 : 2, const_cast<void*>(key.ptr), dims, strides, box, elem,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
 
 int pool_map(CUtensorMap* map, const MapKey& key) {
   static std::mutex mu;
@@ -464,9 +636,12 @@ int pool_map(CUtensorMap* map, const MapKey& key) {
       return 0;
     }
   // (L hk P, page_size, d): one page of one head is page_size x d elements
-  const int rc = hop::make_map_3d(
-      map, key.ptr, key.fp16, key.d, key.page_size, key.pages_all,
-      (long long)key.d * 2, (long long)key.page_size * key.d * 2, key.box_rows);
+  const int rc =
+      key.kind >= BYTES8
+          ? quant_map(map, key)
+          : hop::make_map_3d(map, key.ptr, key.kind == FP16, key.d, key.page_size,
+                             key.pages_all, (long long)key.d * 2,
+                             (long long)key.page_size * key.d * 2, key.box_rows);
   if (rc) return rc;
   keys[next] = key;
   maps[next] = *map;
@@ -475,13 +650,14 @@ int pool_map(CUtensorMap* map, const MapKey& key) {
   return 0;
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* kp, const void* vp, const int* lengths,
-           const int* tables, void* out, float* ws, int* counters, int b,
-           int h, int hk, int L, int layer, int total_pages, int page_size,
-           int pages_per_seq, int chunk_tiles, int n_chunks, int window,
-           float scale_log2, float cap_scale, float cap_log2,
-           cudaStream_t stream) {
+// Q: 0 pages in T; 1 int8 and 2 fp8 e4m3 pages with scale tiles ks, vs
+template <typename T, int D, int Q>
+int launch(const void* q, const void* kp, const void* vp, const void* ksp,
+           const void* vsp, const int* lengths, const int* tables, void* out,
+           float* ws, int* counters, int b, int h, int hk, int L, int layer,
+           int total_pages, int page_size, int pages_per_seq, int chunk_tiles,
+           int n_chunks, int window, float scale_log2, float cap_scale,
+           float cap_log2, cudaStream_t stream) {
   constexpr bool fp16 = std::is_same_v<T, __half>;
   const long long pages_all = (long long)L * hk * total_pages;
   // the tiles a pair's chunks must cover: the table's, or with a window the
@@ -490,18 +666,24 @@ int launch(const void* q, const void* kp, const void* vp, const int* lengths,
   const long long span = (long long)(window + TILE - 1) / TILE + 1;
   if (window > 0 && span < need) need = span;
   if (pages_all >= INT_MAX || n_chunks > MAX_CHUNKS || chunk_tiles < 1 ||
-      window < 0 || (long long)n_chunks * chunk_tiles < need)
+      window < 0 || (long long)n_chunks * chunk_tiles < need ||
+      (Q != 0 && page_size != 128))
     return static_cast<int>(cudaErrorInvalidValue);
   // the largest power of two that divides the page size, at most a tile: a
   // box never crosses a page
   const int box_rows = min(TILE, page_size & -page_size);
-  CUtensorMap km, vm;
+  const int kind = Q != 0 ? BYTES8 : fp16 ? FP16 : BF16;
+  CUtensorMap km, vm, ksm{}, vsm{};
   int rc;
-  if ((rc = pool_map(&km, {kp, D, page_size, (int)pages_all, fp16, box_rows})) ||
-      (rc = pool_map(&vm, {vp, D, page_size, (int)pages_all, fp16, box_rows})))
+  if ((rc = pool_map(&km, {kp, D, page_size, (int)pages_all, kind, box_rows})) ||
+      (rc = pool_map(&vm, {vp, D, page_size, (int)pages_all, kind, box_rows})))
     return rc;
-  auto kernel = cap_scale != 0.f ? paged_attn_kernel<T, D, true>
-                                 : paged_attn_kernel<T, D, false>;
+  if (Q != 0 &&
+      ((rc = pool_map(&ksm, {ksp, D, page_size, (int)pages_all, SCALES, 1})) ||
+       (rc = pool_map(&vsm, {vsp, D, page_size, (int)pages_all, SCALES, 1}))))
+    return rc;
+  auto kernel = cap_scale != 0.f ? paged_attn_kernel<T, D, true, Q>
+                                 : paged_attn_kernel<T, D, false, Q>;
   // the shared-memory limit is raised once per device and instance
   static std::atomic<uint64_t> raised[2]{};
   int dev = 0;
@@ -511,16 +693,16 @@ int launch(const void* q, const void* kp, const void* vp, const int* lengths,
   std::atomic<uint64_t>& done = raised[cap_scale != 0.f];
   if (!(done.load() & bit)) {
     err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Smem<D>::BYTES);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Smem<D, Q>::BYTES);
     if (err != cudaSuccess) return static_cast<int>(err);
     done.fetch_or(bit);
   }
   dim3 grid(n_chunks, hk, b);
-  kernel<<<grid, NTHREADS, Smem<D>::BYTES, stream>>>(
+  kernel<<<grid, NTHREADS, Smem<D, Q>::BYTES, stream>>>(
       km, vm, static_cast<const T*>(q), lengths, tables, static_cast<T*>(out),
       ws, counters, h, hk, page_size, box_rows, pages_per_seq, total_pages,
       (int)pages_all, layer, chunk_tiles, window, scale_log2, cap_scale,
-      cap_log2);
+      cap_log2, ksm, vsm);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -535,31 +717,39 @@ extern "C" {
 // (n_chunks of chunk_tiles 64-token tiles) must cover pages_per_seq pages,
 // or with a window (W > 0 tokens; 0 = none) ceil(W / 64) + 1 tiles, and
 // h / hk must be at most 8. cap_scale = scale / cap and cap_log2 = cap
-// log2(e) run the softcap instance; 0 and 0 the plain one.
+// log2(e) run the softcap instance; 0 and 0 the plain one. kv_type 0: the
+// pages in q's type; 1 (int8) or 2 (fp8 e4m3): bf16 q, page size 128, and
+// k/v scales contiguous (L, hk, P, 8, 128) fp32 (null otherwise).
 int fat_paged_attention(const void* q, const void* k_pages, const void* v_pages,
+                        const void* k_scales, const void* v_scales,
                         const void* lengths, const void* tables, void* out,
                         void* workspace, void* counters, int b, int h, int hk,
                         int d, int L, int layer, int total_pages, int page_size,
                         int pages_per_seq, int chunk_tiles, int n_chunks,
                         int window, float scale_log2, float cap_scale,
-                        float cap_log2, int is_fp16, void* stream) {
+                        float cap_log2, int is_fp16, int kv_type, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* len = static_cast<const int*>(lengths);
   const int* tab = static_cast<const int*>(tables);
   float* ws = static_cast<float*>(workspace);
   int* cnt = static_cast<int*>(counters);
-  if (h % hk || h / hk > MAX_GROUP) return static_cast<int>(cudaErrorInvalidValue);
-#define FAT_PAGED_LAUNCH(T, D)                                                 \
-  return launch<T, D>(q, k_pages, v_pages, len, tab, out, ws, cnt, b, h, hk, L, \
-                      layer, total_pages, page_size, pages_per_seq,            \
-                      chunk_tiles, n_chunks, window, scale_log2, cap_scale,    \
-                      cap_log2, s)
-  if (d == 256 && !is_fp16) FAT_PAGED_LAUNCH(__nv_bfloat16, 256);
-  if (d == 256) FAT_PAGED_LAUNCH(__half, 256);
-  if (d == 128 && !is_fp16) FAT_PAGED_LAUNCH(__nv_bfloat16, 128);
-  if (d == 128) FAT_PAGED_LAUNCH(__half, 128);
-  if (d == 64 && !is_fp16) FAT_PAGED_LAUNCH(__nv_bfloat16, 64);
-  if (d == 64) FAT_PAGED_LAUNCH(__half, 64);
+  if (h % hk || h / hk > MAX_GROUP || kv_type < 0 || kv_type > 2 ||
+      (kv_type != 0 && is_fp16))
+    return static_cast<int>(cudaErrorInvalidValue);
+#define FAT_PAGED_LAUNCH(T, D, Q)                                              \
+  return launch<T, D, Q>(q, k_pages, v_pages, k_scales, v_scales, len, tab,    \
+                         out, ws, cnt, b, h, hk, L, layer, total_pages,        \
+                         page_size, pages_per_seq, chunk_tiles, n_chunks,      \
+                         window, scale_log2, cap_scale, cap_log2, s)
+#define FAT_PAGED_D(D)                                                         \
+  if (d == D && kv_type == 1) FAT_PAGED_LAUNCH(__nv_bfloat16, D, 1);           \
+  if (d == D && kv_type == 2) FAT_PAGED_LAUNCH(__nv_bfloat16, D, 2);           \
+  if (d == D && !is_fp16) FAT_PAGED_LAUNCH(__nv_bfloat16, D, 0);               \
+  if (d == D) FAT_PAGED_LAUNCH(__half, D, 0)
+  FAT_PAGED_D(256);
+  FAT_PAGED_D(128);
+  FAT_PAGED_D(64);
+#undef FAT_PAGED_D
 #undef FAT_PAGED_LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);
 }

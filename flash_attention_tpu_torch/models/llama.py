@@ -24,6 +24,14 @@ them.
   attend to the prefix gathered from the pages and the chunk itself through
   the segmented flash forward (``fwd(segs=...)``), with the segment ids and
   global positions that mask the dead prefix slots and the chunk's pad tail.
+* A quantized KV cache (int8 or fp8 e4m3 pages with per-token scales in
+  (L, hk, P, 8, 128) fp32 tiles, ``ops.quant.quantize_kv_pages``' layout):
+  ``decode_step`` quantizes each layer's new K/V and writes it in one
+  launch (``ops.kv_update.quantize_write_token_kv``), and the paged kernel
+  folds the scales into its softmax; ``write_prefill_to_pages`` quantizes
+  a prefill's K/V page by page and ``prefill_chunk`` dequantizes the prefix
+  it gathers, in plain torch, as the JAX package does in XLA.
+  ``prefill(kv_fake_quant=)`` rounds K/V through the same quantizer.
 
 Parameters are a plain dict of tensors with layer weights stacked on axis 0,
 ``(L, in, out)``, the JAX package's layout, so ``params_from_jax`` is a cast
@@ -40,8 +48,8 @@ qmm kernel on the card). A quantized model serves; ``train_loss`` on it
 raises, as the JAX package has no gradient for the quantized matmul.
 
 Outside this slice (they raise): LoRA, quantized MoE experts and tensor
-parallelism (and with it expert parallelism). On the card, a head dim
-above 128 (Gemma-2-9B's 256) raises in the attention kernels.
+parallelism (and with it expert parallelism). On the card, head dims other
+than 64, 128 and 256 raise in the attention kernels.
 """
 
 from __future__ import annotations
@@ -54,10 +62,12 @@ from torch.utils.checkpoint import checkpoint
 
 from flash_attention_tpu_torch.models.checkpoint import to_tensor
 from flash_attention_tpu_torch.ops.attention import flash_attention, fwd
-from flash_attention_tpu_torch.ops.kv_update import write_token_kv
+from flash_attention_tpu_torch.ops.kv_update import (quantize_write_token_kv,
+                                                     write_token_kv)
 from flash_attention_tpu_torch.ops.moe import moe_ffn
 from flash_attention_tpu_torch.ops.paged_attention import paged_attention
-from flash_attention_tpu_torch.ops.quant import (QuantizedTensor,
+from flash_attention_tpu_torch.ops.quant import (KV_QMAX, QuantizedTensor,
+                                                 _quantize_token,
                                                  quantize_int4, quantize_int8,
                                                  quantized_matmul)
 from flash_attention_tpu_torch.utils.options import reject_unported
@@ -436,14 +446,20 @@ def _final_softcap(logits, cfg: LlamaConfig):
     return cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
 
 
+def _fake_quant(t, dtype):
+    """t rounded through the KV cache's per-token quantizer and back."""
+    tq, sc = _quantize_token(t, dtype)
+    return (tq.float() * sc[..., None]).to(t.dtype)
+
+
 def _dense_layer(x, w, cfg: LlamaConfig, positions, window=None,
-                 attend=None):
+                 attend=None, kv_fake_quant=None):
     """One transformer layer (weights ``w``, one dict of ``_layer_weights``)
     on a dense (b, s, D) activation, with the layer's sliding ``window``
     (None = global). Returns (x, (k, v)) with k/v (b, s, hk, hd) after
-    RoPE. ``attend(q, k, v, window_size)`` replaces the causal flash
-    attention over the layer's own k, v (a chunk's attention to its
-    prefix)."""
+    RoPE (and after the quantizer's rounding with ``kv_fake_quant``).
+    ``attend(q, k, v, window_size)`` replaces the causal flash attention
+    over the layer's own k, v (a chunk's attention to its prefix)."""
     b, s = x.shape[:2]
     h = _rmsnorm(x, w["norm_attn"], cfg.norm_eps)
     q = _proj(h, w, "wq").view(b, s, cfg.n_heads, cfg.head_dim)
@@ -451,6 +467,8 @@ def _dense_layer(x, w, cfg: LlamaConfig, positions, window=None,
     v = _proj(h, w, "wv").view(b, s, cfg.n_kv_heads, cfg.head_dim)
     q = _rope(q, positions, cfg.rope_theta, cfg.rope_scaling)
     k = _rope(k, positions, cfg.rope_theta, cfg.rope_scaling)
+    if kv_fake_quant is not None:
+        k, v = _fake_quant(k, kv_fake_quant), _fake_quant(v, kv_fake_quant)
     win = None if window is None else (window - 1, 0)
     if attend is None:
         o = flash_attention(q, k, v, causal=True, sm_scale=cfg.sm_scale,
@@ -462,8 +480,9 @@ def _dense_layer(x, w, cfg: LlamaConfig, positions, window=None,
     return x + _post(_ffn(h, w, cfg), w, "norm_post_mlp", cfg), (k, v)
 
 
-def _layer_out(x, w, cfg: LlamaConfig, positions, window):
-    return _dense_layer(x, w, cfg, positions, window)[0]
+def _layer_out(x, w, cfg: LlamaConfig, positions, window, kv_fake_quant):
+    return _dense_layer(x, w, cfg, positions, window,
+                        kv_fake_quant=kv_fake_quant)[0]
 
 
 def prefill(params, tokens, cfg: LlamaConfig, tp_axis=None,
@@ -482,11 +501,18 @@ def prefill(params, tokens, cfg: LlamaConfig, tp_axis=None,
     backward keeps only each layer's input and recomputes the rest (the
     flash-attention forward included) layer by layer: activation memory
     O(1) in depth for one extra forward of work. As in the JAX package,
-    ``remat`` applies only without the cache. ``kv_fake_quant`` (the
-    quantized cache's rounding) and ``lora_ids`` (LoRA adapters) are not
-    ported: a value other than None raises NotImplementedError."""
-    reject_unported("prefill", kv_fake_quant=(kv_fake_quant, None),
-                    lora_ids=(lora_ids, None))
+    ``remat`` applies only without the cache.
+
+    ``kv_fake_quant`` (``torch.int8`` or ``torch.float8_e4m3fn``) rounds
+    each layer's K/V through the quantized cache's per-token quantizer
+    before attention (and in the K/V returned): the quality path of the
+    quantized cache, what the paged kernel computes from the 8-bit pages
+    and their scales. ``lora_ids`` (LoRA adapters) is not ported: a value
+    other than None raises NotImplementedError."""
+    reject_unported("prefill", lora_ids=(lora_ids, None))
+    if kv_fake_quant is not None and kv_fake_quant not in KV_QMAX:
+        raise ValueError(f"kv_fake_quant must be torch.int8 or "
+                         f"torch.float8_e4m3fn, got {kv_fake_quant!r}")
     check_supported(cfg, params, tp_axis)
     b, s = tokens.shape
     x = _embed(params, tokens, cfg)
@@ -501,9 +527,11 @@ def prefill(params, tokens, cfg: LlamaConfig, tp_axis=None,
         window = cfg.layer_window(i)
         if remat:
             x = checkpoint(_layer_out, x, w, cfg, positions, window,
-                           use_reentrant=False, preserve_rng_state=False)
+                           kv_fake_quant, use_reentrant=False,
+                           preserve_rng_state=False)
             continue
-        x, (k, v) = _dense_layer(x, w, cfg, positions, window)
+        x, (k, v) = _dense_layer(x, w, cfg, positions, window,
+                                 kv_fake_quant=kv_fake_quant)
         if return_kv:
             ks[i], vs[i] = k, v
     if logit_rows is not None:
@@ -545,17 +573,18 @@ def decode_step(params, k_pages, v_pages, k_scales, v_scales, tokens, lengths,
     k_pages/v_pages (L, hk, P, ps, hd) are updated IN PLACE (each layer's
     new K/V lands in its slot before that layer's attention). tokens (b,),
     lengths (b,) int32 including this token, page_tables (b, pages_per_seq)
-    int32, write_page/write_off (b,) int32. k_scales/v_scales (a quantized
-    cache) are outside this slice and must be None, as ``lora_ids`` (LoRA
-    adapters) must.
+    int32, write_page/write_off (b,) int32. With k_scales/v_scales
+    (L, hk, P, 8, 128) fp32 the cache is int8 or fp8 e4m3 (page size 128):
+    each layer's K/V is quantized per token into its slot and its scale
+    into lane write_off of the page's tile, updated in place too.
+    ``lora_ids`` (LoRA adapters) is not ported and must be None.
 
     Returns (logits (b, vocab) fp32, k_pages, v_pages, k_scales, v_scales).
     """
     reject_unported("decode_step", lora_ids=(lora_ids, None))
     check_supported(cfg, params, tp_axis)
-    if k_scales is not None or v_scales is not None:
-        raise NotImplementedError("a quantized KV cache is outside this "
-                                  "slice of the PyTorch port")
+    if (k_scales is None) != (v_scales is None):
+        raise ValueError("k_scales and v_scales come together")
     b = tokens.shape[0]
     x = _embed(params, tokens, cfg)
     pos = (lengths - 1).long()[:, None]
@@ -567,12 +596,18 @@ def decode_step(params, k_pages, v_pages, k_scales, v_scales, tokens, lengths,
         v = _proj(h, w, "wv").view(b, HK, hd)
         q = _rope(q, pos, cfg.rope_theta, cfg.rope_scaling)[:, 0]
         k = _rope(k, pos, cfg.rope_theta, cfg.rope_scaling)[:, 0]
-        write_token_kv(k_pages, v_pages, None, None,
-                       k.to(k_pages.dtype).contiguous(),
-                       v.to(v_pages.dtype).contiguous(), None, None,
-                       write_page, write_off, layer=i)
+        if k_scales is None:
+            write_token_kv(k_pages, v_pages, None, None,
+                           k.to(k_pages.dtype).contiguous(),
+                           v.to(v_pages.dtype).contiguous(), None, None,
+                           write_page, write_off, layer=i)
+        else:
+            quantize_write_token_kv(k_pages, v_pages, k_scales, v_scales,
+                                    k.contiguous(), v.contiguous(),
+                                    write_page, write_off, layer=i)
         o = paged_attention(q.contiguous(), k_pages, v_pages, lengths,
-                            page_tables, sm_scale=cfg.sm_scale,
+                            page_tables, k_scales=k_scales,
+                            v_scales=v_scales, sm_scale=cfg.sm_scale,
                             window=cfg.layer_window(i),
                             softcap=cfg.attn_softcap, layer=i)
         x = x + _post(_mm(o.reshape(b, -1), w["wo"]), w, "norm_post_attn",
@@ -603,11 +638,14 @@ def prefill_chunk(params, tokens, done, chunk_len, k_pages, v_pages,
     Returns (logits (b, c, vocab) fp32, ks, vs (L, b, c, hk, hd)): the
     chunk's K/V for ``write_prefill_to_pages``. With ``logit_rows`` ((b,)
     int) the lm_head runs only at each row's given chunk position and the
-    logits come back (b, vocab), as in :func:`prefill`. ``k_scales`` and
-    ``v_scales`` (a quantized cache) and ``lora_ids`` are not ported: a value
-    other than None raises NotImplementedError."""
-    reject_unported("prefill_chunk", k_scales=(k_scales, None),
-                    v_scales=(v_scales, None), lora_ids=(lora_ids, None))
+    logits come back (b, vocab), as in :func:`prefill`. With ``k_scales``
+    and ``v_scales`` (L, hk, P, 8, 128) fp32 the cache is int8 or fp8: the
+    gathered prefix is dequantized with its tokens' scales (lane t of a
+    page's tile) in the activations' dtype. ``lora_ids`` is not ported: a
+    value other than None raises NotImplementedError."""
+    reject_unported("prefill_chunk", lora_ids=(lora_ids, None))
+    if (k_scales is None) != (v_scales is None):
+        raise ValueError("k_scales and v_scales come together")
     check_supported(cfg, params, tp_axis)
     b, c = tokens.shape
     dev = k_pages.device
@@ -629,17 +667,24 @@ def prefill_chunk(params, tokens, done, chunk_len, k_pages, v_pages,
     segs = tuple(t.int() for t in (q_seg, kv_seg, positions, kv_pos))
     hk, hd = cfg.n_kv_heads, cfg.head_dim
 
-    def gather(pages):
-        # (hk, b, npp, ps, hd) -> (b, npp * ps, hk, hd)
-        return pages[:, tables].permute(1, 2, 3, 0, 4).reshape(b, pref, hk,
-                                                               hd)
+    def gather(pages, scales, i, dtype):
+        # layer i's (hk, b, npp, ps, hd) -> (b, npp * ps, hk, hd); 8-bit
+        # pages move as bytes
+        if scales is None:
+            g = pages[i][:, tables]
+            return g.permute(1, 2, 3, 0, 4).reshape(b, pref, hk, hd).to(dtype)
+        g = pages[i].view(torch.uint8)[:, tables].view(pages.dtype)
+        g = g.permute(1, 2, 3, 0, 4).reshape(b, pref, hk, hd)
+        # token t's scale: lane t of its page's tile, (b, npp * ps, hk)
+        sc = scales[i][:, tables][:, :, :, 0, :ps].permute(1, 2, 3, 0)
+        return (g.float() * sc.reshape(b, pref, hk)[..., None]).to(dtype)
 
     ks = torch.empty((cfg.n_layers, b, c, hk, hd), dtype=x.dtype, device=dev)
     vs = torch.empty_like(ks)
     for i, w in enumerate(_layer_weights(params)):
         def attend(q, k, v, win, i=i):
-            kcat = torch.cat([gather(k_pages[i]).to(k.dtype), k], dim=1)
-            vcat = torch.cat([gather(v_pages[i]).to(v.dtype), v], dim=1)
+            kcat = torch.cat([gather(k_pages, k_scales, i, k.dtype), k], dim=1)
+            vcat = torch.cat([gather(v_pages, v_scales, i, v.dtype), v], dim=1)
             return fwd(q, kcat, vcat, True, sm_scale=cfg.sm_scale, segs=segs,
                        window_size=win, softcap=cfg.attn_softcap)[0]
         x, (ks[i], vs[i]) = _dense_layer(x, w, cfg, positions,
@@ -662,10 +707,13 @@ def write_prefill_to_pages(k_pages, v_pages, layer_kv, page_ids, batch_idx,
     batch_idx (N,): source batch row per page; page_in_seq (N,): source page
     index within the row (tokens [p * page_size, (p+1) * page_size)). Slots
     past a sequence's length hold pad-position values that are never read.
+    With k_scales/v_scales (L, hk, P, 8, 128) fp32 the cache is int8 or fp8
+    (page_size <= 128): each page is quantized per token and its scales set
+    as its tile's lanes (lanes past the page size 1.0), a layer at a time,
+    so no fp32 copy of the whole batch's K/V exists.
     Returns (k_pages, v_pages, k_scales, v_scales)."""
-    if k_scales is not None or v_scales is not None:
-        raise NotImplementedError("a quantized KV cache is outside this "
-                                  "slice of the PyTorch port")
+    if (k_scales is None) != (v_scales is None):
+        raise ValueError("k_scales and v_scales come together")
     ks, vs = layer_kv
     L, bsz, bucket, hk, hd = ks.shape
     bucket_pad = -(-bucket // page_size) * page_size
@@ -673,12 +721,24 @@ def write_prefill_to_pages(k_pages, v_pages, layer_kv, page_ids, batch_idx,
     bidx, pidx = batch_idx.to(dev).long(), page_in_seq.to(dev).long()
     dest = page_ids.to(dev).long()
 
-    def prep(x):  # (L, bsz, bucket, hk, hd) -> (L, hk, N, page_size, hd)
+    def prep(x):  # (l, bsz, bucket, hk, hd) -> (l, hk, N, page_size, hd)
         if bucket_pad != bucket:
             x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, bucket_pad - bucket))
-        x = x.reshape(L, bsz, bucket_pad // page_size, page_size, hk, hd)
+        x = x.reshape(-1, bsz, bucket_pad // page_size, page_size, hk, hd)
         return x[:, bidx, pidx].permute(0, 3, 1, 2, 4)
 
-    k_pages[:, :, dest] = prep(ks).to(k_pages.dtype)
-    v_pages[:, :, dest] = prep(vs).to(v_pages.dtype)
+    if k_scales is None:
+        k_pages[:, :, dest] = prep(ks).to(k_pages.dtype)
+        v_pages[:, :, dest] = prep(vs).to(v_pages.dtype)
+        return k_pages, v_pages, k_scales, v_scales
+
+    def pack(sc):  # (hk, N, page_size) -> (hk, N, 8, 128): lane = token
+        sc = torch.nn.functional.pad(sc, (0, 128 - page_size), value=1.0)
+        return sc[:, :, None, :].expand(*sc.shape[:2], 8, 128)
+
+    for pages, scales, x in ((k_pages, k_scales, ks), (v_pages, v_scales, vs)):
+        for i in range(L):
+            q, sc = _quantize_token(prep(x[i:i + 1])[0], pages.dtype)
+            pages.view(torch.uint8)[i, :, dest] = q.view(torch.uint8)
+            scales[i, :, dest] = pack(sc)
     return k_pages, v_pages, k_scales, v_scales

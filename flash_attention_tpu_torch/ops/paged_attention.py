@@ -15,6 +15,11 @@ host and can be captured in a CUDA graph. Chunks write fp32 partials to a worksp
 allocator, and the last chunk of each pair merges them, found by a per-pair
 counter that the kernel leaves at zero (one counter buffer per device:
 calls on one device run one at a time, in stream order).
+
+A quantized cache (int8 or fp8 e4m3 pages of 128 tokens, with the
+(L, hk, P, 8, 128) fp32 scale tiles of ``ops.quant.quantize_kv_pages``)
+runs the kernel's quantized instances, which fold each token's scales into
+the scores and the probabilities as the TPU kernel does.
 """
 
 from __future__ import annotations
@@ -34,10 +39,13 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 
 KERNEL = _build.Kernel("paged_attention", "paged_attention.cu", {
-    "fat_paged_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                            _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _I,
-                            _P],
+    "fat_paged_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                            _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F,
+                            _F, _I, _I, _P],
 })
+# the kernel's page types besides q's own: its kv_type argument
+KV_TYPES = {torch.int8: 1, torch.float8_e4m3fn: 2}
+QUANT_PAGE_SIZE = 128  # a scale tile's lane = a token of its page
 HEAD_DIMS = (64, 128, 256)
 MAX_GROUP = 8
 TILE = 64  # tokens per tile of the kernel's ring
@@ -143,10 +151,11 @@ def paged_attention(q, k_pages, v_pages, lengths, page_indices, *,
     ``window`` W: the query sees the tokens [max(length - W, 0), length),
     and table entries whose pages hold none of them may be holes (-1).
     ``softcap`` squashes scaled scores to ``softcap * tanh(s / softcap)``.
-    ``k_scales``/``v_scales`` (int8/fp8 cache) run only in the plain version
-    so far. ``pages_per_block`` and ``interpret`` (the TPU kernel's
-    grouping, Pallas interpret mode) raise NotImplementedError off their
-    defaults."""
+    ``k_scales``/``v_scales`` ((L,) hk, P, 8, 128) fp32 with int8 or fp8
+    e4m3 pages of 128 tokens: the quantized cache, lane t of a page's tile
+    token t's scale (bf16 q on the card). ``pages_per_block`` and
+    ``interpret`` (the TPU kernel's grouping, Pallas interpret mode) raise
+    NotImplementedError off their defaults."""
     reject_unported("paged_attention",
                     pages_per_block=(pages_per_block, 8),
                     interpret=(interpret, None))
@@ -161,6 +170,8 @@ def paged_attention(q, k_pages, v_pages, lengths, page_indices, *,
         raise ValueError(f"q heads {h} not divisible by kv heads {hk}")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1; got {window}")
+    if (k_scales is None) != (v_scales is None):
+        raise ValueError("k_scales and v_scales come together")
     if sm_scale is None:
         sm_scale = 1.0 / d**0.5
     if q.device.type == "cpu":
@@ -168,20 +179,40 @@ def paged_attention(q, k_pages, v_pages, lengths, page_indices, *,
             q, k_pages, v_pages, lengths, page_indices, k_scales=k_scales,
             v_scales=v_scales, sm_scale=sm_scale, window=window,
             softcap=softcap, layer=layer)
-    if k_scales is not None:
-        raise NotImplementedError("quantized KV runs only in the plain "
-                                  "version (CPU) so far")
     pk = k_pages if layered else k_pages[None]
     pv = v_pages if layered else v_pages[None]
     L, _, total_pages, page_size, _ = pk.shape
     layer = 0 if layer is None else int(layer)
-    for x, name in ((q, "q"), (pk, "k_pages"), (pv, "v_pages"),
-                    (lengths, "lengths"), (page_indices, "page_indices")):
+    tensors = {"q": q, "k_pages": pk, "v_pages": pv, "lengths": lengths,
+               "page_indices": page_indices}
+    quantized = k_scales is not None
+    if quantized:
+        ks = k_scales if layered else k_scales[None]
+        vs = v_scales if layered else v_scales[None]
+        tensors.update(k_scales=ks, v_scales=vs)
+    for name, x in tensors.items():
         if not x.is_cuda or not x.is_contiguous():
             raise ValueError(f"{name} must be a contiguous CUDA tensor")
-    if q.dtype not in (torch.bfloat16, torch.float16) or \
+    if quantized:
+        if q.dtype != torch.bfloat16 or pk.dtype not in KV_TYPES or \
+                pv.dtype != pk.dtype:
+            raise ValueError("a quantized cache takes bf16 q and int8 or "
+                             "float8_e4m3fn pages")
+        if page_size != QUANT_PAGE_SIZE:
+            raise ValueError(f"a quantized cache needs page_size "
+                             f"{QUANT_PAGE_SIZE}, got {page_size}")
+        want = (L, pk.shape[1], total_pages, 8, 128)
+        for name in ("k_scales", "v_scales"):
+            x = tensors[name]
+            if x.dtype != torch.float32 or x.shape != want or \
+                    x.data_ptr() % 16:
+                raise ValueError(f"{name} must be {want} fp32, 16-byte "
+                                 f"aligned")
+    elif q.dtype not in (torch.bfloat16, torch.float16) or \
             pk.dtype != q.dtype or pv.dtype != q.dtype:
         raise ValueError("q and the pages must share one dtype, bf16 or fp16")
+    if pk.data_ptr() % 16 or pv.data_ptr() % 16:
+        raise ValueError("the pages must be 16-byte aligned")
     if pv.shape != pk.shape or pk.shape[-1] != d:
         raise ValueError("k_pages/v_pages shape mismatch")
     if d not in HEAD_DIMS:
@@ -210,11 +241,15 @@ def paged_attention(q, k_pages, v_pages, lengths, page_indices, *,
     ws = torch.empty(b * hk * n_chunks * (MAX_GROUP * d + 2 * MAX_GROUP)
                      if n_chunks > 1 else 0, dtype=torch.float32, device=dev)
     rc = lib.fat_paged_attention(
-        q.data_ptr(), pk.data_ptr(), pv.data_ptr(), lengths.data_ptr(),
-        page_indices.data_ptr(), out.data_ptr(), ws.data_ptr(),
-        counters.data_ptr(), b, h, hk, d, L, layer, total_pages, page_size,
-        pps, chunk_tiles, n_chunks, 0 if window is None else int(window),
-        sm_scale * _LOG2E, cap_scale, cap_log2, int(q.dtype == torch.float16),
+        q.data_ptr(), pk.data_ptr(), pv.data_ptr(),
+        tensors["k_scales"].data_ptr() if quantized else 0,
+        tensors["v_scales"].data_ptr() if quantized else 0,
+        lengths.data_ptr(), page_indices.data_ptr(), out.data_ptr(),
+        ws.data_ptr(), counters.data_ptr(), b, h, hk, d, L, layer,
+        total_pages, page_size, pps, chunk_tiles, n_chunks,
+        0 if window is None else int(window), sm_scale * _LOG2E, cap_scale,
+        cap_log2, int(q.dtype == torch.float16),
+        KV_TYPES.get(pk.dtype, 0) if quantized else 0,
         torch._C._cuda_getCurrentRawStream(dev.index))
     KERNEL.launches += 1
     KERNEL.check(rc)

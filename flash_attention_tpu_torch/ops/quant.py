@@ -1,9 +1,8 @@
-"""Weight-only int8/int4 quantization: the quantizers, the plain
-dequantization and the quantized matmul, with its CUDA kernel.
+"""Weight-only int8/int4 quantization (the quantizers, the plain
+dequantization and the quantized matmul, with its CUDA kernel) and the
+per-token quantizer of the int8/fp8 KV cache.
 
-The counterpart of the JAX package's ``ops/quant.py`` (weights only; the
-KV-cache quantizer ``quantize_kv_pages`` belongs to the quantized-cache
-path):
+The counterpart of the JAX package's ``ops/quant.py``:
 
 * ``QuantizedTensor(values, scales, bits)``: the JAX layout. For a logical
   (k, n) weight, int8 values are (k, n); int4 values are (k // 2, n) int8,
@@ -20,6 +19,12 @@ path):
   The TPU tiling knobs (``block_m/n/k``, ``interpret``) are taken at their
   JAX defaults only: the wrapper picks the kernel's variant, tile and split
   itself (:func:`plan`).
+* ``quantize_kv_pages`` and ``_quantize_token`` (JAX's
+  ``models/llama.py::_quantize_token``): per-token symmetric int8 or fp8
+  (e4m3) quantization of K/V rows, bit-identical to JAX's. A cache page's
+  scales are one (8, 128) fp32 tile whose lane t holds token t's scale
+  (all 8 rows equal), the TPU's smallest DMA slice, kept as the cache's
+  layout so the two packages' caches are interchangeable.
 """
 
 from __future__ import annotations
@@ -66,9 +71,14 @@ class QuantizedTensor(NamedTuple):
 
 
 def _scale(w, axis: int, qmax: float):
+    """max(amax / qmax, 1e-8) in IEEE fp32. qmax is a tensor on w's device
+    (made by a fill, so a CUDA graph can capture it): PyTorch's CUDA
+    division by a Python scalar multiplies by its rounded reciprocal, which
+    can differ from the division in the last bit."""
     amax = w.abs().amax(dim=axis, keepdim=True)
-    return torch.maximum(amax / qmax, torch.tensor(1e-8, dtype=torch.float32,
-                                                   device=w.device))
+    f32 = dict(dtype=torch.float32, device=w.device)
+    return torch.maximum(amax / torch.full((), qmax, **f32),
+                         torch.full((), 1e-8, **f32))
 
 
 def quantize_int8(w, axis: int = 0) -> QuantizedTensor:
@@ -78,6 +88,41 @@ def quantize_int8(w, axis: int = 0) -> QuantizedTensor:
     scale = _scale(w, axis, 127.0)
     q = (w / scale).round_().clamp_(-127, 127).to(torch.int8)
     return QuantizedTensor(q, scale.squeeze(axis), 8)
+
+
+# the KV cache's 8-bit types and the magnitude each maps amax to: int8's
+# clip and e4m3's largest finite value
+KV_QMAX = {torch.int8: 127.0, torch.float8_e4m3fn: 448.0}
+
+
+def _quantize_token(x, dtype=torch.int8):
+    """Per-token symmetric quantization over the last axis to int8 or fp8
+    (e4m3): returns (values in ``dtype``, fp32 scales with the last axis
+    reduced). scale = max(amax / 127 or amax / 448, 1e-8) and x / scale in
+    IEEE fp32; int8 rounds half to even and clips to +-127, fp8 rounds to
+    nearest even (|x / scale| <= 448 by construction)."""
+    qmax = KV_QMAX.get(dtype)
+    if qmax is None:
+        raise ValueError(f"unsupported KV quant dtype {dtype}")
+    x = x.float()
+    scale = _scale(x, -1, qmax)
+    q = x / scale
+    if dtype == torch.int8:
+        q = q.round_().clamp_(-127, 127)
+    return q.to(dtype), scale.squeeze(-1)
+
+
+def quantize_kv_pages(pages, dtype=torch.int8):
+    """Per-token symmetric quantization of KV pages to int8 or fp8 (e4m3).
+
+    pages: (num_kv_heads, total_pages, page_size <= 128, head_dim) float.
+    Returns (values in ``dtype``, same shape; scales (hk, pages, 8, 128)
+    fp32): per page one (8, 128) tile whose lane t holds token t's scale,
+    the same in all 8 rows, lanes past the page size 1.0."""
+    hk, n_pages, ps, _ = pages.shape
+    q, scale = _quantize_token(pages, dtype)
+    lanes = torch.nn.functional.pad(scale, (0, 128 - ps), value=1.0)
+    return q, lanes[:, :, None, :].expand(hk, n_pages, 8, 128).contiguous()
 
 
 def quantize_int4(w, axis: int = 0) -> QuantizedTensor:

@@ -31,9 +31,15 @@ for compilation and may go with CUDA graphs later. A Mixtral (MoE) model
 routes every row it is given, pad rows and pad batch entries included, as
 the JAX engine does. Weight-only quantized params (``llama.quantize_params``)
 serve as they are; the device and the cache dtype come from the bf16
-embedding. Tensor parallelism (and expert parallelism with it),
-speculative decoding, prefix caching, multi-step decode, LoRA and a
-quantized KV cache are outside this slice and raise.
+embedding.
+
+``kv_quant=True`` keeps the cache in 8 bits, by the JAX engine's rules:
+int8 (the default for any float ``kv_dtype``) or fp8 e4m3
+(``kv_dtype=torch.float8_e4m3fn``), page_size 128, with per-token scales in
+(L, hk, P, 8, 128) fp32 tiles that start at ones; an 8-bit ``kv_dtype``
+without ``kv_quant`` raises ValueError. Tensor parallelism (and expert
+parallelism with it), speculative decoding, prefix caching, multi-step
+decode and LoRA are outside this slice and raise.
 """
 
 from __future__ import annotations
@@ -45,6 +51,7 @@ import numpy as np
 import torch
 
 from flash_attention_tpu_torch.models import llama
+from flash_attention_tpu_torch.ops.quant import KV_QMAX
 from flash_attention_tpu_torch.serving import sampling
 from flash_attention_tpu_torch.serving.native import PagedRuntime
 from flash_attention_tpu_torch.serving.scheduler import Request, Scheduler
@@ -97,10 +104,24 @@ class Engine:
         if chunk_size is not None and draft_cfg is not None:
             raise ValueError("speculative decoding with chunked prefill is "
                              "not supported yet")
+        quant_dtypes = tuple(KV_QMAX)  # int8, fp8 e4m3
+        if kv_quant:
+            # a float kv_dtype selects the default quantized cache, int8;
+            # fp8 e4m3 is chosen explicitly
+            if kv_dtype not in quant_dtypes:
+                kv_dtype = torch.int8
+        elif kv_dtype in quant_dtypes:
+            raise ValueError(
+                f"kv_dtype={kv_dtype} without kv_quant=True would build an "
+                f"unscaled quantized cache; pass kv_quant=True")
+        if kv_quant and page_size != 128:
+            raise ValueError("kv_quant requires page_size == 128 (scale lane "
+                             "= token in page)")
         unsupported = {
-            "kv_dtype (the cache holds K/V in the weights' dtype)":
-                kv_dtype not in (torch.bfloat16, params["embed"].dtype),
-            "kv_quant (quantized KV cache)": kv_quant,
+            "kv_dtype (the cache holds K/V in the weights' dtype or, with "
+            "kv_quant, in 8 bits)":
+                kv_dtype not in (torch.bfloat16, params["embed"].dtype,
+                                 *quant_dtypes),
             "mesh (tensor parallelism)": mesh is not None,
             "tp_axis (tensor parallelism)": tp_axis != "model",
             "draft_cfg, draft_params (speculative decoding)":
@@ -165,11 +186,18 @@ class Engine:
         # page-table width: one batch row must span max_seq_len
         self.pages_per_seq = -(-max_seq_len // page_size)
         L, hk, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
-        # the cache holds K/V in the weights' dtype
+        # the cache holds K/V in the weights' dtype, or quantized in 8 bits
         self.k_pages = torch.zeros((L, hk, total_pages, page_size, hd),
-                                   dtype=params["embed"].dtype,
+                                   dtype=kv_dtype if kv_quant
+                                   else params["embed"].dtype,
                                    device=self.device)
         self.v_pages = torch.zeros_like(self.k_pages)
+        self.k_scales = self.v_scales = None
+        if kv_quant:
+            self.k_scales = torch.ones((L, hk, total_pages, 8, 128),
+                                       dtype=torch.float32,
+                                       device=self.device)
+            self.v_scales = torch.ones_like(self.k_scales)
         self._uid = 0
         self._last_lps = None  # logprobs of the last _sample_batch's tokens
         self.stats = {"decode_steps": 0, "decode_tokens": 0,
@@ -278,7 +306,8 @@ class Engine:
         src_page += [0] * (n_pad - len(src_page))
         llama.write_prefill_to_pages(
             self.k_pages, self.v_pages, (ks, vs), torch.tensor(dest),
-            torch.tensor(src_row), torch.tensor(src_page), self.page_size)
+            torch.tensor(src_row), torch.tensor(src_page), self.page_size,
+            k_scales=self.k_scales, v_scales=self.v_scales)
         for i, (req, tok) in enumerate(zip(reqs, self._sample_batch(reqs, logits))):
             self._append_token(req, i, tok)
         self.stats["prefill_dispatches"] += 1
@@ -326,7 +355,7 @@ class Engine:
             logits, ks, vs = llama.prefill_chunk(
                 self.params, torch.from_numpy(toks[:, base:base + cs]).to(dev),
                 torch.from_numpy(done).to(dev), torch.from_numpy(clen).to(dev),
-                self.k_pages, self.v_pages, None, None,
+                self.k_pages, self.v_pages, self.k_scales, self.v_scales,
                 torch.from_numpy(tables).to(dev), self.cfg,
                 logit_rows=torch.from_numpy(np.clip(last - base, 0,
                                                     cs - 1)).to(dev))
@@ -350,7 +379,8 @@ class Engine:
                 src_page += [0] * (n_pad - len(src_page))
                 llama.write_prefill_to_pages(
                     self.k_pages, self.v_pages, (ks, vs), torch.tensor(dest),
-                    torch.tensor(src_row), torch.tensor(src_page), ps)
+                    torch.tensor(src_row), torch.tensor(src_page), ps,
+                    k_scales=self.k_scales, v_scales=self.v_scales)
             # rows whose last context token falls in this chunk take its
             # logits
             here = torch.from_numpy((last >= base) & (last < base + clen))
@@ -391,7 +421,8 @@ class Engine:
             woff[i] = (ln - 1) % self.page_size
         dev = self.device
         logits, *_ = llama.decode_step(
-            self.params, self.k_pages, self.v_pages, None, None,
+            self.params, self.k_pages, self.v_pages, self.k_scales,
+            self.v_scales,
             torch.from_numpy(tok).to(dev), torch.from_numpy(lengths).to(dev),
             torch.from_numpy(tables).to(dev), torch.from_numpy(wpage).to(dev),
             torch.from_numpy(woff).to(dev), self.cfg)

@@ -27,6 +27,7 @@ from flash_attention_tpu.models import llama as jl
 from flash_attention_tpu.serving.engine import Engine as JaxEngine
 from flash_attention_tpu_torch import Engine
 from flash_attention_tpu_torch.models import llama as tl
+from flash_attention_tpu_torch.ops import quant
 
 torch.set_num_threads(2)
 
@@ -147,19 +148,37 @@ def test_prefill_chunk_logit_rows(family):
 
 @pytest.mark.parametrize("option", ["k_scales", "v_scales", "lora_ids"])
 def test_prefill_chunk_unported_options_raise(option):
-    """A quantized cache and LoRA raise NotImplementedError naming the
-    option, as ``prefill``'s unported options do."""
+    """LoRA raises NotImplementedError naming the option, as ``prefill``'s
+    unported options do. The quantized cache's scales are ported: either
+    alone raises ValueError, and with both (an int8 cache for ``k_scales``,
+    fp8 for ``v_scales``) the chunk over the 8-bit prefix gives the logits
+    of the chunk over its pages dequantized into a float cache."""
     cfg = tl.LlamaConfig.tiny(n_layers=1)
     pt = tl.init_params(cfg, device="cpu", dtype=torch.float32)
-    pages = torch.zeros((1, cfg.n_kv_heads, 2, PS, cfg.head_dim))
-    kw = dict(k_scales=None, v_scales=None, lora_ids=None)
-    kw[option] = torch.ones(1)
-    with pytest.raises(NotImplementedError, match=option):
-        tl.prefill_chunk(pt, torch.zeros((1, PS), dtype=torch.int64),
-                         torch.zeros(1), torch.ones(1), pages, pages,
-                         kw["k_scales"], kw["v_scales"],
-                         torch.zeros((1, 1), dtype=torch.int64), cfg,
-                         lora_ids=kw["lora_ids"])
+    rng = np.random.default_rng(4)
+    pages = torch.from_numpy(rng.standard_normal(
+        (1, cfg.n_kv_heads, 2, PS, cfg.head_dim), dtype=np.float32))
+    args = (pt, torch.from_numpy(rng.integers(0, 256, (1, PS))),
+            torch.tensor([PS]), torch.tensor([PS]))
+    tables = torch.zeros((1, 1), dtype=torch.int64)
+    if option == "lora_ids":
+        with pytest.raises(NotImplementedError, match=option):
+            tl.prefill_chunk(*args, pages, pages, None, None, tables, cfg,
+                             lora_ids=[0])
+        return
+    dtype = torch.int8 if option == "k_scales" else torch.float8_e4m3fn
+    q, sc = quant.quantize_kv_pages(pages[0], dtype)
+    q, sc = q[None], sc[None]
+    kw = dict(k_scales=None, v_scales=None)
+    kw[option] = sc
+    with pytest.raises(ValueError, match="together"):
+        tl.prefill_chunk(*args, q, q, kw["k_scales"], kw["v_scales"], tables,
+                         cfg)
+    got, _, _ = tl.prefill_chunk(*args, q, q, sc, sc, tables, cfg)
+    deq = q.float() * sc[:, :, :, 0, :PS, None]
+    want, _, _ = tl.prefill_chunk(*args, deq, deq, None, None, tables, cfg)
+    assert torch.isfinite(got).all()
+    _close(got, want, f"chunk over the {dtype} prefix", atol=1e-5)
 
 
 # The engines: uneven prompts over 1 to 3 chunks of 64 (tiny), and a window

@@ -905,6 +905,177 @@ def test_paged_window_covering_every_key_is_bit_identical(cuda):
     assert torch.equal(o, o2)
 
 
+# ------------------------------------------------------ the quantized cache
+# int8 and fp8 e4m3 pages of 128 tokens with per-token scales in (L, hk, P,
+# 8, 128) fp32 tiles (ops.quant.quantize_kv_pages): the kv write's two
+# quantized instances must equal their plain versions bit for bit; the paged
+# kernel's quantized instances take the bf16 gates against the plain version
+# on the same quantized cache, which dequantizes K and V in fp32 where the
+# kernel scales the scores and rounds P times vscale to bf16, as the TPU
+# kernel does.
+
+KV_QUANT = [torch.int8, torch.float8_e4m3fn]
+
+
+def _quant_rows(rng, b, hk, d, dtype, device):
+    """bf16 rows (b, hk, d) of unit scale, with the cases a quantizer gets
+    wrong: a zero row (scale 1e-8), rows whose amax makes the scale exactly
+    1 (int8: amax 127; fp8: amax 448) holding values halfway between two
+    representable ones (int8: n + 0.5; e4m3: odd integers in [17, 31],
+    between steps of 2), and an amax element at either sign."""
+    x = rng.standard_normal((b, hk, d)).astype(np.float32)
+    x[0, 0] = 0.0
+    ties = (np.arange(d) % 20 - 9.5 if dtype == torch.int8
+            else (17 + 2 * (np.arange(d) % 8)) * (-1.0) ** np.arange(d))
+    x[0, -1] = ties
+    x[0, -1, 0] = 127.0 if dtype == torch.int8 else 448.0
+    x[-1, 0, d // 2] = -40.0
+    return torch.from_numpy(x).to(device=device, dtype=torch.bfloat16)
+
+
+def _quant_cache(rng, L, hk, total, d, dtype, device):
+    """A quantized cache: (k pages, v pages, k scales, v scales), each page
+    quantized per token. K's rows vary in magnitude from token to token by
+    a log-normal factor (as real caches' do), so that a scale read for the
+    wrong token moves the scores; V's are unit normals, so the output stays
+    at the unit scale the bf16 gates are set for."""
+    out = []
+    for spread in (True, False):
+        rows = rng.standard_normal((L * hk, total, 128, d), dtype=np.float32)
+        if spread:
+            rows *= np.exp(rng.standard_normal((L * hk, total, 128, 1),
+                                               dtype=np.float32))
+        pages = torch.from_numpy(rows).to(device)
+        q, s = quant.quantize_kv_pages(pages, dtype)
+        out.append((q.view(L, hk, total, 128, d),
+                    s.view(L, hk, total, 8, 128)))
+    (kp, ks), (vp, vs) = out
+    return kp, vp, ks, vs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", KV_QUANT)
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("mode", ["store", "quantize"])
+def test_kv_write_quant_matches_plain(cuda, dtype, d, mode):
+    """Both quantized instances (a row already quantized with its scale;
+    the bf16 row quantized in the kernel) equal the plain versions bit for
+    bit, pools and scale tiles, everywhere but the trash page (rows 3 and 4
+    share it)."""
+    rng = np.random.default_rng(d)
+    L, hk, total, b = 3, 2, 8, 5
+    kp, vp, ks, vs = _quant_cache(rng, L, hk, total, d, dtype, cuda)
+    k = _quant_rows(rng, b, hk, d, dtype, cuda)
+    v = _quant_rows(rng, b, hk, d, dtype, cuda)
+    trash = total - 1
+    wpage = torch.tensor([2, 5, 2, trash, trash], dtype=torch.int32,
+                         device=cuda)
+    woff = torch.tensor([0, 127, 64, 0, 0], dtype=torch.int32, device=cuda)
+    ref = [x.clone() for x in (kp, vp, ks, vs)]
+    kq, ksc = quant._quantize_token(k, dtype)
+    vq, vsc = quant._quantize_token(v, dtype)
+    kv_update.write_token_kv_reference(ref[0], ref[1], kq, vq, wpage, woff,
+                                       layer=1)
+    kv_update._write_scales_reference(ref[2], ksc, wpage, woff, 1)
+    kv_update._write_scales_reference(ref[3], vsc, wpage, woff, 1)
+    before = kv_update.KERNEL.launches
+    if mode == "store":
+        out = kv_update.write_token_kv(kp, vp, ks, vs, kq, vq, ksc, vsc,
+                                       wpage, woff, layer=1)
+    else:
+        out = kv_update.quantize_write_token_kv(kp, vp, ks, vs, k, v, wpage,
+                                                woff, layer=1)
+    assert kv_update.KERNEL.launches == before + 1
+    assert all(a is b_ for a, b_ in zip(out, (kp, vp, ks, vs)))
+    keep = torch.ones(total, dtype=torch.bool, device=cuda)
+    keep[trash] = False
+    for got, want in zip(out, ref):
+        assert torch.equal(got[:, :, keep].view(torch.uint8)
+                           if got.element_size() == 1 else got[:, :, keep],
+                           want[:, :, keep].view(torch.uint8)
+                           if want.element_size() == 1 else want[:, :, keep])
+    # the zero row's scale, 1e-8, in all 8 rows of its tile's lane
+    assert float(ksc[0, 0]) == float(torch.tensor(1e-8))
+    assert torch.all(ks[1, 0, 2, :, 0] == ksc[0, 0])
+
+
+def _paged_quant_inputs(rng, dtype, d, b=8, hk=2, group=4, pps=8, L=2):
+    total = b * pps + 3
+    kp, vp, ks, vs = _quant_cache(rng, L, hk, total, d, dtype, "cuda")
+    q = _randn(rng, (b, hk * group, d), torch.bfloat16, "cuda")
+    tab = torch.from_numpy(rng.permutation(total)[:b * pps].reshape(b, pps)
+                           .astype(np.int32)).cuda()
+    return q, kp, vp, ks, vs, tab
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", KV_QUANT)
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("window,cap", [(None, None), (300, None),
+                                        (None, 5.0), (300, 5.0)])
+def test_paged_quant_matches_plain(cuda, dtype, d, window, cap):
+    """The quantized instances against the plain version on the same
+    quantized cache, with the window and the softcap; lengths 1, a page
+    edge, past one page and the table's width, and 0. Repeats are
+    bit-identical; with the scales ignored (all ones) or read one token
+    off, the gate fails."""
+    rng = np.random.default_rng(d + (window or 0))
+    q, kp, vp, ks, vs, tab = _paged_quant_inputs(rng, dtype, d)
+    lens = torch.tensor([1, 128, 129, 1024, 0, 700, 255, 64],
+                        dtype=torch.int32, device=cuda)
+    kw = dict(window=window, softcap=cap, layer=1)
+    before = pa_mod.KERNEL.launches
+    o = pa_mod.paged_attention(q, kp, vp, lens, tab, k_scales=ks,
+                               v_scales=vs, **kw)
+    assert pa_mod.KERNEL.launches == before + 1
+    o_ref = pa_mod.paged_attention_reference(q, kp, vp, lens, tab,
+                                             k_scales=ks, v_scales=vs, **kw)
+    label = f"paged[{dtype},{d},w{window},cap{cap}]"
+    assert_metrics(label, o, o_ref, BF16_TOLS)
+    assert torch.all(o[4] == 0)
+    assert torch.equal(o, pa_mod.paged_attention(
+        q, kp, vp, lens, tab, k_scales=ks, v_scales=vs, **kw))
+    # the scales carry a factor of about 1/64: ignored, the gate fails
+    ones = torch.ones_like(ks)
+    for name, (ks_c, vs_c) in {"ignored": (ones, ones),
+                               "one token off": (ks.roll(1, -1),
+                                                 vs.roll(1, -1))}.items():
+        bad = pa_mod.paged_attention(q, kp, vp, lens, tab, k_scales=ks_c,
+                                     v_scales=vs_c, **kw)
+        with pytest.raises(AssertionError):
+            assert_metrics(f"{label} scales {name}", bad, o_ref, BF16_TOLS)
+
+
+@pytest.mark.gpu
+def test_paged_quant_in_cuda_graph_and_rejects(cuda):
+    """The quantized instance replays in a CUDA graph with new lengths, and
+    the wrapper raises on what the kernel does not take."""
+    rng = np.random.default_rng(5)
+    q, kp, vp, ks, vs, tab = _paged_quant_inputs(rng, torch.int8, 128)
+    lens = torch.tensor([5, 128, 129, 1024, 1, 700, 255, 64],
+                        dtype=torch.int32, device=cuda)
+    kw = dict(k_scales=ks, v_scales=vs, layer=0)
+    pa_mod.paged_attention(q, kp, vp, lens, tab, **kw)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        o = pa_mod.paged_attention(q, kp, vp, lens, tab, **kw)
+    lens.copy_(torch.tensor([1, 2, 300, 1000, 1024, 9, 640, 77]))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert_metrics("paged[graph,int8]", o, pa_mod.paged_attention_reference(
+        q, kp, vp, lens, tab, **kw), BF16_TOLS)
+    with pytest.raises(ValueError, match="bf16 q"):
+        pa_mod.paged_attention(q.half(), kp, vp, lens, tab, **kw)
+    with pytest.raises(ValueError, match="k_scales"):
+        pa_mod.paged_attention(q, kp, vp, lens, tab, k_scales=ks[:, :, :-1],
+                               v_scales=vs, layer=0)
+    with pytest.raises(ValueError, match="page_size"):
+        pa_mod.paged_attention(q, kp[..., :64, :].contiguous(),
+                               vp[..., :64, :].contiguous(), lens, tab, **kw)
+    with pytest.raises(ValueError, match="come together"):
+        pa_mod.paged_attention(q, kp, vp, lens, tab, k_scales=ks, layer=0)
+
+
 # --------------------------------------------------------------- grouped mm
 # gmm and gmm_dw round an fp32 sum once, as their plain versions do, so the
 # two differ by the summation order only: the forward gates (fp16) and the

@@ -120,29 +120,48 @@ def test_engine_stream_and_unsupported_options(params):
     assert r.output == [t for _, ts, _ in events for t in ts]
     with pytest.raises(ValueError):
         eng.add_request([1] * 60, max_new_tokens=10)
-    for kw in (dict(kv_quant=True), dict(prefix_cache=True),
-               dict(decode_block=4), dict(lora_rank=4)):
+    for kw in (dict(prefix_cache=True), dict(decode_block=4),
+               dict(lora_rank=4)):
         with pytest.raises(NotImplementedError):
             Engine(tl.LlamaConfig.tiny(), pt, **kw)
+    # a quantized cache (ported) streams the same way
+    q8 = Engine(tl.LlamaConfig.tiny(), pt, total_pages=8, page_size=128,
+                max_batch=2, max_seq_len=256, kv_quant=True)
+    r = q8.add_request([1, 2, 3], max_new_tokens=3)
+    events = list(q8.stream())
+    assert events[-1][2] and sum(len(t) for _, t, _ in events) == 3
+    assert r.error is None and q8.k_pages.dtype == torch.int8
 
 
 # A non-default value of each of the JAX engine's options that the port has
 # not ported yet (the params are fp32, so fp16 is neither the default nor
-# the weights' dtype).
+# the weights' dtype, nor an 8-bit type with kv_quant).
 UNPORTED_ENGINE_OPTIONS = {
-    "kv_dtype": torch.float16, "kv_quant": True, "mesh": object(),
+    "kv_dtype": torch.float16, "mesh": object(),
     "tp_axis": "tp", "draft_cfg": jl.LlamaConfig.tiny(),
     "draft_params": {}, "n_draft": 2, "prefix_cache": True,
     "decode_block": 4, "lora_rank": 4, "lora_targets": ("wq",),
     "max_loras": 2}
 
 
-@pytest.mark.parametrize("option", ["signature", *UNPORTED_ENGINE_OPTIONS])
+@pytest.mark.parametrize("option", ["signature", "kv_quant",
+                                    *UNPORTED_ENGINE_OPTIONS])
 def test_engine_takes_jax_keywords(params, option):
     """Engine takes every keyword of the JAX engine, in its order; an
     unported option at a non-default value raises NotImplementedError
-    naming it."""
+    naming it. ``kv_quant`` (ported) builds the int8 cache with unit
+    scales, and raises ValueError naming it at a page size other than
+    128, as the JAX engine does."""
     _, pt = params
+    if option == "kv_quant":
+        eng = Engine(tl.LlamaConfig.tiny(), pt, total_pages=8, page_size=128,
+                     max_batch=1, max_seq_len=256, kv_quant=True)
+        assert eng.k_pages.dtype == eng.v_pages.dtype == torch.int8
+        assert eng.k_scales.shape == (2, 2, 8, 8, 128)
+        assert bool((eng.k_scales == 1).all() and (eng.v_scales == 1).all())
+        with pytest.raises(ValueError, match="kv_quant"):
+            Engine(tl.LlamaConfig.tiny(), pt, kv_quant=True)
+        return
     if option == "signature":
         assert list(inspect.signature(Engine.__init__).parameters) == list(
             inspect.signature(JaxEngine.__init__).parameters)

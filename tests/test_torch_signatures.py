@@ -169,7 +169,7 @@ def _unported_calls():
                  torch.ones((2, 8)), torch.ones((8, 2)), None, None, None,
                  n_top=1, act=torch.relu, interpret=True)),
              ("kv_fake_quant", lambda: llama.prefill(
-                 params, toks, cfg, None, 1)),
+                 params, toks, cfg, None, torch.int8)),
              ("lora_ids", lambda: llama.prefill(params, toks, cfg,
                                                 lora_ids=[0])),
              ("lora_ids", lambda: llama.decode_step(
@@ -180,14 +180,24 @@ def _unported_calls():
     return calls
 
 
+# options of the list above that the port now takes: their calls run
+PORTED = {"kv_fake_quant"}
+
+
 @pytest.mark.parametrize("i", range(16))
 def test_unported_options_raise(i):
     """Each option the port takes only at its JAX default raises
     NotImplementedError naming it at another value (Engine.add_adapter, LoRA
-    registration, always raises)."""
+    registration, always raises); an option since ported (``PORTED``) runs
+    at that value instead (prefill with ``kv_fake_quant``: finite
+    logits)."""
     calls = _unported_calls()
     assert len(calls) == 16
     option, call = calls[i]
+    if option in PORTED:
+        logits, _, _ = call()
+        assert torch.isfinite(logits).all()
+        return
     with pytest.raises(NotImplementedError, match=option):
         call()
 

@@ -46,7 +46,9 @@ def functions(kernel) -> dict[str, list[str]]:
         # the kernel's name and template arguments: the mangled prefix of
         # an anonymous namespace differs from one source file to another
         m = re.search(r"\d+([a-z_]+_kernel)(I.*)EEv", name)
-        name = m.group(1) + m.group(2) if m else name
+        plain = re.search(r"\d+([a-z_]+_kernel)E", name)  # not a template
+        name = (m.group(1) + m.group(2) if m else
+                plain.group(1) if plain else name)
         out[name] = [re.sub(r"/\*[^*]*\*/", "", line).strip()
                      for line in body.splitlines()
                      if re.match(r"\s*/\*[0-9a-f]{4,}\*/", line)]
