@@ -43,6 +43,18 @@ drives the two paths on two models with random bf16 weights, full width:
   positions gated), then served with Mistral's traffic (every page held
   under the global layers) and trained on 1 x 8192; every attention
   kernel runs its d-256 instances;
+* long K/V and the engine's decode-side options, on the Llama-3-8B
+  weights: ``fwd`` above the KV split (b1 s16384: two chunks merged in
+  fp32 against one launch, and four chunks at s4096 against the plain
+  version); Llama-3.1-8B (the same weights, its RoPE remap) at 16k, after
+  a 2-layer check of the split prefill against the CPU; multi-step decode
+  (``Engine(decode_block=4)``: greedy tokens identical to the single-step
+  engine's, sampled ones bit for bit, no readback inside a block); prefix
+  caching (``Engine(prefix_cache=True)``: two waves of prompts sharing a
+  1024-token prefix, the reused tokens counted, first rows against the
+  uncached engine's); speculative decoding (its first 2 layers as the
+  draft, 4 proposals a step, verification logits against the plain
+  engine's decode logits);
 * chunked prefill: the Llama-3-8B weights served with Mistral's traffic
   through ``Engine(chunk_size=2048)`` (``llama.prefill_chunk``: the
   segmented forward over [prefix pages || chunk]) and through an
@@ -161,6 +173,12 @@ QUANT_BITS = (8, 4)
 MISTRAL_PROMPT_LENS = (7700, 6144, 4600, 4090, 2048, 1024, 512, 129)
 MISTRAL_MAX_SEQ = 8192
 MISTRAL_TRAIN = (1, 8192)
+# Depth cut to keep the whole run inside its time (the long-KV and
+# decode-option phases came after these paths): Mistral-7B serves and
+# trains 16 of its 32 layers, Gemma-2-9B 14 of 42 (the window on every
+# second layer kept); widths, traffic and training shape as they were.
+MISTRAL_LAYERS = 16
+GEMMA2_LAYERS = 14
 # Consistency configs: Mistral at 2 layers with its window cut to 64, and
 # tiny_gemma2 at 4 layers (d 128, every Gemma-2 extra), window every layer
 # and every second layer; prompts longer than the window. The Gemma-2
@@ -1665,20 +1683,42 @@ class _RangeLog:
 
 
 class _SampleLog:
-    """Records the logits of an engine's first ``n`` ``_sample_batch``
-    calls, with the tokens sampled from them: in a run that admits every
-    request at once, the prefill's last positions (``rows``), then the
-    decode steps'."""
+    """Records the rows an engine samples its tokens from, by swapping
+    ``sampling.sample_tokens`` in while its prefill's and its decode's
+    batches sample (the decode's inside ``multistep.decode_rollout``):
+    ``calls`` holds the first ``n`` draws, each the logits of the batch's
+    requests and their tokens (in a run that admits every request at once,
+    the prefill's last positions, ``rows``, then the decode steps'); with
+    ``n`` None, ``by_pos`` holds every drawn row by (request uid, output
+    position). Recording reads the rows back from the card."""
 
-    def __init__(self, eng, n: int = 1):
-        self.calls, orig = [], eng._sample_batch
+    def __init__(self, eng, n=1):
+        from flash_attention_tpu_torch.serving import sampling
+        self.calls, self.by_pos, batch = [], {}, []
+        draw = sampling.sample_tokens
 
-        def sample(reqs, logits):
-            toks = orig(reqs, logits)
-            if len(self.calls) < n:
-                self.calls.append((logits[:len(reqs)].float().cpu(), toks))
+        def sample(logits, temps, top_ks, top_ps, seeds, positions, **kw):
+            toks = draw(logits, temps, top_ks, top_ps, seeds, positions, **kw)
+            m = len(batch)
+            if n is None:
+                for r, p, row in zip(batch, positions, logits):
+                    self.by_pos[(r.uid, p)] = row.float().cpu()
+            elif len(self.calls) < n:
+                self.calls.append((logits[:m].float().cpu(),
+                                   toks[:m].tolist()))
             return toks
-        eng._sample_batch = sample
+
+        def hooked(fn):
+            def run(reqs, *args):
+                batch[:] = reqs
+                sampling.sample_tokens = sample
+                try:
+                    return fn(reqs, *args)
+                finally:
+                    sampling.sample_tokens = draw
+            return run
+        eng._finish_prefill = hooked(eng._finish_prefill)
+        eng._decode_batch = hooked(eng._decode_batch)
 
     @property
     def rows(self):
@@ -2230,13 +2270,16 @@ def _weight_bytes(params) -> str:
 
 def serve(torch, params, cfg, prompts, card, kernels, model,
           max_seq=MAX_SEQ, after_step=None, page_size=PAGE_SIZE,
-          total_pages=TOTAL_PAGES, **engine_kw):
+          total_pages=TOTAL_PAGES, profile=True, **engine_kw):
     """Serve the prompts through the engine with exact launch counts,
     calling ``after_step(eng)`` after every engine step when given;
-    ``engine_kw`` goes to the engine (kv_quant, kv_dtype).
-    Returns (the serving path's launches, each request's tokens)."""
+    ``engine_kw`` goes to the engine (kv_quant, kv_dtype, decode_block: a
+    decode step then runs decode_block model steps). ``profile`` runs
+    ``profile_serving`` after the timed run. Returns (the serving path's
+    launches, each request's tokens, the engine's throughput figures)."""
     from flash_attention_tpu_torch import Engine
     from flash_attention_tpu_torch.models import llama
+    from flash_attention_tpu_torch.ops import attention
     eng = Engine(cfg, params, total_pages=total_pages, page_size=page_size,
                  max_batch=MAX_BATCH, max_seq_len=max_seq,
                  native_allocator=True, **engine_kw)
@@ -2258,15 +2301,21 @@ def serve(torch, params, cfg, prompts, card, kernels, model,
         assert len(r.output) == MAX_NEW, (r.uid, len(r.output))
     st = eng.throughput()
     L = cfg.n_layers
-    assert launches["flash_fwd"] == L * st["prefill_dispatches"] > 0, launches
-    assert launches["kv_update"] == L * st["decode_steps"] > 0, launches
-    assert launches["paged_attention"] == L * st["decode_steps"], launches
+    steps = st["decode_steps"] * eng.decode_block  # model decode steps
+    # a prefill dispatch pads to a power-of-two bucket; above the KV split
+    # the forward runs a launch per chunk of keys
+    bucket = max(32, 1 << (max(map(len, prompts)) - 1).bit_length())
+    fwd_calls = -(-bucket // attention.KV_SPLIT)
+    assert launches["flash_fwd"] == fwd_calls * L * st["prefill_dispatches"] \
+        > 0, launches
+    assert launches["kv_update"] == L * steps > 0, launches
+    assert launches["paged_attention"] == L * steps, launches
     # three grouped matmuls a layer, in every prefill dispatch and decode step
-    moe_calls = 3 * L * (st["prefill_dispatches"] + st["decode_steps"])
+    moe_calls = 3 * L * (st["prefill_dispatches"] + steps)
     assert launches["gmm"] == (moe_calls if cfg.n_experts else 0), launches
     assert launches["gmm_dw"] == 0, launches
     # seven projections a layer and the lm_head, in every dispatch and step
-    qmm_calls = (7 * L + 1) * (st["prefill_dispatches"] + st["decode_steps"])
+    qmm_calls = (7 * L + 1) * (st["prefill_dispatches"] + steps)
     assert launches["qmm"] == (qmm_calls if llama.is_quantized(params)
                                else 0), launches
     print(f"{model} L{L}: served {len(reqs)} requests x {MAX_NEW} tokens in "
@@ -2281,9 +2330,10 @@ def serve(torch, params, cfg, prompts, card, kernels, model,
     print(f"{model} serving peak device memory: {peak / 2**30:.2f} GiB; "
           f"{_weight_bytes(params)} [{card}]")
     print(f"{model} kernel launches on the serving path: {launches}")
-    profile_serving(torch, eng, prompts, card, model)
+    if profile:
+        profile_serving(torch, eng, prompts, card, model)
     del eng
-    return launches, [r.output for r in reqs]
+    return launches, [r.output for r in reqs], st
 
 
 _KERNEL_GROUPS = (("flash_fwd", "flash_fwd_kernel"),
@@ -2495,17 +2545,20 @@ def window_consistency(torch, dev, cfg, card, model, served=()):
         rels = []
         for p in _prompts(cfg.vocab_size, served) if served else ():
             last = [len(p) - 1]
+            t0 = time.perf_counter()
             x, xc = (llama.prefill(w, torch.tensor([p], device=d), cfg,
                                    return_kv=False,
                                    logit_rows=torch.tensor(last, device=d)
                                    )[0][0].float().cpu()
                      for w, d in ((params, dev), (cpu, "cpu")))
+            secs = time.perf_counter() - t0
             assert torch.isfinite(x).all() and torch.isfinite(xc).all()
             rels.append(rel(x, xc))
             print(f"{model} served prompt {len(p)} tokens, logits at its "
                   f"last position: card vs CPU rel L2 {rels[-1]:.3e}, max "
                   f"abs {float((x - xc).abs().max()):.3e}; greedy card "
-                  f"{int(x.argmax())}, CPU {int(xc.argmax())} [{card}]")
+                  f"{int(x.argmax())}, CPU {int(xc.argmax())} (both sides "
+                  f"{secs:.1f} s) [{card}]")
         assert all(r <= CONSISTENCY_REL_L2 for r in rels), rels
     del params, cpu
 
@@ -2956,7 +3009,7 @@ def serve_kv_quant(torch, params, cfg, prompts, card, kernels, name):
                     e.rt.total_pages - e.rt.free_pages()), **kw)
     print(f"Llama-3-8B KV {name} pages held (trash page included): at most "
           f"{max(held)} of {KV_QUANT_PAGES}, after admission {held[0]}")
-    return out
+    return out[:2]
 
 
 def _quant_prefill_vs_decode(torch, params, cfg, p, dtype, fake_quant=None,
@@ -3276,6 +3329,528 @@ def train(torch, params, cfg, card, kernels, model, lr=LR,
     return totals
 
 
+# Long K/V and the engine's decode-side options, on the Llama-3-8B weights
+# (no second full model): Llama-3.1-8B (the same weights, its RoPE remap)
+# served at 16k, where the long prompt's prefill runs the forward in two
+# chunks of KV_SPLIT keys; multi-step decode, prefix caching and speculative
+# decoding on the served traffic.
+LONG_LENS = (16352, 9000)
+LONG_MAX_SEQ = 16384
+# the split's card-vs-CPU check: layers, prompt tokens, kv_split (4 chunks)
+LONG_CHECK = (2, 4096, 1024)
+DECODE_BLOCK = 4
+SAMPLED_PROMPTS, SAMPLED_NEW, SAMPLED_TEMP = 4, 16, 0.8
+# eight prompts sharing a 1024-token prefix (16 pages of 64), distinct
+# suffixes; served in two waves of four
+PREFIX_LEN = 1024
+PREFIX_SUFFIXES = (100, 250, 400, 700, 150, 300, 550, 650)
+PREFIX_WAVE = 4
+N_DRAFT = 4
+DRAFT_LAYERS = 2
+
+
+def _cut_layers(params, n_layers):
+    """The first ``n_layers`` layers of ``params`` as views, with the
+    embedding, the final norm and the lm_head shared: a draft model (or a
+    cut check) that adds no weight memory."""
+    return {k: (w if k in ("embed", "lm_head", "norm_out") else w[:n_layers])
+            for k, w in params.items()}
+
+
+class _NoSync:
+    """While active, every call of ``module.name`` runs under
+    ``torch.cuda.set_sync_debug_mode("error")``: anything in it that waits
+    for the card (a readback, a blocking copy) raises. Counts the calls."""
+
+    def __init__(self, torch, module, name):
+        self.torch, self.module, self.name, self.calls = torch, module, name, 0
+
+    def __enter__(self):
+        self.orig = orig = getattr(self.module, self.name)
+        cuda = self.torch.cuda
+
+        def checked(*args, **kw):
+            self.calls += 1
+            cuda.set_sync_debug_mode("error")
+            try:
+                return orig(*args, **kw)
+            finally:
+                cuda.set_sync_debug_mode(0)
+        setattr(self.module, self.name, checked)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+def _plain_causal_blocks(torch, q, k, v, rows=2048):
+    """The plain causal forward (sq == sk) by blocks of query rows: block
+    [r0, r1) against keys [0, r1), lower-right aligned, so no (s, s) score
+    matrix is ever held."""
+    from flash_attention_tpu_torch.ops.reference import reference_attention
+    outs = [reference_attention(q[:, r0:r0 + rows], k[:, :r0 + rows],
+                                v[:, :r0 + rows], causal=True)
+            for r0 in range(0, q.shape[1], rows)]
+    return (torch.cat([o for o, _ in outs], 1),
+            torch.cat([lse for _, lse in outs], 2))
+
+
+def check_long_kv(torch, dev, cfg, card):
+    """``fwd`` above the KV split at Llama-3.1-8B's widths: b1 s16384
+    causal with the default split (two chunks, merged in fp32) against one
+    launch (``kv_split=16384``), within O_TOLS and LSE_TOLS, both timed
+    with their bound, the plain version (by query blocks) and SDPA; and
+    ``kv_split=1024`` at s4096 (four chunks) against the plain version
+    under the six-metric gates. Returns the flash_fwd entry's shapes."""
+    from flash_attention_tpu_torch import fwd
+    from flash_attention_tpu_torch.ops import attention
+    from flash_attention_tpu_torch.ops.reference import reference_attention
+    from flash_attention_tpu_torch.utils.metrics import assert_metrics
+    g = torch.Generator(device=dev).manual_seed(SEED + 14)
+    h, hk, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev,
+                           dtype=torch.float32).to(torch.bfloat16)
+
+    def sdpa(q, k, v):
+        return lambda: torch.nn.functional.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True, enable_gqa=True)
+
+    shapes = {}
+    s = LONG_MAX_SEQ
+    q, k, v = rnd(1, s, h, d), rnd(1, s, hk, d), rnd(1, s, hk, d)
+    o, lse = fwd(q, k, v, True)  # the default split: two chunks
+    o1, lse1 = fwd(q, k, v, True, kv_split=s)  # one launch
+    m = assert_metrics("fwd s16384 default split vs one launch", o, o1,
+                       O_TOLS)
+    assert_metrics("fwd s16384 default split vs one launch lse", lse, lse1,
+                   LSE_TOLS)
+    o_ref, lse_ref = _plain_causal_blocks(torch, q, k, v)
+    m_ref = assert_metrics("fwd s16384 default split vs plain", o, o_ref,
+                           O_TOLS)
+    assert_metrics("fwd s16384 default split vs plain lse", lse, lse_ref,
+                   LSE_TOLS)
+    del o_ref, lse_ref
+    flops = 4.0 * d * (s * (s + 1) // 2) * h
+    nbytes = 2 * (q.numel() + k.numel() + v.numel() + o.numel()) \
+        + 4 * lse.numel()
+    bound_ms, bound_by = _bound(flops, nbytes)
+    plain = _time_ms(torch, lambda: _plain_causal_blocks(torch, q, k, v), 1,
+                     warmup=0)
+    lib = _time_ms(torch, sdpa(q, k, v), 10)
+    for label, split, launches in (("split 8192", None, 2),
+                                   ("one launch", s, 1)):
+        ms = _time_ms(torch, lambda: fwd(q, k, v, True, kv_split=split), 10)
+        err = m.max_abs if split is None else float(
+            (o1.float() - o.float()).abs().max())
+        print(f"fwd b1 s{s} h{h}/{hk} d{d} causal, {label} ({launches} "
+              f"launch{'es' if launches > 1 else ''}): {ms:.4f} ms "
+              f"({flops / ms / 1e9:.1f} TFLOP/s, {bound_ms / ms:.1%} of the "
+              f"bound), bound {bound_ms:.4f} ms ({bound_by}), plain (query "
+              f"blocks of 2048) {plain:.3f} ms, sdpa {lib:.4f} ms "
+              f"({ms / lib:.2f}x) [{card}]")
+        shapes[f"long b1 s{s} causal, {label}"] = {
+            "ms": ms, "plain_ms": plain, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": lib, "max_abs_err": err,
+            "launches_per_call": launches}
+    o32 = o.float()
+    # the split's merge: the running fp32 O updated in place
+    merge = _time_ms(torch, lambda: attention._merge_into(o32, lse, o, lse1),
+                     10)
+    print(f"fwd s{s} default split against one launch: {m}; against the "
+          f"plain version: {m_ref}; one in-place merge of the running fp32 "
+          f"O and a chunk's bf16 O at this shape: {merge:.4f} ms [{card}]")
+    del q, k, v, o, lse, o1, lse1, o32
+    _, n, split = LONG_CHECK
+    q, k, v = rnd(1, n, h, d), rnd(1, n, hk, d), rnd(1, n, hk, d)
+    o, lse = fwd(q, k, v, True, kv_split=split)
+    o_ref, lse_ref = reference_attention(q, k, v, causal=True)
+    m = assert_metrics(f"fwd s{n} kv_split {split}", o, o_ref, O_TOLS)
+    assert_metrics(f"fwd s{n} kv_split {split} lse", lse, lse_ref, LSE_TOLS)
+    ms = _time_ms(torch, lambda: fwd(q, k, v, True, kv_split=split), 10)
+    plain = _time_ms(torch, lambda: reference_attention(q, k, v, causal=True),
+                     3, warmup=1)
+    lib = _time_ms(torch, sdpa(q, k, v), 10)
+    flops = 4.0 * d * (n * (n + 1) // 2) * h
+    nbytes = 2 * (q.numel() + k.numel() + v.numel() + o.numel()) \
+        + 4 * lse.numel()
+    bound_ms, bound_by = _bound(flops, nbytes)
+    print(f"fwd b1 s{n} causal kv_split {split} ({n // split} launches): {m}; "
+          f"{ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), plain "
+          f"{plain:.3f} ms, sdpa {lib:.4f} ms [{card}]")
+    shapes[f"long b1 s{n} causal, split {split}"] = {
+        "ms": ms, "plain_ms": plain, "bound_ms": bound_ms,
+        "bound_by": bound_by, "library_ms": lib, "max_abs_err": m.max_abs,
+        "launches_per_call": n // split}
+    return shapes
+
+
+def serve_long(torch, params, card, kernels):
+    """Llama-3.1-8B (the Llama-3-8B weights with its RoPE remap): the split
+    prefill at 2 layers, card against CPU, with ``KV_SPLIT`` set to 1024 on
+    a 4096-token prompt (four chunks a layer: the fp32 running merge),
+    held to CONSISTENCY_REL_L2 at the last position; then the full model
+    serving LONG_LENS prompts, MAX_NEW tokens each, at max_seq_len 16384
+    with the default split (the batch's prefill in two chunks a layer).
+    Returns the serving path's launches."""
+    from flash_attention_tpu_torch.models import llama
+    from flash_attention_tpu_torch.ops import attention
+    cfg = llama.LlamaConfig.llama31_8b()
+    fwd_k = next(k for k in kernels if k.name == "flash_fwd")
+    n_l, n, split = LONG_CHECK
+    c2 = dataclasses.replace(cfg, n_layers=n_l)
+    p2 = _cut_layers(params, n_l)
+    cpu = {k: w.to("cpu", torch.float32) for k, w in p2.items()}
+    torch.set_num_threads(os.cpu_count() or 1)
+    prompt = _prompts(cfg.vocab_size, (n,))[0]
+    rows = []
+    default, attention.KV_SPLIT = attention.KV_SPLIT, split
+    try:
+        with torch.inference_mode():
+            for w, d in ((p2, params["embed"].device), (cpu, "cpu")):
+                fwd_k.launches = 0
+                rows.append(llama.prefill(
+                    w, torch.tensor([prompt], device=d), c2,
+                    return_kv=False, logit_rows=torch.tensor([n - 1],
+                                                             device=d)
+                )[0][0].float().cpu())
+                if d != "cpu":
+                    assert fwd_k.launches == n_l * n // split, fwd_k.launches
+    finally:
+        attention.KV_SPLIT = default
+    x, xc = rows
+    rel = _rel(torch, x, xc)
+    print(f"Llama-3.1-8B L{n_l} prefill of {n} tokens with KV_SPLIT {split} "
+          f"({n // split} launches a layer): card vs CPU logits at the last "
+          f"position rel L2 {rel:.3e} (gate {CONSISTENCY_REL_L2}), max abs "
+          f"{float((x - xc).abs().max()):.3e}; greedy agrees "
+          f"{_greedy_agree(x, xc)} [{card}]")
+    assert torch.isfinite(x).all() and rel <= CONSISTENCY_REL_L2, rel
+    del cpu, rows, x, xc
+    gc.collect()
+    launches, _, _ = serve(torch, params, cfg,
+                           _prompts(cfg.vocab_size, LONG_LENS), card,
+                           kernels, "Llama-3.1-8B 16k", max_seq=LONG_MAX_SEQ,
+                           profile=False)
+    return launches
+
+
+def serve_multistep(torch, params, cfg, prompts, outputs, single, card,
+                    kernels):
+    """Engine(decode_block=DECODE_BLOCK) on the served prompts, greedy: its
+    tokens must be the default engine's (``outputs``; ``single`` its
+    throughput figures; one decode step a block) exactly, with every
+    rollout run under the sync-debug "error" mode (no readback inside a
+    block). Then SAMPLED_PROMPTS prompts sampled at temperature
+    SAMPLED_TEMP, unfiltered, with decode_block 1 and DECODE_BLOCK: the
+    same tokens bit for bit, every rollout of both again without a
+    readback. Prints both engines' decode tokens/s and readbacks per token.
+    Returns the greedy multi-step path's launches."""
+    from flash_attention_tpu_torch import Engine
+    from flash_attention_tpu_torch.serving import multistep
+    with _NoSync(torch, multistep, "decode_rollout") as guard:
+        launches, m_out, multi = serve(
+            torch, params, cfg, prompts, card, kernels,
+            f"Llama-3-8B decode_block {DECODE_BLOCK}", profile=False,
+            decode_block=DECODE_BLOCK)
+    assert guard.calls == multi["decode_steps"] > 0, guard.calls
+    same = sum(a == b for a, b in zip(m_out, outputs))
+    print(f"Llama-3-8B decode_block {DECODE_BLOCK}: greedy tokens identical "
+          f"to the single-step engine's for {same}/{len(prompts)} requests; "
+          f"{guard.calls} rollouts ran with no readback (sync debug mode "
+          f"error)")
+    assert m_out == outputs, "multi-step greedy tokens differ"
+    for name, st in (("single-step", single),
+                     (f"decode_block {DECODE_BLOCK}", multi)):
+        print(f"Llama-3-8B {name}: decode tokens/s "
+              f"{st['decode_tokens_per_s']:.1f} ({st['decode_tokens']} tokens"
+              f" in {st['decode_steps']} decode steps, "
+              f"{st['decode_time']:.3f} s); readbacks per token "
+              f"{st['decode_steps'] / st['decode_tokens']:.3f} [{card}]")
+    outs = []
+    for k in (1, DECODE_BLOCK):
+        eng = Engine(cfg, params, total_pages=TOTAL_PAGES,
+                     page_size=PAGE_SIZE, max_batch=MAX_BATCH,
+                     max_seq_len=MAX_SEQ, native_allocator=True,
+                     decode_block=k)
+        with _NoSync(torch, multistep, "decode_rollout") as guard:
+            reqs = [eng.add_request(p, SAMPLED_NEW, temperature=SAMPLED_TEMP,
+                                    seed=SEED + i)
+                    for i, p in enumerate(prompts[:SAMPLED_PROMPTS])]
+            eng.run()
+        for r in reqs:
+            assert r.error is None, f"request {r.uid} failed: {r.error}"
+        assert guard.calls == eng.stats["decode_steps"] > 0, guard.calls
+        outs.append([r.output for r in reqs])
+        del eng
+    print(f"Llama-3-8B sampled (temperature {SAMPLED_TEMP}, {SAMPLED_PROMPTS} "
+          f"requests x {SAMPLED_NEW} tokens): multi-step tokens equal the "
+          f"single-step engine's bit for bit: {outs[0] == outs[1]}; every "
+          f"rollout of both ran with no readback")
+    assert outs[0] == outs[1], "multi-step sampled tokens differ"
+    return launches
+
+
+class _PrefillLog:
+    """Records each request's first sampled row (its prefill's last
+    position) by wrapping the engine's ``_finish_prefill``."""
+
+    def __init__(self, eng):
+        self.rows, orig = {}, eng._finish_prefill
+
+        def finish(reqs, logits, t0):
+            for i, r in enumerate(reqs):
+                self.rows[r.uid] = logits[i].float().cpu()
+            return orig(reqs, logits, t0)
+        eng._finish_prefill = finish
+
+
+def serve_prefix(torch, params, cfg, card, kernels):
+    """Engine(prefix_cache=True) on eight prompts sharing a PREFIX_LEN-token
+    prefix, in two waves of PREFIX_WAVE: the second wave adopts the first
+    wave's prefix pages, so ``prefix_reused_tokens`` must be PREFIX_WAVE x
+    the prefix's whole pages. The uncached engine serves the same waves;
+    each request's first sampled row is held to its (rel L2 <=
+    CONSISTENCY_REL_L2). Exact launch counts. Returns the prefix path's
+    launches."""
+    from flash_attention_tpu_torch import Engine
+    rng = np.random.default_rng(SEED + 15)
+    shared = list(map(int, rng.integers(0, cfg.vocab_size, PREFIX_LEN)))
+    prompts = [shared + list(map(int, rng.integers(0, cfg.vocab_size, n)))
+               for n in PREFIX_SUFFIXES]
+    waves = (prompts[:PREFIX_WAVE], prompts[PREFIX_WAVE:])
+    L = cfg.n_layers
+    out = {}
+    for cached in (True, False):
+        name = f"Llama-3-8B {'prefix-cached' if cached else 'uncached'}"
+        eng = Engine(cfg, params, total_pages=TOTAL_PAGES,
+                     page_size=PAGE_SIZE, max_batch=MAX_BATCH,
+                     max_seq_len=MAX_SEQ, native_allocator=True,
+                     prefix_cache=cached)
+        rec = _PrefillLog(eng)
+        for kern in kernels:
+            kern.launches = 0
+        reqs, walls, prefill = [], [], []
+        for wave in waves:
+            t0 = time.perf_counter()
+            before = eng.stats["prefill_time"]
+            reqs += [eng.add_request(p, MAX_NEW) for p in wave]
+            eng.run()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            prefill.append(eng.stats["prefill_time"] - before)
+        launches = {kern.name: kern.launches for kern in kernels}
+        for r in reqs:
+            assert r.error is None, f"request {r.uid} failed: {r.error}"
+            assert len(r.output) == MAX_NEW, (r.uid, len(r.output))
+        st = eng.throughput()
+        assert launches["flash_fwd"] == L * st["prefill_dispatches"] > 0
+        assert launches["kv_update"] == L * st["decode_steps"] > 0, launches
+        assert launches["paged_attention"] == L * st["decode_steps"]
+        reused = st.get("prefix_reused_tokens", 0)
+        want = PREFIX_WAVE * (PREFIX_LEN // PAGE_SIZE) * PAGE_SIZE \
+            if cached else 0
+        print(f"{name}: {len(prompts)} requests (prefix {PREFIX_LEN} + "
+              f"suffixes {PREFIX_SUFFIXES}) x {MAX_NEW} tokens in two waves "
+              f"of {PREFIX_WAVE}: wall {walls[0]:.3f} / {walls[1]:.3f} s, "
+              f"prefill {prefill[0]:.4f} / {prefill[1]:.4f} s; prefill "
+              f"tokens {st['prefill_tokens']}, prefix_reused_tokens {reused}"
+              f" (want {want}); decode tokens/s "
+              f"{st['decode_tokens_per_s']:.1f} [{card}]")
+        print(f"{name} kernel launches: {launches}")
+        assert reused == want, (reused, want)
+        out[cached] = (launches, [rec.rows[r.uid] for r in reqs])
+        del eng, rec
+        gc.collect()
+        torch.cuda.empty_cache()
+    rels = [_rel(torch, a, b) for a, b in zip(out[True][1], out[False][1])]
+    agree = sum(_greedy_agree(a, b) for a, b in zip(out[True][1],
+                                                    out[False][1]))
+    print(f"Llama-3-8B prefix-cached vs uncached first sampled rows: rel L2 "
+          f"{[f'{r:.3e}' for r in rels]} (gate {CONSISTENCY_REL_L2}); greedy "
+          f"agrees (ties counted) {agree}/{len(rels)} [{card}]")
+    assert max(rels) <= CONSISTENCY_REL_L2, rels
+    return out[True][0]
+
+
+def check_write_chunk(torch, dev, cfg, card):
+    """``llama.write_chunk_to_pages`` on the card (one kv-write launch per
+    chunk position, all layers at once) against its plain version on the
+    CPU at the spec path's shapes (L 32, b 8, n_draft + 1 positions): bf16
+    pages bit for bit, and an int8 cache (page size 128) bit for bit."""
+    from flash_attention_tpu_torch.models import llama
+    g = torch.Generator(device=dev).manual_seed(SEED + 16)
+    L, hk, d, b, c = (cfg.n_layers, cfg.n_kv_heads, cfg.head_dim, MAX_BATCH,
+                      N_DRAFT + 1)
+    for ps, dtype in ((PAGE_SIZE, torch.bfloat16), (128, torch.int8)):
+        pages = 4 * b
+        ks, vs = (torch.randn((L, b, c, hk, d), generator=g, device=dev)
+                  .to(torch.bfloat16) for _ in range(2))
+        done = torch.randint(0, 2 * ps - c, (b,), generator=g, device=dev)
+        tables = torch.randperm(pages, generator=g, device=dev)[:3 * b] \
+            .view(b, 3).int()
+        kp = torch.zeros((L, hk, pages, ps, d), dtype=dtype, device=dev)
+        scales = ((torch.ones((L, hk, pages, 8, 128), device=dev),
+                   torch.ones((L, hk, pages, 8, 128), device=dev))
+                  if dtype == torch.int8 else (None, None))
+        cpu = [None if t is None else t.cpu()
+               for t in (kp, kp.clone(), *scales)]
+        got = llama.write_chunk_to_pages(kp, kp.clone(), (ks, vs), done,
+                                         torch.full((b,), c, device=dev),
+                                         tables, *scales)
+        want = llama.write_chunk_to_pages(
+            cpu[0], cpu[1], (ks.cpu(), vs.cpu()), done.cpu(),
+            torch.full((b,), c), tables.cpu(), cpu[2], cpu[3])
+        for name, x, y in zip(("k", "v", "k_scales", "v_scales"), got, want):
+            if x is not None:
+                assert torch.equal(x.cpu().view(torch.uint8) if x.dtype
+                                   != torch.float32 else x.cpu(),
+                                   y.view(torch.uint8) if y.dtype
+                                   != torch.float32 else y), (ps, name)
+        print(f"write_chunk_to_pages L{L} b{b} {c} positions, {dtype} pages of"
+              f" {ps}: card equals the plain version bit for bit [{card}]")
+
+
+def _spec_run(torch, params, cfg, dcfg, draft, prompts, plain, card,
+              kernels, label, profile=True):
+    """One speculative engine (target ``params``, draft ``dcfg``/``draft``,
+    N_DRAFT proposals a step, greedy) over ``prompts``, with exact launch
+    counts and the draft rollouts under the sync-debug "error" mode. Each
+    verification row whose context (proposals included) is the plain
+    engine's (``plain``: outputs and decode logits by (request, position))
+    is held to the plain engine's decode logits there (rel L2 <=
+    CONSISTENCY_REL_L2). ``profile`` profiles one spec step after the run.
+    Returns (launches, stats)."""
+    from flash_attention_tpu_torch import Engine
+    from flash_attention_tpu_torch.serving import sampling, spec
+    plain_out, ref = plain
+    eng = Engine(cfg, params, total_pages=TOTAL_PAGES, page_size=PAGE_SIZE,
+                 max_batch=MAX_BATCH, max_seq_len=MAX_SEQ,
+                 native_allocator=True, draft_cfg=dcfg, draft_params=draft,
+                 n_draft=N_DRAFT)
+    # each spec step's requests, positions, proposals and verification
+    # logits
+    steps, batch, accept, run = [], [], sampling.spec_accept, \
+        eng._spec_decode_batch
+
+    def spec_batch(reqs):
+        batch[:] = [r.uid for r in reqs]
+        return run(reqs)
+    eng._spec_decode_batch = spec_batch
+
+    def logged(target_logits, *args):
+        steps.append((list(batch), list(args[4]), args[1].tolist(),
+                      target_logits.float().cpu()))
+        return accept(target_logits, *args)
+    for kern in kernels:
+        kern.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sampling.spec_accept = logged
+    try:
+        with _NoSync(torch, spec, "draft_rollout") as guard:
+            reqs = [eng.add_request(p, MAX_NEW) for p in prompts]
+            eng.run()
+            torch.cuda.synchronize()
+    finally:
+        sampling.spec_accept = accept
+    wall = time.perf_counter() - t0
+    launches = {kern.name: kern.launches for kern in kernels}
+    for r in reqs:
+        assert r.error is None, f"request {r.uid} failed: {r.error}"
+        assert len(r.output) == MAX_NEW, (r.uid, len(r.output))
+    st = eng.throughput()
+    L, Ld, g, n = cfg.n_layers, dcfg.n_layers, N_DRAFT, st["spec_steps"]
+    assert guard.calls == n > 0, (guard.calls, n)
+    # target and draft prefill, one verification forward a step; the
+    # rollout's g + 1 draft steps and one chunk write a position
+    want = {"flash_fwd": (L + Ld) * st["prefill_dispatches"] + L * n,
+            "kv_update": (Ld + 1) * (g + 1) * n,
+            "paged_attention": Ld * (g + 1) * n}
+    assert {k: launches[k] for k in want} == want, (launches, want)
+    assert launches["qmm"] == launches["gmm"] == launches["gmm_dw"] == 0
+    rels = []
+    for uids, pos, drafts, logits in steps:
+        for row, uid in enumerate(uids):
+            i, p0 = uid - reqs[0].uid, pos[row]
+            # chunk position j reads the proposals before it: comparable
+            # where they and the committed tokens are the plain engine's
+            for j in range(g + 1):
+                ctx = reqs[i].output[:p0] + drafts[row][:j]
+                if (i, p0 + j) in ref and p0 + j < MAX_NEW \
+                        and ctx == plain_out[i][:p0 + j]:
+                    rels.append(_rel(torch, logits[row, j],
+                                     ref[(i, p0 + j)]))
+    same = sum(r.output == plain_out[i] for i, r in enumerate(reqs))
+    print(f"{label}: {len(reqs)} requests x {MAX_NEW} tokens in {wall:.3f} "
+          f"s; {n} spec steps, accepted {st['spec_accepted']} of "
+          f"{st['spec_proposed']} proposals: {st['spec_accepted'] / n:.3f} "
+          f"accepted and {st['decode_tokens'] / n:.3f} tokens a step (all "
+          f"rows), {g * st['spec_accepted'] / st['spec_proposed']:.3f} "
+          f"accepted and {g * st['decode_tokens'] / st['spec_proposed']:.3f}"
+          f" tokens a row a step; readbacks per token "
+          f"{n / st['decode_tokens']:.3f}; decode tokens/s "
+          f"{st['decode_tokens_per_s']:.1f}; greedy tokens equal the plain "
+          f"engine's for {same}/{len(reqs)} requests; {guard.calls} draft "
+          f"rollouts with no readback [{card}]")
+    print(f"{label} verification logits vs plain decode logits at the same "
+          f"positions ({len(rels)} rows whose contexts, proposals included, "
+          f"are the plain engine's): max rel L2 {max(rels):.3e}, mean "
+          f"{np.mean(rels):.3e} (gate {CONSISTENCY_REL_L2}) [{card}]")
+    print(f"{label} kernel launches: {launches}")
+    assert len(rels) >= len(prompts) and max(rels) <= CONSISTENCY_REL_L2
+    if profile:  # where the time goes: one spec step of the prompts again
+        for p in prompts:
+            eng.add_request(p, 2 * (N_DRAFT + 1))
+        eng.step()  # admission and prefill
+        profile_window(torch, f"{label} spec step", eng.step, card)
+        eng.run()
+    # spec_batch and run tie the engine into a cycle: free its caches now
+    del eng, steps, spec_batch, run
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, st
+
+
+def serve_spec(torch, params, cfg, prompts, card, kernels):
+    """Speculative decoding with Llama-3-8B as the target, greedy, on the
+    served prompts: first with its first DRAFT_LAYERS layers (views of its
+    weights) as the draft, then with itself as the draft, which must
+    accept proposals (``_spec_run``: exact launch counts, no readback in a
+    rollout, verification logits held to the plain engine's decode
+    logits). Prints accepted tokens per step. Returns the first run's
+    launches."""
+    from flash_attention_tpu_torch import Engine
+    check_write_chunk(torch, params["embed"].device, cfg, card)
+    # the plain engine's outputs, and its logits by (request, position)
+    plain = Engine(cfg, params, total_pages=TOTAL_PAGES, page_size=PAGE_SIZE,
+                   max_batch=MAX_BATCH, max_seq_len=MAX_SEQ,
+                   native_allocator=True)
+    rec = _SampleLog(plain, None)
+    p_reqs = [plain.add_request(p, MAX_NEW) for p in prompts]
+    plain.run()
+    assert all(r.error is None for r in p_reqs)
+    uid0 = p_reqs[0].uid
+    ref = {(uid - uid0, pos): row for (uid, pos), row in rec.by_pos.items()}
+    plain_out = {i: r.output for i, r in enumerate(p_reqs)}
+    del plain, rec
+    gc.collect()
+    launches, _ = _spec_run(
+        torch, params, cfg, dataclasses.replace(cfg, n_layers=DRAFT_LAYERS),
+        _cut_layers(params, DRAFT_LAYERS), prompts, (plain_out, ref), card,
+        kernels, f"Llama-3-8B spec (draft: its first {DRAFT_LAYERS} layers, "
+        f"n_draft {N_DRAFT})")
+    _, st = _spec_run(torch, params, cfg, cfg, params, prompts,
+                      (plain_out, ref), card, kernels,
+                      f"Llama-3-8B spec (draft: itself, n_draft {N_DRAFT})",
+                      profile=False)
+    assert st["spec_accepted"] > 0, "the target as its own draft accepted " \
+        "no proposal"
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3343,13 +3918,16 @@ def main() -> int:
     with torch.inference_mode():
         entries = [check_flash(torch, dev, bucket, cfg, card),
                    check_kv_write(torch, dev, cfg, card),
-                   check_paged(torch, dev, cfg, card),
-                   check_gmm(torch, dev, mix, card),
-                   check_gmm_dw(torch, dev, mix, card),
-                   check_qmm(torch, dev, cfg, card)]
+                   check_paged(torch, dev, cfg, card)]
+        mark("grouped and quantized matmul checks")
+        entries += [check_gmm(torch, dev, mix, card),
+                    check_gmm_dw(torch, dev, mix, card),
+                    check_qmm(torch, dev, cfg, card)]
     torch.cuda.empty_cache()
+    mark("backward checks")
     entries += check_bwd(torch, dev, cfg, card)
     torch.cuda.empty_cache()
+    mark("window and softcap checks")
     # the window and softcap modes, at Mistral's widths
     modes = check_window_softcap(torch, dev, mistral, card)
     torch.cuda.empty_cache()
@@ -3360,6 +3938,7 @@ def main() -> int:
         if e["name"] in modes:
             e["shapes"].update(modes[e["name"]])
     torch.cuda.empty_cache()
+    mark("d-256 checks")
     # the d-256 instances, at Gemma-2-9B's widths
     gemma = llama.LlamaConfig.gemma2_9b()
     for name, shapes in check_head_dim_256(torch, dev, gemma, card).items():
@@ -3403,8 +3982,9 @@ def main() -> int:
     torch.cuda.synchronize()
     print(f"init_params Llama-3-8B bf16 on device: "
           f"{time.perf_counter() - t0:.3f} s")
-    paths["serve"], outputs = serve(torch, params, cfg, prompts, card,
-                                    kernels, "Llama-3-8B")
+    # the default engine (decode_block 1); its figures for serve_multistep
+    paths["serve"], outputs, single = serve(torch, params, cfg, prompts,
+                                            card, kernels, "Llama-3-8B")
     consistency(torch, params, cfg, prompts, "Llama-3-8B")
     ref_rows = generated_logits(torch, params, cfg, prompts, outputs)
     # the same weights with chunked prefill (Mistral's traffic, chunks of
@@ -3434,6 +4014,30 @@ def main() -> int:
     kv_quant_consistency(torch, dev, params, cfg, prompts, card)
     torch.cuda.empty_cache()
     print(f"Llama-3-8B quantized KV phase: {time.perf_counter() - t0:.1f} s")
+    mark("long KV and the decode options")
+    # the same weights: fwd above the KV split, Llama-3.1-8B at 16k, and
+    # the engine's multi-step decode, prefix caching and speculation
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        long_shapes = check_long_kv(torch, dev, cfg, card)
+    next(e for e in entries if e["name"] == "flash_fwd")["shapes"].update(
+        long_shapes)
+    torch.cuda.empty_cache()
+    mark("serve_long")
+    paths["serve_long"] = serve_long(torch, params, card, kernels)
+    torch.cuda.empty_cache()
+    mark("serve_multistep")
+    paths["serve_multistep"] = serve_multistep(torch, params, cfg, prompts,
+                                               outputs, single, card,
+                                               kernels)
+    mark("serve_prefix")
+    paths["serve_prefix"] = serve_prefix(torch, params, cfg, card, kernels)
+    mark("serve_spec")
+    paths["serve_spec"] = serve_spec(torch, params, cfg, prompts, card,
+                                     kernels)
+    print(f"long KV and decode options phase: "
+          f"{time.perf_counter() - t0:.1f} s")
+    mark("Llama-3-8B training")
     train_consistency(torch, dev, cfg, card, "Llama-3-8B")
     torch.cuda.empty_cache()
     paths["train"] = train(torch, params, cfg, card, kernels, "Llama-3-8B")
@@ -3459,7 +4063,7 @@ def main() -> int:
         del params
         gc.collect()
         torch.cuda.empty_cache()
-        paths[f"serve_int{bits}"], q_outputs = serve(
+        paths[f"serve_int{bits}"], q_outputs, _ = serve(
             torch, qparams, cfg, prompts, card, kernels, model)
         consistency(torch, qparams, cfg, prompts, model)
         quant_quality(torch, ref_rows,
@@ -3483,7 +4087,7 @@ def main() -> int:
     torch.cuda.synchronize()
     print(f"init_params Mixtral-8x7B L{MIX_SERVE_LAYERS} bf16 on device: "
           f"{time.perf_counter() - t0:.3f} s")
-    paths["serve_mixtral"], _ = serve(torch, params, mix_serve, mix_prompts,
+    paths["serve_mixtral"], _, _ = serve(torch, params, mix_serve, mix_prompts,
                                       card, kernels, "Mixtral-8x7B")
     consistency(torch, params, mix_serve, mix_prompts, "Mixtral-8x7B",
                 n_prompts=MIX_CONSISTENCY_PROMPTS)
@@ -3496,6 +4100,7 @@ def main() -> int:
     train_consistency(torch, dev, mix, card, "Mixtral-8x7B", n_layers=1)
     gc.collect()
     torch.cuda.empty_cache()
+    mark(f"Mixtral-8x7B training, {MIX_TRAIN_LAYERS} layers")
     mix_train = dataclasses.replace(mix, n_layers=MIX_TRAIN_LAYERS)
     params = llama.init_params(mix_train, seed=SEED, device=dev,
                                dtype=torch.bfloat16)
@@ -3506,24 +4111,26 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     mark("Mistral-7B")
-    # 7. Mistral-7B-v0.1 (window 4096 on every layer), full width and depth:
-    #    serving with window page reclamation, then training on 1 x 8192
+    # 7. Mistral-7B-v0.1 (window 4096 on every layer), full width, depth cut
+    #    to MISTRAL_LAYERS: serving with window page reclamation, then
+    #    training on 1 x 8192
     t0 = time.perf_counter()
-    params = llama.init_params(mistral, seed=SEED, device=dev,
+    m_cut = dataclasses.replace(mistral, n_layers=MISTRAL_LAYERS)
+    params = llama.init_params(m_cut, seed=SEED, device=dev,
                                dtype=torch.bfloat16)
     torch.cuda.synchronize()
     print(f"init_params Mistral-7B bf16 on device: "
           f"{time.perf_counter() - t0:.3f} s")
     pages = WindowPages(mistral.sliding_window, PAGE_SIZE)
-    paths["serve_mistral"], _ = serve(
-        torch, params, mistral, _prompts(mistral.vocab_size,
-                                         MISTRAL_PROMPT_LENS),
+    paths["serve_mistral"], _, _ = serve(
+        torch, params, m_cut, _prompts(mistral.vocab_size,
+                                       MISTRAL_PROMPT_LENS),
         card, kernels, "Mistral-7B", max_seq=MISTRAL_MAX_SEQ,
         after_step=pages)
     print(pages.report("Mistral-7B"))
     assert pages.freed_in_decode > 0, "the window freed no page in decode"
     torch.cuda.empty_cache()
-    paths["train_mistral"] = train(torch, params, mistral, card, kernels,
+    paths["train_mistral"] = train(torch, params, m_cut, card, kernels,
                                    "Mistral-7B", shape=MISTRAL_TRAIN)
     del params
     gc.collect()
@@ -3550,7 +4157,7 @@ def main() -> int:
                                    dtype=torch.bfloat16)
         gpages = WindowPages(gcfg.sliding_window, PAGE_SIZE) \
             if pattern == 1 else None
-        paths[f"serve_gemma2_every{pattern}"], _ = serve(
+        paths[f"serve_gemma2_every{pattern}"], _, _ = serve(
             torch, params, gcfg, _prompts(gcfg.vocab_size, GEMMA_PROMPT_LENS),
             card, kernels, model, max_seq=GEMMA_MAX_SEQ, after_step=gpages)
         if gpages is not None:
@@ -3566,28 +4173,31 @@ def main() -> int:
 
     mark("Gemma-2-9B")
     # 9. Gemma-2-9B (head dim 256; window 4096 on every second layer,
-    #    softcaps 50/30), full width and depth: its consistency at 2 layers
-    #    (card against CPU, with the served prompts' logits gate), then
-    #    serving with Mistral's traffic (every page held: JAX's rule for
-    #    global layers), then training on 1 x 8192
+    #    softcaps 50/30), full width, depth cut to GEMMA2_LAYERS: its
+    #    consistency at 2 layers (card against CPU, with the served prompts'
+    #    logits gate), then serving with Mistral's traffic (every page held:
+    #    JAX's rule for global layers), then training on 1 x 8192
     g2 = dataclasses.replace(gemma, n_layers=GEMMA2_LAYERS_CHECK,
                              sliding_window=WINDOW_CUT, **GEMMA_CAPS)
     model = (f"Gemma-2-9B L{GEMMA2_LAYERS_CHECK} W{WINDOW_CUT} softcaps "
              f"{g2.attn_softcap:g}/{g2.final_softcap:g}")
     window_consistency(torch, dev, g2, card, model,
                        served=MISTRAL_PROMPT_LENS)
+    mark("Gemma-2-9B training consistency")
     train_consistency(torch, dev, g2, card, model,
                       n_layers=GEMMA2_LAYERS_CHECK)
     gc.collect()
     torch.cuda.empty_cache()
+    mark("Gemma-2-9B serving and training")
     t0 = time.perf_counter()
+    gemma = dataclasses.replace(gemma, n_layers=GEMMA2_LAYERS)
     params = llama.init_params(gemma, seed=SEED, device=dev,
                                dtype=torch.bfloat16)
     torch.cuda.synchronize()
     print(f"init_params Gemma-2-9B bf16 on device: "
           f"{time.perf_counter() - t0:.3f} s; {_weight_bytes(params)}")
     pages = WindowPages(None, PAGE_SIZE)
-    paths["serve_gemma2_9b"], _ = serve(
+    paths["serve_gemma2_9b"], _, _ = serve(
         torch, params, gemma, _prompts(gemma.vocab_size, MISTRAL_PROMPT_LENS),
         card, kernels, "Gemma-2-9B", max_seq=MISTRAL_MAX_SEQ,
         after_step=pages)

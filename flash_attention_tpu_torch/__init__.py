@@ -13,11 +13,18 @@ kernel is hand-written CUDA on the card and a plain PyTorch version on the
 CPU, under the Llama model and the continuous-batching engine. Packed
 variable-length batches (``varlen_fwd``, ``varlen_bwd``, ``SegmentIds``,
 ``segs``) run the attention kernels' segmented instances, and the engine's
-chunked prefill (``Engine(chunk_size=)``) runs on them. Imports no JAX.
+chunked prefill (``Engine(chunk_size=)``) runs on them. Long K/V (above
+``KV_SPLIT`` keys, or ``fwd(kv_split=)``) runs the forward kernel per chunk
+of keys and merges the chunks with ``merge_partials``. The engine's
+decode-side options run on the same kernels: multi-step decode
+(``Engine(decode_block=)``), prefix caching (``Engine(prefix_cache=True)``)
+and speculative decoding (``Engine(draft_cfg=, draft_params=, n_draft=)``).
+Imports no JAX.
 """
 
 from flash_attention_tpu_torch.ops.attention import (SegmentIds, bwd,
                                                      flash_attention, fwd,
+                                                     merge_partials,
                                                      varlen_bwd, varlen_fwd)
 from flash_attention_tpu_torch.ops.kv_update import write_token_kv
 from flash_attention_tpu_torch.ops.paged_attention import paged_attention
@@ -28,6 +35,7 @@ from flash_attention_tpu_torch.ops.quant import (QuantizedTensor, dequantize,
 from flash_attention_tpu_torch.serving.engine import Engine
 
 __all__ = ["Engine", "QuantizedTensor", "SegmentIds", "bwd", "dequantize",
-           "flash_attention", "fwd", "paged_attention", "quantize_int4",
+           "flash_attention", "fwd", "merge_partials", "paged_attention",
+           "quantize_int4",
            "quantize_int8", "quantize_kv_pages", "quantized_matmul", "varlen_bwd", "varlen_fwd",
            "write_token_kv"]

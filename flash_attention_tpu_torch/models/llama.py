@@ -32,6 +32,9 @@ them.
   a prefill's K/V page by page and ``prefill_chunk`` dequantizes the prefix
   it gathers, in plain torch, as the JAX package does in XLA.
   ``prefill(kv_fake_quant=)`` rounds K/V through the same quantizer.
+* ``write_chunk_to_pages`` commits a chunk's K/V at token granularity (a
+  speculative verification chunk starts anywhere in a page): one launch of
+  the kv-write kernel per chunk position, over every layer at once.
 
 Parameters are a plain dict of tensors with layer weights stacked on axis 0,
 ``(L, in, out)``, the JAX package's layout, so ``params_from_jax`` is a cast
@@ -694,6 +697,51 @@ def prefill_chunk(params, tokens, done, chunk_len, k_pages, v_pages,
             logit_rows, device=dev).long()]
     x = _rmsnorm(x, params["norm_out"], cfg.norm_eps)
     return _final_softcap(_mm(x, params["lm_head"]).float(), cfg), ks, vs
+
+
+def write_chunk_to_pages(k_pages, v_pages, layer_kv, done, chunk_len,
+                         tables, k_scales=None, v_scales=None):
+    """Token-granular scatter of a chunk's K/V into the pages, in place.
+
+    layer_kv: (ks, vs) each (L, b, c, hk, hd) from ``prefill_chunk``;
+    done/chunk_len (b,) int; tables (b, npp) int padded with the trash page.
+    Chunk position j of row i lands at global position ``done[i] + j``: its
+    page is ``tables[i, (done[i] + j) // ps]`` (clipped to the table) and
+    its slot ``(done[i] + j) % ps``. Positions past ``chunk_len`` or past
+    the row's allocation land in the row's own not yet committed slots or
+    in the trash page, as in the JAX package: both are rewritten before any
+    read reaches them. Each position j is ONE kv-write launch over every
+    layer (``ops.kv_update.write_token_kv``, or ``quantize_write_token_kv``
+    on an int8 or fp8 cache, whose scales land in lane ``(done + j) % ps``),
+    the pools seen as (1, L * hk, P, ps, hd); on CPU tensors each position
+    is the plain ``write_token_kv_reference``. Positions run in order, so a
+    slot two positions share keeps the later one, as in JAX.
+    Returns (k_pages, v_pages, k_scales, v_scales)."""
+    if (k_scales is None) != (v_scales is None):
+        raise ValueError("k_scales and v_scales come together")
+    ks, vs = layer_kv
+    L, b, c, hk, hd = ks.shape
+    P, ps = k_pages.shape[2], k_pages.shape[3]
+    dev = k_pages.device
+    tables = torch.as_tensor(tables, device=dev)
+    done = torch.as_tensor(done, device=dev).long()
+    npp = tables.shape[1]
+    # (L, hk) as one head axis: the kernel's layer 0 of L * hk heads
+    flat = [None if t is None else t.view(1, L * hk, *t.shape[2:])
+            for t in (k_pages, v_pages, k_scales, v_scales)]
+    for j in range(c):
+        pos = done + j
+        wpage = tables.gather(1, (pos // ps).clamp(0, npp - 1)[:, None])[:, 0]
+        wpage, woff = wpage.int(), (pos % ps).int()
+        kj = ks[:, :, j].transpose(0, 1).reshape(b, L * hk, hd)
+        vj = vs[:, :, j].transpose(0, 1).reshape(b, L * hk, hd)
+        if k_scales is None:
+            write_token_kv(flat[0], flat[1], None, None, kj.to(k_pages.dtype),
+                           vj.to(v_pages.dtype), None, None, wpage, woff,
+                           layer=0)
+        else:
+            quantize_write_token_kv(*flat, kj, vj, wpage, woff, layer=0)
+    return k_pages, v_pages, k_scales, v_scales
 
 
 def write_prefill_to_pages(k_pages, v_pages, layer_kv, page_ids, batch_idx,

@@ -16,6 +16,12 @@ Packed batches run the kernels' segmented instances: ``fwd``/``bwd`` take
 ``SegmentIds`` and derives the positions, and ``varlen_*`` build both from
 cu_seqlens, with q positions shifted by len_k - len_q per sequence so that
 causal is lower-right aligned in each.
+
+Long keys: a dense forward over more than ``KV_SPLIT`` keys (causal, right
+window or none) runs one kernel launch per chunk of ``KV_SPLIT`` keys and
+merges the chunks' (O, LSE) with :func:`merge_partials`, as the JAX package
+does; ``fwd(kv_split=)`` sets the chunk. The running O is held in fp32
+across the merges and rounded once, where JAX rounds it after every merge.
 """
 
 from __future__ import annotations
@@ -79,6 +85,83 @@ def padded_head_dim(fn, d_pad: int, *xs):
     return tuple(map(cut, out)) if isinstance(out, tuple) else cut(out)
 
 
+def _merge_weights(lse1, lse2):
+    """(a1, a2, lse) of a merge: each partial's weight per row, (b, sq, h,
+    1) fp32, and the union's LSE (see :func:`merge_partials`)."""
+    lse_max = torch.maximum(lse1, lse2)
+    alive = lse_max != float("-inf")
+    lm = torch.where(alive, lse_max, 0.0)
+    lse = torch.where(
+        alive, lm + torch.log(torch.exp(lse1 - lm) + torch.exp(lse2 - lm)),
+        float("-inf"))
+    ls = torch.where(alive, lse, 0.0)
+    a1 = torch.exp(lse1 - ls).transpose(1, 2)[..., None]
+    a2 = torch.exp(lse2 - ls).transpose(1, 2)[..., None]
+    return a1, a2, lse
+
+
+def merge_partials(o1, lse1, o2, lse2):
+    """Merge two attention partials computed over disjoint kv sets.
+
+    o*: (b, sq, h, d); lse*: (b, h, sq) natural-log-sum-exp per row.
+    Returns (o, lse) equal to attention over the union of the kv sets, o in
+    o1's dtype (the products and the sum in fp32). Rows dead in one partial
+    carry lse = -inf there and weigh exactly 0; rows dead in both keep
+    lse = -inf and get O = 0 (the -inf - -inf of the stable log-sum-exp is
+    replaced by 0, as in the JAX package). Plain PyTorch on every device:
+    it is XLA, not a Pallas kernel, in the JAX package."""
+    a1, a2, lse = _merge_weights(lse1, lse2)
+    o = o1.float() * a1 + o2.float() * a2
+    return o.to(o1.dtype), lse
+
+
+def _merge_into(o, lse, oc, lsec):
+    """:func:`merge_partials` of the running fp32 ``o``, updated in place,
+    and a chunk's (``oc``, ``lsec``): the same products and sum without an
+    fp32 copy of ``o``. Returns (o, lse)."""
+    a1, a2, lse = _merge_weights(lse, lsec)
+    return o.mul_(a1).add_(oc.float().mul_(a2)), lse
+
+
+# Longest K/V one forward launch takes: above it a dense forward (causal, a
+# right-bounded window, or none) runs chunks of KV_SPLIT keys and merges
+# them (the JAX package's value and rule).
+KV_SPLIT = 8192
+
+
+def _fwd_split(q, k, v, split, *, causal, sm_scale, window, softcap,
+               empty_lse):
+    """The forward as chunks of ``split`` keys merged by
+    :func:`merge_partials`. Chunk [c0, c1) is a non-causal call with the
+    global band ``col - row - (sk - sq) <= wr`` rewritten in its own
+    lower-right coordinates, ``<= wr + (sk - c1)``: a right-bounded window,
+    or none where every row sees the whole chunk; a band of exactly
+    (-1, 0) (causal's last chunk) runs as the causal call it is. Each chunk
+    marks its dead rows with LSE -inf, so the merge weighs them 0; the
+    running (O, LSE) stays fp32, merged in place, and rows dead in every
+    chunk get O = 0 and LSE = ``empty_lse``."""
+    sq, sk = q.shape[1], k.shape[1]
+    band = _fwd_mod.normalize_band(causal, window)
+    wr = None if band is None else band[1]
+    o = lse = None
+    for c0 in range(0, sk, split):
+        c1 = min(c0 + split, sk)
+        cwin = None
+        if wr is not None and wr + (sk - c1) < sq - 1:
+            cwin = (-1, wr + (sk - c1))
+        causal_c = cwin == (-1, 0)
+        oc, lsec = fwd(q, k[:, c0:c1], v[:, c0:c1], causal_c,
+                       sm_scale=sm_scale,
+                       window_size=None if causal_c else cwin,
+                       softcap=softcap, empty_lse=float("-inf"), kv_split=sk)
+        o, lse = (oc.float(), lsec) if o is None else _merge_into(
+            o, lse, oc, lsec)
+    dead = torch.isneginf(lse)
+    o = torch.where(dead.transpose(1, 2)[..., None], 0.0, o)
+    lse = torch.where(dead, float(empty_lse), lse)
+    return o.to(q.dtype), lse
+
+
 def fwd(q, k, v, is_causal: bool = False, *, sm_scale: float | None = None,
         block_sizes=None, interpret: bool | None = None, segs=None,
         window_size: tuple | None = None, softcap: float | None = None,
@@ -93,14 +176,23 @@ def fwd(q, k, v, is_causal: bool = False, *, sm_scale: float | None = None,
     kv_seg, q_pos, kv_pos), each (b, s) int: a query sees only keys of its
     own segment id, and causal and the window compare the positions
     (``kv_pos - q_pos``) instead of the row and column indices.
-    ``block_sizes`` and ``interpret`` (the TPU kernels' tiles, Pallas
-    interpret mode) and ``kv_split`` (the long-context KV split) are not
-    ported: a value other than None raises NotImplementedError."""
+    ``kv_split`` (default ``KV_SPLIT``) is the most keys one launch takes:
+    a dense call over more keys, with no left window bound, runs in chunks
+    (:func:`_fwd_split`). ``block_sizes`` and ``interpret`` (the TPU
+    kernels' tiles, Pallas interpret mode) are not ported: a value other
+    than None raises NotImplementedError."""
     reject_unported("fwd", block_sizes=(block_sizes, None),
-                    interpret=(interpret, None), kv_split=(kv_split, None))
+                    interpret=(interpret, None))
     _check_heads(q, k)
     if sm_scale is None:
         sm_scale = 1.0 / q.shape[-1]**0.5
+    split = KV_SPLIT if kv_split is None else kv_split
+    band = _fwd_mod.normalize_band(is_causal, window_size)
+    if (segs is None and k.shape[1] > split
+            and (band is None or band[0] is None)):
+        return _fwd_split(q, k, v, split, causal=is_causal,
+                          sm_scale=sm_scale, window=window_size,
+                          softcap=softcap, empty_lse=empty_lse)
     if q.device.type == "cpu":
         if segs is not None:
             return _fwd_mod.flash_fwd_segmented_reference(

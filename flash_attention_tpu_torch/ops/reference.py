@@ -75,21 +75,29 @@ def reference_attention(q, k, v, causal: bool = False,
     qf = q.float().transpose(1, 2)                                   # b h q d
     kf = k.float().repeat_interleave(group, dim=2).transpose(1, 2)   # b h k d
     vf = v.float().repeat_interleave(group, dim=2).transpose(1, 2)
-    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    # where no gradient is taken, the (b, h, sq, sk) scores are updated in
+    # place: the same values, a third of the memory traffic
+    new = torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v))
+    s = torch.matmul(qf, kf.transpose(-1, -2))
+    s = s * scale if new else s.mul_(scale)
     if softcap is not None:
-        s = softcap * torch.tanh(s / softcap)
+        s = (softcap * torch.tanh(s / softcap) if new
+             else s.div_(softcap).tanh_().mul_(softcap))
     mask = _build_mask(sq, sk, causal, window, device=q.device,
                        segs=(q_segment_ids, kv_segment_ids, q_positions,
                              kv_positions))
     if mask is not None:
-        s = s.masked_fill(~(mask if mask.dim() == 2 else mask[:, None]),
-                          float("-inf"))
+        mask = ~(mask if mask.dim() == 2 else mask[:, None])
+        s = (s.masked_fill(mask, float("-inf")) if new
+             else s.masked_fill_(mask, float("-inf")))
     m = s.amax(dim=-1, keepdim=True)
     alive = m > float("-inf")
-    p = torch.exp(s - torch.where(alive, m, torch.zeros_like(m)))
+    m0 = torch.where(alive, m, torch.zeros_like(m))
+    p = torch.exp(s - m0) if new else s.sub_(m0).exp_()
     l = p.sum(dim=-1, keepdim=True)
     denom = torch.where(alive, l, torch.ones_like(l))
-    o = torch.matmul(p, vf) / denom
+    o = torch.matmul(p, vf)
+    o = o / denom if new else o.div_(denom)
     lse = torch.where(alive, m + torch.log(denom),
                       torch.full_like(m, empty_lse))[..., 0]
     return o.transpose(1, 2).to(q.dtype), lse

@@ -5,12 +5,14 @@ basic path. Per ``step()``:
 
  1. admit waiting requests and prefill them in ONE padded batch (dense flash
     attention), then scatter their K/V into freshly allocated pages;
- 2. grow every running sequence by one cache slot (preempting on pressure);
- 3. one ``decode_step`` for the whole running batch (in-place KV write and
-    paged attention per layer), padded to the next power of two with dummy
-    length-1 rows aimed at a trash page;
- 4. sample (greedy by default; temperature/top-k/top-p keyed by
-    (seed, position)) and retire finished sequences.
+ 2. grow every running sequence by ``decode_block`` cache slots (one by
+    default; preempting on pressure);
+ 3. ``decode_block`` ``decode_step``s for the whole running batch through
+    ``multistep.decode_rollout`` (in-place KV write and paged attention per
+    layer, then the sample: greedy by default, temperature/top-k/top-p
+    keyed by (seed, position)), padded to the next power of two with dummy
+    length-1 rows aimed at a trash page, and ONE readback of the tokens;
+ 4. commit the tokens and retire finished sequences.
 
 With a sliding window on every layer (Mistral: ``window_pattern == 1``)
 the engine reclaims pages as the JAX engine does: admission allocates the
@@ -37,9 +39,26 @@ embedding.
 int8 (the default for any float ``kv_dtype``) or fp8 e4m3
 (``kv_dtype=torch.float8_e4m3fn``), page_size 128, with per-token scales in
 (L, hk, P, 8, 128) fp32 tiles that start at ones; an 8-bit ``kv_dtype``
-without ``kv_quant`` raises ValueError. Tensor parallelism (and expert
-parallelism with it), speculative decoding, prefix caching, multi-step
-decode and LoRA are outside this slice and raise.
+without ``kv_quant`` raises ValueError.
+
+The decode-side options, by the JAX engine's rules and with its errors:
+
+* ``decode_block=k`` (multi-step decode): k decode steps a step, one
+  readback for the block; rows stopping inside it drop the tail and
+  ``seq_truncate`` returns its slots. The JAX engine keeps a separate
+  single-step path for k = 1; here k = 1 is the same rollout of one step.
+* ``prefix_cache=True``: requests adopt the pages of a cached prompt prefix
+  (``prefix.PrefixCache``, chain-hashed whole pages with allocator pins)
+  and prefill only their suffix in one ``prefill_chunk``.
+* ``draft_cfg``/``draft_params``/``n_draft`` (speculative decoding): the
+  draft proposes ``n_draft`` tokens (``spec.draft_rollout``, its own page
+  pools on the shared page tables), the target verifies them in one
+  ``prefill_chunk``, ``llama.write_chunk_to_pages`` commits the chunk's K/V
+  token by token and ``sampling.spec_accept`` keeps the accepted prefix and
+  one more token.
+
+Tensor parallelism (and expert parallelism with it) and LoRA are outside
+this slice and raise.
 """
 
 from __future__ import annotations
@@ -52,8 +71,10 @@ import torch
 
 from flash_attention_tpu_torch.models import llama
 from flash_attention_tpu_torch.ops.quant import KV_QMAX
-from flash_attention_tpu_torch.serving import sampling
+from flash_attention_tpu_torch.serving import multistep, sampling
+from flash_attention_tpu_torch.serving import spec as spec_mod
 from flash_attention_tpu_torch.serving.native import PagedRuntime
+from flash_attention_tpu_torch.serving.prefix import PrefixCache
 from flash_attention_tpu_torch.serving.scheduler import Request, Scheduler
 from flash_attention_tpu_torch.utils.options import reject_unported
 
@@ -90,20 +111,23 @@ class Engine:
         lora_targets: tuple = ("wq", "wk", "wv", "wo"),
         max_loras: int = 8,
     ):
-        # the JAX engine's errors for chunk_size first, then, in its order,
-        # each unported option at a value other than its default raises,
-        # naming the option
+        # the JAX engine's errors in its order; then each unported option at
+        # a value other than its default raises, naming the option
         if chunk_size is not None and chunk_size % page_size:
             raise ValueError(
                 f"chunk_size {chunk_size} must be a multiple of page_size "
                 f"{page_size} (chunks scatter whole pages)")
-        if chunk_size is not None and prefix_cache:
-            raise ValueError("prefix caching with chunked prefill is not "
-                             "supported; the prefix path already prefills in "
-                             "one suffix chunk")
-        if chunk_size is not None and draft_cfg is not None:
-            raise ValueError("speculative decoding with chunked prefill is "
-                             "not supported yet")
+        # with window_pattern == 1 the engine reclaims the pages behind the
+        # window (Mistral); a global layer reads every page (Gemma-2)
+        window = cfg.sliding_window if cfg.window_pattern == 1 else None
+        if prefix_cache:
+            if window is not None:
+                raise ValueError("prefix caching with sliding-window page "
+                                 "reclamation is not supported")
+            if chunk_size is not None:
+                raise ValueError("prefix caching with chunked prefill is not "
+                                 "supported; the prefix path already "
+                                 "prefills in one suffix chunk")
         quant_dtypes = tuple(KV_QMAX)  # int8, fp8 e4m3
         if kv_quant:
             # a float kv_dtype selects the default quantized cache, int8;
@@ -117,6 +141,30 @@ class Engine:
         if kv_quant and page_size != 128:
             raise ValueError("kv_quant requires page_size == 128 (scale lane "
                              "= token in page)")
+        if (draft_cfg is None) != (draft_params is None):
+            raise ValueError("draft_cfg and draft_params come together")
+        self.spec = draft_cfg is not None
+        if self.spec:
+            if n_draft < 1:
+                raise ValueError("n_draft must be >= 1")
+            if chunk_size is not None:
+                raise ValueError("speculative decoding with chunked prefill "
+                                 "is not supported yet")
+            if window is not None:
+                # the verification chunk's prefix gather and the truncation
+                # of rejected slots assume a prefix without holes
+                raise ValueError("speculative decoding with sliding-window "
+                                 "page reclamation is not supported yet")
+            if draft_cfg.vocab_size != cfg.vocab_size:
+                raise ValueError(
+                    f"draft vocab {draft_cfg.vocab_size} != target vocab "
+                    f"{cfg.vocab_size}")
+        if int(decode_block) < 1:
+            raise ValueError("decode_block must be >= 1")
+        if int(decode_block) > 1 and self.spec:
+            raise ValueError("decode_block with speculative decoding is not "
+                             "supported; a spec step already emits up to "
+                             "n_draft+1 tokens per dispatch")
         unsupported = {
             "kv_dtype (the cache holds K/V in the weights' dtype or, with "
             "kv_quant, in 8 bits)":
@@ -124,11 +172,6 @@ class Engine:
                                  *quant_dtypes),
             "mesh (tensor parallelism)": mesh is not None,
             "tp_axis (tensor parallelism)": tp_axis != "model",
-            "draft_cfg, draft_params (speculative decoding)":
-                draft_cfg is not None or draft_params is not None,
-            "n_draft (speculative decoding)": n_draft != 4,
-            "prefix_cache": prefix_cache,
-            "decode_block (multi-step decode)": decode_block != 1,
             "lora_rank (multi-LoRA)": lora_rank is not None,
             "lora_targets (multi-LoRA)":
                 tuple(lora_targets) != ("wq", "wk", "wv", "wo"),
@@ -138,6 +181,8 @@ class Engine:
             raise NotImplementedError(
                 f"outside this slice of the PyTorch port: {', '.join(bad)}")
         llama.check_supported(cfg, params)
+        if self.spec:
+            llama.check_supported(draft_cfg, draft_params)
         self.cfg = cfg
         self.params = params
         self.device = params["embed"].device
@@ -156,7 +201,6 @@ class Engine:
         # or freed as the window moves (decode): the JAX engine's rule, so
         # both hold the same pages. Only when EVERY layer slides
         # (window_pattern == 1): a global layer reads the whole cache.
-        window = cfg.sliding_window if cfg.window_pattern == 1 else None
         self.window = window
 
         def live_from_page(tokens: int) -> int:
@@ -180,9 +224,15 @@ class Engine:
             # releases the rest as the chunk frontier moves
             def sched_live(tokens: int) -> int:
                 return live_from_page(min(tokens, chunk_size + 1))
-        self.sched = Scheduler(self.rt, max_batch=max_batch,
-                               reserve_pages=max_batch,
-                               live_from_page_fn=sched_live)
+        # prefix caching: admission counts the cached pages a request
+        # adopts, and evicts registry-only pages under pressure
+        self.prefix = PrefixCache(self.rt, page_size) if prefix_cache \
+            else None
+        self.sched = Scheduler(
+            self.rt, max_batch=max_batch, reserve_pages=max_batch,
+            live_from_page_fn=sched_live,
+            can_admit_fn=self._prefix_can_admit if prefix_cache else None,
+            alloc_fn=self._prefix_alloc if prefix_cache else None)
         # page-table width: one batch row must span max_seq_len
         self.pages_per_seq = -(-max_seq_len // page_size)
         L, hk, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
@@ -198,11 +248,29 @@ class Engine:
                                        dtype=torch.float32,
                                        device=self.device)
             self.v_scales = torch.ones_like(self.k_scales)
+        # the draft model's own pools, on the same page ids
+        self.draft_cfg, self.draft_params = draft_cfg, draft_params
+        self.n_draft = n_draft
+        self.k_pages_d = self.v_pages_d = None
+        self.k_scales_d = self.v_scales_d = None
+        if self.spec:
+            self.k_pages_d = torch.zeros(
+                (draft_cfg.n_layers, draft_cfg.n_kv_heads, total_pages,
+                 page_size, draft_cfg.head_dim), dtype=self.k_pages.dtype,
+                device=self.device)
+            self.v_pages_d = torch.zeros_like(self.k_pages_d)
+            if kv_quant:
+                self.k_scales_d = torch.ones(
+                    (draft_cfg.n_layers, draft_cfg.n_kv_heads, total_pages,
+                     8, 128), dtype=torch.float32, device=self.device)
+                self.v_scales_d = torch.ones_like(self.k_scales_d)
+        self.decode_block = int(decode_block)
         self._uid = 0
         self._last_lps = None  # logprobs of the last _sample_batch's tokens
         self.stats = {"decode_steps": 0, "decode_tokens": 0,
                       "prefill_tokens": 0, "prefill_dispatches": 0,
-                      "decode_time": 0.0, "prefill_time": 0.0}
+                      "decode_time": 0.0, "prefill_time": 0.0,
+                      "spec_steps": 0, "spec_proposed": 0, "spec_accepted": 0}
 
     # ------------------------------------------------------------- requests
     def add_request(self, prompt: list[int], max_new_tokens: int,
@@ -214,6 +282,16 @@ class Engine:
         value other than None raises NotImplementedError."""
         reject_unported("Engine.add_request", lora=(lora, None))
         total = len(prompt) + max_new_tokens
+        if self.spec:
+            if top_k > 0 or top_p < 1.0:
+                # rejection sampling is exact only against the draft's
+                # unfiltered distribution
+                raise ValueError("speculative decoding does not support "
+                                 "top-k/top-p filtered requests")
+            # a spec step reserves n_draft slots past the committed frontier
+            total += self.n_draft
+        # a multi-step block reserves decode_block - 1 slots past it
+        total += self.decode_block - 1
         if total > self.max_seq_len:
             raise ValueError(
                 f"prompt+max_new_tokens = {total} exceeds max_seq_len "
@@ -264,7 +342,45 @@ class Engine:
         if req.logprobs and self._last_lps is not None:
             req.token_logprobs.append(float(self._last_lps[i]))
 
+    # ------------------------------------------------------- prefix caching
+    def _prefix_can_admit(self, req: Request) -> bool:
+        """Admission counting cached-prefix reuse: a request needs pages
+        only for its uncached context, and registry-only cached pages may
+        be evicted to make room (least recently used first, never the pages
+        this request is about to adopt)."""
+        cap = req.context_len - 1  # >= 1 suffix token for its logits
+        shared = len(self.prefix.lookup(req.prompt, cap, salt=req.lora_id))
+        need = (-(-(req.context_len + 1) // self.page_size) - shared
+                + self.sched.reserve_pages)
+        shortfall = need - self.rt.free_pages()
+        if shortfall > 0:
+            keep = self.prefix.keep_set(req.prompt, cap, salt=req.lora_id)
+            if self.prefix.evict(shortfall, keep=keep) < shortfall:
+                return False
+        return self.rt.can_admit(req.context_len + 1 - shared * self.page_size,
+                                 self.sched.reserve_pages)
+
+    def _prefix_alloc(self, req: Request) -> int:
+        pages = self.prefix.lookup(req.prompt, req.context_len - 1,
+                                   salt=req.lora_id)
+        slot = self.rt.seq_alloc_prefixed(req.context_len, pages)
+        if slot >= 0:
+            req.cached_tokens = len(pages) * self.page_size
+            self.stats["prefix_reused_tokens"] = (
+                self.stats.get("prefix_reused_tokens", 0)
+                + req.cached_tokens)
+        return slot
+
     # -------------------------------------------------------------- prefill
+    def _scatter_args(self, dest, src_row, src_page):
+        """(page ids, source rows, source pages) of a page scatter as
+        tensors, padded to a power of two with trash-page entries as the
+        JAX engine pads them."""
+        n_pad = _pow2(len(dest)) - len(dest)
+        return (torch.tensor(dest + [self.trash_page] * n_pad),
+                torch.tensor(src_row + [0] * n_pad),
+                torch.tensor(src_page + [0] * n_pad))
+
     def _prefill_batch(self, reqs: list[Request]) -> None:
         """ONE padded-batch prefill for every request admitted this step.
 
@@ -275,6 +391,8 @@ class Engine:
         t0 = time.perf_counter()
         seqs = [r.prompt + r.output for r in reqs]
         n_max = max(len(s) for s in seqs)
+        if self.prefix is not None:
+            return self._prefill_prefix(reqs, seqs, t0)
         if self.chunk_size is not None and n_max > self.chunk_size:
             return self._prefill_chunked(reqs, seqs, t0)
         bucket = max(32, _pow2(n_max))
@@ -300,18 +418,107 @@ class Engine:
                 src_row.append(i)
                 src_page.append(j)
             self.stats["prefill_tokens"] += len(seqs[i])
-        n_pad = _pow2(len(dest))
-        dest += [self.trash_page] * (n_pad - len(dest))
-        src_row += [0] * (n_pad - len(src_row))
-        src_page += [0] * (n_pad - len(src_page))
+        dest, src_row, src_page = self._scatter_args(dest, src_row, src_page)
         llama.write_prefill_to_pages(
-            self.k_pages, self.v_pages, (ks, vs), torch.tensor(dest),
-            torch.tensor(src_row), torch.tensor(src_page), self.page_size,
-            k_scales=self.k_scales, v_scales=self.v_scales)
+            self.k_pages, self.v_pages, (ks, vs), dest, src_row, src_page,
+            self.page_size, k_scales=self.k_scales, v_scales=self.v_scales)
+        if self.spec:
+            # the draft mirrors the target's context in its own pools, on
+            # the same page ids
+            _, ks_d, vs_d = llama.prefill(
+                self.draft_params, torch.from_numpy(toks).to(self.device),
+                self.draft_cfg, logit_rows=torch.from_numpy(last).to(
+                    self.device))
+            llama.write_prefill_to_pages(
+                self.k_pages_d, self.v_pages_d, (ks_d, vs_d), dest, src_row,
+                src_page, self.page_size, k_scales=self.k_scales_d,
+                v_scales=self.v_scales_d)
+        self._finish_prefill(reqs, logits, t0)
+
+    def _finish_prefill(self, reqs: list[Request], logits, t0) -> None:
+        """Sample each request's next token from its row of ``logits`` and
+        count the dispatch. Under speculation a re-admitted request keeps
+        its last output as the next token to feed: a spec step emitted it
+        and the prefill just wrote its K/V, so the completion resumes
+        exactly (the spec draws are keyed by output position)."""
         for i, (req, tok) in enumerate(zip(reqs, self._sample_batch(reqs, logits))):
+            if self.spec and req.output:
+                continue
             self._append_token(req, i, tok)
         self.stats["prefill_dispatches"] += 1
         self.stats["prefill_time"] += time.perf_counter() - t0
+
+    def _prefill_prefix(self, reqs: list[Request], seqs, t0) -> None:
+        """Prefill with prefix-cache reuse: one ``prefill_chunk`` over each
+        row's uncached suffix (``done`` = its adopted tokens, page-aligned),
+        attending to [cached prefix pages || suffix], then the suffix's
+        whole pages scattered into the cache. Each prompt's full pages are
+        then registered, so later requests sharing the prefix adopt them.
+        Rows with no cache hit run here too (done = 0). The batch, the
+        suffix bucket and the prefix table's width are padded to powers of
+        two as in the JAX engine."""
+        ps, dev = self.page_size, self.device
+        n = len(reqs)
+        bsz = _pow2(n)
+        done = np.zeros((bsz,), np.int64)
+        clen = np.zeros((bsz,), np.int64)
+        for i, (r, s) in enumerate(zip(reqs, seqs)):
+            done[i] = r.cached_tokens   # page-aligned, <= context - 1
+            clen[i] = len(s) - r.cached_tokens
+        c = max(32, _pow2(int(clen.max())))
+        toks = np.zeros((bsz, c), np.int64)
+        for i, s in enumerate(seqs):
+            toks[i, : clen[i]] = s[done[i]:]
+        npp = _pow2(int(done.max()) // ps) if done.max() > 0 else 1
+        tables = np.full((bsz, npp), self.trash_page, np.int64)
+        for i, r in enumerate(reqs):
+            row = np.asarray(self.rt.seq_page_table(r.slot, npp, pad=-1))
+            tables[i] = np.where(row < 0, self.trash_page, row)
+        args = (torch.from_numpy(toks).to(dev), torch.from_numpy(done).to(dev),
+                torch.from_numpy(clen).to(dev))
+        tables = torch.from_numpy(tables).to(dev)
+        last = torch.from_numpy(np.maximum(clen - 1, 0)).to(dev)
+        logits, ks, vs = llama.prefill_chunk(
+            self.params, *args, self.k_pages, self.v_pages, self.k_scales,
+            self.v_scales, tables, self.cfg, logit_rows=last)
+        # chunk-local page j of row i lands at the row's page done // ps + j
+        dest, src_row, src_page = [], [], []
+        for i, r in enumerate(reqs):
+            p0 = int(done[i]) // ps
+            n_pages = -(-int(clen[i]) // ps)
+            row = self.rt.seq_page_table(r.slot, p0 + n_pages, pad=-1)
+            for j in range(n_pages):
+                if row[p0 + j] < 0:
+                    continue
+                dest.append(row[p0 + j])
+                src_row.append(i)
+                src_page.append(j)
+            self.stats["prefill_tokens"] += int(clen[i])
+        dest, src_row, src_page = self._scatter_args(dest, src_row, src_page)
+        llama.write_prefill_to_pages(
+            self.k_pages, self.v_pages, (ks, vs), dest, src_row, src_page, ps,
+            k_scales=self.k_scales, v_scales=self.v_scales)
+        if self.spec:
+            # adopted pages hold the draft's prefix K/V too (written when
+            # the prefix was first prefilled): the draft skips the same
+            # cached tokens
+            _, ks_d, vs_d = llama.prefill_chunk(
+                self.draft_params, *args, self.k_pages_d, self.v_pages_d,
+                self.k_scales_d, self.v_scales_d, tables, self.draft_cfg,
+                logit_rows=last)
+            llama.write_prefill_to_pages(
+                self.k_pages_d, self.v_pages_d, (ks_d, vs_d), dest, src_row,
+                src_page, ps, k_scales=self.k_scales_d,
+                v_scales=self.v_scales_d)
+        # register the prompts' full pages, now written; a re-admitted
+        # request's pages are usually there already
+        for r in reqs:
+            full = len(r.prompt) // ps
+            if full:
+                self.prefix.register(
+                    r.prompt, self.rt.seq_page_table(r.slot, full, pad=-1),
+                    salt=r.lora_id)
+        self._finish_prefill(reqs, logits, t0)
 
     def _prefill_chunked(self, reqs: list[Request], seqs, t0) -> None:
         """Prefill ``reqs`` in chunks of ``chunk_size`` tokens.
@@ -373,13 +580,9 @@ class Engine:
                     src_row.append(i)
                     src_page.append(j)
             if dest:
-                n_pad = _pow2(len(dest))
-                dest += [self.trash_page] * (n_pad - len(dest))
-                src_row += [0] * (n_pad - len(src_row))
-                src_page += [0] * (n_pad - len(src_page))
                 llama.write_prefill_to_pages(
-                    self.k_pages, self.v_pages, (ks, vs), torch.tensor(dest),
-                    torch.tensor(src_row), torch.tensor(src_page), ps,
+                    self.k_pages, self.v_pages, (ks, vs),
+                    *self._scatter_args(dest, src_row, src_page), ps,
                     k_scales=self.k_scales, v_scales=self.v_scales)
             # rows whose last context token falls in this chunk take its
             # logits
@@ -389,48 +592,150 @@ class Engine:
             self.stats["prefill_chunks"] = self.stats.get("prefill_chunks",
                                                           0) + 1
         self.stats["prefill_tokens"] += int(lens[:n].sum())
-        for i, (req, tok) in enumerate(zip(reqs, self._sample_batch(reqs, final))):
-            self._append_token(req, i, tok)
-        self.stats["prefill_dispatches"] += 1
-        self.stats["prefill_time"] += time.perf_counter() - t0
+        self._finish_prefill(reqs, final, t0)
 
     # --------------------------------------------------------------- decode
-    def _decode_batch(self, reqs: list[Request], tokens: list[int]):
-        """One decode step for ``reqs``; returns the next token per request."""
-        t0 = time.perf_counter()
-        n = len(reqs)
-        bsz = _pow2(n)
+    def _block_inputs(self, reqs: list[Request], ahead: int, what: str):
+        """The device inputs of a decode or a spec step: per row
+        the fed token (output[-1]), the committed length including it, and
+        the page table; padded to a power of two with length-1 rows on the
+        trash page. ``ahead`` slots past the frontier must fit the table."""
+        ps = self.page_size
+        bsz = _pow2(len(reqs))
         tok = np.zeros((bsz,), np.int64)
-        lengths = np.ones((bsz,), np.int32)
+        lens = np.ones((bsz,), np.int32)
         tables = np.full((bsz, self.pages_per_seq), self.trash_page, np.int32)
-        wpage = np.full((bsz,), self.trash_page, np.int32)
-        woff = np.zeros((bsz,), np.int32)
-        for i, (r, t) in enumerate(zip(reqs, tokens)):
-            ln = self.rt.seq_length(r.slot)  # already grown for this token
-            if self.window is not None:  # pages the window moved past
-                self.rt.seq_release_prefix(r.slot, self.live_from_page(ln))
-            if ln > self.pages_per_seq * self.page_size:
+        for i, r in enumerate(reqs):
+            c_len = r.context_len
+            if c_len + ahead > self.pages_per_seq * ps:
                 raise RuntimeError(
-                    f"request {r.uid}: length {ln} exceeds the page-table "
-                    f"width {self.pages_per_seq} x page_size {self.page_size}")
-            tok[i] = t
-            lengths[i] = ln
+                    f"request {r.uid}: context {c_len} + {what} exceeds the "
+                    f"page-table width {self.pages_per_seq} x page_size {ps}")
+            tok[i] = r.output[-1]
+            lens[i] = c_len
             tables[i] = self.rt.seq_page_table(r.slot, self.pages_per_seq,
                                                pad=self.trash_page)
-            wpage[i] = tables[i][(ln - 1) // self.page_size]
-            woff[i] = (ln - 1) % self.page_size
-        dev = self.device
-        logits, *_ = llama.decode_step(
+        return tok, lens, tables
+
+    def _commit(self, reqs: list[Request], toks, lps, n_emit) -> list[int]:
+        """Append row i's first ``n_emit[i]`` tokens (and logprobs) to each
+        request, stopping where it is done (eos, stop ids, max_new_tokens),
+        and shrink its reservation to the committed frontier: the cache
+        holds K/V through the token before the next fed one. Returns the
+        tokens appended to each request."""
+        used = []
+        for i, r in enumerate(reqs):
+            u = 0
+            while u < n_emit[i] and not r.done:
+                r.output.append(int(toks[i][u]))
+                if r.logprobs and lps is not None:
+                    r.token_logprobs.append(float(lps[i][u]))
+                u += 1
+            used.append(u)
+            self.rt.seq_truncate(r.slot, r.context_len - 1)
+        return used
+
+    def _decode_batch(self, reqs: list[Request]) -> None:
+        """One decode step of the engine: ``decode_block`` model decode
+        steps (1 by default) through ``multistep.decode_rollout`` and ONE
+        readback of the (b, k) tokens (and their logprobs, when a request
+        asks). Each request arrives with ``seq_length == context_len +
+        decode_block - 1`` (the step() grow loop): fed token j writes at
+        position context_len - 1 + j."""
+        t0 = time.perf_counter()
+        k = self.decode_block
+        if self.window is not None:
+            # release the pages the window moved past at the block's first
+            # length: never early
+            for r in reqs:
+                self.rt.seq_release_prefix(r.slot,
+                                           self.live_from_page(r.context_len))
+        tok, lens, tables = self._block_inputs(reqs, k - 1,
+                                               f"decode_block {k} - 1")
+        bsz, dev = tok.shape[0], self.device
+        pad = bsz - len(reqs)
+        want_lps = any(r.logprobs for r in reqs)
+        toks, lps, *_ = multistep.decode_rollout(
             self.params, self.k_pages, self.v_pages, self.k_scales,
-            self.v_scales,
-            torch.from_numpy(tok).to(dev), torch.from_numpy(lengths).to(dev),
-            torch.from_numpy(tables).to(dev), torch.from_numpy(wpage).to(dev),
-            torch.from_numpy(woff).to(dev), self.cfg)
-        out = self._sample_batch(reqs, logits)
+            self.v_scales, torch.from_numpy(tok).to(dev),
+            torch.from_numpy(lens).to(dev), torch.from_numpy(tables).to(dev),
+            [r.temperature for r in reqs] + [0.0] * pad,
+            [r.top_k for r in reqs] + [0] * pad,
+            [r.top_p for r in reqs] + [1.0] * pad,
+            [r.seed for r in reqs] + [0] * pad,
+            [len(r.output) for r in reqs] + [0] * pad, None, self.cfg, k,
+            any(r.temperature > 0.0 and (r.top_k > 0 or r.top_p < 1.0)
+                for r in reqs), want_lps)
+        if want_lps:  # token ids are exact in fp32 (vocab < 2^24)
+            toks, lps = torch.stack([toks.float(), lps]).tolist()
+        else:
+            toks, lps = toks.tolist(), None
+        used = self._commit(reqs, toks, lps, [k] * len(reqs))
         self.stats["decode_steps"] += 1
-        self.stats["decode_tokens"] += n
+        self.stats["decode_tokens"] += sum(used)
         self.stats["decode_time"] += time.perf_counter() - t0
-        return out
+
+    def _spec_decode_batch(self, reqs: list[Request]) -> None:
+        """One speculative step: the draft's rollout, the target's
+        verification of [fed token || n_draft proposals] in one
+        ``prefill_chunk``, the token-granular commit of the chunk's K/V
+        (``llama.write_chunk_to_pages``; rejected positions land in the
+        row's reserved slots) and ``sampling.spec_accept``, with ONE
+        readback. Appends 1..n_draft+1 tokens per request and shrinks its
+        reservation to the committed frontier. Each request arrives with
+        ``seq_length == context_len + n_draft`` (the step() grow loop)."""
+        t0 = time.perf_counter()
+        g, ps, dev = self.n_draft, self.page_size, self.device
+        n = len(reqs)
+        tok, lens, tables = self._block_inputs(reqs, g, f"n_draft {g}")
+        pad = tok.shape[0] - n
+        temps = [r.temperature for r in reqs] + [0.0] * pad
+        seeds = [r.seed for r in reqs] + [0] * pad
+        pos = [len(r.output) for r in reqs] + [0] * pad
+        tok_d, lens_d = torch.from_numpy(tok).to(dev), \
+            torch.from_numpy(lens).to(dev)
+        tables_d = torch.from_numpy(tables).to(dev)
+        d_toks, d_logits, *_ = spec_mod.draft_rollout(
+            self.draft_params, self.k_pages_d, self.v_pages_d,
+            self.k_scales_d, self.v_scales_d, tok_d, lens_d, tables_d, temps,
+            seeds, pos, self.draft_cfg, g)
+        # the prefix table's width rounds up to a power of two (trash
+        # padded, masked off by done), as in the JAX engine
+        npp = _pow2(-(-int(lens.max() - 1) // ps)) if lens.max() > 1 else 1
+        ptab = np.full((tables.shape[0], npp), self.trash_page, np.int32)
+        w = min(npp, self.pages_per_seq)
+        ptab[:, :w] = tables[:, :w]
+        chunk = torch.cat([tok_d[:, None], d_toks], dim=1)
+        clen = torch.full((tok.shape[0],), g + 1, device=dev)
+        logits, ks, vs = llama.prefill_chunk(
+            self.params, chunk, lens_d - 1, clen, self.k_pages, self.v_pages,
+            self.k_scales, self.v_scales, torch.from_numpy(ptab).to(dev),
+            self.cfg)
+        llama.write_chunk_to_pages(self.k_pages, self.v_pages, (ks, vs),
+                                   lens_d - 1, clen, tables_d, self.k_scales,
+                                   self.v_scales)
+        out, n_emit = sampling.spec_accept(logits, d_logits, d_toks, temps,
+                                           seeds, pos)
+        c = g + 1
+        want_lps = any(r.logprobs for r in reqs)
+        if want_lps:
+            # the raw target logprob of every emitted token, off the
+            # verification logits; one readback (ids exact in fp32)
+            lps = torch.log_softmax(logits, dim=-1).gather(
+                -1, out[..., None])[..., 0]
+            host = torch.cat([out.float(), n_emit[:, None].float(), lps],
+                             dim=1).tolist()
+        else:
+            host = torch.cat([out, n_emit[:, None]], dim=1).tolist()
+        used = self._commit(reqs, [h[:c] for h in host],
+                            [h[c + 1:] for h in host] if want_lps else None,
+                            [int(h[c]) for h in host])
+        self.stats["spec_accepted"] += sum(max(u - 1, 0) for u in used)
+        self.stats["decode_tokens"] += sum(used)
+        self.stats["spec_steps"] += 1
+        self.stats["spec_proposed"] += g * n
+        self.stats["decode_steps"] += 1
+        self.stats["decode_time"] += time.perf_counter() - t0
 
     # ----------------------------------------------------------------- step
     @torch.inference_mode()
@@ -458,27 +763,34 @@ class Engine:
                 self.sched.finish(req)
                 finished.append(req)
 
-        batch, feed = [], []
+        # reserve through the step's last write: the fed token and n_draft
+        # proposals (spec), or decode_block - 1 slots past the fed token; a
+        # fresh admission grows once more than a re-admitted spec request,
+        # whose fed token's K/V the prefill wrote
+        ahead = self.n_draft if self.spec else self.decode_block - 1
+        run = self._spec_decode_batch if self.spec else self._decode_batch
+        batch = []
         for req in list(self.sched.running):
             if req.slot < 0:
                 continue  # preempted by an earlier grow() in this snapshot
-            if self.sched.grow(req):       # reserve the slot for this token
+            # grow() fails only by preempting req itself (slot -1)
+            while (req.slot >= 0 and self.rt.seq_length(req.slot)
+                   < req.context_len + ahead):
+                self.sched.grow(req)
+            if req.slot >= 0:
                 batch.append(req)
-                feed.append(req.output[-1])
-        # a later grow() may have preempted an earlier batch member
-        live = [(r, t) for r, t in zip(batch, feed) if r.slot >= 0]
-        batch, feed = [r for r, _ in live], [t for _, t in live]
+        batch = [r for r in batch if r.slot >= 0]  # late preemptions
         if batch:
             try:
-                next_tokens = self._decode_batch(batch, feed)
+                run(batch)
             except Exception as e:  # noqa: BLE001 — surfaced on the requests
                 tb = traceback.format_exc()
+                what = "spec decode" if self.spec else "decode"
                 for req in batch:
-                    self.sched.fail(req, f"decode failed: {e!r}\n{tb}")
+                    self.sched.fail(req, f"{what} failed: {e!r}\n{tb}")
                 finished.extend(batch)
                 return finished
-            for i, (req, nxt) in enumerate(zip(batch, next_tokens)):
-                self._append_token(req, i, nxt)
+            for req in batch:
                 if req.done:
                     self.sched.finish(req)
                     finished.append(req)

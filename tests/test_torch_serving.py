@@ -120,10 +120,16 @@ def test_engine_stream_and_unsupported_options(params):
     assert r.output == [t for _, ts, _ in events for t in ts]
     with pytest.raises(ValueError):
         eng.add_request([1] * 60, max_new_tokens=10)
-    for kw in (dict(prefix_cache=True), dict(decode_block=4),
-               dict(lora_rank=4)):
-        with pytest.raises(NotImplementedError):
-            Engine(tl.LlamaConfig.tiny(), pt, **kw)
+    with pytest.raises(NotImplementedError):
+        Engine(tl.LlamaConfig.tiny(), pt, lora_rank=4)
+    # prefix caching and multi-step decode (ported) stream the same tokens
+    for kw in (dict(prefix_cache=True), dict(decode_block=4)):
+        e = Engine(tl.LlamaConfig.tiny(), pt, total_pages=32, page_size=16,
+                   max_batch=2, max_seq_len=64, **kw)
+        r2 = e.add_request([1, 2, 3], max_new_tokens=3)
+        events = list(e.stream())
+        assert events[-1][2] and r2.error is None
+        assert [t for _, ts, _ in events for t in ts] == r.output
     # a quantized cache (ported) streams the same way
     q8 = Engine(tl.LlamaConfig.tiny(), pt, total_pages=8, page_size=128,
                 max_batch=2, max_seq_len=256, kv_quant=True)
@@ -138,21 +144,45 @@ def test_engine_stream_and_unsupported_options(params):
 # the weights' dtype, nor an 8-bit type with kv_quant).
 UNPORTED_ENGINE_OPTIONS = {
     "kv_dtype": torch.float16, "mesh": object(),
-    "tp_axis": "tp", "draft_cfg": jl.LlamaConfig.tiny(),
-    "draft_params": {}, "n_draft": 2, "prefix_cache": True,
-    "decode_block": 4, "lora_rank": 4, "lora_targets": ("wq",),
+    "tp_axis": "tp", "lora_rank": 4, "lora_targets": ("wq",),
     "max_loras": 2}
+# The decode-side options, ported: a value the JAX engine refuses, and its
+# ValueError (``True`` for draft_params: the target's own parameters)
+PORTED_ENGINE_OPTIONS = {
+    "draft_cfg": (dict(draft_cfg=jl.LlamaConfig.tiny()), "come together"),
+    "draft_params": (dict(draft_params=True), "come together"),
+    "n_draft": (dict(draft_cfg=jl.LlamaConfig.tiny(), draft_params=True,
+                     n_draft=0), "n_draft must be >= 1"),
+    "prefix_cache": (dict(prefix_cache=True, sliding_window=32),
+                     "prefix caching with sliding-window"),
+    "decode_block": (dict(decode_block=0), "decode_block must be >= 1")}
 
 
 @pytest.mark.parametrize("option", ["signature", "kv_quant",
-                                    *UNPORTED_ENGINE_OPTIONS])
+                                    "kv_dtype", "mesh", "tp_axis",
+                                    *PORTED_ENGINE_OPTIONS, "lora_rank",
+                                    "lora_targets", "max_loras"])
 def test_engine_takes_jax_keywords(params, option):
     """Engine takes every keyword of the JAX engine, in its order; an
     unported option at a non-default value raises NotImplementedError
     naming it. ``kv_quant`` (ported) builds the int8 cache with unit
     scales, and raises ValueError naming it at a page size other than
-    128, as the JAX engine does."""
-    _, pt = params
+    128, as the JAX engine does; each decode-side option (ported) raises
+    the JAX engine's ValueError at a value that engine refuses."""
+    pj, pt = params
+    if option in PORTED_ENGINE_OPTIONS:
+        kw, match = PORTED_ENGINE_OPTIONS[option]
+        for make, cfg, p, extra in (
+                (JaxEngine, jl.LlamaConfig, pj, dict(kv_dtype=jnp.float32)),
+                (Engine, tl.LlamaConfig, pt, {})):
+            kw_p = {k: (p if v is True else v) for k, v in kw.items()
+                    if k != "sliding_window"}
+            if "draft_cfg" in kw_p:
+                kw_p["draft_cfg"] = cfg.tiny()
+            with pytest.raises(ValueError, match=match):
+                make(cfg.tiny(sliding_window=kw.get("sliding_window")), p,
+                     **kw_p, **extra)
+        return
     if option == "kv_quant":
         eng = Engine(tl.LlamaConfig.tiny(), pt, total_pages=8, page_size=128,
                      max_batch=1, max_seq_len=256, kv_quant=True)

@@ -25,8 +25,9 @@ pytest.importorskip("jax")  # the JAX reference; skip where it is not installed
 MODULES = ("models.checkpoint", "models.llama", "ops.attention",
            "ops.flash_bwd", "ops.flash_fwd", "ops.kv_update", "ops.moe",
            "ops.paged_attention", "ops.quant", "ops.reference",
-           "ops.segments", "serving.engine", "serving.native",
-           "serving.sampling", "serving.scheduler", "utils.debug_inputs",
+           "ops.segments", "serving.engine", "serving.multistep",
+           "serving.native", "serving.prefix", "serving.sampling",
+           "serving.scheduler", "serving.spec", "utils.debug_inputs",
            "utils.metrics")
 
 # port-only parameters: each an extension of the port
@@ -180,8 +181,29 @@ def _unported_calls():
     return calls
 
 
-# options of the list above that the port now takes: their calls run
-PORTED = {"kv_fake_quant"}
+def _split_runs(call) -> bool:
+    """The call (fwd with kv_split=2 over 8 keys: four chunks) gives finite
+    values, and on random inputs the split equals the one-launch call in
+    the forward gates."""
+    import flash_attention_tpu_torch as fat
+    from flash_attention_tpu_torch.utils.metrics import assert_metrics
+    assert all(torch.isfinite(x).all() for x in call())
+    rng = np.random.default_rng(0)
+    q = torch.from_numpy(rng.standard_normal((1, 8, 2, 64),
+                                             dtype=np.float32))
+    o, lse = fat.fwd(q, q, q, True, kv_split=2)
+    want, want_lse = fat.fwd(q, q, q, True)
+    tols = {"atol": 5e-3, "mean_atol": 2e-4, "mean_rtol": 1e-2}
+    assert_metrics("o[kv_split]", o.numpy(), want.numpy(), tols)
+    assert_metrics("lse[kv_split]", lse.numpy(), want_lse.numpy(), tols)
+    return True
+
+
+# options of the list above that the port now takes: their calls run and
+# are checked (prefill with ``kv_fake_quant``: finite logits; ``kv_split``:
+# the split forward against the one-launch one)
+PORTED = {"kv_fake_quant": lambda call: torch.isfinite(call()[0]).all(),
+          "kv_split": _split_runs}
 
 
 @pytest.mark.parametrize("i", range(16))
@@ -189,14 +211,12 @@ def test_unported_options_raise(i):
     """Each option the port takes only at its JAX default raises
     NotImplementedError naming it at another value (Engine.add_adapter, LoRA
     registration, always raises); an option since ported (``PORTED``) runs
-    at that value instead (prefill with ``kv_fake_quant``: finite
-    logits)."""
+    at that value instead."""
     calls = _unported_calls()
     assert len(calls) == 16
     option, call = calls[i]
     if option in PORTED:
-        logits, _, _ = call()
-        assert torch.isfinite(logits).all()
+        assert PORTED[option](call)
         return
     with pytest.raises(NotImplementedError, match=option):
         call()
