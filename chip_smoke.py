@@ -55,6 +55,24 @@ drives the two paths on two models with random bf16 weights, full width:
   uncached engine's); speculative decoding (its first 2 layers as the
   draft, 4 proposals a step, verification logits against the plain
   engine's decode logits);
+* multi-LoRA on the Llama-3-8B weights (``Engine(lora_rank=16,
+  lora_targets=`` all seven projections ``, max_loras=4)``, adapters a, b,
+  c with a nonzero B): every request on the null adapter gives the tokens
+  and sampled rows of the engine without LoRA bit for bit; the 8 prompts
+  as a mixed batch (two rows on the base, two on each adapter), timed
+  against the engine without LoRA, through ``decode_block=4`` (the same
+  tokens) and chunked prefill (first rows within the gate); at 2 layers
+  each row against its adapter's ``merge_adapter`` model served alone,
+  with a wrong-adapter control that must fail, and card against CPU;
+  prefix caching that shares nothing across adapters; the same mixed
+  batch over the int8 base (qmm, then the delta). Then adapter-only
+  fine-tuning (the base frozen, Adam over the stacks) at full depth, after
+  a 2-layer check of the stacks' gradients against the CPU's;
+* Qwen2-7B (GQA group 7, QKV biases), full width and depth, imported
+  through ``models.import_hf`` from an HF-layout state dict of random
+  weights with its published config: the config and every tensor checked,
+  the forward and paged kernels held to their plain versions at its
+  widths, 2 layers card against CPU, then the 8 prompts served;
 * chunked prefill: the Llama-3-8B weights served with Mistral's traffic
   through ``Engine(chunk_size=2048)`` (``llama.prefill_chunk``: the
   segmented forward over [prefix pages || chunk]) and through an
@@ -71,8 +89,10 @@ dq, dkv and paged kernels are held against their plain versions
 live key, softcap 5 at b8 s2048, both modes together, and paged decode at W
 4096 with hole entries in the table), and the windowed kernels are timed
 against the same kernels without the window, which they must beat by the
-live area's margin. The segmented instances of the forward, dq and dkv
-(packed batches, varlen, chunked prefill) are held against their plain
+live area's margin (the softcap's library yardstick is one compiled
+``flex_attention`` call with a tanh ``score_mod``). The segmented
+instances of the forward, dq and dkv (packed batches, varlen, chunked
+prefill) are held against their plain
 versions at Llama-3-8B's and Gemma-2-9B's widths (``check_segments``: 8
 packed sequences against the dense call, bit for bit and in time, 12
 ragged sequences causal, non-causal, windowed and softcapped, and the
@@ -223,6 +243,37 @@ KV_QUANT_PAGES = TOTAL_PAGES * PAGE_SIZE // KV_QUANT_PAGE_SIZE
 KV_QUANT = {}
 # layers of the d-256 (Gemma-2-9B's widths) and d-64 quantized paged pools
 PAGED_QUANT_LAYERS = (16, 4)
+# Multi-LoRA on the Llama-3-8B weights: three adapters of rank 16 on all
+# seven projections in an engine of 4 adapter slots (and the base's), the 8
+# served prompts as a mixed batch, two rows on each. B ~ N(0, 0.03^2) moves
+# a 2-layer model's last-position logits by 0.44-0.69 in rel L2 (a CPU
+# model at a quarter of the width: the move scales with r B^2, not the
+# width), far past the 5e-2 gate the wrong-adapter control must fail.
+LORA_RANK = 16
+LORA_TARGETS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+LORA_KW = dict(lora_rank=LORA_RANK, lora_targets=LORA_TARGETS, max_loras=4)
+LORA_ROWS = (None, None, "a", "a", "b", "b", "c", "c")
+LORA_B_STD = 0.03
+# the 8 prompts (up to 1762 tokens) need a chunk below 2048 to take two
+LORA_CHUNK = 1024
+# prefix isolation: two prompts sharing PREFIX_LEN tokens, in three waves
+# (adapter a, b, a): the second reuses nothing, the third every whole page
+LORA_PREFIX_SUFFIXES = (100, 250)
+# the adapter-only fine-tune: Adam over the stacks, the base frozen
+LORA_LR = 1e-3
+LORA_STEPS = 4
+# Qwen2-7B's published config.json (Qwen/Qwen2-7B), the fields
+# transformers.Qwen2Config reads; with use_sliding_window false that class
+# sets sliding_window to None, as _hf_config does here (no transformers on
+# the card's machine)
+QWEN2_7B_JSON = dict(
+    model_type="qwen2", vocab_size=152064, hidden_size=3584,
+    intermediate_size=18944, num_hidden_layers=28, num_attention_heads=28,
+    num_key_value_heads=4, max_position_embeddings=131072,
+    rms_norm_eps=1e-06, rope_theta=1000000.0, use_sliding_window=False,
+    sliding_window=131072, max_window_layers=28, hidden_act="silu",
+    tie_word_embeddings=False, attention_dropout=0.0, bos_token_id=151643,
+    eos_token_id=151643)
 
 
 def _card_line() -> str:
@@ -937,13 +988,63 @@ def _band_pairs(torch, dev, sq, sk, causal, window):
     return int(mask.sum()) if mask is not None else sq * sk
 
 
-def check_window_softcap(torch, dev, cfg, card):
+def _flex_softcap(torch, q, k, v, do, cap, scale):
+    """The softcap's library yardstick: one ``flex_attention`` call with a
+    tanh ``score_mod`` (cap tanh(s / cap)) and a causal block mask,
+    compiled with ``torch.compile`` as its documentation requires (its
+    caches under the checkout's ``build/``). Returns (forward ms, backward
+    ms for dq, dk and dv together, what ran), the times None and the error
+    named when it does not compile or run."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    for var, sub in (("TORCHINDUCTOR_CACHE_DIR", "inductor"),
+                     ("TRITON_CACHE_DIR", "triton")):
+        os.environ.setdefault(var, os.path.join(here, "build", sub))
+    t0 = time.perf_counter()
+    try:
+        from torch.nn.attention.flex_attention import (create_block_mask,
+                                                       flex_attention)
+
+        def softcap(score, b, h, qi, ki):
+            return cap * torch.tanh(score / cap)
+
+        def causal(b, h, qi, ki):
+            return qi >= ki
+        mask = create_block_mask(causal, None, None, q.shape[1], k.shape[1],
+                                 device=q.device)
+        flex = torch.compile(flex_attention, dynamic=False)
+        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                      for x in (q, k, v))
+        dot = do.transpose(1, 2).contiguous()
+
+        def fwd():  # one compiled graph, forward and backward: the
+            # forward kernel is the inference one (it writes the LSE anyway)
+            return flex(qt, kt, vt, score_mod=softcap, block_mask=mask,
+                        scale=scale, enable_gqa=True)
+        y = fwd()
+        torch.autograd.grad(y, (qt, kt, vt), dot, retain_graph=True)
+        torch.cuda.synchronize()
+        built = time.perf_counter() - t0
+        f_ms = _time_ms(torch, fwd, 20)
+        b_ms = _time_ms(torch, lambda: torch.autograd.grad(
+            y, (qt, kt, vt), dot, retain_graph=True), 20)
+        return f_ms, b_ms, (f"flex_attention (torch.compile, tanh score_mod,"
+                            f" causal block mask, enable_gqa; compiled in "
+                            f"{built:.1f} s)")
+    except Exception as e:  # noqa: BLE001 — a yardstick only: record why not
+        return None, None, (f"flex_attention did not run ({type(e).__name__}"
+                            f": {str(e).splitlines()[0][:160]}; "
+                            f"{time.perf_counter() - t0:.1f} s)")
+
+
+def check_window_softcap(torch, dev, cfg, card, flex=True):
     """The forward, dq and dkv kernels' window and softcap modes against
     their plain versions, at WINDOW_CASES; the timed cases beside the same
     kernels without the mode on the same inputs (the windowed ones bounded
     by WINDOW_FWD_RATIO), and SDPA with the band as a boolean mask as the
-    window's library yardstick (no PyTorch call takes a softcap). Returns
-    {kernel: {label: numbers}} for the kernel table."""
+    window's library yardstick; the softcap's is one compiled
+    ``flex_attention`` call (``_flex_softcap``; about 20 s of compiling,
+    taken only with ``flex``). Returns {kernel: {label: numbers}} for the
+    kernel table."""
     from flash_attention_tpu_torch.ops import flash_bwd as fb
     from flash_attention_tpu_torch.ops import flash_fwd as fm
     from flash_attention_tpu_torch.ops.reference import (_build_mask,
@@ -1035,7 +1136,7 @@ def check_window_softcap(torch, dev, cfg, card):
                 torch, fb.dkv_reference, q, k, v, do, lse, di_r, **kw), 1,
                 warmup=0),
         }
-        lib, backend = {}, "none (no PyTorch call takes a softcap)"
+        lib, backend = {}, "not measured (flex_attention runs at d 128)"
         if cap is None:
             # SDPA with the band as a boolean mask, K/V heads expanded
             qt = q.transpose(1, 2)
@@ -1062,6 +1163,14 @@ def check_window_softcap(torch, dev, cfg, card):
             except RuntimeError as e:  # a yardstick only: record why not
                 backend = f"not measured ({str(e).splitlines()[0][:120]})"
             del qt, kt, vt
+        elif flex:
+            f_ms, b_ms, backend = _flex_softcap(torch, q, k, v, do, cap,
+                                                scale)
+            if f_ms is not None:
+                lib = {"flash_fwd": f_ms, "flash_bwd_dq": b_ms,
+                       "flash_bwd_dkv": b_ms}
+            print(f"{label}: library yardstick {backend}: forward {f_ms} "
+                  f"ms, backward (dq, dk, dv) {b_ms} ms [{card}]")
         pairs = _band_pairs(torch, dev, sq, sk, causal, window) * b * h
         n_in = 2 * (q.numel() + k.numel() + v.numel())
         flops = {"flash_fwd": 4.0 * d * pairs, "flash_bwd_dq": 6.0 * d * pairs,
@@ -1076,7 +1185,7 @@ def check_window_softcap(torch, dev, cfg, card):
             out[name][label] = {
                 "ms": ms, "plain_ms": plain[name], "bound_ms": bound_ms,
                 "bound_by": bound_by, "library_ms": lib.get(name),
-                "max_abs_err": errs[name],
+                "max_abs_err": errs[name], "library": backend,
                 "ms_without_mode": ms0, "ratio_to_without": ms / ms0}
             print(f"{name} {label}: kernel {ms:.4f} ms ({flops[name] / ms / 1e9:.1f}"
                   f" TFLOP/s, {bound_ms / ms:.1%} of the bound {bound_ms:.4f} ms"
@@ -1242,7 +1351,10 @@ def check_head_dim_256(torch, dev, cfg, card):
     for e in check_bwd(torch, dev, cfg, card):
         add(e["name"], e["shapes"])
     torch.cuda.empty_cache()
-    for name, shapes in check_window_softcap(torch, dev, cfg, card).items():
+    # the softcap's flex_attention yardstick is taken at d 128 only: its
+    # compile costs about 20 s a shape
+    for name, shapes in check_window_softcap(torch, dev, cfg, card,
+                                             flex=False).items():
         add(name, shapes)
     torch.cuda.empty_cache()
     with torch.inference_mode():
@@ -2270,13 +2382,16 @@ def _weight_bytes(params) -> str:
 
 def serve(torch, params, cfg, prompts, card, kernels, model,
           max_seq=MAX_SEQ, after_step=None, page_size=PAGE_SIZE,
-          total_pages=TOTAL_PAGES, profile=True, **engine_kw):
+          total_pages=TOTAL_PAGES, profile=True, adapters=None, loras=None,
+          **engine_kw):
     """Serve the prompts through the engine with exact launch counts,
     calling ``after_step(eng)`` after every engine step when given;
     ``engine_kw`` goes to the engine (kv_quant, kv_dtype, decode_block: a
-    decode step then runs decode_block model steps). ``profile`` runs
-    ``profile_serving`` after the timed run. Returns (the serving path's
-    launches, each request's tokens, the engine's throughput figures)."""
+    decode step then runs decode_block model steps; the LoRA options).
+    ``adapters`` ({name: adapter}) are registered and prompt i is served on
+    adapter ``loras[i]``. ``profile`` runs ``profile_serving`` after the
+    timed run. Returns (the serving path's launches, each request's tokens,
+    the engine's throughput figures)."""
     from flash_attention_tpu_torch import Engine
     from flash_attention_tpu_torch.models import llama
     from flash_attention_tpu_torch.ops import attention
@@ -2285,12 +2400,15 @@ def serve(torch, params, cfg, prompts, card, kernels, model,
                  native_allocator=True, **engine_kw)
     print(f"runtime: {'native C++' if eng.rt.is_native else 'Python'} "
           f"page allocator")
+    for name, ad in (adapters or {}).items():
+        eng.add_adapter(name, ad)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for k in kernels:
         k.launches = 0
     t0 = time.perf_counter()
-    reqs = [eng.add_request(p, MAX_NEW) for p in prompts]
+    reqs = [eng.add_request(p, MAX_NEW, lora=name) for p, name in
+            zip(prompts, loras or [None] * len(prompts))]
     eng.run(on_step=after_step)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -2408,18 +2526,20 @@ def profile_serving(torch, eng, prompts, card, model):
     profile_window(torch, f"{model} decode steps", eng.run, card)
 
 
-def _prefill_vs_decode(torch, params, cfg, p):
+def _prefill_vs_decode(torch, params, cfg, p, lora_ids=None):
     """Prefill logits at p[-1] (flash kernel), and the logits of one decode
     step on p[-1] after p[:-1]'s K/V went into pages (kv-write and paged
-    kernels), on the params' device."""
+    kernels), on the params' device (with LoRA stacks in params, on the
+    adapter slot ``lora_ids``)."""
     from flash_attention_tpu_torch.models import llama
     dev = params["embed"].device
     L, hk, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
     n = len(p)
     toks = torch.tensor([p], device=dev)
     a, _, _ = llama.prefill(params, toks, cfg, return_kv=False,
+                            lora_ids=lora_ids,
                             logit_rows=torch.tensor([n - 1], device=dev))
-    _, ks, vs = llama.prefill(params, toks[:, :-1], cfg)
+    _, ks, vs = llama.prefill(params, toks[:, :-1], cfg, lora_ids=lora_ids)
     npg = -(-n // PAGE_SIZE)
     kp = torch.zeros((L, hk, npg, PAGE_SIZE, hd),
                      dtype=params["embed"].dtype, device=dev)
@@ -2432,7 +2552,7 @@ def _prefill_vs_decode(torch, params, cfg, p):
         params, kp, vp, None, None, toks[:, -1], torch.tensor([n], **i32),
         torch.arange(npg, **i32)[None],
         torch.tensor([(n - 1) // PAGE_SIZE], **i32),
-        torch.tensor([(n - 1) % PAGE_SIZE], **i32), cfg)
+        torch.tensor([(n - 1) % PAGE_SIZE], **i32), cfg, lora_ids=lora_ids)
     return a[0].float().cpu(), b[0].float().cpu()
 
 
@@ -2490,7 +2610,7 @@ def _greedy_agree(x, y) -> bool:
     return bool(((x == x.max()) & (y == y.max())).any())
 
 
-def window_consistency(torch, dev, cfg, card, model, served=()):
+def window_consistency(torch, dev, cfg, card, model, served=(), params=None):
     """Prefill against decode, on the card (bf16, kernels) and on the CPU
     (fp32, plain versions) with the same weights, at CONSISTENCY_LENS: each
     side's two logits agree (rel L2 <= CONSISTENCY_REL_L2, equal greedy
@@ -2502,9 +2622,11 @@ def window_consistency(torch, dev, cfg, card, model, served=()):
     logits at the CPU's top two ids are printed to show it. With
     ``served`` (prompt lengths), the card's prefill logits at each such
     prompt's last position are held to the CPU's (rel L2 <=
-    CONSISTENCY_REL_L2)."""
+    CONSISTENCY_REL_L2). ``params`` (on the card) replaces the weights
+    drawn from the seed."""
     from flash_attention_tpu_torch.models import llama
-    params = llama.init_params(cfg, seed=SEED + 12, device=dev)
+    if params is None:
+        params = llama.init_params(cfg, seed=SEED + 12, device=dev)
     cpu = {n: w.to("cpu", torch.float32) for n, w in params.items()}
     torch.set_num_threads(os.cpu_count() or 1)
 
@@ -3226,6 +3348,9 @@ def train_consistency(torch, dev, cfg, card, model, n_layers=2):
     assert rel[worst] <= TRAIN_GRAD_REL_L2, (worst, rel[worst])
 
 
+TRAINED = {}  # model -> (training tokens/s, peak bytes), set by train()
+
+
 def train(torch, params, cfg, card, kernels, model, lr=LR,
           shape=(TRAIN_BATCH, TRAIN_SEQ)):
     """The training path: train_loss with remat, .backward() and plain SGD
@@ -3320,6 +3445,7 @@ def train(torch, params, cfg, card, kernels, model, lr=LR,
           f"{tokens / steady * 1e3:.1f} training tokens/s [{card}]")
     print(f"train {model} peak device memory: {peak / 2**30:.2f} GiB "
           f"[{card}]")
+    TRAINED[model] = (tokens / steady * 1e3, peak)
     print(f"{model} kernel launches per training step: {want}; on the "
           f"training path ({TRAIN_STEPS + 1} steps): {totals}")
     if moe:
@@ -3851,6 +3977,500 @@ def serve_spec(torch, params, cfg, prompts, card, kernels):
     return launches
 
 
+# Multi-LoRA and the HF import (PR-15 phases), on the Llama-3-8B weights and
+# on Qwen2-7B imported from an HF-layout state dict.
+
+
+def _lora_adapters(torch, cfg, dev):
+    """Adapters a, b and c: ``init_adapter``'s A with a nonzero B ~ N(0,
+    LORA_B_STD^2), bf16 on the card, from a seed."""
+    from flash_attention_tpu_torch.models import lora
+    g = torch.Generator(device=dev).manual_seed(SEED + 30)
+    out = {}
+    for name in "abc":
+        ad = lora.init_adapter(g, cfg, LORA_RANK, LORA_TARGETS,
+                               dtype=torch.bfloat16)
+        for _, b in ad.values():
+            b.copy_(torch.randn(b.shape, generator=g, device=dev)
+                    * LORA_B_STD)
+        out[name] = ad
+    return out
+
+
+def _logged_run(torch, params, cfg, prompts, kernels, loras=None,
+                adapters=None, max_new=None, **engine_kw):
+    """The prompts through an engine (prompt i on adapter ``loras[i]``),
+    every sampled row recorded. Returns (tokens per request, {(request
+    index, output position): row}, the engine's stats, the launches).
+    ``max_new`` defaults to MAX_NEW."""
+    from flash_attention_tpu_torch import Engine
+    max_new = MAX_NEW if max_new is None else max_new
+    eng = Engine(cfg, params, total_pages=TOTAL_PAGES, page_size=PAGE_SIZE,
+                 max_batch=MAX_BATCH, max_seq_len=MAX_SEQ,
+                 native_allocator=True, **engine_kw)
+    for name, ad in (adapters or {}).items():
+        eng.add_adapter(name, ad)
+    log = _SampleLog(eng, n=None)
+    for k in kernels:
+        k.launches = 0
+    reqs = [eng.add_request(p, max_new, lora=name) for p, name in
+            zip(prompts, loras or [None] * len(prompts))]
+    eng.run()
+    for r in reqs:
+        assert r.error is None, f"request {r.uid} failed: {r.error}"
+        assert len(r.output) == max_new, (r.uid, len(r.output))
+    rows = {(i, pos): log.by_pos[(r.uid, pos)] for i, r in enumerate(reqs)
+            for pos in range(max_new)}
+    out = ([r.output for r in reqs], rows, dict(eng.stats),
+           {k.name: k.launches for k in kernels})
+    del eng, log
+    return out
+
+
+def check_lora_delta(torch, dev, cfg, card):
+    """``lora.delta`` at full width on the card (rank 16, 8 rows of the
+    widest input, w_down's 14336) against float64 on the CPU: fp32
+    products (TF32 off) agree to about 1e-6; TF32 would give about 1e-3."""
+    from flash_attention_tpu_torch.models import lora
+    g = torch.Generator(device=dev).manual_seed(SEED + 33)
+    din, dout = cfg.hidden_dim, cfg.dim
+    h = torch.randn((MAX_BATCH, din), generator=g, device=dev)
+    a = torch.randn((5, din, LORA_RANK), generator=g, device=dev) * din**-0.5
+    b = torch.randn((5, LORA_RANK, dout), generator=g, device=dev)
+    a[0], b[0] = 0.0, 0.0  # slot 0, the null adapter
+    ids = torch.tensor([0, 1, 2, 3, 4, 1, 2, 3], device=dev)
+    got = lora.delta(h, {"w_down": (a, b)}, "w_down", ids)
+    h64, a64, b64 = (x.double().cpu() for x in (h, a, b))
+    want = torch.bmm(torch.bmm(h64[:, None], a64[ids.cpu()]),
+                     b64[ids.cpu()])[:, 0]
+    rel = _rel(torch, got.double().cpu(), want)
+    print(f"lora.delta w_down b{MAX_BATCH} {din} -> r{LORA_RANK} -> {dout} "
+          f"on the card (fp32, allow_tf32 "
+          f"{torch.backends.cuda.matmul.allow_tf32}) vs float64: rel L2 "
+          f"{rel:.3e}; slot 0 exactly zero: {not got[0].any()} [{card}]")
+    assert rel <= 1e-5 and not got[0].any(), rel
+
+
+def serve_lora(torch, params, cfg, prompts, outputs, card, kernels,
+               adapters):
+    """Multi-LoRA serving on the Llama-3-8B weights, full width and depth.
+
+    1. The null adapter: every request on slot 0 of a LoRA engine (all
+       seven targets, rank 16, 4 slots) gives the tokens and every sampled
+       row of an engine without LoRA, bit for bit.
+    2. The mixed batch (LORA_ROWS: two rows on the base, two on each of a,
+       b, c) timed against the engine without LoRA, in turns: its base
+       rows' tokens equal that engine's, every adapter row's differ; the
+       same batch with ``decode_block`` 4 (every rollout with no readback)
+       gives its tokens exactly, and chunked (LORA_CHUNK) its first rows
+       within CONSISTENCY_REL_L2.
+    3. At 2 layers: each row against its adapter's ``merge_adapter`` model
+       served alone (first and, where the first tokens agree, second rows
+       within CONSISTENCY_REL_L2), and against every other adapter's (the
+       control: each must fail that gate); the card against the CPU's
+       plain versions, prefill and decode, on two adapters.
+    4. Prefix caching: two prompts sharing PREFIX_LEN tokens in three
+       waves, on adapter a, b, then a: nothing reused across adapters,
+       every whole page within one.
+    Returns {path: launches}."""
+    from flash_attention_tpu_torch import Engine
+    from flash_attention_tpu_torch.models import lora
+    from flash_attention_tpu_torch.serving import multistep
+    dev = params["embed"].device
+    paths = {}
+    check_lora_delta(torch, dev, cfg, card)
+    # 1. slot 0 against no LoRA, bit for bit
+    t0 = time.perf_counter()
+    tok0, rows0, _, _ = _logged_run(torch, params, cfg, prompts, kernels)
+    tok1, rows1, _, _ = _logged_run(torch, params, cfg, prompts, kernels,
+                                    adapters=adapters, **LORA_KW)
+    same = sum(torch.equal(rows0[k], rows1[k]) for k in rows0)
+    print(f"Llama-3-8B LoRA engine, every request on slot 0 (the null "
+          f"adapter): tokens identical to the engine without LoRA "
+          f"{tok0 == tok1}, sampled rows bit-identical {same} of "
+          f"{len(rows0)} ({time.perf_counter() - t0:.1f} s) [{card}]")
+    assert tok0 == tok1 and same == len(rows0), same
+    assert tok0 == outputs, "the engine without LoRA changed its tokens"
+    del rows0, rows1
+    # 2. the mixed batch against no LoRA, in turns, timed
+    figs = {}
+    for label, kw in (("no LoRA", {}),
+                      ("LoRA mixed", dict(adapters=adapters,
+                                          loras=LORA_ROWS, **LORA_KW)),
+                      ("no LoRA (again)", {}),
+                      ("LoRA mixed (again)", dict(adapters=adapters,
+                                                  loras=LORA_ROWS,
+                                                  **LORA_KW))):
+        launches, out, st = serve(torch, params, cfg, prompts, card,
+                                  kernels, f"Llama-3-8B {label}",
+                                  profile=False, **kw)
+        figs.setdefault(label.split(" (")[0], []).append((out, st))
+        if label == "LoRA mixed":
+            paths["serve_lora"] = launches
+    (plain, _), (mixed, _) = figs["no LoRA"][0], figs["LoRA mixed"][0]
+    assert all(f[0] == plain for f in figs["no LoRA"])
+    assert all(f[0] == mixed for f in figs["LoRA mixed"])
+    base_rows = [i for i, n in enumerate(LORA_ROWS) if n is None]
+    ad_rows = [i for i, n in enumerate(LORA_ROWS) if n is not None]
+    print(f"Llama-3-8B LoRA mixed batch {list(LORA_ROWS)}: base rows' tokens "
+          f"equal the engine without LoRA: "
+          f"{all(mixed[i] == plain[i] for i in base_rows)}; adapter rows "
+          f"whose tokens differ from it: "
+          f"{sum(mixed[i] != plain[i] for i in ad_rows)} of {len(ad_rows)}")
+    assert all(mixed[i] == plain[i] for i in base_rows)
+    assert all(mixed[i] != plain[i] for i in ad_rows)
+    for what in ("prefill", "decode"):
+        key = f"{what}_tokens_per_s"
+        with_l = [st[key] for _, st in figs["LoRA mixed"]]
+        without = [st[key] for _, st in figs["no LoRA"]]
+        print(f"Llama-3-8B {what} tokens/s with LoRA (rank {LORA_RANK}, "
+              f"{len(LORA_TARGETS)} targets, mixed batch) "
+              f"{[round(x, 1) for x in with_l]} vs without "
+              f"{[round(x, 1) for x in without]}: "
+              f"{max(with_l) / max(without):.3f}x (best of two each) "
+              f"[{card}]")
+    with _NoSync(torch, multistep, "decode_rollout") as guard:
+        paths["serve_lora_multistep"], out_k, st_k = serve(
+            torch, params, cfg, prompts, card, kernels,
+            f"Llama-3-8B LoRA mixed decode_block {DECODE_BLOCK}",
+            profile=False, adapters=adapters, loras=LORA_ROWS,
+            decode_block=DECODE_BLOCK, **LORA_KW)
+    print(f"Llama-3-8B LoRA mixed decode_block {DECODE_BLOCK}: tokens "
+          f"identical {out_k == mixed}; {guard.calls} rollouts with no "
+          f"readback")
+    assert out_k == mixed and guard.calls == st_k["decode_steps"] > 0
+    _, rows_u, _, _ = _logged_run(torch, params, cfg, prompts, kernels,
+                                  LORA_ROWS, adapters, max_new=1, **LORA_KW)
+    tok_c, rows_c, st_c, paths["serve_lora_chunked"] = _logged_run(
+        torch, params, cfg, prompts, kernels, LORA_ROWS, adapters, max_new=1,
+        chunk_size=LORA_CHUNK, **LORA_KW)
+    rels = [_rel(torch, rows_c[(i, 0)], rows_u[(i, 0)])
+            for i in range(len(prompts))]
+    agree = sum(_greedy_agree(rows_c[(i, 0)], rows_u[(i, 0)])
+                for i in range(len(prompts)))
+    print(f"Llama-3-8B LoRA mixed, chunk_size {LORA_CHUNK} "
+          f"({st_c['prefill_chunks']} chunks) vs unchunked, first sampled "
+          f"rows: rel L2 {[f'{r:.3e}' for r in rels]} (gate "
+          f"{CONSISTENCY_REL_L2}); greedy agrees (ties counted) {agree}/"
+          f"{len(rels)} [{card}]")
+    assert st_c["prefill_chunks"] >= 2 and max(rels) <= CONSISTENCY_REL_L2
+    assert paths["serve_lora_chunked"]["flash_fwd"] == \
+        cfg.n_layers * st_c["prefill_chunks"]
+    del rows_u, rows_c
+    torch.cuda.empty_cache()
+
+    # 3. at 2 layers: merged models, the control, and card vs CPU
+    t0 = time.perf_counter()
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    p2 = _cut_layers(params, 2)
+    ads2 = {n: {t: (a[:2], b[:2]) for t, (a, b) in ad.items()}
+            for n, ad in adapters.items()}
+    tok_l, rows_l, _, _ = _logged_run(torch, p2, cfg2, prompts, kernels,
+                                      LORA_ROWS, ads2, max_new=2, **LORA_KW)
+    merged = {}
+    for name in (None, *ads2):
+        m = p2 if name is None else lora.merge_adapter(p2, ads2[name])
+        tok_m, rows_m, _, _ = _logged_run(torch, m, cfg2, prompts, kernels,
+                                          max_new=2)
+        merged[name] = (tok_m, rows_m)
+        del m
+    match, control = [], []
+    for i, own in enumerate(LORA_ROWS):
+        tok_m, rows_m = merged[own]
+        match.append(_rel(torch, rows_l[(i, 0)], rows_m[(i, 0)]))
+        if tok_l[i][0] == tok_m[i][0]:  # the same fed token: decode too
+            match.append(_rel(torch, rows_l[(i, 1)], rows_m[(i, 1)]))
+        control += [_rel(torch, rows_l[(i, 0)], merged[other][1][(i, 0)])
+                    for other in merged if other != own]
+    print(f"Llama-3-8B L2 LoRA mixed batch vs each row's merge_adapter model "
+          f"served alone: rel L2 max {max(match):.3e} over {len(match)} rows "
+          f"(first and, where the fed tokens agree, second; gate "
+          f"{CONSISTENCY_REL_L2}); control, each row against the "
+          f"{len(merged) - 1} other models: rel L2 min {min(control):.3e} "
+          f"(must fail the gate) [{card}]")
+    assert max(match) <= CONSISTENCY_REL_L2, match
+    assert min(control) > CONSISTENCY_REL_L2, control
+    del rows_l, merged
+    stacks = lora.stack_adapters(cfg2, list(ads2.values()), LORA_RANK,
+                                 LORA_TARGETS, 5, dtype=torch.bfloat16,
+                                 device=dev)
+    card_p = {**p2, "lora": stacks}
+    cpu_p = {n: w.to("cpu", torch.float32) for n, w in p2.items()}
+    cpu_p["lora"] = {t: (a.float().cpu(), b.float().cpu())
+                     for t, (a, b) in stacks.items()}
+    torch.set_num_threads(os.cpu_count() or 1)
+    with torch.inference_mode():
+        for i in (7, 5):  # the two shortest prompts: on c and on b
+            slot = " abc".index(LORA_ROWS[i])
+            p = prompts[i]
+            a, b = _prefill_vs_decode(torch, card_p, cfg2, p,
+                                      torch.tensor([slot], device=dev))
+            ac, bc = _prefill_vs_decode(torch, cpu_p, cfg2, p, [slot])
+            r = [_rel(torch, x, y) for x, y in ((b, a), (bc, ac), (a, ac),
+                                                (b, bc))]
+            print(f"Llama-3-8B L2 LoRA slot {slot}, prompt {len(p)} tokens: "
+                  f"prefill vs decode card {r[0]:.3e}, CPU {r[1]:.3e}; card "
+                  f"vs CPU prefill {r[2]:.3e}, decode {r[3]:.3e} [{card}]")
+            assert max(r) <= CONSISTENCY_REL_L2, r
+            assert _greedy_agree(ac, bc)
+    del card_p, cpu_p, stacks
+    print(f"Llama-3-8B L2 LoRA checks: {time.perf_counter() - t0:.1f} s")
+
+    # 4. prefix caching keeps adapters apart
+    rng = np.random.default_rng(SEED + 31)
+    shared = list(map(int, rng.integers(0, cfg.vocab_size, PREFIX_LEN)))
+    pp = [shared + list(map(int, rng.integers(0, cfg.vocab_size, n)))
+          for n in LORA_PREFIX_SUFFIXES]
+    eng = Engine(cfg, params, total_pages=TOTAL_PAGES, page_size=PAGE_SIZE,
+                 max_batch=MAX_BATCH, max_seq_len=MAX_SEQ,
+                 native_allocator=True, prefix_cache=True, **LORA_KW)
+    for name in "ab":
+        eng.add_adapter(name, adapters[name])
+    reused, outs = [], []
+    for name in "aba":
+        reqs = [eng.add_request(p, 4, lora=name) for p in pp]
+        eng.run()
+        assert all(r.error is None for r in reqs)
+        reused.append(eng.stats.get("prefix_reused_tokens", 0))
+        outs.append([r.output for r in reqs])
+    whole = sum((len(p) - 1) // PAGE_SIZE * PAGE_SIZE for p in pp)
+    print(f"Llama-3-8B LoRA prefix cache, prompts {[len(p) for p in pp]} "
+          f"sharing {PREFIX_LEN} tokens, waves on a, b, a: reused tokens "
+          f"after each {reused} (want [0, 0, {whole}]); wave 3's tokens "
+          f"equal wave 1's {outs[2] == outs[0]} [{card}]")
+    assert reused == [0, 0, whole], reused
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return paths
+
+
+def train_lora_consistency(torch, dev, cfg, card, model, n_layers=2):
+    """LoRA fine-tuning at full width, ``n_layers`` layers, b1 s256: the
+    same weights and stacks (an adapter with a nonzero B on slot 1) through
+    the kernels (bf16, card) and through the plain versions (fp32, CPU);
+    the loss and every stack's gradient must agree (TRAIN_LOSS_REL,
+    TRAIN_GRAD_REL_L2)."""
+    from flash_attention_tpu_torch.models import llama, lora
+    cfg2 = dataclasses.replace(cfg, n_layers=n_layers)
+    params = llama.init_params(cfg2, seed=SEED + 4, device=dev)
+    ad = _lora_adapters(torch, cfg2, dev)["a"]
+    stacks = lora.stack_adapters(cfg2, [ad], LORA_RANK, LORA_TARGETS, 2,
+                                 dtype=torch.bfloat16, device=dev)
+    toks, tgt = _batch(torch, dev, cfg.vocab_size, 1, 256, SEED + 4)
+    torch.set_num_threads(os.cpu_count() or 1)
+    out = []
+    for device, dtype in ((dev, torch.bfloat16), ("cpu", torch.float32)):
+        p = {n: w.to(device, dtype) for n, w in params.items()}
+        st = {t: tuple(x.detach().to(device, dtype).requires_grad_()
+                       for x in ab) for t, ab in stacks.items()}
+        t0 = time.perf_counter()
+        loss = llama.train_loss({**p, "lora": st}, toks.to(device),
+                                tgt.to(device), cfg2,
+                                lora_ids=torch.ones(1, dtype=torch.int64,
+                                                    device=device))
+        loss.backward()
+        out.append((float(loss.detach()),
+                    {f"{t} {'AB'[j]}": x.grad.float().cpu()
+                     for t, ab in st.items() for j, x in enumerate(ab)},
+                    time.perf_counter() - t0))
+        del p, st
+    (l_card, g_card, t_card), (l_cpu, g_cpu, t_cpu) = out
+    rel = {n: _rel(torch, g_card[n], g_cpu[n]) for n in g_cpu}
+    worst = max(rel, key=rel.get)
+    loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
+    print(f"{model} LoRA train consistency (L{n_layers}, b1 s256, rank "
+          f"{LORA_RANK}, {len(LORA_TARGETS)} targets): loss card bf16 "
+          f"{l_card:.6f} vs CPU fp32 {l_cpu:.6f} (rel {loss_rel:.3e}); "
+          f"stack gradients rel L2: "
+          + ", ".join(f"{n} {r:.3e}" for n, r in sorted(rel.items()))
+          + f"; worst {worst} (card {t_card:.2f} s, CPU {t_cpu:.2f} s) "
+          f"[{card}]")
+    assert all(torch.isfinite(g).all() and g[:, 1].any()
+               for g in g_card.values())
+    assert loss_rel <= TRAIN_LOSS_REL, loss_rel
+    assert rel[worst] <= TRAIN_GRAD_REL_L2, (worst, rel[worst])
+
+
+def train_lora(torch, params, cfg, card, kernels, model):
+    """Adapter-only fine-tuning at full width and depth: the base frozen,
+    one fresh adapter's stacks (B = 0) the only leaves, ``train_loss(...,
+    lora_ids=)`` with remat, ``.backward()`` and Adam (LORA_LR) for
+    LORA_STEPS steps on the fixed training batch, exact launch counts a
+    step. The first loss equals the no-adapter loss (TRAIN_FWD_REL), dA is
+    exactly 0 and dB is not; the loss falls. Returns the path's
+    launches."""
+    from flash_attention_tpu_torch.models import llama, lora
+    dev = params["embed"].device
+    for w in params.values():
+        w.requires_grad_(False)
+        w.grad = None
+    g = torch.Generator(device=dev).manual_seed(SEED + 32)
+    ad = lora.init_adapter(g, cfg, LORA_RANK, LORA_TARGETS,
+                           dtype=torch.bfloat16)
+    stacks = lora.stack_adapters(cfg, [ad], LORA_RANK, LORA_TARGETS, 2,
+                                 dtype=torch.bfloat16, device=dev)
+    leaves = [x.requires_grad_() for ab in stacks.values() for x in ab]
+    opt = torch.optim.Adam(leaves, lr=LORA_LR)
+    batch, seq = TRAIN_BATCH, TRAIN_SEQ
+    toks, tgt = _batch(torch, dev, cfg.vocab_size, batch, seq, SEED)
+    ids = torch.ones(batch, dtype=torch.int64, device=dev)
+    with torch.no_grad():
+        base = float(llama.train_loss(params, toks, tgt, cfg))
+    L = cfg.n_layers
+    want = {"flash_fwd": 2 * L, "flash_bwd_di": L, "flash_bwd_dq": L,
+            "flash_bwd_dkv": L}
+    totals = dict.fromkeys(want, 0)
+    losses, step_ms = [], []
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(LORA_STEPS):
+        for k in kernels:
+            k.launches = 0
+        t0 = time.perf_counter()
+        loss = llama.train_loss({**params, "lora": stacks}, toks, tgt, cfg,
+                                remat=True, lora_ids=ids)
+        loss.backward()
+        if i == 0:
+            zero_a = all(not a.grad.any() for a, _ in stacks.values())
+            live_b = all(b.grad[:, 1].any() for _, b in stacks.values())
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+        losses.append(float(loss.detach()))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        launches = {k.name: k.launches for k in kernels if k.name in want}
+        assert launches == want, (i, launches)
+        for n in want:
+            totals[n] += launches[n]
+    peak = torch.cuda.max_memory_allocated()
+    with torch.no_grad():
+        final = float(llama.train_loss({**params, "lora": stacks}, toks, tgt,
+                                       cfg, lora_ids=ids))
+    steady = float(np.mean(step_ms[1:]))
+    rate = batch * seq / steady * 1e3
+    full_rate, full_peak = TRAINED.get(model, (float("nan"), float("nan")))
+    print(f"train_lora {model} L{L} b{batch} s{seq} remat, rank {LORA_RANK} "
+          f"on {len(LORA_TARGETS)} targets, Adam lr {LORA_LR}, base frozen: "
+          f"losses {[round(x, 6) for x in losses]}, after the last step "
+          f"{final:.6f}; first loss (B = 0) vs the no-adapter loss "
+          f"{base:.6f} (rel {abs(losses[0] - base) / abs(base):.2e}); step "
+          f"1: dA exactly 0 {zero_a}, dB non-zero {live_b}")
+    print(f"train_lora {model} step ms {[round(x, 3) for x in step_ms]}; "
+          f"steady {steady:.3f} ms, {rate:.1f} training tokens/s "
+          f"({rate / full_rate:.3f}x full training's {full_rate:.1f}); peak "
+          f"device memory {peak / 2**30:.2f} GiB (full training "
+          f"{full_peak / 2**30:.2f} GiB) [{card}]")
+    print(f"{model} kernel launches per LoRA training step: {want}")
+    assert zero_a and live_b
+    assert abs(losses[0] - base) <= TRAIN_FWD_REL * abs(base), (losses, base)
+    assert all(np.isfinite(losses)) and final < losses[0], (losses, final)
+    for x in leaves:
+        x.requires_grad_(False)
+    return totals
+
+
+def _hf_config(fields):
+    """An object with the attributes ``transformers.Qwen2Config(**fields)``
+    holds that ``config_from_hf`` reads: sliding_window is None unless
+    use_sliding_window."""
+    import types
+    kw = dict(fields)
+    if not kw.get("use_sliding_window", False):
+        kw["sliding_window"] = None
+    return types.SimpleNamespace(**kw)
+
+
+def _hf_state_dict(params, cfg):
+    """The params laid out as an HF Qwen-2 / Llama state dict: each
+    projection an (out, in) view of its layer's (in, out) weight, the
+    norms, biases and embedding as they are."""
+    sd = {"model.embed_tokens.weight": params["embed"],
+          "model.norm.weight": params["norm_out"],
+          "lm_head.weight": params["lm_head"].t()}
+    names = {"wq": "self_attn.q_proj", "wk": "self_attn.k_proj",
+             "wv": "self_attn.v_proj", "wo": "self_attn.o_proj",
+             "w_gate": "mlp.gate_proj", "w_up": "mlp.up_proj",
+             "w_down": "mlp.down_proj"}
+    for i in range(cfg.n_layers):
+        pre = f"model.layers.{i}."
+        for ours, theirs in names.items():
+            sd[pre + theirs + ".weight"] = params[ours][i].t()
+        for ours, theirs in (("bq", "q_proj"), ("bk", "k_proj"),
+                             ("bv", "v_proj")):
+            if ours in params:
+                sd[pre + f"self_attn.{theirs}.bias"] = params[ours][i]
+        sd[pre + "input_layernorm.weight"] = params["norm_attn"][i]
+        sd[pre + "post_attention_layernorm.weight"] = params["norm_mlp"][i]
+    return sd
+
+
+def serve_qwen2_hf(torch, dev, card, kernels, entries):
+    """Qwen2-7B (28/4 heads: a GQA group of 7; QKV biases), full width and
+    depth, imported through ``import_hf``: ``init_params`` on the card laid
+    out as an HF state dict (views), its config from QWEN2_7B_JSON. The
+    config must be ``LlamaConfig.qwen2_7b()``, every imported tensor its
+    source bit for bit (the source is then freed). The forward and paged
+    kernels are held to their plain versions at its widths (merged into
+    the kernels line as "qwen2" shapes), the imported weights' first 2
+    layers card against CPU (``window_consistency``), then the 8 prompts
+    served and prefill held to decode. Returns the serving path's
+    launches."""
+    from flash_attention_tpu_torch.models import import_hf, llama
+    t0 = time.perf_counter()
+    cfg = import_hf.config_from_hf(_hf_config(QWEN2_7B_JSON))
+    want = llama.LlamaConfig.qwen2_7b()
+    print(f"Qwen2-7B config_from_hf(config.json fields) == "
+          f"LlamaConfig.qwen2_7b(): {cfg == want} (group "
+          f"{cfg.n_heads // cfg.n_kv_heads}, attn_bias {cfg.attn_bias})")
+    assert cfg == want, cfg
+    src = llama.init_params(cfg, seed=SEED, device=dev,
+                            dtype=torch.bfloat16)
+    sd = _hf_state_dict(src, cfg)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    params = import_hf.from_hf_state_dict(sd, cfg, dtype=torch.bfloat16,
+                                          device=dev)
+    torch.cuda.synchronize()
+    t_import = time.perf_counter() - t1
+    same = [n for n in src if torch.equal(params[n], src[n])]
+    print(f"Qwen2-7B from_hf_state_dict on the card: {len(sd)} HF tensors "
+          f"-> {len(params)} stacked in {t_import:.3f} s; bit-identical to "
+          f"the source: {len(same)} of {len(src)} ({sorted(src)}); "
+          f"{_weight_bytes(params)} [{card}]")
+    assert sorted(params) == sorted(src) and len(same) == len(src)
+    assert all(w.is_contiguous() and w.device.type == dev.type
+               for w in params.values())
+    del src, sd
+    gc.collect()
+    torch.cuda.empty_cache()
+    bucket = max(32, 1 << (max(map(len, _prompts(cfg.vocab_size))) - 1)
+                 .bit_length())
+    label = (f"qwen2 h{cfg.n_heads}/{cfg.n_kv_heads} (group "
+             f"{cfg.n_heads // cfg.n_kv_heads})")
+    with torch.inference_mode():
+        for e in (check_flash(torch, dev, bucket, cfg, card),
+                  check_paged(torch, dev, cfg, card)):
+            main_e = next(x for x in entries if x["name"] == e["name"])
+            main_e["shapes"][label] = {k: e[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "max_abs_err")}
+    torch.cuda.empty_cache()
+    window_consistency(torch, dev, dataclasses.replace(cfg, n_layers=2), card,
+                       "Qwen2-7B L2 (imported)",
+                       params=_cut_layers(params, 2))
+    prompts = _prompts(cfg.vocab_size)
+    launches, _, _ = serve(torch, params, cfg, prompts, card, kernels,
+                           "Qwen2-7B (imported)", profile=False)
+    consistency(torch, params, cfg, prompts, "Qwen2-7B (imported)")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"Qwen2-7B phase: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4037,10 +4657,28 @@ def main() -> int:
                                      kernels)
     print(f"long KV and decode options phase: "
           f"{time.perf_counter() - t0:.1f} s")
+    mark("serve_lora")
+    # multi-LoRA on the same weights: the null adapter, the mixed batch
+    # (timed), multi-step, chunked, merged models at 2 layers, card vs CPU
+    # and prefix isolation
+    t0 = time.perf_counter()
+    adapters = _lora_adapters(torch, cfg, dev)
+    paths.update(serve_lora(torch, params, cfg, prompts, outputs, card,
+                            kernels, adapters))
+    print(f"serve_lora phase: {time.perf_counter() - t0:.1f} s")
     mark("Llama-3-8B training")
     train_consistency(torch, dev, cfg, card, "Llama-3-8B")
     torch.cuda.empty_cache()
     paths["train"] = train(torch, params, cfg, card, kernels, "Llama-3-8B")
+    mark("train_lora")
+    # adapter-only fine-tuning: a 2-layer card-vs-CPU check of the stacks'
+    # gradients, then full depth with the base frozen
+    t0 = time.perf_counter()
+    train_lora_consistency(torch, dev, cfg, card, "Llama-3-8B")
+    torch.cuda.empty_cache()
+    paths["train_lora"] = train_lora(torch, params, cfg, card, kernels,
+                                     "Llama-3-8B")
+    print(f"train_lora phase: {time.perf_counter() - t0:.1f} s")
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -4065,6 +4703,21 @@ def main() -> int:
         torch.cuda.empty_cache()
         paths[f"serve_int{bits}"], q_outputs, _ = serve(
             torch, qparams, cfg, prompts, card, kernels, model)
+        if bits == 8:
+            # LoRA over the int8 base: each projection's qmm, then its delta
+            paths["serve_int8_lora"], ql_outputs, _ = serve(
+                torch, qparams, cfg, prompts, card, kernels,
+                f"{model} + LoRA mixed", profile=False, adapters=adapters,
+                loras=LORA_ROWS, **LORA_KW)
+            same = [ql_outputs[i] == q_outputs[i] for i, n in
+                    enumerate(LORA_ROWS) if n is None]
+            moved = [ql_outputs[i] != q_outputs[i] for i, n in
+                     enumerate(LORA_ROWS) if n is not None]
+            print(f"{model} + LoRA mixed batch: base rows' tokens equal the "
+                  f"int8 engine without LoRA {all(same)}; adapter rows that "
+                  f"differ {sum(moved)} of {len(moved)}")
+            assert all(same) and all(moved)
+            del adapters
         consistency(torch, qparams, cfg, prompts, model)
         quant_quality(torch, ref_rows,
                       generated_logits(torch, qparams, cfg, prompts, outputs),
@@ -4076,6 +4729,12 @@ def main() -> int:
     quant_card_vs_cpu(torch, dev, cfg, card)
     gc.collect()
     torch.cuda.empty_cache()
+
+    mark("Qwen2-7B from an HF state dict")
+    # Qwen2-7B (GQA group 7, QKV biases) imported through import_hf at full
+    # width and depth, then served
+    paths["serve_qwen2_hf"] = serve_qwen2_hf(torch, dev, card, kernels,
+                                             entries)
 
     mark("Mixtral-8x7B serving")
     # 5. Mixtral-8x7B, full width, 16 layers: serving, prefill vs decode

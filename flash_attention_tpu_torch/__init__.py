@@ -19,7 +19,9 @@ of keys and merges the chunks with ``merge_partials``. The engine's
 decode-side options run on the same kernels: multi-step decode
 (``Engine(decode_block=)``), prefix caching (``Engine(prefix_cache=True)``)
 and speculative decoding (``Engine(draft_cfg=, draft_params=, n_draft=)``).
-Imports no JAX.
+Multi-LoRA (``models.lora``, ``Engine(lora_rank=)``, ``lora_ids``) serves
+and fine-tunes many adapters over one base, and ``models.import_hf`` builds
+the params from an HF state dict. Imports no JAX.
 """
 
 from flash_attention_tpu_torch.ops.attention import (SegmentIds, bwd,

@@ -50,7 +50,15 @@ product with such a weight then runs ``ops.quant.quantized_matmul`` (the
 qmm kernel on the card). A quantized model serves; ``train_loss`` on it
 raises, as the JAX package has no gradient for the quantized matmul.
 
-Outside this slice (they raise): LoRA, quantized MoE experts and tensor
+Multi-LoRA (``models.lora``): params may carry ``"lora"``, stacked adapters
+{target: (A (L, slots, din, r), B (L, slots, r, dout))}, and ``prefill``,
+``decode_step``, ``prefill_chunk`` and ``train_loss`` then take
+``lora_ids`` ((b,) slot per row) and add each row's delta after every
+targeted projection (the attention's four and the FFN's three), at the JAX
+package's points; over a quantized base the delta follows the quantized
+matmul. Without stacks ``lora_ids`` is ignored, as in JAX.
+
+Outside this slice (they raise): quantized MoE experts and tensor
 parallelism (and with it expert parallelism). On the card, head dims other
 than 64, 128 and 256 raise in the attention kernels.
 """
@@ -63,6 +71,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from flash_attention_tpu_torch.models import lora
 from flash_attention_tpu_torch.models.checkpoint import to_tensor
 from flash_attention_tpu_torch.ops.attention import flash_attention, fwd
 from flash_attention_tpu_torch.ops.kv_update import (quantize_write_token_kv,
@@ -73,7 +82,6 @@ from flash_attention_tpu_torch.ops.quant import (KV_QMAX, QuantizedTensor,
                                                  _quantize_token,
                                                  quantize_int4, quantize_int8,
                                                  quantized_matmul)
-from flash_attention_tpu_torch.utils.options import reject_unported
 
 
 @dataclasses.dataclass(frozen=True)
@@ -212,7 +220,6 @@ def check_supported(cfg: LlamaConfig, params=None, tp_axis=None) -> None:
         "tensor parallelism (tp_axis)": tp_axis is not None,
     }
     if params is not None:
-        unsupported["LoRA adapters"] = "lora" in params
         unsupported["quantized MoE experts"] = (
             "w_router" in params and is_quantized(params))
         unsupported["weights other than tensors and QuantizedTensors"] = any(
@@ -332,10 +339,13 @@ def params_from_jax(np_params: dict, device, dtype) -> dict:
     A quantized leaf is any value with ``values``, ``scales`` and ``bits``
     (the JAX ``QuantizedTensor`` after ``jax.tree.map(np.asarray, ...)``):
     it becomes a ``QuantizedTensor`` with int8 values and fp32 scales, moved
-    but never cast to ``dtype``."""
+    but never cast to ``dtype``. A ``"lora"`` entry (JAX's stacks,
+    {target: (A, B)}) becomes a dict of (A, B) tensor pairs."""
     out = {}
     for name, a in np_params.items():
-        if all(hasattr(a, f) for f in ("values", "scales", "bits")):
+        if name == "lora":
+            out[name] = lora.adapter_from_jax(a, device, dtype)
+        elif all(hasattr(a, f) for f in ("values", "scales", "bits")):
             out[name] = QuantizedTensor(to_tensor(a.values).to(device),
                                         to_tensor(a.scales).to(device),
                                         int(a.bits))
@@ -397,13 +407,38 @@ def _layer_weights(params) -> list[dict]:
     per = {n: unbind(params[n]) for n in _LAYER_NAMES + _OPTIONAL_NAMES
            if n in params}
     n_layers = params["norm_attn"].shape[0]
-    return [{n: w[i] for n, w in per.items()} for i in range(n_layers)]
+    layers = [{n: w[i] for n, w in per.items()} for i in range(n_layers)]
+    if "lora" in params:  # each layer's (A, B) slices under "lora"
+        stacks = {t: (a.unbind(0), b.unbind(0))
+                  for t, (a, b) in params["lora"].items()}
+        for i, w in enumerate(layers):
+            w["lora"] = {t: (a[i], b[i]) for t, (a, b) in stacks.items()}
+    return layers
 
 
-def _proj(h, w, name):
+def _lora_ids(params, lora_ids, device):
+    """The rows' adapter slots as a (b,) device tensor, or None when params
+    carry no LoRA stacks (``lora_ids`` is then ignored, as in JAX). Raises
+    the JAX package's errors."""
+    if "lora" not in params:
+        return None
+    if lora_ids is None:
+        raise ValueError("params carry LoRA stacks but no lora_ids given")
+    if "w_router" in params:
+        raise ValueError("LoRA adapters on MoE expert weights are not "
+                         "supported (attention-only targets work)")
+    return torch.as_tensor(lora_ids, device=device).long()
+
+
+def _proj(h, w, name, lora_ids=None):
+    """h @ w[name], plus its bias (Qwen-2's bq, bk, bv) and, with LoRA
+    stacks in w, the rows' adapter delta."""
     out = _mm(h, w[name])
     bias = "b" + name[1]  # wq -> bq
-    return out + w[bias] if bias in w else out
+    if bias in w:
+        out = out + w[bias]
+    d = lora.delta(h, w.get("lora"), name, lora_ids)
+    return out if d is None else out + d
 
 
 def _act(x, kind: str = "silu"):
@@ -414,14 +449,15 @@ def _act(x, kind: str = "silu"):
     return F.silu(x.float())
 
 
-def _ffn(h, w, cfg: LlamaConfig):
+def _ffn(h, w, cfg: LlamaConfig, lora_ids=None):
     """The FFN half of a layer, shared by prefill, decode and training:
-    SwiGLU (GeGLU with ``act="gelu"``), or with a router the sparse MoE
-    layer over every token of h (pad rows and pad batch entries included,
-    as in the JAX package)."""
+    SwiGLU (GeGLU with ``act="gelu"``) with the LoRA deltas of its three
+    projections, or with a router the sparse MoE layer over every token of
+    h (pad rows and pad batch entries included, as in the JAX package)."""
     if "w_router" not in w:
-        gate = _act(_mm(h, w["w_gate"]), cfg.act)
-        return _mm(gate.to(h.dtype) * _mm(h, w["w_up"]), w["w_down"])
+        gate = _act(_proj(h, w, "w_gate", lora_ids), cfg.act)
+        return _proj(gate.to(h.dtype) * _proj(h, w, "w_up", lora_ids), w,
+                     "w_down", lora_ids)
     out, _ = moe_ffn(h.reshape(-1, h.shape[-1]), w["w_router"], w["w_gate"],
                      w["w_up"], w["w_down"], n_top=cfg.n_experts_per_tok,
                      act=lambda a: _act(a, cfg.act))
@@ -456,18 +492,20 @@ def _fake_quant(t, dtype):
 
 
 def _dense_layer(x, w, cfg: LlamaConfig, positions, window=None,
-                 attend=None, kv_fake_quant=None):
+                 attend=None, kv_fake_quant=None, lora_ids=None):
     """One transformer layer (weights ``w``, one dict of ``_layer_weights``)
     on a dense (b, s, D) activation, with the layer's sliding ``window``
     (None = global). Returns (x, (k, v)) with k/v (b, s, hk, hd) after
     RoPE (and after the quantizer's rounding with ``kv_fake_quant``).
     ``attend(q, k, v, window_size)`` replaces the causal flash attention
-    over the layer's own k, v (a chunk's attention to its prefix)."""
+    over the layer's own k, v (a chunk's attention to its prefix).
+    ``lora_ids`` ((b,) device tensor) selects each row's adapter when w
+    carries LoRA slices."""
     b, s = x.shape[:2]
     h = _rmsnorm(x, w["norm_attn"], cfg.norm_eps)
-    q = _proj(h, w, "wq").view(b, s, cfg.n_heads, cfg.head_dim)
-    k = _proj(h, w, "wk").view(b, s, cfg.n_kv_heads, cfg.head_dim)
-    v = _proj(h, w, "wv").view(b, s, cfg.n_kv_heads, cfg.head_dim)
+    q = _proj(h, w, "wq", lora_ids).view(b, s, cfg.n_heads, cfg.head_dim)
+    k = _proj(h, w, "wk", lora_ids).view(b, s, cfg.n_kv_heads, cfg.head_dim)
+    v = _proj(h, w, "wv", lora_ids).view(b, s, cfg.n_kv_heads, cfg.head_dim)
     q = _rope(q, positions, cfg.rope_theta, cfg.rope_scaling)
     k = _rope(k, positions, cfg.rope_theta, cfg.rope_scaling)
     if kv_fake_quant is not None:
@@ -478,14 +516,17 @@ def _dense_layer(x, w, cfg: LlamaConfig, positions, window=None,
                             window_size=win, softcap=cfg.attn_softcap)
     else:
         o = attend(q, k, v, win)
-    x = x + _post(_mm(o.reshape(b, s, -1), w["wo"]), w, "norm_post_attn", cfg)
+    x = x + _post(_proj(o.reshape(b, s, -1), w, "wo", lora_ids), w,
+                  "norm_post_attn", cfg)
     h = _rmsnorm(x, w["norm_mlp"], cfg.norm_eps)
-    return x + _post(_ffn(h, w, cfg), w, "norm_post_mlp", cfg), (k, v)
+    return x + _post(_ffn(h, w, cfg, lora_ids), w, "norm_post_mlp", cfg), \
+        (k, v)
 
 
-def _layer_out(x, w, cfg: LlamaConfig, positions, window, kv_fake_quant):
+def _layer_out(x, w, cfg: LlamaConfig, positions, window, kv_fake_quant,
+               lora_ids):
     return _dense_layer(x, w, cfg, positions, window,
-                        kv_fake_quant=kv_fake_quant)[0]
+                        kv_fake_quant=kv_fake_quant, lora_ids=lora_ids)[0]
 
 
 def prefill(params, tokens, cfg: LlamaConfig, tp_axis=None,
@@ -510,15 +551,16 @@ def prefill(params, tokens, cfg: LlamaConfig, tp_axis=None,
     each layer's K/V through the quantized cache's per-token quantizer
     before attention (and in the K/V returned): the quality path of the
     quantized cache, what the paged kernel computes from the 8-bit pages
-    and their scales. ``lora_ids`` (LoRA adapters) is not ported: a value
-    other than None raises NotImplementedError."""
-    reject_unported("prefill", lora_ids=(lora_ids, None))
+    and their scales. ``lora_ids`` ((b,) int) selects each row's adapter
+    slot when ``params["lora"]`` holds the stacks; stacks without it raise
+    ValueError."""
     if kv_fake_quant is not None and kv_fake_quant not in KV_QMAX:
         raise ValueError(f"kv_fake_quant must be torch.int8 or "
                          f"torch.float8_e4m3fn, got {kv_fake_quant!r}")
     check_supported(cfg, params, tp_axis)
     b, s = tokens.shape
     x = _embed(params, tokens, cfg)
+    ids = _lora_ids(params, lora_ids, x.device)
     positions = torch.arange(s, device=x.device).expand(b, s)
     ks = vs = None
     if return_kv:
@@ -530,11 +572,11 @@ def prefill(params, tokens, cfg: LlamaConfig, tp_axis=None,
         window = cfg.layer_window(i)
         if remat:
             x = checkpoint(_layer_out, x, w, cfg, positions, window,
-                           kv_fake_quant, use_reentrant=False,
+                           kv_fake_quant, ids, use_reentrant=False,
                            preserve_rng_state=False)
             continue
         x, (k, v) = _dense_layer(x, w, cfg, positions, window,
-                                 kv_fake_quant=kv_fake_quant)
+                                 kv_fake_quant=kv_fake_quant, lora_ids=ids)
         if return_kv:
             ks[i], vs[i] = k, v
     if logit_rows is not None:
@@ -551,16 +593,15 @@ def train_loss(params, tokens, targets, cfg: LlamaConfig, *,
     rule, so -100 and any other negative marker). Differentiable end to end
     through the flash-attention backward; ``remat`` (the default)
     recomputes each layer in the backward (see :func:`prefill`). Call
-    ``.backward()`` on the result, or ``torch.autograd.grad``."""
-    if lora_ids is not None:
-        raise NotImplementedError("LoRA adapters are outside this slice of "
-                                  "the PyTorch port")
+    ``.backward()`` on the result, or ``torch.autograd.grad``. With LoRA
+    stacks in ``params`` and ``lora_ids``, an adapter-only fine-tune makes
+    the stacks the leaves that require grad."""
     if is_quantized(params):
         raise NotImplementedError("train_loss on quantized weights: the "
                                   "quantized matmul has no gradient (a "
                                   "quantized model serves)")
     logits, _, _ = prefill(params, tokens, cfg, tp_axis=tp_axis,
-                           return_kv=False, remat=remat)
+                           return_kv=False, remat=remat, lora_ids=lora_ids)
     valid = targets >= 0
     nll = F.cross_entropy(logits.flatten(0, 1),
                           torch.where(valid, targets, 0).flatten().long(),
@@ -580,23 +621,24 @@ def decode_step(params, k_pages, v_pages, k_scales, v_scales, tokens, lengths,
     (L, hk, P, 8, 128) fp32 the cache is int8 or fp8 e4m3 (page size 128):
     each layer's K/V is quantized per token into its slot and its scale
     into lane write_off of the page's tile, updated in place too.
-    ``lora_ids`` (LoRA adapters) is not ported and must be None.
+    ``lora_ids`` ((b,) int) selects each row's adapter slot when
+    ``params["lora"]`` holds the stacks.
 
     Returns (logits (b, vocab) fp32, k_pages, v_pages, k_scales, v_scales).
     """
-    reject_unported("decode_step", lora_ids=(lora_ids, None))
     check_supported(cfg, params, tp_axis)
     if (k_scales is None) != (v_scales is None):
         raise ValueError("k_scales and v_scales come together")
     b = tokens.shape[0]
     x = _embed(params, tokens, cfg)
+    ids = _lora_ids(params, lora_ids, x.device)
     pos = (lengths - 1).long()[:, None]
     H, HK, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     for i, w in enumerate(_layer_weights(params)):
         h = _rmsnorm(x, w["norm_attn"], cfg.norm_eps)
-        q = _proj(h, w, "wq").view(b, 1, H, hd)
-        k = _proj(h, w, "wk").view(b, 1, HK, hd)
-        v = _proj(h, w, "wv").view(b, HK, hd)
+        q = _proj(h, w, "wq", ids).view(b, 1, H, hd)
+        k = _proj(h, w, "wk", ids).view(b, 1, HK, hd)
+        v = _proj(h, w, "wv", ids).view(b, HK, hd)
         q = _rope(q, pos, cfg.rope_theta, cfg.rope_scaling)[:, 0]
         k = _rope(k, pos, cfg.rope_theta, cfg.rope_scaling)[:, 0]
         if k_scales is None:
@@ -613,10 +655,10 @@ def decode_step(params, k_pages, v_pages, k_scales, v_scales, tokens, lengths,
                             v_scales=v_scales, sm_scale=cfg.sm_scale,
                             window=cfg.layer_window(i),
                             softcap=cfg.attn_softcap, layer=i)
-        x = x + _post(_mm(o.reshape(b, -1), w["wo"]), w, "norm_post_attn",
-                      cfg)
+        x = x + _post(_proj(o.reshape(b, -1), w, "wo", ids), w,
+                      "norm_post_attn", cfg)
         h = _rmsnorm(x, w["norm_mlp"], cfg.norm_eps)
-        x = x + _post(_ffn(h, w, cfg), w, "norm_post_mlp", cfg)
+        x = x + _post(_ffn(h, w, cfg, ids), w, "norm_post_mlp", cfg)
     x = _rmsnorm(x, params["norm_out"], cfg.norm_eps)
     logits = _final_softcap(_mm(x, params["lm_head"]).float(), cfg)
     return logits, k_pages, v_pages, k_scales, v_scales
@@ -644,9 +686,9 @@ def prefill_chunk(params, tokens, done, chunk_len, k_pages, v_pages,
     logits come back (b, vocab), as in :func:`prefill`. With ``k_scales``
     and ``v_scales`` (L, hk, P, 8, 128) fp32 the cache is int8 or fp8: the
     gathered prefix is dequantized with its tokens' scales (lane t of a
-    page's tile) in the activations' dtype. ``lora_ids`` is not ported: a
-    value other than None raises NotImplementedError."""
-    reject_unported("prefill_chunk", lora_ids=(lora_ids, None))
+    page's tile) in the activations' dtype. ``lora_ids`` ((b,) int)
+    selects each row's adapter slot when ``params["lora"]`` holds the
+    stacks."""
     if (k_scales is None) != (v_scales is None):
         raise ValueError("k_scales and v_scales come together")
     check_supported(cfg, params, tp_axis)
@@ -658,6 +700,7 @@ def prefill_chunk(params, tokens, done, chunk_len, k_pages, v_pages,
     ps = k_pages.shape[-2]
     pref = tables.shape[1] * ps
     x = _embed(params, tokens, cfg)
+    ids = _lora_ids(params, lora_ids, dev)
     idx = torch.arange(c, device=dev)
     positions = done[:, None] + idx
     # kv = [prefix tokens 0..pref) || chunk tokens done..done + c)
@@ -691,7 +734,8 @@ def prefill_chunk(params, tokens, done, chunk_len, k_pages, v_pages,
             return fwd(q, kcat, vcat, True, sm_scale=cfg.sm_scale, segs=segs,
                        window_size=win, softcap=cfg.attn_softcap)[0]
         x, (ks[i], vs[i]) = _dense_layer(x, w, cfg, positions,
-                                         cfg.layer_window(i), attend)
+                                         cfg.layer_window(i), attend,
+                                         lora_ids=ids)
     if logit_rows is not None:
         x = x[torch.arange(b, device=dev), torch.as_tensor(
             logit_rows, device=dev).long()]

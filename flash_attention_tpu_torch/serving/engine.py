@@ -57,8 +57,16 @@ The decode-side options, by the JAX engine's rules and with its errors:
   token by token and ``sampling.spec_accept`` keeps the accepted prefix and
   one more token.
 
-Tensor parallelism (and expert parallelism with it) and LoRA are outside
-this slice and raise.
+Multi-LoRA (``Engine(lora_rank=, lora_targets=, max_loras=)``, by the JAX
+engine's rules): ``max_loras + 1`` adapter slots stacked in the weights'
+dtype (slot 0 the base model), ``add_adapter`` writes one, and
+``add_request(lora=name)`` puts the request's slot id on its row in every
+prefill and decode dispatch (padding rows on slot 0), so one dispatch
+serves a batch that mixes adapters. The prefix registry salts its digests
+with the slot, so adapters never share cached pages.
+
+Tensor parallelism (and expert parallelism with it) is outside this slice
+and raises.
 """
 
 from __future__ import annotations
@@ -69,14 +77,13 @@ import traceback
 import numpy as np
 import torch
 
-from flash_attention_tpu_torch.models import llama
+from flash_attention_tpu_torch.models import llama, lora as lora_lib
 from flash_attention_tpu_torch.ops.quant import KV_QMAX
 from flash_attention_tpu_torch.serving import multistep, sampling
 from flash_attention_tpu_torch.serving import spec as spec_mod
 from flash_attention_tpu_torch.serving.native import PagedRuntime
 from flash_attention_tpu_torch.serving.prefix import PrefixCache
 from flash_attention_tpu_torch.serving.scheduler import Request, Scheduler
-from flash_attention_tpu_torch.utils.options import reject_unported
 
 
 KERNEL_PPB = 8  # the JAX paged kernel's pages_per_block
@@ -165,17 +172,20 @@ class Engine:
             raise ValueError("decode_block with speculative decoding is not "
                              "supported; a spec step already emits up to "
                              "n_draft+1 tokens per dispatch")
+        if lora_rank is not None:
+            if mesh is not None:
+                raise ValueError("multi-LoRA with tensor parallelism is not "
+                                 "supported yet")
+            if self.spec:
+                raise ValueError("multi-LoRA with speculative decoding is "
+                                 "not supported yet")
         unsupported = {
             "kv_dtype (the cache holds K/V in the weights' dtype or, with "
             "kv_quant, in 8 bits)":
                 kv_dtype not in (torch.bfloat16, params["embed"].dtype,
                                  *quant_dtypes),
             "mesh (tensor parallelism)": mesh is not None,
-            "tp_axis (tensor parallelism)": tp_axis != "model",
-            "lora_rank (multi-LoRA)": lora_rank is not None,
-            "lora_targets (multi-LoRA)":
-                tuple(lora_targets) != ("wq", "wk", "wv", "wo"),
-            "max_loras (multi-LoRA)": max_loras != 8}
+            "tp_axis (tensor parallelism)": tp_axis != "model"}
         bad = [k for k, v in unsupported.items() if v]
         if bad:
             raise NotImplementedError(
@@ -265,6 +275,15 @@ class Engine:
                      8, 128), dtype=torch.float32, device=self.device)
                 self.v_scales_d = torch.ones_like(self.k_scales_d)
         self.decode_block = int(decode_block)
+        # multi-LoRA: fixed-capacity stacks, slot 0 the base model
+        self.lora_rank = lora_rank
+        self.lora_targets = tuple(lora_targets)
+        self.lora_stacks = None
+        self._lora_map: dict = {None: 0}
+        if lora_rank is not None:
+            self.lora_stacks = lora_lib.stack_adapters(
+                cfg, [], lora_rank, self.lora_targets, n_slots=max_loras + 1,
+                dtype=params["embed"].dtype, device=self.device)
         self._uid = 0
         self._last_lps = None  # logprobs of the last _sample_batch's tokens
         self.stats = {"decode_steps": 0, "decode_tokens": 0,
@@ -278,9 +297,8 @@ class Engine:
                     top_k: int = 0, top_p: float = 1.0, seed: int = 0,
                     lora: str | None = None, stop_ids=(),
                     logprobs: bool = False) -> Request:
-        """Queue a request. ``lora`` (an adapter by name) is not ported: a
-        value other than None raises NotImplementedError."""
-        reject_unported("Engine.add_request", lora=(lora, None))
+        """Queue a request; ``lora`` names an adapter registered with
+        ``add_adapter`` (None: the base model)."""
         total = len(prompt) + max_new_tokens
         if self.spec:
             if top_k > 0 or top_p < 1.0:
@@ -309,18 +327,55 @@ class Engine:
             raise ValueError(
                 f"request needs {need} pages but the pool can ever free at "
                 f"most {budget}; it would wait forever")
+        if lora is not None and lora not in self._lora_map:
+            raise ValueError(f"unknown adapter {lora!r}; register it with "
+                             f"add_adapter first")
         self._uid += 1
         req = Request(self._uid, list(prompt), max_new_tokens, eos_id=eos_id,
                       temperature=temperature, top_k=top_k, top_p=top_p,
-                      seed=seed, stop_ids=tuple(stop_ids), logprobs=logprobs)
+                      seed=seed, lora_id=self._lora_map.get(lora, 0),
+                      stop_ids=tuple(stop_ids), logprobs=logprobs)
         self.sched.add(req)
         return req
 
+    # ----------------------------------------------------------------- lora
     def add_adapter(self, name: str, adapter) -> int:
-        """Register a LoRA adapter: not ported (LoRA serving is a later
-        slice), so it raises NotImplementedError."""
-        raise NotImplementedError("Engine.add_adapter: LoRA adapters are not "
-                                  "ported to the PyTorch port")
+        """Register a LoRA adapter ({target: (A (L, din, r), B (L, r,
+        dout))}, e.g. ``models.lora.init_adapter``) under ``name``; requests
+        select it with ``add_request(..., lora=name)``. Writes the next
+        stack slot in place and returns its id."""
+        if self.lora_rank is None:
+            raise ValueError("engine built without lora_rank")
+        if name in self._lora_map:
+            raise ValueError(f"adapter {name!r} already registered")
+        slot = len(self._lora_map)
+        n_slots = self.lora_stacks[self.lora_targets[0]][0].shape[1]
+        if slot >= n_slots:
+            raise ValueError(f"adapter capacity {n_slots - 1} exhausted")
+        for t in adapter:
+            if t not in self.lora_targets:
+                raise ValueError(f"adapter targets {t!r}; engine was built "
+                                 f"for {self.lora_targets}")
+        lora_lib.set_slot(self.lora_stacks, slot, adapter, self.lora_targets)
+        self._lora_map[name] = slot
+        return slot
+
+    def _model_params(self):
+        """Params as dispatched: the base weights plus the LoRA stacks."""
+        if self.lora_stacks is None:
+            return self.params
+        return {**self.params, "lora": self.lora_stacks}
+
+    def _lora_ids(self, reqs: list[Request], bsz: int):
+        """(bsz,) adapter slot per row on the card (padding rows on slot 0,
+        the base model), moved as the other per-row host inputs are; None
+        when the engine has no LoRA."""
+        if self.lora_stacks is None:
+            return None
+        ids = np.zeros((bsz,), np.int64)
+        for i, r in enumerate(reqs):
+            ids[i] = r.lora_id
+        return torch.from_numpy(ids).to(self.device)
 
     # -------------------------------------------------------------- sampling
     def _sample_batch(self, reqs: list[Request], logits) -> list[int]:
@@ -403,7 +458,8 @@ class Engine:
             toks[i, : len(s)] = s
             last[i] = len(s) - 1
         logits, ks, vs = llama.prefill(
-            self.params, torch.from_numpy(toks).to(self.device), self.cfg,
+            self._model_params(), torch.from_numpy(toks).to(self.device),
+            self.cfg, lora_ids=self._lora_ids(reqs, bsz),
             logit_rows=torch.from_numpy(last).to(self.device))
         # ONE page-granular scatter for every (request, page) pair; N pads
         # to pow2 with trash-page entries
@@ -479,8 +535,9 @@ class Engine:
         tables = torch.from_numpy(tables).to(dev)
         last = torch.from_numpy(np.maximum(clen - 1, 0)).to(dev)
         logits, ks, vs = llama.prefill_chunk(
-            self.params, *args, self.k_pages, self.v_pages, self.k_scales,
-            self.v_scales, tables, self.cfg, logit_rows=last)
+            self._model_params(), *args, self.k_pages, self.v_pages,
+            self.k_scales, self.v_scales, tables, self.cfg,
+            lora_ids=self._lora_ids(reqs, bsz), logit_rows=last)
         # chunk-local page j of row i lands at the row's page done // ps + j
         dest, src_row, src_page = [], [], []
         for i, r in enumerate(reqs):
@@ -542,6 +599,7 @@ class Engine:
         for i, s in enumerate(seqs):
             toks[i, : len(s)] = s
         final = None  # (bsz, vocab) fp32: each row's last-token logits
+        params, ids = self._model_params(), self._lora_ids(reqs, bsz)
         for step in range(n_chunks):
             base = step * cs
             done = np.minimum(lens, base)
@@ -560,10 +618,10 @@ class Engine:
                 tables[i] = np.where(row < 0, self.trash_page, row)
             last = lens - 1
             logits, ks, vs = llama.prefill_chunk(
-                self.params, torch.from_numpy(toks[:, base:base + cs]).to(dev),
+                params, torch.from_numpy(toks[:, base:base + cs]).to(dev),
                 torch.from_numpy(done).to(dev), torch.from_numpy(clen).to(dev),
                 self.k_pages, self.v_pages, self.k_scales, self.v_scales,
-                torch.from_numpy(tables).to(dev), self.cfg,
+                torch.from_numpy(tables).to(dev), self.cfg, lora_ids=ids,
                 logit_rows=torch.from_numpy(np.clip(last - base, 0,
                                                     cs - 1)).to(dev))
             # this chunk's whole pages (chunk_size % page_size == 0, so
@@ -656,14 +714,15 @@ class Engine:
         pad = bsz - len(reqs)
         want_lps = any(r.logprobs for r in reqs)
         toks, lps, *_ = multistep.decode_rollout(
-            self.params, self.k_pages, self.v_pages, self.k_scales,
+            self._model_params(), self.k_pages, self.v_pages, self.k_scales,
             self.v_scales, torch.from_numpy(tok).to(dev),
             torch.from_numpy(lens).to(dev), torch.from_numpy(tables).to(dev),
             [r.temperature for r in reqs] + [0.0] * pad,
             [r.top_k for r in reqs] + [0] * pad,
             [r.top_p for r in reqs] + [1.0] * pad,
             [r.seed for r in reqs] + [0] * pad,
-            [len(r.output) for r in reqs] + [0] * pad, None, self.cfg, k,
+            [len(r.output) for r in reqs] + [0] * pad,
+            self._lora_ids(reqs, bsz), self.cfg, k,
             any(r.temperature > 0.0 and (r.top_k > 0 or r.top_p < 1.0)
                 for r in reqs), want_lps)
         if want_lps:  # token ids are exact in fp32 (vocab < 2^24)

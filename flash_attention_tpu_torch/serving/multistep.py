@@ -41,12 +41,12 @@ def decode_rollout(params, k_pages, v_pages, k_scales, v_scales, tokens,
     the previous step's sample, writes its K/V at position ``lengths - 1 +
     j`` (the engine reserves the slots beforehand) and samples output
     ``positions + j`` with ``sampling.sample_tokens``. The caches are
-    updated in place. ``lora_ids`` and ``tp_axis`` are not ported (None).
+    updated in place. ``lora_ids`` ((b,) device tensor, or None) selects
+    each row's adapter in every step; ``tp_axis`` is not ported (None).
 
     Returns (tokens (b, n_steps) int64, logprobs (b, n_steps) fp32, zeros
     unless ``want_logprobs``, k_pages, v_pages, k_scales, v_scales)."""
-    reject_unported("decode_rollout", lora_ids=(lora_ids, None),
-                    tp_axis=(tp_axis, None))
+    reject_unported("decode_rollout", tp_axis=(tp_axis, None))
     ps = k_pages.shape[-2]
     tok, ln = tokens, lengths
     toks, lps = [], []
@@ -55,7 +55,7 @@ def decode_rollout(params, k_pages, v_pages, k_scales, v_scales, tokens,
         woff = (ln - 1) % ps
         logits, *_ = llama.decode_step(
             params, k_pages, v_pages, k_scales, v_scales, tok, ln,
-            page_tables, wpage.int(), woff.int(), cfg)
+            page_tables, wpage.int(), woff.int(), cfg, lora_ids=lora_ids)
         tok = sampling.sample_tokens(logits, temps, top_ks, top_ps, seeds,
                                      [p + j for p in positions],
                                      need_filters=need_filters)

@@ -148,11 +148,13 @@ def test_prefill_chunk_logit_rows(family):
 
 @pytest.mark.parametrize("option", ["k_scales", "v_scales", "lora_ids"])
 def test_prefill_chunk_unported_options_raise(option):
-    """LoRA raises NotImplementedError naming the option, as ``prefill``'s
-    unported options do. The quantized cache's scales are ported: either
-    alone raises ValueError, and with both (an int8 cache for ``k_scales``,
-    fp8 for ``v_scales``) the chunk over the 8-bit prefix gives the logits
-    of the chunk over its pages dequantized into a float cache."""
+    """The options that once raised, each ported. LoRA: with stacks the
+    chunk on an adapter's slot gives the logits of the chunk over the
+    merged model, and stacks without ``lora_ids`` raise JAX's ValueError.
+    The quantized cache's scales: either alone raises ValueError, and with
+    both (an int8 cache for ``k_scales``, fp8 for ``v_scales``) the chunk
+    over the 8-bit prefix gives the logits of the chunk over its pages
+    dequantized into a float cache."""
     cfg = tl.LlamaConfig.tiny(n_layers=1)
     pt = tl.init_params(cfg, device="cpu", dtype=torch.float32)
     rng = np.random.default_rng(4)
@@ -162,9 +164,25 @@ def test_prefill_chunk_unported_options_raise(option):
             torch.tensor([PS]), torch.tensor([PS]))
     tables = torch.zeros((1, 1), dtype=torch.int64)
     if option == "lora_ids":
-        with pytest.raises(NotImplementedError, match=option):
-            tl.prefill_chunk(*args, pages, pages, None, None, tables, cfg,
-                             lora_ids=[0])
+        from flash_attention_tpu_torch.models import lora
+        ad = lora.init_adapter(torch.Generator().manual_seed(0), cfg, 4,
+                               ("wq", "wv", "w_up"))
+        for _, b in ad.values():
+            b.normal_(0.0, 0.05, generator=torch.Generator().manual_seed(1))
+        stacks = lora.stack_adapters(cfg, [ad], 4, ("wq", "wv", "w_up"), 2,
+                                     device="cpu")
+        with pytest.raises(ValueError, match="no lora_ids"):
+            tl.prefill_chunk({**pt, "lora": stacks}, *args[1:], pages, pages,
+                             None, None, tables, cfg)
+        got, _, _ = tl.prefill_chunk({**pt, "lora": stacks}, *args[1:],
+                                     pages, pages, None, None, tables, cfg,
+                                     lora_ids=[1])
+        want, _, _ = tl.prefill_chunk(lora.merge_adapter(pt, ad), *args[1:],
+                                      pages, pages, None, None, tables, cfg)
+        base, _, _ = tl.prefill_chunk(*args, pages, pages, None, None,
+                                      tables, cfg)
+        _close(got, want, "chunk on slot 1 vs the merged model", atol=1e-4)
+        assert float((got - base).abs().max()) > 1e-2
         return
     dtype = torch.int8 if option == "k_scales" else torch.float8_e4m3fn
     q, sc = quant.quantize_kv_pages(pages[0], dtype)

@@ -174,13 +174,15 @@ def test_init_params_matches_jax_layout():
 
 
 def test_moe_outside_the_slice_raises(model):
-    """MoE with LoRA, tp_axis and expert parallelism still raise."""
+    """MoE with LoRA raises the JAX package's ValueError (stacks without
+    ids raise its other one first); tp_axis and expert parallelism still
+    raise NotImplementedError."""
     _, cfg_t, _, pt = model
     toks = torch.zeros((1, 8), dtype=torch.int64)
-    with pytest.raises(NotImplementedError):
-        tl.train_loss(pt, toks, toks, cfg_t,
+    with pytest.raises(ValueError, match="MoE expert weights"):
+        tl.train_loss({**pt, "lora": {}}, toks, toks, cfg_t,
                       lora_ids=torch.zeros(1, dtype=torch.int32))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="no lora_ids given"):
         tl.prefill({**pt, "lora": {}}, toks, cfg_t)
     with pytest.raises(NotImplementedError):
         tl.prefill(pt, toks, cfg_t, tp_axis="model")

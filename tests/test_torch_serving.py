@@ -121,9 +121,11 @@ def test_engine_stream_and_unsupported_options(params):
     with pytest.raises(ValueError):
         eng.add_request([1] * 60, max_new_tokens=10)
     with pytest.raises(NotImplementedError):
-        Engine(tl.LlamaConfig.tiny(), pt, lora_rank=4)
-    # prefix caching and multi-step decode (ported) stream the same tokens
-    for kw in (dict(prefix_cache=True), dict(decode_block=4)):
+        Engine(tl.LlamaConfig.tiny(), pt, mesh=object())
+    # prefix caching, multi-step decode and a LoRA engine's base model
+    # (ported) stream the same tokens
+    for kw in (dict(prefix_cache=True), dict(decode_block=4),
+               dict(lora_rank=4)):
         e = Engine(tl.LlamaConfig.tiny(), pt, total_pages=32, page_size=16,
                    max_batch=2, max_seq_len=64, **kw)
         r2 = e.add_request([1, 2, 3], max_new_tokens=3)
@@ -143,9 +145,13 @@ def test_engine_stream_and_unsupported_options(params):
 # not ported yet (the params are fp32, so fp16 is neither the default nor
 # the weights' dtype, nor an 8-bit type with kv_quant).
 UNPORTED_ENGINE_OPTIONS = {
-    "kv_dtype": torch.float16, "mesh": object(),
-    "tp_axis": "tp", "lora_rank": 4, "lora_targets": ("wq",),
-    "max_loras": 2}
+    "kv_dtype": torch.float16, "mesh": object(), "tp_axis": "tp"}
+# The multi-LoRA options, ported: each with lora_rank, the stacks they
+# build (targets, slots, rank) must be the JAX engine's
+LORA_ENGINE_OPTIONS = {
+    "lora_rank": dict(lora_rank=4),
+    "lora_targets": dict(lora_rank=4, lora_targets=("wq", "w_down")),
+    "max_loras": dict(lora_rank=4, max_loras=2)}
 # The decode-side options, ported: a value the JAX engine refuses, and its
 # ValueError (``True`` for draft_params: the target's own parameters)
 PORTED_ENGINE_OPTIONS = {
@@ -168,8 +174,19 @@ def test_engine_takes_jax_keywords(params, option):
     naming it. ``kv_quant`` (ported) builds the int8 cache with unit
     scales, and raises ValueError naming it at a page size other than
     128, as the JAX engine does; each decode-side option (ported) raises
-    the JAX engine's ValueError at a value that engine refuses."""
+    the JAX engine's ValueError at a value that engine refuses; each
+    multi-LoRA option (ported) builds the JAX engine's stacks."""
     pj, pt = params
+    if option in LORA_ENGINE_OPTIONS:
+        kw = LORA_ENGINE_OPTIONS[option]
+        ej = JaxEngine(jl.LlamaConfig.tiny(), pj, kv_dtype=jnp.float32, **kw)
+        et = Engine(tl.LlamaConfig.tiny(), pt, **kw)
+        assert {t: (tuple(a.shape), tuple(b.shape))
+                for t, (a, b) in et.lora_stacks.items()} == \
+            {t: (a.shape, b.shape) for t, (a, b) in ej.lora_stacks.items()}
+        assert all(not a.any() and not b.any() and a.dtype == torch.float32
+                   for a, b in et.lora_stacks.values())
+        return
     if option in PORTED_ENGINE_OPTIONS:
         kw, match = PORTED_ENGINE_OPTIONS[option]
         for make, cfg, p, extra in (

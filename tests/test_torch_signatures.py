@@ -22,7 +22,8 @@ import torch
 
 pytest.importorskip("jax")  # the JAX reference; skip where it is not installed
 
-MODULES = ("models.checkpoint", "models.llama", "ops.attention",
+MODULES = ("models.checkpoint", "models.import_hf", "models.llama",
+           "models.lora", "ops.attention",
            "ops.flash_bwd", "ops.flash_fwd", "ops.kv_update", "ops.moe",
            "ops.paged_attention", "ops.quant", "ops.reference",
            "ops.segments", "serving.engine", "serving.multistep",
@@ -33,6 +34,11 @@ MODULES = ("models.checkpoint", "models.llama", "ops.attention",
 # port-only parameters: each an extension of the port
 PORT_EXTRA = {
     "models.checkpoint.load_checkpoint": ("device",),
+    # the HF import builds each weight on its device, layer by layer
+    "models.import_hf.from_hf_state_dict": ("device",),
+    "models.import_hf.from_hf": ("device",),
+    # the stacks are allocated on the engine's device
+    "models.lora.stack_adapters": ("device",),
     # the lm_head at one row per sequence, as prefill's logit_rows
     "models.llama.prefill_chunk": ("logit_rows",),
     "ops.paged_attention.paged_attention_reference": ("layer",),
@@ -122,20 +128,25 @@ def test_the_lists_name_shared_functions():
             assert hasattr(Engine, meth), f"Engine.{meth}"
 
 
-def _engine():
+def _lora_engine(registered=False):
+    """A 1-layer LoRA engine on the CPU, with a fresh adapter registered
+    as "a" when ``registered``."""
     from flash_attention_tpu_torch import Engine
-    from flash_attention_tpu_torch.models import llama
+    from flash_attention_tpu_torch.models import llama, lora
     cfg = llama.LlamaConfig.tiny(n_layers=1)
     params = llama.init_params(cfg, device="cpu", dtype=torch.float32)
-    return Engine(cfg, params, total_pages=8, page_size=16, max_batch=2,
-                  max_seq_len=64)
+    eng = Engine(cfg, params, total_pages=8, page_size=16, max_batch=2,
+                 max_seq_len=64, lora_rank=2)
+    if registered:
+        eng.add_adapter("a", lora.init_adapter(torch.Generator(), cfg, 2))
+    return eng
 
 
 def _unported_calls():
     """(option, call) of each option the port takes at its default only,
     each call setting that option alone to another value."""
     import flash_attention_tpu_torch as fat
-    from flash_attention_tpu_torch.models import llama
+    from flash_attention_tpu_torch.models import llama, lora
     from flash_attention_tpu_torch.ops import moe
     q = torch.zeros((1, 8, 2, 64))
     o, lse = fat.fwd(q, q, q, True)
@@ -144,6 +155,11 @@ def _unported_calls():
     cfg = llama.LlamaConfig.tiny(n_layers=1)
     params = llama.init_params(cfg, device="cpu", dtype=torch.float32)
     toks = torch.zeros((1, 4), dtype=torch.int64)
+    with_lora = {**params, "lora": lora.stack_adapters(
+        cfg, [lora.init_adapter(torch.Generator(), cfg, 2)], 2,
+        ("wq", "wk", "wv", "wo"), 2, device="cpu")}
+    kv = torch.zeros((1, 2, 2, 16, 128))
+    one = torch.ones(1, dtype=torch.int32)
     calls = [("block_sizes", lambda: fat.fwd(q, q, q, block_sizes=1)),
              ("interpret", lambda: fat.fwd(q, q, q, interpret=True)),
              ("kv_split", lambda: fat.fwd(q, q, q, kv_split=2)),
@@ -171,13 +187,15 @@ def _unported_calls():
                  n_top=1, act=torch.relu, interpret=True)),
              ("kv_fake_quant", lambda: llama.prefill(
                  params, toks, cfg, None, torch.int8)),
-             ("lora_ids", lambda: llama.prefill(params, toks, cfg,
-                                                lora_ids=[0])),
+             ("lora_ids", lambda: llama.prefill(with_lora, toks, cfg,
+                                                lora_ids=[1])),
              ("lora_ids", lambda: llama.decode_step(
-                 params, None, None, None, None, toks[:, 0], None, None,
-                 None, None, cfg, None, [0])),
-             ("lora", lambda: _engine().add_request([1, 2], 2, lora="a")),
-             ("add_adapter", lambda: _engine().add_adapter("a", {}))]
+                 with_lora, kv, kv.clone(), None, None, toks[:, 0], one,
+                 one[None] * 0, one * 0, one * 0, cfg, None, [1])),
+             ("lora", lambda: _lora_engine(True).add_request([1, 2], 2,
+                                                             lora="a")),
+             ("add_adapter", lambda: _lora_engine().add_adapter(
+                 "a", lora.init_adapter(torch.Generator(), cfg, 2)))]
     return calls
 
 
@@ -200,18 +218,22 @@ def _split_runs(call) -> bool:
 
 
 # options of the list above that the port now takes: their calls run and
-# are checked (prefill with ``kv_fake_quant``: finite logits; ``kv_split``:
-# the split forward against the one-launch one)
+# are checked (prefill with ``kv_fake_quant`` and prefill and decode_step
+# with ``lora_ids`` on a slot of an adapter with B = 0: finite logits;
+# ``kv_split``: the split forward against the one-launch one; the request
+# on adapter "a" gets its slot; ``add_adapter`` returns the first one)
 PORTED = {"kv_fake_quant": lambda call: torch.isfinite(call()[0]).all(),
-          "kv_split": _split_runs}
+          "kv_split": _split_runs,
+          "lora_ids": lambda call: torch.isfinite(call()[0]).all(),
+          "lora": lambda call: call().lora_id == 1,
+          "add_adapter": lambda call: call() == 1}
 
 
 @pytest.mark.parametrize("i", range(16))
 def test_unported_options_raise(i):
     """Each option the port takes only at its JAX default raises
-    NotImplementedError naming it at another value (Engine.add_adapter, LoRA
-    registration, always raises); an option since ported (``PORTED``) runs
-    at that value instead."""
+    NotImplementedError naming it at another value; an option since ported
+    (``PORTED``) runs at that value instead."""
     calls = _unported_calls()
     assert len(calls) == 16
     option, call = calls[i]

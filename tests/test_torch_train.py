@@ -138,11 +138,20 @@ def test_layer_weights_are_views_with_stacked_grads():
 @pytest.mark.parametrize("cfg,kw", [
     (tl.LlamaConfig.tiny_gemma2(), {"tp_axis": "model"}),
     (tl.LlamaConfig.tiny(), {"tp_axis": "model"}),
-    (tl.LlamaConfig.tiny(), {"lora_ids": torch.zeros(2, dtype=torch.int32)}),
+    (tl.LlamaConfig.tiny(), {"lora": None}),
 ], ids=["gemma2", "tp_axis", "lora"])
 def test_outside_the_slice_raises(cfg, kw):
+    """tp_axis raises NotImplementedError; LoRA (ported) raises the JAX
+    package's ValueError when the stacks come without ``lora_ids``."""
     params = tl.init_params(tl.LlamaConfig.tiny(n_layers=1), device="cpu",
                             dtype=torch.float32)
     toks = torch.zeros((2, 8), dtype=torch.int64)
+    if "lora" in kw:
+        from flash_attention_tpu_torch.models import lora
+        stacks = lora.stack_adapters(tl.LlamaConfig.tiny(n_layers=1), [], 2,
+                                     ("wq",), 2, device="cpu")
+        with pytest.raises(ValueError, match="no lora_ids given"):
+            tl.train_loss({**params, "lora": stacks}, toks, toks, cfg)
+        return
     with pytest.raises(NotImplementedError):
         tl.train_loss(params, toks, toks, cfg, **kw)
