@@ -73,6 +73,20 @@ drives the two paths on two models with random bf16 weights, full width:
   weights with its published config: the config and every tensor checked,
   the forward and paged kernels held to their plain versions at its
   widths, 2 layers card against CPU, then the 8 prompts served;
+* tensor-parallel serving at tp=2, as two ranks on the one card
+  (``parallel.mesh.spawn``; gloo, the all-reduces staged through host
+  memory), each rank ``Engine(mesh=make_mesh(model=2))`` on its part of
+  the weights (``tp_inference.init_shard``): Llama-3-8B at full width and
+  depth (bf16; ``decode_block=4``, whose tokens must equal the default TP
+  engine's; an int8 KV cache and int8 weights on the 4 shortest prompts),
+  each prompt's last-position logits held to the single-device phases'
+  with the ranks' tokens and rows identical, and Mixtral-8x7B at 8 layers
+  under expert parallelism against the single-device forward of the
+  training phase's weights (prompts whose last token routes apart printed
+  only), with exact launch counts and each rank's peak;
+* a Llama-shaped d-96 config (4 layers) served through a cache 128 wide,
+  after the paged kernel at head dims 80 and 96 and GQA groups 12 and 16
+  and the d-96 kv write are held against their plain versions and timed;
 * chunked prefill: the Llama-3-8B weights served with Mistral's traffic
   through ``Engine(chunk_size=2048)`` (``llama.prefill_chunk``: the
   segmented forward over [prefix pages || chunk]) and through an
@@ -4471,6 +4485,588 @@ def serve_qwen2_hf(torch, dev, card, kernels, entries):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Decode at every head dim the prefill takes, GQA groups above 8, and
+# tensor-parallel serving (two ranks on the one card)
+# ---------------------------------------------------------------------------
+
+QC_HEAD_DIMS = (80, 96)   # run zero-padded at the kernels' 128
+QC_GROUPS = (12, 16)      # Mistral-Large-2's 96 / 8, Llama-3.1-405B's 128 / 8
+QC_LAYERS = 8
+# a Llama-shaped config at head dim 96 (Phi-3-mini's 3072 / 32 heads, with
+# Llama-3-8B's 8 kv heads), depth cut: the engine's cache at width 128
+D96_CFG = dict(vocab_size=32064, dim=3072, n_layers=4, n_heads=32,
+               n_kv_heads=8, head_dim=96, hidden_dim=8192, rope_theta=1e4)
+TP = 2
+TP_SHORT = slice(4, None)  # the 4 shortest prompts: bucket 1024, batch 4
+TP_MIX_LAYERS = MIX_TRAIN_LAYERS  # the training phase's weights, before SGD
+# Mixtral prompts whose last token must route alike in every layer under
+# tp=2 and pass the gates: 6 of the 8 did on the H100 (seeded, deterministic)
+MIX_TP_HELD = 6
+
+
+def _paged_qc_case(torch, pa, g, dev, label, h, hk, d, width, card):
+    """One head-dim or GQA-group shape of the paged kernel: b 8 at lengths
+    linspace(1, 4096, 8) over QC_LAYERS layers of a cache ``width`` wide
+    (zero columns past d), held to the plain version on the unpadded view
+    with O_TOLS, then
+    cold over the layers in a CUDA graph (as ``check_paged``). The bound
+    counts the model's d (the padding is the kernel's overhead)."""
+    from flash_attention_tpu_torch.utils.metrics import assert_metrics
+    L, b = QC_LAYERS, MAX_BATCH
+    pps = MAX_SEQ // PAGE_SIZE
+    total = b * pps
+    kp, vp = (pa.pad_head_dim(_random_pool(
+        torch, g, dev, (L, hk, total, PAGE_SIZE, d)), width) for _ in range(2))
+    q = torch.randn((b, h, d), generator=g, device=dev).to(torch.bfloat16)
+    tables = torch.randperm(total, generator=g, device=dev).reshape(
+        b, pps).to(torch.int32)
+    lens = np.linspace(1, MAX_SEQ, b).astype(np.int32)
+    lengths = torch.from_numpy(lens).to(dev)
+    before = pa.KERNEL.launches
+    o = pa.paged_attention(q, kp, vp, lengths, tables, layer=L - 1)
+    assert pa.KERNEL.launches == before + 1
+    o_ref = pa.paged_attention_reference(q, kp[..., :d], vp[..., :d],
+                                         lengths, tables, layer=L - 1)
+    m = assert_metrics(f"paged_attention {label}", o, o_ref, O_TOLS)
+    plain = _time_ms(torch, lambda: pa.paged_attention_reference(
+        q, kp[..., :d], vp[..., :d], lengths, tables, layer=L - 1), 3,
+        warmup=1)
+    cold = _time_graph_calls_ms(torch, [
+        lambda i=i: pa.paged_attention(q, kp, vp, lengths, tables, layer=i)
+        for i in range(L)])
+    tokens = int(lens.sum())
+    pages = int(sum(-(-int(n) // PAGE_SIZE) for n in lens))
+    nbytes = tokens * hk * d * 2 * 2 + 2 * 2 * q.numel() + 4 * (b + pages)
+    bound_ms, bound_by = _bound(4.0 * tokens * h * d, nbytes)
+    print(f"paged_attention {label} (h{h}/{hk}, group {h // hk}, cache "
+          f"{width} wide, {pa.sub_groups(h // hk)} sub-group(s) a kv head) "
+          f"L{L} b{b} lengths linspace(1, {MAX_SEQ}, 8): {m}; cold {cold:.5f}"
+          f" ms ({bound_ms / cold:.1%} of the {bound_ms:.5f} ms bound, "
+          f"{bound_by}), plain {plain:.3f} ms [{card}]")
+    return {"ms": cold, "bound_ms": bound_ms, "bound_by": bound_by,
+            "plain_ms": plain, "max_abs_err": m.max_abs}, (q, kp, vp,
+                                                          lengths, tables)
+
+
+def _flash_qc_case(torch, g, dev, label, b, s, h, hk, d, card):
+    """The forward through ``attention.fwd`` (d 80 and 96 zero-padded to
+    the kernel's 128) at the prefill shape b x s causal, against the plain
+    version with O_TOLS and LSE_TOLS, two runs bit-identical, one kernel
+    launch a call; the kernel, plain and SDPA times. The bound counts the
+    model's d."""
+    from flash_attention_tpu_torch.ops import attention
+    from flash_attention_tpu_torch.ops import flash_fwd as fm
+    from flash_attention_tpu_torch.ops.reference import reference_attention
+    from flash_attention_tpu_torch.utils.metrics import assert_metrics
+    q, k, v = (torch.randn((b, s, n, d), generator=g, device=dev)
+               .to(torch.bfloat16) for n in (h, hk, hk))
+
+    def call():
+        return attention.fwd(q, k, v, is_causal=True)
+    before = fm.KERNEL.launches
+    o, lse = call()
+    assert fm.KERNEL.launches == before + 1, "flash_fwd did not launch"
+    o_ref, lse_ref = reference_attention(q, k, v, causal=True)
+    m = assert_metrics(f"flash_fwd {label}", o, o_ref, O_TOLS)
+    assert_metrics(f"flash_fwd {label} lse", lse, lse_ref, LSE_TOLS)
+    o2, lse2 = call()
+    assert torch.equal(o, o2) and torch.equal(lse, lse2), \
+        f"flash_fwd {label}: two runs differ"
+    del o_ref, lse_ref, o2, lse2
+    ms = _time_ms(torch, call, 20)
+    plain = _time_ms(torch, lambda: reference_attention(q, k, v, causal=True),
+                     3, warmup=1)
+    lib = _time_ms(torch, lambda: torch.nn.functional
+                   .scaled_dot_product_attention(
+                       q.transpose(1, 2), k.transpose(1, 2),
+                       v.transpose(1, 2), is_causal=True, enable_gqa=True),
+                   20)
+    flops = 4.0 * d * (s * (s + 1) // 2) * b * h
+    nbytes = 2 * (q.numel() + k.numel() + v.numel() + o.numel()) \
+        + 4 * lse.numel()
+    bound_ms, bound_by = _bound(flops, nbytes)
+    print(f"flash_fwd {label} b={b} s={s} h={h}/{hk} d={d} causal (run at "
+          f"{attention.kernel_head_dim(d)}): {m}; two runs bit-identical; "
+          f"kernel {ms:.4f} ms ({bound_ms / ms:.1%} of the bound), plain "
+          f"{plain:.3f} ms, sdpa {lib:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({bound_by}) [{card}]")
+    return {"ms": ms, "plain_ms": plain, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": lib, "max_abs_err": m.max_abs}
+
+
+def _qmm_tp_cases(torch, g, dev, cfg, prompts, card):
+    """qmm at one rank's widths under tp=TP (``quant.plan`` picks the
+    variant and the k split from (m, k, n), so these are other launches
+    than the single-device ones): column-parallel wq, wk/wv and gate/up,
+    row-parallel wo and down, at the int8 TP run's prefill rows (its
+    batch's bucket) and decode rows, and the replicated lm_head at the
+    decode rows; int8 and int4, each held to its plain version with
+    GMM_TOLS and two runs bit-identical, timed warm (decode in a CUDA
+    graph)."""
+    from flash_attention_tpu_torch.ops import quant
+    from flash_attention_tpu_torch.parallel import tp_inference
+    from flash_attention_tpu_torch.utils.metrics import assert_metrics
+    loc = tp_inference.local_config(cfg, TP)
+    D, F_ = loc.dim, loc.hidden_dim
+    hq, hkv = loc.n_heads * loc.head_dim, loc.n_kv_heads * loc.head_dim
+    short = prompts[TP_SHORT]
+    rows = 1 << (len(short) - 1).bit_length()
+    bucket = max(32, 1 << (max(map(len, short)) - 1).bit_length())
+    proj = {"wq": (D, hq), "wk/wv": (D, hkv), "wo": (hq, D),
+            "gate/up": (D, F_), "down": (F_, D)}
+    cases = [(f"{phase} {name}", m, k, n)
+             for phase, m in (("prefill", rows * bucket), ("decode", rows))
+             for name, (k, n) in proj.items()]
+    cases.append(("lm_head", rows, D, cfg.vocab_size))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = {}
+    for bits in QUANT_BITS:
+        quantize = quant.quantize_int8 if bits == 8 else quant.quantize_int4
+        for label, m, k, n in cases:
+            w = quantize(torch.randn((k, n), generator=g, device=dev)
+                         * k**-0.5)
+            x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+            y = quant.quantized_matmul(x, w)
+            tag = f"tp{TP} int{bits} {label}"
+            mt = assert_metrics(f"qmm {tag}", y, quant
+                                .quantized_matmul_reference(x, w), GMM_TOLS)
+            assert torch.equal(y, quant.quantized_matmul(x, w)), \
+                f"qmm {tag}: two runs differ"
+            decode = m <= quant.DECODE_M  # microseconds: in a CUDA graph
+            ms = (_time_graph_ms if decode else _time_ms)(
+                torch, lambda: quant.quantized_matmul(x, w),
+                100 if decode else 10)
+            plain = _time_ms(torch, lambda: quant.quantized_matmul_reference(
+                x, w), 2, warmup=1)
+            flops = 2.0 * m * k * n
+            nbytes = 2 * m * k + k * n * bits / 8 + 4 * n + 2 * m * n
+            bound_ms, bound_by = _bound(flops, nbytes)
+            tile, splits, _ = quant.plan(m, k, n, sms)
+            print(f"qmm {tag}: x ({m}, {k}) bf16 @ int{bits} ({k}, {n}), "
+                  f"{tile} rows of x a tile, k split {splits} ways: {mt}; "
+                  f"two runs bit-identical; kernel {ms:.4f} ms ("
+                  f"{'device time in a CUDA graph, ' if decode else ''}warm), "
+                  f"plain "
+                  f"{plain:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}) "
+                  f"[{card}]")
+            out[tag] = {"ms": ms, "plain_ms": plain, "bound_ms": bound_ms,
+                        "bound_by": bound_by, "max_abs_err": mt.max_abs}
+            del x, w, y
+    return out
+
+
+def check_queue_c(torch, dev, cfg, prompts, card):
+    """Decode at head dims 80 and 96 (a cache 128 wide, as the engine
+    allocates it, and once an unpadded d-96 cache, padded by a copy in the
+    call) and at GQA groups 12 and 16 (the group split into sub-groups of
+    8 over the kernel's grid), each against its plain version and timed
+    cold beside its bound; the forward at d 80 and 96 (padded to 128) at
+    the d-96 model's prefill shape; the kv write of d-96 rows into the
+    128-wide cache, bf16 and both quantizing instances, bit for bit, timed
+    in a CUDA graph; and the shapes tensor parallelism gives the kernels
+    at tp=TP (Llama-3-8B's rank: paged h16/4, qmm at the local widths).
+    Returns {kernel: {shape: figures}} for the kernels line."""
+    from flash_attention_tpu_torch.ops import kv_update as kv
+    from flash_attention_tpu_torch.ops import paged_attention as pa
+    from flash_attention_tpu_torch.ops.quant import _quantize_token
+    from flash_attention_tpu_torch.utils.metrics import assert_metrics
+    g = torch.Generator(device=dev).manual_seed(SEED + 31)
+    paged, writes, fwd = {}, {}, {}
+    for d in QC_HEAD_DIMS:
+        fwd[f"d{d} (run at 128) prefill b8 causal h32/8"] = _flash_qc_case(
+            torch, g, dev, f"d{d}", MAX_BATCH, 2048, 32, 8, d, card)
+    torch.cuda.empty_cache()
+    for d in QC_HEAD_DIMS:
+        fig, args = _paged_qc_case(torch, pa, g, dev, f"d{d}", 32, 8, d,
+                                   128, card)
+        paged[f"d{d} (cache 128 wide) h32/8, cold"] = fig
+        if d == 96:  # an unpadded cache: the call pads a copy of the pool
+            q, kp, vp, lengths, tables = args
+            kp, vp = kp[..., :d].contiguous(), vp[..., :d].contiguous()
+            o = pa.paged_attention(q, kp, vp, lengths, tables, layer=0)
+            m = assert_metrics("paged_attention d96 unpadded cache", o,
+                               pa.paged_attention_reference(
+                                   q, kp, vp, lengths, tables, layer=0),
+                               O_TOLS)
+            ms = _time_ms(torch, lambda: pa.paged_attention(
+                q, kp, vp, lengths, tables, layer=0), 5)
+            print(f"paged_attention d96 on an unpadded cache (a padded copy "
+                  f"of the {kp.numel() * 2 * 2 / 2**30:.2f} GiB pool in each "
+                  f"call): {m}; {ms:.3f} ms a call, eager [{card}]")
+            paged["d96 unpadded cache (padded copy a call), eager"] = {
+                "ms": ms}
+        del args
+    for group in QC_GROUPS:
+        fig, args = _paged_qc_case(torch, pa, g, dev, f"group {group}",
+                                   8 * group, 8, 128, 128, card)
+        paged[f"group {group} h{8 * group}/8 d128, cold"] = fig
+        del args
+    fig, args = _paged_qc_case(torch, pa, g, dev, f"tp{TP} rank",
+                               cfg.n_heads // TP, cfg.n_kv_heads // TP,
+                               cfg.head_dim, cfg.head_dim, card)
+    paged[f"tp{TP} rank h{cfg.n_heads // TP}/{cfg.n_kv_heads // TP} "
+          f"d{cfg.head_dim}, cold"] = fig
+    del args
+    torch.cuda.empty_cache()
+    # the kv write: d-96 rows into a cache 128 wide, Llama-3-8B's serving
+    # shape otherwise (L32 b8 hk8)
+    L, hk, b, d, width = 32, 8, MAX_BATCH, 96, 128
+    for name, dtype in (("bf16", None), *KV_QUANT.items()):
+        P = KV_QUANT_PAGES if dtype else TOTAL_PAGES
+        ps = KV_QUANT_PAGE_SIZE if dtype else PAGE_SIZE
+        if dtype:
+            kp, ks = _quant_pool(torch, g, dev, (L, hk, P, ps, width), dtype)
+            vp, vs = _quant_pool(torch, g, dev, (L, hk, P, ps, width), dtype)
+            k = _quant_rows(torch, g, dev, b, hk, d, dtype)
+            v = _quant_rows(torch, g, dev, b, hk, d, dtype)
+        else:
+            kp, vp = (_random_pool(torch, g, dev, (L, hk, P, ps, width))
+                      for _ in range(2))
+            ks = vs = None
+            k, v = (torch.randn((b, hk, d), generator=g, device=dev)
+                    .to(torch.bfloat16) for _ in range(2))
+        wpage = torch.randperm(P - 1, generator=g, device=dev)[:b].to(
+            torch.int32)
+        woff = torch.randint(0, ps, (b,), generator=g, device=dev,
+                             dtype=torch.int32)
+        pools = [x for x in (kp, vp, ks, vs) if x is not None]
+        ref = [x.clone() for x in pools]
+        kpad, vpad = pa.pad_head_dim(k, width), pa.pad_head_dim(v, width)
+
+        def plain(kp, vp, ks=None, vs=None):
+            if dtype is None:
+                kv.write_token_kv_reference(kp, vp, kpad, vpad, wpage, woff,
+                                            L - 1)
+                return
+            kq, ksc = _quantize_token(kpad, dtype)
+            vq, vsc = _quantize_token(vpad, dtype)
+            kv.write_token_kv_reference(kp, vp, kq, vq, wpage, woff, L - 1)
+            kv._write_scales_reference(ks, ksc, wpage, woff, L - 1)
+            kv._write_scales_reference(vs, vsc, wpage, woff, L - 1)
+
+        def call():
+            if dtype is None:
+                return kv.write_token_kv(kp, vp, None, None, k, v, None, None,
+                                         wpage, woff, layer=L - 1)
+            return kv.quantize_write_token_kv(kp, vp, ks, vs, k, v, wpage,
+                                              woff, layer=L - 1)
+        plain(*ref)
+        call()
+        same = all(_bits_equal(torch, x, r, P - 1)
+                   for x, r in zip(pools, ref))
+        assert same, f"kv write d96 {name}: not bit-identical"
+        ms = _time_graph_ms(torch, call, 100)
+        p_ms = _time_graph_ms(torch, lambda: plain(*pools), 20)
+        lib = None
+        if dtype is None:  # as row 6: one index_put_ a pool, padded rows
+            idx = (wpage.long(), woff.long())
+
+            def library():
+                kp[L - 1].permute(1, 2, 0, 3).index_put_(idx, kpad)
+                vp[L - 1].permute(1, 2, 0, 3).index_put_(idx, vpad)
+            lib = _time_graph_ms(torch, library, 100)
+        rows = b * hk * d
+        nbytes = (2 * 2 * rows + 2 * 2 * rows + 8 * b if dtype is None else
+                  2 * 2 * rows + 2 * (rows + 8 * 4 * b * hk) + 8 * b)
+        bound_ms, bound_by = _bound(0.0, nbytes)
+        key = f"d96 into a 128-wide cache, {name}" + (
+            " quantize" if dtype else "") + f" L{L} b{b} hk{hk}"
+        writes[key] = {"ms": ms, "plain_ms": p_ms, "bound_ms": bound_ms,
+                       "bound_by": bound_by, "library_ms": lib,
+                       "max_abs_err": 0.0}
+        yard = "" if lib is None else \
+            f", index_put_ of the padded rows (K and V) {lib:.5f} ms"
+        print(f"kv_write {key}: bit-identical to its plain version (rows "
+              f"zero-padded to {width}); device time in a CUDA graph "
+              f"{ms:.5f} ms, plain {p_ms:.5f} ms{yard}, bound "
+              f"{bound_ms:.6f} ms ({bound_by}) [{card}]")
+        del kp, vp, ks, vs, pools, ref
+        torch.cuda.empty_cache()
+    qmm = _qmm_tp_cases(torch, g, dev, cfg, prompts, card)
+    torch.cuda.empty_cache()
+    return {"paged_attention": paged, "kv_write": writes, "flash_fwd": fwd,
+            "qmm": qmm}
+
+
+def serve_d96(torch, dev, card, kernels):
+    """A Llama-shaped config at head dim 96 (D96_CFG, random bf16 weights)
+    served through the engine, whose cache is 128 wide: the exact launch
+    counts, 32 tokens a request (31 decode steps), then prefill against
+    decode logits (the decode through an unpadded d-96 cache)."""
+    from flash_attention_tpu_torch.models import llama
+    cfg = llama.LlamaConfig(**D96_CFG)
+    params = llama.init_params(cfg, seed=SEED, device=dev,
+                               dtype=torch.bfloat16)
+    prompts = _prompts(cfg.vocab_size)
+    model = "Llama-shaped d96 (dim 3072, h32/8, 4 layers)"
+    launches, outputs, st = serve(torch, params, cfg, prompts, card, kernels,
+                                  model, profile=False)
+    assert st["decode_steps"] >= 16, st["decode_steps"]
+    consistency(torch, params, cfg, prompts, model)
+    del params
+    return launches
+
+
+def _moe_last_routes(log_ids, lens, bucket, n_layers):
+    """The top-2 set of each prompt's last token in each layer, from the
+    first ``n_layers`` route calls of a (b, bucket) prefill: (L, n, 2)."""
+    rows = [i * bucket + n - 1 for i, n in enumerate(lens)]
+    return np.stack([ids[rows].cpu().numpy() for ids in log_ids[:n_layers]])
+
+
+def moe_prefill_reference(torch, params, cfg, prompts):
+    """The single-device Mixtral prefill of the served prompts as the
+    engine batches them (b 8, one bucket), at each prompt's last position:
+    (rows (n, vocab) fp32 on the CPU, the last tokens' top-2 sets (L, n,
+    2))."""
+    from flash_attention_tpu_torch.models import llama
+    dev = params["embed"].device
+    bucket = max(32, 1 << (max(map(len, prompts)) - 1).bit_length())
+    toks = torch.zeros((MAX_BATCH, bucket), dtype=torch.int64, device=dev)
+    for i, p in enumerate(prompts):
+        toks[i, :len(p)] = torch.tensor(p, device=dev)
+    last = torch.tensor([len(p) - 1 for p in prompts] + [0] * (
+        MAX_BATCH - len(prompts)), device=dev)
+    with torch.inference_mode(), _RouteLog() as log:
+        rows, _, _ = llama.prefill(params, toks, cfg, return_kv=False,
+                                   logit_rows=last)
+    return (rows[:len(prompts)].float().cpu(),
+            _moe_last_routes(log.ids, [len(p) for p in prompts], bucket,
+                             cfg.n_layers))
+
+
+def _tp_serve(torch, eng, prompts, kernels, moe_layers=0):
+    """One rank's engine run: launches, throughput, peak, tokens, the
+    prefill rows and (MoE) the last tokens' routes."""
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    log = _SampleLog(eng, n=1)
+    with _RouteLog() as routes:
+        t0 = time.perf_counter()
+        reqs = [eng.add_request(p, MAX_NEW) for p in prompts]
+        eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    bucket = max(32, 1 << (max(map(len, prompts)) - 1).bit_length())
+    return {"errors": [r.error for r in reqs],
+            "tokens": [r.output for r in reqs], "rows": log.rows,
+            "wall": wall, "stats": eng.throughput(),
+            "launches": {k.name: k.launches for k in kernels},
+            "peak": torch.cuda.max_memory_allocated(),
+            "routes": (_moe_last_routes(routes.ids, [len(p) for p in prompts],
+                                        bucket, moe_layers)
+                       if moe_layers else None)}
+
+
+def _tp_rank(rank, world, jobs):
+    """A rank of the tensor-parallel phase: each job's weights built as this
+    rank's part (``init_shard``, one full weight at a time), then its
+    engine runs, each ``Engine(mesh=)`` with the job's options."""
+    import torch
+    from flash_attention_tpu_torch import Engine
+    from flash_attention_tpu_torch.ops import flash_bwd, flash_fwd, kv_update
+    from flash_attention_tpu_torch.ops import moe, paged_attention, quant
+    from flash_attention_tpu_torch.parallel import mesh as pmesh
+    from flash_attention_tpu_torch.parallel import tp_inference
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kernels = [flash_fwd.KERNEL, kv_update.KERNEL, paged_attention.KERNEL,
+               *flash_bwd.KERNELS, *moe.KERNELS, quant.KERNEL]
+    mesh = pmesh.make_mesh(model=world)
+    out = {"psum": {}}
+    # the all-reduce alone, at a decode step's and the prefill's shapes
+    for shape, calls in (((MAX_BATCH, 4096), 64), ((MAX_BATCH, 2048, 4096),
+                                                   8)):
+        x = torch.ones(shape, dtype=torch.bfloat16, device="cuda")
+        assert bool((pmesh.psum(x, mesh, "model") == world).all())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            pmesh.psum(x, mesh, "model")
+        torch.cuda.synchronize()
+        out["psum"][shape] = (time.perf_counter() - t0) / calls * 1e3
+        del x
+    with torch.inference_mode():
+        for job in jobs:
+            cfg = job["cfg"]
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            params = tp_inference.init_shard(
+                cfg, mesh, seed=SEED, device="cuda", dtype=torch.bfloat16,
+                bits=job.get("bits"))
+            torch.cuda.synchronize()
+            out[job["name"] + " init"] = {
+                "s": time.perf_counter() - t0,
+                "peak": torch.cuda.max_memory_allocated(),
+                "weights": sum(
+                    sum(t.numel() * t.element_size() for t in (
+                        (w.values, w.scales) if hasattr(w, "bits") else (w,)))
+                    for w in params.values())}
+            for run in job["runs"]:
+                eng = Engine(cfg, params, max_batch=MAX_BATCH,
+                             max_seq_len=MAX_SEQ, native_allocator=True,
+                             mesh=mesh, **run["engine"])
+                out[run["name"]] = _tp_serve(
+                    torch, eng, run["prompts"], kernels,
+                    cfg.n_layers if cfg.n_experts else 0)
+                # _SampleLog's hooks tie the engine (its cache, and the
+                # params) into a reference cycle: collect it
+                del eng
+                gc.collect()
+                torch.cuda.empty_cache()
+            del params
+            gc.collect()
+            torch.cuda.empty_cache()
+    return out
+
+
+def serve_tp(torch, card, kernels, cfg, mix_cfg, prompts, mix_prompts,
+             ref, mix_ref):
+    """Llama-3-8B (full width and depth) and Mixtral-8x7B (expert
+    parallelism, TP_MIX_LAYERS layers) served at tp=TP as two ranks on the
+    one card (``parallel.mesh.spawn``; gloo, the all-reduces staged through
+    host memory), each rank's engine ``Engine(mesh=make_mesh(model=2))``:
+    the ranks' tokens and prefill rows identical; each prompt's last-
+    position logits within CONSISTENCY_REL_L2 of the single-device ones
+    (``ref``, computed by the earlier phases) with its greedy token
+    agreeing (exact ties counted);
+    ``decode_block=4`` tokens equal to the default TP engine's; the int8
+    KV cache and int8 weights (the 4 shortest prompts) against their
+    single-device runs; Mixtral's layer-0 routes alike for every prompt,
+    and at least MIX_TP_HELD prompts routed alike in every layer held to
+    the same gates. Exact launch counts; tokens/s and each rank's
+    peak printed. Returns {path: rank 0's launches}."""
+    from flash_attention_tpu_torch.ops import attention
+    from flash_attention_tpu_torch.parallel import mesh as pmesh
+    short = prompts[TP_SHORT]
+    kvq = dict(kv_quant=True, page_size=KV_QUANT_PAGE_SIZE,
+               total_pages=KV_QUANT_PAGES)
+    base = dict(page_size=PAGE_SIZE, total_pages=TOTAL_PAGES)
+    jobs = [
+        {"name": "Llama-3-8B", "cfg": cfg, "runs": [
+            {"name": "tp2", "prompts": prompts, "engine": base},
+            {"name": "tp2_decode_block", "prompts": prompts,
+             "engine": dict(base, decode_block=DECODE_BLOCK)},
+            {"name": "tp2_kv_int8", "prompts": short, "engine": kvq}]},
+        {"name": "Llama-3-8B int8", "cfg": cfg, "bits": 8, "runs": [
+            {"name": "tp2_int8", "prompts": short, "engine": base}]},
+        {"name": "Mixtral-8x7B", "cfg": mix_cfg, "runs": [
+            {"name": "tp2_mixtral", "prompts": mix_prompts,
+             "engine": base}]}]
+    t0 = time.perf_counter()
+    ranks = pmesh.spawn(_tp_rank, TP, jobs)
+    print(f"tensor-parallel phase: {TP} ranks spawned on the one card, "
+          f"{time.perf_counter() - t0:.1f} s from spawn to the last rank's "
+          f"exit [{card}]")
+    r0 = ranks[0]
+    for i, r in enumerate(ranks):
+        print(f"psum (gloo, staged through host memory) on rank {i}: "
+              + ", ".join(f"{shape} bf16 {ms:.3f} ms" for shape, ms in
+                          r["psum"].items()) + f" a call [{card}]")
+    for job in jobs:
+        for i, r in enumerate(ranks):
+            ini = r[job["name"] + " init"]
+            print(f"{job['name']} tp={TP} rank {i}: its part built in "
+                  f"{ini['s']:.1f} s, {ini['weights'] / 2**30:.2f} GiB of "
+                  f"weights, peak {ini['peak'] / 2**30:.2f} GiB while "
+                  f"building [{card}]")
+    paths = {}
+    label = (f"two ranks sharing one card, all-reduces staged through host "
+             f"memory (gloo) [{card}]")
+    for job in jobs:
+        L = job["cfg"].n_layers
+        for run in job["runs"]:
+            name, res = run["name"], r0[run["name"]]
+            for r in ranks:
+                assert all(e is None for e in r[name]["errors"]), \
+                    r[name]["errors"]
+                assert len(r[name]["tokens"]) == len(run["prompts"])
+                assert all(len(t) == MAX_NEW for t in r[name]["tokens"])
+            same_tok = all(r[name]["tokens"] == res["tokens"] for r in ranks)
+            same_rows = all(torch.equal(r[name]["rows"], res["rows"])
+                            for r in ranks)
+            assert same_tok and same_rows, f"{name}: the ranks disagree"
+            st = res["stats"]
+            peaks = ", ".join(f"{r[name]['peak'] / 2**30:.2f}" for r in ranks)
+            steps = st["decode_steps"] * run["engine"].get("decode_block", 1)
+            bucket = max(32, 1 << (max(map(len, run["prompts"])) - 1)
+                         .bit_length())
+            n = res["launches"]
+            want = {"flash_fwd": -(-bucket // attention.KV_SPLIT) * L
+                    * st["prefill_dispatches"],
+                    "kv_update": L * steps, "paged_attention": L * steps,
+                    "gmm": 3 * L * (st["prefill_dispatches"] + steps)
+                    if job["cfg"].n_experts else 0,
+                    "qmm": (7 * L + 1) * (st["prefill_dispatches"] + steps)
+                    if job.get("bits") else 0}
+            assert all(n[k] == v for k, v in want.items()) and \
+                n["flash_fwd"] > 0 and n["gmm_dw"] == 0, (name, n, want)
+            paths[f"serve_{name}"] = n
+            print(f"{job['name']} {name}: {len(run['prompts'])} requests x "
+                  f"{MAX_NEW} tokens, ranks' tokens and prefill rows "
+                  f"identical; prefill tokens/s "
+                  f"{st['prefill_tokens_per_s']:.1f}, decode tokens/s "
+                  f"{st['decode_tokens_per_s']:.1f} ({st['decode_steps']} "
+                  f"decode steps, wall {res['wall']:.2f} s); the ranks' peaks "
+                  f"{peaks} GiB; launches on rank 0 {n}; {label}")
+    # Llama-3-8B against the single-device phases
+    for name, want_rows, want_tok, sel in (
+            ("tp2", ref["rows"], ref["outputs"], slice(None)),
+            ("tp2_kv_int8", ref["rows"][TP_SHORT], ref["kv_int8"][TP_SHORT],
+             TP_SHORT),
+            ("tp2_int8", ref["int8_rows"][TP_SHORT], ref["int8"][TP_SHORT],
+             TP_SHORT)):
+        rows, toks = r0[name]["rows"], r0[name]["tokens"]
+        rels = [_rel(torch, a, b) for a, b in zip(rows, want_rows)]
+        agree = [_greedy_agree(a, b) for a, b in zip(rows, want_rows)]
+        prefix = [next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                       len(a)) for a, b in zip(toks, want_tok)]
+        print(f"Llama-3-8B {name} against the single-device run: last-"
+              f"position logits rel L2 {', '.join(f'{x:.3e}' for x in rels)}"
+              f" (gate {CONSISTENCY_REL_L2:g}); greedy first token agrees "
+              f"{sum(agree)}/{len(agree)} (exact ties counted); tokens equal "
+              f"to the single-device engine's for the first {prefix} of "
+              f"{MAX_NEW} [{card}]")
+        assert max(rels) <= CONSISTENCY_REL_L2 and all(agree), (name, rels)
+    assert r0["tp2_decode_block"]["tokens"] == r0["tp2"]["tokens"], \
+        "decode_block tokens differ from the TP engine's"
+    print(f"Llama-3-8B tp2 decode_block {DECODE_BLOCK}: tokens identical to "
+          f"the default TP engine's for all {len(prompts)} requests")
+    # Mixtral under expert parallelism against the single-device forward at
+    # the same depth. Layer 0's routes must agree for every prompt (its
+    # router reads the embedding and one attention block); a prompt whose
+    # last token routes apart in a later layer is printed only (one swapped
+    # expert moves the output by tens of percent: a fact of top-2 routing,
+    # not of a kernel), and at least MIX_TP_HELD prompts must route alike
+    # in every layer and pass the gates
+    rows, routes = r0["tp2_mixtral"]["rows"], r0["tp2_mixtral"]["routes"]
+    ref_rows, ref_routes = mix_ref
+    n_held = 0
+    for i, (a, b) in enumerate(zip(rows, ref_rows)):
+        same = (routes[:, i] == ref_routes[:, i]).all(-1)
+        alike, rel = bool(same.all()), _rel(torch, a, b)
+        agree = _greedy_agree(a, b)
+        print(f"Mixtral-8x7B L{mix_cfg.n_layers} tp2 prompt "
+              f"{len(mix_prompts[i])} tokens: last-position logits rel L2 "
+              f"{rel:.3e} against one device, greedy "
+              f"{'agrees' if agree else 'differs'}; last token routed alike "
+              f"in layers {np.flatnonzero(same).tolist()} of "
+              f"{mix_cfg.n_layers}"
+              f"{'' if alike else ' (not held: routing flipped)'} [{card}]")
+        assert bool(same[0]), f"prompt {i}: layer 0 routes differ"
+        if alike:
+            assert rel <= CONSISTENCY_REL_L2 and agree, (i, rel)
+            n_held += 1
+    assert n_held >= MIX_TP_HELD, \
+        f"{n_held} Mixtral prompts routed alike, fewer than {MIX_TP_HELD}"
+    print(f"Mixtral-8x7B tp2: {n_held} of {len(mix_prompts)} prompts held "
+          f"to the gates (at least {MIX_TP_HELD} must be)")
+    return paths
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4576,6 +5172,14 @@ def main() -> int:
             e = next(e for e in entries if e["name"] == name)
             e.setdefault("shapes", {}).update(shapes)
     torch.cuda.empty_cache()
+    mark("head dims 80 and 96, GQA groups 12 and 16")
+    # decode at the head dims the kernels pad and the groups they split
+    with torch.inference_mode():
+        for name, shapes in check_queue_c(torch, dev, cfg, prompts,
+                                                card).items():
+            e = next(e for e in entries if e["name"] == name)
+            e.setdefault("shapes", {}).update(shapes)
+    torch.cuda.empty_cache()
     mark("segmented instances")
     paths = {}  # path -> {kernel: launches}
     # the segmented instances at Llama-3-8B's and Gemma-2-9B's widths; the
@@ -4593,6 +5197,9 @@ def main() -> int:
         assert paths["varlen"][name] > 0, (name, paths["varlen"])
     check_moe_ffn(torch, dev, mix, card)
     torch.cuda.empty_cache()
+    mark("a d-96 model served")
+    paths["serve_d96"] = serve_d96(torch, dev, card, kernels)
+    torch.cuda.empty_cache()
 
     mark("Llama-3-8B")
     # 3. Llama-3-8B, full width and depth: serving, prefill vs decode, then
@@ -4607,6 +5214,9 @@ def main() -> int:
                                             card, kernels, "Llama-3-8B")
     consistency(torch, params, cfg, prompts, "Llama-3-8B")
     ref_rows = generated_logits(torch, params, cfg, prompts, outputs)
+    # what the tensor-parallel phase is held to: each prompt's last-position
+    # logits and the tokens of the single-device runs
+    tp_ref = {"rows": ref_rows[:, 0].float().cpu(), "outputs": outputs}
     # the same weights with chunked prefill (Mistral's traffic, chunks of
     # CHUNK_SIZE) against an unchunked engine, and the masked-prefix control
     t0 = time.perf_counter()
@@ -4625,6 +5235,7 @@ def main() -> int:
     for name, dtype in KV_QUANT.items():
         paths[f"serve_kv_{name}"], kv_outputs = serve_kv_quant(
             torch, params, cfg, prompts, card, kernels, name)
+        tp_ref[f"kv_{name}"] = kv_outputs
         torch.cuda.empty_cache()
         quant_quality(torch, ref_rows,
                       generated_logits(torch, params, cfg, prompts, outputs,
@@ -4719,9 +5330,11 @@ def main() -> int:
             assert all(same) and all(moved)
             del adapters
         consistency(torch, qparams, cfg, prompts, model)
-        quant_quality(torch, ref_rows,
-                      generated_logits(torch, qparams, cfg, prompts, outputs),
-                      outputs, q_outputs, model)
+        q_rows = generated_logits(torch, qparams, cfg, prompts, outputs)
+        if bits == 8:
+            tp_ref.update(int8=q_outputs, int8_rows=q_rows[:, 0].float().cpu())
+        quant_quality(torch, ref_rows, q_rows, outputs, q_outputs, model)
+        del q_rows
         del qparams
         gc.collect()
         torch.cuda.empty_cache()
@@ -4763,11 +5376,23 @@ def main() -> int:
     mix_train = dataclasses.replace(mix, n_layers=MIX_TRAIN_LAYERS)
     params = llama.init_params(mix_train, seed=SEED, device=dev,
                                dtype=torch.bfloat16)
+    # the tensor-parallel phase's Mixtral reference: these weights, before
+    # training moves them
+    mix_ref = moe_prefill_reference(torch, params, mix_train, mix_prompts)
     paths["train_mixtral"] = train(torch, params, mix_train, card, kernels,
                                    "Mixtral-8x7B", lr=MIX_LR)
     del params
     gc.collect()
     torch.cuda.empty_cache()
+
+    mark("tensor-parallel serving, tp=2")
+    # Llama-3-8B and Mixtral-8x7B (expert parallelism) served by two ranks
+    # on the card, against the single-device phases above
+    t0 = time.perf_counter()
+    paths.update(serve_tp(torch, card, kernels, cfg, mix_train, prompts,
+                          mix_prompts, tp_ref, mix_ref))
+    del tp_ref, mix_ref
+    print(f"tensor-parallel phase: {time.perf_counter() - t0:.1f} s")
 
     mark("Mistral-7B")
     # 7. Mistral-7B-v0.1 (window 4096 on every layer), full width, depth cut

@@ -21,7 +21,9 @@ decode-side options run on the same kernels: multi-step decode
 and speculative decoding (``Engine(draft_cfg=, draft_params=, n_draft=)``).
 Multi-LoRA (``models.lora``, ``Engine(lora_rank=)``, ``lora_ids``) serves
 and fine-tunes many adapters over one base, and ``models.import_hf`` builds
-the params from an HF state dict. Imports no JAX.
+the params from an HF state dict. ``parallel`` serves tensor-parallel
+(``make_mesh``, ``tp_prefill``, ``tp_decode_step``, ``Engine(mesh=)``), one
+process a rank over ``torch.distributed``. Imports no JAX.
 """
 
 from flash_attention_tpu_torch.ops.attention import (SegmentIds, bwd,

@@ -8,8 +8,10 @@
 // A row's page table maps its i-th page of tokens to a physical page. Rows
 // with length <= 0 write zeros. Lengths past the table's width are clamped to
 // it; page ids must lie in [0, P) (the engine pads tables with its trash
-// page, which several rows may share). bf16 or fp16, d 64, 128 or 256, GQA
-// groups of up to 8 query heads per kv head. With a sliding window W the
+// page, which several rows may share). bf16 or fp16, d 64, 128 or 256 (the
+// wrapper pads other head dims to one of these), any GQA group: a CTA takes
+// up to 8 query heads of its kv head, and a larger group is split into
+// sub-groups of 8 over the grid's y axis. With a sliding window W the
 // query sees the tokens [max(len - W, 0), len) only; a table entry whose page holds no
 // such token may be a hole (-1 or any other id) and is never read. The
 // softcap instance (CAP) squashes scaled scores to cap tanh(s / cap) as
@@ -25,9 +27,10 @@
 //
 // What the design does about it:
 // * A split over the sequence (flash-decoding). A pair's tokens are cut into
-//   chunks of chunk_tiles 64-token tiles; each (chunk, kv head, row) is one
-//   CTA, two resident a SM. The chunking comes from the table's width, b, hk
-//   and the SM count on the host (ops/paged_attention.py::plan), never from
+//   chunks of chunk_tiles 64-token tiles; each (chunk, kv head and
+//   sub-group, row) is one CTA, two resident a SM. The chunking comes from
+//   the table's width, b, hk (times the sub-groups) and the SM count on the
+//   host (ops/paged_attention.py::plan), never from
 //   lengths, so the call reads nothing back and can be captured in a CUDA
 //   graph. A CTA whose chunk starts past its row's length exits at once.
 //   With a window, a pair's chunks start at the 64-token tile that holds the
@@ -55,7 +58,12 @@
 //   memory, see Cfg), and P stays in registers as the A
 //   operand of O += P V, V read MN-major. The tensor work this wastes on the
 //   zero rows is hidden behind the loads. Only warp 0 holds live rows, so
-//   only it runs the online softmax (fp32, log2 domain).
+//   only it runs the online softmax (fp32, log2 domain). A group above 8
+//   (Mistral-Large-2's 12, Llama-3.1-405B's 16, kept whole on every
+//   tensor-parallel shard) runs as sub-groups of 8 heads, each its own CTAs
+//   with their own counters and partials: the kv head's pages are read once
+//   a sub-group, and the live rows stay warp 0's eight, so the softmax and
+//   the register budget of the group-8 kernel are unchanged.
 // * A combine in a fixed order. A row that fits in one chunk writes its
 //   output directly. Otherwise each chunk writes an fp32 partial (m, l and
 //   the unnormalised O of the group) to a workspace and counts itself on
@@ -232,14 +240,19 @@ paged_attn_kernel(const __grid_constant__ CUtensorMap k_map,
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + S::BAR_OFF);
   uint64_t* empty = full + STAGES;
 
-  const int chunk = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
-  const int group = h / hk;
+  const int chunk = blockIdx.x, b = blockIdx.z;
+  // grid.y runs over (kv head, sub-group of at most MAX_GROUP query heads)
+  const int full_group = h / hk;
+  const int n_sub = (full_group + MAX_GROUP - 1) / MAX_GROUP;
+  const int kvh = blockIdx.y / n_sub, sub = blockIdx.y % n_sub;
+  const int group = min(MAX_GROUP, full_group - sub * MAX_GROUP);
   const int len = min(lengths[b], pages_per_seq * page_size);
   // the first live token, and the tile the pair's first chunk starts at
   const int start = window > 0 ? max(len - window, 0) : 0;
   const int tile0 = start / TILE;
   const int tok0 = (tile0 + chunk * chunk_tiles) * TILE;
-  const long long row0 = (long long)b * h + (long long)kvh * group;
+  const long long row0 =
+      (long long)b * h + (long long)kvh * full_group + sub * MAX_GROUP;
   if (len <= 0) {
     if (chunk == 0) {
       uint16_t* o = reinterpret_cast<uint16_t*>(out) + row0 * D;
@@ -503,7 +516,7 @@ paged_attn_kernel(const __grid_constant__ CUtensorMap k_map,
   }
 
   // ---- epilogue ----
-  const int pair = b * hk + kvh;
+  const int pair = b * gridDim.y + blockIdx.y;
   float* part = ws + ((long long)pair * gridDim.x + chunk) * PARTIAL<D>;
   if (warp == 0) {
     l_r += __shfl_xor_sync(0xffffffff, l_r, 1);
@@ -697,7 +710,7 @@ int launch(const void* q, const void* kp, const void* vp, const void* ksp,
     if (err != cudaSuccess) return static_cast<int>(err);
     done.fetch_or(bit);
   }
-  dim3 grid(n_chunks, hk, b);
+  dim3 grid(n_chunks, hk * ((h / hk + MAX_GROUP - 1) / MAX_GROUP), b);
   kernel<<<grid, NTHREADS, Smem<D, Q>::BYTES, stream>>>(
       km, vm, static_cast<const T*>(q), lengths, tables, static_cast<T*>(out),
       ws, counters, h, hk, page_size, box_rows, pages_per_seq, total_pages,
@@ -712,11 +725,11 @@ extern "C" {
 
 // q, out: contiguous (b, h, d); k/v pages: contiguous (L, hk, P, ps, d);
 // lengths (b,) and tables (b, pages_per_seq): contiguous int32. workspace:
-// fp32, (b hk n_chunks) partials of (8 d + 16) floats (unused when n_chunks
-// is 1); counters: b hk int32 zeros, left zero by every call. The chunks
-// (n_chunks of chunk_tiles 64-token tiles) must cover pages_per_seq pages,
-// or with a window (W > 0 tokens; 0 = none) ceil(W / 64) + 1 tiles, and
-// h / hk must be at most 8. cap_scale = scale / cap and cap_log2 = cap
+// fp32, (b hk n_sub n_chunks) partials of (8 d + 16) floats (unused when
+// n_chunks is 1), n_sub = ceil(h / hk / 8) sub-groups; counters: b hk n_sub
+// int32 zeros, left zero by every call. The chunks (n_chunks of chunk_tiles
+// 64-token tiles) must cover pages_per_seq pages, or with a window (W > 0
+// tokens; 0 = none) ceil(W / 64) + 1 tiles. cap_scale = scale / cap and cap_log2 = cap
 // log2(e) run the softcap instance; 0 and 0 the plain one. kv_type 0: the
 // pages in q's type; 1 (int8) or 2 (fp8 e4m3): bf16 q, page size 128, and
 // k/v scales contiguous (L, hk, P, 8, 128) fp32 (null otherwise).
@@ -733,7 +746,7 @@ int fat_paged_attention(const void* q, const void* k_pages, const void* v_pages,
   const int* tab = static_cast<const int*>(tables);
   float* ws = static_cast<float*>(workspace);
   int* cnt = static_cast<int*>(counters);
-  if (h % hk || h / hk > MAX_GROUP || kv_type < 0 || kv_type > 2 ||
+  if (hk < 1 || h % hk || kv_type < 0 || kv_type > 2 ||
       (kv_type != 0 && is_fp16))
     return static_cast<int>(cudaErrorInvalidValue);
 #define FAT_PAGED_LAUNCH(T, D, Q)                                              \

@@ -1,1 +1,4 @@
 """Models of the PyTorch port."""
+from flash_attention_tpu_torch.models import llama
+
+__all__ = ["llama"]

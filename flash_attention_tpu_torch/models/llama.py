@@ -58,9 +58,23 @@ targeted projection (the attention's four and the FFN's three), at the JAX
 package's points; over a quantized base the delta follows the quantized
 matmul. Without stacks ``lora_ids`` is ignored, as in JAX.
 
-Outside this slice (they raise): quantized MoE experts and tensor
-parallelism (and with it expert parallelism). On the card, head dims other
-than 64, 128 and 256 raise in the attention kernels.
+Tensor parallelism (``parallel.tp_inference``): ``prefill``,
+``prefill_chunk`` and ``decode_step`` take ``tp_axis=(mesh, axis)`` on one
+rank's part of the weights with the local config, and all-reduce the
+attention's wo output and the FFN's output over that mesh dim
+(``parallel.mesh.psum``, in the projection's dtype, as JAX's ``psum``);
+Gemma-2's sandwich norms apply after the all-reduce. A Mixtral rank runs its
+own experts (``moe_ffn(expert_offset=)``). ``train_loss`` with ``tp_axis``
+raises: parallel training is not ported yet.
+
+A K/V cache may be wider than the head dim (``ops.attention.
+kernel_head_dim``: d 80 or 96 held at 128, as the engine allocates it for
+the kernels): the writes zero-pad each token's K/V to the cache's width and
+the reads slice it back.
+
+Outside this slice (they raise): quantized MoE experts and LoRA stacks with
+tensor parallelism. On the card, head dims above 256 raise in the attention
+kernels.
 """
 
 from __future__ import annotations
@@ -78,10 +92,13 @@ from flash_attention_tpu_torch.ops.kv_update import (quantize_write_token_kv,
                                                      write_token_kv)
 from flash_attention_tpu_torch.ops.moe import moe_ffn
 from flash_attention_tpu_torch.ops.paged_attention import paged_attention
+from flash_attention_tpu_torch.ops.paged_attention import pad_head_dim
 from flash_attention_tpu_torch.ops.quant import (KV_QMAX, QuantizedTensor,
                                                  _quantize_token,
                                                  quantize_int4, quantize_int8,
                                                  quantized_matmul)
+from flash_attention_tpu_torch.parallel.mesh import axis_index, psum
+from flash_attention_tpu_torch.utils.options import reject_unported
 
 
 @dataclasses.dataclass(frozen=True)
@@ -215,11 +232,18 @@ _MATMUL_NAMES = _LAYER_NAMES[:7]  # the weights quantize_params quantizes
 
 
 def check_supported(cfg: LlamaConfig, params=None, tp_axis=None) -> None:
-    """Raise for what this slice of the port does not run."""
+    """Raise for what this slice of the port does not run. ``tp_axis`` is
+    None or a (mesh, mesh dim name) pair; a bare axis name (the JAX
+    package's form, bound by ``shard_map``) names no process group here."""
     unsupported = {
-        "tensor parallelism (tp_axis)": tp_axis is not None,
+        "tp_axis as a bare axis name (pass (mesh, axis))":
+            tp_axis is not None and not (isinstance(tp_axis, tuple)
+                                         and len(tp_axis) == 2
+                                         and isinstance(tp_axis[1], str)),
     }
     if params is not None:
+        unsupported["LoRA stacks with tensor parallelism"] = (
+            tp_axis is not None and "lora" in params)
         unsupported["quantized MoE experts"] = (
             "w_router" in params and is_quantized(params))
         unsupported["weights other than tensors and QuantizedTensors"] = any(
@@ -262,6 +286,15 @@ def init_params(cfg: LlamaConfig, *, seed: int = 0, device="cuda",
     are expert stacks, w_gate/w_up (L, E, D, F) and w_down (L, E, F, D), and
     the router w_router (L, D, E) is N(0, 0.02^2)."""
     check_supported(cfg)
+    return dict(iter_params(cfg, seed=seed, device=device, dtype=dtype))
+
+
+def iter_params(cfg: LlamaConfig, *, seed: int = 0, device="cuda",
+                dtype=torch.bfloat16):
+    """``init_params``' parameters one at a time, as (name, tensor) pairs in
+    its order and with its values: a caller that keeps only a part of each
+    (a tensor-parallel rank, ``parallel.tp_inference.init_shard``) never
+    holds the whole model."""
     device = torch.device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
@@ -272,33 +305,33 @@ def init_params(cfg: LlamaConfig, *, seed: int = 0, device="cuda",
               "wo": (H * hd, D), "w_gate": (D, F), "w_up": (D, F),
               "w_down": (F, D)}
     experts = (E,) if E else ()
-    params = {}
     for name, (din, dout) in shapes.items():
         stack = experts if name in ("w_gate", "w_up", "w_down") else ()
         w = torch.empty((L, *stack, din, dout), dtype=dtype, device=device)
         for mat in w.view(-1, din, dout):  # each (layer, expert) slice
             _randn_into(mat, din**-0.5, gen)
-        params[name] = w
+        yield name, w
+        del w
     if E:
-        params["w_router"] = torch.empty((L, D, E), dtype=dtype,
-                                         device=device)
+        w = torch.empty((L, D, E), dtype=dtype, device=device)
         for i in range(L):
-            _randn_into(params["w_router"][i], 0.02, gen)
-    params["embed"] = torch.empty((cfg.vocab_size, D), dtype=dtype,
-                                  device=device)
-    _randn_into(params["embed"], 0.02, gen)
-    params["lm_head"] = torch.empty((D, cfg.vocab_size), dtype=dtype,
-                                    device=device)
-    _randn_into(params["lm_head"], D**-0.5, gen, rows=512)
+            _randn_into(w[i], 0.02, gen)
+        yield "w_router", w
+    w = torch.empty((cfg.vocab_size, D), dtype=dtype, device=device)
+    _randn_into(w, 0.02, gen)
+    yield "embed", w
+    w = torch.empty((D, cfg.vocab_size), dtype=dtype, device=device)
+    _randn_into(w, D**-0.5, gen, rows=512)
+    yield "lm_head", w
     for name in ("norm_attn", "norm_mlp") + (_POST_NAMES if cfg.post_norms
                                              else ()):
-        params[name] = torch.ones((L, D), dtype=dtype, device=device)
-    params["norm_out"] = torch.ones((D,), dtype=dtype, device=device)
+        yield name, torch.ones((L, D), dtype=dtype, device=device)
+    yield "norm_out", torch.ones((D,), dtype=dtype, device=device)
     if cfg.attn_bias:
         for name, n in zip(_BIAS_NAMES, (H * hd, HK * hd, HK * hd)):
-            params[name] = torch.empty((L, n), dtype=dtype, device=device)
-            _randn_into(params[name], 0.02, gen)
-    return params
+            w = torch.empty((L, n), dtype=dtype, device=device)
+            _randn_into(w, 0.02, gen)
+            yield name, w
 
 
 @torch.no_grad()  # trained weights that require grad record no graph
@@ -314,22 +347,28 @@ def quantize_params(params, bits: int = 8) -> dict:
         raise NotImplementedError(
             "weight-only quantization of MoE expert stacks is not supported "
             "(the grouped matmul kernel takes float expert weights)")
+    return {name: quantize_leaf(name, w, bits) for name, w in params.items()}
+
+
+@torch.no_grad()
+def quantize_leaf(name: str, w, bits: int = 8):
+    """The param ``name`` as ``quantize_params`` leaves it: a layer stack of
+    the seven projections quantized layer by layer into preallocated
+    stacks, the lm_head quantized, any other param as it is."""
     quant = {8: quantize_int8, 4: quantize_int4}.get(bits)
     if quant is None:
         raise ValueError(f"bits must be 8 or 4, got {bits}")
-    out = dict(params)
-    for name in _MATMUL_NAMES:
-        w = params[name]
-        n_layers, k, n = w.shape
-        values = torch.empty((n_layers, k * bits // 8, n), dtype=torch.int8,
-                             device=w.device)
-        scales = torch.empty((n_layers, n), dtype=torch.float32,
-                             device=w.device)
-        for i in range(n_layers):
-            values[i], scales[i], _ = quant(w[i])
-        out[name] = QuantizedTensor(values, scales, bits)
-    out["lm_head"] = quant(params["lm_head"])
-    return out
+    if name == "lm_head":
+        return quant(w)
+    if name not in _MATMUL_NAMES:
+        return w
+    n_layers, k, n = w.shape
+    values = torch.empty((n_layers, k * bits // 8, n), dtype=torch.int8,
+                         device=w.device)
+    scales = torch.empty((n_layers, n), dtype=torch.float32, device=w.device)
+    for i in range(n_layers):
+        values[i], scales[i], _ = quant(w[i])
+    return QuantizedTensor(values, scales, bits)
 
 
 def params_from_jax(np_params: dict, device, dtype) -> dict:
@@ -441,6 +480,11 @@ def _proj(h, w, name, lora_ids=None):
     return out if d is None else out + d
 
 
+def _maybe_psum(x, tp_axis):
+    """x summed over the ranks of ``tp_axis`` ((mesh, axis)), or x."""
+    return x if tp_axis is None else psum(x, *tp_axis)
+
+
 def _act(x, kind: str = "silu"):
     """The gate activation in fp32: SiLU (Llama, Mistral) or GELU in its
     tanh form (Gemma-2's GeGLU)."""
@@ -449,18 +493,24 @@ def _act(x, kind: str = "silu"):
     return F.silu(x.float())
 
 
-def _ffn(h, w, cfg: LlamaConfig, lora_ids=None):
+def _ffn(h, w, cfg: LlamaConfig, lora_ids=None, tp_axis=None):
     """The FFN half of a layer, shared by prefill, decode and training:
     SwiGLU (GeGLU with ``act="gelu"``) with the LoRA deltas of its three
     projections, or with a router the sparse MoE layer over every token of
-    h (pad rows and pad batch entries included, as in the JAX package)."""
+    h (pad rows and pad batch entries included, as in the JAX package).
+    Under tensor parallelism a MoE rank holds experts [r E_local, (r + 1)
+    E_local) of the global ids (expert parallelism). Returns the output
+    before the all-reduce."""
     if "w_router" not in w:
         gate = _act(_proj(h, w, "w_gate", lora_ids), cfg.act)
         return _proj(gate.to(h.dtype) * _proj(h, w, "w_up", lora_ids), w,
                      "w_down", lora_ids)
+    off = None
+    if tp_axis is not None:
+        off = axis_index(*tp_axis) * w["w_gate"].shape[0]
     out, _ = moe_ffn(h.reshape(-1, h.shape[-1]), w["w_router"], w["w_gate"],
                      w["w_up"], w["w_down"], n_top=cfg.n_experts_per_tok,
-                     act=lambda a: _act(a, cfg.act))
+                     act=lambda a: _act(a, cfg.act), expert_offset=off)
     return out.view(h.shape)
 
 
@@ -492,7 +542,8 @@ def _fake_quant(t, dtype):
 
 
 def _dense_layer(x, w, cfg: LlamaConfig, positions, window=None,
-                 attend=None, kv_fake_quant=None, lora_ids=None):
+                 attend=None, kv_fake_quant=None, lora_ids=None,
+                 tp_axis=None):
     """One transformer layer (weights ``w``, one dict of ``_layer_weights``)
     on a dense (b, s, D) activation, with the layer's sliding ``window``
     (None = global). Returns (x, (k, v)) with k/v (b, s, hk, hd) after
@@ -500,7 +551,9 @@ def _dense_layer(x, w, cfg: LlamaConfig, positions, window=None,
     ``attend(q, k, v, window_size)`` replaces the causal flash attention
     over the layer's own k, v (a chunk's attention to its prefix).
     ``lora_ids`` ((b,) device tensor) selects each row's adapter when w
-    carries LoRA slices."""
+    carries LoRA slices. ``tp_axis`` ((mesh, axis)): w is one rank's part
+    and the wo and FFN outputs are summed over the axis, before Gemma-2's
+    sandwich norms."""
     b, s = x.shape[:2]
     h = _rmsnorm(x, w["norm_attn"], cfg.norm_eps)
     q = _proj(h, w, "wq", lora_ids).view(b, s, cfg.n_heads, cfg.head_dim)
@@ -516,11 +569,12 @@ def _dense_layer(x, w, cfg: LlamaConfig, positions, window=None,
                             window_size=win, softcap=cfg.attn_softcap)
     else:
         o = attend(q, k, v, win)
-    x = x + _post(_proj(o.reshape(b, s, -1), w, "wo", lora_ids), w,
-                  "norm_post_attn", cfg)
+    attn = _maybe_psum(_proj(o.reshape(b, s, -1), w, "wo", lora_ids),
+                       tp_axis)
+    x = x + _post(attn, w, "norm_post_attn", cfg)
     h = _rmsnorm(x, w["norm_mlp"], cfg.norm_eps)
-    return x + _post(_ffn(h, w, cfg, lora_ids), w, "norm_post_mlp", cfg), \
-        (k, v)
+    mlp = _maybe_psum(_ffn(h, w, cfg, lora_ids, tp_axis), tp_axis)
+    return x + _post(mlp, w, "norm_post_mlp", cfg), (k, v)
 
 
 def _layer_out(x, w, cfg: LlamaConfig, positions, window, kv_fake_quant,
@@ -553,7 +607,8 @@ def prefill(params, tokens, cfg: LlamaConfig, tp_axis=None,
     quantized cache, what the paged kernel computes from the 8-bit pages
     and their scales. ``lora_ids`` ((b,) int) selects each row's adapter
     slot when ``params["lora"]`` holds the stacks; stacks without it raise
-    ValueError."""
+    ValueError. ``tp_axis`` ((mesh, axis)): params and cfg are one rank's
+    part (``parallel.tp_inference``), the K/V returned its kv heads."""
     if kv_fake_quant is not None and kv_fake_quant not in KV_QMAX:
         raise ValueError(f"kv_fake_quant must be torch.int8 or "
                          f"torch.float8_e4m3fn, got {kv_fake_quant!r}")
@@ -576,7 +631,8 @@ def prefill(params, tokens, cfg: LlamaConfig, tp_axis=None,
                            preserve_rng_state=False)
             continue
         x, (k, v) = _dense_layer(x, w, cfg, positions, window,
-                                 kv_fake_quant=kv_fake_quant, lora_ids=ids)
+                                 kv_fake_quant=kv_fake_quant, lora_ids=ids,
+                                 tp_axis=tp_axis)
         if return_kv:
             ks[i], vs[i] = k, v
     if logit_rows is not None:
@@ -596,6 +652,7 @@ def train_loss(params, tokens, targets, cfg: LlamaConfig, *,
     ``.backward()`` on the result, or ``torch.autograd.grad``. With LoRA
     stacks in ``params`` and ``lora_ids``, an adapter-only fine-tune makes
     the stacks the leaves that require grad."""
+    reject_unported("train_loss", tp_axis=(tp_axis, None))
     if is_quantized(params):
         raise NotImplementedError("train_loss on quantized weights: the "
                                   "quantized matmul has no gradient (a "
@@ -622,7 +679,9 @@ def decode_step(params, k_pages, v_pages, k_scales, v_scales, tokens, lengths,
     each layer's K/V is quantized per token into its slot and its scale
     into lane write_off of the page's tile, updated in place too.
     ``lora_ids`` ((b,) int) selects each row's adapter slot when
-    ``params["lora"]`` holds the stacks.
+    ``params["lora"]`` holds the stacks. The cache may be wider than
+    ``cfg.head_dim`` (zero-padded to the kernels' width). ``tp_axis``
+    ((mesh, axis)): params, cfg and the cache are one rank's part.
 
     Returns (logits (b, vocab) fp32, k_pages, v_pages, k_scales, v_scales).
     """
@@ -655,10 +714,11 @@ def decode_step(params, k_pages, v_pages, k_scales, v_scales, tokens, lengths,
                             v_scales=v_scales, sm_scale=cfg.sm_scale,
                             window=cfg.layer_window(i),
                             softcap=cfg.attn_softcap, layer=i)
-        x = x + _post(_proj(o.reshape(b, -1), w, "wo", ids), w,
-                      "norm_post_attn", cfg)
+        attn = _maybe_psum(_proj(o.reshape(b, -1), w, "wo", ids), tp_axis)
+        x = x + _post(attn, w, "norm_post_attn", cfg)
         h = _rmsnorm(x, w["norm_mlp"], cfg.norm_eps)
-        x = x + _post(_ffn(h, w, cfg, ids), w, "norm_post_mlp", cfg)
+        mlp = _maybe_psum(_ffn(h, w, cfg, ids, tp_axis), tp_axis)
+        x = x + _post(mlp, w, "norm_post_mlp", cfg)
     x = _rmsnorm(x, params["norm_out"], cfg.norm_eps)
     logits = _final_softcap(_mm(x, params["lm_head"]).float(), cfg)
     return logits, k_pages, v_pages, k_scales, v_scales
@@ -688,7 +748,8 @@ def prefill_chunk(params, tokens, done, chunk_len, k_pages, v_pages,
     gathered prefix is dequantized with its tokens' scales (lane t of a
     page's tile) in the activations' dtype. ``lora_ids`` ((b,) int)
     selects each row's adapter slot when ``params["lora"]`` holds the
-    stacks."""
+    stacks. ``tp_axis`` ((mesh, axis)): params, cfg and the cache are one
+    rank's part, and the K/V returned its kv heads."""
     if (k_scales is None) != (v_scales is None):
         raise ValueError("k_scales and v_scales come together")
     check_supported(cfg, params, tp_axis)
@@ -712,15 +773,17 @@ def prefill_chunk(params, tokens, done, chunk_len, k_pages, v_pages,
     q_seg = torch.where(live, 0, -2)
     segs = tuple(t.int() for t in (q_seg, kv_seg, positions, kv_pos))
     hk, hd = cfg.n_kv_heads, cfg.head_dim
+    width = k_pages.shape[-1]  # >= hd: the cache's (kernel) head dim
 
     def gather(pages, scales, i, dtype):
-        # layer i's (hk, b, npp, ps, hd) -> (b, npp * ps, hk, hd); 8-bit
+        # layer i's (hk, b, npp, ps, width) -> (b, npp * ps, hk, hd); 8-bit
         # pages move as bytes
         if scales is None:
             g = pages[i][:, tables]
-            return g.permute(1, 2, 3, 0, 4).reshape(b, pref, hk, hd).to(dtype)
+            return g.permute(1, 2, 3, 0, 4).reshape(
+                b, pref, hk, width)[..., :hd].to(dtype)
         g = pages[i].view(torch.uint8)[:, tables].view(pages.dtype)
-        g = g.permute(1, 2, 3, 0, 4).reshape(b, pref, hk, hd)
+        g = g.permute(1, 2, 3, 0, 4).reshape(b, pref, hk, width)[..., :hd]
         # token t's scale: lane t of its page's tile, (b, npp * ps, hk)
         sc = scales[i][:, tables][:, :, :, 0, :ps].permute(1, 2, 3, 0)
         return (g.float() * sc.reshape(b, pref, hk)[..., None]).to(dtype)
@@ -735,7 +798,7 @@ def prefill_chunk(params, tokens, done, chunk_len, k_pages, v_pages,
                        window_size=win, softcap=cfg.attn_softcap)[0]
         x, (ks[i], vs[i]) = _dense_layer(x, w, cfg, positions,
                                          cfg.layer_window(i), attend,
-                                         lora_ids=ids)
+                                         lora_ids=ids, tp_axis=tp_axis)
     if logit_rows is not None:
         x = x[torch.arange(b, device=dev), torch.as_tensor(
             logit_rows, device=dev).long()]
@@ -813,11 +876,13 @@ def write_prefill_to_pages(k_pages, v_pages, layer_kv, page_ids, batch_idx,
     bidx, pidx = batch_idx.to(dev).long(), page_in_seq.to(dev).long()
     dest = page_ids.to(dev).long()
 
-    def prep(x):  # (l, bsz, bucket, hk, hd) -> (l, hk, N, page_size, hd)
+    width = k_pages.shape[-1]  # >= hd: the cache's (kernel) head dim
+
+    def prep(x):  # (l, bsz, bucket, hk, hd) -> (l, hk, N, page_size, width)
         if bucket_pad != bucket:
             x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, bucket_pad - bucket))
         x = x.reshape(-1, bsz, bucket_pad // page_size, page_size, hk, hd)
-        return x[:, bidx, pidx].permute(0, 3, 1, 2, 4)
+        return pad_head_dim(x[:, bidx, pidx].permute(0, 3, 1, 2, 4), width)
 
     if k_scales is None:
         k_pages[:, :, dest] = prep(ks).to(k_pages.dtype)

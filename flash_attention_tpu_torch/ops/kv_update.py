@@ -13,6 +13,12 @@ written by ``write_token_kv`` from rows already quantized, as in JAX, or by
 ``quantize_write_token_kv`` from the bf16 rows, which quantizes them per
 token (``ops.quant._quantize_token``) inside the same launch: the decode
 step's one launch a layer.
+
+Rows narrower than the cache (a head dim the kernels run zero-padded, in a
+cache allocated at ``ops.attention.kernel_head_dim``) are zero-padded to the
+cache's width first: the padding's zeros leave a row's amax, and so its
+scale, unchanged. The quantizing kernel's instances are d 64, 128 and 256;
+an 8-bit cache of another width raises on the card.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ import ctypes
 import torch
 
 from flash_attention_tpu_torch.ops import _build
+from flash_attention_tpu_torch.ops.paged_attention import pad_head_dim
 from flash_attention_tpu_torch.ops.quant import KV_QMAX, _quantize_token
 from flash_attention_tpu_torch.utils.options import reject_unported
 
@@ -75,6 +82,15 @@ def _stacked(k_pages, v_pages, layer):
     return pk, pv, layer
 
 
+def _to_width(kval, vval, pk):
+    """The rows zero-padded to the cache's head dim (a cache at the
+    kernels' width holding a narrower model's K/V)."""
+    width = pk.shape[-1]
+    if kval.shape[-1] > width or vval.shape[-1] > width:
+        raise ValueError(f"rows wider than the cache's head dim {width}")
+    return pad_head_dim(kval, width), pad_head_dim(vval, width)
+
+
 def _check_cuda(named, b, hk, d, wpage, woff):
     for name, x in named.items():
         if not x.is_cuda or not x.is_contiguous():
@@ -100,8 +116,9 @@ def _launch_quant(pk, pv, ks, vs, kval, vval, kscale, vscale, wpage, woff,
         raise ValueError(f"a quantized cache holds int8 or float8_e4m3fn, "
                          f"not {pk.dtype}")
     if d not in HEAD_DIMS_QUANT:
-        raise ValueError(f"head_dim {d} not supported (supported: "
-                         f"{HEAD_DIMS_QUANT})")
+        raise ValueError(f"an 8-bit cache of head dim {d}: the kernel takes "
+                         f"{HEAD_DIMS_QUANT}; allocate the cache at "
+                         f"kernel_head_dim({d}), as the engine does")
     if page_size > 128:
         raise ValueError(f"page_size {page_size} above the scale tile's 128 "
                          f"lanes")
@@ -151,6 +168,7 @@ def write_token_kv(k_pages, v_pages, k_scales, v_scales, kval, vval, kscale,
     v_scales), the same tensors."""
     reject_unported("write_token_kv", interpret=(interpret, None))
     pk, pv, li = _stacked(k_pages, v_pages, layer)
+    kval, vval = _to_width(kval, vval, pk)
     quantized = k_scales is not None
     if k_pages.device.type == "cpu":
         write_token_kv_reference(k_pages, v_pages, kval, vval, wpage, woff,
@@ -199,6 +217,7 @@ def quantize_write_token_kv(k_pages, v_pages, k_scales, v_scales, k, v,
         raise ValueError(f"a quantized cache holds int8 or float8_e4m3fn, "
                          f"not {k_pages.dtype}")
     pk, pv, li = _stacked(k_pages, v_pages, layer)
+    k, v = _to_width(k, v, pk)
     if k_pages.device.type == "cpu":
         kq, ksc = _quantize_token(k, k_pages.dtype)
         vq, vsc = _quantize_token(v, v_pages.dtype)

@@ -313,18 +313,27 @@ def moe_ffn(x, router_w, w_gate, w_up, w_down, *, n_top: int, act,
             interpret: bool | None = None):
     """Sparse MoE feed-forward over a flat token batch.
 
-    x (T, D); router_w (D, E); w_gate/w_up (E, D, F); w_down (E, F, D);
-    ``act`` the fp32 gate activation. Returns (out (T, D) in x's dtype, the
-    router logits (T, E) fp32). ``expert_offset`` (expert parallelism)
-    belongs with tensor parallelism and raises, as ``interpret`` (Pallas
-    interpret mode) does off its default."""
+    x (T, D); router_w (D, E_global); w_gate/w_up (E_local, D, F); w_down
+    (E_local, F, D); ``act`` the fp32 gate activation. ``expert_offset``
+    (expert parallelism): this rank's first global expert id (an int; None
+    = one rank owning every expert). Returns (out (T, D) in x's dtype --
+    PARTIAL under expert parallelism, to be summed over the ranks -- and
+    the router logits (T, E_global) fp32). ``interpret`` (Pallas interpret
+    mode) raises off its default.
+
+    Under expert parallelism an assignment to another rank's expert goes to
+    the overflow group (index E_local) with weight 0, as in the JAX package:
+    its blocks are dead (-1), which the grouped-matmul kernel skips and
+    writes as zeros, as its plain version does."""
     reject_unported("moe_ffn", interpret=(interpret, None))
-    if expert_offset is not None:
-        raise NotImplementedError("expert_offset (expert parallelism) is "
-                                  "outside this slice of the PyTorch port")
     t, d = x.shape
+    e_local = w_gate.shape[0]
     weights, ids, logits = route(x, router_w, n_top)
-    perm, pos, bexp, n_pad = dispatch(ids, w_gate.shape[0], block_rows)
+    if expert_offset is not None:
+        local = (ids >= expert_offset) & (ids < expert_offset + e_local)
+        ids = torch.where(local, ids - expert_offset, e_local).to(ids.dtype)
+        weights = torch.where(local, weights, 0.0)
+    perm, pos, bexp, n_pad = dispatch(ids, e_local, block_rows)
     tok = torch.arange(t, device=x.device).repeat_interleave(n_top)
     xs = x.new_zeros((n_pad, d)).index_copy(0, pos, x[tok[perm]])
     gate = grouped_matmul(xs, w_gate, bexp)

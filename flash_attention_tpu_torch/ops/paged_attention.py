@@ -20,6 +20,15 @@ A quantized cache (int8 or fp8 e4m3 pages of 128 tokens, with the
 (L, hk, P, 8, 128) fp32 scale tiles of ``ops.quant.quantize_kv_pages``)
 runs the kernel's quantized instances, which fold each token's scales into
 the scores and the probabilities as the TPU kernel does.
+
+Any head dim up to 256 runs: the kernel's instances are d 64, 128 and 256,
+and a cache allocated at ``kernel_head_dim(d)`` (the engine's) holds each
+token's K/V zero-padded to that width, so q is padded to the cache's width
+and O sliced back, with the softmax scale of the real d. A cache at another
+width is padded to the kernel's by a copy on each call. Any GQA group runs:
+the kernel takes up to ``MAX_GROUP`` query heads of a kv head per CTA, and
+a larger group is split into sub-groups of at most ``MAX_GROUP`` over the
+launch grid, each sub-group's CTAs reading the kv head's pages again.
 """
 
 from __future__ import annotations
@@ -29,8 +38,10 @@ import functools
 import math
 
 import torch
+import torch.nn.functional as F
 
 from flash_attention_tpu_torch.ops import _build
+from flash_attention_tpu_torch.ops.attention import kernel_head_dim
 from flash_attention_tpu_torch.ops.flash_fwd import softcap_args
 from flash_attention_tpu_torch.utils.options import reject_unported
 
@@ -47,7 +58,7 @@ KERNEL = _build.Kernel("paged_attention", "paged_attention.cu", {
 KV_TYPES = {torch.int8: 1, torch.float8_e4m3fn: 2}
 QUANT_PAGE_SIZE = 128  # a scale tile's lane = a token of its page
 HEAD_DIMS = (64, 128, 256)
-MAX_GROUP = 8
+MAX_GROUP = 8  # query heads of a CTA; a larger group splits over the grid
 TILE = 64  # tokens per tile of the kernel's ring
 _LOG2E = math.log2(math.e)
 # The split: about CHUNKS_PER_SM live chunks a SM when every row is full,
@@ -80,6 +91,23 @@ def plan(pages_per_seq: int, page_size: int, b: int, hk: int,
 
 
 _plan = functools.lru_cache(maxsize=256)(plan)
+
+
+def sub_groups(group: int) -> int:
+    """CTAs a (chunk, kv head, row) takes for a GQA group: each holds at
+    most ``MAX_GROUP`` of its query heads (csrc/paged_attention.cu)."""
+    return -(-group // MAX_GROUP)
+
+
+def pad_head_dim(x, width: int):
+    """x zero-padded on its last axis to ``width`` (8-bit values as bytes,
+    whose zero is the zero of int8 and of fp8 e4m3)."""
+    extra = width - x.shape[-1]
+    if extra == 0:
+        return x
+    if x.element_size() == 1 and x.is_floating_point():
+        return F.pad(x.view(torch.uint8), (0, extra)).view(x.dtype)
+    return F.pad(x, (0, extra))
 
 
 def _device(device, pairs: int) -> tuple[int, torch.Tensor]:
@@ -153,7 +181,13 @@ def paged_attention(q, k_pages, v_pages, lengths, page_indices, *,
     ``softcap`` squashes scaled scores to ``softcap * tanh(s / softcap)``.
     ``k_scales``/``v_scales`` ((L,) hk, P, 8, 128) fp32 with int8 or fp8
     e4m3 pages of 128 tokens: the quantized cache, lane t of a page's tile
-    token t's scale (bf16 q on the card). ``pages_per_block`` and
+    token t's scale (bf16 q on the card). Any d <= 256 decodes: pages
+    wider than d (a cache at ``kernel_head_dim(d)``, as the engine
+    allocates it) take q zero-padded; pages of a width the kernel lacks
+    (d 80 or 96) are padded by a copy of the whole pool in every call on
+    the card, about 35 times the kernel's time (1.37 ms against 0.04 ms at
+    L8 hk8 d96, 0.75 GiB a pool, on an H100 80GB HBM3 at 700 W): allocate
+    the cache at ``kernel_head_dim(d)`` instead. ``pages_per_block`` and
     ``interpret`` (the TPU kernel's grouping, Pallas interpret mode) raise
     NotImplementedError off their defaults."""
     reject_unported("paged_attention",
@@ -174,11 +208,29 @@ def paged_attention(q, k_pages, v_pages, lengths, page_indices, *,
         raise ValueError("k_scales and v_scales come together")
     if sm_scale is None:
         sm_scale = 1.0 / d**0.5
+    width = k_pages.shape[-1]
+    if width < d:
+        raise ValueError(f"the pages' head dim {width} is below q's {d}")
+    if width > d:
+        # a cache at the kernels' width: zero columns add nothing to q k
+        # and give zero columns of O
+        return paged_attention(
+            pad_head_dim(q, width), k_pages, v_pages, lengths, page_indices,
+            k_scales=k_scales, v_scales=v_scales, sm_scale=sm_scale,
+            window=window, softcap=softcap, layer=layer)[..., :d]
     if q.device.type == "cpu":
         return paged_attention_reference(
             q, k_pages, v_pages, lengths, page_indices, k_scales=k_scales,
             v_scales=v_scales, sm_scale=sm_scale, window=window,
             softcap=softcap, layer=layer)
+    kd = kernel_head_dim(d)
+    if kd != d:
+        # a cache below the kernel's width: a padded copy of the pool
+        return paged_attention(
+            pad_head_dim(q, kd), pad_head_dim(k_pages, kd),
+            pad_head_dim(v_pages, kd), lengths, page_indices,
+            k_scales=k_scales, v_scales=v_scales, sm_scale=sm_scale,
+            window=window, softcap=softcap, layer=layer)[..., :d]
     pk = k_pages if layered else k_pages[None]
     pv = v_pages if layered else v_pages[None]
     L, _, total_pages, page_size, _ = pk.shape
@@ -215,10 +267,6 @@ def paged_attention(q, k_pages, v_pages, lengths, page_indices, *,
         raise ValueError("the pages must be 16-byte aligned")
     if pv.shape != pk.shape or pk.shape[-1] != d:
         raise ValueError("k_pages/v_pages shape mismatch")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head_dim {d} not supported (supported: {HEAD_DIMS})")
-    if h // hk > MAX_GROUP:
-        raise ValueError(f"GQA group {h // hk} above {MAX_GROUP}")
     if lengths.dtype != torch.int32 or lengths.shape != (b,):
         raise ValueError("lengths must be (b,) int32")
     if page_indices.dtype != torch.int32 or page_indices.dim() != 2 or \
@@ -233,12 +281,15 @@ def paged_attention(q, k_pages, v_pages, lengths, page_indices, *,
         return out
     lib = KERNEL.lib()
     dev = q.device
-    n_sms, counters = _device(dev, b * hk)
+    # a (kv head, sub-group) pair is the kernel's unit: its chunks, its
+    # counter and its partials
+    hks = hk * sub_groups(h // hk)
+    n_sms, counters = _device(dev, b * hks)
     pps = page_indices.shape[1]
-    chunk_tiles, n_chunks = _plan(pps, page_size, b, hk, n_sms,
+    chunk_tiles, n_chunks = _plan(pps, page_size, b, hks, n_sms,
                                   None if window is None else int(window))
     cap_scale, cap_log2 = softcap_args(softcap, sm_scale)
-    ws = torch.empty(b * hk * n_chunks * (MAX_GROUP * d + 2 * MAX_GROUP)
+    ws = torch.empty(b * hks * n_chunks * (MAX_GROUP * d + 2 * MAX_GROUP)
                      if n_chunks > 1 else 0, dtype=torch.float32, device=dev)
     rc = lib.fat_paged_attention(
         q.data_ptr(), pk.data_ptr(), pv.data_ptr(),

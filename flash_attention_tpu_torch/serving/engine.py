@@ -65,8 +65,24 @@ prefill and decode dispatch (padding rows on slot 0), so one dispatch
 serves a batch that mixes adapters. The prefix registry salts its digests
 with the slot, so adapters never share cached pages.
 
-Tensor parallelism (and expert parallelism with it) is outside this slice
-and raises.
+Tensor parallelism (``Engine(mesh=make_mesh(model=tp), tp_axis="model")``,
+by the JAX engine's rules): the weights are sharded by
+``parallel.tp_inference.shard_params`` (column- and row-parallel
+projections; Mixtral's experts by the expert axis) once, and every dispatch
+runs the single-device function on them with the local config and
+``tp_axis=(mesh, tp_axis)`` (what ``tp_prefill``, ``tp_prefill_chunk``,
+``multistep.tp_decode_rollout`` and ``spec.tp_draft_rollout`` run), each
+rank's cache holding its ``n_kv_heads / tp`` kv heads. The port is SPMD where the JAX engine is one controller:
+every rank builds the same engine, receives the same requests and takes the
+same scheduling decisions, and the sampling draws by (seed, position) from
+replicated logits, so every rank emits the same tokens. A dispatch that
+raises on one rank only leaves the ranks out of step. ``kv_quant``,
+``chunk_size``, ``decode_block``, ``prefix_cache`` and speculative decoding
+run with a mesh; ``lora_rank`` with a mesh raises, as in JAX.
+
+The cache is allocated at the kernels' head dim (``ops.attention.
+kernel_head_dim``: a d-96 model's K/V zero-padded to 128), so every head
+dim the prefill takes also decodes on the card.
 """
 
 from __future__ import annotations
@@ -78,7 +94,10 @@ import numpy as np
 import torch
 
 from flash_attention_tpu_torch.models import llama, lora as lora_lib
+from flash_attention_tpu_torch.ops.attention import kernel_head_dim
 from flash_attention_tpu_torch.ops.quant import KV_QMAX
+from flash_attention_tpu_torch.parallel import tp_inference
+from flash_attention_tpu_torch.parallel.mesh import axis_size
 from flash_attention_tpu_torch.serving import multistep, sampling
 from flash_attention_tpu_torch.serving import spec as spec_mod
 from flash_attention_tpu_torch.serving.native import PagedRuntime
@@ -91,6 +110,12 @@ KERNEL_PPB = 8  # the JAX paged kernel's pages_per_block
 
 def _pow2(n: int) -> int:
     return max(1, 1 << (n - 1).bit_length())
+
+
+def _cache_width(head_dim: int) -> int:
+    """The cache's head dim: the kernels' (zero-padded), or the model's own
+    above 256, which only the CPU's plain versions run."""
+    return head_dim if head_dim > 256 else kernel_head_dim(head_dim)
 
 
 class Engine:
@@ -179,20 +204,29 @@ class Engine:
             if self.spec:
                 raise ValueError("multi-LoRA with speculative decoding is "
                                  "not supported yet")
-        unsupported = {
-            "kv_dtype (the cache holds K/V in the weights' dtype or, with "
-            "kv_quant, in 8 bits)":
-                kv_dtype not in (torch.bfloat16, params["embed"].dtype,
-                                 *quant_dtypes),
-            "mesh (tensor parallelism)": mesh is not None,
-            "tp_axis (tensor parallelism)": tp_axis != "model"}
-        bad = [k for k, v in unsupported.items() if v]
-        if bad:
+        if kv_dtype not in (torch.bfloat16, params["embed"].dtype,
+                            *quant_dtypes):
             raise NotImplementedError(
-                f"outside this slice of the PyTorch port: {', '.join(bad)}")
+                "outside this slice of the PyTorch port: kv_dtype (the cache "
+                "holds K/V in the weights' dtype or, with kv_quant, in 8 "
+                "bits)")
         llama.check_supported(cfg, params)
         if self.spec:
             llama.check_supported(draft_cfg, draft_params)
+        # tensor parallelism: this rank's part of the weights (the draft
+        # sharded like the target) and its kv heads of the caches
+        # and the local configs every dispatch runs with tp_axis=self._tp
+        self.mesh, self.tp_axis = mesh, tp_axis
+        tp, self._tp = 1, None
+        if mesh is not None:
+            tp, self._tp = axis_size(mesh, tp_axis), (mesh, tp_axis)
+            params = tp_inference.shard_params(params, cfg, mesh, tp_axis)
+            if self.spec:
+                draft_params = tp_inference.shard_params(
+                    draft_params, draft_cfg, mesh, tp_axis)
+        self._cfg = tp_inference.local_config(cfg, tp)
+        self._draft_cfg = (tp_inference.local_config(draft_cfg, tp)
+                           if self.spec else None)
         self.cfg = cfg
         self.params = params
         self.device = params["embed"].device
@@ -245,7 +279,8 @@ class Engine:
             alloc_fn=self._prefix_alloc if prefix_cache else None)
         # page-table width: one batch row must span max_seq_len
         self.pages_per_seq = -(-max_seq_len // page_size)
-        L, hk, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+        L, hd = cfg.n_layers, _cache_width(cfg.head_dim)
+        hk = self._cfg.n_kv_heads
         # the cache holds K/V in the weights' dtype, or quantized in 8 bits
         self.k_pages = torch.zeros((L, hk, total_pages, page_size, hd),
                                    dtype=kv_dtype if kv_quant
@@ -264,15 +299,16 @@ class Engine:
         self.k_pages_d = self.v_pages_d = None
         self.k_scales_d = self.v_scales_d = None
         if self.spec:
+            hkd = self._draft_cfg.n_kv_heads
             self.k_pages_d = torch.zeros(
-                (draft_cfg.n_layers, draft_cfg.n_kv_heads, total_pages,
-                 page_size, draft_cfg.head_dim), dtype=self.k_pages.dtype,
+                (draft_cfg.n_layers, hkd, total_pages, page_size,
+                 _cache_width(draft_cfg.head_dim)), dtype=self.k_pages.dtype,
                 device=self.device)
             self.v_pages_d = torch.zeros_like(self.k_pages_d)
             if kv_quant:
                 self.k_scales_d = torch.ones(
-                    (draft_cfg.n_layers, draft_cfg.n_kv_heads, total_pages,
-                     8, 128), dtype=torch.float32, device=self.device)
+                    (draft_cfg.n_layers, hkd, total_pages, 8, 128),
+                    dtype=torch.float32, device=self.device)
                 self.v_scales_d = torch.ones_like(self.k_scales_d)
         self.decode_block = int(decode_block)
         # multi-LoRA: fixed-capacity stacks, slot 0 the base model
@@ -459,7 +495,7 @@ class Engine:
             last[i] = len(s) - 1
         logits, ks, vs = llama.prefill(
             self._model_params(), torch.from_numpy(toks).to(self.device),
-            self.cfg, lora_ids=self._lora_ids(reqs, bsz),
+            self._cfg, tp_axis=self._tp, lora_ids=self._lora_ids(reqs, bsz),
             logit_rows=torch.from_numpy(last).to(self.device))
         # ONE page-granular scatter for every (request, page) pair; N pads
         # to pow2 with trash-page entries
@@ -483,8 +519,8 @@ class Engine:
             # the same page ids
             _, ks_d, vs_d = llama.prefill(
                 self.draft_params, torch.from_numpy(toks).to(self.device),
-                self.draft_cfg, logit_rows=torch.from_numpy(last).to(
-                    self.device))
+                self._draft_cfg, tp_axis=self._tp,
+                logit_rows=torch.from_numpy(last).to(self.device))
             llama.write_prefill_to_pages(
                 self.k_pages_d, self.v_pages_d, (ks_d, vs_d), dest, src_row,
                 src_page, self.page_size, k_scales=self.k_scales_d,
@@ -536,8 +572,8 @@ class Engine:
         last = torch.from_numpy(np.maximum(clen - 1, 0)).to(dev)
         logits, ks, vs = llama.prefill_chunk(
             self._model_params(), *args, self.k_pages, self.v_pages,
-            self.k_scales, self.v_scales, tables, self.cfg,
-            lora_ids=self._lora_ids(reqs, bsz), logit_rows=last)
+            self.k_scales, self.v_scales, tables, self._cfg, self._tp,
+            self._lora_ids(reqs, bsz), logit_rows=last)
         # chunk-local page j of row i lands at the row's page done // ps + j
         dest, src_row, src_page = [], [], []
         for i, r in enumerate(reqs):
@@ -561,8 +597,8 @@ class Engine:
             # cached tokens
             _, ks_d, vs_d = llama.prefill_chunk(
                 self.draft_params, *args, self.k_pages_d, self.v_pages_d,
-                self.k_scales_d, self.v_scales_d, tables, self.draft_cfg,
-                logit_rows=last)
+                self.k_scales_d, self.v_scales_d, tables, self._draft_cfg,
+                self._tp, logit_rows=last)
             llama.write_prefill_to_pages(
                 self.k_pages_d, self.v_pages_d, (ks_d, vs_d), dest, src_row,
                 src_page, ps, k_scales=self.k_scales_d,
@@ -621,7 +657,7 @@ class Engine:
                 params, torch.from_numpy(toks[:, base:base + cs]).to(dev),
                 torch.from_numpy(done).to(dev), torch.from_numpy(clen).to(dev),
                 self.k_pages, self.v_pages, self.k_scales, self.v_scales,
-                torch.from_numpy(tables).to(dev), self.cfg, lora_ids=ids,
+                torch.from_numpy(tables).to(dev), self._cfg, self._tp, ids,
                 logit_rows=torch.from_numpy(np.clip(last - base, 0,
                                                     cs - 1)).to(dev))
             # this chunk's whole pages (chunk_size % page_size == 0, so
@@ -713,18 +749,21 @@ class Engine:
         bsz, dev = tok.shape[0], self.device
         pad = bsz - len(reqs)
         want_lps = any(r.logprobs for r in reqs)
+        args = (self._model_params(), self.k_pages, self.v_pages,
+                self.k_scales, self.v_scales, torch.from_numpy(tok).to(dev),
+                torch.from_numpy(lens).to(dev),
+                torch.from_numpy(tables).to(dev),
+                [r.temperature for r in reqs] + [0.0] * pad,
+                [r.top_k for r in reqs] + [0] * pad,
+                [r.top_p for r in reqs] + [1.0] * pad,
+                [r.seed for r in reqs] + [0] * pad,
+                [len(r.output) for r in reqs] + [0] * pad)
+        need_filters = any(r.temperature > 0.0 and (r.top_k > 0
+                                                    or r.top_p < 1.0)
+                           for r in reqs)
         toks, lps, *_ = multistep.decode_rollout(
-            self._model_params(), self.k_pages, self.v_pages, self.k_scales,
-            self.v_scales, torch.from_numpy(tok).to(dev),
-            torch.from_numpy(lens).to(dev), torch.from_numpy(tables).to(dev),
-            [r.temperature for r in reqs] + [0.0] * pad,
-            [r.top_k for r in reqs] + [0] * pad,
-            [r.top_p for r in reqs] + [1.0] * pad,
-            [r.seed for r in reqs] + [0] * pad,
-            [len(r.output) for r in reqs] + [0] * pad,
-            self._lora_ids(reqs, bsz), self.cfg, k,
-            any(r.temperature > 0.0 and (r.top_k > 0 or r.top_p < 1.0)
-                for r in reqs), want_lps)
+            *args, self._lora_ids(reqs, bsz), self._cfg, k, need_filters,
+            want_lps, tp_axis=self._tp)
         if want_lps:  # token ids are exact in fp32 (vocab < 2^24)
             toks, lps = torch.stack([toks.float(), lps]).tolist()
         else:
@@ -754,10 +793,11 @@ class Engine:
         tok_d, lens_d = torch.from_numpy(tok).to(dev), \
             torch.from_numpy(lens).to(dev)
         tables_d = torch.from_numpy(tables).to(dev)
+        rollout_args = (self.draft_params, self.k_pages_d, self.v_pages_d,
+                        self.k_scales_d, self.v_scales_d, tok_d, lens_d,
+                        tables_d, temps, seeds, pos)
         d_toks, d_logits, *_ = spec_mod.draft_rollout(
-            self.draft_params, self.k_pages_d, self.v_pages_d,
-            self.k_scales_d, self.v_scales_d, tok_d, lens_d, tables_d, temps,
-            seeds, pos, self.draft_cfg, g)
+            *rollout_args, self._draft_cfg, g, tp_axis=self._tp)
         # the prefix table's width rounds up to a power of two (trash
         # padded, masked off by done), as in the JAX engine
         npp = _pow2(-(-int(lens.max() - 1) // ps)) if lens.max() > 1 else 1
@@ -769,7 +809,7 @@ class Engine:
         logits, ks, vs = llama.prefill_chunk(
             self.params, chunk, lens_d - 1, clen, self.k_pages, self.v_pages,
             self.k_scales, self.v_scales, torch.from_numpy(ptab).to(dev),
-            self.cfg)
+            self._cfg, self._tp)
         llama.write_chunk_to_pages(self.k_pages, self.v_pages, (ks, vs),
                                    lens_d - 1, clen, tables_d, self.k_scales,
                                    self.v_scales)

@@ -7,12 +7,23 @@ matrices then hold exact 0/1 blocks and outputs become readable index
 patterns, so an off-by-one block boundary reads as a shifted stripe. A query
 whose one-hot row matches exactly one key's puts nearly all its attention on
 that key when the scale is large: the case in which the backward's dP - D
-has to cancel.
+has to cancel. ``FAT_IDENTITY_INPUTS=1`` (``identity_inputs_enabled``) is
+the JAX package's switch for suites that opt into these inputs.
 """
 
 from __future__ import annotations
 
+import os
+
 import torch
+
+IDENTITY_ENV = "FAT_IDENTITY_INPUTS"
+
+
+def identity_inputs_enabled() -> bool:
+    """Whether ``FAT_IDENTITY_INPUTS`` asks for the identity inputs (set,
+    and not "0")."""
+    return os.environ.get(IDENTITY_ENV, "").strip() not in ("", "0")
 
 
 def identity_sequence(seqlen: int, heads: int, head_dim: int, dtype,

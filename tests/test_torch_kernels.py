@@ -1621,3 +1621,115 @@ def test_flash_segmented_empty_ranges_and_unsorted_keys(cuda):
     for name, x, ref in (("dq", dq, dq_r), ("dk", dk, dk_r), ("dv", dv, dv_r)):
         assert_metrics(name + "[unsorted]", x, ref,
                        _ulp_tols(BWD_BF16_TOLS, ref))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cache", ["unpadded", "padded", "int8_padded"])
+@pytest.mark.parametrize("d", [80, 96])
+def test_paged_attention_padded_head_dims(cuda, d, cache):
+    """A head dim with no kernel instance runs at kernel_head_dim(d) = 128:
+    on a cache at that width (the engine's) q is padded and O sliced; on an
+    unpadded cache the pool is padded too. One launch a call, against the
+    plain version on the unpadded cache (an int8 cache's padded columns
+    hold any values: q's zero columns meet them)."""
+    rng = np.random.default_rng(d)
+    b, hk, group, ps, pps, L = 5, 2, 4, 16, 8, 2
+    lens = torch.tensor([1, ps * pps, ps + 1, 0, 37], dtype=torch.int32,
+                        device=cuda)
+    if cache == "int8_padded":
+        ps, total = 128, b * 2 + 3
+        kp, vp, ks, vs = _quant_cache(rng, L, hk, total, 128, torch.int8,
+                                      cuda)
+        q = _randn(rng, (b, hk * group, d), torch.bfloat16, cuda)
+        tab = torch.from_numpy(rng.permutation(total)[:b * 2].reshape(b, 2)
+                               .astype(np.int32)).to(cuda)
+        lens = torch.tensor([1, 256, 129, 0, 37], dtype=torch.int32,
+                            device=cuda)
+        o_ref = pa_mod.paged_attention_reference(
+            q, kp[..., :d], vp[..., :d], lens, tab, k_scales=ks, v_scales=vs,
+            layer=1)
+        kw = dict(k_scales=ks, v_scales=vs)
+    else:
+        q, kp, vp, tab = _paged_setup(rng, b, hk * group, hk, d, ps, pps,
+                                      b * pps + 3, L, torch.bfloat16, cuda)
+        o_ref = pa_mod.paged_attention_reference(q, kp, vp, lens, tab,
+                                                 layer=1)
+        if cache == "padded":
+            kp, vp = (pa_mod.pad_head_dim(x, 128) for x in (kp, vp))
+        kw = {}
+    before = pa_mod.KERNEL.launches
+    o = pa_mod.paged_attention(q, kp, vp, lens, tab, layer=1, **kw)
+    assert pa_mod.KERNEL.launches == before + 1
+    assert o.shape == q.shape
+    assert_metrics(f"paged[d{d},{cache}]", o, o_ref, BF16_TOLS)
+    assert torch.all(o[3] == 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("group", [12, 16])
+def test_paged_attention_large_groups(cuda, d, group):
+    """GQA groups above 8 run as sub-groups of 8 over the grid, each with
+    its own chunk counters and partials: rows long enough to split into
+    several chunks (merged by the last), a zero-length row, and the window
+    and softcap modes, against the plain version; repeats bit-identical."""
+    rng = np.random.default_rng(group * 10 + d // 64)
+    b, hk, ps, pps, L = 4, 2, 64, 72, 2
+    q, kp, vp, tab = _paged_setup(rng, b, hk * group, hk, d, ps, pps,
+                                  b * pps, L, torch.bfloat16, cuda)
+    lens = torch.tensor([1, 0, 2049, 4608], dtype=torch.int32, device=cuda)
+    chunk_tiles, n_chunks = pa_mod.plan(pps, ps, b, hk * pa_mod.sub_groups(
+        group), torch.cuda.get_device_properties(0).multi_processor_count)
+    assert n_chunks > 1
+    for kw in ({}, dict(window=1000, softcap=5.0)):
+        o = pa_mod.paged_attention(q, kp, vp, lens, tab, layer=1, **kw)
+        o_ref = pa_mod.paged_attention_reference(q, kp, vp, lens, tab,
+                                                 layer=1, **kw)
+        assert_metrics(f"paged[g{group},d{d},{kw}]", o, o_ref, BF16_TOLS)
+        assert torch.all(o[1] == 0)
+        again = pa_mod.paged_attention(q, kp, vp, lens, tab, layer=1, **kw)
+        assert torch.equal(o, again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["bf16", "int8", "fp8"])
+def test_kv_write_head_dim_96(cuda, mode):
+    """d-96 rows into a cache at the kernels' width 128: the rows padded
+    with zeros, then the kernel (bf16 store, or the int8/fp8 quantizing
+    write, whose scales the zero columns leave as they are); bit for bit
+    against the plain versions."""
+    rng = np.random.default_rng(96)
+    L, hk, total, b, d = 2, 2, 8, 3, 96
+    wpage = torch.tensor([2, 5, 1], dtype=torch.int32, device=cuda)
+    woff = torch.tensor([0, 127, 64], dtype=torch.int32, device=cuda)
+    k = _randn(rng, (b, hk, d), torch.bfloat16, cuda)
+    v = _randn(rng, (b, hk, d), torch.bfloat16, cuda)
+    before = kv_update.KERNEL.launches
+    if mode == "bf16":
+        kp = torch.zeros((L, hk, total, 128, 128), dtype=torch.bfloat16,
+                         device=cuda)
+        vp = torch.zeros_like(kp)
+        ref = [kp.clone(), vp.clone()]
+        kv_update.write_token_kv_reference(
+            *ref, pa_mod.pad_head_dim(k, 128), pa_mod.pad_head_dim(v, 128),
+            wpage, woff, layer=1)
+        out = kv_update.write_token_kv(kp, vp, None, None, k, v, None, None,
+                                       wpage, woff, layer=1)[:2]
+    else:
+        dtype = torch.int8 if mode == "int8" else torch.float8_e4m3fn
+        kp, vp, ks, vs = _quant_cache(rng, L, hk, total, 128, dtype, cuda)
+        ref = [x.clone() for x in (kp, vp, ks, vs)]
+        (kq, ksc), (vq, vsc) = (quant._quantize_token(
+            pa_mod.pad_head_dim(x, 128), dtype) for x in (k, v))
+        kv_update.write_token_kv_reference(ref[0], ref[1], kq, vq, wpage,
+                                           woff, layer=1)
+        kv_update._write_scales_reference(ref[2], ksc, wpage, woff, 1)
+        kv_update._write_scales_reference(ref[3], vsc, wpage, woff, 1)
+        out = kv_update.quantize_write_token_kv(kp, vp, ks, vs, k, v, wpage,
+                                                woff, layer=1)
+        assert torch.equal(ksc, quant._quantize_token(k, dtype)[1])
+    assert kv_update.KERNEL.launches == before + 1
+    for got, want in zip(out, ref):
+        if got.element_size() == 1:
+            got, want = got.view(torch.uint8), want.view(torch.uint8)
+        assert torch.equal(got, want)

@@ -170,8 +170,9 @@ def test_init_params_layout_matches_jax():
 ])
 def test_configs_outside_the_slice_raise(cfg):
     """Softcaps, sliding windows and the Gemma-2 extras are in the slice;
-    what is outside it still raises with each of these configs: tensor
-    parallelism and quantized MoE experts. LoRA adapters are in it."""
+    what is outside it still raises with each of these configs: a bare
+    tp_axis name (JAX's shard_map form; the port's tensor parallelism takes
+    (mesh, axis)) and quantized MoE experts. LoRA adapters are in it."""
     tl.check_supported(cfg)
     params = tl.init_params(tl.LlamaConfig.tiny(n_layers=1), device="cpu",
                             dtype=torch.float32)

@@ -175,8 +175,9 @@ def test_init_params_matches_jax_layout():
 
 def test_moe_outside_the_slice_raises(model):
     """MoE with LoRA raises the JAX package's ValueError (stacks without
-    ids raise its other one first); tp_axis and expert parallelism still
-    raise NotImplementedError."""
+    ids raise its other one first); a bare tp_axis name (JAX's shard_map
+    form; expert parallelism takes (mesh, axis), tests/test_torch_tp.py)
+    raises NotImplementedError."""
     _, cfg_t, _, pt = model
     toks = torch.zeros((1, 8), dtype=torch.int64)
     with pytest.raises(ValueError, match="MoE expert weights"):

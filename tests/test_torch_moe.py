@@ -213,7 +213,23 @@ def test_gmm_dw_reference_matches_jax_on_live_experts():
 
 
 def test_expert_offset_raises():
+    """``expert_offset`` (expert parallelism), which raised before tensor
+    parallelism was ported, now runs: the partial outputs of two ranks of
+    4 experts each (offsets 0 and 4) sum to the single call over all 8,
+    and each equals JAX's partial output on the same shard."""
     x, rw, wg, wu, wd = map(torch.from_numpy, _weights(2, 8, 256, 512, 8))
-    with pytest.raises(NotImplementedError):
-        tm.moe_ffn(x, rw, wg, wu, wd, n_top=2, act=_tact,
-                   expert_offset=torch.tensor(0))
+    full, logits = tm.moe_ffn(x, rw, wg, wu, wd, n_top=2, act=_tact)
+    parts = []
+    for off in (0, 4):
+        part, lg = tm.moe_ffn(x, rw, wg[off:off + 4], wu[off:off + 4],
+                              wd[off:off + 4], n_top=2, act=_tact,
+                              expert_offset=off)
+        want, _ = jm.moe_ffn(*(jnp.asarray(a.numpy()) for a in (
+            x, rw, wg[off:off + 4], wu[off:off + 4], wd[off:off + 4])),
+            n_top=2, act=jax.nn.silu, expert_offset=off)
+        np.testing.assert_allclose(part.numpy(), np.asarray(want),
+                                   rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(lg, logits, rtol=0, atol=0)
+        parts.append(part)
+    np.testing.assert_allclose((parts[0] + parts[1]).numpy(), full.numpy(),
+                               rtol=1e-5, atol=1e-5)

@@ -120,8 +120,9 @@ def test_engine_stream_and_unsupported_options(params):
     assert r.output == [t for _, ts, _ in events for t in ts]
     with pytest.raises(ValueError):
         eng.add_request([1] * 60, max_new_tokens=10)
-    with pytest.raises(NotImplementedError):
-        Engine(tl.LlamaConfig.tiny(), pt, mesh=object())
+    # a mesh (tensor parallelism, ported) refuses multi-LoRA, as in JAX
+    with pytest.raises(ValueError, match="multi-LoRA with tensor"):
+        Engine(tl.LlamaConfig.tiny(), pt, mesh=object(), lora_rank=4)
     # prefix caching, multi-step decode and a LoRA engine's base model
     # (ported) stream the same tokens
     for kw in (dict(prefix_cache=True), dict(decode_block=4),
@@ -144,8 +145,7 @@ def test_engine_stream_and_unsupported_options(params):
 # A non-default value of each of the JAX engine's options that the port has
 # not ported yet (the params are fp32, so fp16 is neither the default nor
 # the weights' dtype, nor an 8-bit type with kv_quant).
-UNPORTED_ENGINE_OPTIONS = {
-    "kv_dtype": torch.float16, "mesh": object(), "tp_axis": "tp"}
+UNPORTED_ENGINE_OPTIONS = {"kv_dtype": torch.float16}
 # The multi-LoRA options, ported: each with lora_rank, the stacks they
 # build (targets, slots, rank) must be the JAX engine's
 LORA_ENGINE_OPTIONS = {
@@ -175,7 +175,10 @@ def test_engine_takes_jax_keywords(params, option):
     scales, and raises ValueError naming it at a page size other than
     128, as the JAX engine does; each decode-side option (ported) raises
     the JAX engine's ValueError at a value that engine refuses; each
-    multi-LoRA option (ported) builds the JAX engine's stacks."""
+    multi-LoRA option (ported) builds the JAX engine's stacks; ``mesh``
+    (ported) refuses multi-LoRA as JAX's does and ``tp_axis`` without a
+    mesh serves JAX's tokens (tensor parallelism itself:
+    tests/test_torch_tp*.py)."""
     pj, pt = params
     if option in LORA_ENGINE_OPTIONS:
         kw = LORA_ENGINE_OPTIONS[option]
@@ -199,6 +202,31 @@ def test_engine_takes_jax_keywords(params, option):
             with pytest.raises(ValueError, match=match):
                 make(cfg.tiny(sliding_window=kw.get("sliding_window")), p,
                      **kw_p, **extra)
+        return
+    if option == "mesh":
+        # ported (tensor parallelism; tests/test_torch_tp.py): a mesh with
+        # multi-LoRA raises the JAX engine's ValueError in both engines
+        mesh = jax.sharding.Mesh(np.array(jax.devices()[:2]), ("model",))
+        for make, cfg, p, m, extra in (
+                (JaxEngine, jl.LlamaConfig, pj, mesh,
+                 dict(kv_dtype=jnp.float32)),
+                (Engine, tl.LlamaConfig, pt, object(), {})):
+            with pytest.raises(ValueError, match="multi-LoRA with tensor"):
+                make(cfg.tiny(), p, mesh=m, lora_rank=4, **extra)
+        return
+    if option == "tp_axis":
+        # ported: without a mesh both engines take any axis name and serve
+        # the same tokens
+        outs = []
+        for make, cfg, p, extra in (
+                (JaxEngine, jl.LlamaConfig, pj, dict(kv_dtype=jnp.float32)),
+                (Engine, tl.LlamaConfig, pt, {})):
+            eng = make(cfg.tiny(), p, total_pages=8, page_size=16,
+                       max_batch=1, max_seq_len=32, tp_axis="tp", **extra)
+            r = eng.add_request([1, 2, 3], max_new_tokens=2)
+            eng.run()
+            outs.append(r.output)
+        assert outs[0] == outs[1]
         return
     if option == "kv_quant":
         eng = Engine(tl.LlamaConfig.tiny(), pt, total_pages=8, page_size=128,

@@ -10,11 +10,16 @@ port does not take (``JAX_ONLY``), and functions whose signatures
 differ as a whole (``DIFFERENT``). Each test also fails on an entry that no
 longer differs, so the lists cannot outlive what they describe. The
 options the port takes only at their defaults raise NotImplementedError
-naming them (``test_unported_options_raise``).
+naming them (``test_unported_options_raise``). Every public name of the JAX
+package (each function and class a module defines, and each name a
+package's ``__all__`` exports) exists in the port's module of the same
+path, or ``JAX_NOT_PORTED`` gives the reason it does not
+(``test_every_jax_name_is_in_the_port``).
 """
 
 import importlib
 import inspect
+import pkgutil
 
 import numpy as np
 import pytest
@@ -29,7 +34,7 @@ MODULES = ("models.checkpoint", "models.import_hf", "models.llama",
            "ops.segments", "serving.engine", "serving.multistep",
            "serving.native", "serving.prefix", "serving.sampling",
            "serving.scheduler", "serving.spec", "utils.debug_inputs",
-           "utils.metrics")
+           "utils.metrics", "parallel.mesh", "parallel.tp_inference")
 
 # port-only parameters: each an extension of the port
 PORT_EXTRA = {
@@ -47,11 +52,18 @@ PORT_EXTRA = {
     "utils.debug_inputs.identity_sequence": ("device",),
     "utils.debug_inputs.identity_batch": ("device",),
     "utils.debug_inputs.identity_packed": ("device",),
+    # the mesh lies over the ranks' process group, on the device type the
+    # caller names (JAX's takes a list of devices)
+    "parallel.mesh.make_mesh": ("device_type",),
+    # the lm_head at one row per sequence, as prefill_chunk's logit_rows
+    "parallel.tp_inference.tp_prefill_chunk": ("logit_rows",),
 }
 # JAX parameters the port does not take: the plain attention always
 # returns (o, lse)
 JAX_ONLY = {
     "ops.reference.reference_attention": ("return_lse",),
+    # a rank is a process: the mesh takes the whole world, not a device list
+    "parallel.mesh.make_mesh": ("devices",),
 }
 # signatures that differ as a whole
 DIFFERENT = {
@@ -65,6 +77,73 @@ DIFFERENT = {
     # takes a dict of mask arguments
     "ops.reference.reference_attention_bwd",
 }
+
+
+# JAX public names the port lacks, each with its reason
+_TILES = "a TPU tiling knob: the CUDA kernels choose their own tiles"
+_TRAINING = ("parallel training (ring attention and its backward, sharded "
+             "attention, the pipeline) comes in the next slice")
+JAX_NOT_PORTED = {
+    "BlockSizes": _TILES,
+    "ops.BlockSizes": _TILES,
+    "ops.configs.BlockSizes": _TILES,
+    "ops.paged_attention.MultiPageCopy": (
+        "the TPU kernel's multi-page DMA; the CUDA kernel loads pages by TMA"),
+    "ops.segments.clamp_for_dma": (
+        "clamps block indices for the TPU's DMA; the CUDA kernels read their "
+        "tile ranges from ops.segments.block_ranges"),
+    "parallel.ring_flash_attention": _TRAINING,
+    "parallel.shard_flash_attention": _TRAINING,
+    "parallel.sharded_attention.ring_flash_attention": _TRAINING,
+    "parallel.sharded_attention.shard_flash_attention": _TRAINING,
+    "parallel.pipeline.pipeline_train_loss": _TRAINING,
+    "parallel.pipeline.stage_specs": _TRAINING,
+    "parallel.tp_inference.param_specs": (
+        "PartitionSpecs for shard_map; each rank slices its part with "
+        "parallel.tp_inference.shard_params"),
+    "parallel.tp_inference.tree_specs": (
+        "PartitionSpecs for shard_map; each rank slices its part with "
+        "parallel.tp_inference.shard_params"),
+}
+
+
+def _jax_public_names():
+    """The qualified names (module path under the package, then the name)
+    of every public function and class the JAX package's modules define,
+    and of every name its packages' ``__all__`` export; private modules
+    (``ops._mxu``) left out."""
+    import flash_attention_tpu
+    mods = [""] + [m.name[len("flash_attention_tpu."):] for m in
+                   pkgutil.walk_packages(flash_attention_tpu.__path__,
+                                         "flash_attention_tpu.")]
+    for rel in mods:
+        if any(part.startswith("_") for part in rel.split(".")):
+            continue
+        jm = importlib.import_module(
+            "flash_attention_tpu" + ("." + rel if rel else ""))
+        names = {n for n, o in vars(jm).items() if not n.startswith("_")
+                 and (inspect.isfunction(o) or inspect.isclass(o))
+                 and getattr(o, "__module__", None) == jm.__name__}
+        names |= set(getattr(jm, "__all__", ()))
+        yield from ((rel, n) for n in sorted(names))
+
+
+def test_every_jax_name_is_in_the_port():
+    """Each JAX public name exists in the port's module of the same path,
+    or JAX_NOT_PORTED says why not; no entry there names one that exists."""
+    missing = set()
+    for rel, name in _jax_public_names():
+        try:
+            pm = importlib.import_module(
+                "flash_attention_tpu_torch" + ("." + rel if rel else ""))
+        except ImportError:
+            pm = None
+        if pm is None or not hasattr(pm, name):
+            missing.add(f"{rel}.{name}" if rel else name)
+    assert not missing - set(JAX_NOT_PORTED), sorted(
+        missing - set(JAX_NOT_PORTED))
+    assert not set(JAX_NOT_PORTED) - missing, sorted(
+        set(JAX_NOT_PORTED) - missing)
 
 
 def _pairs():
