@@ -84,6 +84,17 @@ drives the two paths on two models with random bf16 weights, full width:
   under expert parallelism against the single-device forward of the
   training phase's weights (prompts whose last token routes apart printed
   only), with exact launch counts and each rank's peak;
+* parallel training as two ranks on the one card at Llama-3-8B's width:
+  the ring (``shard_flash_attention`` with a context dim, cp=2) over b1
+  s32768 causal, forward and backward, against one-rank
+  ``flash_attention`` over the whole sequence, after the segmented
+  kernels at the ring's three kinds of step (past, diagonal, future) are
+  held against their plain versions; then ``train_loss(tp_axis=)`` at
+  tp=2 and ``pipeline_train_loss`` at pp=2 (4 microbatches), 8 layers,
+  against one device's loss and gradients on the same weights and batch
+  (TP's replicated gradients the same bits on both ranks), with the
+  transport's share of each (``python3 chip_smoke.py train_parallel``
+  runs the build and this phase alone, without the result lines);
 * a Llama-shaped d-96 config (4 layers) served through a cache 128 wide,
   after the paged kernel at head dims 80 and 96 and GQA groups 12 and 16
   and the d-96 kv write are held against their plain versions and timed;
@@ -121,6 +132,7 @@ nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import gc
@@ -1497,17 +1509,21 @@ def _seg_kernel_ms(torch, call, kernel, d, segs, causal, direction,
 
 
 def _seg_bound(torch, segs, causal, window, q, k):
-    """{kernel: (bound ms, bound_by, live pairs)} of a segmented call."""
+    """{kernel: (bound ms, bound_by, live pairs)} of a segmented call. With
+    no live pair (a ring step wholly in the future) no input decides the
+    result, so only the outputs count: O and LSE, dq, dk and dv."""
     pairs = _seg_pairs(torch, segs, causal, window) * q.shape[2]
     d = q.shape[-1]
-    n_in = 2 * (q.numel() + 2 * k.numel())
     rows = q.shape[0] * q.shape[1] * q.shape[2]
+    live = 1 if pairs else 0
+    n_in = 2 * (q.numel() + 2 * k.numel()) * live
     out = {}
     for name, mult, nbytes in (
             ("flash_fwd", 4.0, n_in + 2 * q.numel() + 4 * rows),
-            ("flash_bwd_dq", 6.0, n_in + 2 * 2 * q.numel() + 8 * rows),
-            ("flash_bwd_dkv", 8.0, n_in + 2 * q.numel() + 8 * rows
-             + 4 * k.numel())):
+            ("flash_bwd_dq", 6.0, n_in + 2 * q.numel() * (1 + live)
+             + 8 * rows * live),
+            ("flash_bwd_dkv", 8.0, n_in + 2 * q.numel() * live
+             + 8 * rows * live + 4 * k.numel())):
         out[name] = (*_bound(mult * d * pairs, nbytes), pairs)
     return out
 
@@ -4500,6 +4516,7 @@ D96_CFG = dict(vocab_size=32064, dim=3072, n_layers=4, n_heads=32,
 TP = 2
 TP_SHORT = slice(4, None)  # the 4 shortest prompts: bucket 1024, batch 4
 TP_MIX_LAYERS = MIX_TRAIN_LAYERS  # the training phase's weights, before SGD
+TP_LAYERS = 8  # Llama-3-8B's depth under tp=2 (a decode step ~1 s at 32)
 # Mixtral prompts whose last token must route alike in every layer under
 # tp=2 and pass the gates: 6 of the 8 did on the H100 (seeded, deterministic)
 MIX_TP_HELD = 6
@@ -4815,11 +4832,11 @@ def _moe_last_routes(log_ids, lens, bucket, n_layers):
     return np.stack([ids[rows].cpu().numpy() for ids in log_ids[:n_layers]])
 
 
-def moe_prefill_reference(torch, params, cfg, prompts):
-    """The single-device Mixtral prefill of the served prompts as the
-    engine batches them (b 8, one bucket), at each prompt's last position:
-    (rows (n, vocab) fp32 on the CPU, the last tokens' top-2 sets (L, n,
-    2))."""
+def prefill_reference(torch, params, cfg, prompts):
+    """The single-device prefill of the served prompts as the engine
+    batches them (b 8, one bucket), at each prompt's last position: (rows
+    (n, vocab) fp32 on the CPU, for an MoE config the last tokens' top-2
+    sets (L, n, 2), else None)."""
     from flash_attention_tpu_torch.models import llama
     dev = params["embed"].device
     bucket = max(32, 1 << (max(map(len, prompts)) - 1).bit_length())
@@ -4833,7 +4850,7 @@ def moe_prefill_reference(torch, params, cfg, prompts):
                                    logit_rows=last)
     return (rows[:len(prompts)].float().cpu(),
             _moe_last_routes(log.ids, [len(p) for p in prompts], bucket,
-                             cfg.n_layers))
+                             cfg.n_layers) if cfg.n_experts else None)
 
 
 def _tp_serve(torch, eng, prompts, kernels, moe_layers=0):
@@ -4923,25 +4940,47 @@ def _tp_rank(rank, world, jobs):
     return out
 
 
+def _tp_reference(torch, cfg, prompts):
+    """What the Llama-3-8B TP runs are held to: the single-device prefill's
+    last-position rows of ``cfg``'s seeded weights, bf16 and int8
+    (``quantize_params``), on the CPU."""
+    from flash_attention_tpu_torch.models import llama
+    params = llama.init_params(cfg, seed=SEED, device="cuda",
+                               dtype=torch.bfloat16)
+    ref = {"rows": prefill_reference(torch, params, cfg, prompts)[0]}
+    qparams = llama.quantize_params(params, bits=8)
+    del params
+    ref["int8_rows"] = prefill_reference(torch, qparams, cfg, prompts)[0]
+    del qparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ref
+
+
 def serve_tp(torch, card, kernels, cfg, mix_cfg, prompts, mix_prompts,
-             ref, mix_ref):
-    """Llama-3-8B (full width and depth) and Mixtral-8x7B (expert
+             mix_ref):
+    """Llama-3-8B (full width, TP_LAYERS layers) and Mixtral-8x7B (expert
     parallelism, TP_MIX_LAYERS layers) served at tp=TP as two ranks on the
     one card (``parallel.mesh.spawn``; gloo, the all-reduces staged through
     host memory), each rank's engine ``Engine(mesh=make_mesh(model=2))``:
     the ranks' tokens and prefill rows identical; each prompt's last-
-    position logits within CONSISTENCY_REL_L2 of the single-device ones
-    (``ref``, computed by the earlier phases) with its greedy token
-    agreeing (exact ties counted);
+    position logits within CONSISTENCY_REL_L2 of the single-device prefill
+    of the same weights (``_tp_reference``) with its greedy token agreeing
+    (exact ties counted);
     ``decode_block=4`` tokens equal to the default TP engine's; the int8
-    KV cache and int8 weights (the 4 shortest prompts) against their
-    single-device runs; Mixtral's layer-0 routes alike for every prompt,
+    KV cache and int8 weights (the 4 shortest prompts) against the bf16
+    and the int8 single-device rows; Mixtral's layer-0 routes alike for every prompt,
     and at least MIX_TP_HELD prompts routed alike in every layer held to
     the same gates. Exact launch counts; tokens/s and each rank's
     peak printed. Returns {path: rank 0's launches}."""
     from flash_attention_tpu_torch.ops import attention
     from flash_attention_tpu_torch.parallel import mesh as pmesh
     short = prompts[TP_SHORT]
+    cfg = dataclasses.replace(cfg, n_layers=TP_LAYERS)
+    t0 = time.perf_counter()
+    ref = _tp_reference(torch, cfg, prompts)
+    print(f"Llama-3-8B L{TP_LAYERS} single-device reference (bf16 and int8 "
+          f"prefill rows): {time.perf_counter() - t0:.1f} s [{card}]")
     kvq = dict(kv_quant=True, page_size=KV_QUANT_PAGE_SIZE,
                total_pages=KV_QUANT_PAGES)
     base = dict(page_size=PAGE_SIZE, total_pages=TOTAL_PAGES)
@@ -5012,24 +5051,18 @@ def serve_tp(torch, card, kernels, cfg, mix_cfg, prompts, mix_prompts,
                   f"{st['decode_tokens_per_s']:.1f} ({st['decode_steps']} "
                   f"decode steps, wall {res['wall']:.2f} s); the ranks' peaks "
                   f"{peaks} GiB; launches on rank 0 {n}; {label}")
-    # Llama-3-8B against the single-device phases
-    for name, want_rows, want_tok, sel in (
-            ("tp2", ref["rows"], ref["outputs"], slice(None)),
-            ("tp2_kv_int8", ref["rows"][TP_SHORT], ref["kv_int8"][TP_SHORT],
-             TP_SHORT),
-            ("tp2_int8", ref["int8_rows"][TP_SHORT], ref["int8"][TP_SHORT],
-             TP_SHORT)):
-        rows, toks = r0[name]["rows"], r0[name]["tokens"]
+    # Llama-3-8B against the single-device prefill of the same weights
+    for name, want_rows in (("tp2", ref["rows"]),
+                            ("tp2_kv_int8", ref["rows"][TP_SHORT]),
+                            ("tp2_int8", ref["int8_rows"][TP_SHORT])):
+        rows = r0[name]["rows"]
         rels = [_rel(torch, a, b) for a, b in zip(rows, want_rows)]
         agree = [_greedy_agree(a, b) for a, b in zip(rows, want_rows)]
-        prefix = [next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
-                       len(a)) for a, b in zip(toks, want_tok)]
-        print(f"Llama-3-8B {name} against the single-device run: last-"
-              f"position logits rel L2 {', '.join(f'{x:.3e}' for x in rels)}"
-              f" (gate {CONSISTENCY_REL_L2:g}); greedy first token agrees "
-              f"{sum(agree)}/{len(agree)} (exact ties counted); tokens equal "
-              f"to the single-device engine's for the first {prefix} of "
-              f"{MAX_NEW} [{card}]")
+        print(f"Llama-3-8B L{TP_LAYERS} {name} against the single-device "
+              f"prefill: last-position logits rel L2 "
+              f"{', '.join(f'{x:.3e}' for x in rels)} (gate "
+              f"{CONSISTENCY_REL_L2:g}); greedy first token agrees "
+              f"{sum(agree)}/{len(agree)} (exact ties counted) [{card}]")
         assert max(rels) <= CONSISTENCY_REL_L2 and all(agree), (name, rels)
     assert r0["tp2_decode_block"]["tokens"] == r0["tp2"]["tokens"], \
         "decode_block tokens differ from the TP engine's"
@@ -5065,6 +5098,662 @@ def serve_tp(torch, card, kernels, cfg, mix_cfg, prompts, mix_prompts,
     print(f"Mixtral-8x7B tp2: {n_held} of {len(mix_prompts)} prompts held "
           f"to the gates (at least {MIX_TP_HELD} must be)")
     return paths
+
+
+# Parallel training (the ring, tensor and pipeline parallelism) as two
+# ranks on the one card, at Llama-3-8B's full width: the ring at cp=2 over
+# b1 s32768 causal, and train_loss(tp_axis=) at tp=2 and
+# pipeline_train_loss at pp=2, both at PAR_LAYERS layers, against one device
+# at the same depth. Two ranks share the card and the host transport (gloo,
+# staged through pinned host memory), so the phase measures correctness and
+# the transport's cost, not a speed-up.
+PAR_LAYERS = 8
+RING_SEQ = 32768          # b1, causal: 16384 tokens a rank at cp=2
+RING_STEP_SEQ = 4096      # each kind of ring step, held to the plain versions
+RING_RUNS = 3             # timed ring forward + backward runs
+PAR_TP = (2, 2048)        # TP training batch
+PAR_PP = (4, 2048)        # PP training batch
+PAR_MICRO = 4             # microbatches of the pipeline
+PAR_STEPS = 3             # step 0 compared with one device, then timed
+PAR_LR = LR
+
+
+def _ring_step_segs(torch, dev, kind, s, offset=0):
+    """The segs a causal ring step gives the segmented kernels at chunk
+    length ``s``: the chunk wholly in the past (the queries' positions
+    follow the keys'), the diagonal chunk, or wholly in the future (no
+    live key: every row gives EMPTY_LSE); every position moved by
+    ``offset``."""
+    ar = torch.arange(offset, offset + s, dtype=torch.int32,
+                      device=dev)[None]
+    q_pos, kv_pos = {"past": (ar + s, ar), "diagonal": (ar, ar),
+                     "future": (ar, ar + s)}[kind]
+    z = torch.zeros((1, s), dtype=torch.int32, device=dev)
+    return (z, z.clone(), q_pos.contiguous(), kv_pos.contiguous())
+
+
+def check_ring_steps(torch, dev, cfg, card):
+    """The segmented forward, dq and dkv at the three kinds of causal ring
+    step (b1, RING_STEP_SEQ queries against as many keys, Llama-3-8B's
+    heads), then at the ring's own chunk of RING_SEQ // TP rows: rank 1's
+    past step (positions to RING_SEQ - 1) and its diagonal step. Each
+    against its plain version and timed against its live-work bound; the
+    future chunk's O is exactly 0, its LSE exactly EMPTY_LSE and its dq,
+    dk and dv exactly 0. Returns {kernel: {shape label: figures}}."""
+    from flash_attention_tpu_torch.ops import flash_fwd as fm
+    from flash_attention_tpu_torch.parallel.sharded_attention import EMPTY_LSE
+    g = torch.Generator(device=dev).manual_seed(SEED + 21)
+    h, hk, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    n = RING_SEQ // TP
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev,
+                           dtype=torch.float32).to(torch.bfloat16)
+
+    out = {name: {} for name in SEG_KERNELS}
+    kw = dict(causal=True, sm_scale=d**-0.5)
+    for s, cases in ((RING_STEP_SEQ, (("past", 0), ("diagonal", 0),
+                                      ("future", 0))),
+                     (n, (("past", 0), ("diagonal", n)))):
+        q, k, v, do = rnd(1, s, h, d), rnd(1, s, hk, d), rnd(1, s, hk, d), \
+            rnd(1, s, h, d)
+        for kind, offset in cases:
+            segs = _ring_step_segs(torch, dev, kind, s, offset)
+            label = f"ring {kind} b1 s{s} h{h}/{hk}" + (
+                f" from {offset}" if offset else "")
+            _, _, dq, dk, dv = _check_seg_case(torch, label, q, k, v, do,
+                                               segs, kw, card, out)
+            if kind == "future":
+                with torch.inference_mode():
+                    o, lse = fm.flash_fwd(q, k, v, segs=segs,
+                                          empty_lse=EMPTY_LSE, **kw)
+                assert torch.all(o == 0) and torch.all(
+                    lse == torch.tensor(EMPTY_LSE, dtype=torch.float32)), \
+                    label
+                assert all(torch.all(x == 0) for x in (dq, dk, dv)), label
+                print(f"{label}: O exactly 0, LSE exactly EMPTY_LSE "
+                      f"({EMPTY_LSE:g}), dq, dk and dv exactly 0")
+            del dq, dk, dv
+        del q, k, v, do
+        torch.cuda.empty_cache()
+    return out
+
+
+def _dense_train_case(torch, g, dev, label, b, s, h, hk, d, card):
+    """The dense causal forward, D, dq and dkv at a training path's shape
+    (b x s, h/hk heads), each against its plain version within O_TOLS /
+    LSE_TOLS, DI_TOLS and BWD_TOLS, the backward from the plain version's
+    D; each kernel timed beside its plain version, the library call and
+    its bound. Returns {kernel: figures}."""
+    from flash_attention_tpu_torch.ops import flash_bwd as fb
+    from flash_attention_tpu_torch.ops import flash_fwd as fm
+    from flash_attention_tpu_torch.ops.reference import reference_attention
+    from flash_attention_tpu_torch.utils.metrics import assert_metrics
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev,
+                           dtype=torch.float32).to(torch.bfloat16)
+
+    q, k, v, do = rnd(b, s, h, d), rnd(b, s, hk, d), rnd(b, s, hk, d), \
+        rnd(b, s, h, d)
+    kw = dict(causal=True, sm_scale=d**-0.5)
+    o, lse = fm.flash_fwd(q, k, v, **kw)
+    o_r, lse_r = reference_attention(q, k, v, causal=True)
+    errs = {"flash_fwd": assert_metrics(f"flash_fwd {label}", o, o_r,
+                                        O_TOLS)}
+    assert_metrics(f"flash_fwd {label} lse", lse, lse_r, LSE_TOLS)
+    del o_r, lse_r
+    di, di_r = fb.flash_bwd_di(o, do), fb.di_reference(o, do)
+    errs["flash_bwd_di"] = assert_metrics(f"flash_bwd_di {label}", di, di_r,
+                                          DI_TOLS)
+    dq = fb.flash_bwd_dq(q, k, v, do, lse, di, **kw)
+    errs["flash_bwd_dq"] = assert_metrics(
+        f"flash_bwd_dq {label}", dq, fb.dq_reference(q, k, v, do, lse, di_r,
+                                                     **kw), BWD_TOLS)
+    dk, dv = fb.flash_bwd_dkv(q, k, v, do, lse, di, **kw)
+    dk_r, dv_r = fb.dkv_reference(q, k, v, do, lse, di_r, **kw)
+    errs["flash_bwd_dkv"] = max(
+        assert_metrics(f"flash_bwd_dkv {label} dk", dk, dk_r, BWD_TOLS),
+        assert_metrics(f"flash_bwd_dkv {label} dv", dv, dv_r, BWD_TOLS),
+        key=lambda m: m.max_abs)
+    del dk_r, dv_r
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+
+    def sdpa_fwd_ms():
+        with torch.no_grad():
+            return _time_ms(torch, sdpa, 20)
+    with torch.enable_grad():
+        out = sdpa()
+        sdpa_bwd = _sdpa_profile(torch, lambda: torch.autograd.grad(
+            out, (qt, kt, vt), do.transpose(1, 2), retain_graph=True))[0]
+    del out
+    pairs = s * (s + 1) // 2 * b * h
+    n_in = 2 * (q.numel() + k.numel() + v.numel() + do.numel()) \
+        + 4 * 2 * b * h * s  # bf16 tensors, fp32 LSE and D
+    # D reads O and dO once: timed over copies larger than the L2 together
+    cold = [(o.clone(), do.clone())
+            for _ in range(int(COLD_BYTES // (4 * o.numel())) + 1)]
+    runs = {  # kernel, plain, library, flops, bytes, whether timed cold
+        "flash_fwd": (
+            lambda: fm.flash_fwd(q, k, v, **kw),
+            lambda: reference_attention(q, k, v, causal=True),
+            sdpa_fwd_ms, 4.0 * d * pairs,
+            2 * (q.numel() + k.numel() + v.numel() + o.numel())
+            + 4 * lse.numel(), False),
+        "flash_bwd_di": (
+            lambda p: fb.flash_bwd_di(*p), lambda p: fb.di_reference(*p),
+            lambda: _time_cold_ms(torch, lambda p: torch.linalg.vecdot(
+                *p, dim=-1), cold), 2.0 * o.numel(),
+            2 * 2 * o.numel() + 4 * di.numel(), True),
+        "flash_bwd_dq": (
+            lambda: fb.flash_bwd_dq(q, k, v, do, lse, di, **kw),
+            lambda: fb.dq_reference(q, k, v, do, lse, di, **kw),
+            lambda: sdpa_bwd, 6.0 * d * pairs, n_in + 2 * dq.numel(), False),
+        "flash_bwd_dkv": (
+            lambda: fb.flash_bwd_dkv(q, k, v, do, lse, di, **kw),
+            lambda: fb.dkv_reference(q, k, v, do, lse, di, **kw),
+            lambda: sdpa_bwd, 8.0 * d * pairs, n_in + 2 * 2 * dk.numel(),
+            False)}
+    figures = {}
+    for name, (kern, plain, lib, flops, nbytes, is_cold) in runs.items():
+        if is_cold:  # microseconds: device time in a graph
+            ms, plain_ms = _time_cold_ms(torch, kern, cold), _time_cold_ms(
+                torch, plain, cold, min_calls=len(cold))
+        else:
+            ms = _time_ms(torch, kern, 20)
+            plain_ms = _time_ms(torch, plain, 2, warmup=1)
+        lib_ms = lib()
+        bound_ms, bound_by = _bound(flops, nbytes)
+        figures[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                         "bound_by": bound_by, "library_ms": lib_ms,
+                         "max_abs_err": errs[name].max_abs}
+        print(f"{name} {label} d{d} causal: "
+              f"{errs[name]}; kernel {ms:.4f} ms ({bound_ms / ms:.1%} of the "
+              f"bound {bound_ms:.4f} ms ({bound_by})), plain {plain_ms:.3f} "
+              f"ms, library {lib_ms:.4f} ms [{card}]")
+    print(f"{label}: library for flash_fwd the SDPA forward, for dq and dkv "
+          f"the SDPA backward's device time (dq + dk + dv), for D "
+          f"torch.linalg.vecdot(o, do); D and its library timed in a CUDA "
+          f"graph over {len(cold)} copies of O and dO (L2 cold) [{card}]")
+    del cold
+    return figures
+
+
+def check_train_shapes(torch, dev, cfg, card):
+    """The dense forward and backward kernels at the shapes the parallel
+    training runs them: a TP rank's heads (h / TP) at PAR_TP, and a
+    pipeline microbatch (PAR_PP's rows / PAR_MICRO) at every head. Returns
+    {kernel: {shape label: figures}}."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 26)
+    h, hk, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    out = {}
+    for label, (b, s), heads in (
+            (f"train tp={TP} rank", PAR_TP, (h // TP, hk // TP)),
+            (f"train pp={TP} microbatch", (PAR_PP[0] // PAR_MICRO,
+                                           PAR_PP[1]), (h, hk))):
+        label = f"{label} b{b} s{s} h{heads[0]}/{heads[1]}"
+        for name, fig in _dense_train_case(torch, g, dev, label, b, s,
+                                           *heads, d, card).items():
+            out.setdefault(name, {})[label] = fig
+        torch.cuda.empty_cache()
+    return out
+
+
+class _Timer:
+    """While active, ``module.name`` runs between two device
+    synchronisations, and its calls' seconds add up in ``s``: the host
+    transport's own time, apart from the kernels queued before it."""
+
+    def __init__(self, torch, module, name):
+        self.torch, self.module, self.name = torch, module, name
+        self.s, self.calls = 0.0, 0
+
+    def __enter__(self):
+        fn = self.orig = getattr(self.module, self.name)
+
+        def timed(*a, **kw):
+            self.torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                self.torch.cuda.synchronize()
+                self.s += time.perf_counter() - t0
+                self.calls += 1
+        setattr(self.module, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+def _seeded(torch, shape, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn(shape, generator=g, device="cuda",
+                       dtype=torch.float32).to(torch.bfloat16)
+
+
+def _launch_counts(kernels):
+    return {k.name: k.launches for k in kernels}
+
+
+def _par_ring(torch, cfg, kernels):
+    """One rank's ring at cp=2: shard_flash_attention(context_axis=) on the
+    full b1 RING_SEQ causal q/k/v, forward and backward (counted), against
+    one-rank flash_attention over the whole sequence on the card, with the
+    LSE of that run's ring; then RING_RUNS timed runs with the ppermute's
+    share."""
+    from flash_attention_tpu_torch.ops.attention import flash_attention
+    from flash_attention_tpu_torch.parallel import mesh as pmesh
+    from flash_attention_tpu_torch.parallel import sharded_attention as sa
+    from flash_attention_tpu_torch.utils.metrics import assert_metrics
+    mesh = pmesh.make_mesh(context=TP)
+    me, n = pmesh.axis_index(mesh, "context"), RING_SEQ // TP
+    blk = slice(me * n, (me + 1) * n)
+    h, hk, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = _seeded(torch, (1, RING_SEQ, h, d), SEED + 22)
+    k = _seeded(torch, (1, RING_SEQ, hk, d), SEED + 23)
+    v = _seeded(torch, (1, RING_SEQ, hk, d), SEED + 24)
+    do = _seeded(torch, (1, RING_SEQ, h, d), SEED + 25)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    o, lse = flash_attention(*leaves, causal=True, return_lse=True)
+    o.backward(do)
+    ref = {"o": o.detach()[:, blk], "lse": lse[..., blk],
+           **{n_: x.grad[:, blk] for n_, x in zip(("dq", "dk", "dv"),
+                                                  leaves)}}
+    del o, lse, leaves
+    torch.cuda.synchronize()
+
+    def ring():
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        o = sa.shard_flash_attention(*leaves, mesh, causal=True,
+                                     context_axis="context")
+        o.backward(do[:, blk])
+        return o.detach(), [x.grad[:, blk] for x in leaves]
+
+    # the checked run's own LSE: shard_flash_attention returns O only, so
+    # its call of ring_flash_attention is watched for the (o, lse) it gives
+    seen, orig = [], sa.ring_flash_attention
+
+    def watched(*a, **kw):
+        o_, lse_ = orig(*a, **kw)
+        seen.append(lse_.detach())
+        return o_, lse_
+    for kern in kernels:
+        kern.launches = 0
+    sa.ring_flash_attention = watched
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        o, grads = ring()
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+    finally:
+        sa.ring_flash_attention = orig
+    launches = _launch_counts(kernels)
+    (lse,) = seen
+    errs = {"o": assert_metrics("ring o", o, ref["o"], O_TOLS),
+            "lse": assert_metrics("ring lse", lse, ref["lse"], LSE_TOLS)}
+    for name, g in zip(("dq", "dk", "dv"), grads):
+        errs[name] = assert_metrics(f"ring {name}", g, ref[name], BWD_TOLS)
+    del o, grads, lse, ref
+    with _Timer(torch, sa, "ppermute") as hops:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(RING_RUNS):
+            ring()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return {"errs": {k_: str(m) for k_, m in errs.items()},
+            "max_abs": {k_: m.max_abs for k_, m in errs.items()},
+            "launches": launches, "first_s": first,
+            "run_ms": wall / RING_RUNS * 1e3,
+            "hop_ms": hops.s / RING_RUNS * 1e3,
+            "hops": hops.calls // RING_RUNS,
+            "peak": torch.cuda.max_memory_allocated()}
+
+
+def _par_reference(torch, cfg):
+    """Rank 0's one-device reference at PAR_LAYERS layers: the loss and
+    every gradient of train_loss (remat) on the TP and the PP batch from
+    the same seeded weights, and the steady step time of each (the second
+    of two steps)."""
+    from flash_attention_tpu_torch.models import llama
+    params = llama.init_params(cfg, seed=SEED, device="cuda",
+                               dtype=torch.bfloat16)
+    for w in params.values():
+        w.requires_grad_(True)
+    torch.cuda.reset_peak_memory_stats()
+    out = {}
+    for name, (b, s), seed in (("tp", PAR_TP, SEED), ("pp", PAR_PP,
+                                                      SEED + 1)):
+        toks, tgt = _batch(torch, "cuda", cfg.vocab_size, b, s, seed)
+        for _ in range(2):
+            for w in params.values():
+                w.grad = None
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = llama.train_loss(params, toks, tgt, cfg)
+            loss.backward()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        out[name] = {"loss": float(loss.detach()), "ms": ms,
+                     "grads": {n: w.grad for n, w in params.items()}}
+        for w in params.values():
+            w.grad = None
+    out["peak"] = torch.cuda.max_memory_allocated()
+    return out
+
+
+def _held_to(torch, rank, mesh, axis, names, grads, ref, place):
+    """Rank 0 holds the gradient of every leaf in ``names`` to the
+    one-device ``ref``: its own part and rank 1's (sent over ``axis``),
+    placed by ``place(name)``: ("cat", dim) the two parts of a sharded
+    leaf; ("same", None) a replicated leaf, which must be the same bits on
+    both ranks; ("slice", None) a leaf of each stage's layers (the two
+    halves of the layer axis); ("on", r) a leaf whose gradient only rank r
+    holds. Returns {name: (rel L2, identical or None)} on rank 0, {} on
+    rank 1."""
+    from flash_attention_tpu_torch.parallel import mesh as pmesh
+    out = {}
+    for i, name in enumerate(sorted(names)):
+        how, arg = place(name)
+        mine = grads.get(name)
+        needs_peer = how in ("cat", "same", "slice") or (how == "on"
+                                                         and arg == 1)
+        if rank == 1:
+            if needs_peer:
+                work, _ = pmesh.isend(mine, mesh, axis, 0, tag=i)
+                work.wait()
+            continue
+        peer = pmesh.recv(ref[name] if how == "on" else mine, mesh, axis, 1,
+                          tag=i) if needs_peer else None
+        same = None
+        if how == "cat":
+            got = torch.cat([mine, peer], arg)
+        elif how == "same":
+            got, same = mine, torch.equal(mine, peer)
+        elif how == "slice":
+            got = torch.cat([mine, peer])
+        else:
+            got = mine if arg == 0 else peer
+        out[name] = (_rel(torch, got.float(), ref[name].float()), same)
+        del got, peer
+    return out
+
+
+def _sgd(torch, params, lr):
+    with torch.no_grad():
+        for w in params.values():
+            if w.grad is not None:
+                w.sub_(w.grad, alpha=lr)
+            w.grad = None
+
+
+def _par_train(torch, rank, mesh, axis, params, loss_fn, ref, place,
+               kernels, timer):
+    """PAR_STEPS steps of ``loss_fn(params)``, .backward() and SGD: step 0
+    counted and its gradients held to ``ref`` (rank 0), the rest timed,
+    the last under ``timer`` (the transport's share). Returns the figures;
+    the peak is above what the rank held before (rank 0: the reference's
+    gradients)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()  # rank 0: the reference's grads
+    losses, step_ms, held, launches, timed = [], [], None, None, None
+    for i in range(PAR_STEPS):
+        for kern in kernels:
+            kern.launches = 0
+        ctx = timer() if i == PAR_STEPS - 1 else contextlib.nullcontext()
+        with ctx as t:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = loss_fn(params)
+            loss.backward()
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        if t is not None:
+            timed = (t.s * 1e3, t.calls)
+        losses.append(float(loss.detach()))
+        if i == 0:
+            launches = _launch_counts(kernels)
+            grads = {n: w.grad for n, w in params.items()
+                     if w.grad is not None}
+            held = _held_to(torch, rank, mesh, axis, list(params), grads,
+                            ref, place)
+            del grads
+        _sgd(torch, params, PAR_LR)
+    return {"losses": losses, "step_ms": step_ms, "held": held,
+            "launches": launches, "timed": timed,
+            "peak": torch.cuda.max_memory_allocated() - base}
+
+
+def _stage_init(torch, cfg, stage, n_stages):
+    """This stage's part of ``init_params(cfg, seed=SEED)``, built one full
+    weight at a time: its layers' slices, and the replicated leaves."""
+    from flash_attention_tpu_torch.models import llama
+    from flash_attention_tpu_torch.parallel import pipeline
+    per = cfg.n_layers // n_stages
+    out = {}
+    for name, w in llama.iter_params(cfg, seed=SEED, device="cuda",
+                                     dtype=torch.bfloat16):
+        if pipeline.stage_specs({name: w})[name]:
+            w = w[stage * per:(stage + 1) * per].clone()
+        out[name] = w.requires_grad_(True)
+    return out
+
+
+def _par_rank(rank, world, jobs):
+    """A rank of the parallel-training phase: the ring, then (rank 0 first
+    computing the one-device reference while rank 1 waits) TP and PP
+    training."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from flash_attention_tpu_torch.models import llama
+    from flash_attention_tpu_torch.ops import flash_bwd, flash_fwd, kv_update
+    from flash_attention_tpu_torch.ops import moe, paged_attention, quant
+    from flash_attention_tpu_torch.parallel import mesh as pmesh
+    from flash_attention_tpu_torch.parallel import pipeline
+    from flash_attention_tpu_torch.parallel import tp_inference as tpi
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kernels = [flash_fwd.KERNEL, kv_update.KERNEL, paged_attention.KERNEL,
+               *flash_bwd.KERNELS, *moe.KERNELS, quant.KERNEL]
+    cfg = jobs["cfg"]
+    out = {"ring": _par_ring(torch, cfg, kernels)}
+    torch.cuda.empty_cache()
+    ref = {"tp": {}, "pp": {}}
+    t0 = time.perf_counter()
+    if rank == 0:
+        ref = _par_reference(torch, cfg)
+        out["ref"] = {k: {"loss": r["loss"], "ms": r["ms"]}
+                      for k, r in ref.items() if k != "peak"}
+        out["ref_peak"] = ref.pop("peak")
+        torch.cuda.empty_cache()
+    dist.barrier()
+    out["ref_s"] = time.perf_counter() - t0
+
+    # tensor parallelism: each rank its part, train_loss(tp_axis=)
+    mesh = pmesh.make_mesh(model=world)
+    params = tpi.init_shard(cfg, mesh, seed=SEED, device="cuda",
+                            dtype=torch.bfloat16)
+    for w in params.values():
+        w.requires_grad_(True)
+    lcfg = tpi.local_config(cfg, world)
+    toks, tgt = _batch(torch, "cuda", cfg.vocab_size, *PAR_TP, SEED)
+
+    def tp_place(name):
+        if name in tpi.COLUMN:
+            return "cat", -1
+        if name in tpi.ROW:
+            return "cat", 1
+        return "same", None
+
+    out["tp"] = _par_train(
+        torch, rank, mesh, "model", params,
+        lambda p: llama.train_loss(p, toks, tgt, lcfg,
+                                   tp_axis=(mesh, "model")),
+        ref["tp"].get("grads"), tp_place, kernels,
+        lambda: _Timer(torch, pmesh, "psum"))
+    del params
+    ref.pop("tp")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the pipeline: stage = rank, PAR_MICRO microbatches
+    pmesh_ = init_device_mesh("cuda", (world,), mesh_dim_names=("pipe",))
+    staged = _stage_init(torch, cfg, rank, world)
+    toks, tgt = _batch(torch, "cuda", cfg.vocab_size, *PAR_PP, SEED + 1)
+    split = pipeline.stage_specs(staged)
+
+    def pp_place(name):
+        if split[name]:
+            return "slice", None
+        return "on", 0 if name == "embed" else 1
+
+    out["pp"] = _par_train(
+        torch, rank, pmesh_, "pipe", staged,
+        lambda p: pipeline.pipeline_train_loss(p, toks, tgt, cfg,
+                                               mesh=pmesh_,
+                                               n_micro=PAR_MICRO),
+        ref["pp"].get("grads"), pp_place, kernels,
+        lambda: _Timer(torch, pmesh, "recv"))
+    del staged, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_parallel(torch, dev, cfg, card, kernels):
+    """Parallel training at Llama-3-8B's full width as two ranks on the one
+    card, in one spawn: (a) the ring at cp=2 (``shard_flash_attention``
+    with a context dim) over b1 RING_SEQ causal, forward and backward,
+    against one-rank flash_attention over the whole sequence within
+    O_TOLS / LSE_TOLS / BWD_TOLS, with the ppermute's share of a ring run;
+    (b) ``train_loss(tp_axis=)`` at tp=2 and (c) ``pipeline_train_loss`` at
+    pp=2 (PAR_MICRO microbatches), both at PAR_LAYERS layers with remat,
+    .backward() and SGD, step 0's loss within TRAIN_LOSS_REL and every
+    leaf's gradient within TRAIN_GRAD_REL_L2 (rel L2) of one device on the
+    same weights and batch (rank 0's reference), TP's replicated leaves
+    the same bits on both ranks; exact launch counts; tokens/s against one
+    device, each rank's peak, and the all-reduce's share of a TP step and
+    the time a stage waits for its peer against the GPipe bubble.
+    Returns {path: rank 0's launches}."""
+    from flash_attention_tpu_torch.parallel import mesh as pmesh
+    L = cfg.n_layers
+    t0 = time.perf_counter()
+    ranks = pmesh.spawn(_par_rank, TP, {"cfg": cfg})
+    print(f"parallel-training phase: {TP} ranks spawned on the one card, "
+          f"{time.perf_counter() - t0:.1f} s from spawn to the last rank's "
+          f"exit; rank 0's one-device reference {ranks[0]['ref_s']:.1f} s "
+          f"of it [{card}]")
+    label = (f"two ranks sharing one card, transport gloo staged through "
+             f"host memory [{card}]")
+    # (a) the ring
+    n = RING_SEQ // TP
+    want = {"flash_fwd": TP, "flash_bwd_di": TP, "flash_bwd_dq": TP,
+            "flash_bwd_dkv": TP, "kv_update": 0, "paged_attention": 0,
+            "gmm": 0, "gmm_dw": 0, "qmm": 0}
+    for i, r in enumerate(ranks):
+        g = r["ring"]
+        assert g["launches"] == want, (i, g["launches"], want)
+        print(f"ring cp={TP} rank {i} (b1 s{RING_SEQ} causal h{cfg.n_heads}/"
+              f"{cfg.n_kv_heads} d{cfg.head_dim}, its {n} rows) against one-"
+              f"rank flash_attention over the whole sequence: "
+              + "; ".join(f"{k} {m}" for k, m in g["errs"].items()))
+        print(f"ring cp={TP} rank {i}: forward + backward {g['run_ms']:.1f} "
+              f"ms a run (first {g['first_s'] * 1e3:.1f} ms), of which the "
+              f"host-staged ppermute ({g['hops']} calls) {g['hop_ms']:.1f} "
+              f"ms, {g['hop_ms'] / g['run_ms']:.1%}; peak "
+              f"{g['peak'] / 2**30:.2f} GiB; {label}")
+    paths = {"train_ring": ranks[0]["ring"]["launches"]}
+    # (b), (c) TP and PP training against one device
+    ref = ranks[0]["ref"]
+    print(f"one device, Llama-3-8B L{L} train_loss (remat) forward + "
+          f"backward: b{PAR_TP[0]} s{PAR_TP[1]} {ref['tp']['ms']:.1f} ms "
+          f"({PAR_TP[0] * PAR_TP[1] / ref['tp']['ms'] * 1e3:.1f} tokens/s), "
+          f"b{PAR_PP[0]} s{PAR_PP[1]} {ref['pp']['ms']:.1f} ms "
+          f"({PAR_PP[0] * PAR_PP[1] / ref['pp']['ms'] * 1e3:.1f} tokens/s); "
+          f"peak {ranks[0]['ref_peak'] / 2**30:.2f} GiB [{card}]")
+    per = L // TP
+    for key, (b, s), layers, micro in (("tp", PAR_TP, L, 1),
+                                       ("pp", PAR_PP, per, PAR_MICRO)):
+        res = [r[key] for r in ranks]
+        want = {"flash_fwd": 2 * layers * micro, "flash_bwd_di":
+                layers * micro, "flash_bwd_dq": layers * micro,
+                "flash_bwd_dkv": layers * micro, "kv_update": 0,
+                "paged_attention": 0, "gmm": 0, "gmm_dw": 0, "qmm": 0}
+        for i, r in enumerate(res):
+            assert r["launches"] == want, (key, i, r["launches"], want)
+        losses = [r["losses"] for r in res]
+        assert all(x == losses[0] for x in losses), (key, losses)
+        assert all(np.isfinite(losses[0])), losses
+        loss_rel = abs(losses[0][0] - ref[key]["loss"]) / abs(
+            ref[key]["loss"])
+        held = res[0]["held"]
+        worst = max(held, key=lambda n_: held[n_][0])
+        steady = float(np.mean(res[0]["step_ms"][1:]))
+        rate = b * s / steady * 1e3
+        one = b * s / ref[key]["ms"] * 1e3
+        name = {"tp": f"train_loss(tp_axis=) tp={TP}",
+                "pp": f"pipeline_train_loss pp={TP} n_micro {PAR_MICRO}"}[key]
+        print(f"{name}, Llama-3-8B L{L} b{b} s{s}, remat, SGD lr {PAR_LR}: "
+              f"losses {[round(x, 6) for x in losses[0]]} (the ranks' "
+              f"identical); step 0 against one device {ref[key]['loss']:.6f} "
+              f"(rel {loss_rel:.3e}, gate {TRAIN_LOSS_REL:g}); gradient rel "
+              f"L2 per leaf: " + ", ".join(
+                  f"{n_} {v[0]:.3e}" for n_, v in sorted(held.items()))
+              + f"; worst {worst} (gate {TRAIN_GRAD_REL_L2:g})")
+        same = {n_: v[1] for n_, v in held.items() if v[1] is not None}
+        if same:
+            print(f"{name}: replicated leaves bit-identical on the two ranks: "
+                  f"{same}")
+            assert all(same.values()), same
+        assert loss_rel <= TRAIN_LOSS_REL, (key, loss_rel)
+        assert held[worst][0] <= TRAIN_GRAD_REL_L2, (key, worst, held[worst])
+        t_ms, calls = res[0]["timed"]
+        peaks = ", ".join(f"{r['peak'] / 2**30:.2f}" for r in res)
+        if key == "tp":
+            share = (f"the all-reduces ({calls} psum calls, host-staged) "
+                     f"{t_ms:.1f} ms of the last step's "
+                     f"{res[0]['step_ms'][-1]:.1f} ms, "
+                     f"{t_ms / res[0]['step_ms'][-1]:.1%}")
+        else:
+            waits = [r["timed"][0] / r["step_ms"][-1] for r in res]
+            bubble = (TP - 1) / (PAR_MICRO + TP - 1)
+            share = (f"time each stage waits in its receives ({calls} on "
+                     f"rank 0) in the last step: "
+                     + ", ".join(f"{w:.1%}" for w in waits)
+                     + f" (the GPipe bubble (S-1)/(M+S-1) = {bubble:.1%})")
+        print(f"{name}: step ms {[round(x, 1) for x in res[0]['step_ms']]} "
+              f"(step 0 compared, with first-use costs); steady "
+              f"{steady:.1f} ms, {rate:.1f} training tokens/s against one "
+              f"device's {one:.1f} ({rate / one:.3f}x); {share}; the ranks' "
+              f"peaks {peaks} GiB; launches on rank 0 {res[0]['launches']}; "
+              f"{label}")
+        paths[f"train_{key}"] = res[0]["launches"]
+    return paths
+
+
+def parallel_phase(torch, dev, cfg, card, kernels, entries):
+    """check_ring_steps and check_train_shapes, their figures merged into
+    ``entries`` (when given), then train_parallel at PAR_LAYERS layers.
+    Returns its paths."""
+    for check in (check_ring_steps, check_train_shapes):
+        for name, shapes in check(torch, dev, cfg, card).items():
+            if entries is not None:
+                next(e for e in entries if e["name"] == name)[
+                    "shapes"].update(shapes)
+        torch.cuda.empty_cache()
+    return train_parallel(torch, dev,
+                          dataclasses.replace(cfg, n_layers=PAR_LAYERS),
+                          card, kernels)
 
 
 def main() -> int:
@@ -5122,6 +5811,11 @@ def main() -> int:
                 _check_cap_instances(k.name, per_fn)
 
     cfg = llama.LlamaConfig.llama3_8b()
+    if sys.argv[1:] == ["train_parallel"]:  # this phase alone, no result
+        parallel_phase(torch, dev, cfg, card, kernels, None)
+        print(f"chip_smoke train_parallel: {time.perf_counter() - t_start:.1f}"
+              f" s [{card}]")
+        return 0
     mix = llama.LlamaConfig.mixtral_8x7b()
     mistral = llama.LlamaConfig.mistral_7b()
     prompts = _prompts(cfg.vocab_size)
@@ -5214,9 +5908,6 @@ def main() -> int:
                                             card, kernels, "Llama-3-8B")
     consistency(torch, params, cfg, prompts, "Llama-3-8B")
     ref_rows = generated_logits(torch, params, cfg, prompts, outputs)
-    # what the tensor-parallel phase is held to: each prompt's last-position
-    # logits and the tokens of the single-device runs
-    tp_ref = {"rows": ref_rows[:, 0].float().cpu(), "outputs": outputs}
     # the same weights with chunked prefill (Mistral's traffic, chunks of
     # CHUNK_SIZE) against an unchunked engine, and the masked-prefix control
     t0 = time.perf_counter()
@@ -5235,7 +5926,6 @@ def main() -> int:
     for name, dtype in KV_QUANT.items():
         paths[f"serve_kv_{name}"], kv_outputs = serve_kv_quant(
             torch, params, cfg, prompts, card, kernels, name)
-        tp_ref[f"kv_{name}"] = kv_outputs
         torch.cuda.empty_cache()
         quant_quality(torch, ref_rows,
                       generated_logits(torch, params, cfg, prompts, outputs,
@@ -5331,8 +6021,6 @@ def main() -> int:
             del adapters
         consistency(torch, qparams, cfg, prompts, model)
         q_rows = generated_logits(torch, qparams, cfg, prompts, outputs)
-        if bits == 8:
-            tp_ref.update(int8=q_outputs, int8_rows=q_rows[:, 0].float().cpu())
         quant_quality(torch, ref_rows, q_rows, outputs, q_outputs, model)
         del q_rows
         del qparams
@@ -5378,7 +6066,7 @@ def main() -> int:
                                dtype=torch.bfloat16)
     # the tensor-parallel phase's Mixtral reference: these weights, before
     # training moves them
-    mix_ref = moe_prefill_reference(torch, params, mix_train, mix_prompts)
+    mix_ref = prefill_reference(torch, params, mix_train, mix_prompts)
     paths["train_mixtral"] = train(torch, params, mix_train, card, kernels,
                                    "Mixtral-8x7B", lr=MIX_LR)
     del params
@@ -5386,13 +6074,20 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     mark("tensor-parallel serving, tp=2")
-    # Llama-3-8B and Mixtral-8x7B (expert parallelism) served by two ranks
-    # on the card, against the single-device phases above
+    # Llama-3-8B (TP_LAYERS layers) and Mixtral-8x7B (expert parallelism)
+    # served by two ranks on the card, against single-device prefills
     t0 = time.perf_counter()
     paths.update(serve_tp(torch, card, kernels, cfg, mix_train, prompts,
-                          mix_prompts, tp_ref, mix_ref))
-    del tp_ref, mix_ref
+                          mix_prompts, mix_ref))
+    del mix_ref
     print(f"tensor-parallel phase: {time.perf_counter() - t0:.1f} s")
+
+    mark("parallel training, cp=2, tp=2, pp=2")
+    # the ring (its three kinds of step against the plain versions first),
+    # TP and PP training at PAR_LAYERS layers, two ranks on the card
+    t0 = time.perf_counter()
+    paths.update(parallel_phase(torch, dev, cfg, card, kernels, entries))
+    print(f"parallel-training phase: {time.perf_counter() - t0:.1f} s")
 
     mark("Mistral-7B")
     # 7. Mistral-7B-v0.1 (window 4096 on every layer), full width, depth cut

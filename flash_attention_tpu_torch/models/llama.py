@@ -59,13 +59,18 @@ package's points; over a quantized base the delta follows the quantized
 matmul. Without stacks ``lora_ids`` is ignored, as in JAX.
 
 Tensor parallelism (``parallel.tp_inference``): ``prefill``,
-``prefill_chunk`` and ``decode_step`` take ``tp_axis=(mesh, axis)`` on one
-rank's part of the weights with the local config, and all-reduce the
-attention's wo output and the FFN's output over that mesh dim
-(``parallel.mesh.psum``, in the projection's dtype, as JAX's ``psum``);
-Gemma-2's sandwich norms apply after the all-reduce. A Mixtral rank runs its
-own experts (``moe_ffn(expert_offset=)``). ``train_loss`` with ``tp_axis``
-raises: parallel training is not ported yet.
+``prefill_chunk``, ``decode_step`` and ``train_loss`` take
+``tp_axis=(mesh, axis)`` on one rank's part of the weights with the local
+config, and all-reduce the attention's wo output and the FFN's output over
+that mesh dim (``parallel.mesh.reduce_from``: ``psum`` in the projection's
+dtype, as JAX's, with an identity backward); Gemma-2's sandwich norms apply
+after the all-reduce. A Mixtral rank runs its own experts
+(``moe_ffn(expert_offset=)``). When autograd records, the normed residual
+stream enters the column-parallel projections (and a Mixtral rank's router
+and experts) through ``parallel.mesh.copy_to``, whose backward sums the
+ranks' partial gradients, so every replicated weight (embed, norms,
+lm_head, the router) gets the whole gradient, the same bits on each rank,
+and the loss is replicated.
 
 A K/V cache may be wider than the head dim (``ops.attention.
 kernel_head_dim``: d 80 or 96 held at 128, as the engine allocates it for
@@ -97,8 +102,8 @@ from flash_attention_tpu_torch.ops.quant import (KV_QMAX, QuantizedTensor,
                                                  _quantize_token,
                                                  quantize_int4, quantize_int8,
                                                  quantized_matmul)
-from flash_attention_tpu_torch.parallel.mesh import axis_index, psum
-from flash_attention_tpu_torch.utils.options import reject_unported
+from flash_attention_tpu_torch.parallel.mesh import (axis_index, copy_to,
+                                                     reduce_from)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -228,6 +233,8 @@ _LAYER_NAMES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
 _BIAS_NAMES = ("bq", "bk", "bv")
 _POST_NAMES = ("norm_post_attn", "norm_post_mlp")
 _OPTIONAL_NAMES = _BIAS_NAMES + _POST_NAMES + ("w_router",)
+# every leaf stacked on a leading (layer) axis
+_PER_LAYER = _LAYER_NAMES + _OPTIONAL_NAMES
 _MATMUL_NAMES = _LAYER_NAMES[:7]  # the weights quantize_params quantizes
 
 
@@ -443,8 +450,7 @@ def _layer_weights(params) -> list[dict]:
                     for v, s in zip(w.values.unbind(0), w.scales.unbind(0))]
         return w.unbind(0)
 
-    per = {n: unbind(params[n]) for n in _LAYER_NAMES + _OPTIONAL_NAMES
-           if n in params}
+    per = {n: unbind(params[n]) for n in _PER_LAYER if n in params}
     n_layers = params["norm_attn"].shape[0]
     layers = [{n: w[i] for n, w in per.items()} for i in range(n_layers)]
     if "lora" in params:  # each layer's (A, B) slices under "lora"
@@ -481,8 +487,15 @@ def _proj(h, w, name, lora_ids=None):
 
 
 def _maybe_psum(x, tp_axis):
-    """x summed over the ranks of ``tp_axis`` ((mesh, axis)), or x."""
-    return x if tp_axis is None else psum(x, *tp_axis)
+    """x summed over the ranks of ``tp_axis`` ((mesh, axis)), or x; the
+    gradient passes through unchanged (``reduce_from``)."""
+    return x if tp_axis is None else reduce_from(x, *tp_axis)
+
+
+def _maybe_copy(x, tp_axis):
+    """x, with its gradient summed over the ranks of ``tp_axis`` when
+    autograd records (``copy_to``)."""
+    return x if tp_axis is None else copy_to(x, *tp_axis)
 
 
 def _act(x, kind: str = "silu"):
@@ -508,7 +521,9 @@ def _ffn(h, w, cfg: LlamaConfig, lora_ids=None, tp_axis=None):
     off = None
     if tp_axis is not None:
         off = axis_index(*tp_axis) * w["w_gate"].shape[0]
-    out, _ = moe_ffn(h.reshape(-1, h.shape[-1]), w["w_router"], w["w_gate"],
+    # the replicated router's gradient from this rank's experts is partial
+    router = _maybe_copy(w["w_router"], tp_axis)
+    out, _ = moe_ffn(h.reshape(-1, h.shape[-1]), router, w["w_gate"],
                      w["w_up"], w["w_down"], n_top=cfg.n_experts_per_tok,
                      act=lambda a: _act(a, cfg.act), expert_offset=off)
     return out.view(h.shape)
@@ -529,10 +544,24 @@ def _embed(params, tokens, cfg: LlamaConfig):
     return x
 
 
-def _final_softcap(logits, cfg: LlamaConfig):
+def _head(x, params, cfg: LlamaConfig):
+    """The final norm, the lm_head and the final softcap: fp32 logits."""
+    x = _rmsnorm(x, params["norm_out"], cfg.norm_eps)
+    logits = _mm(x, params["lm_head"]).float()
     if cfg.final_softcap is None:
         return logits
     return cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
+
+
+def _loss_sums(x, params, cfg: LlamaConfig, targets):
+    """(sum of the next-token NLL over the valid targets, their count) of
+    the final hidden states ``x`` (b, s, D): the loss of ``train_loss``
+    before its mean. Every target < 0 is ignored."""
+    valid = targets >= 0
+    nll = F.cross_entropy(_head(x, params, cfg).flatten(0, 1),
+                          torch.where(valid, targets, 0).flatten().long(),
+                          reduction="none").view(valid.shape)
+    return (nll * valid).sum(), valid.sum()
 
 
 def _fake_quant(t, dtype):
@@ -555,7 +584,7 @@ def _dense_layer(x, w, cfg: LlamaConfig, positions, window=None,
     and the wo and FFN outputs are summed over the axis, before Gemma-2's
     sandwich norms."""
     b, s = x.shape[:2]
-    h = _rmsnorm(x, w["norm_attn"], cfg.norm_eps)
+    h = _maybe_copy(_rmsnorm(x, w["norm_attn"], cfg.norm_eps), tp_axis)
     q = _proj(h, w, "wq", lora_ids).view(b, s, cfg.n_heads, cfg.head_dim)
     k = _proj(h, w, "wk", lora_ids).view(b, s, cfg.n_kv_heads, cfg.head_dim)
     v = _proj(h, w, "wv", lora_ids).view(b, s, cfg.n_kv_heads, cfg.head_dim)
@@ -572,15 +601,16 @@ def _dense_layer(x, w, cfg: LlamaConfig, positions, window=None,
     attn = _maybe_psum(_proj(o.reshape(b, s, -1), w, "wo", lora_ids),
                        tp_axis)
     x = x + _post(attn, w, "norm_post_attn", cfg)
-    h = _rmsnorm(x, w["norm_mlp"], cfg.norm_eps)
+    h = _maybe_copy(_rmsnorm(x, w["norm_mlp"], cfg.norm_eps), tp_axis)
     mlp = _maybe_psum(_ffn(h, w, cfg, lora_ids, tp_axis), tp_axis)
     return x + _post(mlp, w, "norm_post_mlp", cfg), (k, v)
 
 
 def _layer_out(x, w, cfg: LlamaConfig, positions, window, kv_fake_quant,
-               lora_ids):
+               lora_ids, tp_axis=None):
     return _dense_layer(x, w, cfg, positions, window,
-                        kv_fake_quant=kv_fake_quant, lora_ids=lora_ids)[0]
+                        kv_fake_quant=kv_fake_quant, lora_ids=lora_ids,
+                        tp_axis=tp_axis)[0]
 
 
 def prefill(params, tokens, cfg: LlamaConfig, tp_axis=None,
@@ -609,6 +639,18 @@ def prefill(params, tokens, cfg: LlamaConfig, tp_axis=None,
     slot when ``params["lora"]`` holds the stacks; stacks without it raise
     ValueError. ``tp_axis`` ((mesh, axis)): params and cfg are one rank's
     part (``parallel.tp_inference``), the K/V returned its kv heads."""
+    x, ks, vs = _forward(params, tokens, cfg, tp_axis, kv_fake_quant,
+                         lora_ids, return_kv, remat)
+    if logit_rows is not None:
+        x = x[torch.arange(x.shape[0], device=x.device), logit_rows.long()]
+    return _head(x, params, cfg), ks, vs
+
+
+def _forward(params, tokens, cfg: LlamaConfig, tp_axis=None,
+             kv_fake_quant=None, lora_ids=None, return_kv: bool = True,
+             remat: bool = False):
+    """:func:`prefill` up to the final hidden states: (x (b, s, D), k_cache,
+    v_cache)."""
     if kv_fake_quant is not None and kv_fake_quant not in KV_QMAX:
         raise ValueError(f"kv_fake_quant must be torch.int8 or "
                          f"torch.float8_e4m3fn, got {kv_fake_quant!r}")
@@ -627,7 +669,7 @@ def prefill(params, tokens, cfg: LlamaConfig, tp_axis=None,
         window = cfg.layer_window(i)
         if remat:
             x = checkpoint(_layer_out, x, w, cfg, positions, window,
-                           kv_fake_quant, ids, use_reentrant=False,
+                           kv_fake_quant, ids, tp_axis, use_reentrant=False,
                            preserve_rng_state=False)
             continue
         x, (k, v) = _dense_layer(x, w, cfg, positions, window,
@@ -635,10 +677,7 @@ def prefill(params, tokens, cfg: LlamaConfig, tp_axis=None,
                                  tp_axis=tp_axis)
         if return_kv:
             ks[i], vs[i] = k, v
-    if logit_rows is not None:
-        x = x[torch.arange(b, device=x.device), logit_rows.long()]
-    x = _rmsnorm(x, params["norm_out"], cfg.norm_eps)
-    return _final_softcap(_mm(x, params["lm_head"]).float(), cfg), ks, vs
+    return x, ks, vs
 
 
 def train_loss(params, tokens, targets, cfg: LlamaConfig, *,
@@ -651,19 +690,19 @@ def train_loss(params, tokens, targets, cfg: LlamaConfig, *,
     recomputes each layer in the backward (see :func:`prefill`). Call
     ``.backward()`` on the result, or ``torch.autograd.grad``. With LoRA
     stacks in ``params`` and ``lora_ids``, an adapter-only fine-tune makes
-    the stacks the leaves that require grad."""
-    reject_unported("train_loss", tp_axis=(tp_axis, None))
+    the stacks the leaves that require grad. ``tp_axis`` ((mesh, axis)):
+    params and cfg are one rank's part (``parallel.tp_inference``); the
+    loss comes back replicated, and ``.backward()`` on every rank gives
+    each sharded leaf its part of the gradient and each replicated one the
+    whole (see the module docstring); LoRA stacks with it raise."""
     if is_quantized(params):
         raise NotImplementedError("train_loss on quantized weights: the "
                                   "quantized matmul has no gradient (a "
                                   "quantized model serves)")
-    logits, _, _ = prefill(params, tokens, cfg, tp_axis=tp_axis,
-                           return_kv=False, remat=remat, lora_ids=lora_ids)
-    valid = targets >= 0
-    nll = F.cross_entropy(logits.flatten(0, 1),
-                          torch.where(valid, targets, 0).flatten().long(),
-                          reduction="none").view(valid.shape)
-    return (nll * valid).sum() / valid.sum().clamp(min=1)
+    x, _, _ = _forward(params, tokens, cfg, tp_axis, lora_ids=lora_ids,
+                       return_kv=False, remat=remat)
+    nll, n_valid = _loss_sums(x, params, cfg, targets)
+    return nll / n_valid.clamp(min=1)
 
 
 def decode_step(params, k_pages, v_pages, k_scales, v_scales, tokens, lengths,
@@ -719,9 +758,7 @@ def decode_step(params, k_pages, v_pages, k_scales, v_scales, tokens, lengths,
         h = _rmsnorm(x, w["norm_mlp"], cfg.norm_eps)
         mlp = _maybe_psum(_ffn(h, w, cfg, ids, tp_axis), tp_axis)
         x = x + _post(mlp, w, "norm_post_mlp", cfg)
-    x = _rmsnorm(x, params["norm_out"], cfg.norm_eps)
-    logits = _final_softcap(_mm(x, params["lm_head"]).float(), cfg)
-    return logits, k_pages, v_pages, k_scales, v_scales
+    return _head(x, params, cfg), k_pages, v_pages, k_scales, v_scales
 
 
 def prefill_chunk(params, tokens, done, chunk_len, k_pages, v_pages,
@@ -802,8 +839,7 @@ def prefill_chunk(params, tokens, done, chunk_len, k_pages, v_pages,
     if logit_rows is not None:
         x = x[torch.arange(b, device=dev), torch.as_tensor(
             logit_rows, device=dev).long()]
-    x = _rmsnorm(x, params["norm_out"], cfg.norm_eps)
-    return _final_softcap(_mm(x, params["lm_head"]).float(), cfg), ks, vs
+    return _head(x, params, cfg), ks, vs
 
 
 def write_chunk_to_pages(k_pages, v_pages, layer_kv, done, chunk_len,

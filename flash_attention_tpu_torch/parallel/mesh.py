@@ -1,4 +1,5 @@
-"""Device meshes, the collectives of tensor-parallel serving, and a launcher.
+"""Device meshes, the collectives of tensor parallelism, point-to-point
+transport, and a launcher.
 
 The counterpart of ``flash_attention_tpu/parallel/mesh.py``. The JAX package
 lays a named mesh over the devices of one controller; the port is SPMD: one
@@ -9,17 +10,26 @@ that group. Axes:
 
   data    -- batch (pure DP, no comms in attention)
   model   -- heads / hidden (TP: an all-reduce after wo and after the FFN)
-  context -- kv sequence (CP; not ported yet)
+  context -- kv sequence (CP: ring attention, ``parallel.sharded_attention``)
 
-A tensor-parallel model call names its axis as the pair ``(mesh, "model")``
+A pipeline (``parallel.pipeline``) takes any ``DeviceMesh`` with a named
+``pipe`` dim. A model call names its axis as the pair ``(mesh, "model")``
 (``models.llama``'s ``tp_axis``), and reaches the other ranks only through
-``psum`` and ``axis_index`` here.
+the functions here.
 
 Transport: gloo, for CPU and CUDA tensors alike. NCCL refuses two ranks on
-one card, and serving needs only all-reduces. ``psum`` stages a CUDA tensor
-through a pinned host buffer on every call (device to host, gloo's
-all-reduce on the host, host to device): a synchronising copy, so a
-tensor-parallel step reads the card twice a layer.
+one card. ``psum`` stages a CUDA tensor through a pinned host buffer on
+every call (device to host, gloo's all-reduce on the host, host to device):
+a synchronising copy, so a tensor-parallel step reads the card twice a
+layer. ``ppermute`` stages the same way.
+
+Gradients. ``psum`` itself records no graph. Training under tensor
+parallelism (Megatron's conjugate pair, where the JAX package relies on
+``shard_map``'s transposes) goes through two autograd functions around it:
+``reduce_from`` (g: ``psum`` forward, identity backward) after a
+row-parallel product and on a replicated loss, and ``copy_to`` (f: identity
+forward, ``psum`` backward) where a replicated activation or weight enters
+rank-local work.
 
 ``spawn(fn, world, *args)`` runs ``fn(rank, world, *args)`` in ``world``
 processes of a fresh gloo group and returns their results; the tests and
@@ -82,10 +92,141 @@ def psum(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
         out = x.clone(memory_format=torch.contiguous_format)
         dist.all_reduce(out, group=group)
         return out
-    host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
-    host.copy_(x)
+    host = _host(x)
     dist.all_reduce(host, group=group)
     return host.to(x.device, non_blocking=True)
+
+
+class _ReduceFrom(torch.autograd.Function):
+    """g: the sum over the axis forward, the gradient as it is backward."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        return psum(x, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return dy, None, None
+
+
+class _CopyTo(torch.autograd.Function):
+    """f: x as it is forward, the gradient summed over the axis backward."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.axis = (mesh, axis)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return psum(dy.contiguous(), *ctx.axis), None, None
+
+
+def reduce_from(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """``psum`` whose backward passes the gradient through unchanged
+    (Megatron's g). For a sum whose result every rank then uses alike (the
+    row-parallel wo and w_down, a loss replicated over the axis): each
+    rank's part then gets the whole, replicated gradient. Do not use
+    ``torch.distributed.nn.functional.all_reduce`` here: its backward
+    all-reduces too, which gives every upstream gradient ``size`` times its
+    value."""
+    if not torch.is_grad_enabled() or not x.requires_grad:
+        return psum(x, mesh, axis)
+    return _ReduceFrom.apply(x, mesh, axis)
+
+
+def copy_to(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """x itself forward, with the gradient summed over the axis backward
+    (Megatron's f). Put it where a replicated tensor enters rank-local work
+    (the residual stream into the column-parallel wq/wk/wv/w_gate/w_up, the
+    router of a rank's experts): each rank's gradient is then the sum of
+    every rank's partial one, the same bits on each. Without autograd it is
+    x."""
+    if not torch.is_grad_enabled() or not x.requires_grad:
+        return x
+    return _CopyTo.apply(x, mesh, axis)
+
+
+def _group_ranks(mesh, axis: str) -> list[int]:
+    """The global ranks of mesh dim ``axis``'s group that holds this rank,
+    by their index along the dim."""
+    return dist.get_process_group_ranks(mesh.get_group(axis))
+
+
+def _host(x: torch.Tensor) -> torch.Tensor:
+    """x on the host (a pinned copy of a CUDA tensor; a contiguous CPU
+    tensor as it is), ready for gloo."""
+    if x.device.type == "cpu":
+        return x.contiguous()
+    host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    host.copy_(x)
+    return host
+
+
+def _host_like(x: torch.Tensor) -> torch.Tensor:
+    return torch.empty(x.shape, dtype=x.dtype,
+                       pin_memory=x.device.type != "cpu")
+
+
+def isend(x: torch.Tensor, mesh, axis: str, dst: int, tag: int = 0):
+    """Post the send of ``x`` to index ``dst`` along mesh dim ``axis``;
+    returns the pending work, which holds the host copy it sends: keep it
+    until its ``wait()``. A CUDA tensor is copied to pinned host memory
+    first (a synchronising copy)."""
+    host = _host(x)
+    work = dist.isend(host, _group_ranks(mesh, axis)[dst],
+                      group=mesh.get_group(axis), tag=tag)
+    return work, host
+
+
+def recv(like: torch.Tensor, mesh, axis: str, src: int,
+         tag: int = 0) -> torch.Tensor:
+    """A tensor of ``like``'s shape and dtype from index ``src`` along mesh
+    dim ``axis`` (the send with the same tag), on ``like``'s device."""
+    host = _host_like(like)
+    dist.recv(host, _group_ranks(mesh, axis)[src], group=mesh.get_group(axis),
+              tag=tag)
+    return host.to(like.device, non_blocking=True)
+
+
+def ppermute(x, mesh, axis: str, perm):
+    """``jax.lax.ppermute``: each rank sends ``x`` (a tensor, or a tuple or
+    list of tensors sent together) to its destination under ``perm``
+    (pairs (source, destination) of indices along mesh dim ``axis``) and
+    returns what its source sent; a rank that is no destination gets zeros.
+
+    Every send and receive is posted before any is waited on, so a ring
+    (each rank a source and a destination) does not deadlock. Cost: gloo
+    point-to-point over the host. A CUDA tensor is copied to pinned host
+    memory before its send (a synchronising copy) and each received one
+    back to the card after its receive, every call: for K and V of a ring
+    step (b, s, hk, d) bf16 that is about 2 b s hk d bytes each way."""
+    xs = list(x) if isinstance(x, (tuple, list)) else [x]
+    me = axis_index(mesh, axis)
+    dst = [d for s, d in perm if s == me]
+    src = [s for s, d in perm if d == me]
+    if len(dst) > 1 or len(src) > 1:
+        raise ValueError(f"perm {perm} sends to or from index {me} twice")
+    group, ranks = mesh.get_group(axis), _group_ranks(mesh, axis)
+    bufs, works = [], []
+    for i, t in enumerate(xs):
+        if src:
+            bufs.append(_host_like(t))
+            works.append(dist.irecv(bufs[-1], ranks[src[0]], group=group,
+                                    tag=i))
+    keep = []
+    for i, t in enumerate(xs):
+        if dst:
+            keep.append(_host(t))
+            works.append(dist.isend(keep[-1], ranks[dst[0]], group=group,
+                                    tag=i))
+    for w in works:
+        w.wait()
+    if src:
+        out = [b.to(t.device, non_blocking=True) for b, t in zip(bufs, xs)]
+    else:
+        out = [torch.zeros_like(t) for t in xs]
+    return out[0] if not isinstance(x, (tuple, list)) else type(x)(out)
 
 
 def _rank_main(rank: int, world: int, init: str, out_dir: str, fn,

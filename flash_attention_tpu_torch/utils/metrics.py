@@ -54,8 +54,55 @@ def _f32(x) -> np.ndarray:
     return np.asarray(x, np.float32)
 
 
+# elements a card-side pass promotes to fp32 at a time
+_CHUNK = 1 << 26
+
+
+def _card_of(test, ref):
+    """The CUDA device of a pair of torch tensors of which one lies on a
+    card, else None. Such a pair is measured on that card: copying a
+    tensor of hundreds of millions of elements to the host and reducing it
+    in numpy takes seconds."""
+    if isinstance(test, torch.Tensor) and isinstance(ref, torch.Tensor):
+        return next((x.device for x in (test, ref) if x.is_cuda), None)
+    return None
+
+
+def _error_metrics_on(dev, test, ref, eps: float) -> ErrorMetrics:
+    """:func:`error_metrics` on the card ``dev``: fp32 elements, a chunk at
+    a time, with the sums in fp64."""
+    assert test.shape == ref.shape, \
+        f"shape mismatch {tuple(test.shape)} vs {tuple(ref.shape)}"
+    t, r = test.detach().reshape(-1), ref.detach().reshape(-1)
+    n = t.numel()
+    if not n:
+        return ErrorMetrics(0.0, 0.0, 0.0, 0.0, 0.0, 0.0)
+    # max |d|, sum |d|, max |d| / (|r| + eps), its sum, sum d^2, sum r^2
+    acc = torch.zeros(6, dtype=torch.float64, device=dev)
+    for i in range(0, n, _CHUNK):
+        tc = t[i:i + _CHUNK].to(dev, torch.float32)
+        rc = r[i:i + _CHUNK].to(dev, torch.float32)
+        d = (tc - rc).abs_()
+        rel = d / rc.abs().add_(eps)
+        acc = torch.stack([
+            torch.maximum(acc[0], d.max().double()),
+            acc[1] + d.sum(dtype=torch.float64),
+            torch.maximum(acc[2], rel.max().double()),
+            acc[3] + rel.sum(dtype=torch.float64),
+            acc[4] + d.square().sum(dtype=torch.float64),
+            acc[5] + rc.square().sum(dtype=torch.float64)])
+    max_abs, sum_abs, max_rel, sum_rel, ss_d, ss_r = acc.tolist()
+    return ErrorMetrics(
+        max_abs=max_abs, mean_abs=sum_abs / n, max_rel=max_rel,
+        mean_rel=sum_rel / n, l2_rel=ss_d**0.5 / (ss_r**0.5 + eps),
+        rms_rel=(ss_d / n)**0.5 / ((ss_r / n)**0.5 + eps))
+
+
 def error_metrics(test, ref, eps: float = 1e-6) -> ErrorMetrics:
     """The 6 error metrics of test vs ref (both promoted to fp32)."""
+    dev = _card_of(test, ref)
+    if dev is not None:
+        return _error_metrics_on(dev, test, ref, eps)
     t, r = _f32(test), _f32(ref)
     assert t.shape == r.shape, f"shape mismatch {t.shape} vs {r.shape}"
     diff = np.abs(t - r)
@@ -85,7 +132,10 @@ def assert_metrics(name: str, test, ref, tols: dict | None = None,
     tols = {**DEFAULT_TOLS, **(tols or {})}
     m = error_metrics(test, ref)
     failures = []
-    n_bad = int(np.count_nonzero(~np.isfinite(_f32(test))))
+    if _card_of(test, ref) is not None:
+        n_bad = int(torch.isfinite(test.detach()).logical_not().sum())
+    else:
+        n_bad = int(np.count_nonzero(~np.isfinite(_f32(test))))
     if n_bad:
         failures.append(f"{n_bad} non-finite value(s) in output")
     if m.max_abs > tols["atol"]:

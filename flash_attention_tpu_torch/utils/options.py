@@ -2,9 +2,8 @@
 
 Every public function of the port takes the JAX package's parameters in its
 order, so a call written for one package runs on the other. A TPU tiling
-knob (block sizes, Pallas interpret mode) or an option whose slice is not
-ported yet (tensor parallelism) is accepted at its JAX default and raises
-``NotImplementedError`` naming it at any other value.
+knob (block sizes, Pallas interpret mode) is accepted at its JAX default
+and raises ``NotImplementedError`` naming it at any other value.
 """
 
 from __future__ import annotations

@@ -117,6 +117,33 @@ def test_flash_fwd_strided_and_empty_rows(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_ring_future_step_is_empty(cuda, d):
+    """A causal ring step whose K/V chunk lies wholly after the queries
+    (the segmented kernels with positions q 0..s-1 against keys s..2s-1):
+    no live pair, so O is exactly 0, the LSE exactly the ring's EMPTY_LSE,
+    and dq, dk and dv exactly 0."""
+    from flash_attention_tpu_torch.parallel.sharded_attention import (
+        EMPTY_LSE)
+    rng = np.random.default_rng(d)
+    s = 300
+    q = _randn(rng, (1, s, 4, d), torch.bfloat16, cuda)
+    k = _randn(rng, (1, s, 2, d), torch.bfloat16, cuda)
+    v = _randn(rng, (1, s, 2, d), torch.bfloat16, cuda)
+    do = _randn(rng, (1, s, 4, d), torch.bfloat16, cuda)
+    pos = torch.arange(s, dtype=torch.int32, device=cuda)[None]
+    zero = torch.zeros_like(pos)
+    segs = (zero, zero, pos, pos + s)
+    fwd_mod.KERNEL.launches = 0
+    o, lse = fwd(q, k, v, True, segs=segs, empty_lse=EMPTY_LSE)
+    assert fwd_mod.KERNEL.launches == 1
+    assert torch.all(o == 0)
+    assert torch.all(lse == torch.tensor(EMPTY_LSE, dtype=torch.float32))
+    for g in bwd(q, k, v, o, lse, do, True, segs=segs):
+        assert torch.all(g == 0)
+
+
+@pytest.mark.gpu
 def test_flash_fwd_head_major_views(cuda):
     """q/k/v as (b, s, h, d) views of (b, h, s, d) buffers: the head
     stride exceeds the sequence stride, and the kernel still reads through

@@ -34,7 +34,8 @@ MODULES = ("models.checkpoint", "models.import_hf", "models.llama",
            "ops.segments", "serving.engine", "serving.multistep",
            "serving.native", "serving.prefix", "serving.sampling",
            "serving.scheduler", "serving.spec", "utils.debug_inputs",
-           "utils.metrics", "parallel.mesh", "parallel.tp_inference")
+           "utils.metrics", "parallel.mesh", "parallel.pipeline",
+           "parallel.sharded_attention", "parallel.tp_inference")
 
 # port-only parameters: each an extension of the port
 PORT_EXTRA = {
@@ -57,6 +58,9 @@ PORT_EXTRA = {
     "parallel.mesh.make_mesh": ("device_type",),
     # the lm_head at one row per sequence, as prefill_chunk's logit_rows
     "parallel.tp_inference.tp_prefill_chunk": ("logit_rows",),
+    # a rank passes its own blocks (JAX's shard_map takes global arrays
+    # and cuts them itself)
+    "parallel.sharded_attention.shard_flash_attention": ("local",),
 }
 # JAX parameters the port does not take: the plain attention always
 # returns (o, lse)
@@ -81,8 +85,6 @@ DIFFERENT = {
 
 # JAX public names the port lacks, each with its reason
 _TILES = "a TPU tiling knob: the CUDA kernels choose their own tiles"
-_TRAINING = ("parallel training (ring attention and its backward, sharded "
-             "attention, the pipeline) comes in the next slice")
 JAX_NOT_PORTED = {
     "BlockSizes": _TILES,
     "ops.BlockSizes": _TILES,
@@ -92,12 +94,6 @@ JAX_NOT_PORTED = {
     "ops.segments.clamp_for_dma": (
         "clamps block indices for the TPU's DMA; the CUDA kernels read their "
         "tile ranges from ops.segments.block_ranges"),
-    "parallel.ring_flash_attention": _TRAINING,
-    "parallel.shard_flash_attention": _TRAINING,
-    "parallel.sharded_attention.ring_flash_attention": _TRAINING,
-    "parallel.sharded_attention.shard_flash_attention": _TRAINING,
-    "parallel.pipeline.pipeline_train_loss": _TRAINING,
-    "parallel.pipeline.stage_specs": _TRAINING,
     "parallel.tp_inference.param_specs": (
         "PartitionSpecs for shard_map; each rank slices its part with "
         "parallel.tp_inference.shard_params"),
@@ -337,3 +333,20 @@ def test_failure_dump_writes_aux(tmp_path, monkeypatch):
     assert names == [".csv", ".json", ".npz"]
     aux = np.load(next(tmp_path.glob("*.npz")))
     np.testing.assert_array_equal(aux["lse"], np.ones(3, np.float32))
+
+
+@pytest.mark.parametrize("shape", [(0,), (7,), (1000, 37)])
+def test_card_metrics_match_numpy(shape, monkeypatch):
+    """The card-side pass of ``error_metrics`` (fp32 chunks, fp64 sums),
+    run here on CPU tensors with chunks of 11 elements, gives the numpy
+    path's six metrics."""
+    from flash_attention_tpu_torch.utils import metrics
+    rng = np.random.default_rng(0)
+    test = torch.tensor(rng.standard_normal(shape), dtype=torch.bfloat16)
+    ref = torch.tensor(rng.standard_normal(shape), dtype=torch.float32)
+    want = metrics.error_metrics(test, ref)
+    monkeypatch.setattr(metrics, "_CHUNK", 11)
+    got = metrics._error_metrics_on(torch.device("cpu"), test, ref, 1e-6)
+    for name, value in vars(want).items():
+        assert getattr(got, name) == pytest.approx(value, rel=1e-5,
+                                                   abs=1e-12), name

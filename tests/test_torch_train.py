@@ -141,9 +141,10 @@ def test_layer_weights_are_views_with_stacked_grads():
     (tl.LlamaConfig.tiny(), {"lora": None}),
 ], ids=["gemma2", "tp_axis", "lora"])
 def test_outside_the_slice_raises(cfg, kw):
-    """tp_axis raises NotImplementedError (parallel training is not ported
-    yet); LoRA (ported) raises the JAX package's ValueError when the stacks
-    come without ``lora_ids``."""
+    """tp_axis as a bare axis name (JAX's form under shard_map) raises
+    NotImplementedError: the port names the axis as (mesh, axis); LoRA
+    (ported) raises the JAX package's ValueError when the stacks come
+    without ``lora_ids``."""
     params = tl.init_params(tl.LlamaConfig.tiny(n_layers=1), device="cpu",
                             dtype=torch.float32)
     toks = torch.zeros((2, 8), dtype=torch.int64)
