@@ -98,6 +98,13 @@ drives the two paths on two models with random bf16 weights, full width:
 * a Llama-shaped d-96 config (4 layers) served through a cache 128 wide,
   after the paged kernel at head dims 80 and 96 and GQA groups 12 and 16
   and the d-96 kv write are held against their plain versions and timed;
+* head dims 384 and 512 at DeepSeek-V4-Flash's attention geometry (64
+  query heads on 1 KV head, a 128-token window): every d-384/512 instance
+  of the forward, paged and kv-write kernels against its plain version
+  (``check_head_dim_512``), then Llama-3-8B's structure at that attention
+  geometry served at 4 layers, its logits at 2 layers card against CPU
+  (``serve_d512``; ``python3 chip_smoke.py head_dim_512`` runs the build
+  and these two alone, without the result lines);
 * chunked prefill: the Llama-3-8B weights served with Mistral's traffic
   through ``Engine(chunk_size=2048)`` (``llama.prefill_chunk``: the
   segmented forward over [prefix pages || chunk]) and through an
@@ -457,8 +464,10 @@ def _sass_counts(build, kernel) -> dict[str, dict[str, int]]:
     library's SASS (by its template arguments), read with the toolkit's
     cuobjdump (beside nvcc)."""
     cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
-    sass = subprocess.run([cuobjdump, "-sass", str(kernel.lib_path())],
-                          capture_output=True, text=True, check=True).stdout
+    sass = "".join(subprocess.run([cuobjdump, "-sass", str(path)],
+                                  capture_output=True, text=True,
+                                  check=True).stdout
+                   for path in kernel.lib_paths())
     counts = {}
     for part in sass.split("Function : ")[1:]:
         name = part.split(None, 1)[0]
@@ -472,13 +481,20 @@ def _sass_counts(build, kernel) -> dict[str, dict[str, int]]:
 # their window and softcap modes (the same for fp16 and bf16): each
 # no-softcap instance (template argument CAP false, "Lb0E") must keep them,
 # and each softcap instance must hold both ops. The d-256 instances' counts
-# are those of their own tile designs. The segmented instances (a last
-# template argument SEG true) of flash_fwd, dq and dkv run the same
-# products and loads, so their no-softcap instances must show the same.
-SASS_NO_CAP = {"flash_fwd": {64: (24, 3), 128: (32, 6), 256: (40, 12)},
+# are those of their own tile designs, and so are the d-384 and 512 ones
+# (flash_fwd_wide.cu: S over d/16 k-steps once, P V once in each consumer;
+# Q, K and V d/64 boxes each. paged_attention_wide.cu: the same products;
+# a K and a V load in the producer's loop over the d/64 boxes, which is
+# not unrolled, for each of a lane's two box slots). The segmented
+# instances (a last template argument SEG true) of flash_fwd, dq and dkv run
+# the same products and loads, so their no-softcap instances must show the
+# same.
+SASS_NO_CAP = {"flash_fwd": {64: (24, 3), 128: (32, 6), 256: (40, 12),
+                             384: (32, 18), 512: (40, 24)},
                "flash_bwd_dq": {64: (24, 4), 128: (40, 8), 256: (72, 16)},
                "flash_bwd_dkv": {64: (16, 4), 128: (24, 8), 256: (40, 16)},
-               "paged_attention": {64: (8, 4), 128: (12, 8), 256: (20, 16)}}
+               "paged_attention": {64: (8, 4), 128: (12, 8), 256: (20, 16),
+                                   384: (32, 4), 512: (40, 4)}}
 
 
 SEG_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
@@ -1020,7 +1036,8 @@ def _flex_softcap(torch, q, k, v, do, cap, scale):
     compiled with ``torch.compile`` as its documentation requires (its
     caches under the checkout's ``build/``). Returns (forward ms, backward
     ms for dq, dk and dv together, what ran), the times None and the error
-    named when it does not compile or run."""
+    named when it does not compile or run. ``do`` None: the forward alone
+    (backward ms None), as under inference mode."""
     here = os.path.dirname(os.path.abspath(__file__))
     for var, sub in (("TORCHINDUCTOR_CACHE_DIR", "inductor"),
                      ("TRITON_CACHE_DIR", "triton")):
@@ -1038,21 +1055,23 @@ def _flex_softcap(torch, q, k, v, do, cap, scale):
         mask = create_block_mask(causal, None, None, q.shape[1], k.shape[1],
                                  device=q.device)
         flex = torch.compile(flex_attention, dynamic=False)
-        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
-                      for x in (q, k, v))
-        dot = do.transpose(1, 2).contiguous()
+        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(
+            do is not None) for x in (q, k, v))
 
         def fwd():  # one compiled graph, forward and backward: the
             # forward kernel is the inference one (it writes the LSE anyway)
             return flex(qt, kt, vt, score_mod=softcap, block_mask=mask,
                         scale=scale, enable_gqa=True)
         y = fwd()
-        torch.autograd.grad(y, (qt, kt, vt), dot, retain_graph=True)
+        if do is not None:
+            dot = do.transpose(1, 2).contiguous()
+            torch.autograd.grad(y, (qt, kt, vt), dot, retain_graph=True)
         torch.cuda.synchronize()
         built = time.perf_counter() - t0
         f_ms = _time_ms(torch, fwd, 20)
-        b_ms = _time_ms(torch, lambda: torch.autograd.grad(
-            y, (qt, kt, vt), dot, retain_graph=True), 20)
+        b_ms = None if do is None else _time_ms(
+            torch, lambda: torch.autograd.grad(y, (qt, kt, vt), dot,
+                                               retain_graph=True), 20)
         return f_ms, b_ms, (f"flex_attention (torch.compile, tanh score_mod,"
                             f" causal block mask, enable_gqa; compiled in "
                             f"{built:.1f} s)")
@@ -1062,14 +1081,14 @@ def _flex_softcap(torch, q, k, v, do, cap, scale):
                             f"{time.perf_counter() - t0:.1f} s)")
 
 
-def check_window_softcap(torch, dev, cfg, card, flex=True):
+def check_window_softcap(torch, dev, cfg, card):
     """The forward, dq and dkv kernels' window and softcap modes against
     their plain versions, at WINDOW_CASES; the timed cases beside the same
     kernels without the mode on the same inputs (the windowed ones bounded
     by WINDOW_FWD_RATIO), and SDPA with the band as a boolean mask as the
     window's library yardstick; the softcap's is one compiled
-    ``flex_attention`` call (``_flex_softcap``; about 20 s of compiling,
-    taken only with ``flex``). Returns {kernel: {label: numbers}} for the
+    ``flex_attention`` call (``_flex_softcap``; about 20 s of compiling).
+    Returns {kernel: {label: numbers}} for the
     kernel table."""
     from flash_attention_tpu_torch.ops import flash_bwd as fb
     from flash_attention_tpu_torch.ops import flash_fwd as fm
@@ -1162,7 +1181,7 @@ def check_window_softcap(torch, dev, cfg, card, flex=True):
                 torch, fb.dkv_reference, q, k, v, do, lse, di_r, **kw), 1,
                 warmup=0),
         }
-        lib, backend = {}, "not measured (flex_attention runs at d 128)"
+        lib, backend = {}, ""
         if cap is None:
             # SDPA with the band as a boolean mask, K/V heads expanded
             qt = q.transpose(1, 2)
@@ -1189,7 +1208,7 @@ def check_window_softcap(torch, dev, cfg, card, flex=True):
             except RuntimeError as e:  # a yardstick only: record why not
                 backend = f"not measured ({str(e).splitlines()[0][:120]})"
             del qt, kt, vt
-        elif flex:
+        else:
             f_ms, b_ms, backend = _flex_softcap(torch, q, k, v, do, cap,
                                                 scale)
             if f_ms is not None:
@@ -1377,10 +1396,9 @@ def check_head_dim_256(torch, dev, cfg, card):
     for e in check_bwd(torch, dev, cfg, card):
         add(e["name"], e["shapes"])
     torch.cuda.empty_cache()
-    # the softcap's flex_attention yardstick is taken at d 128 only: its
-    # compile costs about 20 s a shape
-    for name, shapes in check_window_softcap(torch, dev, cfg, card,
-                                             flex=False).items():
+    # the softcap's flex_attention yardstick at d 256 too (its compile
+    # costs about 20 s a shape)
+    for name, shapes in check_window_softcap(torch, dev, cfg, card).items():
         add(name, shapes)
     torch.cuda.empty_cache()
     with torch.inference_mode():
@@ -2484,7 +2502,7 @@ def serve(torch, params, cfg, prompts, card, kernels, model,
     return launches, [r.output for r in reqs], st
 
 
-_KERNEL_GROUPS = (("flash_fwd", "flash_fwd_kernel"),
+_KERNEL_GROUPS = (("flash_fwd", "flash_fwd_(wide_)?kernel"),
                   ("gmm", "gmm_kernel"),
                   ("qmm", "qmm_kernel|qmm_reduce_kernel"),
                   ("gmm_dw", "gmm_dw_kernel"),
@@ -2492,7 +2510,7 @@ _KERNEL_GROUPS = (("flash_fwd", "flash_fwd_kernel"),
                   ("flash_bwd_dq", "flash_bwd_dq_kernel"),
                   ("flash_bwd_dkv", "flash_bwd_dkv_kernel"),
                   ("kv_write", "kv_write_kernel|kv_write_quant_kernel"),
-                  ("paged_attention", "paged_attn_kernel"),
+                  ("paged_attention", "paged_attn_(wide_)?kernel"),
                   ("matmul", "gemm|gemv|cutlass|xmma|nvjet|cublas"))
 
 
@@ -4557,10 +4575,10 @@ def _paged_qc_case(torch, pa, g, dev, label, h, hk, d, width, card):
     nbytes = tokens * hk * d * 2 * 2 + 2 * 2 * q.numel() + 4 * (b + pages)
     bound_ms, bound_by = _bound(4.0 * tokens * h * d, nbytes)
     print(f"paged_attention {label} (h{h}/{hk}, group {h // hk}, cache "
-          f"{width} wide, {pa.sub_groups(h // hk)} sub-group(s) a kv head) "
-          f"L{L} b{b} lengths linspace(1, {MAX_SEQ}, 8): {m}; cold {cold:.5f}"
-          f" ms ({bound_ms / cold:.1%} of the {bound_ms:.5f} ms bound, "
-          f"{bound_by}), plain {plain:.3f} ms [{card}]")
+          f"{width} wide, {pa.sub_groups(h // hk, d)} sub-group(s) a kv "
+          f"head) L{L} b{b} lengths linspace(1, {MAX_SEQ}, 8): {m}; cold "
+          f"{cold:.5f} ms ({bound_ms / cold:.1%} of the {bound_ms:.5f} ms "
+          f"bound, {bound_by}), plain {plain:.3f} ms [{card}]")
     return {"ms": cold, "bound_ms": bound_ms, "bound_by": bound_by,
             "plain_ms": plain, "max_abs_err": m.max_abs}, (q, kp, vp,
                                                           lengths, tables)
@@ -4822,6 +4840,415 @@ def serve_d96(torch, dev, card, kernels):
     assert st["decode_steps"] >= 16, st["decode_steps"]
     consistency(torch, params, cfg, prompts, model)
     del params
+    return launches
+
+
+# Head dims 384 and 512 at DeepSeek-V4-Flash's attention geometry
+# (deepseek-ai/DeepSeek-V4-Flash config.json: head_dim 512, 64 query heads
+# on 1 KV head, sliding_window 128): check_head_dim_512 holds every d-384
+# and 512 instance of the forward, paged and kv-write kernels against its
+# plain version, and serve_d512 serves Llama-3-8B's structure at that
+# attention geometry (V4's compressed sparse attention, low-rank Q, grouped
+# output, mHC and MoE are not in the JAX package and not claimed here).
+V4_ATTN = dict(n_heads=64, n_kv_heads=1, head_dim=512, sliding_window=128,
+               window_pattern=2)
+D512_LAYERS = 4  # serve_d512's depth (Llama-3-8B's 32 cut: its logits gate)
+D512_CHECK_LAYERS = 2  # the card-vs-CPU logits gate's depth
+D512_SEQ = 8192  # prefill b1 s8192 causal, decode lengths 1..8192
+D512_CAP = 5.0  # binds at unit-scale scores
+D512_PACKED = (4, 2048)  # packed causal sequences, against the dense call
+D512_SERVED = (MAX_BATCH, 2048)  # serve_d512's prefill: 8 prompts to 2048
+
+
+def _dense_segs(torch, b, s, dev):
+    """Segment ids and positions of b rows of one sequence each: the plain
+    segmented version then computes the dense call's mask, a block of
+    query rows at a time (no (s, s) scores of 64 heads held)."""
+    zero = torch.zeros((b, s), dtype=torch.int32, device=dev)
+    pos = torch.arange(s, dtype=torch.int32, device=dev).expand(b, s)
+    return zero, zero, pos.contiguous(), pos.contiguous()
+
+
+def _sdpa_wide(torch, q, k, v, causal, attn_mask=None):
+    """The wide forward's library yardstick: scaled_dot_product_attention
+    under each fused backend in turn (flash, memory-efficient, cuDNN), with
+    enable_gqa and then with the K/V heads expanded, the first that runs at
+    this head dim timed. Returns (ms or None, what ran or every error)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    h, hk = q.shape[2], k.shape[2]
+    qt, errors = q.transpose(1, 2), []
+    for gqa in (True, False):
+        kt, vt = ((x if gqa else x.repeat_interleave(h // hk, 2))
+                  .transpose(1, 2) for x in (k, v))
+        for be in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                   SDPBackend.CUDNN_ATTENTION):
+            def call(kt=kt, vt=vt, be=be, gqa=gqa):
+                with sdpa_kernel([be]):
+                    return torch.nn.functional.scaled_dot_product_attention(
+                        qt, kt, vt, attn_mask=attn_mask,
+                        is_causal=causal and attn_mask is None,
+                        enable_gqa=gqa)
+            what = f"{be.name}{'' if gqa else ', K/V heads expanded'}"
+            try:
+                call()
+                torch.cuda.synchronize()
+                return _time_ms(torch, call, 5), what
+            except RuntimeError as e:  # a yardstick only: record why not
+                errors.append(f"{what}: {str(e).splitlines()[0][:90]}")
+        del kt, vt
+    return None, "no fused backend ran: " + " | ".join(errors)
+
+
+def _check_flash_wide(torch, g, dev, d, card, out):
+    """The forward's d-``d`` instance at h64/1: the D512 cases and the
+    served prefill's own shape (serve_d512 prefills its 8 prompts as one
+    right-padded b8 s2048 batch, causal, every second layer windowed)
+    against the plain (blocked) version, two runs bit-identical, timed
+    beside the plain version, the bound and the library (SDPA under
+    whichever fused backend accepts the head dim; for the softcap, a
+    compiled flex_attention); the packed sequences bit for bit against the
+    dense call."""
+    from flash_attention_tpu_torch.ops import flash_fwd as fm
+    from flash_attention_tpu_torch.ops.reference import _build_mask
+    from flash_attention_tpu_torch.utils.metrics import assert_metrics
+    h, hk, scale = V4_ATTN["n_heads"], V4_ATTN["n_kv_heads"], d**-0.5
+    left = V4_ATTN["sliding_window"] - 1
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    sb, ss = D512_SERVED
+    for label, b, s, causal, window, cap in (
+            (f"prefill b1 s{D512_SEQ} causal", 1, D512_SEQ, True, None,
+             None),
+            ("prefill b1 s4096 non-causal", 1, 4096, False, None, None),
+            (f"window ({left}, 0) b1 s{D512_SEQ}", 1, D512_SEQ, True,
+             (left, 0), None),
+            (f"softcap {D512_CAP:g} b1 s4096 causal", 1, 4096, True, None,
+             D512_CAP),
+            (f"served prefill b{sb} s{ss} causal", sb, ss, True, None,
+             None),
+            (f"served prefill window ({left}, 0) b{sb} s{ss}", sb, ss, True,
+             (left, 0), None)):
+        q, k, v = rnd(b, s, h, d), rnd(b, s, hk, d), rnd(b, s, hk, d)
+        kw = dict(causal=causal, sm_scale=scale, window=window, softcap=cap)
+        o, lse = fm.flash_fwd(q, k, v, **kw)
+        segs = _dense_segs(torch, b, s, dev)
+        o_r, lse_r = fm.flash_fwd_segmented_reference(q, k, v, segs, **kw)
+        m = assert_metrics(f"flash_fwd d{d} {label}", o, o_r, O_TOLS)
+        assert_metrics(f"flash_fwd d{d} {label} lse", lse, lse_r, LSE_TOLS)
+        del o_r, lse_r
+        o2, lse2 = fm.flash_fwd(q, k, v, **kw)
+        assert torch.equal(o, o2) and torch.equal(lse, lse2), label
+        del o2, lse2
+        ms = _time_ms(torch, lambda: fm.flash_fwd(q, k, v, **kw), 10)
+        plain = _time_ms(torch, lambda: fm.flash_fwd_segmented_reference(
+            q, k, v, segs, **kw), 1, warmup=0)
+        mask = None
+        if window is not None:
+            mask = _build_mask(s, s, causal, window, device=dev)
+        if cap is None:
+            lib, lib_what = _sdpa_wide(torch, q, k, v, causal, mask)
+        else:
+            lib, _, lib_what = _flex_softcap(torch, q, k, v, None, cap, scale)
+        pairs = _band_pairs(torch, dev, s, s, causal, window) * b * h
+        flops = 4.0 * d * pairs
+        nbytes = 2 * (q.numel() + k.numel() + v.numel() + o.numel()) \
+            + 4 * lse.numel()
+        bound_ms, bound_by = _bound(flops, nbytes)
+        print(f"flash_fwd d{d} {label} h{h}/{hk}: {m}; two runs "
+              f"bit-identical; kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} "
+              f"TFLOP/s, {bound_ms / ms:.1%} of the bound {bound_ms:.4f} ms, "
+              f"{bound_by}), plain {plain:.3f} ms, library "
+              f"{'n/a' if lib is None else f'{lib:.4f} ms'} ({lib_what}) "
+              f"[{card}]")
+        out[f"d{d} {label}"] = {
+            "ms": ms, "plain_ms": plain, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": lib, "library": lib_what,
+            "max_abs_err": m.max_abs}
+        del q, k, v, o, lse, mask
+        torch.cuda.empty_cache()
+    # packed causal sequences: the same tiles as the dense (n, s) call, so
+    # the same bits
+    n, s = D512_PACKED
+    q, k, v = rnd(n, s, h, d), rnd(n, s, hk, d), rnd(n, s, hk, d)
+    o, lse = fm.flash_fwd(q, k, v, causal=True, sm_scale=scale)
+    seg = torch.arange(n * s, device=dev, dtype=torch.int32)[None] // s
+    pos = torch.arange(n * s, device=dev, dtype=torch.int32)[None] % s
+    packed = [x.reshape(1, n * s, *x.shape[2:]) for x in (q, k, v)]
+    o_s, lse_s = fm.flash_fwd(*packed, causal=True, sm_scale=scale,
+                              segs=(seg, seg, pos, pos))
+    assert torch.equal(o_s.view(o.shape), o), "packed != dense"
+    assert torch.equal(lse_s.view(1, h, n, s).transpose(0, 2)[:, :, 0], lse)
+    ms = _time_ms(torch, lambda: fm.flash_fwd(
+        *packed, causal=True, sm_scale=scale, segs=(seg, seg, pos, pos)), 10)
+    dense_ms = _time_ms(torch, lambda: fm.flash_fwd(
+        q, k, v, causal=True, sm_scale=scale), 10)
+    print(f"flash_fwd d{d} segmented: {n} packed causal sequences of {s} "
+          f"bit-identical to the dense b{n} s{s} call; {ms:.4f} ms against "
+          f"{dense_ms:.4f} ms [{card}]")
+    out[f"d{d} packed {n} x {s} causal"] = {"ms": ms, "ms_dense": dense_ms,
+                                            "max_abs_err": 0.0}
+
+
+def _check_paged_wide(torch, g, dev, d, card, out, width=None):
+    """The paged kernel's d-``d`` instances at h64/1 (group 64: one CTA
+    holds every head, so each page is read once), decode b8 at lengths
+    linspace(1, 8192, 8): q's type (bf16), with the window and the softcap,
+    and int8 and fp8 pages, each against its plain version and timed cold
+    over the D512_LAYERS layers of a decode step in one CUDA graph.
+    ``width``: the cache's head dim when wider than d (zero-padded)."""
+    from flash_attention_tpu_torch.ops import paged_attention as pa
+    from flash_attention_tpu_torch.utils.metrics import assert_metrics
+    h, hk, b, L = V4_ATTN["n_heads"], V4_ATTN["n_kv_heads"], MAX_BATCH, \
+        D512_LAYERS
+    width = width or d
+    lens = np.linspace(1, D512_SEQ, b).astype(np.int32)
+    lengths = torch.from_numpy(lens).to(dev)
+    q = torch.randn((b, h, d), generator=g, device=dev).to(torch.bfloat16)
+    tokens = int(lens.sum())
+    for name, qdt in (("bf16", None), *KV_QUANT.items()):
+        ps = PAGE_SIZE if qdt is None else KV_QUANT_PAGE_SIZE
+        pps = D512_SEQ // ps
+        total = b * pps + 1
+        shape = (L, hk, total, ps, width)
+        if qdt is None:
+            kp, vp = (_random_pool(torch, g, dev, shape) for _ in range(2))
+            if width > d:
+                kp[..., d:] = 0
+                vp[..., d:] = 0
+            ks = vs = None
+        else:
+            (kp, ks), (vp, vs) = (_quant_pool(torch, g, dev, shape, qdt,
+                                              spread=i == 0)
+                                  for i in range(2))
+            if width > d:
+                kp.view(torch.uint8)[..., d:] = 0
+                vp.view(torch.uint8)[..., d:] = 0
+        tables = torch.randperm(total - 1, generator=g, device=dev)[
+            :b * pps].reshape(b, pps).to(torch.int32)
+        modes = [({}, "")]
+        if qdt is None and width == d:
+            modes.append((dict(window=V4_ATTN["sliding_window"],
+                               softcap=D512_CAP),
+                          f", window {V4_ATTN['sliding_window']} softcap "
+                          f"{D512_CAP:g}"))
+        for kw, tag in modes:
+            call = functools.partial(pa.paged_attention, q, kp, vp, lengths,
+                                     tables, k_scales=ks, v_scales=vs, **kw)
+            o = call(layer=L - 1)
+            qr = pa.pad_head_dim(q, width)
+            o_r = pa.paged_attention_reference(
+                qr, kp, vp, lengths, tables, k_scales=ks, v_scales=vs,
+                sm_scale=d**-0.5, layer=L - 1, **kw)[..., :d]
+            m = assert_metrics(f"paged d{d}/{width} {name}{tag}", o, o_r,
+                               O_TOLS)
+            assert torch.equal(o, call(layer=L - 1)), "two runs differ"
+            if tag or width != d:
+                print(f"paged_attention d{d} (cache {width} wide) {name} "
+                      f"h{h}/{hk} b{b} lengths {lens.tolist()}{tag}: {m}; "
+                      f"two runs bit-identical [{card}]")
+                out[f"d{d}/{width} {name}{tag}"] = {"max_abs_err": m.max_abs}
+                continue
+            cold = _time_graph_calls_ms(torch, [
+                functools.partial(call, layer=i) for i in range(L)])
+            if qdt is None:
+                # fewer chunks a row to merge: the served decode lengths
+                # (prompts + 16), and every row in one chunk (no merge)
+                served = np.asarray([len(p) for p in _prompts(32000)]) + 16
+                for lab, ls in (("served decode (prompts + 16)", served),
+                                ("every row 256 (one chunk)",
+                                 np.full(b, 256))):
+                    lt = torch.from_numpy(ls.astype(np.int32)).to(dev)
+                    c_ms = _time_graph_calls_ms(torch, [functools.partial(
+                        pa.paged_attention, q, kp, vp, lt, tables, layer=i)
+                        for i in range(L)])
+                    nt = int(ls.sum())
+                    nb = nt * hk * d * 2 * 2 + 2 * 2 * q.numel()
+                    bms, _ = _bound(4.0 * nt * h * d, nb)
+                    print(f"paged_attention d{d} bf16 cold, {lab} "
+                          f"{ls.tolist()}: {c_ms:.5f} ms a layer "
+                          f"({bms / c_ms:.1%} of the {bms:.5f} ms bound) "
+                          f"[{card}]")
+                    out[f"d{d} bf16 decode b{b} {lab}, cold"] = {
+                        "ms": c_ms, "bound_ms": bms}
+            plain = _time_ms(torch, lambda: pa.paged_attention_reference(
+                q, kp, vp, lengths, tables, k_scales=ks, v_scales=vs,
+                layer=L - 1), 2, warmup=1)
+            n_pages = int(sum(-(-int(n) // ps) for n in lens))
+            per_token = hk * d * 2 * (2 if qdt is None else 1)
+            nbytes = tokens * per_token + 2 * 2 * q.numel() + 4 * (
+                b + n_pages) + (0 if qdt is None else 2 * 4 * tokens * hk)
+            bound_ms, bound_by = _bound(4.0 * tokens * h * d, nbytes)
+            print(f"paged_attention d{d} {name} h{h}/{hk} b{b} ps{ps} "
+                  f"lengths {lens.tolist()}: {m}; two runs bit-identical; "
+                  f"cold ({L} layers in a CUDA graph) {cold:.5f} ms a layer "
+                  f"({nbytes / cold / 1e6:.1f} GB/s, {bound_ms / cold:.1%} of "
+                  f"the {bound_ms:.5f} ms bound, {bound_by}), plain "
+                  f"{plain:.3f} ms; sub-groups a kv head "
+                  f"{pa.sub_groups(h // hk, d)} (page re-read factor "
+                  f"{pa.sub_groups(h // hk, d)}) [{card}]")
+            out[f"d{d} {name} decode b{b} linspace(1, {D512_SEQ}, 8), cold"] \
+                = {"ms": cold, "plain_ms": plain, "bound_ms": bound_ms,
+                   "bound_by": bound_by, "library_ms": None,
+                   "max_abs_err": m.max_abs,
+                   "page_reread": pa.sub_groups(h // hk, d)}
+        del kp, vp, ks, vs
+        torch.cuda.empty_cache()
+
+
+def _check_kv_write_wide(torch, g, dev, card, out):
+    """The kv write at L4 b8 hk1 into caches 512 and 384 wide (d 320 rows
+    into the 384 one: the kernel writes the zero columns), bf16 rows and
+    the int8 and fp8 quantizing write, bit for bit against the plain
+    versions, timed in a CUDA graph beside them and (bf16) index_put_."""
+    from flash_attention_tpu_torch.ops import kv_update as kv
+    from flash_attention_tpu_torch.ops import paged_attention as pa
+    from flash_attention_tpu_torch.ops.quant import _quantize_token
+    L, hk, b, P = D512_LAYERS, V4_ATTN["n_kv_heads"], MAX_BATCH, 256
+    for d, width in ((512, 512), (384, 384), (320, 384)):
+        k, v = (torch.randn((b, hk, d), generator=g, device=dev)
+                .to(torch.bfloat16) for _ in range(2))
+        kpad, vpad = pa.pad_head_dim(k, width), pa.pad_head_dim(v, width)
+        trash = P - 1
+        wpage = torch.randperm(P - 1, generator=g, device=dev)[:b]
+        wpage[-2:] = trash  # two padding rows share the trash page
+        wpage = wpage.to(torch.int32)
+        woff = torch.randint(0, 128, (b,), generator=g, device=dev,
+                             dtype=torch.int32)
+        layer = L - 1
+        for name, qdt in (("bf16", None), *KV_QUANT.items()):
+            shape = (L, hk, P, 128, width)
+            if qdt is None:
+                pools = tuple(_random_pool(torch, g, dev, shape)
+                              for _ in range(2))
+                rows = (kpad, vpad)
+
+                def plain(kp, vp):
+                    kv.write_token_kv_reference(kp, vp, kpad, vpad, wpage,
+                                                woff, layer)
+
+                def call():
+                    kv.write_token_kv(*pools, None, None, k, v, None, None,
+                                      wpage, woff, layer=layer)
+            else:
+                pools = (*_quant_pool(torch, g, dev, shape, qdt),
+                         *_quant_pool(torch, g, dev, shape, qdt))
+                pools = (pools[0], pools[2], pools[1], pools[3])
+
+                def plain(kp, vp, ks, vs, qdt=qdt):
+                    (kq, ksc), (vq, vsc) = (_quantize_token(x, qdt)
+                                            for x in (kpad, vpad))
+                    kv.write_token_kv_reference(kp, vp, kq, vq, wpage, woff,
+                                                layer)
+                    kv._write_scales_reference(ks, ksc, wpage, woff, layer)
+                    kv._write_scales_reference(vs, vsc, wpage, woff, layer)
+
+                def call():
+                    kv.quantize_write_token_kv(*pools, k, v, wpage, woff,
+                                               layer=layer)
+            ref = [x.clone() for x in pools]
+            plain(*ref)
+            call()
+            assert all(_bits_equal(torch, x, r, trash)
+                       for x, r in zip(pools, ref)), (name, d, width)
+            del ref
+            ms = _time_graph_ms(torch, call, 100)
+            p_ms = _time_graph_ms(torch, lambda: plain(*pools), 20)
+            lib = None
+            if qdt is None:
+                idx = (wpage.long(), woff.long())
+
+                def library():  # one index_put_ per pool
+                    pools[0][layer].permute(1, 2, 0, 3).index_put_(idx, kpad)
+                    pools[1][layer].permute(1, 2, 0, 3).index_put_(idx, vpad)
+                lib = _time_graph_ms(torch, library, 100)
+            rows_in = 2 * b * hk * d * 2  # bf16 rows read
+            written = 2 * b * hk * width * (2 if qdt is None else 1) + (
+                0 if qdt is None else 2 * 8 * 4 * b * hk)
+            bound_ms, bound_by = _bound(0.0, rows_in + written + 8 * b)
+            label = f"d{d}/{width} {name} L{L} b{b} hk{hk}"
+            print(f"kv_write {label} (trash page shared by 2 rows): "
+                  f"bit-identical to the plain version; device time in a "
+                  f"CUDA graph: kernel {ms:.5f} ms, plain {p_ms:.5f} ms, "
+                  f"index_put_ {lib} ms, bound {bound_ms:.6f} ms "
+                  f"({bound_by}) [{card}]")
+            out[label] = {"ms": ms, "plain_ms": p_ms, "bound_ms": bound_ms,
+                          "bound_by": bound_by, "library_ms": lib,
+                          "max_abs_err": 0.0}
+            del pools
+        torch.cuda.empty_cache()
+
+
+def check_head_dim_512(torch, dev, card):
+    """Every forward, paged and kv-write instance at d 384 and 512 against
+    its plain version at V4-Flash's attention geometry (h64/1, bf16):
+    prefill b1 s8192 causal, s4096 non-causal, the window (127, 0), softcap
+    5 and packed segments; decode b8 at lengths 1..8192 over bf16, int8 and
+    fp8 pages (and the window and softcap); d 320 zero-padded to 384; the
+    kv write at L4 b8 hk1. Returns {kernel: {"d512 ...": numbers}}."""
+    from flash_attention_tpu_torch.ops import attention
+    from flash_attention_tpu_torch.ops import flash_fwd as fm
+    from flash_attention_tpu_torch.utils.metrics import assert_metrics
+    g = torch.Generator(device=dev).manual_seed(SEED + 40)
+    out = {"flash_fwd": {}, "paged_attention": {}, "kv_write": {}}
+    with torch.inference_mode():
+        for d in (512, 384):
+            _check_flash_wide(torch, g, dev, d, card, out["flash_fwd"])
+        # d 320 runs zero-padded to 384 through fwd
+        h, hk, s = V4_ATTN["n_heads"], V4_ATTN["n_kv_heads"], 4096
+        q, k, v = (torch.randn((1, s, n, 320), generator=g, device=dev)
+                   .to(torch.bfloat16) for n in (h, hk, hk))
+        before = fm.KERNEL.launches
+        o, lse = attention.fwd(q, k, v, True)
+        assert fm.KERNEL.launches == before + 1
+        o_r, lse_r = fm.flash_fwd_segmented_reference(
+            q, k, v, _dense_segs(torch, 1, s, dev), causal=True,
+            sm_scale=320**-0.5)
+        m = assert_metrics("flash_fwd d320 (at 384)", o, o_r, O_TOLS)
+        assert_metrics("flash_fwd d320 (at 384) lse", lse, lse_r, LSE_TOLS)
+        ms = _time_ms(torch, lambda: attention.fwd(q, k, v, True), 10)
+        print(f"flash_fwd d320 (zero-padded to 384) b1 s{s} causal h{h}/{hk}"
+              f": {m}; fwd {ms:.4f} ms, padding included [{card}]")
+        out["flash_fwd"]["d320 (at 384) b1 s4096 causal"] = {
+            "ms": ms, "max_abs_err": m.max_abs}
+        del q, k, v, o, lse, o_r, lse_r
+        torch.cuda.empty_cache()
+        for d, width in ((512, None), (384, None), (320, 384)):
+            _check_paged_wide(torch, g, dev, d, card, out["paged_attention"],
+                              width)
+        _check_kv_write_wide(torch, g, dev, card, out["kv_write"])
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_d512(torch, dev, card, kernels):
+    """Llama-3-8B's structure at V4-Flash's attention geometry (V4_ATTN:
+    h64/1 d512, a 128-token window on every second layer) at D512_LAYERS
+    layers, random bf16 weights, served through the engine with exact
+    launch counts (every prefill, kv write and decode on the d-512
+    instances); then its logits at D512_CHECK_LAYERS layers, card (bf16,
+    kernels) against CPU (fp32, plain versions), prefill and decode, under
+    the consistency gate (rel L2 <= CONSISTENCY_REL_L2). Returns the
+    serving path's launches."""
+    from flash_attention_tpu_torch.models import llama
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(), **V4_ATTN,
+                              n_layers=D512_LAYERS)
+    model = (f"Llama-3-8B structure at V4-Flash's attention geometry "
+             f"(h64/1 d512, window {cfg.sliding_window} every "
+             f"{cfg.window_pattern} layers)")
+    t0 = time.perf_counter()
+    params = llama.init_params(cfg, seed=SEED, device=dev,
+                               dtype=torch.bfloat16)
+    prompts = _prompts(cfg.vocab_size)
+    launches, _, _ = serve(torch, params, cfg, prompts, card, kernels, model,
+                           profile=False)
+    del params
+    torch.cuda.empty_cache()
+    window_consistency(torch, dev, dataclasses.replace(
+        cfg, n_layers=D512_CHECK_LAYERS), card,
+        f"{model} L{D512_CHECK_LAYERS}")
+    print(f"serve_d512: {time.perf_counter() - t0:.1f} s [{card}]")
     return launches
 
 
@@ -5791,12 +6218,16 @@ def main() -> int:
                                   log, re.S):
             tmpl = re.search(r"kernel(I.*)EEv", fn)
             print(f"  {name} {tmpl.group(1) if tmpl else fn}: {use.strip()}")
+        fn = ""
         for line in log.splitlines():
+            props = re.search(r"(?:Function properties for|entry function) "
+                              r"'?(\w+)", line)
+            fn = props.group(1) if props else fn
             spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                                r"loads", line)
             if (spills and spills.group(0) != "0 bytes spill stores, 0 bytes "
                     "spill loads") or "C75" in line:  # "wgmma serialized"
-                print(f"  {name}: {line.strip()}")
+                print(f"  {name} {fn}: {line.strip()}")
                 assert name not in HOPPER_KERNELS, \
                     f"{name}: a spill or a serialized wgmma"
     for k in kernels:
@@ -5811,6 +6242,14 @@ def main() -> int:
                 _check_cap_instances(k.name, per_fn)
 
     cfg = llama.LlamaConfig.llama3_8b()
+    if sys.argv[1:] == ["head_dim_512"]:  # these phases alone, no result
+        mark("d-384/512 checks")
+        check_head_dim_512(torch, dev, card)
+        mark("serve_d512")
+        serve_d512(torch, dev, card, kernels)
+        print(f"chip_smoke head_dim_512: {time.perf_counter() - t_start:.1f}"
+              f" s [{card}]")
+        return 0
     if sys.argv[1:] == ["train_parallel"]:  # this phase alone, no result
         parallel_phase(torch, dev, cfg, card, kernels, None)
         print(f"chip_smoke train_parallel: {time.perf_counter() - t_start:.1f}"
@@ -5854,6 +6293,11 @@ def main() -> int:
     for name, shapes in check_head_dim_256(torch, dev, gemma, card).items():
         e = next(e for e in entries if e["name"] == name)
         e.setdefault("shapes", {}).update(shapes)
+    mark("d-384/512 checks")
+    # the d-384 and 512 instances, at DeepSeek-V4-Flash's attention geometry
+    for name, shapes in check_head_dim_512(torch, dev, card).items():
+        e = next(e for e in entries if e["name"] == name)
+        e.setdefault("shapes", {}).update(shapes)
     mark("quantized KV kernel checks")
     # the quantized KV cache's instances: the kv write's two (rows in the
     # cache's type; bf16 rows quantized in the kernel) and the paged
@@ -5893,6 +6337,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     mark("a d-96 model served")
     paths["serve_d96"] = serve_d96(torch, dev, card, kernels)
+    torch.cuda.empty_cache()
+    mark("a d-512 model served")
+    paths["serve_d512"] = serve_d512(torch, dev, card, kernels)
     torch.cuda.empty_cache()
 
     mark("Llama-3-8B")

@@ -255,6 +255,8 @@ __device__ __forceinline__ void wgmma_wait() {
 #define HOP_D4(d) "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
 #define HOP_D128(d) HOP_D64(d), HOP_D8(d, 64), HOP_D8(d, 72), HOP_D8(d, 80), \
       HOP_D8(d, 88), HOP_D8(d, 96), HOP_D8(d, 104), HOP_D8(d, 112), HOP_D8(d, 120)
+#define HOP_D96(d) HOP_D64(d), HOP_D8(d, 64), HOP_D8(d, 72), HOP_D8(d, 80), \
+      HOP_D8(d, 88)
 #define HOP_L4 "{%0, %1, %2, %3}"
 #define HOP_L8 "{%0, %1, %2, %3, %4, %5, %6, %7}"
 #define HOP_L128 \
@@ -269,6 +271,15 @@ __device__ __forceinline__ void wgmma_wait() {
   "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "      \
   "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "  \
   "%120, %121, %122, %123, %124, %125, %126, %127}"
+#define HOP_L96 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "                       \
+  "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "              \
+  "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "              \
+  "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "              \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "              \
+  "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "              \
+  "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "              \
+  "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}"
 #define HOP_L32                                                                \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "   \
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "    \
@@ -419,9 +430,22 @@ struct WgmmaRs<T, 256> {
 
 // ss with A (TA) and B (TB) K-major (0) or MN-major (1), at N 256:
 // gmm (x K-major; the weight MN-major as stored, K-major as the view w^T)
-// and gmm_dw (x and dy both MN-major).
+// and gmm_dw (x and dy both MN-major); at N 192 and 256 the head-dim halves
+// of P V at d 384 and 512 (P K-major, V MN-major; flash_fwd_wide.cu and
+// paged_attention_wide.cu).
 template <typename T, int N, int TA, int TB>
 struct WgmmaSs;
+
+template <typename T, int TA, int TB>
+struct WgmmaSs<T, 192, TA, TB> {
+  static __device__ __forceinline__ void ss(float (&d)[96], uint64_t a,
+                                            uint64_t b, int scale_d) {
+    if constexpr (std::is_same_v<T, __half>)
+      HOP_SST("f16", 192, HOP_L96, HOP_D96(d), "96", "97", "98", "99", "100");
+    else
+      HOP_SST("bf16", 192, HOP_L96, HOP_D96(d), "96", "97", "98", "99", "100");
+  }
+};
 
 template <typename T, int TA, int TB>
 struct WgmmaSs<T, 256, TA, TB> {
@@ -438,11 +462,13 @@ struct WgmmaSs<T, 256, TA, TB> {
 #undef HOP_SS
 #undef HOP_RS
 #undef HOP_L128
+#undef HOP_L96
 #undef HOP_L64
 #undef HOP_L32
 #undef HOP_L8
 #undef HOP_L4
 #undef HOP_D128
+#undef HOP_D96
 #undef HOP_D64
 #undef HOP_D32
 #undef HOP_D4

@@ -73,13 +73,14 @@ lm_head, the router) gets the whole gradient, the same bits on each rank,
 and the loss is replicated.
 
 A K/V cache may be wider than the head dim (``ops.attention.
-kernel_head_dim``: d 80 or 96 held at 128, as the engine allocates it for
-the kernels): the writes zero-pad each token's K/V to the cache's width and
-the reads slice it back.
+kernel_head_dim``: d 80 or 96 held at 128, d 320 at 384, as the engine
+allocates it for the kernels): the writes zero-pad each token's K/V to the
+cache's width (on the card the kv write's kernel writes the zero columns
+itself) and the reads slice it back.
 
 Outside this slice (they raise): quantized MoE experts and LoRA stacks with
-tensor parallelism. On the card, head dims above 256 raise in the attention
-kernels.
+tensor parallelism. On the card, head dims above 512 raise in the attention
+kernels, and above 256 in their backward (training at d 384 and 512).
 """
 
 from __future__ import annotations

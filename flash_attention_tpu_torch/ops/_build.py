@@ -2,8 +2,12 @@
 
 Each ``.cu`` file under ``flash_attention_tpu_torch/csrc/`` is compiled by
 ``nvcc`` for ``sm_90a`` into its own shared library with a plain C interface
-and loaded with ``ctypes``. No PyTorch header is included, so a build takes
-seconds rather than the minutes a ``torch.utils.cpp_extension`` build costs.
+and loaded with ``ctypes``. A kernel may span several sources (the forward's
+and paged decode's d-384/512 instances live in files of their own, so that
+their ``nvcc`` runs beside the others'): its functions are looked up in
+whichever of its libraries exports them. No PyTorch header is included, so
+a build takes seconds rather than the minutes a ``torch.utils.
+cpp_extension`` build costs.
 Libraries land in ``build/torch_port/`` (ignored by git), named by a hash of
 the source, the shared headers and the flags, so an edited source or header
 is rebuilt and an unchanged one is loaded as it is. Every C entry point returns ``cudaGetLastError()`` after its
@@ -18,6 +22,7 @@ import os
 import pathlib
 import shutil
 import subprocess
+import types
 
 _PKG = pathlib.Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -36,39 +41,55 @@ def _nvcc() -> str:
 
 
 class Kernel:
-    """One CUDA source, its built library and its launch count.
+    """One kernel's CUDA sources (one library each), its launch count.
 
     ``launches`` is a plain integer that the wrapper adds one to each time it
     launches the kernel; ``argtypes`` maps each exported C function to its
-    ctypes argument list (pointers and the stream as ``c_void_p``)."""
+    ctypes argument list (pointers and the stream as ``c_void_p``).
+    ``source`` is a file name under ``csrc/`` or a tuple of them."""
 
-    def __init__(self, name: str, source: str, argtypes: dict):
+    def __init__(self, name: str, source, argtypes: dict):
         self.name = name
-        self.source = CSRC / source
+        names = (source,) if isinstance(source, str) else tuple(source)
+        self.sources = tuple(CSRC / s for s in names)
         self.argtypes = argtypes
         self.launches = 0
         self._lib = None
 
-    def lib_path(self) -> pathlib.Path:
-        # every header under csrc/ too: an edited shared header must not
-        # load a library built from the old one
-        h = hashlib.sha1(self.source.read_bytes())
-        for header in sorted(CSRC.glob("*.cuh")):
-            h.update(header.read_bytes())
-        h.update(" ".join(NVCC_FLAGS).encode())
-        return BUILD_DIR / f"{self.name}-{h.hexdigest()[:12]}.so"
+    def lib_paths(self) -> list[pathlib.Path]:
+        """Each source's library, named by a hash of the source, every
+        header under csrc/ (an edited shared header must not load a library
+        built from the old one) and the flags."""
+        headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+        paths = []
+        for i, src in enumerate(self.sources):
+            h = hashlib.sha1(src.read_bytes())
+            h.update(headers)
+            h.update(" ".join(NVCC_FLAGS).encode())
+            stem = self.name if i == 0 else f"{self.name}+{src.stem}"
+            paths.append(BUILD_DIR / f"{stem}-{h.hexdigest()[:12]}.so")
+        return paths
 
     def lib(self):
+        """The kernel's C functions (and ``fat_error_string``) as attributes,
+        each from the library that exports it (one that none exports, as
+        an older source built for a comparison, is left out)."""
         if self._lib is None:
             build([self])
-            lib = ctypes.CDLL(str(self.lib_path()))
+            libs = [ctypes.CDLL(str(p)) for p in self.lib_paths()]
+            fns = {}
             for fn, args in self.argtypes.items():
+                lib = next((lb for lb in libs if hasattr(lb, fn)), None)
+                if lib is None:
+                    continue
                 f = getattr(lib, fn)
                 f.argtypes = args
                 f.restype = ctypes.c_int
-            lib.fat_error_string.argtypes = [ctypes.c_int]
-            lib.fat_error_string.restype = ctypes.c_char_p
-            self._lib = lib
+                fns[fn] = f
+            err = libs[0].fat_error_string
+            err.argtypes = [ctypes.c_int]
+            err.restype = ctypes.c_char_p
+            self._lib = types.SimpleNamespace(fat_error_string=err, **fns)
         return self._lib
 
     def check(self, rc: int) -> None:
@@ -78,26 +99,28 @@ class Kernel:
 
 
 def build(kernels, ptxas_verbose: bool = False) -> dict[str, str]:
-    """Compile every kernel whose library is missing, one ``nvcc`` process
+    """Compile every source whose library is missing, one ``nvcc`` process
     per source, all started together. Returns each built kernel's compiler
-    output (with ``ptxas_verbose``, the register and shared-memory use)."""
+    output, its sources' in turn (with ``ptxas_verbose``, the register and
+    shared-memory use)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
+    procs = []
     for k in kernels:
-        out = k.lib_path()
-        if out.exists() and not ptxas_verbose:
-            continue
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(k.source)]
-        if ptxas_verbose:
-            cmd[1:1] = ["-Xptxas", "-v"]
-        procs[k.name] = (k, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for src, out in zip(k.sources, k.lib_paths()):
+            if out.exists() and not ptxas_verbose:
+                continue
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+            if ptxas_verbose:
+                cmd[1:1] = ["-Xptxas", "-v"]
+            procs.append((k.name, src, out, tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
     logs = {}
-    for name, (k, tmp, p) in procs.items():
+    for name, src, out, tmp, p in procs:
         log, _ = p.communicate()
         if p.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {k.source}:\n{log}")
-        os.replace(tmp, k.lib_path())  # atomic: concurrent builds agree
-        logs[name] = log
+            raise RuntimeError(f"nvcc failed for {src}:\n{log}")
+        os.replace(tmp, out)  # atomic: concurrent builds agree
+        logs[name] = logs.get(name, "") + log
     return logs

@@ -7,9 +7,11 @@ Layout (batch, seqlen, heads, head_dim) as in the JAX package; LSE comes back
 hand-written kernels (``ops.flash_fwd``, ``ops.flash_bwd``); on a CPU tensor
 it runs their plain fp32 versions. The kernels take bf16 and fp16 as they are
 and mask their own ragged edges, so nothing is upcast or padded here, except
-a head dim other than 64, 128 or 256 below 256: the kernels run it
-zero-padded to the next of the three (:func:`padded_head_dim`), as the JAX
-package pads.
+a head dim other than 64, 128, 256, 384 or 512 up to 512: the kernels run it
+zero-padded to the next of these (:func:`padded_head_dim`), as the JAX
+package pads. The backward's kernels stop at 256: on the card, ``bwd`` and
+the gradient of ``flash_attention`` raise above it
+(:func:`backward_head_dim`).
 
 Packed batches run the kernels' segmented instances: ``fwd``/``bwd`` take
 ``segs`` (segment ids and positions), ``flash_attention`` takes
@@ -57,16 +59,31 @@ def _check_heads(q, k):
 
 
 def kernel_head_dim(d: int) -> int:
-    """The head dim the CUDA kernels run ``d`` at: 64, 128 and 256 as they
-    are, any other d up to 256 zero-padded to the next of the three (so 192
-    runs at 256, as the JAX package pads it to a multiple of 128)."""
+    """The head dim the forward, paged and kv-write kernels run ``d`` at: 64,
+    128, 256, 384 and 512 as they are, any other d up to 512 zero-padded to
+    the next of them (192 runs at 256, 257-384 at 384 and 385-512 at 512,
+    as the JAX package pads them to a multiple of 128)."""
     for kd in _fwd_mod.HEAD_DIMS:
         if d <= kd:
             return kd
     raise NotImplementedError(
-        f"head_dim {d} on the card: the kernels take d <= 256; d 384 and 512, "
-        f"which the JAX package runs, are not ported yet (ROADMAP.md, queue "
-        f"B part 1)")
+        f"head_dim {d} on the card: the kernels take d <= 512; the JAX "
+        f"package pads d above 512 to a multiple of 128 (576 to 640), which "
+        f"is not ported yet (ROADMAP.md, queue B part 1)")
+
+
+def backward_head_dim(d: int) -> int:
+    """The head dim the backward kernels run ``d`` at: as
+    :func:`kernel_head_dim` up to 256. Above 256 the backward is not ported
+    (its d-384 and 512 instances are the next slice of the port), and this
+    raises on the card: there is no plain fallback there."""
+    kd = kernel_head_dim(d)
+    if kd not in _bwd_mod.HEAD_DIMS:
+        raise NotImplementedError(
+            f"head_dim {d} in the backward on the card: its kernels take d "
+            f"<= 256; training at d 384 and 512 is the next slice "
+            f"(ROADMAP.md, queue B part 1)")
+    return kd
 
 
 def padded_head_dim(fn, d_pad: int, *xs):
@@ -232,8 +249,8 @@ def bwd(q, k, v, o, lse, do, is_causal: bool = False, *,
     if q.device.type == "cpu":
         return _bwd_mod.flash_bwd_reference(q, k, v, o, lse, do, **kw)
     kernel = functools.partial(_bwd_mod.flash_bwd, **kw)
-    return padded_head_dim(kernel, kernel_head_dim(q.shape[-1]), q, k, v, o,
-                           lse, do)
+    return padded_head_dim(kernel, backward_head_dim(q.shape[-1]), q, k, v,
+                           o, lse, do)
 
 
 class _FlashAttention(torch.autograd.Function):

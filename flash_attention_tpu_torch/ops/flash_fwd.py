@@ -1,8 +1,10 @@
 """Flash-attention forward: the band helper and the CUDA kernel's wrapper.
 
-The kernel (``csrc/flash_fwd.cu``) replaces the JAX package's Pallas
-``_fwd_kernel``. It reads q (b, sq, h, d) and k/v (b, sk, hk, d) in bf16 or
-fp16 through their strides and writes O (b, sq, h, d) and LSE (b, h, sq)
+The kernel (``csrc/flash_fwd.cu`` at d 64, 128 and 256, and
+``csrc/flash_fwd_wide.cu`` at d 384 and 512, whose CTA owns 64 query rows
+and splits O's columns between two warpgroups) replaces the JAX package's
+Pallas ``_fwd_kernel``. It reads q (b, sq, h, d) and k/v (b, sk, hk, d) in
+bf16 or fp16 through their strides and writes O (b, sq, h, d) and LSE (b, h, sq)
 fp32, under a band of relative offsets (causal, a sliding window, or both)
 and an optional softcap. The kernel masks its own ragged edges, so nothing
 is padded here. With ``segs`` (segment ids and positions of a packed batch)
@@ -30,12 +32,16 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 
-KERNEL = _build.Kernel("flash_fwd", "flash_fwd.cu", {
-    "fat_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _F, _I,
-                      _I, _F, _F, _F, _I, _P, _P],
+_FWD_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _F, _I, _I, _F,
+             _F, _F, _I, _P, _P]
+KERNEL = _build.Kernel("flash_fwd", ("flash_fwd.cu", "flash_fwd_wide.cu"), {
+    "fat_flash_fwd": _FWD_ARGS,
     "fat_flash_fwd_seg_tiles": [_I, _P],
+    "fat_flash_fwd_wide": _FWD_ARGS,
+    "fat_flash_fwd_wide_seg_tiles": [_I, _P],
 })
-HEAD_DIMS = (64, 128, 256)
+HEAD_DIMS = (64, 128, 256, 384, 512)
+WIDE_HEAD_DIMS = (384, 512)  # flash_fwd_wide.cu's
 DTYPES = (torch.bfloat16, torch.float16)
 # query rows a block of the plain segmented versions holds at once: their
 # (b, group, rows, sk) scores, not (b, h, sq, sk), are what they allocate
@@ -98,13 +104,15 @@ def _prepare(x: torch.Tensor, name: str) -> torch.Tensor:
     return x
 
 
-def seg_tiles(kernel: _build.Kernel, d: int) -> tuple[int, int]:
+def seg_tiles(kernel: _build.Kernel, d: int,
+              fn: str | None = None) -> tuple[int, int]:
     """The (owned, streamed) block rows of a segmented kernel's CTA at head
-    dim ``d``, read from the kernel's own library (``fat_*_seg_tiles``), so
-    the ranges are computed at the tile sizes the CUDA code runs."""
+    dim ``d``, read from the kernel's own library (``fat_*_seg_tiles``, or
+    ``fn``), so the ranges are computed at the tile sizes the CUDA code
+    runs."""
     out = (ctypes.c_int * 2)()
     lib = kernel.lib()
-    fn = next(f for f in kernel.argtypes if f.endswith("_seg_tiles"))
+    fn = fn or next(f for f in kernel.argtypes if f.endswith("_seg_tiles"))
     kernel.check(getattr(lib, fn)(d, out))
     return out[0], out[1]
 
@@ -160,18 +168,18 @@ def flash_fwd(q, k, v, *, causal: bool, sm_scale: float,
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     if o.numel() == 0:
         return o, lse
+    entry = "fat_flash_fwd_wide" if d in WIDE_HEAD_DIMS else "fat_flash_fwd"
     seg_ptr = keep = None
     if segs is not None:
         segs = prepare_segs(segs, b, sq, sk, q.device)
-        block_q, block_kv = seg_tiles(KERNEL, d)
+        block_q, block_kv = seg_tiles(KERNEL, d, f"{entry}_seg_tiles")
         lo, hi = segments.block_ranges(segs[0], segs[2], segs[1], segs[3],
                                        block_q, block_kv, causal=causal,
                                        causal_dir="kv_le_q")
         seg_ptr, keep = seg_pointers(segs, lo, hi)
     strides = (ctypes.c_longlong * 9)(*q.stride()[:3], *k.stride()[:3],
                                       *v.stride()[:3])
-    lib = KERNEL.lib()
-    rc = lib.fat_flash_fwd(
+    rc = getattr(KERNEL.lib(), entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
         b, sq, sk, h, hk, d, ctypes.cast(strides, ctypes.c_void_p),
         sm_scale * math.log2(math.e), left, right, cap_scale, cap_log2,

@@ -15,10 +15,13 @@ token (``ops.quant._quantize_token``) inside the same launch: the decode
 step's one launch a layer.
 
 Rows narrower than the cache (a head dim the kernels run zero-padded, in a
-cache allocated at ``ops.attention.kernel_head_dim``) are zero-padded to the
-cache's width first: the padding's zeros leave a row's amax, and so its
-scale, unchanged. The quantizing kernel's instances are d 64, 128 and 256;
-an 8-bit cache of another width raises on the card.
+cache allocated at ``ops.attention.kernel_head_dim``: d 96 in a cache 128
+wide, d 320 in one 384 wide) land zero-padded to the cache's width: on the
+card the kernels read them at their own stride and write the zero columns
+themselves (no padded copy); the plain versions pad them first. The
+padding's zeros leave a row's amax, and so its scale, unchanged. The
+quantizing kernel's instances are d 64, 128, 256, 384 and 512; an 8-bit
+cache of another width raises on the card.
 """
 
 from __future__ import annotations
@@ -36,15 +39,15 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 KERNEL = _build.Kernel("kv_update", "kv_update.cu", {
-    "fat_kv_write": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "fat_kv_write": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "fat_kv_write_quant": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                           _I, _I, _I, _I, _I, _P],
+                           _I, _I, _I, _I, _I, _I, _P],
 })
 # fat_kv_write_quant's modes: rows already in the cache's type, or bf16 rows
 # quantized in the kernel to the cache's type
 STORE = 0
 QUANTIZE = {torch.int8: 1, torch.float8_e4m3fn: 2}
-HEAD_DIMS_QUANT = (64, 128, 256)
+HEAD_DIMS_QUANT = (64, 128, 256, 384, 512)
 
 
 def write_token_kv_reference(k_pages, v_pages, kval, vval, wpage, woff,
@@ -82,12 +85,19 @@ def _stacked(k_pages, v_pages, layer):
     return pk, pv, layer
 
 
-def _to_width(kval, vval, pk):
-    """The rows zero-padded to the cache's head dim (a cache at the
-    kernels' width holding a narrower model's K/V)."""
+def _check_width(kval, vval, pk):
+    """Raises unless the rows are at most the cache's head dim wide (a
+    cache at the kernels' width may hold a narrower model's K/V)."""
     width = pk.shape[-1]
-    if kval.shape[-1] > width or vval.shape[-1] > width:
-        raise ValueError(f"rows wider than the cache's head dim {width}")
+    if kval.shape[-1] > width or vval.shape[-1] != kval.shape[-1]:
+        raise ValueError(f"k/v rows of one width, at most the cache's head "
+                         f"dim {width}")
+
+
+def _to_width(kval, vval, pk):
+    """The rows (checked by :func:`_check_width`) zero-padded to the
+    cache's head dim, as the plain versions take them."""
+    width = pk.shape[-1]
     return pad_head_dim(kval, width), pad_head_dim(vval, width)
 
 
@@ -109,9 +119,10 @@ def _check_cuda(named, b, hk, d, wpage, woff):
 def _launch_quant(pk, pv, ks, vs, kval, vval, kscale, vscale, wpage, woff,
                   layer, mode):
     """The quantized cache's kernel: checks its pools and scale tiles, then
-    launches ``mode`` (STORE, or a QUANTIZE value)."""
+    launches ``mode`` (STORE, or a QUANTIZE value). Rows narrower than the
+    cache are written zero-padded by the kernel."""
     L, hk, total_pages, page_size, d = pk.shape
-    b = kval.shape[0]
+    b, d_in = kval.shape[0], kval.shape[-1]
     if pk.dtype not in KV_QMAX:
         raise ValueError(f"a quantized cache holds int8 or float8_e4m3fn, "
                          f"not {pk.dtype}")
@@ -137,7 +148,7 @@ def _launch_quant(pk, pv, ks, vs, kval, vval, kscale, vscale, wpage, woff,
                 raise ValueError(f"{name} must be {(b, hk)} fp32")
     elif kval.dtype != torch.bfloat16 or vval.dtype != torch.bfloat16:
         raise ValueError("the quantizing write takes bf16 rows")
-    _check_cuda(named, b, hk, d, wpage, woff)
+    _check_cuda(named, b, hk, d_in, wpage, woff)
     if b == 0:
         return
     lib = KERNEL.lib()
@@ -146,7 +157,7 @@ def _launch_quant(pk, pv, ks, vs, kval, vval, kscale, vscale, wpage, woff,
         kval.data_ptr(), vval.data_ptr(),
         0 if kscale is None else kscale.data_ptr(),
         0 if vscale is None else vscale.data_ptr(), wpage.data_ptr(),
-        woff.data_ptr(), b, hk, layer, total_pages, page_size, d, mode,
+        woff.data_ptr(), b, hk, layer, total_pages, page_size, d, d_in, mode,
         torch.cuda.current_stream(pk.device).cuda_stream)
     KERNEL.launches += 1
     KERNEL.check(rc)
@@ -168,9 +179,10 @@ def write_token_kv(k_pages, v_pages, k_scales, v_scales, kval, vval, kscale,
     v_scales), the same tensors."""
     reject_unported("write_token_kv", interpret=(interpret, None))
     pk, pv, li = _stacked(k_pages, v_pages, layer)
-    kval, vval = _to_width(kval, vval, pk)
+    _check_width(kval, vval, pk)
     quantized = k_scales is not None
     if k_pages.device.type == "cpu":
+        kval, vval = _to_width(kval, vval, pk)
         write_token_kv_reference(k_pages, v_pages, kval, vval, wpage, woff,
                                  layer)
         if quantized:
@@ -185,8 +197,12 @@ def write_token_kv(k_pages, v_pages, k_scales, v_scales, kval, vval, kscale,
         return k_pages, v_pages, k_scales, v_scales
     _, hk, total_pages, page_size, d = pk.shape
     b = kval.shape[0]
+    if (kval.shape[-1] * kval.element_size()) % 16:
+        # the kernel reads rows in 16-byte chunks: a row that is not whole
+        # chunks goes zero-padded to the cache's width
+        kval, vval = _to_width(kval, vval, pk)
     _check_cuda({"k_pages": pk, "v_pages": pv, "kval": kval, "vval": vval},
-                b, hk, d, wpage, woff)
+                b, hk, kval.shape[-1], wpage, woff)
     if kval.dtype != pk.dtype or vval.dtype != pk.dtype:
         raise ValueError("kval/vval must already be in the cache dtype")
     row_bytes = d * pk.element_size()
@@ -198,7 +214,8 @@ def write_token_kv(k_pages, v_pages, k_scales, v_scales, kval, vval, kscale,
     rc = lib.fat_kv_write(
         pk.data_ptr(), pv.data_ptr(), kval.data_ptr(), vval.data_ptr(),
         wpage.data_ptr(), woff.data_ptr(), b, hk, li, total_pages,
-        page_size, row_bytes, torch.cuda.current_stream(pk.device).cuda_stream)
+        page_size, row_bytes, kval.shape[-1] * kval.element_size(),
+        torch.cuda.current_stream(pk.device).cuda_stream)
     KERNEL.launches += 1
     KERNEL.check(rc)
     return k_pages, v_pages, k_scales, v_scales
@@ -217,8 +234,9 @@ def quantize_write_token_kv(k_pages, v_pages, k_scales, v_scales, k, v,
         raise ValueError(f"a quantized cache holds int8 or float8_e4m3fn, "
                          f"not {k_pages.dtype}")
     pk, pv, li = _stacked(k_pages, v_pages, layer)
-    k, v = _to_width(k, v, pk)
+    _check_width(k, v, pk)
     if k_pages.device.type == "cpu":
+        k, v = _to_width(k, v, pk)
         kq, ksc = _quantize_token(k, k_pages.dtype)
         vq, vsc = _quantize_token(v, v_pages.dtype)
         return write_token_kv(k_pages, v_pages, k_scales, v_scales, kq, vq,

@@ -2,7 +2,8 @@
 KV cache.
 
 On a CUDA tensor the call launches the hand-written kernel
-``csrc/paged_attention.cu`` (which replaces the JAX package's Pallas
+``csrc/paged_attention.cu`` at d 64, 128 and 256, ``csrc/paged_attention_
+wide.cu`` at d 384 and 512 (both replace the JAX package's Pallas
 ``_paged_attn_kernel``); on a CPU tensor it runs the plain version
 ``paged_attention_reference``. The kernel walks each row's own pages, so the
 JAX package's pages-per-block grouping and its padding of the page-table
@@ -21,14 +22,15 @@ A quantized cache (int8 or fp8 e4m3 pages of 128 tokens, with the
 runs the kernel's quantized instances, which fold each token's scales into
 the scores and the probabilities as the TPU kernel does.
 
-Any head dim up to 256 runs: the kernel's instances are d 64, 128 and 256,
-and a cache allocated at ``kernel_head_dim(d)`` (the engine's) holds each
-token's K/V zero-padded to that width, so q is padded to the cache's width
-and O sliced back, with the softmax scale of the real d. A cache at another
-width is padded to the kernel's by a copy on each call. Any GQA group runs:
-the kernel takes up to ``MAX_GROUP`` query heads of a kv head per CTA, and
-a larger group is split into sub-groups of at most ``MAX_GROUP`` over the
-launch grid, each sub-group's CTAs reading the kv head's pages again.
+Any head dim up to 512 runs: the kernels' instances are d 64, 128, 256,
+384 and 512, and a cache allocated at ``kernel_head_dim(d)`` (the engine's)
+holds each token's K/V zero-padded to that width, so q is padded to the
+cache's width and O sliced back, with the softmax scale of the real d. A
+cache at another width is padded to the kernel's by a copy on each call.
+Any GQA group runs: a CTA takes up to ``max_group(d)`` query heads of a kv
+head (8 at d <= 256; 64 at d 384 and 512, whose kernel puts them all on the
+wgmma M side), and a larger group is split into sub-groups over the launch
+grid, each sub-group's CTAs reading the kv head's pages again.
 """
 
 from __future__ import annotations
@@ -49,16 +51,19 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 
-KERNEL = _build.Kernel("paged_attention", "paged_attention.cu", {
-    "fat_paged_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                            _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F,
-                            _F, _I, _I, _P],
-})
+_PAGED_ARGS = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+               _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _I, _I, _P]
+KERNEL = _build.Kernel(
+    "paged_attention", ("paged_attention.cu", "paged_attention_wide.cu"),
+    {"fat_paged_attention": _PAGED_ARGS,
+     "fat_paged_attention_wide": _PAGED_ARGS})
 # the kernel's page types besides q's own: its kv_type argument
 KV_TYPES = {torch.int8: 1, torch.float8_e4m3fn: 2}
 QUANT_PAGE_SIZE = 128  # a scale tile's lane = a token of its page
-HEAD_DIMS = (64, 128, 256)
+HEAD_DIMS = (64, 128, 256, 384, 512)
+WIDE_HEAD_DIMS = (384, 512)  # paged_attention_wide.cu's
 MAX_GROUP = 8  # query heads of a CTA; a larger group splits over the grid
+MAX_GROUP_WIDE = 64  # the same at d 384 and 512
 TILE = 64  # tokens per tile of the kernel's ring
 _LOG2E = math.log2(math.e)
 # The split: about CHUNKS_PER_SM live chunks a SM when every row is full,
@@ -93,10 +98,16 @@ def plan(pages_per_seq: int, page_size: int, b: int, hk: int,
 _plan = functools.lru_cache(maxsize=256)(plan)
 
 
-def sub_groups(group: int) -> int:
-    """CTAs a (chunk, kv head, row) takes for a GQA group: each holds at
-    most ``MAX_GROUP`` of its query heads (csrc/paged_attention.cu)."""
-    return -(-group // MAX_GROUP)
+def max_group(d: int) -> int:
+    """Query heads of a kv head one CTA of the kernel at head dim ``d``
+    takes."""
+    return MAX_GROUP_WIDE if d in WIDE_HEAD_DIMS else MAX_GROUP
+
+
+def sub_groups(group: int, d: int) -> int:
+    """CTAs a (chunk, kv head, row) takes for a GQA group at head dim ``d``:
+    each holds at most ``max_group(d)`` of its query heads."""
+    return -(-group // max_group(d))
 
 
 def pad_head_dim(x, width: int):
@@ -181,7 +192,7 @@ def paged_attention(q, k_pages, v_pages, lengths, page_indices, *,
     ``softcap`` squashes scaled scores to ``softcap * tanh(s / softcap)``.
     ``k_scales``/``v_scales`` ((L,) hk, P, 8, 128) fp32 with int8 or fp8
     e4m3 pages of 128 tokens: the quantized cache, lane t of a page's tile
-    token t's scale (bf16 q on the card). Any d <= 256 decodes: pages
+    token t's scale (bf16 q on the card). Any d <= 512 decodes: pages
     wider than d (a cache at ``kernel_head_dim(d)``, as the engine
     allocates it) take q zero-padded; pages of a width the kernel lacks
     (d 80 or 96) are padded by a copy of the whole pool in every call on
@@ -283,15 +294,18 @@ def paged_attention(q, k_pages, v_pages, lengths, page_indices, *,
     dev = q.device
     # a (kv head, sub-group) pair is the kernel's unit: its chunks, its
     # counter and its partials
-    hks = hk * sub_groups(h // hk)
+    hks = hk * sub_groups(h // hk, d)
     n_sms, counters = _device(dev, b * hks)
     pps = page_indices.shape[1]
     chunk_tiles, n_chunks = _plan(pps, page_size, b, hks, n_sms,
                                   None if window is None else int(window))
     cap_scale, cap_log2 = softcap_args(softcap, sm_scale)
-    ws = torch.empty(b * hks * n_chunks * (MAX_GROUP * d + 2 * MAX_GROUP)
+    mg = max_group(d)
+    ws = torch.empty(b * hks * n_chunks * (mg * d + 2 * mg)
                      if n_chunks > 1 else 0, dtype=torch.float32, device=dev)
-    rc = lib.fat_paged_attention(
+    fn = (lib.fat_paged_attention_wide if d in WIDE_HEAD_DIMS
+          else lib.fat_paged_attention)
+    rc = fn(
         q.data_ptr(), pk.data_ptr(), pv.data_ptr(),
         tensors["k_scales"].data_ptr() if quantized else 0,
         tensors["v_scales"].data_ptr() if quantized else 0,

@@ -81,8 +81,8 @@ raises on one rank only leaves the ranks out of step. ``kv_quant``,
 run with a mesh; ``lora_rank`` with a mesh raises, as in JAX.
 
 The cache is allocated at the kernels' head dim (``ops.attention.
-kernel_head_dim``: a d-96 model's K/V zero-padded to 128), so every head
-dim the prefill takes also decodes on the card.
+kernel_head_dim``: a d-96 model's K/V zero-padded to 128, a d-320 one's to
+384), so every head dim the prefill takes also decodes on the card.
 """
 
 from __future__ import annotations
@@ -113,9 +113,9 @@ def _pow2(n: int) -> int:
 
 
 def _cache_width(head_dim: int) -> int:
-    """The cache's head dim: the kernels' (zero-padded), or the model's own
-    above 256, which only the CPU's plain versions run."""
-    return head_dim if head_dim > 256 else kernel_head_dim(head_dim)
+    """The cache's head dim: the kernels' (zero-padded; d 320 at 384), or
+    the model's own above 512, which only the CPU's plain versions run."""
+    return head_dim if head_dim > 512 else kernel_head_dim(head_dim)
 
 
 class Engine:

@@ -154,12 +154,12 @@ def test_normalize_band_matches_jax(causal, window, want):
 def test_padded_head_dim_matches_jax(causal):
     """d 96 runs on the card zero-padded to 128: the helper around the plain
     versions, at the real d's scale, against JAX's fwd and bwd (interpret
-    mode). d 256 (Gemma-2-9B's) runs as it is; above 256 raises on the card
-    (``test_torch_head_dim_256.py``)."""
-    assert [kernel_head_dim(d) for d in (32, 64, 80, 96, 128, 256)] == [
-        64, 64, 128, 128, 128, 256]
-    with pytest.raises(NotImplementedError, match="512"):
-        kernel_head_dim(512)
+    mode). d 256 (Gemma-2-9B's) and 512 (DeepSeek-V4-Flash's) run as they
+    are; above 512 raises on the card (``test_torch_head_dim_256.py``)."""
+    assert [kernel_head_dim(d) for d in (32, 64, 80, 96, 128, 256, 512)] == [
+        64, 64, 128, 128, 128, 256, 512]
+    with pytest.raises(NotImplementedError, match="640"):
+        kernel_head_dim(640)
     q, k, v = _qkv(96, 1, 16, 16, 2, 1, 96)
     do = _qkv(97, 1, 16, 16, 2, 1, 96)[0]
     qt, kt, vt, dot = map(torch.from_numpy, (q, k, v, do))

@@ -7,10 +7,13 @@ kernels' d-256 instances are held against the same plain versions on the
 card, in ``test_torch_kernels.py``). fp32 on both sides, so the repo's
 forward gates (atol 5e-3, mean_atol 2e-4, mean_rtol 1e-2) hold for O, the
 gradients and paged decode, and the LSE gates of
-``tests/test_flash_fwd.py:21`` for the LSE. The kernels take d 64, 128 and
-256 as they are and any other d up to 256 zero-padded to the next of the
-three (``kernel_head_dim``): d 192 runs at 256, as JAX pads it to a
-multiple of 128. d 384 and 512 raise on the card.
+``tests/test_flash_fwd.py:21`` for the LSE. The forward, paged and
+kv-write kernels take d 64, 128, 256, 384 and 512 as they are and any other
+d up to 512 zero-padded to the next of them (``kernel_head_dim``): d 192
+runs at 256 and d 257-384 at 384, as JAX pads them to a multiple of 128;
+above 512 raises on the card. The backward's kernels stop at 256
+(``backward_head_dim``; d 384 and 512 are in
+``test_torch_head_dim_512.py``).
 """
 
 import numpy as np
@@ -29,7 +32,8 @@ from flash_attention_tpu_torch import bwd, fwd, paged_attention
 from flash_attention_tpu_torch.ops import flash_bwd as bwd_mod
 from flash_attention_tpu_torch.ops import flash_fwd as fwd_mod
 from flash_attention_tpu_torch.ops import paged_attention as pa_mod
-from flash_attention_tpu_torch.ops.attention import (kernel_head_dim,
+from flash_attention_tpu_torch.ops.attention import (backward_head_dim,
+                                                     kernel_head_dim,
                                                      padded_head_dim)
 from flash_attention_tpu_torch.ops.flash_bwd import flash_bwd_reference
 from flash_attention_tpu_torch.ops.reference import reference_attention
@@ -130,24 +134,38 @@ def test_head_dim_192_runs_padded_to_256(causal):
 
 @pytest.mark.parametrize("d,want", [(32, 64), (64, 64), (80, 128),
                                     (128, 128), (129, 256), (192, 256),
-                                    (256, 256)])
+                                    (256, 256), (257, 384), (320, 384),
+                                    (384, 384), (385, 512), (512, 512)])
 def test_kernel_head_dim_routes_to_the_next_instance(d, want):
+    """JAX's rounding: 257-384 runs at 384, 385-512 at 512."""
     assert kernel_head_dim(d) == want
 
 
 @pytest.mark.parametrize("d", [257, 384, 512])
 def test_head_dims_above_256_raise(d):
-    """JAX runs 384 and 512; the card's kernels stop at 256, and the
-    message names the d and where it is queued."""
+    """JAX trains at 384 and 512; the card's backward kernels stop at 256,
+    and the message names the d and where it is queued (the forward's
+    routing takes them)."""
+    assert kernel_head_dim(d) in (384, 512)
+    with pytest.raises(NotImplementedError, match=f"{d}.*ROADMAP"):
+        backward_head_dim(d)
+
+
+@pytest.mark.parametrize("d", [513, 576, 640])
+def test_head_dims_above_512_raise(d):
+    """JAX pads 576 to 640 (sarvam-105b's MLA head dim); the card's kernels
+    stop at 512, and the message names the d and where it is queued."""
     with pytest.raises(NotImplementedError, match=f"{d}.*ROADMAP"):
         kernel_head_dim(d)
 
 
 def test_head_dim_lists_agree():
-    """The forward, the backward and paged decode take the same head dims,
-    and the routing returns only those."""
-    assert fwd_mod.HEAD_DIMS == (64, 128, 256)
-    assert bwd_mod.HEAD_DIMS == fwd_mod.HEAD_DIMS
+    """The forward and paged decode take the same head dims, the backward
+    those up to 256, and the routing returns only those."""
+    assert fwd_mod.HEAD_DIMS == (64, 128, 256, 384, 512)
+    assert bwd_mod.HEAD_DIMS == (64, 128, 256)
     assert pa_mod.HEAD_DIMS == fwd_mod.HEAD_DIMS
-    assert {kernel_head_dim(d) for d in range(1, 257)} == set(
+    assert {kernel_head_dim(d) for d in range(1, 513)} == set(
         fwd_mod.HEAD_DIMS)
+    assert {backward_head_dim(d) for d in range(1, 257)} == set(
+        bwd_mod.HEAD_DIMS)

@@ -85,7 +85,7 @@ def _randn(rng, shape, dtype, device):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
-@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("d", [64, 128, 256, 384, 512])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("b,sq,sk,h,hk", FWD_SHAPES)
 def test_flash_fwd_matches_plain(cuda, dtype, d, causal, b, sq, sk, h, hk):
@@ -160,7 +160,7 @@ def test_flash_fwd_head_major_views(cuda):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
-@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("d", [64, 128, 256, 384, 512])
 def test_flash_fwd_repeats_bit_identical(cuda, dtype, d):
     """Two runs give the same bits: each row's sums run in a fixed order."""
     rng = np.random.default_rng(d)
@@ -176,7 +176,7 @@ def test_flash_fwd_repeats_bit_identical(cuda, dtype, d):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
-@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("d", [64, 128, 256, 384, 512])
 @pytest.mark.parametrize("sq,sk", [(300, 300), (300, 170), (1, 1), (200, 1)])
 def test_flash_fwd_one_key_rows_equal_v(cuda, dtype, d, sq, sk):
     """A row that sees one key gets exactly that V row (p = exp2(0) = 1,
@@ -207,8 +207,11 @@ def test_flash_fwd_counts_and_rejects(cuda):
     fwd(q256, q256, q256, softcap=30.0)  # d 256 launches as it is
     assert fwd_mod.KERNEL.launches == before + 2
     q512 = torch.zeros((1, 16, 2, 512), dtype=torch.bfloat16, device=cuda)
-    with pytest.raises(NotImplementedError, match="512"):
-        fwd(q512, q512, q512, softcap=30.0)
+    fwd(q512, q512, q512, softcap=30.0)  # and d 512
+    assert fwd_mod.KERNEL.launches == before + 3
+    q640 = torch.zeros((1, 16, 2, 640), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(NotImplementedError, match="640"):
+        fwd(q640, q640, q640, softcap=30.0)
 
 
 def _paged_setup(rng, b, h, hk, d, ps, pps, total, L, dtype, device):
@@ -222,7 +225,7 @@ def _paged_setup(rng, b, h, hk, d, ps, pps, total, L, dtype, device):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
-@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("d", [64, 128, 256, 384, 512])
 @pytest.mark.parametrize("group", [1, 2, 4, 7, 8])
 @pytest.mark.parametrize("ps", [16, 64])
 def test_paged_attention_matches_plain(cuda, dtype, d, group, ps):
@@ -265,7 +268,7 @@ def _paged_check(label, q, kp, vp, lens, tab, layer):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
-@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("d", [64, 128, 256, 384, 512])
 @pytest.mark.parametrize("ps", [8, 32, 128])
 def test_paged_attention_page_sizes(cuda, dtype, d, ps):
     """Pages of 8, 32 and 128 tokens: a tile of several pages, and a page
@@ -285,7 +288,7 @@ def test_paged_attention_page_sizes(cuda, dtype, d, ps):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
-@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("d", [64, 128, 256, 384, 512])
 def test_paged_attention_full_rows(cuda, dtype, d):
     """Every row 4096 tokens long: every chunk of every pair is live and
     merged."""
@@ -299,7 +302,7 @@ def test_paged_attention_full_rows(cuda, dtype, d):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
-@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("d", [64, 128, 256, 384, 512])
 @pytest.mark.parametrize("ps", [8, 64])
 def test_paged_attention_length_one_rows_equal_v(cuda, dtype, d, ps):
     """Every row of length 1: O is the first token's V, bit for bit."""
@@ -382,7 +385,7 @@ def test_paged_attention_page_sizes_not_powers_of_two(cuda, ps):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
-@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("d", [64, 128, 256, 384, 512])
 def test_paged_attention_repeats_bit_identical(cuda, dtype, d):
     rng = np.random.default_rng(27)
     b, hk, group, ps, pps = 8, 8, 4, 64, 64
@@ -422,7 +425,7 @@ def test_paged_attention_in_cuda_graph_with_new_lengths(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("d", [128, 256])
+@pytest.mark.parametrize("d", [128, 256, 512])
 def test_paged_attention_misaligned_q_is_copied(cuda, d):
     """A contiguous q whose data is not 16-byte aligned (a view at an odd
     element offset) gives the same output as an aligned copy."""
@@ -982,7 +985,7 @@ def _quant_cache(rng, L, hk, total, d, dtype, device):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", KV_QUANT)
-@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("d", [64, 128, 256, 384, 512])
 @pytest.mark.parametrize("mode", ["store", "quantize"])
 def test_kv_write_quant_matches_plain(cuda, dtype, d, mode):
     """Both quantized instances (a row already quantized with its scale;
@@ -1037,7 +1040,7 @@ def _paged_quant_inputs(rng, dtype, d, b=8, hk=2, group=4, pps=8, L=2):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", KV_QUANT)
-@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("d", [64, 128, 256, 384, 512])
 @pytest.mark.parametrize("window,cap", [(None, None), (300, None),
                                         (None, 5.0), (300, 5.0)])
 def test_paged_quant_matches_plain(cuda, dtype, d, window, cap):
@@ -1693,20 +1696,22 @@ def test_paged_attention_padded_head_dims(cuda, d, cache):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("d", [64, 128, 256, 384, 512])
 @pytest.mark.parametrize("group", [12, 16])
 def test_paged_attention_large_groups(cuda, d, group):
-    """GQA groups above 8 run as sub-groups of 8 over the grid, each with
-    its own chunk counters and partials: rows long enough to split into
-    several chunks (merged by the last), a zero-length row, and the window
-    and softcap modes, against the plain version; repeats bit-identical."""
+    """GQA groups above a CTA's heads (8 at d <= 256; 64 at d 384 and 512,
+    where groups 12 and 16 take one CTA) run as sub-groups over the grid,
+    each with its own chunk counters and partials: rows long enough to
+    split into several chunks (merged by the last), a zero-length row, and
+    the window and softcap modes, against the plain version; repeats
+    bit-identical."""
     rng = np.random.default_rng(group * 10 + d // 64)
     b, hk, ps, pps, L = 4, 2, 64, 72, 2
     q, kp, vp, tab = _paged_setup(rng, b, hk * group, hk, d, ps, pps,
                                   b * pps, L, torch.bfloat16, cuda)
     lens = torch.tensor([1, 0, 2049, 4608], dtype=torch.int32, device=cuda)
     chunk_tiles, n_chunks = pa_mod.plan(pps, ps, b, hk * pa_mod.sub_groups(
-        group), torch.cuda.get_device_properties(0).multi_processor_count)
+        group, d), torch.cuda.get_device_properties(0).multi_processor_count)
     assert n_chunks > 1
     for kw in ({}, dict(window=1000, softcap=5.0)):
         o = pa_mod.paged_attention(q, kp, vp, lens, tab, layer=1, **kw)
@@ -1721,10 +1726,10 @@ def test_paged_attention_large_groups(cuda, d, group):
 @pytest.mark.gpu
 @pytest.mark.parametrize("mode", ["bf16", "int8", "fp8"])
 def test_kv_write_head_dim_96(cuda, mode):
-    """d-96 rows into a cache at the kernels' width 128: the rows padded
-    with zeros, then the kernel (bf16 store, or the int8/fp8 quantizing
-    write, whose scales the zero columns leave as they are); bit for bit
-    against the plain versions."""
+    """d-96 rows into a cache at the kernels' width 128: the kernel (bf16
+    store, or the int8/fp8 quantizing write, whose scales the zero columns
+    leave as they are) writes the rows and zeros past them; bit for bit
+    against the plain versions, which pad the rows first."""
     rng = np.random.default_rng(96)
     L, hk, total, b, d = 2, 2, 8, 3, 96
     wpage = torch.tensor([2, 5, 1], dtype=torch.int32, device=cuda)
@@ -1760,3 +1765,144 @@ def test_kv_write_head_dim_96(cuda, mode):
         if got.element_size() == 1:
             got, want = got.view(torch.uint8), want.view(torch.uint8)
         assert torch.equal(got, want)
+
+
+# Head dims 384 and 512 (DeepSeek-V4-Flash's 512; any d in 257-512 runs
+# zero-padded to one of them): the forward's d-384/512 instances
+# (flash_fwd_wide.cu: 64-row CTAs, O split by columns between two
+# consumers) with the band, the softcap and segments, the paged kernel's
+# (paged_attention_wide.cu: up to 64 heads of a kv head on the wgmma M
+# side) at groups 8, 64 and 80, and the kv write's narrow rows. The other
+# fwd-only and paged tests above run at d 384 and 512 too. The backward
+# stops at 256 and raises above it.
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [384, 512])
+@pytest.mark.parametrize("case", sorted(BAND_CASES) + sorted(SEG_CASES))
+def test_flash_fwd_wide_band_softcap_segments(cuda, dtype, d, case):
+    """The band and softcap cases of the dense forward, and the segmented
+    forward's cases (ragged sequences, the query tail O = 0 and LSE =
+    empty_lse), against their plain versions."""
+    rng = np.random.default_rng(d + len(case))
+    tols = BF16_TOLS if dtype == torch.bfloat16 else FWD_TOLS
+    if case in BAND_CASES:
+        causal, window, cap, b, sq, sk, h, hk = BAND_CASES[case]
+        q = _randn(rng, (b, sq, h, d), dtype, cuda)
+        k = _randn(rng, (b, sk, hk, d), dtype, cuda)
+        v = _randn(rng, (b, sk, hk, d), dtype, cuda)
+        o, lse = fwd(q, k, v, causal, empty_lse=-2.0, window_size=window,
+                     softcap=cap)
+        o_ref, lse_ref = reference_attention(
+            q, k, v, causal=causal, window=window, softcap=cap,
+            empty_lse=-2.0)
+        empty = _band_empty_rows(sq, sk, causal, window).to(cuda)
+    else:
+        causal, window, cap = SEG_CASES[case]
+        q, k, v, _, segs = _seg_inputs(rng, *SEG_LENS, 8, 1, d, dtype, cuda)
+        kw = dict(causal=causal, sm_scale=d**-0.5, window=window,
+                  softcap=cap, segs=segs, empty_lse=-2.0)
+        o, lse = fwd_mod.flash_fwd(q, k, v, **kw)
+        o_ref, lse_ref = fwd_mod.flash_fwd_segmented_reference(q, k, v, **kw)
+        empty = segs[0][0] < 0
+    tag = f"[{case},{dtype},{d}]"
+    assert_metrics("fwd" + tag, o, o_ref, tols)
+    assert_metrics("fwd lse" + tag, lse, lse_ref, LSE_TOLS)
+    assert torch.all(o[:, empty] == 0) and torch.all(lse[:, :, empty] == -2.0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [384, 512])
+@pytest.mark.parametrize("group", [8, 64, 80])
+def test_paged_attention_wide_groups(cuda, d, group):
+    """Up to 64 heads of a kv head in one CTA (80: a sub-group of 64 and
+    one of 16), rows split into several chunks (merged by the last), a
+    zero-length row, the window and softcap modes; repeats bit-identical,
+    and each call one launch."""
+    rng = np.random.default_rng(group * 10 + d // 64)
+    b, hk, ps, pps, L = 4, 1, 64, 40, 2
+    q, kp, vp, tab = _paged_setup(rng, b, hk * group, hk, d, ps, pps,
+                                  b * pps, L, torch.bfloat16, cuda)
+    lens = torch.tensor([1, 0, 1025, 2560], dtype=torch.int32, device=cuda)
+    assert pa_mod.sub_groups(group, d) == -(-group // 64)
+    for kw in ({}, dict(window=700, softcap=5.0)):
+        before = pa_mod.KERNEL.launches
+        o = pa_mod.paged_attention(q, kp, vp, lens, tab, layer=1, **kw)
+        assert pa_mod.KERNEL.launches == before + 1
+        o_ref = pa_mod.paged_attention_reference(q, kp, vp, lens, tab,
+                                                 layer=1, **kw)
+        assert_metrics(f"paged[g{group},d{d},{kw}]", o, o_ref, BF16_TOLS)
+        assert torch.all(o[1] == 0)
+        # a length-1 row gets its one V row bit for bit
+        v0 = vp[1, 0, tab[0, 0].long(), 0]
+        assert torch.equal(o[0], v0.expand(group, d))
+        assert torch.equal(o, pa_mod.paged_attention(q, kp, vp, lens, tab,
+                                                     layer=1, **kw))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["bf16", "int8", "fp8"])
+@pytest.mark.parametrize("d,width", [(320, 384), (384, 384), (448, 512)])
+def test_kv_write_wide_and_narrow_rows(cuda, mode, d, width):
+    """Rows of d into a cache of the kernels' width (d 320 in 384, 448 in
+    512): the kernel reads them at their own stride and writes zeros past
+    them, bit for bit against the plain versions on padded rows."""
+    rng = np.random.default_rng(d)
+    L, hk, total, b = 2, 1, 8, 3
+    wpage = torch.tensor([2, 5, 1], dtype=torch.int32, device=cuda)
+    woff = torch.tensor([0, 127, 64], dtype=torch.int32, device=cuda)
+    k = _randn(rng, (b, hk, d), torch.bfloat16, cuda)
+    v = _randn(rng, (b, hk, d), torch.bfloat16, cuda)
+    kpad, vpad = (pa_mod.pad_head_dim(x, width) for x in (k, v))
+    before = kv_update.KERNEL.launches
+    if mode == "bf16":
+        kp = _randn(rng, (L, hk, total, 128, width), torch.bfloat16, cuda)
+        vp = _randn(rng, (L, hk, total, 128, width), torch.bfloat16, cuda)
+        ref = [kp.clone(), vp.clone()]
+        kv_update.write_token_kv_reference(*ref, kpad, vpad, wpage, woff,
+                                           layer=1)
+        out = kv_update.write_token_kv(kp, vp, None, None, k, v, None, None,
+                                       wpage, woff, layer=1)[:2]
+        n = 1
+    else:
+        dtype = torch.int8 if mode == "int8" else torch.float8_e4m3fn
+        pools = _quant_cache(rng, L, hk, total, width, dtype, cuda)
+        ref = [x.clone() for x in pools]
+        stored = [x.clone() for x in pools]
+        (kq, ksc), (vq, vsc) = (quant._quantize_token(x, dtype)
+                                for x in (kpad, vpad))
+        kv_update.write_token_kv_reference(ref[0], ref[1], kq, vq, wpage,
+                                           woff, layer=1)
+        kv_update._write_scales_reference(ref[2], ksc, wpage, woff, 1)
+        kv_update._write_scales_reference(ref[3], vsc, wpage, woff, 1)
+        out = kv_update.quantize_write_token_kv(*pools, k, v, wpage, woff,
+                                                layer=1)
+        # the store instance, from rows quantized at their own width (the
+        # same scales: zeros leave the amax)
+        (kq2, _), (vq2, _) = (quant._quantize_token(x, dtype) for x in (k, v))
+        stored = kv_update.write_token_kv(*stored, kq2, vq2, ksc, vsc, wpage,
+                                          woff, layer=1)
+        out, ref, n = list(out) + list(stored), ref + ref, 2
+    assert kv_update.KERNEL.launches == before + n
+    for got, want in zip(out, ref):
+        if got.element_size() == 1:
+            got, want = got.view(torch.uint8), want.view(torch.uint8)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_backward_above_256_raises(cuda):
+    """The forward runs d 384 and 512 (and 320 padded to 384); the
+    backward's kernels stop at 256: ``bwd`` and the autograd backward raise
+    NotImplementedError naming ROADMAP, with no plain fallback."""
+    for d in (320, 384, 512):
+        q = torch.randn((1, 64, 4, d), device=cuda, dtype=torch.bfloat16)
+        k = torch.randn((1, 64, 1, d), device=cuda, dtype=torch.bfloat16)
+        before = fwd_mod.KERNEL.launches
+        o, lse = fwd(q, k, k, True)
+        assert fwd_mod.KERNEL.launches == before + 1
+        with pytest.raises(NotImplementedError, match=f"{d}.*ROADMAP"):
+            bwd(q, k, k, o, lse, o, True)
+        qg = q.clone().requires_grad_()
+        out = flash_attention(qg, k, k, causal=True)
+        with pytest.raises(NotImplementedError, match=f"{d}.*ROADMAP"):
+            out.float().sum().backward()

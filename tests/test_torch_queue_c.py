@@ -98,7 +98,7 @@ def test_paged_large_group_matches_jax(group):
             torch.from_numpy(lens), torch.from_numpy(tab), layer=0, **kw)
         assert_metrics(f"paged[g{group},{kw}]", o.numpy(), np.asarray(oj),
                        FWD_TOLS)
-    assert pa_mod.sub_groups(group) == -(-group // pa_mod.MAX_GROUP)
+    assert pa_mod.sub_groups(group, 128) == -(-group // pa_mod.MAX_GROUP)
 
 
 def _jax_quantize(x, dtype):

@@ -92,10 +92,10 @@ def main() -> int:
                            else pathlib.Path(fb.__file__), name)
         for attr in PARTS.values():
             pkg = getattr(mod, attr)
-            own = src / pkg.source.name
+            own = src / pkg.sources[0].name
             setattr(mod, attr, _build.Kernel(
                 f"ab_{name}_{attr.lower()}",
-                str(own if own.exists() else pkg.source), pkg.argtypes))
+                str(own if own.exists() else pkg.sources[0]), pkg.argtypes))
         sets[name] = mod
     built = [getattr(m, a) for m in sets.values() for a in PARTS.values()]
     for name, log in _build.build(built, ptxas_verbose=True).items():

@@ -38,8 +38,10 @@ def functions(kernel) -> dict[str, list[str]]:
     """Each kernel function's instructions, by its kernel name and template
     arguments."""
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
-    sass = subprocess.run([cuobjdump, "-sass", str(kernel.lib_path())],
-                          capture_output=True, text=True, check=True).stdout
+    sass = "".join(subprocess.run([cuobjdump, "-sass", str(path)],
+                                  capture_output=True, text=True,
+                                  check=True).stdout
+                   for path in kernel.lib_paths())
     out = {}
     for part in sass.split("Function : ")[1:]:
         name, body = part.split(None, 1)
