@@ -101,10 +101,15 @@ drives the two paths on two models with random bf16 weights, full width:
 * head dims 384 and 512 at DeepSeek-V4-Flash's attention geometry (64
   query heads on 1 KV head, a 128-token window): every d-384/512 instance
   of the forward, paged and kv-write kernels against its plain version
-  (``check_head_dim_512``), then Llama-3-8B's structure at that attention
-  geometry served at 4 layers, its logits at 2 layers card against CPU
-  (``serve_d512``; ``python3 chip_smoke.py head_dim_512`` runs the build
-  and these two alone, without the result lines);
+  (``check_head_dim_512``) and of the backward's D, dq and dkv
+  (``check_bwd_wide``: causal, non-causal, the window, the softcap, the
+  training shape, packed rows bit for bit against the dense call, sk = 1
+  exactly 0, d 320 padded to 384), then Llama-3-8B's structure at that
+  attention geometry served at 4 layers, its logits at 2 layers card
+  against CPU (``serve_d512``), and trained at 4 layers on 2 x 2048 after
+  its loss and gradients at 2 layers card against CPU (``train_d512``;
+  ``python3 chip_smoke.py head_dim_512`` runs the build and these four
+  alone, without the result lines);
 * chunked prefill: the Llama-3-8B weights served with Mistral's traffic
   through ``Engine(chunk_size=2048)`` (``llama.prefill_chunk``: the
   segmented forward over [prefix pages || chunk]) and through an
@@ -485,14 +490,19 @@ def _sass_counts(build, kernel) -> dict[str, dict[str, int]]:
 # (flash_fwd_wide.cu: S over d/16 k-steps once, P V once in each consumer;
 # Q, K and V d/64 boxes each. paged_attention_wide.cu: the same products;
 # a K and a V load in the producer's loop over the d/64 boxes, which is
-# not unrolled, for each of a lane's two box slots). The segmented
+# not unrolled, for each of a lane's two box slots. flash_bwd_dq_wide.cu
+# and flash_bwd_dkv_wide.cu: the two m64n32 chains over d/16 k-steps and
+# the two k16 steps of each consumer's half product; Q, dO, K and V d/64
+# boxes each). The segmented
 # instances (a last template argument SEG true) of flash_fwd, dq and dkv run
 # the same products and loads, so their no-softcap instances must show the
 # same.
 SASS_NO_CAP = {"flash_fwd": {64: (24, 3), 128: (32, 6), 256: (40, 12),
                              384: (32, 18), 512: (40, 24)},
-               "flash_bwd_dq": {64: (24, 4), 128: (40, 8), 256: (72, 16)},
-               "flash_bwd_dkv": {64: (16, 4), 128: (24, 8), 256: (40, 16)},
+               "flash_bwd_dq": {64: (24, 4), 128: (40, 8), 256: (72, 16),
+                                384: (52, 24), 512: (68, 32)},
+               "flash_bwd_dkv": {64: (16, 4), 128: (24, 8), 256: (40, 16),
+                                 384: (52, 24), 512: (68, 32)},
                "paged_attention": {64: (8, 4), 128: (12, 8), 256: (20, 16),
                                    384: (32, 4), 512: (40, 4)}}
 
@@ -2507,8 +2517,8 @@ _KERNEL_GROUPS = (("flash_fwd", "flash_fwd_(wide_)?kernel"),
                   ("qmm", "qmm_kernel|qmm_reduce_kernel"),
                   ("gmm_dw", "gmm_dw_kernel"),
                   ("flash_bwd_di", "flash_bwd_di_kernel"),
-                  ("flash_bwd_dq", "flash_bwd_dq_kernel"),
-                  ("flash_bwd_dkv", "flash_bwd_dkv_kernel"),
+                  ("flash_bwd_dq", "flash_bwd_dq_(wide_)?kernel"),
+                  ("flash_bwd_dkv", "flash_bwd_dkv_(wide_)?kernel"),
                   ("kv_write", "kv_write_kernel|kv_write_quant_kernel"),
                   ("paged_attention", "paged_attn_(wide_)?kernel"),
                   ("matmul", "gemm|gemv|cutlass|xmma|nvjet|cublas"))
@@ -4858,6 +4868,11 @@ D512_SEQ = 8192  # prefill b1 s8192 causal, decode lengths 1..8192
 D512_CAP = 5.0  # binds at unit-scale scores
 D512_PACKED = (4, 2048)  # packed causal sequences, against the dense call
 D512_SERVED = (MAX_BATCH, 2048)  # serve_d512's prefill: 8 prompts to 2048
+# train_d512's SGD rate: at LR = 1 the 4-layer model overshoots (losses
+# 12.28, 10.20, 11.36, 13.03 over four steps), as Mixtral does; at a
+# quarter of it every later loss stays below the first (12.28; 9.21,
+# 10.28, 10.96, and 10.08 after the last step)
+D512_LR = MIX_LR
 
 
 def _dense_segs(torch, b, s, dev):
@@ -5249,6 +5264,250 @@ def serve_d512(torch, dev, card, kernels):
         cfg, n_layers=D512_CHECK_LAYERS), card,
         f"{model} L{D512_CHECK_LAYERS}")
     print(f"serve_d512: {time.perf_counter() - t0:.1f} s [{card}]")
+    return launches
+
+
+# The backward's d-384/512 instances at V4-Flash's attention geometry
+# (h64/1, bf16): (label, b, s, causal, window, softcap). The training
+# shape is train_d512's (TRAIN_BATCH x TRAIN_SEQ); the packed case packs
+# its two rows and must give the dense call's bits.
+D512_BWD_CASES = (
+    ("b1 s4096 causal", 1, 4096, True, None, None),
+    ("b1 s2048 non-causal", 1, 2048, False, None, None),
+    (f"window ({V4_ATTN['sliding_window'] - 1}, 0) b1 s4096", 1, 4096, True,
+     (V4_ATTN["sliding_window"] - 1, 0), None),
+    (f"softcap {D512_CAP:g} b1 s2048 causal", 1, 2048, True, None, D512_CAP),
+    (f"training shape b{TRAIN_BATCH} s{TRAIN_SEQ} causal", TRAIN_BATCH,
+     TRAIN_SEQ, True, None, None),
+)
+
+
+def _sdpa_wide_bwd(torch, q, k, v, do, causal, attn_mask=None):
+    """The wide backward's library yardstick: the time of the backward (dq
+    + dk + dv) of one SDPA call under its memory-efficient backend with the
+    K/V heads expanded (the backend that ran the wide forward; flash
+    refuses d > 256), or None and the error it raises. Timed by CUDA events
+    (tens of ms a call, so the host's launches hide behind the card): a
+    profiler session this late in the run saw no device events."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    what = "SDPA memory-efficient backward, K/V heads expanded"
+    g = q.shape[2] // k.shape[2]
+    qt = q.transpose(1, 2).detach().requires_grad_()
+    kt, vt = (x.repeat_interleave(g, 2).transpose(1, 2).detach()
+              .requires_grad_() for x in (k, v))
+    try:
+        with torch.enable_grad(), \
+                sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+            out = torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=attn_mask,
+                is_causal=causal and attn_mask is None)
+            ms = _time_ms(torch, lambda: torch.autograd.grad(
+                out, (qt, kt, vt), do.transpose(1, 2), retain_graph=True),
+                3, warmup=1)
+        return ms, what
+    except RuntimeError as e:  # a yardstick only: record why not
+        return None, f"{what}: {str(e).splitlines()[0][:120]}"
+    finally:
+        del qt, kt, vt
+        torch.cuda.empty_cache()
+
+
+def _check_bwd_wide_case(torch, g, dev, d, label, b, s, causal, window, cap,
+                         card, out):
+    """D, dq and dkv at d ``d``, h64/1, one D512_BWD_CASES case: each
+    against its plain version (the blocked float64 chain from the plain D,
+    at _ulp_tols of BWD_TOLS: dV sums 64 heads into each key), two runs
+    bit-identical, each timed beside its plain version, its bound and the
+    library. Returns the inputs and outputs (the packed check reuses the
+    training shape's)."""
+    from flash_attention_tpu_torch.ops import flash_bwd as fb
+    from flash_attention_tpu_torch.ops import flash_fwd as fm
+    from flash_attention_tpu_torch.ops.reference import _build_mask
+    from flash_attention_tpu_torch.utils.metrics import assert_metrics
+    h, hk = V4_ATTN["n_heads"], V4_ATTN["n_kv_heads"]
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    q, k, v, do = rnd(b, s, h, d), rnd(b, s, hk, d), rnd(b, s, hk, d), \
+        rnd(b, s, h, d)
+    kw = dict(causal=causal, sm_scale=d**-0.5, window=window, softcap=cap)
+    o, lse = fm.flash_fwd(q, k, v, **kw)
+    segs = _dense_segs(torch, b, s, dev)
+    di = fb.flash_bwd_di(o, do)
+    di_r, di_ms_plain = _timed_once(torch, lambda: fb.di_reference(o, do))
+    m_di = assert_metrics(f"flash_bwd_di d{d} {label}", di, di_r, DI_TOLS)
+    dq = fb.flash_bwd_dq(q, k, v, do, lse, di, **kw)
+    dk, dv = fb.flash_bwd_dkv(q, k, v, do, lse, di, **kw)
+    dq_r, dq_plain = _timed_once(torch, lambda: fb.dq_reference(
+        q, k, v, do, lse, di_r, segs=segs, **kw))
+    m_dq = assert_metrics(f"flash_bwd_dq d{d} {label}", dq, dq_r,
+                          _ulp_tols(torch, BWD_TOLS, dq_r))
+    del dq_r
+    (dk_r, dv_r), dkv_plain = _timed_once(torch, lambda: fb.dkv_reference(
+        q, k, v, do, lse, di_r, segs=segs, **kw))
+    m_dk = assert_metrics(f"flash_bwd_dkv d{d} {label} dk", dk, dk_r,
+                          _ulp_tols(torch, BWD_TOLS, dk_r))
+    m_dv = assert_metrics(f"flash_bwd_dkv d{d} {label} dv", dv, dv_r,
+                          _ulp_tols(torch, BWD_TOLS, dv_r))
+    del dk_r, dv_r, di_r
+    again = fb.flash_bwd(q, k, v, o, lse, do, **kw)
+    assert all(torch.equal(x, y) for x, y in zip(again, (dq, dk, dv))), \
+        f"d{d} {label}: two backward runs differ"
+    del again
+    di_ms = _time_ms(torch, lambda: fb.flash_bwd_di(o, do), 10)
+    dq_ms = _time_ms(torch, lambda: fb.flash_bwd_dq(q, k, v, do, lse, di,
+                                                    **kw), 3, warmup=1)
+    dkv_ms = _time_ms(torch, lambda: fb.flash_bwd_dkv(q, k, v, do, lse, di,
+                                                      **kw), 3, warmup=1)
+    if cap is None:
+        mask = None if window is None else _build_mask(s, s, causal, window,
+                                                       device=dev)
+        lib, lib_what = _sdpa_wide_bwd(torch, q, k, v, do, causal, mask)
+        del mask
+    else:
+        _, lib, lib_what = _flex_softcap(torch, q, k, v, do, cap, d**-0.5)
+    vec = _time_ms(torch, lambda: torch.linalg.vecdot(o, do, dim=-1), 10)
+    pairs = _band_pairs(torch, dev, s, s, causal, window) * b * h
+    n_in = 2 * (q.numel() + k.numel() + v.numel() + do.numel()) \
+        + 4 * 2 * b * h * s  # bf16 tensors, fp32 LSE and D
+    rows = (("flash_bwd_di", m_di, di_ms, di_ms_plain, vec, 2.0 * o.numel(),
+             2 * 2 * o.numel() + 4 * di.numel()),
+            ("flash_bwd_dq", m_dq, dq_ms, dq_plain, lib, 6.0 * d * pairs,
+             n_in + 2 * dq.numel()),
+            ("flash_bwd_dkv", max(m_dk, m_dv, key=lambda m: m.max_abs),
+             dkv_ms, dkv_plain, lib, 8.0 * d * pairs,
+             n_in + 2 * 2 * dk.numel()))
+    for name, m, ms, plain, lib_ms, flops, nbytes in rows:
+        bound_ms, bound_by = _bound(flops, nbytes)
+        what = ("torch.linalg.vecdot(o, do)" if name == "flash_bwd_di"
+                else lib_what)
+        print(f"{name} d{d} {label} h{h}/{hk}: {m}; two runs bit-identical; "
+              f"kernel {ms:.4f} ms ({bound_ms / ms:.1%} of the bound "
+              f"{bound_ms:.4f} ms, {bound_by}), plain {plain:.3f} ms, "
+              f"library {'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'} "
+              f"({what}) [{card}]")
+        out[name][f"d{d} {label}"] = {
+            "ms": ms, "plain_ms": plain, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": lib_ms, "library": what,
+            "max_abs_err": m.max_abs}
+    return q, k, v, o, lse, do, (dq, dk, dv)
+
+
+def check_bwd_wide(torch, dev, card):
+    """Every d-384/512 instance of D, dq and dkv at V4-Flash's attention
+    geometry (h64/1, bf16), d 512 then 384: the D512_BWD_CASES against
+    their plain versions, timed; the training shape's two rows packed
+    through segments, bit-identical to the dense call; sk = 1, where dq and
+    dk are exactly 0; d 320 through ``bwd`` (padded to 384, one launch of
+    each kernel). Returns {kernel: {"d512 ...": numbers}}."""
+    from flash_attention_tpu_torch.ops import attention
+    from flash_attention_tpu_torch.ops import flash_bwd as fb
+    from flash_attention_tpu_torch.ops import flash_fwd as fm
+    from flash_attention_tpu_torch.utils.metrics import assert_metrics
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(SEED + 41)
+    h, hk = V4_ATTN["n_heads"], V4_ATTN["n_kv_heads"]
+    out = {"flash_bwd_di": {}, "flash_bwd_dq": {}, "flash_bwd_dkv": {}}
+    for d in (512, 384):
+        scale = d**-0.5
+        for case in D512_BWD_CASES:
+            q, k, v, o, lse, do, dense = _check_bwd_wide_case(
+                torch, g, dev, d, *case, card, out)
+            torch.cuda.empty_cache()
+        # the training shape's rows packed: the same tiles, so the same bits
+        n, s = q.shape[:2]
+        seg = torch.arange(n * s, device=dev, dtype=torch.int32)[None] // s
+        pos = torch.arange(n * s, device=dev, dtype=torch.int32)[None] % s
+        packed = [x.reshape(1, n * s, *x.shape[2:]) for x in (q, k, v, o, do)]
+        lse_p = lse.transpose(0, 1).reshape(1, h, n * s).contiguous()
+        got = fb.flash_bwd(*packed[:4], lse_p, packed[4], causal=True,
+                           sm_scale=scale, segs=(seg, seg, pos, pos))
+        assert all(torch.equal(x.view(y.shape), y)
+                   for x, y in zip(got, dense)), f"d{d}: packed != dense"
+        ms = _time_ms(torch, lambda: fb.flash_bwd(
+            *packed[:4], lse_p, packed[4], causal=True, sm_scale=scale,
+            segs=(seg, seg, pos, pos)), 3, warmup=1)
+        dense_ms = _time_ms(torch, lambda: fb.flash_bwd(
+            q, k, v, o, lse, do, causal=True, sm_scale=scale), 3, warmup=1)
+        print(f"flash_bwd d{d} segmented: {n} packed causal sequences of {s} "
+              f"bit-identical to the dense b{n} s{s} call; D + dq + dkv "
+              f"{ms:.4f} ms against {dense_ms:.4f} ms [{card}]")
+        for name in out:
+            out[name][f"d{d} packed {n} x {s} causal"] = {
+                "ms_backward": ms, "ms_backward_dense": dense_ms,
+                "max_abs_err": 0.0}
+        del q, k, v, o, lse, do, dense, got, packed
+        # one key: O equals its V row, so dP - D cancels exactly
+        q = torch.randn((2, 130, h, d), generator=g, device=dev).to(
+            torch.bfloat16)
+        k, v = (torch.randn((2, 1, hk, d), generator=g, device=dev)
+                .to(torch.bfloat16) for _ in range(2))
+        o1, lse1 = fm.flash_fwd(q, k, v, causal=False, sm_scale=scale)
+        dq1, dk1, _ = fb.flash_bwd(q, k, v, o1, lse1, q, causal=False,
+                                   sm_scale=scale)
+        assert torch.all(dq1 == 0) and torch.all(dk1 == 0), \
+            f"d{d} sk = 1: dq and dk are not exactly 0"
+        print(f"flash_bwd d{d} sk=1 (b2 sq130 h{h}/{hk}): dq and dk exactly "
+              f"0 [{card}]")
+        del q, k, v, o1, lse1, dq1, dk1
+        torch.cuda.empty_cache()
+    # d 320 runs zero-padded to 384 through bwd: one launch of each kernel
+    s = 2048
+    q, k, v, do = (torch.randn((1, s, n_, 320), generator=g, device=dev)
+                   .to(torch.bfloat16) for n_ in (h, hk, hk, h))
+    o, lse = attention.fwd(q, k, v, True)
+    before = [kn.launches for kn in fb.KERNELS]
+    dq, dk, dv = attention.bwd(q, k, v, o, lse, do, True)
+    assert [kn.launches for kn in fb.KERNELS] == [x + 1 for x in before]
+    segs = _dense_segs(torch, 1, s, dev)
+    want = fb.flash_bwd_reference(q, k, v, o, lse, do, causal=True,
+                                  sm_scale=320**-0.5, segs=segs)
+    errs = [assert_metrics(f"bwd d320 (at 384) {n_}", x, r,
+                           _ulp_tols(torch, BWD_TOLS, r))
+            for n_, x, r in zip(("dq", "dk", "dv"), (dq, dk, dv), want)]
+    ms = _time_ms(torch, lambda: attention.bwd(q, k, v, o, lse, do, True), 3,
+                  warmup=1)
+    print(f"bwd d320 (zero-padded to 384) b1 s{s} causal h{h}/{hk}: dq "
+          f"{errs[0]}; dk {errs[1]}; dv {errs[2]}; one launch of each "
+          f"kernel; bwd {ms:.4f} ms, padding included [{card}]")
+    for name in out:
+        out[name][f"d320 (at 384) b1 s{s} causal"] = {
+            "ms_backward": ms, "max_abs_err": max(m.max_abs for m in errs)}
+    del q, k, v, do, o, lse, dq, dk, dv, want
+    torch.cuda.empty_cache()
+    print(f"check_bwd_wide: {time.perf_counter() - t0:.1f} s [{card}]")
+    return out
+
+
+def train_d512(torch, dev, card, kernels):
+    """Llama-3-8B's structure at V4-Flash's attention geometry (V4_ATTN:
+    h64/1 d512, a 128-token window on every second layer) trained: first
+    its loss and every gradient at D512_CHECK_LAYERS layers, card (bf16,
+    kernels) against CPU (fp32, plain versions), then D512_LAYERS layers at
+    full width through ``train`` on TRAIN_BATCH x TRAIN_SEQ (exact launch
+    counts: one D, dq and dkv a layer a step; the first loss equal to the
+    inference cross-entropy, a falling loss, finite non-zero gradients).
+    Returns the training path's launches."""
+    from flash_attention_tpu_torch.models import llama
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(), **V4_ATTN,
+                              n_layers=D512_LAYERS)
+    model = (f"Llama-3-8B structure at V4-Flash's attention geometry "
+             f"(h64/1 d512, window {cfg.sliding_window} every "
+             f"{cfg.window_pattern} layers)")
+    t0 = time.perf_counter()
+    train_consistency(torch, dev, cfg, card, model,
+                      n_layers=D512_CHECK_LAYERS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = llama.init_params(cfg, seed=SEED, device=dev,
+                               dtype=torch.bfloat16)
+    print(f"train_d512: {_weight_bytes(params)}")
+    launches = train(torch, params, cfg, card, kernels, model, lr=D512_LR)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"train_d512: {time.perf_counter() - t0:.1f} s [{card}]")
     return launches
 
 
@@ -6245,8 +6504,12 @@ def main() -> int:
     if sys.argv[1:] == ["head_dim_512"]:  # these phases alone, no result
         mark("d-384/512 checks")
         check_head_dim_512(torch, dev, card)
+        mark("d-384/512 backward checks")
+        check_bwd_wide(torch, dev, card)
         mark("serve_d512")
         serve_d512(torch, dev, card, kernels)
+        mark("train_d512")
+        train_d512(torch, dev, card, kernels)
         print(f"chip_smoke head_dim_512: {time.perf_counter() - t_start:.1f}"
               f" s [{card}]")
         return 0
@@ -6298,6 +6561,10 @@ def main() -> int:
     for name, shapes in check_head_dim_512(torch, dev, card).items():
         e = next(e for e in entries if e["name"] == name)
         e.setdefault("shapes", {}).update(shapes)
+    mark("d-384/512 backward checks")
+    for name, shapes in check_bwd_wide(torch, dev, card).items():
+        next(e for e in entries if e["name"] == name)["shapes"].update(shapes)
+    torch.cuda.empty_cache()
     mark("quantized KV kernel checks")
     # the quantized KV cache's instances: the kv write's two (rows in the
     # cache's type; bf16 rows quantized in the kernel) and the paged
@@ -6341,6 +6608,8 @@ def main() -> int:
     mark("a d-512 model served")
     paths["serve_d512"] = serve_d512(torch, dev, card, kernels)
     torch.cuda.empty_cache()
+    mark("a d-512 model trained")
+    paths["train_d512"] = train_d512(torch, dev, card, kernels)
 
     mark("Llama-3-8B")
     # 3. Llama-3-8B, full width and depth: serving, prefill vs decode, then

@@ -5,8 +5,9 @@
 // kernel launched by flash_bwd).
 //
 // Computes D[b, h, i] = sum_d dO[b, i, h, d] * O[b, i, h, d] in fp32 for O and
-// dO (b, sq, h, d), bf16 or fp16, d 64, 128 or 256, read by TMA through their strides (the head
-// dim must be contiguous), into a contiguous (b, h, sq) fp32 tensor.
+// dO (b, sq, h, d), bf16 or fp16, d 64, 128, 256, 384 or 512, read by TMA
+// through their strides (the head dim must be contiguous), into a contiguous
+// (b, h, sq) fp32 tensor.
 //
 // Why a matrix product: the backward forms dS = P * (dP - D) with
 // dP = dO V^T. When a row's attention sits on one key, its O row equals that
@@ -16,7 +17,10 @@
 // in flash_bwd_dkv.cu: hop::ss_chain, wgmma m64n64k16 with both operands
 // K-major in 128-byte-swizzled shared memory, k16 steps over the head dim in
 // order, the first one ignoring the accumulator. Reading the diagonal out of
-// the accumulator is exact.
+// the accumulator is exact. At d 384 and 512 the backward's kernels
+// (flash_bwd_dq_wide.cu, flash_bwd_dkv_wide.cu) stream 32-row tiles and form
+// dP with m64n32k16, so there D is two such chains, dO against O's rows 0-31
+// and 32-63, each row's value on the diagonal of its half.
 //
 // What bounds it on the H100: bytes. It reads O and dO once (4 bytes per
 // element pair) and writes 4 bytes per row; the 64 x 64 block each CTA
@@ -26,7 +30,8 @@
 // What the design does about it: one warpgroup per (64 query rows, head,
 // batch), with about 33 KB of shared memory at d 128 (65 KB at d 256), so
 // several CTAs per SM keep TMA loads in flight; one thread loads both tiles
-// on one mbarrier.
+// on one mbarrier. At d 512 the two tiles take 128 KB: one CTA an SM, its
+// loads in flight alone (a later design could split d over two stages).
 
 #include "flash_common.cuh"
 #include "hopper_common.cuh"
@@ -75,27 +80,54 @@ flash_bwd_di_kernel(const __grid_constant__ CUtensorMap o_map,
   }
   hop::mbar_wait(bar, 0);
 
-  float acc[32];  // dO O^T, 64 x 64
-  hop::ss_chain<T, 64, D>(acc, hop::smem_u32(smem), BLOCK_M,
-                          hop::smem_u32(smem + L::O_OFF), BLOCK_M);
-  hop::wgmma_commit();
-  hop::wgmma_wait<0>();
-  hop::fence_regs(acc);
-
   // acc[4 j + e] is row 16 w + g + 8 (e / 2), column 8 j + 2 t + e % 2;
   // each diagonal element has one owner, found with constant indices only
   // (a select between two elements would index the array at run time)
-  const int tid = threadIdx.x;
-  const int w = tid / 32, g = (tid % 32) >> 2, t = tid & 3;
-  float* out = di + ((long long)batch * h + head) * sq + m0;
+  if constexpr (D <= 256) {
+    float acc[32];  // dO O^T, 64 x 64
+    hop::ss_chain<T, 64, D>(acc, hop::smem_u32(smem), BLOCK_M,
+                            hop::smem_u32(smem + L::O_OFF), BLOCK_M);
+    hop::wgmma_commit();
+    hop::wgmma_wait<0>();
+    hop::fence_regs(acc);
+    const int tid = threadIdx.x;
+    const int w = tid / 32, g = (tid % 32) >> 2, t = tid & 3;
+    float* out = di + ((long long)batch * h + head) * sq + m0;
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < 8; ++j)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int col = 8 * j + 2 * t + (e & 1);
-      if (16 * w + g + 8 * (e >> 1) == col && m0 + col < sq)
-        out[col] = acc[4 * j + e];
-    }
+      for (int e = 0; e < 4; ++e) {
+        const int col = 8 * j + 2 * t + (e & 1);
+        if (16 * w + g + 8 * (e >> 1) == col && m0 + col < sq)
+          out[col] = acc[4 * j + e];
+      }
+  } else {
+    // dO against O's rows 0-31 (lo) and 32-63 (hi), 64 x 32 each: warps 0
+    // and 1 hold the diagonal of lo, warps 2 and 3 that of hi
+    float lo[16], hi[16];
+    hop::ss_chain<T, 32, D>(lo, hop::smem_u32(smem), BLOCK_M,
+                            hop::smem_u32(smem + L::O_OFF), BLOCK_M);
+    hop::ss_chain<T, 32, D>(hi, hop::smem_u32(smem), BLOCK_M,
+                            hop::smem_u32(smem + L::O_OFF + 32 * ROW),
+                            BLOCK_M);
+    hop::wgmma_commit();
+    hop::wgmma_wait<0>();
+    hop::fence_regs(lo);
+    hop::fence_regs(hi);
+    const int tid = threadIdx.x;
+    const int w = tid / 32, g = (tid % 32) >> 2, t = tid & 3;
+    float* out = di + ((long long)batch * h + head) * sq + m0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 8 * j + 2 * t + (e & 1);
+        const int row = 16 * (w % 2) + g + 8 * (e >> 1);  // in its half
+        const int r = (w / 2) * 32 + col;  // the tile's row, if row == col
+        if (row == col && m0 + r < sq)
+          out[r] = w < 2 ? lo[4 * j + e] : hi[4 * j + e];
+      }
+  }
 }
 
 template <typename T, int D>
@@ -127,6 +159,12 @@ int fat_flash_bwd_di(const void* o, const void* dout, void* di, int b, int sq,
                      void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* out = static_cast<float*>(di);
+  if (d == 512 && !is_fp16)
+    return launch<__nv_bfloat16, 512>(o, dout, out, b, sq, h, strides, s);
+  if (d == 512) return launch<__half, 512>(o, dout, out, b, sq, h, strides, s);
+  if (d == 384 && !is_fp16)
+    return launch<__nv_bfloat16, 384>(o, dout, out, b, sq, h, strides, s);
+  if (d == 384) return launch<__half, 384>(o, dout, out, b, sq, h, strides, s);
   if (d == 256 && !is_fp16)
     return launch<__nv_bfloat16, 256>(o, dout, out, b, sq, h, strides, s);
   if (d == 256) return launch<__half, 256>(o, dout, out, b, sq, h, strides, s);

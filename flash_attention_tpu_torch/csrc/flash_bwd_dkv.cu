@@ -11,9 +11,9 @@
 // is right = 0) and, in the softcap instance (CAP), with t = tanh(S / cap)
 // recomputed and dS times 1 - t^2. Masked entries, query rows at or past sq
 // and rows with no live key get P = 0. Q, dO (b, sq, h, d) and K, V
-// (b, sk, hk, d), bf16 or fp16, d 64, 128 or 256, are read by TMA through
-// their strides; dK and dV are written contiguous (b, sk, hk, d) in the input
-// dtype.
+// (b, sk, hk, d), bf16 or fp16, d 64, 128 or 256 (d 384 and 512:
+// flash_bwd_dkv_wide.cu), are read by TMA through their strides; dK and dV
+// are written contiguous (b, sk, hk, d) in the input dtype.
 //
 // What bounds it on the H100: at training shapes (sq = sk = 2048, d = 128)
 // its four products (K Q^T, V dO^T, P^T dO, dS^T Q; 8 d FLOP per live score)
@@ -68,6 +68,7 @@
 //   positions in registers and masks every element by id and by the band
 //   over positions. An empty range writes dK = dV = 0.
 
+#include "flash_bwd_dkv_common.cuh"
 #include "flash_common.cuh"
 #include "hopper_common.cuh"
 
@@ -77,8 +78,6 @@ constexpr int CONSUMERS = 2;   // consumer warpgroups
 constexpr int CTAS_PER_SM = 1;
 constexpr int BLOCK_M = 64;    // query rows per streamed tile
 constexpr int NTHREADS = 128 * (1 + CONSUMERS);
-constexpr int BOX = 64;        // head-dim elements per TMA box (128 bytes)
-constexpr int ROW = BOX * 2;   // bytes per box row
 constexpr int PRODUCER_REGS = 24;
 // what the SM's 65536 registers leave each consumer thread, up to 240
 constexpr int consumer_regs() {
@@ -126,56 +125,6 @@ struct Smem {
   static constexpr int BYTES = BAR_OFF + N_BARS * 8 + 1024;
 };
 
-// The query tiles of one key block: every head of the group, and in each
-// the 64-row tiles from the first that sees the block.
-struct Tiles {
-  int m_first, n_m;
-  __device__ __forceinline__ int count(int group) const { return group * n_m; }
-  __device__ __forceinline__ int head(int i, int kvh, int group) const {
-    return kvh * group + i / n_m;
-  }
-  __device__ __forceinline__ int m0(int i) const {
-    return m_first + (i % n_m) * BLOCK_M;
-  }
-};
-
-// The band as the consumers see it, key-major.
-struct Band {
-  int off, left, right;   // fat::UNBOUNDED for an open side
-  float scale_log2;
-  float cap_scale, cap_log2;  // scale / cap and cap log2(e), with CAP
-};
-
-// Whether the tile at query row m0 crosses an edge of the band for this
-// warp's keys j0 .. j0 + 15; if so, the live columns [lo, hi] of each of the
-// thread's keys (g and g + 8), counted from this thread's first column: key
-// j is live for rows j - off - right .. j - off + left.
-__device__ __forceinline__ bool tile_edge(int m0, int j0, int g, int t,
-                                          const Band& bd, int (&lo)[2],
-                                          int (&hi)[2]) {
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int j = j0 + g + 8 * r;
-    lo[r] = j - bd.off - bd.right - m0 - 2 * t;
-    hi[r] = j - bd.off + bd.left - m0 - 2 * t;
-  }
-  return (j0 + 15 > m0 + bd.off + bd.right) ||
-         (m0 + BLOCK_M - 1 + bd.off - bd.left > j0);
-}
-
-__device__ __forceinline__ bool live(int i, const int (&lo)[2],
-                                     const int (&hi)[2]) {
-  const int c = (i / 4) * 8 + (i & 1), r = (i >> 1) & 1;
-  return c >= lo[r] && c <= hi[r];
-}
-
-// SEG: the segment ids and positions of the thread's two keys (g and g + 8
-// of its warp's 16).
-struct SegKeys {
-  int seg[2], pos[2];
-  fat::SegSpan warp;  // the span of the warp's 16 keys
-};
-
 // SEG at d 256: seg_live with the tile's query ids and positions read from
 // global memory (q_seg, q_pos: the batch row's), rows from m0 on (Q_PAD_SEG
 // past sq).
@@ -188,46 +137,6 @@ __device__ __forceinline__ bool seg_live_global(int i, const int* q_seg,
   const int qs = row < sq ? q_seg[row] : fat::Q_PAD_SEG;
   const int rel = sk.pos[r] - (row < sq ? q_pos[row] : 0);
   return qs == sk.seg[r] && rel >= -bd.left && rel <= bd.right;
-}
-
-// SEG: the ids and positions of keys j and j + 8 (KV_PAD_SEG past sk).
-// (kv_seg, kv_pos: the batch row's.)
-template <bool SEG>
-__device__ __forceinline__ SegKeys seg_keys(const int* kv_seg,
-                                            const int* kv_pos, int sk, int j) {
-  SegKeys out{};
-  if constexpr (SEG) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int key = j + 8 * r;
-      out.seg[r] = key < sk ? kv_seg[key] : fat::KV_PAD_SEG;
-      out.pos[r] = key < sk ? kv_pos[key] : 0;
-    }
-    out.warp = fat::seg_span(min(out.seg[0], out.seg[1]),
-                             max(out.seg[0], out.seg[1]),
-                             min(out.pos[0], out.pos[1]),
-                             max(out.pos[0], out.pos[1]));
-  }
-  return out;
-}
-
-// SEG: whether every pair of the warp's keys and the query tile whose span
-// is ``span`` is live (an interior tile: no mask).
-__device__ __forceinline__ bool seg_interior(const int* span,
-                                             const SegKeys& sk,
-                                             const Band& bd) {
-  return fat::seg_all_live(*reinterpret_cast<const fat::SegSpan*>(span),
-                           sk.warp, bd.left, bd.right);
-}
-
-// SEG: whether element i of a query tile whose ids and positions are
-// ``qseg`` and ``qseg + BLOCK_M`` (in the stage) is live.
-__device__ __forceinline__ bool seg_live(int i, const int* qseg,
-                                         const SegKeys& sk, int t,
-                                         const Band& bd) {
-  const int c = (i / 4) * 8 + 2 * t + (i & 1), r = (i >> 1) & 1;
-  const int rel = sk.pos[r] - qseg[BLOCK_M + c];
-  return qseg[c] == sk.seg[r] && rel >= -bd.left && rel <= bd.right;
 }
 
 // P^T in place, for the tile at query row m0: S^T scaled into the log2
@@ -255,9 +164,9 @@ __device__ __forceinline__ void probs_t(float (&sc)[BLOCK_M / 2],
     for (int i = 0; i < BLOCK_M / 2; ++i) {
       const float p = hop::exp2_approx(sc[i] * scale_log2 -
                                        lse2[(i / 4) * 8 + 2 * t + (i & 1)]);
-      sc[i] = seg_live(i, qseg, sk, t, bd) ? p : 0.f;
+      sc[i] = seg_live<BLOCK_M>(i, qseg, sk, t, bd) ? p : 0.f;
     }
-  } else if (tile_edge(m0, j0, g, t, bd, lo, hi)) {
+  } else if (tile_edge<BLOCK_M>(m0, j0, g, t, bd, lo, hi)) {
 #pragma unroll
     for (int i = 0; i < BLOCK_M / 2; ++i) {
       const float p = hop::exp2_approx(sc[i] * scale_log2 -
@@ -285,37 +194,18 @@ __device__ __forceinline__ void probs_ds_cap(float (&sc)[BLOCK_M / 2],
   int lo[2], hi[2];
   const int* qseg = reinterpret_cast<const int*>(vec + 2 * BLOCK_M);
   const bool edge = SEG ? !seg_interior(qseg + 2 * BLOCK_M, sk, bd)
-                        : tile_edge(m0, j0, g, t, bd, lo, hi);
+                        : tile_edge<BLOCK_M>(m0, j0, g, t, bd, lo, hi);
 #pragma unroll
   for (int i = 0; i < BLOCK_M / 2; ++i) {
     const int c = (i / 4) * 8 + 2 * t + (i & 1);
     const float th = hop::tanh_exp2(sc[i] * bd.cap_scale);
     float p = hop::exp2_approx(bd.cap_log2 * th - vec[c]);
     if constexpr (SEG)
-      p = !edge || seg_live(i, qseg, sk, t, bd) ? p : 0.f;
+      p = !edge || seg_live<BLOCK_M>(i, qseg, sk, t, bd) ? p : 0.f;
     else
       p = !edge || live(i, lo, hi) ? p : 0.f;
     sc[i] = p;
     dp[i] = p * (dp[i] - vec[BLOCK_M + c]) * (1.f - th * th);
-  }
-}
-
-// Write scale * acc, rounded to T, into this consumer's 64 rows of a tile
-// whose boxes hold BLOCK_N rows, in the swizzled layout TMA stores from.
-template <typename T, int D, int BLOCK_N = Cfg<D>::BLOCK_N>
-__device__ __forceinline__ void to_smem(uint8_t* rows, const float (&acc)[D / 2],
-                                        float scale, int warp, int g, int t) {
-#pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = warp * 16 + g + 8 * r;
-      const int chunk = (nt % 8) ^ (row & 7);
-      *reinterpret_cast<uint32_t*>(rows + (nt / 8) * BLOCK_N * ROW +
-                                   row * ROW + chunk * 16 + t * 4) =
-          fat::Mma<T>::pack(acc[4 * nt + 2 * r] * scale,
-                            acc[4 * nt + 2 * r + 1] * scale);
-    }
   }
 }
 
@@ -348,7 +238,7 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap q_map,
   // first key's right edge (row >= key - off - right) to the last key's
   // left edge (row <= key - off + left). Producer and consumers count the
   // same tiles.
-  Tiles tl;
+  Tiles<BLOCK_M> tl;
   tl.m_first = right < fat::UNBOUNDED
                    ? max(0, n0 - off - right) / BLOCK_M * BLOCK_M
                    : 0;
@@ -496,7 +386,7 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap q_map,
         const bool edge =
             SEG ? !seg_interior(reinterpret_cast<const int*>(vec) +
                                     L::SPAN_INT, sk_, bd)
-                : tile_edge(tl.m0(i), j0, g, t, bd, lo, hi);
+                : tile_edge<BLOCK_M>(tl.m0(i), j0, g, t, bd, lo, hi);
 #pragma unroll
         for (int e = 0; e < BLOCK_M / 2; ++e) {
           const int c = (e / 4) * 8 + 2 * t + (e & 1);
@@ -560,7 +450,7 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap q_map,
     // epilogue: dV into the V tile, scale * dK into the K tile, once both
     // consumers' last products (consumer 1's last reads V) are done
     hop::named_sync(5, 256);
-    to_smem<T, D>(kv_rows, acc, wg == 0 ? 1.f : scale, warp, g, t);
+    to_smem<T, D, BLOCK_N>(kv_rows, acc, wg == 0 ? 1.f : scale, warp, g, t);
     hop::fence_async_smem();
     hop::named_sync(1 + wg, 128);
     if (tid == 0) {
@@ -645,8 +535,8 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap q_map,
 
     // epilogue: scale * dK and dV into this consumer's rows of the K and V
     // tiles (their last reads are done), stored by TMA
-    to_smem<T, D>(k_rows, dk, scale, warp, g, t);
-    to_smem<T, D>(v_rows, dv, 1.f, warp, g, t);
+    to_smem<T, D, BLOCK_N>(k_rows, dk, scale, warp, g, t);
+    to_smem<T, D, BLOCK_N>(v_rows, dv, 1.f, warp, g, t);
     hop::fence_async_smem();
     hop::named_sync(1 + wg, 128);
     if (tid == 0) {

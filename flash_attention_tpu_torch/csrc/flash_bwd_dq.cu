@@ -12,8 +12,9 @@
 // key get P = 0 explicitly, so those rows get dQ = 0. With the softcap
 // instance (CAP), S is cap tanh(S / cap) with t = tanh(...) recomputed, and
 // dS takes the chain rule's 1 - t^2. Q, dO (b, sq, h, d) and K, V
-// (b, sk, hk, d), bf16 or fp16, d 64, 128 or 256, are read by TMA through
-// their strides; dQ is written contiguous (b, sq, h, d) in the input dtype.
+// (b, sk, hk, d), bf16 or fp16, d 64, 128 or 256 (d 384 and 512:
+// flash_bwd_dq_wide.cu), are read by TMA through their strides; dQ is
+// written contiguous (b, sq, h, d) in the input dtype.
 //
 // What bounds it on the H100: at training shapes (sq = sk = 2048, d = 128)
 // its three products (Q K^T, dO V^T, dS K; 6 d FLOP per live score) make it
@@ -62,6 +63,7 @@
 //   barrier; every element is masked by id and by the band over positions
 //   (P = 0), so rows with no live key get dQ = 0.
 
+#include "flash_bwd_dq_common.cuh"
 #include "flash_common.cuh"
 #include "hopper_common.cuh"
 
@@ -104,131 +106,6 @@ struct Smem {
   // slack to align the tiles to 1024 bytes, the swizzle's period
   static constexpr int BYTES = META_OFF + STAGES * META_INTS * 4 + 1024;
 };
-
-// What P needs to know of this thread's rows.
-struct Rows {
-  int row[2];  // the thread's two rows, g and g + 8 of its warp's 16
-  int w0;      // the warp's first row
-  int t;       // thread in its row group of 4
-  int sk, off, left, right;  // the band (fat::UNBOUNDED for an open side)
-  float scale_log2;
-  float cap_scale, cap_log2;  // scale / cap and cap log2(e), with CAP
-  float lse2[2];  // LSE in the log2 domain
-  float d[2];     // D
-};
-
-// Whether the tile at kv column n0 crosses an edge of the band or sk for
-// this warp; if so, the live columns [lo, hi) of each row, counted from this
-// thread's first column.
-__device__ __forceinline__ bool tile_edge(int n0, const Rows& rw, int (&lo)[2],
-                                          int (&hi)[2]) {
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    hi[r] = min(rw.sk, rw.row[r] + rw.off + rw.right + 1) - n0 - rw.t * 2;
-    lo[r] = rw.row[r] + rw.off - rw.left - n0 - rw.t * 2;
-  }
-  return (n0 + BLOCK_N > rw.sk) ||
-         (n0 + BLOCK_N - 1 > rw.w0 + rw.off + rw.right) ||
-         (n0 < rw.w0 + 15 + rw.off - rw.left);
-}
-
-__device__ __forceinline__ bool live(int i, const int (&lo)[2],
-                                     const int (&hi)[2]) {
-  const int c = (i / 4) * 8 + (i & 1), r = (i >> 1) & 1;
-  return c < hi[r] && c >= lo[r];
-}
-
-// SEG: the segment ids and positions of the thread's two rows and the span
-// of its warp's 16; whether element i of a tile whose kv ids, positions and
-// span are ``meta`` is live, and whether every element is (an interior
-// tile, fat::seg_all_live).
-struct SegRows {
-  int seg[2], pos[2];
-  fat::SegSpan warp;
-};
-
-__device__ __forceinline__ bool seg_interior(const int* meta,
-                                             const SegRows& sr,
-                                             const Rows& rw) {
-  return fat::seg_all_live(
-      sr.warp, *reinterpret_cast<const fat::SegSpan*>(meta + 2 * BLOCK_N),
-      rw.left, rw.right);
-}
-
-__device__ __forceinline__ bool seg_live(int i, const int* meta,
-                                         const SegRows& sr, const Rows& rw) {
-  const int c = (i / 4) * 8 + (i & 1) + rw.t * 2, r = (i >> 1) & 1;
-  const int rel = meta[BLOCK_N + c] - sr.pos[r];
-  return meta[c] == sr.seg[r] && rel >= -rw.left && rel <= rw.right;
-}
-
-// P = exp2(S scale log2e - LSE log2e) in place, for the tile at kv column
-// n0; masked only where the tile crosses an edge for this warp, or with SEG
-// everywhere by the tile's ids and positions in ``meta``.
-template <bool SEG>
-__device__ __forceinline__ void probs(float (&sc)[BLOCK_N / 2], int n0,
-                                      const Rows& rw, const SegRows& sr,
-                                      const int* meta) {
-  int lo[2], hi[2];
-  if constexpr (SEG) {
-    if (seg_interior(meta, sr, rw)) {
-#pragma unroll
-      for (int i = 0; i < BLOCK_N / 2; ++i)
-        sc[i] =
-            hop::exp2_approx(sc[i] * rw.scale_log2 - rw.lse2[(i >> 1) & 1]);
-      return;
-    }
-#pragma unroll
-    for (int i = 0; i < BLOCK_N / 2; ++i) {
-      const int r = (i >> 1) & 1;
-      const float p = hop::exp2_approx(sc[i] * rw.scale_log2 - rw.lse2[r]);
-      sc[i] = seg_live(i, meta, sr, rw) ? p : 0.f;
-    }
-  } else if (tile_edge(n0, rw, lo, hi)) {
-#pragma unroll
-    for (int i = 0; i < BLOCK_N / 2; ++i) {
-      const int r = (i >> 1) & 1;
-      const float p = hop::exp2_approx(sc[i] * rw.scale_log2 - rw.lse2[r]);
-      sc[i] = live(i, lo, hi) ? p : 0.f;
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < BLOCK_N / 2; ++i)
-      sc[i] = hop::exp2_approx(sc[i] * rw.scale_log2 - rw.lse2[(i >> 1) & 1]);
-  }
-}
-
-// dS = P * (dP - D), into sc.
-__device__ __forceinline__ void dscores(float (&sc)[BLOCK_N / 2],
-                                        const float (&dp)[BLOCK_N / 2],
-                                        const Rows& rw) {
-#pragma unroll
-  for (int i = 0; i < BLOCK_N / 2; ++i) sc[i] *= dp[i] - rw.d[(i >> 1) & 1];
-}
-
-// The softcap instance's P and dS in one pass, into sc: t = tanh(S scale /
-// cap), P = exp2(cap log2e t - LSE log2e), dS = P (dP - D) (1 - t^2).
-template <bool SEG>
-__device__ __forceinline__ void dscores_cap(float (&sc)[BLOCK_N / 2],
-                                            const float (&dp)[BLOCK_N / 2],
-                                            int n0, const Rows& rw,
-                                            const SegRows& sr,
-                                            const int* meta) {
-  int lo[2], hi[2];
-  const bool edge = SEG ? !seg_interior(meta, sr, rw)
-                        : tile_edge(n0, rw, lo, hi);
-#pragma unroll
-  for (int i = 0; i < BLOCK_N / 2; ++i) {
-    const int r = (i >> 1) & 1;
-    const float t = hop::tanh_exp2(sc[i] * rw.cap_scale);
-    const float p = hop::exp2_approx(rw.cap_log2 * t - rw.lse2[r]);
-    const float ds = p * (dp[i] - rw.d[r]) * (1.f - t * t);
-    if constexpr (SEG)
-      sc[i] = !edge || seg_live(i, meta, sr, rw) ? ds : 0.f;
-    else
-      sc[i] = !edge || live(i, lo, hi) ? ds : 0.f;
-  }
-}
 
 // S(j) and dP(j) for one consumer's 64 rows: two commit groups, S first.
 template <typename T, int D>
@@ -425,13 +302,13 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map,
       issue_s_dp<T, D>(sc, dp, q_s, do_s, k_s, v_s);
       hop::wgmma_wait<1>();
       hop::fence_regs(sc);
-      if constexpr (!CAP) probs<SEG>(sc, t0 * BLOCK_N, rw, sr, meta);
+      if constexpr (!CAP) probs<SEG, BLOCK_N>(sc, t0 * BLOCK_N, rw, sr, meta);
       hop::wgmma_wait<0>();
       hop::fence_regs(dp);
       if constexpr (CAP)
-        dscores_cap<SEG>(sc, dp, t0 * BLOCK_N, rw, sr, meta);
+        dscores_cap<SEG, BLOCK_N>(sc, dp, t0 * BLOCK_N, rw, sr, meta);
       else
-        dscores(sc, dp, rw);
+        dscores<BLOCK_N>(sc, dp, rw);
       fat::pack_a<T, BLOCK_N>(da, sc);
     }
     for (int j = 0; j + 1 < n_tiles; ++j) {
@@ -450,13 +327,14 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map,
       hop::fence_regs(sc);
       const int n1 = (t0 + j + 1) * BLOCK_N;
       if constexpr (!CAP)
-        probs<SEG>(sc, n1, rw, sr, meta + s1 * L::META_INTS);
+        probs<SEG, BLOCK_N>(sc, n1, rw, sr, meta + s1 * L::META_INTS);
       hop::wgmma_wait<0>();
       hop::fence_regs(dp);
       if constexpr (CAP)
-        dscores_cap<SEG>(sc, dp, n1, rw, sr, meta + s1 * L::META_INTS);
+        dscores_cap<SEG, BLOCK_N>(sc, dp, n1, rw, sr,
+                                  meta + s1 * L::META_INTS);
       else
-        dscores(sc, dp, rw);
+        dscores<BLOCK_N>(sc, dp, rw);
       fat::pack_a<T, BLOCK_N>(da, sc);
     }
     if (n_tiles > 0) {

@@ -250,6 +250,7 @@ __device__ __forceinline__ void wgmma_wait() {
 #define HOP_D8(d, i)                                                          \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), \
       "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define HOP_D16(d) HOP_D8(d, 0), HOP_D8(d, 8)
 #define HOP_D32(d) HOP_D8(d, 0), HOP_D8(d, 8), HOP_D8(d, 16), HOP_D8(d, 24)
 #define HOP_D64(d) HOP_D32(d), HOP_D8(d, 32), HOP_D8(d, 40), HOP_D8(d, 48), HOP_D8(d, 56)
 #define HOP_D4(d) "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
@@ -280,6 +281,8 @@ __device__ __forceinline__ void wgmma_wait() {
   "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "              \
   "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "              \
   "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}"
+#define HOP_L16                                                                \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
 #define HOP_L32                                                                \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "   \
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "    \
@@ -310,11 +313,23 @@ __device__ __forceinline__ void wgmma_wait() {
                : OUTS                                                          \
                : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1))
 
-// wgmma m64nNk16 with fp32 accumulators in bf16 or fp16: ss at N 64 and 128
-// (Q K^T; the backward's 64-column S and dP), rs_tb at N 64, 128 and 256 (P V
-// at d 64, 128 and 256; the backward's dS K, P^T dO and dS^T Q).
+// wgmma m64nNk16 with fp32 accumulators in bf16 or fp16: ss at N 32, 64 and
+// 128 (Q K^T; the backward's 64-column S and dP, 32-column at d 384 and 512),
+// rs_tb at N 64, 128, 192 and 256 (P V at d 64, 128 and 256; the backward's
+// dS K, P^T dO and dS^T Q, and their d-384/512 column halves).
 template <typename T, int N>
 struct Wgmma;
+
+template <typename T>
+struct Wgmma<T, 32> {
+  static __device__ __forceinline__ void ss(float (&d)[16], uint64_t a,
+                                            uint64_t b, int scale_d) {
+    if constexpr (std::is_same_v<T, __half>)
+      HOP_SS("f16", 32, HOP_L16, HOP_D16(d), "16", "17", "18");
+    else
+      HOP_SS("bf16", 32, HOP_L16, HOP_D16(d), "16", "17", "18");
+  }
+};
 
 template <typename T>
 struct Wgmma<T, 64> {
@@ -351,6 +366,18 @@ struct Wgmma<T, 128> {
       HOP_RS("f16", 128, HOP_L64, HOP_D64(d), "64", "65", "66", "67", "68", "69", "1");
     else
       HOP_RS("bf16", 128, HOP_L64, HOP_D64(d), "64", "65", "66", "67", "68", "69", "1");
+  }
+};
+
+template <typename T>
+struct Wgmma<T, 192> {
+  static __device__ __forceinline__ void rs_tb(float (&d)[96],
+                                               const uint32_t (&a)[4],
+                                               uint64_t b) {
+    if constexpr (std::is_same_v<T, __half>)
+      HOP_RS("f16", 192, HOP_L96, HOP_D96(d), "96", "97", "98", "99", "100", "101", "1");
+    else
+      HOP_RS("bf16", 192, HOP_L96, HOP_D96(d), "96", "97", "98", "99", "100", "101", "1");
   }
 };
 
@@ -465,12 +492,14 @@ struct WgmmaSs<T, 256, TA, TB> {
 #undef HOP_L96
 #undef HOP_L64
 #undef HOP_L32
+#undef HOP_L16
 #undef HOP_L8
 #undef HOP_L4
 #undef HOP_D128
 #undef HOP_D96
 #undef HOP_D64
 #undef HOP_D32
+#undef HOP_D16
 #undef HOP_D4
 #undef HOP_D8
 

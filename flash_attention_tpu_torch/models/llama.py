@@ -80,7 +80,7 @@ itself) and the reads slice it back.
 
 Outside this slice (they raise): quantized MoE experts and LoRA stacks with
 tensor parallelism. On the card, head dims above 512 raise in the attention
-kernels, and above 256 in their backward (training at d 384 and 512).
+kernels and their backward.
 """
 
 from __future__ import annotations

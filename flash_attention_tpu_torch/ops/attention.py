@@ -9,9 +9,8 @@ it runs their plain fp32 versions. The kernels take bf16 and fp16 as they are
 and mask their own ragged edges, so nothing is upcast or padded here, except
 a head dim other than 64, 128, 256, 384 or 512 up to 512: the kernels run it
 zero-padded to the next of these (:func:`padded_head_dim`), as the JAX
-package pads. The backward's kernels stop at 256: on the card, ``bwd`` and
-the gradient of ``flash_attention`` raise above it
-(:func:`backward_head_dim`).
+package pads; the backward takes the same head dims
+(:func:`backward_head_dim`). Above 512 the card's kernels raise.
 
 Packed batches run the kernels' segmented instances: ``fwd``/``bwd`` take
 ``segs`` (segment ids and positions), ``flash_attention`` takes
@@ -74,16 +73,10 @@ def kernel_head_dim(d: int) -> int:
 
 def backward_head_dim(d: int) -> int:
     """The head dim the backward kernels run ``d`` at: as
-    :func:`kernel_head_dim` up to 256. Above 256 the backward is not ported
-    (its d-384 and 512 instances are the next slice of the port), and this
-    raises on the card: there is no plain fallback there."""
-    kd = kernel_head_dim(d)
-    if kd not in _bwd_mod.HEAD_DIMS:
-        raise NotImplementedError(
-            f"head_dim {d} in the backward on the card: its kernels take d "
-            f"<= 256; training at d 384 and 512 is the next slice "
-            f"(ROADMAP.md, queue B part 1)")
-    return kd
+    :func:`kernel_head_dim` (257-384 at 384, 385-512 at 512). Above 512 it
+    raises, as that does, naming ROADMAP: there is no plain fallback on the
+    card."""
+    return kernel_head_dim(d)
 
 
 def padded_head_dim(fn, d_pad: int, *xs):

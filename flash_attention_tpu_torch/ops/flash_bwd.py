@@ -12,6 +12,11 @@ The counterpart of the JAX package's ``ops/flash_bwd.py``, in three steps:
    dV = sum_g P^T dO and dK = scale * sum_g dS^T Q, the GQA group summed in
    the kernel (no atomics).
 
+At d 384 and 512 dq and dkv run the instances of ``csrc/flash_bwd_dq_wide.
+cu`` (one CTA's dQ split by columns between two warpgroups) and ``csrc/
+flash_bwd_dkv_wide.cu`` (two CTAs a key block, one a half of dK's and dV's
+columns), and D its two-chain instances at the wide kernels' 32-row tiles.
+
 All three are warp-specialised Hopper kernels on ``csrc/hopper_common.cuh``
 (TMA, mbarriers, wgmma). Layouts are the port's unpadded ones: q, o, do
 (b, sq, h, d); k, v (b, sk, hk, d); lse and D (b, h, sq) fp32. The kernels
@@ -50,7 +55,12 @@ import ctypes
 import torch
 
 from flash_attention_tpu_torch.ops import _build, segments
-from flash_attention_tpu_torch.ops.flash_fwd import (_prepare, band_args,
+# the backward kernels take the forward's head dims: dq and dkv run d 384
+# and 512 in their own files' instances (csrc/flash_bwd_dq_wide.cu,
+# csrc/flash_bwd_dkv_wide.cu), D in flash_bwd_di.cu's
+from flash_attention_tpu_torch.ops.flash_fwd import (HEAD_DIMS,
+                                                     WIDE_HEAD_DIMS,
+                                                     _prepare, band_args,
                                                      prepare_segs,
                                                      query_blocks,
                                                      seg_pointers, seg_tiles,
@@ -60,22 +70,26 @@ from flash_attention_tpu_torch.ops.reference import _build_mask
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# the backward kernels' head dims: training at d 384 and 512 is not ported
-# yet (ops.attention.backward_head_dim raises for it)
-HEAD_DIMS = (64, 128, 256)
-
+_DQ_ARGS = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _F, _I,
+            _I, _F, _F, _I, _P, _P]
+_DKV_ARGS = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _F,
+             _I, _I, _F, _F, _I, _P, _P]
 DI_KERNEL = _build.Kernel("flash_bwd_di", "flash_bwd_di.cu", {
     "fat_flash_bwd_di": [_P, _P, _P, _I, _I, _I, _I, _P, _I, _P],
 })
-DQ_KERNEL = _build.Kernel("flash_bwd_dq", "flash_bwd_dq.cu", {
-    "fat_flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                         _P, _F, _I, _I, _F, _F, _I, _P, _P],
+DQ_KERNEL = _build.Kernel("flash_bwd_dq", ("flash_bwd_dq.cu",
+                                           "flash_bwd_dq_wide.cu"), {
+    "fat_flash_bwd_dq": _DQ_ARGS,
     "fat_flash_bwd_dq_seg_tiles": [_I, _P],
+    "fat_flash_bwd_dq_wide": _DQ_ARGS,
+    "fat_flash_bwd_dq_wide_seg_tiles": [_I, _P],
 })
-DKV_KERNEL = _build.Kernel("flash_bwd_dkv", "flash_bwd_dkv.cu", {
-    "fat_flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                          _I, _P, _F, _I, _I, _F, _F, _I, _P, _P],
+DKV_KERNEL = _build.Kernel("flash_bwd_dkv", ("flash_bwd_dkv.cu",
+                                             "flash_bwd_dkv_wide.cu"), {
+    "fat_flash_bwd_dkv": _DKV_ARGS,
     "fat_flash_bwd_dkv_seg_tiles": [_I, _P],
+    "fat_flash_bwd_dkv_wide": _DKV_ARGS,
+    "fat_flash_bwd_dkv_wide_seg_tiles": [_I, _P],
 })
 KERNELS = (DI_KERNEL, DQ_KERNEL, DKV_KERNEL)
 PARTS = ("di", "dq", "all")
@@ -138,6 +152,13 @@ def flash_bwd_di(o, do):
     return di
 
 
+def _entry(kernel, d):
+    """The C entry point of a dq or dkv launch at head dim ``d``: the wide
+    file's at d 384 and 512."""
+    wide = "_wide" if d in WIDE_HEAD_DIMS else ""
+    return f"fat_{kernel.name}{wide}"
+
+
 def _seg_launch(kernel, segs, q, k, causal, causal_dir):
     """The segment pointers of a dq or dkv launch (None without ``segs``)
     and the tensors they point into, with the block ranges computed at the
@@ -147,7 +168,7 @@ def _seg_launch(kernel, segs, q, k, causal, causal_dir):
         return None, None
     b, sq, _, d = q.shape
     segs = prepare_segs(segs, b, sq, k.shape[1], q.device)
-    owned, streamed = seg_tiles(kernel, d)
+    owned, streamed = seg_tiles(kernel, d, f"{_entry(kernel, d)}_seg_tiles")
     q_seg, kv_seg, q_pos, kv_pos = segs
     if causal_dir == "kv_le_q":
         lo, hi = segments.block_ranges(q_seg, q_pos, kv_seg, kv_pos, owned,
@@ -171,8 +192,7 @@ def flash_bwd_dq(q, k, v, do, lse, di, *, causal: bool, sm_scale: float,
     if dq.numel() == 0:
         return dq
     seg_ptr, keep = _seg_launch(DQ_KERNEL, segs, q, k, causal, "kv_le_q")
-    lib = DQ_KERNEL.lib()
-    rc = lib.fat_flash_bwd_dq(
+    rc = getattr(DQ_KERNEL.lib(), _entry(DQ_KERNEL, d))(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), di.data_ptr(), dq.data_ptr(), b, sq, sk, h, hk, d,
         _strides(q, k, v, do), sm_scale, *band_args(causal, window),
@@ -197,8 +217,7 @@ def flash_bwd_dkv(q, k, v, do, lse, di, *, causal: bool, sm_scale: float,
     if dk.numel() == 0:
         return dk, dv
     seg_ptr, keep = _seg_launch(DKV_KERNEL, segs, q, k, causal, "q_ge_kv")
-    lib = DKV_KERNEL.lib()
-    rc = lib.fat_flash_bwd_dkv(
+    rc = getattr(DKV_KERNEL.lib(), _entry(DKV_KERNEL, d))(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), di.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, sq,
         sk, h, hk, d, _strides(q, k, v, do), sm_scale,

@@ -11,9 +11,9 @@ gradients and paged decode, and the LSE gates of
 kv-write kernels take d 64, 128, 256, 384 and 512 as they are and any other
 d up to 512 zero-padded to the next of them (``kernel_head_dim``): d 192
 runs at 256 and d 257-384 at 384, as JAX pads them to a multiple of 128;
-above 512 raises on the card. The backward's kernels stop at 256
-(``backward_head_dim``; d 384 and 512 are in
-``test_torch_head_dim_512.py``).
+above 512 raises on the card. The backward's kernels take the same head
+dims (``backward_head_dim``; its d 320, 384 and 512 against JAX are in
+``test_torch_train_d512.py``).
 """
 
 import numpy as np
@@ -143,10 +143,16 @@ def test_kernel_head_dim_routes_to_the_next_instance(d, want):
 
 @pytest.mark.parametrize("d", [257, 384, 512])
 def test_head_dims_above_256_raise(d):
-    """JAX trains at 384 and 512; the card's backward kernels stop at 256,
-    and the message names the d and where it is queued (the forward's
-    routing takes them)."""
-    assert kernel_head_dim(d) in (384, 512)
+    """JAX trains at 384 and 512, and so do the card's backward kernels: d
+    257-384 runs at 384 and 385-512 at 512, as the forward's routing."""
+    assert backward_head_dim(d) == kernel_head_dim(d) == (384 if d <= 384
+                                                          else 512)
+
+
+@pytest.mark.parametrize("d", [513, 576, 640])
+def test_backward_above_512_raises(d):
+    """Above 512 the backward raises as the forward does, naming the d and
+    where it is queued."""
     with pytest.raises(NotImplementedError, match=f"{d}.*ROADMAP"):
         backward_head_dim(d)
 
@@ -160,12 +166,12 @@ def test_head_dims_above_512_raise(d):
 
 
 def test_head_dim_lists_agree():
-    """The forward and paged decode take the same head dims, the backward
-    those up to 256, and the routing returns only those."""
+    """The forward, paged decode and the backward take the same head dims,
+    and the routing returns only those."""
     assert fwd_mod.HEAD_DIMS == (64, 128, 256, 384, 512)
-    assert bwd_mod.HEAD_DIMS == (64, 128, 256)
+    assert bwd_mod.HEAD_DIMS == fwd_mod.HEAD_DIMS
     assert pa_mod.HEAD_DIMS == fwd_mod.HEAD_DIMS
     assert {kernel_head_dim(d) for d in range(1, 513)} == set(
         fwd_mod.HEAD_DIMS)
-    assert {backward_head_dim(d) for d in range(1, 257)} == set(
+    assert {backward_head_dim(d) for d in range(1, 513)} == set(
         bwd_mod.HEAD_DIMS)

@@ -508,13 +508,17 @@ def _bwd_inputs(seed, b, sq, sk, h, hk, d, dtype, device, causal):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 384, 512])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("b,sq,sk,h,hk", BWD_SHAPES)
 def test_flash_bwd_matches_plain(cuda, dtype, d, causal, b, sq, sk, h, hk):
     """Each backward kernel against its plain version on the same inputs:
     D, then dq and dk/dv, each from its own chain's D (the kernels' fp32 D
-    summed as dP is, the plain versions' float64 D)."""
+    summed as dP is, the plain versions' float64 D). At d 384 and 512 (the
+    wide files: 32-row streamed tiles, dQ and dK/dV split by columns) the
+    gates' atol is no tighter than one ulp of each output at its largest
+    magnitude (_ulp_tols), as at d 256: causal GQA sums dV over every row
+    of the group into the first keys."""
     q, k, v, o, lse, do = _bwd_inputs(sq * 7 + sk + 1, b, sq, sk, h, hk, d,
                                       dtype, cuda, causal)
     scale = d**-0.5
@@ -528,9 +532,9 @@ def test_flash_bwd_matches_plain(cuda, dtype, d, causal, b, sq, sk, h, hk):
     dk, dv = bwd_mod.flash_bwd_dkv(q, k, v, do, lse, di, **kw)
     dq_r = bwd_mod.dq_reference(q, k, v, do, lse, di_r, **kw)
     dk_r, dv_r = bwd_mod.dkv_reference(q, k, v, do, lse, di_r, **kw)
-    assert_metrics("dq" + tag, dq, dq_r, tols)
-    assert_metrics("dk" + tag, dk, dk_r, tols)
-    assert_metrics("dv" + tag, dv, dv_r, tols)
+    for name, x, ref in (("dq", dq, dq_r), ("dk", dk, dk_r), ("dv", dv, dv_r)):
+        assert_metrics(name + tag, x, ref,
+                       _ulp_tols(tols, ref) if d > 256 else tols)
 
 
 @pytest.mark.gpu
@@ -563,13 +567,15 @@ def test_flash_bwd_d256_matches_plain(cuda, dtype, causal, b, sq, sk, h, hk):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
-@pytest.mark.parametrize("d", [128, 256])
+@pytest.mark.parametrize("d", [128, 256, 384, 512])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("sq", [1, 64, 130])
 def test_flash_bwd_single_key_is_exactly_zero(cuda, dtype, d, causal, sq):
     """sk = 1: every live row attends to its one key, so O equals that V row
     and dP - D must cancel bit for bit; dq and dk are exactly 0 (dead rows
-    of causal sq > sk too), and dv is the plain version's."""
+    of causal sq > sk too), and dv is the plain version's (at d 384 and 512
+    to one ulp at its largest magnitude, _ulp_tols: the key's dv sums every
+    row of its group, up to about 16 here)."""
     q, k, v, o, lse, do = _bwd_inputs(sq, 2, sq, 1, 8, 2, d, dtype, cuda,
                                       causal)
     dq, dk, dv = bwd(q, k, v, o, lse, do, causal)
@@ -577,24 +583,28 @@ def test_flash_bwd_single_key_is_exactly_zero(cuda, dtype, d, causal, sq):
     _, _, dv_r = bwd_mod.flash_bwd_reference(q, k, v, o, lse, do,
                                              causal=causal,
                                              sm_scale=d**-0.5)
+    tols = BWD_BF16_TOLS if dtype == torch.bfloat16 else BWD_TOLS
     assert_metrics("dv[sk=1]", dv, dv_r,
-                   BWD_BF16_TOLS if dtype == torch.bfloat16 else BWD_TOLS)
+                   _ulp_tols(tols, dv_r) if d > 256 else tols)
 
 
 @pytest.mark.gpu
-def test_flash_bwd_deterministic_and_dead_rows(cuda):
+@pytest.mark.parametrize("d", [64, 384, 512])
+def test_flash_bwd_deterministic_and_dead_rows(cuda, d):
     """Two runs are bit-identical (no atomics), and causal sq > sk rows with
     no live key get dq = 0."""
-    q, k, v, o, lse, do = _bwd_inputs(4, 1, 200, 64, 4, 2, 64,
+    q, k, v, o, lse, do = _bwd_inputs(4, 1, 200, 64, 4, 2, d,
                                       torch.bfloat16, cuda, True)
     first = bwd(q, k, v, o, lse, do, True)
     second = bwd(q, k, v, o, lse, do, True)
     assert all(torch.equal(a, b) for a, b in zip(first, second))
     assert torch.all(first[0][:, :136] == 0)
     want = bwd_mod.flash_bwd_reference(q, k, v, o, lse, do, causal=True,
-                                       sm_scale=64**-0.5)
+                                       sm_scale=d**-0.5)
     for name, got, ref in zip(("dq", "dk", "dv"), first, want):
-        assert_metrics(f"{name}[dead rows]", got, ref, BWD_BF16_TOLS)
+        assert_metrics(f"{name}[dead rows]", got, ref,
+                       _ulp_tols(BWD_BF16_TOLS, ref) if d > 256
+                       else BWD_BF16_TOLS)
 
 
 @pytest.mark.gpu
@@ -719,8 +729,13 @@ def test_flash_bwd_counts_and_rejects(cuda):
     assert [kern.launches for kern in bwd_mod.KERNELS] == [
         n + 2 for n in before]  # d 256 launches as it is
     q512 = torch.zeros((1, 16, 2, 512), dtype=torch.bfloat16, device=cuda)
-    with pytest.raises(NotImplementedError, match="512"):
-        bwd(q512, q512, q512, q512, lse, q512, True, softcap=30.0)
+    before = [kern.launches for kern in bwd_mod.KERNELS]
+    bwd(q512, q512, q512, q512, lse, q512, True, softcap=30.0)
+    assert [kern.launches for kern in bwd_mod.KERNELS] == [
+        n + 1 for n in before]  # d 512 launches as it is
+    q640 = torch.zeros((1, 16, 2, 640), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(NotImplementedError, match="640"):
+        bwd(q640, q640, q640, q640, lse, q640, True, softcap=30.0)
     with pytest.raises(ValueError):
         bwd_mod.flash_bwd_di(o.cpu(), q.cpu())
 
@@ -1773,8 +1788,9 @@ def test_kv_write_head_dim_96(cuda, mode):
 # consumers) with the band, the softcap and segments, the paged kernel's
 # (paged_attention_wide.cu: up to 64 heads of a kv head on the wgmma M
 # side) at groups 8, 64 and 80, and the kv write's narrow rows. The other
-# fwd-only and paged tests above run at d 384 and 512 too. The backward
-# stops at 256 and raises above it.
+# fwd-only and paged tests above run at d 384 and 512 too, and so do the
+# backward's (flash_bwd_dq_wide.cu and flash_bwd_dkv_wide.cu: 32-row
+# streamed tiles, dQ and dK/dV split by columns).
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("d", [384, 512])
@@ -1891,18 +1907,30 @@ def test_kv_write_wide_and_narrow_rows(cuda, mode, d, width):
 
 @pytest.mark.gpu
 def test_backward_above_256_raises(cuda):
-    """The forward runs d 384 and 512 (and 320 padded to 384); the
-    backward's kernels stop at 256: ``bwd`` and the autograd backward raise
-    NotImplementedError naming ROADMAP, with no plain fallback."""
+    """d 257-512 train on the card: ``bwd`` and the autograd backward launch
+    the D, dq and dkv kernels once each at d 320 (padded to 384), 384 and
+    512, with no plain fallback; above 512 the forward and the backward
+    raise NotImplementedError naming ROADMAP."""
+    counters = (bwd_mod.DI_KERNEL, bwd_mod.DQ_KERNEL, bwd_mod.DKV_KERNEL)
     for d in (320, 384, 512):
         q = torch.randn((1, 64, 4, d), device=cuda, dtype=torch.bfloat16)
         k = torch.randn((1, 64, 1, d), device=cuda, dtype=torch.bfloat16)
         before = fwd_mod.KERNEL.launches
         o, lse = fwd(q, k, k, True)
         assert fwd_mod.KERNEL.launches == before + 1
-        with pytest.raises(NotImplementedError, match=f"{d}.*ROADMAP"):
-            bwd(q, k, k, o, lse, o, True)
+        counts = [c.launches for c in counters]
+        dq, dk, dv = bwd(q, k, k, o, lse, o, True)
+        assert [c.launches for c in counters] == [n + 1 for n in counts]
+        assert dq.shape == q.shape and dk.shape == dv.shape == k.shape
         qg = q.clone().requires_grad_()
         out = flash_attention(qg, k, k, causal=True)
-        with pytest.raises(NotImplementedError, match=f"{d}.*ROADMAP"):
-            out.float().sum().backward()
+        out.float().sum().backward()
+        assert [c.launches for c in counters] == [n + 2 for n in counts]
+        assert torch.isfinite(qg.grad).all()
+    q = torch.randn((1, 64, 4, 640), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="640.*ROADMAP"):
+        bwd(q, q[:, :, :1], q[:, :, :1], q, torch.zeros((1, 4, 64),
+                                                       device=cuda), q, True)
+    with pytest.raises(NotImplementedError, match="640.*ROADMAP"):
+        flash_attention(q.requires_grad_(), q[:, :, :1], q[:, :, :1],
+                        causal=True)
