@@ -104,10 +104,13 @@ drives the two paths on two models with random bf16 weights, full width:
   (``check_head_dim_512``) and of the backward's D, dq and dkv
   (``check_bwd_wide``: causal, non-causal, the window, the softcap, the
   training shape, packed rows bit for bit against the dense call, sk = 1
-  exactly 0, d 320 padded to 384), then Llama-3-8B's structure at that
+  exactly 0, d 320 padded to 384; the dkv's plan of units and its time
+  beside the earlier column-split design's; the forward's time at the
+  training shape), then Llama-3-8B's structure at that
   attention geometry served at 4 layers, its logits at 2 layers card
   against CPU (``serve_d512``), and trained at 4 layers on 2 x 2048 after
-  its loss and gradients at 2 layers card against CPU (``train_d512``;
+  its loss and gradients at 2 layers card against CPU (``train_d512``,
+  with its step time and the dkv's share of the profiled step;
   ``python3 chip_smoke.py head_dim_512`` runs the build and these four
   alone, without the result lines);
 * chunked prefill: the Llama-3-8B weights served with Mistral's traffic
@@ -477,7 +480,9 @@ def _sass_counts(build, kernel) -> dict[str, dict[str, int]]:
     for part in sass.split("Function : ")[1:]:
         name = part.split(None, 1)[0]
         tmpl = re.search(r"kernel(I.*)EEv", name)
-        counts[tmpl.group(1) if tmpl else name] = {
+        key = tmpl.group(1) if tmpl else name
+        # a second kernel behind the same C entry (a reduction of partials)
+        counts[("reduce " if "reduce_kernel" in name else "") + key] = {
             op: part.count(op) for op in ("HGMMA", "UTMALDG")}
     return counts
 
@@ -490,10 +495,14 @@ def _sass_counts(build, kernel) -> dict[str, dict[str, int]]:
 # (flash_fwd_wide.cu: S over d/16 k-steps once, P V once in each consumer;
 # Q, K and V d/64 boxes each. paged_attention_wide.cu: the same products;
 # a K and a V load in the producer's loop over the d/64 boxes, which is
-# not unrolled, for each of a lane's two box slots. flash_bwd_dq_wide.cu
-# and flash_bwd_dkv_wide.cu: the two m64n32 chains over d/16 k-steps and
-# the two k16 steps of each consumer's half product; Q, dO, K and V d/64
-# boxes each). The segmented
+# not unrolled, for each of a lane's two box slots. flash_bwd_dq_wide.cu:
+# the two m64n32 chains over d/16 k-steps and the two k16 steps of each
+# consumer's half product; Q, dO, K and V d/64 boxes each.
+# flash_bwd_dkv_wide.cu, a two-CTA cluster whose CTAs take one of two
+# branches: the score chain over d/16 k-steps three times in the K-CTA's
+# (its first pair, the loop and the odd last tile) and twice in the
+# V-CTA's, the two k16 steps of the accumulating product five and three
+# times; K or V and Q or dO d/64 boxes each). The segmented
 # instances (a last template argument SEG true) of flash_fwd, dq and dkv run
 # the same products and loads, so their no-softcap instances must show the
 # same.
@@ -502,7 +511,7 @@ SASS_NO_CAP = {"flash_fwd": {64: (24, 3), 128: (32, 6), 256: (40, 12),
                "flash_bwd_dq": {64: (24, 4), 128: (40, 8), 256: (72, 16),
                                 384: (52, 24), 512: (68, 32)},
                "flash_bwd_dkv": {64: (16, 4), 128: (24, 8), 256: (40, 16),
-                                 384: (52, 24), 512: (68, 32)},
+                                 384: (136, 12), 512: (176, 16)},
                "paged_attention": {64: (8, 4), 128: (12, 8), 256: (20, 16),
                                    384: (32, 4), 512: (40, 4)}}
 
@@ -518,6 +527,8 @@ def _check_cap_instances(name, per_fn):
     seen = []
     paged = name == "paged_attention"
     for fn, c in per_fn.items():
+        if fn.startswith("reduce "):  # no wgmma, no TMA: a sum of partials
+            continue
         m = re.fullmatch(r"I\w+?Li(\d+)ELb([01])E(?:Lb([01])E)?"
                          r"(?:Li([012])E)?", fn)
         assert m, f"{name}: unexpected instance {fn}"
@@ -2518,7 +2529,8 @@ _KERNEL_GROUPS = (("flash_fwd", "flash_fwd_(wide_)?kernel"),
                   ("gmm_dw", "gmm_dw_kernel"),
                   ("flash_bwd_di", "flash_bwd_di_kernel"),
                   ("flash_bwd_dq", "flash_bwd_dq_(wide_)?kernel"),
-                  ("flash_bwd_dkv", "flash_bwd_dkv_(wide_)?kernel"),
+                  ("flash_bwd_dkv",
+                   "flash_bwd_dkv_(wide_)?kernel|dkv_wide_reduce_kernel"),
                   ("kv_write", "kv_write_kernel|kv_write_quant_kernel"),
                   ("paged_attention", "paged_attn_(wide_)?kernel"),
                   ("matmul", "gemm|gemv|cutlass|xmma|nvjet|cublas"))
@@ -2528,7 +2540,8 @@ def profile_window(torch, label, fn, card):
     """Run ``fn`` once under torch.profiler and print its wall time, the
     device's busy share (the union of the device events' intervals, so
     nothing is counted twice), device time by kernel group, and the largest
-    kernels of the "other" group."""
+    kernels of the "other" group. Returns {"wall", "busy", "groups"} (ms),
+    or None when the profiler saw no device activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -2561,7 +2574,7 @@ def profile_window(torch, label, fn, card):
     if busy == 0:
         print(f"profile {label}: device time not measured (the profiler "
               f"saw no device activity)")
-        return
+        return None
     total = sum(groups.values())
     parts = ", ".join(f"{g} {t:.3f} ms ({t / total:.1%})"
                       for g, t in groups.items() if t > 0)
@@ -2571,6 +2584,7 @@ def profile_window(torch, label, fn, card):
     top = sorted(other.items(), key=lambda kv: -kv[1])[:6]
     print(f"profile {label}: largest 'other' kernels: " + "; ".join(
         f"{n[:60]} {t:.3f} ms" for n, t in top))
+    return {"wall": wall, "busy": busy, "groups": groups}
 
 
 def profile_serving(torch, eng, prompts, card, model):
@@ -3407,6 +3421,8 @@ def train_consistency(torch, dev, cfg, card, model, n_layers=2):
 
 
 TRAINED = {}  # model -> (training tokens/s, peak bytes), set by train()
+STEP_MS = {}  # model -> steady training step ms, set by train()
+PROFILED = {}  # model -> its profiled step (profile_window), set by train()
 
 
 def train(torch, params, cfg, card, kernels, model, lr=LR,
@@ -3474,7 +3490,8 @@ def train(torch, params, cfg, card, kernels, model, lr=LR,
                 torch.cuda.synchronize()
                 step_ms.append((time.perf_counter() - t0) * 1e3)
             else:
-                profile_window(torch, f"{model} training step", step, card)
+                PROFILED[model] = profile_window(
+                    torch, f"{model} training step", step, card)
         launches = {k.name: k.launches for k in kernels if k.name in want}
         assert launches == want, (i, launches)
         for n in want:
@@ -3504,6 +3521,7 @@ def train(torch, params, cfg, card, kernels, model, lr=LR,
     print(f"train {model} peak device memory: {peak / 2**30:.2f} GiB "
           f"[{card}]")
     TRAINED[model] = (tokens / steady * 1e3, peak)
+    STEP_MS[model] = steady
     print(f"{model} kernel launches per training step: {want}; on the "
           f"training path ({TRAIN_STEPS + 1} steps): {totals}")
     if moe:
@@ -5282,6 +5300,34 @@ D512_BWD_CASES = (
 )
 
 
+# The wide dkv's times before its redesign as a two-CTA cluster (one CTA a
+# half of dK's and dV's columns; the earlier times of PERF.md section 6,
+# row 4, on an H100 80GB HBM3 at 700 W): printed beside this run's, by
+# (d, D512_BWD_CASES label).
+DKV_WIDE_EARLIER_MS = dict(zip(
+    [(d, case[0]) for d in (512, 384) for case in D512_BWD_CASES],
+    (21.0513, 11.8007, 1.1350, 11.9359, 11.5134,
+     12.5608, 6.2052, 0.6463, 6.5853, 6.2634)))
+
+
+def _dkv_wide_plan_line(fb, dev, d, b, s, causal, window):
+    """The wide dkv's plan at this case, in one line: clusters, units, the
+    head ranges of the split key blocks, the busiest cluster's tiles over
+    the mean, the workspace."""
+    h, hk = V4_ATTN["n_heads"], V4_ATTN["n_kv_heads"]
+    plan = fb.dkv_wide_plan(b, s, s, hk, h // hk, causal, window)
+    clusters = fb.wide_clusters(dev, d)
+    longest, mean = plan.balance(clusters)
+    ranges = plan.head_ranges()
+    split = {n: len(r) for n, r in ranges.items() if len(r) > 1}
+    first = ", ".join(f"{a}-{c}" for a, c in ranges[0])
+    return (f"{clusters} co-resident clusters, {len(plan.units)} units; key "
+            f"blocks split (block: ranges) {split or 'none'}; block 0's "
+            f"heads {first}; longest cluster {longest} tiles = "
+            f"{longest / mean:.3f}x the mean {mean:.1f}; workspace "
+            f"{plan.workspace_bytes(d) / 2**20:.1f} MB")
+
+
 def _sdpa_wide_bwd(torch, q, k, v, do, causal, attn_mask=None):
     """The wide backward's library yardstick: the time of the backward (dq
     + dk + dv) of one SDPA call under its memory-efficient backend with the
@@ -5391,6 +5437,18 @@ def _check_bwd_wide_case(torch, g, dev, d, label, b, s, causal, window, cap,
             "ms": ms, "plain_ms": plain, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": lib_ms, "library": what,
             "max_abs_err": m.max_abs}
+    was = DKV_WIDE_EARLIER_MS[(d, label)]
+    print(f"flash_bwd_dkv d{d} {label}: {dkv_ms:.4f} ms against the "
+          f"column-split design's {was:.4f} ms ({was / dkv_ms:.2f}x; PERF.md "
+          f"row 4, H100 80GB HBM3 at 700 W); plan: "
+          f"{_dkv_wide_plan_line(fb, dev, d, b, s, causal, window)} [{card}]")
+    if b > 1:  # the training shape: the wide forward there, for the record
+        fwd_ms = _time_ms(torch, lambda: fm.flash_fwd(q, k, v, **kw), 10)
+        fwd_bound, fwd_by = _bound(4.0 * d * pairs, 2 * (
+            q.numel() + k.numel() + v.numel() + o.numel()) + 4 * lse.numel())
+        print(f"flash_fwd d{d} {label} h{h}/{hk}: kernel {fwd_ms:.4f} ms "
+              f"({fwd_bound / fwd_ms:.1%} of the bound {fwd_bound:.4f} ms, "
+              f"{fwd_by}; timed only) [{card}]")
     return q, k, v, o, lse, do, (dq, dk, dv)
 
 
@@ -5504,6 +5562,16 @@ def train_d512(torch, dev, card, kernels):
                                dtype=torch.bfloat16)
     print(f"train_d512: {_weight_bytes(params)}")
     launches = train(torch, params, cfg, card, kernels, model, lr=D512_LR)
+    prof = PROFILED.get(model)
+    share = ("not measured (the profiler saw no device activity)"
+             if prof is None else
+             f"flash_bwd_dkv {prof['groups']['flash_bwd_dkv']:.3f} ms = "
+             f"{prof['groups']['flash_bwd_dkv'] / sum(prof['groups'].values()):.1%}"
+             f" of the profiled step's device time "
+             f"{sum(prof['groups'].values()):.3f} ms (wall {prof['wall']:.3f}"
+             f" ms)")
+    print(f"train_d512: step {STEP_MS[model]:.3f} ms (steady mean); {share} "
+          f"[{card}]")
     del params
     gc.collect()
     torch.cuda.empty_cache()

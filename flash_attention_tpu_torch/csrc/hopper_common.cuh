@@ -1,9 +1,11 @@
 // Hopper (sm_90a) building blocks for the port's warp-specialised kernels
 // (the flash forward, the backward's three kernels, the quantized matmul,
 // the grouped matmuls gmm and gmm_dw, and paged-attention decode):
-// mbarriers, TMA tensor loads and stores, warpgroup matrix multiplies
-// (wgmma) with their shared-memory descriptors and chains, fences, commit
-// and wait, register reallocation (setmaxnreg), named barriers, and the
+// mbarriers, TMA tensor loads and stores, thread-block clusters (a peer
+// CTA's shared memory: its addresses, stores and barrier arrivals),
+// warpgroup matrix multiplies (wgmma) with their shared-memory descriptors
+// and chains, fences, commit and wait, register reallocation (setmaxnreg),
+// named barriers, and the
 // host-side encoding of TMA tensor maps over a (b, s, heads, d) tensor, a
 // 2-D matrix and a 3-D stack of matrices.
 //
@@ -86,6 +88,58 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         : "r"(a), "r"(parity)
         : "memory");
   } while (!done);
+}
+
+// ---- thread-block clusters -------------------------------------------------
+// (flash_bwd_dkv_wide.cu: two CTAs a cluster, each writing into the other's
+// shared memory)
+
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// The shared::cluster address of `addr` (a shared::cta address of this CTA)
+// in the shared memory of the cluster's CTA `rank`.
+__device__ __forceinline__ uint32_t mapa(uint32_t addr, uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out)
+               : "r"(addr), "r"(rank));
+  return out;
+}
+
+// Every thread of every CTA of the cluster: arrive, then wait for the
+// others. Orders the shared-memory work before it (barrier initialisation,
+// writes into a peer) before all of theirs after it.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// Arrive once on a barrier of another CTA of the cluster (`bar`, a
+// shared::cluster address from mapa), with mbarrier.arrive's default
+// semantics, as CUTLASS's cluster pipelines release a peer's buffer
+// (release and acquire at the cluster scope, here and in the waits, cost
+// the wide dkv kernel 30-40% of its time on the H100: PERF.md, row 4).
+__device__ __forceinline__ void mbar_arrive_remote(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Store 16 bytes into another CTA's shared memory (`addr`, shared::cluster)
+// and complete 16 bytes of the transaction count of its barrier `bar`
+// (shared::cluster), which that CTA armed with mbar_expect_tx; the bytes
+// are visible to a thread of that CTA once mbar_wait sees the phase end.
+__device__ __forceinline__ void st_async_v4(uint32_t addr, uint32_t a,
+                                            uint32_t b, uint32_t c, uint32_t d,
+                                            uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], "
+      "{%1, %2, %3, %4}, [%5];\n" ::"r"(addr),
+      "r"(a), "r"(b), "r"(c), "r"(d), "r"(bar)
+      : "memory");
 }
 
 // ---- TMA --------------------------------------------------------------------

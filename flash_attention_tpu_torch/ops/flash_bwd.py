@@ -14,8 +14,11 @@ The counterpart of the JAX package's ``ops/flash_bwd.py``, in three steps:
 
 At d 384 and 512 dq and dkv run the instances of ``csrc/flash_bwd_dq_wide.
 cu`` (one CTA's dQ split by columns between two warpgroups) and ``csrc/
-flash_bwd_dkv_wide.cu`` (two CTAs a key block, one a half of dK's and dV's
-columns), and D its two-chain instances at the wide kernels' 32-row tiles.
+flash_bwd_dkv_wide.cu`` (a cluster of two CTAs a unit of 64 keys and a
+range of query heads, one holding K and dK, the other V and dV, trading P
+and dS through distributed shared memory; the units planned by
+:func:`dkv_wide_plan`), and D its two-chain instances at the wide kernels'
+32-row tiles.
 
 All three are warp-specialised Hopper kernels on ``csrc/hopper_common.cuh``
 (TMA, mbarriers, wgmma). Layouts are the port's unpadded ones: q, o, do
@@ -51,6 +54,8 @@ below any output dtype's.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import heapq
 
 import torch
 
@@ -74,6 +79,8 @@ _DQ_ARGS = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _F, _I,
             _I, _F, _F, _I, _P, _P]
 _DKV_ARGS = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _F,
              _I, _I, _F, _F, _I, _P, _P]
+# the wide entry takes its head ranges and workspace before the stream
+_DKV_WIDE_ARGS = _DKV_ARGS[:-1] + [_I, _P, _P]
 DI_KERNEL = _build.Kernel("flash_bwd_di", "flash_bwd_di.cu", {
     "fat_flash_bwd_di": [_P, _P, _P, _I, _I, _I, _I, _P, _I, _P],
 })
@@ -88,8 +95,9 @@ DKV_KERNEL = _build.Kernel("flash_bwd_dkv", ("flash_bwd_dkv.cu",
                                              "flash_bwd_dkv_wide.cu"), {
     "fat_flash_bwd_dkv": _DKV_ARGS,
     "fat_flash_bwd_dkv_seg_tiles": [_I, _P],
-    "fat_flash_bwd_dkv_wide": _DKV_ARGS,
+    "fat_flash_bwd_dkv_wide": _DKV_WIDE_ARGS,
     "fat_flash_bwd_dkv_wide_seg_tiles": [_I, _P],
+    "fat_flash_bwd_dkv_wide_clusters": [_I, _P],
 })
 KERNELS = (DI_KERNEL, DQ_KERNEL, DKV_KERNEL)
 PARTS = ("di", "dq", "all")
@@ -161,9 +169,12 @@ def _entry(kernel, d):
 
 def _seg_launch(kernel, segs, q, k, causal, causal_dir):
     """The segment pointers of a dq or dkv launch (None without ``segs``)
-    and the tensors they point into, with the block ranges computed at the
-    kernel's own tiles: query blocks over kv tiles for dq, key blocks over
-    query tiles for dkv."""
+    and what the caller keeps until the launch: the pointer array and the
+    tensors it points into (freed earlier, the block ranges' memory could go
+    to an allocation made before the launch, such as the wide dK/dV
+    kernel's workspace, and be written while the kernel reads it),
+    with the block ranges computed at the kernel's own tiles: query blocks
+    over kv tiles for dq, key blocks over query tiles for dkv."""
     if segs is None:
         return None, None
     b, sq, _, d = q.shape
@@ -178,7 +189,8 @@ def _seg_launch(kernel, segs, q, k, causal, causal_dir):
         lo, hi = segments.block_ranges(kv_seg, kv_pos, q_seg, q_pos, owned,
                                        streamed, causal=causal,
                                        causal_dir=causal_dir)
-    return seg_pointers(segs, lo, hi)
+    ptr, arr = seg_pointers(segs, lo, hi)
+    return ptr, (arr, segs, lo, hi)
 
 
 def flash_bwd_dq(q, k, v, do, lse, di, *, causal: bool, sm_scale: float,
@@ -204,11 +216,134 @@ def flash_bwd_dq(q, k, v, do, lse, di, *, causal: bool, sm_scale: float,
     return dq
 
 
+# The wide dK/dV kernel's grid (csrc/flash_bwd_dkv_wide.cu): a unit is one
+# cluster of two CTAs, a block of DKV_WIDE_KEYS keys of one kv head and a
+# range of that head's query heads, streamed DKV_WIDE_ROWS query rows a tile.
+DKV_WIDE_KEYS = 64
+DKV_WIDE_ROWS = 32
+# Where the band's left side is open (causal, or no band), a key block's
+# group is cut into SPLIT_RANGES head ranges of equal size: causal's first
+# blocks see every row and its last few, so whole blocks leave the first
+# clusters walking twice the mean; a quarter of a block is small enough for
+# the card's clusters, taking the units block by block (the blocks' rows
+# never grow with the block index there), to end together. The cut depends
+# on the group alone, so a key block is summed in the same order in every
+# launch that holds it (packed rows give the dense call's bits). A window
+# bounds the rows a block sees: its blocks stay whole.
+SPLIT_RANGES = 4
+_UNBOUNDED = 1 << 30  # an open side of the band, as the kernels take it
+
+
+def dkv_wide_ranges(group: int, causal: bool, window) -> int:
+    """The head ranges each key block's GQA group is cut into: SPLIT_RANGES
+    (at most the group) where the band's left side is open, else 1."""
+    return min(group, SPLIT_RANGES) if band_args(causal, window)[0] < 0 else 1
+
+
+@dataclasses.dataclass(frozen=True)
+class DkvWidePlan:
+    """The units of one wide dK/dV launch, in the order the kernel decodes
+    them from its cluster index: key block, then batch, kv head and head
+    range.
+
+    ``units``: (batch, kv head, key block, first head, end head, slot) each,
+    the heads counted within the kv head's group, the slot the unit's
+    workspace slot of fp32 partials (its index) where the blocks are split,
+    else -1; a split block's slots are consecutive, in head-range order.
+    ``tiles``: each unit's streamed tiles."""
+    units: tuple
+    tiles: tuple
+    ranges: int
+
+    @property
+    def n_slots(self) -> int:
+        return len(self.units) if self.ranges > 1 else 0
+
+    def balance(self, n_clusters: int) -> tuple[int, float]:
+        """(longest, mean): the tiles of the busiest of ``n_clusters``
+        clusters taking the units in order, each the next unit as it frees,
+        and the mean over the clusters. The card's count comes from
+        :func:`wide_clusters`; nothing on the launch path reads this."""
+        load = [0] * max(1, n_clusters)
+        for tiles in self.tiles:
+            heapq.heapreplace(load, load[0] + tiles)
+        return max(load), sum(self.tiles) / len(load)
+
+    def head_ranges(self, batch: int = 0, kv_head: int = 0) -> dict:
+        """{key block: [(first head, end head), ...]} of one kv head, in
+        head order."""
+        out: dict = {}
+        for u in self.units:
+            if u[0] == batch and u[1] == kv_head:
+                out.setdefault(u[2], []).append((u[3], u[4]))
+        return out
+
+    def workspace_bytes(self, d: int) -> int:
+        """The fp32 partials' workspace at head dim ``d``: dK and dV of
+        DKV_WIDE_KEYS keys a slot."""
+        return self.n_slots * 2 * DKV_WIDE_KEYS * d * 4
+
+
+def _query_tiles(n: int, sq: int, sk: int, left: int, right: int) -> int:
+    """The streamed tiles of one query head that key block ``n`` sees, as
+    the kernel counts them (left, right: the band, _UNBOUNDED open)."""
+    off, n0 = sk - sq, n * DKV_WIDE_KEYS
+    first = (max(0, n0 - off - right) // DKV_WIDE_ROWS * DKV_WIDE_ROWS
+             if right < _UNBOUNDED else 0)
+    end = (min(sq, min(n0 + DKV_WIDE_KEYS, sk) - off + left)
+           if left < _UNBOUNDED else sq)
+    return -(-(end - first) // DKV_WIDE_ROWS) if end > first else 0
+
+
+def dkv_wide_plan(b: int, sq: int, sk: int, hk: int, group: int,
+                  causal: bool, window) -> DkvWidePlan:
+    """The grid of one wide dK/dV launch (csrc/flash_bwd_dkv_wide.cu), from
+    the shapes alone: every key block of every (batch, kv head) in
+    :func:`dkv_wide_ranges` head ranges, one unit each. The kernel decodes
+    its unit from these shapes; this is the model of that decode that the
+    tests and the card's report read. A segmented launch runs the dense
+    band's units: its tile ranges come from ``ops.segments`` in the kernel,
+    and only the tiles reported here depend on them."""
+    left, right = (_UNBOUNDED if x < 0 else x
+                   for x in band_args(causal, window))
+    r = dkv_wide_ranges(group, causal, window)
+    units, tiles = [], []
+    for n in range(-(-sk // DKV_WIDE_KEYS)):
+        rows = _query_tiles(n, sq, sk, left, right)
+        for bi in range(b):
+            for kv in range(hk):
+                for j in range(r):
+                    h0, h1 = j * group // r, (j + 1) * group // r
+                    units.append((bi, kv, n, h0, h1,
+                                  len(units) if r > 1 else -1))
+                    tiles.append(rows * (h1 - h0))
+    return DkvWidePlan(tuple(units), tuple(tiles), r)
+
+
+_WIDE_CLUSTERS: dict = {}  # (device index, d) -> co-resident clusters
+
+
+def wide_clusters(device, d: int) -> int:
+    """The wide dK/dV kernel's co-resident two-CTA clusters on ``device``
+    at head dim ``d``, read from the card once (for the plan's balance
+    report)."""
+    key = (device.index, d)
+    if key not in _WIDE_CLUSTERS:
+        out = (ctypes.c_int * 1)()
+        lib = DKV_KERNEL.lib()
+        with torch.cuda.device(device):
+            DKV_KERNEL.check(lib.fat_flash_bwd_dkv_wide_clusters(d, out))
+        _WIDE_CLUSTERS[key] = max(1, out[0])
+    return _WIDE_CLUSTERS[key]
+
+
 def flash_bwd_dkv(q, k, v, do, lse, di, *, causal: bool, sm_scale: float,
                   window=None, softcap=None, segs=None):
     """Launch the dK/dV kernel. Returns (dk, dv), each (b, sk, hk, d) in the
     input dtype, summed over each kv head's GQA group. With ``segs`` the
-    segmented instance runs (see ``ops.flash_fwd.flash_fwd``)."""
+    segmented instance runs (see ``ops.flash_fwd.flash_fwd``). At d 384 and
+    512 the launch runs :func:`dkv_wide_plan`'s units, with a workspace for
+    the split blocks' partials."""
     q, k, v, do = _prepare_inputs(q, k, v, do, lse, di)
     b, sq, h, d = q.shape
     sk, hk = k.shape[1], k.shape[2]
@@ -217,12 +352,19 @@ def flash_bwd_dkv(q, k, v, do, lse, di, *, causal: bool, sm_scale: float,
     if dk.numel() == 0:
         return dk, dv
     seg_ptr, keep = _seg_launch(DKV_KERNEL, segs, q, k, causal, "q_ge_kv")
+    wide = ()
+    if d in WIDE_HEAD_DIMS:
+        ranges = dkv_wide_ranges(h // hk, causal, window)
+        slots = b * hk * -(-sk // DKV_WIDE_KEYS) * ranges if ranges > 1 else 0
+        ws = torch.empty((slots, 2, DKV_WIDE_KEYS, d), dtype=torch.float32,
+                         device=q.device)
+        wide = (ranges, ws.data_ptr() if slots else None)
     rc = getattr(DKV_KERNEL.lib(), _entry(DKV_KERNEL, d))(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), di.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, sq,
         sk, h, hk, d, _strides(q, k, v, do), sm_scale,
         *band_args(causal, window), *softcap_args(softcap, sm_scale),
-        int(q.dtype == torch.float16), seg_ptr, _stream(q))
+        int(q.dtype == torch.float16), seg_ptr, *wide, _stream(q))
     del keep
     DKV_KERNEL.launches += 1
     DKV_KERNEL.check(rc)

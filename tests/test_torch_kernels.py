@@ -1905,6 +1905,117 @@ def test_kv_write_wide_and_narrow_rows(cuda, mode, d, width):
         assert torch.equal(got, want)
 
 
+# The wide dK/dV kernel's grid (ops/flash_bwd.py::dkv_wide_plan): shapes
+# whose plans cut each key block's GQA group into head ranges (the band's
+# left side open: causal, or no band; fp32 partials summed by a second
+# kernel in range order) and shapes whose plans keep the blocks whole (a
+# window; group 1): (b, s, h, hk, causal, window, split).
+DKV_WIDE_PLAN_CASES = {
+    "h64/1 b1 s4096 causal": (1, 4096, 64, 1, True, None, True),
+    "h16/1 b2 s2048 causal": (2, 2048, 16, 1, True, None, True),
+    "h8/1 b2 s1024 non-causal": (2, 1024, 8, 1, False, None, True),
+    "h64/1 b1 s2048 window (127, 0)": (1, 2048, 64, 1, True, (127, 0), False),
+    "h8/1 b1 s700 window (300, 0)": (1, 700, 8, 1, True, (300, 0), False),
+    "h8/8 b2 s1024 causal (group 1)": (2, 1024, 8, 8, True, None, False),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [384, 512])
+@pytest.mark.parametrize("case", sorted(DKV_WIDE_PLAN_CASES))
+def test_flash_bwd_dkv_wide_plans(cuda, d, case):
+    """Groups 64, 16, 8 and 1, with and without head ranges: dk and dv
+    against the plain version (blocked a group and 512 query rows at a
+    time) at the bf16 gates with atol no tighter than one ulp (_ulp_tols),
+    two runs bit-identical, one launch a call; a batch of two rows packed
+    into one segmented row gives the dense call's bits (rows of whole key
+    blocks: each block sees the same tiles and is cut into the same head
+    ranges)."""
+    b, s, h, hk, causal, window, split = DKV_WIDE_PLAN_CASES[case]
+    rng = np.random.default_rng(d + s + h)
+    q, k, v, do = (_randn(rng, shape, torch.bfloat16, cuda)
+                   for shape in ((b, s, h, d), (b, s, hk, d), (b, s, hk, d),
+                                 (b, s, h, d)))
+    kw = dict(causal=causal, sm_scale=d**-0.5, window=window)
+    o, lse = fwd_mod.flash_fwd(q, k, v, **kw)
+    plan = bwd_mod.dkv_wide_plan(b, s, s, hk, h // hk, causal, window)
+    assert (plan.n_slots > 0) == split
+    di = bwd_mod.flash_bwd_di(o, do)
+    before = bwd_mod.DKV_KERNEL.launches
+    dk, dv = bwd_mod.flash_bwd_dkv(q, k, v, do, lse, di, **kw)
+    assert bwd_mod.DKV_KERNEL.launches == before + 1
+    again = bwd_mod.flash_bwd_dkv(q, k, v, do, lse, di, **kw)
+    assert torch.equal(dk, again[0]) and torch.equal(dv, again[1])
+    zero = torch.zeros((b, s), dtype=torch.int32, device=cuda)
+    pos = torch.arange(s, dtype=torch.int32, device=cuda).expand(b, s)
+    dk_r, dv_r = bwd_mod.dkv_reference(
+        q, k, v, do, lse, bwd_mod.di_reference(o, do),
+        segs=(zero, zero, pos.contiguous(), pos.contiguous()), **kw)
+    for name, x, ref in (("dk", dk, dk_r), ("dv", dv, dv_r)):
+        assert_metrics(f"{name}[wide plan {case}, d{d}]", x, ref,
+                       _ulp_tols(BWD_BF16_TOLS, ref))
+    if b > 1 and s % 64 == 0:
+        seg = torch.arange(b * s, dtype=torch.int32, device=cuda)[None] // s
+        ps = torch.arange(b * s, dtype=torch.int32, device=cuda)[None] % s
+        flat = [x.reshape(1, b * s, *x.shape[2:]) for x in (q, k, v, do)]
+        lse_p = lse.transpose(0, 1).reshape(1, h, b * s).contiguous()
+        di_p = di.transpose(0, 1).reshape(1, h, b * s).contiguous()
+        packed = bwd_mod.flash_bwd_dkv(*flat, lse_p, di_p,
+                                       segs=(seg, seg, ps, ps), **kw)
+        assert torch.equal(packed[0].view(dk.shape), dk)
+        assert torch.equal(packed[1].view(dv.shape), dv)
+
+
+# The wide dK/dV kernel's exchange between the two CTAs of a cluster
+# (P^T and dS^T through the peer's shared memory, each buffer freed by a
+# remote arrival), called many times: (group, b, s) at d 384 and 512.
+DKV_WIDE_REPEAT_CASES = {"group 8": (8, 2, 512), "group 64": (64, 2, 2048)}
+DKV_WIDE_REPEATS = 25
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [384, 512])
+@pytest.mark.parametrize("case", sorted(DKV_WIDE_REPEAT_CASES))
+def test_flash_bwd_dkv_wide_repeats_bit_identical(cuda, d, case):
+    """Causal, h group/1: the first dense call's dk and dv held to the
+    plain version at _ulp_tols, then DKV_WIDE_REPEATS dense calls and as
+    many on the two rows packed into one segmented row, alternating, each
+    bit-identical to the first (a buffer overwritten while its peer still
+    reads it shows as a call that differs)."""
+    group, b, s = DKV_WIDE_REPEAT_CASES[case]
+    rng = np.random.default_rng(d + group)
+    q, k, v, do = (_randn(rng, shape, torch.bfloat16, cuda)
+                   for shape in ((b, s, group, d), (b, s, 1, d),
+                                 (b, s, 1, d), (b, s, group, d)))
+    kw = dict(causal=True, sm_scale=d**-0.5)
+    o, lse = fwd_mod.flash_fwd(q, k, v, **kw)
+    di = bwd_mod.flash_bwd_di(o, do)
+    dk, dv = bwd_mod.flash_bwd_dkv(q, k, v, do, lse, di, **kw)
+    zero = torch.zeros((b, s), dtype=torch.int32, device=cuda)
+    pos = torch.arange(s, dtype=torch.int32, device=cuda).expand(b, s)
+    refs = bwd_mod.dkv_reference(
+        q, k, v, do, lse, bwd_mod.di_reference(o, do),
+        segs=(zero, zero, pos.contiguous(), pos.contiguous()), **kw)
+    for name, x, ref in zip(("dk", "dv"), (dk, dv), refs):
+        assert_metrics(f"{name}[wide repeats {case}, d{d}]", x, ref,
+                       _ulp_tols(BWD_BF16_TOLS, ref))
+    seg = torch.arange(b * s, dtype=torch.int32, device=cuda)[None] // s
+    ps = torch.arange(b * s, dtype=torch.int32, device=cuda)[None] % s
+    flat = [x.reshape(1, b * s, *x.shape[2:]) for x in (q, k, v, do)]
+    lse_p = lse.transpose(0, 1).reshape(1, group, b * s).contiguous()
+    di_p = di.transpose(0, 1).reshape(1, group, b * s).contiguous()
+    differ = []
+    for i in range(DKV_WIDE_REPEATS):
+        got = bwd_mod.flash_bwd_dkv(q, k, v, do, lse, di, **kw)
+        packed = bwd_mod.flash_bwd_dkv(*flat, lse_p, di_p,
+                                       segs=(seg, seg, ps, ps), **kw)
+        for how, x, y in (("dense", *got), ("packed", *packed)):
+            if not (torch.equal(x.view(dk.shape), dk)
+                    and torch.equal(y.view(dv.shape), dv)):
+                differ.append((i, how))
+    assert not differ, differ
+
+
 @pytest.mark.gpu
 def test_backward_above_256_raises(cuda):
     """d 257-512 train on the card: ``bwd`` and the autograd backward launch

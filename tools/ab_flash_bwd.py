@@ -1,24 +1,35 @@
 #!/usr/bin/env python3
 """Time sets of the port's backward kernels against each other on one card.
 
-    python3 tools/ab_flash_bwd.py NAME=DIR [NAME=DIR ...]
+    python3 tools/ab_flash_bwd.py [--wide] NAME=DIR [NAME=DIR ...]
 
-Each DIR holds ``flash_bwd_di.cu``, ``flash_bwd_dq.cu`` and
-``flash_bwd_dkv.cu`` with the C interfaces of those in
+Each DIR holds the backward's sources (``flash_bwd_di.cu``,
+``flash_bwd_dq.cu``, ``flash_bwd_dq_wide.cu``, ``flash_bwd_dkv.cu``,
+``flash_bwd_dkv_wide.cu``) with the C interfaces of those in
 ``flash_attention_tpu_torch/csrc/`` and the headers they include; a DIR
-that lacks one of the three takes the package's. A DIR may also hold the
+that lacks one takes the package's. A DIR may also hold the
 ``ops/flash_bwd.py`` whose wrappers call those interfaces, as
 ``flash_bwd.py``: its ``flash_bwd`` then runs that set (an earlier
 revision's interfaces may differ). To compare with an earlier revision,
 copy its sources into a directory that git ignores:
 
     mkdir -p build/old && for f in flash_bwd_di.cu flash_bwd_dq.cu \\
-        flash_bwd_dkv.cu flash_common.cuh hopper_common.cuh; do
+        flash_bwd_dq_wide.cu flash_bwd_dkv.cu flash_bwd_dkv_wide.cu \\
+        flash_bwd_dq_common.cuh flash_bwd_dkv_common.cuh \\
+        flash_common.cuh hopper_common.cuh; do
       git show REV:flash_attention_tpu_torch/csrc/$f > build/old/$f; done
     git show REV:flash_attention_tpu_torch/ops/flash_bwd.py \\
         > build/old/flash_bwd.py
     python3 tools/ab_flash_bwd.py old=build/old \\
         new=flash_attention_tpu_torch/csrc
+
+``--wide`` runs only the d-384/512 cells instead: the dK/dV kernel at
+h64/1 bf16 (DeepSeek-V4-Flash's attention geometry), the training shape b2
+s2048 and b1 s4096, causal, each set held to the plain version
+(``dkv_reference``, blocked a GQA group and 512 query rows at a time) at
+the bf16 backward gates with atol no tighter than one ulp of the output's
+largest magnitude (two revisions may sum the group in different orders, so
+not bit for bit), then timed in turns a b .. b a.
 
 Every set is built with the port's flags (its ``-Xptxas -v`` register,
 spill and C75xx lines printed), and its dq, dk and dv are compared with the
@@ -35,6 +46,7 @@ from __future__ import annotations
 
 import importlib.util
 import inspect
+import math
 import pathlib
 import subprocess
 import sys
@@ -51,6 +63,11 @@ B, S, H, HK = 2, 2048, 32, 8
 SEG_BATCH = 8  # packed sequences of S tokens in the segmented cell
 DIMS = (64, 128)  # the head dims whose instances are compared
 PARTS = {"di": "DI_KERNEL", "dq": "DQ_KERNEL", "dkv": "DKV_KERNEL"}
+# --wide: (b, s) of the causal cells at h64/1, and the gates
+WIDE_H, WIDE_HK = 64, 1
+WIDE_CELLS = ((2, 2048), (1, 4096))
+WIDE_DIMS = (512, 384)
+BWD_BF16_TOLS = {"atol": 4e-2, "mean_atol": 2e-3, "mean_rtol": 2e-1}
 
 
 def time_ms(fn, iters: int = 30) -> float:
@@ -72,6 +89,7 @@ def load_wrapper(path: pathlib.Path, name: str):
     kernels and their interfaces."""
     spec = importlib.util.spec_from_file_location(f"ab_bwd_{name}", path)
     mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod  # dataclasses look their module up there
     spec.loader.exec_module(mod)
     return mod
 
@@ -84,18 +102,25 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip().splitlines()[0]
     print(card)
+    args = sys.argv[1:]
+    wide = "--wide" in args
     sets = {}
-    for name, path in (arg.split("=", 1) for arg in sys.argv[1:]):
+    for name, path in (a.split("=", 1) for a in args if a != "--wide"):
         src = pathlib.Path(path).resolve()
         wrapper = src / "flash_bwd.py"
         mod = load_wrapper(wrapper if wrapper.exists()
                            else pathlib.Path(fb.__file__), name)
         for attr in PARTS.values():
             pkg = getattr(mod, attr)
-            own = src / pkg.sources[0].name
-            setattr(mod, attr, _build.Kernel(
-                f"ab_{name}_{attr.lower()}",
-                str(own if own.exists() else pkg.sources[0]), pkg.argtypes))
+            own = tuple(str(src / p.name if (src / p.name).exists() else p)
+                        for p in pkg.sources)
+            # the package's kernel name (the wrappers derive their C entry
+            # points from it), each set's libraries under names of its own
+            kern = _build.Kernel(pkg.name, own, pkg.argtypes)
+            paths = [p.with_name(f"ab_{name}_{p.name}")
+                     for p in kern.lib_paths()]
+            kern.lib_paths = lambda paths=paths: paths
+            setattr(mod, attr, kern)
         sets[name] = mod
     built = [getattr(m, a) for m in sets.values() for a in PARTS.values()]
     for name, log in _build.build(built, ptxas_verbose=True).items():
@@ -106,6 +131,8 @@ def main() -> int:
 
 
     dev = torch.device("cuda")
+    if wide:
+        return run_wide(sets, dev, card)
     g = torch.Generator(device=dev).manual_seed(0)
 
     def rnd(*shape):
@@ -172,6 +199,56 @@ def main() -> int:
                             for n, r in times.items())
             print(f"{part} segmented {SEG_BATCH} x {S} packed causal "
                   f"h{H}/{HK} d{d}: {row} [{card}]")
+    return 0
+
+
+def run_wide(sets, dev, card) -> int:
+    """The --wide cells: each set's dk and dv against the plain version,
+    then the dK/dV kernel timed in turns."""
+    from flash_attention_tpu_torch.utils.metrics import assert_metrics
+    g = torch.Generator(device=dev).manual_seed(1)
+    for d in WIDE_DIMS:
+        for b, s in WIDE_CELLS:
+            q, k, v, do = (torch.randn(shape, generator=g, device=dev)
+                           .to(torch.bfloat16)
+                           for shape in ((b, s, WIDE_H, d),
+                                         (b, s, WIDE_HK, d),
+                                         (b, s, WIDE_HK, d),
+                                         (b, s, WIDE_H, d)))
+            kw = dict(causal=True, sm_scale=d**-0.5)
+            o, lse = fm.flash_fwd(q, k, v, **kw)
+            di = fb.flash_bwd_di(o, do)
+            zero = torch.zeros((b, s), dtype=torch.int32, device=dev)
+            pos = torch.arange(s, dtype=torch.int32,
+                               device=dev).expand(b, s).contiguous()
+            refs = fb.dkv_reference(q, k, v, do, lse, fb.di_reference(o, do),
+                                    segs=(zero, zero, pos, pos), **kw)
+            cell = f"dkv b{b} s{s} h{WIDE_H}/{WIDE_HK} d{d} causal"
+            for name, mod in sets.items():
+                got = mod.flash_bwd_dkv(q, k, v, do, lse, di, **kw)
+                again = mod.flash_bwd_dkv(q, k, v, do, lse, di, **kw)
+                for part, x, ref in zip(("dk", "dv"), got, refs):
+                    top = float(ref.abs().max())
+                    ulp = torch.finfo(ref.dtype).eps * 2.0 ** math.floor(
+                        math.log2(top)) if top else 0.0
+                    m = assert_metrics(
+                        f"{name} {cell} {part}", x, ref,
+                        {**BWD_BF16_TOLS,
+                         "atol": max(BWD_BF16_TOLS["atol"], ulp)})
+                    print(f"{name} {cell} {part}: {m}; two runs "
+                          f"bit-identical: "
+                          f"{all(torch.equal(a, c) for a, c in zip(got, again))}")
+            del refs
+            times = {n: [] for n in sets}
+            for name in list(sets) + list(sets)[::-1]:
+                mod = sets[name]
+                times[name].append(time_ms(
+                    lambda: mod.flash_bwd_dkv(q, k, v, do, lse, di, **kw), 5))
+            row = ", ".join(f"{n} {' / '.join(f'{t:.4f}' for t in r)} ms"
+                            for n, r in times.items())
+            print(f"{cell}: {row} [{card}]")
+            del q, k, v, do, o, lse, di
+            torch.cuda.empty_cache()
     return 0
 
 
