@@ -104,13 +104,14 @@ drives the two paths on two models with random bf16 weights, full width:
   (``check_head_dim_512``) and of the backward's D, dq and dkv
   (``check_bwd_wide``: causal, non-causal, the window, the softcap, the
   training shape, packed rows bit for bit against the dense call, sk = 1
-  exactly 0, d 320 padded to 384; the dkv's plan of units and its time
-  beside the earlier column-split design's; the forward's time at the
-  training shape), then Llama-3-8B's structure at that
+  exactly 0, d 320 padded to 384; the dkv's plan of units; the forward
+  at the training shape against its plain version), then Llama-3-8B's
+  structure at that
   attention geometry served at 4 layers, its logits at 2 layers card
   against CPU (``serve_d512``), and trained at 4 layers on 2 x 2048 after
   its loss and gradients at 2 layers card against CPU (``train_d512``,
-  with its step time and the dkv's share of the profiled step;
+  with its step time and the forward's, D's, dq's and dkv's shares of the
+  profiled step;
   ``python3 chip_smoke.py head_dim_512`` runs the build and these four
   alone, without the result lines);
 * chunked prefill: the Llama-3-8B weights served with Mistral's traffic
@@ -481,8 +482,11 @@ def _sass_counts(build, kernel) -> dict[str, dict[str, int]]:
         name = part.split(None, 1)[0]
         tmpl = re.search(r"kernel(I.*)EEv", name)
         key = tmpl.group(1) if tmpl else name
-        # a second kernel behind the same C entry (a reduction of partials)
-        counts[("reduce " if "reduce_kernel" in name else "") + key] = {
+        # a second kernel behind the same C entry (a reduction of partials),
+        # or a second design of a kernel in a source of its own (dq's pair)
+        prefix = ("reduce " if "reduce_kernel" in name else
+                  "pair " if "pair_kernel" in name else "")
+        counts[prefix + key] = {
             op: part.count(op) for op in ("HGMMA", "UTMALDG")}
     return counts
 
@@ -492,8 +496,11 @@ def _sass_counts(build, kernel) -> dict[str, dict[str, int]]:
 # no-softcap instance (template argument CAP false, "Lb0E") must keep them,
 # and each softcap instance must hold both ops. The d-256 instances' counts
 # are those of their own tile designs, and so are the d-384 and 512 ones
-# (flash_fwd_wide.cu: S over d/16 k-steps once, P V once in each consumer;
-# Q, K and V d/64 boxes each. paged_attention_wide.cu: the same products;
+# (flash_fwd_wide.cu: S over d/16 k-steps three times and P V three times
+# in consumer 0 (the overlapped order's first S, loop and last product, the
+# windowed order's loop), once in consumer 1; Q and K d/64 boxes each and
+# V's in one loop over a column half's boxes. paged_attention_wide.cu: S
+# once and P V once in each consumer;
 # a K and a V load in the producer's loop over the d/64 boxes, which is
 # not unrolled, for each of a lane's two box slots. flash_bwd_dq_wide.cu:
 # the two m64n32 chains over d/16 k-steps and the two k16 steps of each
@@ -507,27 +514,43 @@ def _sass_counts(build, kernel) -> dict[str, dict[str, int]]:
 # the same products and loads, so their no-softcap instances must show the
 # same.
 SASS_NO_CAP = {"flash_fwd": {64: (24, 3), 128: (32, 6), 256: (40, 12),
-                             384: (32, 18), 512: (40, 24)},
+                             384: (88, 19), 512: (112, 20)},
                "flash_bwd_dq": {64: (24, 4), 128: (40, 8), 256: (72, 16),
                                 384: (52, 24), 512: (68, 32)},
                "flash_bwd_dkv": {64: (16, 4), 128: (24, 8), 256: (40, 16),
                                  384: (136, 12), 512: (176, 16)},
                "paged_attention": {64: (8, 4), 128: (12, 8), 256: (20, 16),
                                    384: (32, 4), 512: (40, 4)}}
+# dq's pair of CTAs (flash_bwd_dq_pair.cu, no softcap instance; its two CTAs
+# take one of two branches): the S-CTA's and the dP-CTA's m64n32 chains
+# over d/16 k-steps (A from registers) and the two k16 steps of the dQ
+# half product; the Q or dO tile's d/64 boxes, K's two column halves (one
+# multicast) and V's d/64 boxes, by head dim.
+SASS_DQ_PAIR = {384: (50, 18), 512: (66, 24)}
 
 
 SEG_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 
 
 def _check_cap_instances(name, per_fn):
-    """Hold each instance of an attention kernel to SASS_NO_CAP. The paged
-    kernel's last template argument is its page type (0: q's; 1 int8 and 2
-    fp8, bf16 q only); its quantized instances are new designs, held only
-    to having wgmma and TMA."""
+    """Hold each instance of an attention kernel to SASS_NO_CAP, and dq's
+    pair (flash_bwd_dq_pair.cu, no softcap instance) to SASS_DQ_PAIR. The
+    paged kernel's last template argument is its page type (0: q's; 1 int8
+    and 2 fp8, bf16 q only); its quantized instances are new designs, held
+    only to having wgmma and TMA."""
     seen = []
+    pairs = 0
     paged = name == "paged_attention"
     for fn, c in per_fn.items():
         if fn.startswith("reduce "):  # no wgmma, no TMA: a sum of partials
+            continue
+        if fn.startswith("pair "):
+            m = re.fullmatch(r"pair I\w+?Li(\d+)ELb([01])E", fn)
+            assert m and name == "flash_bwd_dq", f"{name}: unexpected {fn}"
+            want = SASS_DQ_PAIR[int(m.group(1))]
+            got = (c["HGMMA"], c["UTMALDG"])
+            assert got == want, f"{name} {fn}: SASS counts {got}, not {want}"
+            pairs += 1
             continue
         m = re.fullmatch(r"I\w+?Li(\d+)ELb([01])E(?:Lb([01])E)?"
                          r"(?:Li([012])E)?", fn)
@@ -542,6 +565,9 @@ def _check_cap_instances(name, per_fn):
         seen.append(m.groups())
     per_d = 2 * 2 * (2 if name in SEG_KERNELS or paged else 1)
     assert len(seen) == per_d * len(SASS_NO_CAP[name]), (name, seen)
+    # the pair: fp16 and bf16, dense and segmented, at d 384 and 512
+    assert pairs == (2 * 2 * len(SASS_DQ_PAIR)
+                     if name == "flash_bwd_dq" else 0), (name, pairs)
 
 
 def _prompts(vocab: int, lens=None):
@@ -2528,7 +2554,7 @@ _KERNEL_GROUPS = (("flash_fwd", "flash_fwd_(wide_)?kernel"),
                   ("qmm", "qmm_kernel|qmm_reduce_kernel"),
                   ("gmm_dw", "gmm_dw_kernel"),
                   ("flash_bwd_di", "flash_bwd_di_kernel"),
-                  ("flash_bwd_dq", "flash_bwd_dq_(wide_)?kernel"),
+                  ("flash_bwd_dq", "flash_bwd_dq_(wide_|pair_)?kernel"),
                   ("flash_bwd_dkv",
                    "flash_bwd_dkv_(wide_)?kernel|dkv_wide_reduce_kernel"),
                   ("kv_write", "kv_write_kernel|kv_write_quant_kernel"),
@@ -5300,16 +5326,6 @@ D512_BWD_CASES = (
 )
 
 
-# The wide dkv's times before its redesign as a two-CTA cluster (one CTA a
-# half of dK's and dV's columns; the earlier times of PERF.md section 6,
-# row 4, on an H100 80GB HBM3 at 700 W): printed beside this run's, by
-# (d, D512_BWD_CASES label).
-DKV_WIDE_EARLIER_MS = dict(zip(
-    [(d, case[0]) for d in (512, 384) for case in D512_BWD_CASES],
-    (21.0513, 11.8007, 1.1350, 11.9359, 11.5134,
-     12.5608, 6.2052, 0.6463, 6.5853, 6.2634)))
-
-
 def _dkv_wide_plan_line(fb, dev, d, b, s, causal, window):
     """The wide dkv's plan at this case, in one line: clusters, units, the
     head ranges of the split key blocks, the busiest cluster's tiles over
@@ -5364,8 +5380,8 @@ def _check_bwd_wide_case(torch, g, dev, d, label, b, s, causal, window, cap,
     against its plain version (the blocked float64 chain from the plain D,
     at _ulp_tols of BWD_TOLS: dV sums 64 heads into each key), two runs
     bit-identical, each timed beside its plain version, its bound and the
-    library. Returns the inputs and outputs (the packed check reuses the
-    training shape's)."""
+    library; at the training shape the forward too. Returns the inputs and
+    outputs (the packed check reuses the training shape's)."""
     from flash_attention_tpu_torch.ops import flash_bwd as fb
     from flash_attention_tpu_torch.ops import flash_fwd as fm
     from flash_attention_tpu_torch.ops.reference import _build_mask
@@ -5437,18 +5453,29 @@ def _check_bwd_wide_case(torch, g, dev, d, label, b, s, causal, window, cap,
             "ms": ms, "plain_ms": plain, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": lib_ms, "library": what,
             "max_abs_err": m.max_abs}
-    was = DKV_WIDE_EARLIER_MS[(d, label)]
-    print(f"flash_bwd_dkv d{d} {label}: {dkv_ms:.4f} ms against the "
-          f"column-split design's {was:.4f} ms ({was / dkv_ms:.2f}x; PERF.md "
-          f"row 4, H100 80GB HBM3 at 700 W); plan: "
+    print(f"flash_bwd_dkv d{d} {label}: plan: "
           f"{_dkv_wide_plan_line(fb, dev, d, b, s, causal, window)} [{card}]")
-    if b > 1:  # the training shape: the wide forward there, for the record
+    if label.startswith("training shape"):
+        # the wide forward at train_d512's shape, held to its plain version
+        o_r, lse_r = fm.flash_fwd_segmented_reference(q, k, v, segs, **kw)
+        m = assert_metrics(f"flash_fwd d{d} {label}", o, o_r, O_TOLS)
+        assert_metrics(f"flash_fwd d{d} {label} lse", lse, lse_r, LSE_TOLS)
+        del o_r, lse_r
         fwd_ms = _time_ms(torch, lambda: fm.flash_fwd(q, k, v, **kw), 10)
+        plain = _time_ms(torch, lambda: fm.flash_fwd_segmented_reference(
+            q, k, v, segs, **kw), 1, warmup=0)
+        lib, lib_what = _sdpa_wide(torch, q, k, v, causal)
         fwd_bound, fwd_by = _bound(4.0 * d * pairs, 2 * (
             q.numel() + k.numel() + v.numel() + o.numel()) + 4 * lse.numel())
-        print(f"flash_fwd d{d} {label} h{h}/{hk}: kernel {fwd_ms:.4f} ms "
-              f"({fwd_bound / fwd_ms:.1%} of the bound {fwd_bound:.4f} ms, "
-              f"{fwd_by}; timed only) [{card}]")
+        print(f"flash_fwd d{d} {label} h{h}/{hk}: {m}; kernel {fwd_ms:.4f} "
+              f"ms ({fwd_bound / fwd_ms:.1%} of the bound {fwd_bound:.4f} ms, "
+              f"{fwd_by}), plain {plain:.3f} ms, library "
+              f"{'n/a' if lib is None else f'{lib:.4f} ms'} ({lib_what}) "
+              f"[{card}]")
+        out["flash_fwd"][f"d{d} {label}"] = {
+            "ms": fwd_ms, "plain_ms": plain, "bound_ms": fwd_bound,
+            "bound_by": fwd_by, "library_ms": lib, "library": lib_what,
+            "max_abs_err": m.max_abs}
     return q, k, v, o, lse, do, (dq, dk, dv)
 
 
@@ -5458,7 +5485,8 @@ def check_bwd_wide(torch, dev, card):
     their plain versions, timed; the training shape's two rows packed
     through segments, bit-identical to the dense call; sk = 1, where dq and
     dk are exactly 0; d 320 through ``bwd`` (padded to 384, one launch of
-    each kernel). Returns {kernel: {"d512 ...": numbers}}."""
+    each kernel); the forward at the training shape against its plain
+    version. Returns {kernel: {"d512 ...": numbers}}."""
     from flash_attention_tpu_torch.ops import attention
     from flash_attention_tpu_torch.ops import flash_bwd as fb
     from flash_attention_tpu_torch.ops import flash_fwd as fm
@@ -5466,7 +5494,8 @@ def check_bwd_wide(torch, dev, card):
     t0 = time.perf_counter()
     g = torch.Generator(device=dev).manual_seed(SEED + 41)
     h, hk = V4_ATTN["n_heads"], V4_ATTN["n_kv_heads"]
-    out = {"flash_bwd_di": {}, "flash_bwd_dq": {}, "flash_bwd_dkv": {}}
+    out = {"flash_bwd_di": {}, "flash_bwd_dq": {}, "flash_bwd_dkv": {},
+           "flash_fwd": {}}
     for d in (512, 384):
         scale = d**-0.5
         for case in D512_BWD_CASES:
@@ -5491,7 +5520,7 @@ def check_bwd_wide(torch, dev, card):
         print(f"flash_bwd d{d} segmented: {n} packed causal sequences of {s} "
               f"bit-identical to the dense b{n} s{s} call; D + dq + dkv "
               f"{ms:.4f} ms against {dense_ms:.4f} ms [{card}]")
-        for name in out:
+        for name in ("flash_bwd_di", "flash_bwd_dq", "flash_bwd_dkv"):
             out[name][f"d{d} packed {n} x {s} causal"] = {
                 "ms_backward": ms, "ms_backward_dense": dense_ms,
                 "max_abs_err": 0.0}
@@ -5529,7 +5558,7 @@ def check_bwd_wide(torch, dev, card):
     print(f"bwd d320 (zero-padded to 384) b1 s{s} causal h{h}/{hk}: dq "
           f"{errs[0]}; dk {errs[1]}; dv {errs[2]}; one launch of each "
           f"kernel; bwd {ms:.4f} ms, padding included [{card}]")
-    for name in out:
+    for name in ("flash_bwd_di", "flash_bwd_dq", "flash_bwd_dkv"):
         out[name][f"d320 (at 384) b1 s{s} causal"] = {
             "ms_backward": ms, "max_abs_err": max(m.max_abs for m in errs)}
     del q, k, v, do, o, lse, dq, dk, dv, want
@@ -5563,13 +5592,17 @@ def train_d512(torch, dev, card, kernels):
     print(f"train_d512: {_weight_bytes(params)}")
     launches = train(torch, params, cfg, card, kernels, model, lr=D512_LR)
     prof = PROFILED.get(model)
-    share = ("not measured (the profiler saw no device activity)"
-             if prof is None else
-             f"flash_bwd_dkv {prof['groups']['flash_bwd_dkv']:.3f} ms = "
-             f"{prof['groups']['flash_bwd_dkv'] / sum(prof['groups'].values()):.1%}"
-             f" of the profiled step's device time "
-             f"{sum(prof['groups'].values()):.3f} ms (wall {prof['wall']:.3f}"
-             f" ms)")
+    if prof is None:
+        share = "shares not measured (the profiler saw no device activity)"
+    else:
+        busy = sum(prof["groups"].values())
+        share = "; ".join(
+            f"{name} {prof['groups'][name]:.3f} ms = "
+            f"{prof['groups'][name] / busy:.1%}"
+            for name in ("flash_fwd", "flash_bwd_di", "flash_bwd_dq",
+                         "flash_bwd_dkv"))
+        share += (f" of the profiled step's device time {busy:.3f} ms (wall "
+                  f"{prof['wall']:.3f} ms)")
     print(f"train_d512: step {STEP_MS[model]:.3f} ms (steady mean); {share} "
           f"[{card}]")
     del params

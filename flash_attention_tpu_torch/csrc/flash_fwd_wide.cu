@@ -12,24 +12,37 @@
 // 512 fp32 / 128 threads = 256 registers a thread, and its 128-row Q tile
 // and one 64-row stage of K and V would take 256 KB of shared memory.
 //
-// What bounds it on the H100: the tensor cores, as at d 128 (4 d FLOP a
-// score against a few bytes a score), though with 64 query rows a CTA each
-// K/V byte brought in feeds only 64 FLOP, so at d 512 the loads (mostly L2
-// hits: every CTA of a kv head reads the same K and V) come close to the
-// products' time.
+// What bounds it on the H100: shared memory's bandwidth, before the tensor
+// cores (4 d FLOP a score). A 64 x 64 tile at d 512 writes K and V into
+// shared memory (128 KB), and its products read them (128 KB) and Q (64
+// KB: S's A operand, read anew for each tile) and P (16 KB): about 344 KB a
+// tile against the SM's 128 bytes a clock, about 1.6 us at 1.755 GHz, where
+// the products alone take about 1.2 (tools/probe_wgmma.py: an m64n64k16
+// chain from shared memory runs at the tensor cores' rate only when it has
+// the bandwidth to itself). Q cannot move into registers: 128 a thread at
+// d 512 beside the 128 of O's half a consumer holds.
 //
 // What the design does about it (FlashMLA's split of O by columns):
-// * A CTA owns 64 query rows and runs three warpgroups. Warpgroup 0, the
-//   producer, gives its registers away (setmaxnreg); one thread loads Q once
-//   and streams 64-row K and V tiles by TMA, K and V each in one slot with
-//   its own full and empty mbarrier, so K(j + 1) loads while P(j) V(j) runs
-//   and V(j + 1) while S(j + 1) does. Shared memory at d 512: Q 64 KB, K 64
-//   KB, V 64 KB, two P buffers 16 KB.
+// * A CTA owns 64 query rows of one head and runs three warpgroups.
+//   Warpgroup 0, the producer, gives its registers away (setmaxnreg); one
+//   thread loads Q once and streams the 64-row K tiles, two more the two
+//   column halves of each V tile (one for each consumer), by TMA, each slot
+//   with its own full and empty mbarrier. Shared memory at d 512: Q 64 KB,
+//   K 64 KB, V 64 KB, two P buffers 16 KB.
+// * Where the band's left side is open, heads run fastest in the grid, so
+//   the CTAs on the card at once are the heads of a few query blocks,
+//   streaming the same K/V tiles from L2; under a window query blocks run
+//   fastest, as in flash_fwd.cu.
 // * Consumer 0 computes S = Q K^T (m64n64, k over d; both K-major in shared
 //   memory) and the online softmax once, for all 64 rows (the softmax of
 //   flash_fwd_common.cuh), then writes P, rounded to the input type, and
 //   each row's rescale factor alpha into one of two P buffers in shared
-//   memory.
+//   memory. Where the band's left side is open (causal, or no band: rows of
+//   many tiles) it issues S(j + 1) before its half of P(j) V(j) and runs
+//   the softmax of tile j + 1 while that product runs (FA3's overlap within
+//   a warpgroup; P(j) is already in shared memory, so no second score
+//   register set is needed); under a window (a few tiles a row) it takes
+//   each tile in turn, so that P(j) V(j) runs while K(j + 1) loads.
 // * The two consumers each own half of O's columns: n192 at d 384, n256 at
 //   d 512, 96 or 128 fp32 registers a thread. Each rescales its half by
 //   alpha and issues O_half += P V_half with both operands in shared memory
@@ -37,8 +50,7 @@
 // * Hand-off by named barriers: consumer 0 arrives on READY(buf) when P(j)
 //   and alpha(j) are in buffer j % 2; consumer 1 waits on it, and arrives on
 //   FREE(buf) once its product has read the buffer, which consumer 0 waits
-//   for before it writes P(j + 2) there. Two buffers, so consumer 0's S and
-//   softmax of tile j + 1 run while consumer 1's P(j) V(j) does.
+//   for before it writes P(j + 2) there.
 // * KV tiles wholly outside the band are never loaded, and only tiles that
 //   cross an edge of the band (or sk) are masked, one warp's 16 rows at a
 //   time, as in flash_fwd.cu. The segmented instance (SEG) reads its tile
@@ -51,11 +63,15 @@
 //
 // Exactness as in flash_fwd.cu: scores are rounded in the log2 domain
 // before the max is subtracted, so a row with one live key gets O equal to
-// that V row bit for bit.
+// that V row bit for bit. Both orders run the same chains and softmax on
+// the same values, so O and LSE do not depend on the instance.
 //
-// Left for later work: overlap within consumer 0 (S(j + 1) with its own P(j)
-// V(j)), deeper K/V rings with 32-row tiles, and two-CTA clusters sharing K
-// and V by TMA multicast, which would double the FLOP a loaded byte feeds.
+// Tried and not kept (PERF.md, row 1): clusters of 2 and 4 CTAs on heads of
+// one kv head sharing each K/V tile by multicast loads (the L2's bytes a
+// CTA halved or quartered: slower on every row), the K slot released in
+// four parts, and S with Q in registers in a warpgroup of its own (512
+// threads leave 128 registers a thread, fewer than the m64n256
+// accumulator's wgmma needs).
 
 #include "flash_common.cuh"
 #include "flash_fwd_common.cuh"
@@ -86,7 +102,8 @@ struct Smem {
   static constexpr int ALPHA_OFF = P_OFF + 2 * P_BYTES;  // [2][BLOCK_M] fp32
   static constexpr int INV_OFF = ALPHA_OFF + 2 * BLOCK_M * 4;  // [BLOCK_M]
   static constexpr int BAR_OFF = INV_OFF + BLOCK_M * 4;
-  static constexpr int N_BARS = 5;  // q; k, v full; k, v empty
+  // q; k full; v full (each column half); k empty; v empty (each half)
+  static constexpr int N_BARS = 7;
   // SEG: the K slot's kv ids, positions and their fat::SegSpan (int32)
   static constexpr int META_OFF = BAR_OFF + N_BARS * 8;
   static constexpr int META_INTS = SEG ? 2 * BLOCK_N + 4 : 0;
@@ -160,18 +177,24 @@ flash_fwd_wide_kernel(const __grid_constant__ CUtensorMap q_map,
                       float scale_log2, int left, int right, float cap_scale,
                       float cap_log2, float empty_lse, const fat::Seg seg) {
   using L = Smem<D, SEG>;
-  constexpr int DH = D / 2;  // O columns a consumer owns
+  constexpr int DH = D / 2;   // O columns a consumer owns
+  constexpr int NB = D / BOX;  // boxes of a K or V tile
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (hop::smem_u32(smem_raw) & 1023)) & 1023);
   uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
   uint64_t* k_full = q_full + 1;
-  uint64_t* v_full = q_full + 2;
-  uint64_t* k_empty = q_full + 3;
-  uint64_t* v_empty = q_full + 4;
+  uint64_t* v_full = q_full + 2;  // [2]
+  uint64_t* k_empty = q_full + 4;
+  uint64_t* v_empty = q_full + 5;  // [2]
 
-  // longest causal rows first: the last query block has the most kv tiles
-  const int m_block = gridDim.x - 1 - blockIdx.x;
-  const int head = blockIdx.y;
+  // where the band's left side is open (rows of many tiles) heads run
+  // fastest, so the CTAs on the card at once share K/V tiles; under a
+  // window query blocks do. Either way they run longest causal rows first
+  // (the last block has the most tiles)
+  const bool open = left >= fat::UNBOUNDED;
+  const int head = open ? blockIdx.x : blockIdx.y;
+  const int n_m = open ? gridDim.y : gridDim.x;  // query blocks
+  const int m_block = n_m - 1 - (open ? blockIdx.y : blockIdx.x);
   const int batch = blockIdx.z;
   const int m_lo = m_block * BLOCK_M;
   const int off = sk - sq;  // lower-right offset of the band
@@ -181,7 +204,7 @@ flash_fwd_wide_kernel(const __grid_constant__ CUtensorMap q_map,
     n_end = min(sk, min(m_lo + BLOCK_M, sq) + off + right);
   int seg_lo = 0, seg_n = 0;
   if constexpr (SEG) {
-    const int blk = batch * gridDim.x + m_block;
+    const int blk = batch * n_m + m_block;
     seg_lo = seg.lo[blk];
     seg_n = max(0, seg.hi[blk] - seg_lo + 1);
   }
@@ -197,63 +220,68 @@ flash_fwd_wide_kernel(const __grid_constant__ CUtensorMap q_map,
   if (threadIdx.x == 0) {
     hop::mbar_init(q_full, 1);
     hop::mbar_init(k_full, SEG ? 1 + 32 : 1);  // SEG: the meta warp
-    hop::mbar_init(v_full, 1);
     hop::mbar_init(k_empty, 4);  // consumer 0's warps
-    hop::mbar_init(v_empty, 8);  // every consumer warp
+    for (int w = 0; w < 2; ++w) {
+      hop::mbar_init(&v_full[w], 1);
+      hop::mbar_init(&v_empty[w], 4);  // consumer w's warps
+    }
     hop::mbar_fence_init();
   }
   __syncthreads();
 
   if (role == 0) {
-    // ---- producer ----
+    // ---- producer: Q and K (warp 0), SEG metadata (warp 1), V's column
+    // halves (warps 2 and 3) ----
     hop::setmaxnreg_dec<PRODUCER_REGS>();
+    const int kvh = head / group;
+    const int warp = threadIdx.x / 32;
     if (threadIdx.x == 0) {
       hop::prefetch_map(&q_map);
       hop::prefetch_map(&k_map);
-      hop::prefetch_map(&v_map);
-      const int kvh = head / group;
       hop::mbar_expect_tx(q_full, L::Q_BYTES);
 #pragma unroll
-      for (int c = 0; c < D / BOX; ++c)
+      for (int c = 0; c < NB; ++c)
         hop::tma_load_4d(smem + c * BLOCK_M * ROW, &q_map, q_full, c * BOX,
                          head, m_lo, batch);
       for (int j = 0; j < n_tiles; ++j) {
-        const uint32_t prev = (j - 1) & 1;  // tile j - 1's phase
-        if (j > 0) hop::mbar_wait(k_empty, prev);
+        if (j > 0) hop::mbar_wait(k_empty, (j - 1) & 1);
         hop::mbar_expect_tx(k_full, L::KV_BYTES);
-#pragma unroll
-        for (int c = 0; c < D / BOX; ++c)
-          hop::tma_load_4d(smem + L::K_OFF + c * BLOCK_N * ROW, &k_map, k_full,
-                           c * BOX, kvh, (t_begin + j) * BLOCK_N, batch);
-        if (j > 0) hop::mbar_wait(v_empty, prev);
-        hop::mbar_expect_tx(v_full, L::KV_BYTES);
-#pragma unroll
-        for (int c = 0; c < D / BOX; ++c)
-          hop::tma_load_4d(smem + L::V_OFF + c * BLOCK_N * ROW, &v_map, v_full,
-                           c * BOX, kvh, (t_begin + j) * BLOCK_N, batch);
+        for (int c = 0; c < NB; ++c)
+          hop::tma_load_4d(smem + L::K_OFF + c * BLOCK_N * ROW, &k_map,
+                           k_full, c * BOX, kvh, (t_begin + j) * BLOCK_N,
+                           batch);
       }
-    } else if constexpr (SEG) {
-      if (threadIdx.x / 32 == 1) {
-        // each kv tile's ids, positions and span into the K slot's metadata,
-        // read from global memory a tile ahead of the slot's release
-        constexpr int PER = BLOCK_N / 32;
-        const int lane = threadIdx.x % 32;
-        const int* kv_seg = seg.kv_seg + (long long)batch * sk;
-        const int* kv_pos = seg.kv_pos + (long long)batch * sk;
-        int ids[PER], pss[PER];
-        if (n_tiles > 0)
-          fat::seg_fetch(kv_seg, kv_pos, t_begin * BLOCK_N, sk,
+    } else if ((warp == 2 || warp == 3) && threadIdx.x % 32 == 0) {
+      const int w = warp - 2;  // V's column half, consumer w's
+      hop::prefetch_map(&v_map);
+      for (int j = 0; j < n_tiles; ++j) {
+        if (j > 0) hop::mbar_wait(&v_empty[w], (j - 1) & 1);
+        hop::mbar_expect_tx(&v_full[w], L::KV_BYTES / 2);
+        for (int c = w * NB / 2; c < (w + 1) * NB / 2; ++c)
+          hop::tma_load_4d(smem + L::V_OFF + c * BLOCK_N * ROW, &v_map,
+                           &v_full[w], c * BOX, kvh, (t_begin + j) * BLOCK_N,
+                           batch);
+      }
+    } else if (SEG && warp == 1) {
+      // each kv tile's ids, positions and span into the K slot's metadata,
+      // read from global memory a tile ahead of the slot's release
+      constexpr int PER = BLOCK_N / 32;
+      const int lane = threadIdx.x % 32;
+      const int* kv_seg = seg.kv_seg + (long long)batch * sk;
+      const int* kv_pos = seg.kv_pos + (long long)batch * sk;
+      int ids[PER], pss[PER];
+      if (n_tiles > 0)
+        fat::seg_fetch(kv_seg, kv_pos, t_begin * BLOCK_N, sk,
+                       fat::KV_PAD_SEG, lane, ids, pss);
+      for (int j = 0; j < n_tiles; ++j) {
+        const fat::SegSpan span = fat::seg_span_of(ids, pss);
+        if (j > 0) hop::mbar_wait(k_empty, (j - 1) & 1);
+        fat::seg_store(reinterpret_cast<int*>(smem + L::META_OFF), ids, pss,
+                       span, lane);
+        hop::mbar_arrive(k_full);
+        if (j + 1 < n_tiles)
+          fat::seg_fetch(kv_seg, kv_pos, (t_begin + j + 1) * BLOCK_N, sk,
                          fat::KV_PAD_SEG, lane, ids, pss);
-        for (int j = 0; j < n_tiles; ++j) {
-          const fat::SegSpan span = fat::seg_span_of(ids, pss);
-          if (j > 0) hop::mbar_wait(k_empty, (j - 1) & 1);
-          fat::seg_store(reinterpret_cast<int*>(smem + L::META_OFF), ids, pss,
-                         span, lane);
-          hop::mbar_arrive(k_full);
-          if (j + 1 < n_tiles)
-            fat::seg_fetch(kv_seg, kv_pos, (t_begin + j + 1) * BLOCK_N, sk,
-                           fat::KV_PAD_SEG, lane, ids, pss);
-        }
       }
     }
     return;
@@ -303,18 +331,21 @@ flash_fwd_wide_kernel(const __grid_constant__ CUtensorMap q_map,
                               max(sr.pos[0], sr.pos[1]));
     }
     const int* meta = reinterpret_cast<const int*>(smem + L::META_OFF);
-    hop::mbar_wait(q_full, 0);
-    for (int j = 0; j < n_tiles; ++j) {
-      const int buf = j & 1;
+    // S(j), issued once K(j) has arrived
+    auto scores = [&](int j) {
       hop::mbar_wait(k_full, j & 1);
       issue_qk<T, D>(sc, q_s, k_s);
-      hop::wgmma_wait<0>();
+    };
+    // S(j) once it has been waited for: the softmax (the K slot released
+    // before it, or with SEG after it: the slot holds the tile's ids), then
+    // P(j) and alpha(j) into buffer j % 2 for consumer 1
+    auto softmax_publish = [&](int j) {
       hop::fence_regs(sc);
-      // SEG: the K slot holds the tile's ids until its softmax is done
       if (!SEG && lane == 0) hop::mbar_arrive(k_empty);
       softmax_tile<CAP, SEG, BLOCK_N>(sc, m_r, l_r, alpha,
                                       (t_begin + j) * BLOCK_N, rw, sr, meta);
       if (SEG && lane == 0) hop::mbar_arrive(k_empty);
+      const int buf = j & 1;
       // buffer buf was last read by consumer 1's P(j - 2) V(j - 2)
       if (j >= 2) hop::named_sync(BAR_FREE + buf, 256);
       store_p<T>(smem + L::P_OFF + buf * L::P_BYTES, sc, warp, g, t);
@@ -325,11 +356,48 @@ flash_fwd_wide_kernel(const __grid_constant__ CUtensorMap q_map,
       hop::fence_async_smem();  // P is read by wgmma (async proxy)
       hop::named_sync(BAR_C0, 128);
       hop::named_arrive(BAR_READY + buf, 256);
-      hop::mbar_wait(v_full, j & 1);
-      issue_pv<T, DH>(acc, alpha, p_s + buf * L::P_BYTES, v_half);
+    };
+    // this consumer's half of P(j) V(j), rescaled by alpha(j) (still in
+    // `alpha`), issued and committed; then its wait and V's release
+    auto pv = [&](int j) {
+      hop::mbar_wait(&v_full[0], j & 1);
+      issue_pv<T, DH>(acc, alpha, p_s + (j & 1) * L::P_BYTES, v_half);
+    };
+    auto pv_done = [&]() {
       hop::wgmma_wait<0>();
       hop::fence_regs(acc);
-      if (lane == 0) hop::mbar_arrive(v_empty);
+      if (lane == 0) hop::mbar_arrive(&v_empty[0]);
+    };
+    hop::mbar_wait(q_full, 0);
+    if (open) {
+      // rows of many tiles (the band's left side open): S(j + 1) goes in
+      // ahead of P(j) V(j), and its softmax runs while that product does
+      if (n_tiles > 0) {
+        scores(0);
+        hop::wgmma_wait<0>();
+        softmax_publish(0);
+      }
+      for (int j = 0; j + 1 < n_tiles; ++j) {
+        scores(j + 1);
+        pv(j);
+        hop::wgmma_wait<1>();
+        softmax_publish(j + 1);
+        pv_done();
+      }
+      if (n_tiles > 0) {
+        pv(n_tiles - 1);
+        pv_done();
+      }
+    } else {
+      // a window's few tiles a row: each tile's S, softmax and product in
+      // turn, so P(j) V(j) runs while K(j + 1) loads
+      for (int j = 0; j < n_tiles; ++j) {
+        scores(j);
+        hop::wgmma_wait<0>();
+        softmax_publish(j);
+        pv(j);
+        pv_done();
+      }
     }
     // consumer 1's releases of the last two buffers
     for (int j = max(0, n_tiles - 2); j < n_tiles; ++j)
@@ -357,11 +425,11 @@ flash_fwd_wide_kernel(const __grid_constant__ CUtensorMap q_map,
       hop::named_sync(BAR_READY + buf, 256);
       alpha[0] = alpha_s[buf * BLOCK_M + warp * 16 + g];
       alpha[1] = alpha_s[buf * BLOCK_M + warp * 16 + g + 8];
-      hop::mbar_wait(v_full, j & 1);
+      hop::mbar_wait(&v_full[1], j & 1);
       issue_pv<T, DH>(acc, alpha, p_s + buf * L::P_BYTES, v_half);
       hop::wgmma_wait<0>();
       hop::fence_regs(acc);
-      if (lane == 0) hop::mbar_arrive(v_empty);
+      if (lane == 0) hop::mbar_arrive(&v_empty[1]);
       hop::named_arrive(BAR_FREE + buf, 256);
     }
   }
@@ -419,7 +487,8 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((sq + BLOCK_M - 1) / BLOCK_M, h, b);
+  const int n_m = (sq + BLOCK_M - 1) / BLOCK_M;
+  const dim3 grid = left < 0 ? dim3(h, n_m, b) : dim3(n_m, h, b);
   kernel<<<grid, NTHREADS, bytes, stream>>>(
       qm, km, vm, om, lse, sq, sk, h, h / hk, scale_log2,
       fat::band_side(left), fat::band_side(right), cap_scale, cap_log2,

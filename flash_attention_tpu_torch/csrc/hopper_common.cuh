@@ -91,8 +91,8 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 }
 
 // ---- thread-block clusters -------------------------------------------------
-// (flash_bwd_dkv_wide.cu: two CTAs a cluster, each writing into the other's
-// shared memory)
+// (flash_bwd_dkv_wide.cu and flash_bwd_dq_pair.cu: two CTAs a cluster, each
+// writing into the other's shared memory)
 
 __device__ __forceinline__ uint32_t cluster_ctarank() {
   uint32_t r;
@@ -154,6 +154,25 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       "bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
       "r"(smem_u32(bar))
+      : "memory");
+}
+
+// tma_load_4d into every CTA of the cluster whose bit is set in `mask`: the
+// box lands at `dst`'s offset in each of them and completes its bytes on
+// the barrier at `bar`'s offset there (flash_bwd_dq_pair.cu: the half of
+// each K tile both CTAs of a pair read). Each CTA arms its own barrier
+// with every byte it expects, the peer's included.
+__device__ __forceinline__ void tma_load_4d_multicast(void* dst,
+                                                      const CUtensorMap* map,
+                                                      uint64_t* bar, int c0,
+                                                      int c1, int c2, int c3,
+                                                      uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes.multicast::cluster [%0], [%1, {%2, %3, %4, %5}], [%6], %7;\n" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "r"(smem_u32(bar)), "h"(mask)
       : "memory");
 }
 
@@ -450,9 +469,21 @@ struct Wgmma<T, 256> {
 // rs: A from registers, B K-major in shared memory: the quantized matmul's
 // dequantised weight (A, the M side) times rows of x (B) at N 8 and 16
 // (decode) and 256 (prefill); paged attention's Q (A, the GQA group's query
-// heads) times a 64-token K tile (B) at N 64.
+// heads) times a 64-token K tile (B) at N 64; the wide dQ kernel's Q or dO
+// (A) times a 32-row K or V tile (B) at N 32.
 template <typename T, int N>
 struct WgmmaRs;
+
+template <typename T>
+struct WgmmaRs<T, 32> {
+  static __device__ __forceinline__ void rs(float (&d)[16], const uint32_t (&a)[4],
+                                            uint64_t b) {
+    if constexpr (std::is_same_v<T, __half>)
+      HOP_RS("f16", 32, HOP_L16, HOP_D16(d), "16", "17", "18", "19", "20", "21", "0");
+    else
+      HOP_RS("bf16", 32, HOP_L16, HOP_D16(d), "16", "17", "18", "19", "20", "21", "0");
+  }
+};
 
 template <typename T>
 struct WgmmaRs<T, 64> {
@@ -573,6 +604,26 @@ __device__ __forceinline__ void ss_chain(float (&d)[N / 2], uint32_t a,
     Wgmma<T, N>::ss(d, desc_sw128(a + box * a_rows * 128 + ko, 16, 1024),
                     desc_sw128(b + box * b_rows * 128 + ko, 16, 1024), kk > 0);
   }
+}
+
+// The A fragments (k16 step kk's four registers, as fat::pack_a lays them
+// out) of this thread's rows of a 64-row, KD-column tile in shared memory,
+// the 128-byte-swizzled boxes a TMA load writes (box c at c * 64 * 128
+// bytes): the operand of rs wgmma chains that keep the tile in registers.
+template <int KD>
+__device__ __forceinline__ void load_a_tile(uint32_t (&a)[KD / 16][4],
+                                            const uint8_t* tile, int warp,
+                                            int g, int t) {
+#pragma unroll
+  for (int kk = 0; kk < KD / 16; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = warp * 16 + g + 8 * (e & 1);
+      const int chunk = (kk % 4) * 2 + (e >> 1);
+      a[kk][e] = *reinterpret_cast<const uint32_t*>(
+          tile + (kk / 4) * 64 * 128 + row * 128 + ((chunk ^ (row & 7)) * 16) +
+          t * 4);
+    }
 }
 
 // D += A B for A in registers (KS k16 steps of m16n8k16 A fragments) and an

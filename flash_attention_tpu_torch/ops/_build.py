@@ -2,9 +2,9 @@
 
 Each ``.cu`` file under ``flash_attention_tpu_torch/csrc/`` is compiled by
 ``nvcc`` for ``sm_90a`` into its own shared library with a plain C interface
-and loaded with ``ctypes``. A kernel may span several sources (the forward's
-and paged decode's d-384/512 instances live in files of their own, so that
-their ``nvcc`` runs beside the others'): its functions are looked up in
+and loaded with ``ctypes``. A kernel may span several sources (the d-384/512
+instances live in files of their own, and dq's pair of CTAs in another, so
+that their ``nvcc`` runs beside the others'): its functions are looked up in
 whichever of its libraries exports them. No PyTorch header is included, so
 a build takes seconds rather than the minutes a ``torch.utils.
 cpp_extension`` build costs.

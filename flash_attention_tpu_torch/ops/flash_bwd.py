@@ -12,8 +12,12 @@ The counterpart of the JAX package's ``ops/flash_bwd.py``, in three steps:
    dV = sum_g P^T dO and dK = scale * sum_g dS^T Q, the GQA group summed in
    the kernel (no atomics).
 
-At d 384 and 512 dq and dkv run the instances of ``csrc/flash_bwd_dq_wide.
-cu`` (one CTA's dQ split by columns between two warpgroups) and ``csrc/
+At d 384 and 512 dq runs ``csrc/flash_bwd_dq_pair.cu`` (a cluster of two
+CTAs a query block, one holding Q and forming P and dS, the other dO and
+forming dP, trading them through distributed shared memory, each
+accumulating half of dQ's columns) where the band's left side is open and
+there is no softcap (:func:`dq_wide_pair`), else ``csrc/flash_bwd_dq_wide.
+cu`` (one CTA's dQ split by columns between two warpgroups); dkv runs ``csrc/
 flash_bwd_dkv_wide.cu`` (a cluster of two CTAs a unit of 64 keys and a
 range of query heads, one holding K and dK, the other V and dV, trading P
 and dS through distributed shared memory; the units planned by
@@ -85,11 +89,14 @@ DI_KERNEL = _build.Kernel("flash_bwd_di", "flash_bwd_di.cu", {
     "fat_flash_bwd_di": [_P, _P, _P, _I, _I, _I, _I, _P, _I, _P],
 })
 DQ_KERNEL = _build.Kernel("flash_bwd_dq", ("flash_bwd_dq.cu",
-                                           "flash_bwd_dq_wide.cu"), {
+                                           "flash_bwd_dq_wide.cu",
+                                           "flash_bwd_dq_pair.cu"), {
     "fat_flash_bwd_dq": _DQ_ARGS,
     "fat_flash_bwd_dq_seg_tiles": [_I, _P],
     "fat_flash_bwd_dq_wide": _DQ_ARGS,
     "fat_flash_bwd_dq_wide_seg_tiles": [_I, _P],
+    "fat_flash_bwd_dq_pair": _DQ_ARGS,
+    "fat_flash_bwd_dq_pair_seg_tiles": [_I, _P],
 })
 DKV_KERNEL = _build.Kernel("flash_bwd_dkv", ("flash_bwd_dkv.cu",
                                              "flash_bwd_dkv_wide.cu"), {
@@ -160,14 +167,23 @@ def flash_bwd_di(o, do):
     return di
 
 
-def _entry(kernel, d):
+def dq_wide_pair(causal: bool, window, softcap) -> bool:
+    """Whether a d-384/512 dq launch takes the pair of CTAs a query block
+    (``csrc/flash_bwd_dq_pair.cu``): where the band's left side is open
+    (causal, or no band: rows of many kv tiles) and there is no softcap;
+    a window or a softcap takes ``csrc/flash_bwd_dq_wide.cu``'s one CTA."""
+    return softcap is None and band_args(causal, window)[0] < 0
+
+
+def _entry(kernel, d, pair=False):
     """The C entry point of a dq or dkv launch at head dim ``d``: the wide
-    file's at d 384 and 512."""
-    wide = "_wide" if d in WIDE_HEAD_DIMS else ""
-    return f"fat_{kernel.name}{wide}"
+    file's at d 384 and 512, or with ``pair`` dq's pair of CTAs."""
+    if d not in WIDE_HEAD_DIMS:
+        return f"fat_{kernel.name}"
+    return f"fat_{kernel.name}_{'pair' if pair else 'wide'}"
 
 
-def _seg_launch(kernel, segs, q, k, causal, causal_dir):
+def _seg_launch(kernel, segs, q, k, causal, causal_dir, pair=False):
     """The segment pointers of a dq or dkv launch (None without ``segs``)
     and what the caller keeps until the launch: the pointer array and the
     tensors it points into (freed earlier, the block ranges' memory could go
@@ -179,7 +195,8 @@ def _seg_launch(kernel, segs, q, k, causal, causal_dir):
         return None, None
     b, sq, _, d = q.shape
     segs = prepare_segs(segs, b, sq, k.shape[1], q.device)
-    owned, streamed = seg_tiles(kernel, d, f"{_entry(kernel, d)}_seg_tiles")
+    owned, streamed = seg_tiles(kernel, d,
+                                f"{_entry(kernel, d, pair)}_seg_tiles")
     q_seg, kv_seg, q_pos, kv_pos = segs
     if causal_dir == "kv_le_q":
         lo, hi = segments.block_ranges(q_seg, q_pos, kv_seg, kv_pos, owned,
@@ -203,8 +220,10 @@ def flash_bwd_dq(q, k, v, do, lse, di, *, causal: bool, sm_scale: float,
     dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     if dq.numel() == 0:
         return dq
-    seg_ptr, keep = _seg_launch(DQ_KERNEL, segs, q, k, causal, "kv_le_q")
-    rc = getattr(DQ_KERNEL.lib(), _entry(DQ_KERNEL, d))(
+    pair = dq_wide_pair(causal, window, softcap)
+    seg_ptr, keep = _seg_launch(DQ_KERNEL, segs, q, k, causal, "kv_le_q",
+                                pair)
+    rc = getattr(DQ_KERNEL.lib(), _entry(DQ_KERNEL, d, pair))(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), di.data_ptr(), dq.data_ptr(), b, sq, sk, h, hk, d,
         _strides(q, k, v, do), sm_scale, *band_args(causal, window),

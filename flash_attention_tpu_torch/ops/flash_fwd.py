@@ -2,20 +2,21 @@
 
 The kernel (``csrc/flash_fwd.cu`` at d 64, 128 and 256, and
 ``csrc/flash_fwd_wide.cu`` at d 384 and 512, whose CTA owns 64 query rows
-and splits O's columns between two warpgroups) replaces the JAX package's
-Pallas ``_fwd_kernel``. It reads q (b, sq, h, d) and k/v (b, sk, hk, d) in
-bf16 or fp16 through their strides and writes O (b, sq, h, d) and LSE (b, h, sq)
-fp32, under a band of relative offsets (causal, a sliding window, or both)
-and an optional softcap. The kernel masks its own ragged edges, so nothing
-is padded here. With ``segs`` (segment ids and positions of a packed batch)
-it runs its segmented instance (replacing the segmented ``pallas_call`` of
-``_fwd_kernel``): each CTA loops over the kv tiles of the range that
-``ops.segments.block_ranges`` gives its 128 query rows, and masks by segment
-id and by the band over positions. ``flash_fwd_segmented_reference`` is the
-plain version of that mode.
-It loads by TMA through tensor maps built from the strides, so the data
-must be 16-byte aligned and the strides multiples of 16 bytes: ``_prepare``
-copies an input that is not into a fresh tensor.
+and splits O's columns between two warpgroups, one of which overlaps the
+next tile's S with its P V where the band's left side is open) replaces the
+JAX package's Pallas ``_fwd_kernel``. It reads q (b, sq, h, d) and k/v (b,
+sk, hk, d) in bf16 or fp16 through their strides and writes O (b, sq, h, d)
+and LSE (b, h, sq) fp32, under a band of relative offsets (causal, a sliding
+window, or both) and an optional softcap. The kernel masks its own ragged
+edges, so nothing is padded here. With ``segs`` (segment ids and positions
+of a packed batch) it runs its segmented instance (replacing the segmented
+``pallas_call`` of ``_fwd_kernel``): each CTA loops over the kv tiles of the
+range that ``ops.segments.block_ranges`` gives its 128 query rows, and masks
+by segment id and by the band over positions.
+``flash_fwd_segmented_reference`` is the plain version of that mode. It
+loads by TMA through tensor maps built from the strides, so the data must be
+16-byte aligned and the strides multiples of 16 bytes: ``_prepare`` copies
+an input that is not into a fresh tensor.
 """
 
 from __future__ import annotations

@@ -2016,6 +2016,82 @@ def test_flash_bwd_dkv_wide_repeats_bit_identical(cuda, d, case):
     assert not differ, differ
 
 
+# The wide forward (two orders of consumer 0's work: S(j + 1) ahead of
+# P(j) V(j) where the band's left side is open, each tile in turn under a
+# window) and the wide dQ kernel's pairs (an S-CTA and a dP-CTA a query
+# block, trading dP and dS through each other's shared memory): groups 1,
+# 2, 8 and 64 at b2 s384, the causal, window and softcap cases, and for
+# causal repeats dense and packed.
+WIDE_GROUPS = (1, 2, 8, 64)
+WIDE_CASES = {"causal": (None, None), "window (127, 0)": ((127, 0), None),
+              "softcap 5": (None, 5.0)}
+WIDE_REPEATS = 25
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [384, 512])
+@pytest.mark.parametrize("group", WIDE_GROUPS)
+@pytest.mark.parametrize("case", sorted(WIDE_CASES))
+def test_flash_fwd_and_dq_wide_groups(cuda, d, group, case):
+    """The forward (O at the bf16 forward gates, LSE at the LSE gates) and
+    dq (at the bf16 backward gates with atol no tighter than one ulp,
+    _ulp_tols) against their plain versions, one launch a call; causal,
+    WIDE_REPEATS dense calls and as many on the two rows packed
+    into one segmented row, alternating, each bit-identical to the first
+    (a dQ exchange buffer overwritten while the peer CTA still reads it
+    shows as a call that differs)."""
+    window, cap = WIDE_CASES[case]
+    b, s, hk = 2, 384, 1 if group == 64 else 2
+    h = group * hk
+    rng = np.random.default_rng(d + 3 * group + len(case))
+    q, k, v, do = (_randn(rng, shape, torch.bfloat16, cuda)
+                   for shape in ((b, s, h, d), (b, s, hk, d), (b, s, hk, d),
+                                 (b, s, h, d)))
+    kw = dict(causal=True, sm_scale=d**-0.5, window=window, softcap=cap)
+    zero = torch.zeros((b, s), dtype=torch.int32, device=cuda)
+    pos = torch.arange(s, dtype=torch.int32, device=cuda).expand(b, s)
+    dense_segs = (zero, zero, pos.contiguous(), pos.contiguous())
+    before = fwd_mod.KERNEL.launches
+    o, lse = fwd_mod.flash_fwd(q, k, v, **kw)
+    assert fwd_mod.KERNEL.launches == before + 1
+    o_r, lse_r = fwd_mod.flash_fwd_segmented_reference(q, k, v, dense_segs,
+                                                       **kw)
+    tag = f"[wide {case}, group {group}, d{d}]"
+    assert_metrics("fwd" + tag, o, o_r, BF16_TOLS)
+    assert_metrics("fwd lse" + tag, lse, lse_r, LSE_TOLS)
+    di = bwd_mod.flash_bwd_di(o, do)
+    before = bwd_mod.DQ_KERNEL.launches
+    dq = bwd_mod.flash_bwd_dq(q, k, v, do, lse, di, **kw)
+    assert bwd_mod.DQ_KERNEL.launches == before + 1
+    dq_r = bwd_mod.dq_reference(q, k, v, do, lse,
+                                bwd_mod.di_reference(o, do), segs=dense_segs,
+                                **kw)
+    assert_metrics("dq" + tag, dq, dq_r, _ulp_tols(BWD_BF16_TOLS, dq_r))
+    if case != "causal":
+        return
+    seg = torch.arange(b * s, dtype=torch.int32, device=cuda)[None] // s
+    ps = torch.arange(b * s, dtype=torch.int32, device=cuda)[None] % s
+    segs = (seg, seg, ps, ps)
+    flat = [x.reshape(1, b * s, *x.shape[2:]) for x in (q, k, v, do)]
+    lse_p, di_p = (x.transpose(0, 1).reshape(1, h, b * s).contiguous()
+                   for x in (lse, di))
+    differ = []
+    for i in range(WIDE_REPEATS):
+        o2, lse2 = fwd_mod.flash_fwd(q, k, v, **kw)
+        o_p, lse_pk = fwd_mod.flash_fwd(*flat[:3], segs=segs, **kw)
+        dq2 = bwd_mod.flash_bwd_dq(q, k, v, do, lse, di, **kw)
+        dq_p = bwd_mod.flash_bwd_dq(*flat, lse_p, di_p, segs=segs, **kw)
+        lse_pk = lse_pk.view(1, h, b, s).transpose(0, 2)[:, :, 0]
+        for how, x, y in (("fwd dense", (o2, lse2), (o, lse)),
+                          ("fwd packed", (o_p.view(o.shape), lse_pk),
+                           (o, lse)),
+                          ("dq dense", (dq2,), (dq,)),
+                          ("dq packed", (dq_p.view(dq.shape),), (dq,))):
+            if not all(torch.equal(a, c) for a, c in zip(x, y)):
+                differ.append((i, how))
+    assert not differ, differ
+
+
 @pytest.mark.gpu
 def test_backward_above_256_raises(cuda):
     """d 257-512 train on the card: ``bwd`` and the autograd backward launch

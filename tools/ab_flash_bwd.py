@@ -23,13 +23,16 @@ copy its sources into a directory that git ignores:
     python3 tools/ab_flash_bwd.py old=build/old \\
         new=flash_attention_tpu_torch/csrc
 
-``--wide`` runs only the d-384/512 cells instead: the dK/dV kernel at
-h64/1 bf16 (DeepSeek-V4-Flash's attention geometry), the training shape b2
-s2048 and b1 s4096, causal, each set held to the plain version
-(``dkv_reference``, blocked a GQA group and 512 query rows at a time) at
-the bf16 backward gates with atol no tighter than one ulp of the output's
-largest magnitude (two revisions may sum the group in different orders, so
-not bit for bit), then timed in turns a b .. b a.
+``--wide`` runs only the d-384/512 cells instead: the dQ and dK/dV
+kernels at h64/1 bf16 (DeepSeek-V4-Flash's attention geometry), d 512
+then 384, at the training shape b2 s2048 causal, b1 s4096 causal and its
+window (127, 0), b1 s2048 non-causal and softcap 5, each set held to the
+plain versions (``dq_reference`` and ``dkv_reference``, blocked a GQA
+group and 512 query rows at a time) at the bf16 backward gates with atol
+no tighter than one ulp of the output's largest magnitude (two revisions
+may sum in different orders, so not bit for bit; whether dq is
+bit-identical to the first set's is printed), two runs bit-identical,
+then each kernel timed in turns a b .. b a.
 
 Every set is built with the port's flags (its ``-Xptxas -v`` register,
 spill and C75xx lines printed), and its dq, dk and dv are compared with the
@@ -63,9 +66,14 @@ B, S, H, HK = 2, 2048, 32, 8
 SEG_BATCH = 8  # packed sequences of S tokens in the segmented cell
 DIMS = (64, 128)  # the head dims whose instances are compared
 PARTS = {"di": "DI_KERNEL", "dq": "DQ_KERNEL", "dkv": "DKV_KERNEL"}
-# --wide: (b, s) of the causal cells at h64/1, and the gates
+# --wide: (label, b, s, causal, window, softcap) of the cells at h64/1,
+# and the gates
 WIDE_H, WIDE_HK = 64, 1
-WIDE_CELLS = ((2, 2048), (1, 4096))
+WIDE_CELLS = (("training shape b2 s2048 causal", 2, 2048, True, None, None),
+              ("b1 s4096 causal", 1, 4096, True, None, None),
+              ("b1 s4096 window (127, 0)", 1, 4096, True, (127, 0), None),
+              ("b1 s2048 non-causal", 1, 2048, False, None, None),
+              ("b1 s2048 softcap 5 causal", 1, 2048, True, None, 5.0))
 WIDE_DIMS = (512, 384)
 BWD_BF16_TOLS = {"atol": 4e-2, "mean_atol": 2e-3, "mean_rtol": 2e-1}
 
@@ -203,50 +211,67 @@ def main() -> int:
 
 
 def run_wide(sets, dev, card) -> int:
-    """The --wide cells: each set's dk and dv against the plain version,
-    then the dK/dV kernel timed in turns."""
+    """The --wide cells: each set's dq, dk and dv against the plain
+    versions, then the dQ and dK/dV kernels timed in turns."""
     from flash_attention_tpu_torch.utils.metrics import assert_metrics
+
+    def ulp_tols(ref):
+        top = float(ref.abs().max())
+        ulp = torch.finfo(ref.dtype).eps * 2.0 ** math.floor(
+            math.log2(top)) if top else 0.0
+        return {**BWD_BF16_TOLS, "atol": max(BWD_BF16_TOLS["atol"], ulp)}
+
     g = torch.Generator(device=dev).manual_seed(1)
+    first = next(iter(sets))
     for d in WIDE_DIMS:
-        for b, s in WIDE_CELLS:
+        for label, b, s, causal, window, cap in WIDE_CELLS:
             q, k, v, do = (torch.randn(shape, generator=g, device=dev)
                            .to(torch.bfloat16)
                            for shape in ((b, s, WIDE_H, d),
                                          (b, s, WIDE_HK, d),
                                          (b, s, WIDE_HK, d),
                                          (b, s, WIDE_H, d)))
-            kw = dict(causal=True, sm_scale=d**-0.5)
+            kw = dict(causal=causal, sm_scale=d**-0.5, window=window,
+                      softcap=cap)
             o, lse = fm.flash_fwd(q, k, v, **kw)
             di = fb.flash_bwd_di(o, do)
             zero = torch.zeros((b, s), dtype=torch.int32, device=dev)
             pos = torch.arange(s, dtype=torch.int32,
                                device=dev).expand(b, s).contiguous()
-            refs = fb.dkv_reference(q, k, v, do, lse, fb.di_reference(o, do),
-                                    segs=(zero, zero, pos, pos), **kw)
-            cell = f"dkv b{b} s{s} h{WIDE_H}/{WIDE_HK} d{d} causal"
+            segs = (zero, zero, pos, pos)
+            di_r = fb.di_reference(o, do)
+            refs = (fb.dq_reference(q, k, v, do, lse, di_r, segs=segs, **kw),
+                    *fb.dkv_reference(q, k, v, do, lse, di_r, segs=segs,
+                                      **kw))
+            cell = f"b{b} s{s} h{WIDE_H}/{WIDE_HK} d{d} {label}"
+            dq_first = None
             for name, mod in sets.items():
-                got = mod.flash_bwd_dkv(q, k, v, do, lse, di, **kw)
-                again = mod.flash_bwd_dkv(q, k, v, do, lse, di, **kw)
-                for part, x, ref in zip(("dk", "dv"), got, refs):
-                    top = float(ref.abs().max())
-                    ulp = torch.finfo(ref.dtype).eps * 2.0 ** math.floor(
-                        math.log2(top)) if top else 0.0
-                    m = assert_metrics(
-                        f"{name} {cell} {part}", x, ref,
-                        {**BWD_BF16_TOLS,
-                         "atol": max(BWD_BF16_TOLS["atol"], ulp)})
-                    print(f"{name} {cell} {part}: {m}; two runs "
-                          f"bit-identical: "
-                          f"{all(torch.equal(a, c) for a, c in zip(got, again))}")
-            del refs
-            times = {n: [] for n in sets}
+                got = (mod.flash_bwd_dq(q, k, v, do, lse, di, **kw),
+                       *mod.flash_bwd_dkv(q, k, v, do, lse, di, **kw))
+                again = (mod.flash_bwd_dq(q, k, v, do, lse, di, **kw),
+                         *mod.flash_bwd_dkv(q, k, v, do, lse, di, **kw))
+                dq_first = got[0] if dq_first is None else dq_first
+                for part, x, ref in zip(("dq", "dk", "dv"), got, refs):
+                    m = assert_metrics(f"{name} {cell} {part}", x, ref,
+                                       ulp_tols(ref))
+                    print(f"{name} {cell} {part}: {m}")
+                print(f"{name} {cell}: two runs bit-identical: "
+                      f"{all(torch.equal(a, c) for a, c in zip(got, again))};"
+                      f" dq bit-identical to {first}'s: "
+                      f"{torch.equal(got[0], dq_first)}")
+            del refs, di_r
+            times = {n: {"dq": [], "dkv": []} for n in sets}
             for name in list(sets) + list(sets)[::-1]:
                 mod = sets[name]
-                times[name].append(time_ms(
+                times[name]["dq"].append(time_ms(
+                    lambda: mod.flash_bwd_dq(q, k, v, do, lse, di, **kw), 5))
+                times[name]["dkv"].append(time_ms(
                     lambda: mod.flash_bwd_dkv(q, k, v, do, lse, di, **kw), 5))
-            row = ", ".join(f"{n} {' / '.join(f'{t:.4f}' for t in r)} ms"
-                            for n, r in times.items())
-            print(f"{cell}: {row} [{card}]")
+            for part in ("dq", "dkv"):
+                row = ", ".join(
+                    f"{n} {' / '.join(f'{t:.4f}' for t in r[part])} ms"
+                    for n, r in times.items())
+                print(f"{part} {cell}: {row} [{card}]", flush=True)
             del q, k, v, do, o, lse, di
             torch.cuda.empty_cache()
     return 0

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time sources of the port's forward kernel against each other on one card.
 
-    python3 tools/ab_flash_fwd.py NAME=PATH [NAME=PATH ...]
+    python3 tools/ab_flash_fwd.py [--wide] NAME=PATH [NAME=PATH ...]
 
 Each PATH is a CUDA source with the C interface of
 ``flash_attention_tpu_torch/csrc/flash_fwd.cu`` (``fat_flash_fwd``); its
@@ -27,6 +27,20 @@ timed last. A source whose wrapper takes ``segs`` also runs the segmented
 instance on 8 packed sequences of 2048 (one row of 16384 tokens, causal),
 checked and timed the same way against the other such sources. Prints the
 card's name and power limit with every line. Imports no JAX.
+
+``--wide`` takes sources of ``csrc/flash_fwd_wide.cu`` instead (the C
+interface ``fat_flash_fwd_wide``, headers beside each, a wrapper beside it
+as above) and runs only the d-384/512 cells, at h64/1 bf16
+(DeepSeek-V4-Flash's attention geometry), d 512 then 384: the training
+shape b2 s2048 causal, the served prefill b8 s2048 causal and its window
+(127, 0), b1 s8192 causal and its window, b1 s4096 non-causal and softcap
+5. Each source is held to the plain version
+(``flash_fwd_segmented_reference``, a block of query rows at a time) at
+the bf16 forward gates and to the first source bit for bit, then timed in
+turns a b .. b a:
+
+    python3 tools/ab_flash_fwd.py --wide old=build/old/flash_fwd_wide.cu \\
+        new=flash_attention_tpu_torch/csrc/flash_fwd_wide.cu
 """
 
 from __future__ import annotations
@@ -49,6 +63,18 @@ SHAPES = [(8, True), (8, False), (2, True)]  # (batch, causal) at s 2048
 SEG_BATCH = 8  # packed sequences of S tokens in the segmented cell
 S, H, HK = 2048, 32, 8
 DIMS = (64, 128)  # the head dims whose instances are compared
+# --wide: h64/1, d 512 then 384, (label, b, s, causal, window, softcap)
+WIDE_H, WIDE_HK, WIDE_DIMS = 64, 1, (512, 384)
+WIDE_CELLS = (("training shape b2 s2048 causal", 2, 2048, True, None, None),
+              ("served b8 s2048 causal", 8, 2048, True, None, None),
+              ("served b8 s2048 window (127, 0)", 8, 2048, True, (127, 0),
+               None),
+              ("b1 s8192 causal", 1, 8192, True, None, None),
+              ("b1 s8192 window (127, 0)", 1, 8192, True, (127, 0), None),
+              ("b1 s4096 non-causal", 1, 4096, False, None, None),
+              ("b1 s4096 softcap 5 causal", 1, 4096, True, None, 5.0))
+O_TOLS = {"atol": 4e-2, "mean_atol": 2e-3, "mean_rtol": 5e-2}
+LSE_TOLS = {"atol": 1e-2, "mean_atol": 1e-3, "mean_rtol": 1e-2}
 
 
 def time_ms(fn, iters: int = 30) -> float:
@@ -93,8 +119,10 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip().splitlines()[0]
     print(card)
+    args = sys.argv[1:]
+    wide = "--wide" in args
     mods = {}
-    for name, path in (arg.split("=", 1) for arg in sys.argv[1:]):
+    for name, path in (a.split("=", 1) for a in args if a != "--wide"):
         src = pathlib.Path(path).resolve()
         wrapper = src.parent / "flash_fwd.py"
         mod = load_wrapper(wrapper if wrapper.exists()
@@ -107,6 +135,8 @@ def main() -> int:
             if "Used" in line or ("spill" in line and " 0 bytes spill" not in line):
                 print(f"  {name}: {line.strip()}")
     dev = torch.device("cuda")
+    if wide:
+        return run_wide(mods, dev, card)
     g = torch.Generator(device=dev).manual_seed(0)
 
     def rnd(*shape):
@@ -179,6 +209,51 @@ def main() -> int:
                               for n, r in seg_times.items())
             print(f"segmented {SEG_BATCH} x {S} packed causal h{H}/{HK} "
                   f"d{d}: {parts} [{card}]")
+    return 0
+
+
+def run_wide(mods, dev, card) -> int:
+    """The --wide cells: each source's O and LSE against the plain version
+    and the first source's, then timed in turns."""
+    from flash_attention_tpu_torch.utils.metrics import assert_metrics
+    g = torch.Generator(device=dev).manual_seed(2)
+    first = next(iter(mods))
+    for d in WIDE_DIMS:
+        for label, b, s, causal, window, cap in WIDE_CELLS:
+            q, k, v = (torch.randn(shape, generator=g, device=dev)
+                       .to(torch.bfloat16)
+                       for shape in ((b, s, WIDE_H, d), (b, s, WIDE_HK, d),
+                                     (b, s, WIDE_HK, d)))
+            kw = dict(causal=causal, sm_scale=d**-0.5, window=window,
+                      softcap=cap)
+            zero = torch.zeros((b, s), dtype=torch.int32, device=dev)
+            pos = torch.arange(s, dtype=torch.int32,
+                               device=dev).expand(b, s).contiguous()
+            o_r, lse_r = fm.flash_fwd_segmented_reference(
+                q, k, v, (zero, zero, pos, pos), **kw)
+            cell = f"fwd {label} h{WIDE_H}/{WIDE_HK} d{d}"
+            outs = {}
+            for name, mod in mods.items():
+                outs[name] = mod.flash_fwd(q, k, v, **kw)
+                m = assert_metrics(f"{name} {cell}", outs[name][0], o_r,
+                                   O_TOLS)
+                assert_metrics(f"{name} {cell} lse", outs[name][1], lse_r,
+                               LSE_TOLS)
+                same = all(torch.equal(x, y) for x, y in zip(outs[name],
+                                                              outs[first]))
+                print(f"{name} {cell}: {m}; O and LSE bit-identical to "
+                      f"{first}'s: {same}")
+            del o_r, lse_r, outs
+            times = {n: [] for n in mods}
+            for name in list(mods) + list(mods)[::-1]:
+                mod = mods[name]
+                times[name].append(time_ms(lambda: mod.flash_fwd(q, k, v,
+                                                                 **kw), 10))
+            row = ", ".join(f"{n} {' / '.join(f'{t:.4f}' for t in r)} ms"
+                            for n, r in times.items())
+            print(f"{cell}: {row} [{card}]", flush=True)
+            del q, k, v
+            torch.cuda.empty_cache()
     return 0
 
 
